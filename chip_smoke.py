@@ -10,20 +10,29 @@ first phase that fails:
 2. builds every hand-written kernel from the sources in
    `uhsdr_tpu_torch/kernels/` (one nvcc per source, started together) and
    prints the build time and each kernel's register/shared-memory report;
-3. one phase per kernel of the main path: K1 (the fused front), K3 (the
-   AGC), K4 (the interpolator).  Each streams 3 blocks at the main path's
-   shapes (8192 channels) through the kernel and through its plain torch
+3. one phase per kernel: K1 (the fused SSB front), K3 (the AGC, at the
+   SSB look-ahead of 48 and the AM/SAM look-ahead of 96), K4 (the
+   interpolator, x8 and x4), K5 (the real-tap AM/SAM front), K10 and K9
+   (the SAM PLL), K11 (the biquad cascade).  Each streams 3 blocks at its
+   main path's shapes (8192 channels; K11 at the 16384 stacked channels
+   SAM gives it), the middle block ragged where the kernel has a tile to
+   be ragged against, through the kernel and through its plain torch
    version on the card, from the same seeded inputs with carries handed
-   on, and holds every output and carry to SNR >= 90 dB; it then times
-   the kernel, the plain version and, where one PyTorch call computes the
-   same function, that call (`library_ms`, never used by the port);
-4. the main path: `RxChain` on the card at 8192 ch x 16384 int16 samples
-   @ 96 kHz (the flagship SSB config), streaming 2 warm-up + 8 timed
-   blocks with state carried.  Every kernel's launch count is set to 0
-   just before and read just after, and must have grown.  Audio and state
-   must be finite, channels 0-7 must match the port's CPU chain (plain
-   versions) over the first 3 blocks at SNR >= 80 dB, and channel 0's
-   test tone must come out at 700 Hz;
+   on.  FIR and cascade outputs and carries are held to SNR >= 90 dB, the
+   PLL's cos/sin/audio and carries to max |err| <= 2e-5; K3 must be
+   bit-exact.  It then times the kernel, the plain version and, where
+   one PyTorch call computes the same function, that call (`library_ms`,
+   never used by the port);
+4. the main paths: `RxChain` on the card at 8192 ch x 16384 int16 samples
+   @ 96 kHz, state carried, timed with CUDA events after 2 warm-up
+   and over 8 timed blocks: the flagship SSB config, then the AM/SAM
+   flagship as AM, SAM both sidebands and SAM USB.
+   Every kernel's launch count is set to 0 just before each path and
+   read just after, and each kernel of that path must have been
+   launched.  Audio and state must be finite, channels 0-7 must match
+   the port's CPU chain (plain versions) over the first 3 blocks at SNR
+   >= 80 dB on the audio and on every state leaf, and channel 0's test
+   tone must come out at 700 Hz;
 5. prints one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
    device line.
 
@@ -33,6 +42,8 @@ that does not hold the `uhsdr_tpu_torch` package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -47,11 +58,14 @@ from uhsdr_tpu_torch.chain import rx
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import build
 from uhsdr_tpu_torch.cuda import fir as fir_k
+from uhsdr_tpu_torch.cuda import iir as iir_k
+from uhsdr_tpu_torch.cuda import pll as pll_k
 from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.ops import agc as agc_ops
 from uhsdr_tpu_torch.ops import nco
 
-CFG = rx.FLAGSHIP
+CFG = rx.FLAGSHIP            # the SSB flagship
+SAM = rx.SAM_FLAGSHIP        # the AM/SAM flagship
 CHANNELS = rx.FLAGSHIP_CHANNELS
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, FP32 outside the
@@ -59,15 +73,29 @@ CHANNELS = rx.FLAGSHIP_CHANNELS
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 
-# K3's floor is its recurrence, not its bytes: a channel's T steps are a
-# chain of dependent f32 operations, 18 of them from volts to the next
-# volts in kernels/agc.cu (the compare rm >= volts, its select, 1 - att,
-# nine mask products and differences, three sums into keff, the update
-# multiply and add, the min-volts max), each at least FP32_LATENCY cycles
+# The floor of a recurrence kernel is not its bytes: a channel's T steps
+# are a chain of dependent f32 operations, each at least FP32_LATENCY
+# cycles.  Hand counts of the loop-carried chain per step, at source level:
+# K3 (kernels/agc.cu), volts to the next volts: the compare rm >= volts,
+# its select, 1 - att, nine mask products and differences, three sums into
+# keff, the update multiply and add, the min-volts max.
 AGC_STEP_OPS = 18
+# K9/K10 (kernels/pll.cu): the loop phs -> sincosf (range reduction and
+# polynomial, ~11 deep) -> mix (2) -> atan2f (division, polynomial and
+# quadrant fix-up, ~22) -> loop filter (5) -> phase add and mod (8) is 48
+# operations long and spans two steps (fil_out is applied one sample
+# late), so 24 a step.
+PLL_STEP_OPS = 24
+# K11 (kernels/biquad.cu): a section's state to its next state: the output
+# add, a1*y, the subtraction, the s2 add; sections overlap across samples.
+BIQUAD_STEP_OPS = 4
 FP32_LATENCY = 4
 
 KERNEL_TOL_DB = 90.0
+# the JAX package's tests hold the TPU PLL kernels to 3e-4 against the XLA
+# scan; these kernels repeat their plain versions' arithmetic and have read
+# 0 on this card, so they are held to a few ulp of a unit-scale value
+PLL_TOL_ABS = 2e-5
 CHAIN_TOL_DB = 80.0
 
 
@@ -123,17 +151,40 @@ def sm_clock_hz() -> float:
     return float(mhz) * 1e6
 
 
-def held(name: str, pairs: dict) -> tuple[float, float]:
-    """Print and check SNR and max |err| of each (ref, got) pair; returns
-    (min SNR, max abs err) over them."""
+def recurrence_ms(steps: int, ops: int) -> float:
+    return steps * ops * FP32_LATENCY / sm_clock_hz() * 1e3
+
+
+def held(name: str, pairs: dict,
+         tol_abs: float | None = None) -> tuple[float, float]:
+    """Print and check each (ref, got) pair: SNR >= KERNEL_TOL_DB, or with
+    tol_abs max |err| <= tol_abs.  Returns (min SNR, max abs err)."""
     worst, err = math.inf, 0.0
     for what, (ref, got) in pairs.items():
         s, e = snr_db(ref, got), max_abs(ref, got)
         worst, err = min(worst, s), max(err, e)
         print(f"  {name} {what}: SNR {s:.1f} dB, max|err| {e:.3e}")
-        check(s >= KERNEL_TOL_DB and math.isfinite(e),
-              f"{name} {what}: SNR {s:.1f} dB < {KERNEL_TOL_DB} dB")
+        if tol_abs is None:
+            check(s >= KERNEL_TOL_DB and math.isfinite(e),
+                  f"{name} {what}: SNR {s:.1f} dB < {KERNEL_TOL_DB} dB")
+        else:
+            check(e <= tol_abs, f"{name} {what}: max|err| {e:.3e} > "
+                                f"{tol_abs:.1e}")
     return worst, err
+
+
+def row(name, source, replaces, *, err, snr, ms, plain_ms, nbytes, flops,
+        library_ms=None, library_note, **extra) -> dict:
+    """One entry of the kernels line; `launches` is filled in after the
+    main paths ran.  `library_note` names the one PyTorch call timed as
+    `library_ms`, or says why there is none."""
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(name=name, route="cuda",
+                source=f"uhsdr_tpu_torch/kernels/{source}",
+                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                library_note=library_note,
+                snr_db=snr if math.isfinite(snr) else None, ok=True, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +199,8 @@ def iq_block(gen, dev, C, B, std=3277.0):
     return plane(), plane()
 
 
-def phase_front(params, dev, gen, n_blocks=3):
+def phase_front(P, dev, gen, n_blocks=3):
+    params = P["ssb"]
     C, B, decim = CHANNELS, CFG.block_len, CFG.decim
     h, g = params.front_fir, params.front2
     taps, taps2 = h.shape[-1], g.shape[-1]
@@ -187,38 +239,131 @@ def phase_front(params, dev, gen, n_blocks=3):
     nbytes = (2 * C * B * 2 + C * T_out * 4 + 2 * C * (taps - 1) * 8
               + 2 * C * (taps2 - 1) * 8 + C * 8 + C * 4
               + 4 * (taps + 2 * taps2))
-    b_ms, b_by = bound(nbytes, 2.0 * fma)
+    r = row("front", "front.cu", "uhsdr_tpu/pallas/fir.py:179", err=err,
+            snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=2.0 * fma,
+            library_note="no one PyTorch call mixes, decimates and runs "
+                         "both FIR stages")
     print(f"  K1 front: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms by {b_by}: {fma / 1e9:.2f} G FMA, "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']}: {fma / 1e9:.2f} G "
+          f"FMA, {nbytes / 2**20:.0f} MiB)")
+    return r
+
+
+def premixed_planes(carry, xi, xq, phase, delta):
+    """(2C, 1, taps-1+B) f32: the rotated raw history and block of K5's
+    input, I planes then Q planes, as a convolution's input."""
+    a, b = fir_k.scale_planes(xi, xq)
+    z = torch.complex(a, b)
+    n_hist = carry.shape[-1]
+    zr = z * nco.rotor(nco.phase_ramp(phase, delta, z.shape[-1]))
+    cr = carry * nco.rotor(nco.phase_ramp(phase, delta, n_hist,
+                                          start=-n_hist))
+    zf = torch.cat([cr, zr], dim=-1)
+    return torch.cat([zf.real, zf.imag], dim=0)[:, None, :].contiguous()
+
+
+def phase_fir_rt(P, dev, gen):
+    params = P["sam"]
+    C, B, decim = CHANNELS, SAM.block_len, SAM.decim
+    h = params.front_fir
+    taps = h.shape[-1]
+    delta = params.nco_delta
+    ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
+    phase = torch.zeros((C,), dtype=torch.int64, device=dev)
+    short = decim * ((taps - 1) // (2 * decim))   # shorter than the history
+    worst, err = math.inf, 0.0
+    first = None
+    for blk, Bk in enumerate((B, short, B)):
+        xi, xq = iq_block(gen, dev, C, Bk)
+        if first is None:
+            first = (ck, xi, xq, phase)
+        yk, ck, pk_k = fir_k.fir_rt(h, ck, xi, xq, decim, nco=(phase, delta))
+        yp, cp, pk_p = fir_k.fir_rt_plain(h, cp, xi, xq, decim,
+                                          nco=(phase, delta))
+        torch.cuda.synchronize()
+        check(tuple(yk.shape) == (C, Bk // decim) and yk.is_complex(),
+              f"K5 output {tuple(yk.shape)} {yk.dtype}")
+        s, e = held(f"K5 block {blk} ({Bk} samples)", {
+            "iq": (yp, yk), "raw carry": (cp, ck), "peaks": (pk_p, pk_k)})
+        worst, err = min(worst, s), max(err, e)
+        phase = nco.advance(phase, delta, Bk)
+    # the options off the SAM path: f32 planes, no NCO, planes and real out
+    n = 1024
+    xf = [v[:n].to(torch.float32) / 32768.0 for v in (xi, xq)]
+    c1 = ck[:n].contiguous()
+    (ar, ai), cn, pk_k = fir_k.fir_rt(h, c1, *xf, decim, planes_out=True)
+    yr, _, _ = fir_k.fir_rt(h, c1, *xf, decim, real_out=True)
+    yp, cp1, pk_p = fir_k.fir_rt_plain(h, c1, *xf, decim)
+    torch.cuda.synchronize()
+    s, e = held("K5 f32 planes, no NCO", {
+        "real plane": (yp.real, ar), "imag plane": (yp.imag, ai),
+        "real_out": (yp.real, yr), "raw carry": (cp1, cn),
+        "peaks": (pk_p, pk_k)})
+    worst, err = min(worst, s), max(err, e)
+
+    c0, xi, xq, ph0 = first
+    ms = cuda_ms(lambda: fir_k.fir_rt(h, c0, xi, xq, decim,
+                                      nco=(ph0, delta)), 10)
+    plain_ms = cuda_ms(lambda: fir_k.fir_rt_plain(h, c0, xi, xq, decim,
+                                                  nco=(ph0, delta)), 2)
+    # one PyTorch call for the FIR itself, on planes mixed beforehand
+    planes = premixed_planes(c0, xi, xq, ph0, delta)
+    w = h.flip(0).reshape(1, 1, taps)
+
+    def library():
+        return torch.nn.functional.conv1d(planes, w, stride=decim)
+
+    lib_ms = cuda_ms(library, 5)
+    y_lib = library()[:, 0]
+    y_pl = fir_k.fir_rt_plain(h, c0, xi, xq, decim, nco=(ph0, delta))[0]
+    s_lib = snr_db(y_pl, torch.complex(y_lib[:C], y_lib[C:]))
+    print(f"  K5 library call (conv1d, stride {decim}, planes mixed "
+          f"beforehand) vs plain: SNR {s_lib:.1f} dB")
+    del planes, y_lib, y_pl
+    T_out = B // decim
+    fma = C * T_out * 2 * taps
+    # bytes: int16 planes in, complex out, carry in and out, phase in,
+    # peaks out, taps in
+    nbytes = (2 * C * B * 2 + C * T_out * 8 + 2 * C * (taps - 1) * 8
+              + C * 8 + C * 4 + 4 * taps)
+    r = row("fir_rt", "fir_rt.cu", "uhsdr_tpu/pallas/fir.py:82", err=err,
+            snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=2.0 * fma, library_ms=lib_ms,
+            library_note="conv1d with stride on planes mixed beforehand "
+                         "(the FIR alone)")
+    print(f"  K5 fir_rt: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
+          f"{lib_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}: {fma / 1e9:.2f} G FMA, "
           f"{nbytes / 2**20:.0f} MiB)")
-    return dict(name="front", route="cuda",
-                source="uhsdr_tpu_torch/kernels/front.cu",
-                replaces="uhsdr_tpu/pallas/fir.py:179",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, snr_db=worst, ok=True)
+    return r
 
 
-def agc_block(gen, dev, C, T, blk, fs):
+def agc_block(gen, dev, C, T, t0, fs):
     """Seeded AGC input that walks attack, hang and decay: tone bursts whose
     level spans -80..0 dBFS across channels, then silence."""
-    n = torch.arange(T, device=dev, dtype=torch.float32) + blk * T
+    n = torch.arange(T, device=dev, dtype=torch.float32) + t0
     level = torch.logspace(-4, 0, C, device=dev)[:, None]
     tone = torch.sin(2 * math.pi * 700.0 / fs * n)[None, :]
-    on = (n < 1.5 * T).to(torch.float32)[None, :]      # burst, then silence
+    on = (n < 3072).to(torch.float32)[None, :]         # burst, then silence
     noise = torch.randn((C, T), generator=gen, device=dev) * 1e-5
     return (level * tone * on + noise).contiguous()
 
 
-def phase_agc(params, dev, gen, n_blocks=3):
-    C, T = CHANNELS, CFG.block_len // CFG.decim
-    p = agc_ops.kernel_params(params.agc)
-    w = params.agc.attack_buffsize
+def agc_case(agc_params, fs, lengths, dev, gen):
+    """K3 against its plain version over streamed blocks of `lengths`
+    samples, bit for bit; then times at the first block's length.
+    Returns (max |err|, ms, plain ms, bytes, flops, recurrence ms)."""
+    C = CHANNELS
+    p = agc_ops.kernel_params(agc_params)
+    w = agc_params.attack_buffsize
     carry_k = carry_p = torch.zeros((agc_k.N_CARRY, C), device=dev)
     dl_k = dl_p = torch.zeros((C, w), device=dev)
-    worst, err = math.inf, 0.0
+    err, t0 = 0.0, 0
     first = None
-    for blk in range(n_blocks):
-        x = agc_block(gen, dev, C, T, blk, CFG.fs_dec)
+    for blk, T in enumerate(lengths):
+        x = agc_block(gen, dev, C, T, t0, fs)
+        t0 += T
         if first is None:
             first = (carry_k, dl_k, x)
         yk, carry_k, dl_k = agc_k.agc(p, carry_k, dl_k, x)
@@ -226,32 +371,40 @@ def phase_agc(params, dev, gen, n_blocks=3):
         torch.cuda.synchronize()
         pairs = {"audio": (yp, yk), "delay": (dl_p, dl_k)}
         for i, f in enumerate(agc_ops.CARRY_FIELDS):
-            if bool((carry_p[i] != 0).any()):
-                pairs[f] = (carry_p[i], carry_k[i])
-            else:
-                check(bool((carry_k[i] == 0).all()),
-                      f"K3 block {blk} {f}: kernel nonzero where plain is 0")
-        s, e = held(f"K3 block {blk}", pairs)
-        worst, err = min(worst, s), max(err, e)
+            pairs[f] = (carry_p[i], carry_k[i])
+        _, e = held(f"K3 w={w} block {blk} ({T} samples)", pairs)
+        err = max(err, e)
+    check(err == 0.0, f"K3 w={w}: not bit-exact against its plain version "
+                      f"(max|err| {err:.3e})")
     c0, d0, x0 = first
+    T = lengths[0]
     ms = cuda_ms(lambda: agc_k.agc(p, c0, d0, x0), 10)
     plain_ms = cuda_ms(lambda: agc_k.agc_plain(p, c0, d0, x0), 1)
     # work: x in, y out, carries and delay in and out; about 60 f32
     # operations per machine step and gain law
     nbytes = 2 * C * T * 4 + 2 * (agc_k.N_CARRY * C + C * w) * 4
+    rec_ms = recurrence_ms(T, AGC_STEP_OPS)
     b_ms, b_by = bound(nbytes, 60.0 * C * T)
-    clock = sm_clock_hz()
-    rec_ms = T * AGC_STEP_OPS * FP32_LATENCY / clock * 1e3
-    print(f"  K3 agc: {ms:.4f} ms (plain {plain_ms:.1f} ms; recurrence "
-          f"bound {rec_ms:.4f} ms = {T} steps x {AGC_STEP_OPS} dependent "
-          f"ops x {FP32_LATENCY} cycles at {clock / 1e6:.0f} MHz; "
-          f"{b_by} bound {b_ms:.4f} ms)")
-    return dict(name="agc", route="cuda",
-                source="uhsdr_tpu_torch/kernels/agc.cu",
-                replaces="uhsdr_tpu/pallas/agc.py:159",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, recurrence_ms=rec_ms, library_ms=None,
-                snr_db=worst, ok=True)
+    print(f"  K3 agc w={w}, T={T}: {ms:.4f} ms (plain {plain_ms:.1f} ms; "
+          f"recurrence bound {rec_ms:.4f} ms = {T} steps x {AGC_STEP_OPS} "
+          f"dependent ops x {FP32_LATENCY} cycles; {b_by} bound "
+          f"{b_ms:.4f} ms)")
+    return err, ms, plain_ms, nbytes, 60.0 * C * T, rec_ms
+
+
+def phase_agc(P, dev, gen):
+    T48, T96 = CFG.block_len // CFG.decim, SAM.block_len // SAM.decim
+    err, ms, plain_ms, nbytes, flops, rec_ms = agc_case(
+        P["ssb"].agc, CFG.fs_dec, (T48, T48, T48), dev, gen)
+    e96, ms96, plain96, nb96, fl96, rec96 = agc_case(
+        P["sam"].agc, SAM.fs_dec, (T96, 1000, T96), dev, gen)
+    b96, by96 = bound(nb96, fl96)
+    return row("agc", "agc.cu", "uhsdr_tpu/pallas/agc.py:159",
+               err=max(err, e96), snr=math.inf, ms=ms, plain_ms=plain_ms,
+               nbytes=nbytes, flops=flops, recurrence_ms=rec_ms,
+               library_note="no PyTorch call computes a look-ahead AGC",
+               w96=dict(ms=ms96, plain_ms=plain96, bound_ms=b96,
+                        bound_by=by96, recurrence_ms=rec96, steps=T96))
 
 
 def interp_library(h, carry, x, interp):
@@ -273,11 +426,11 @@ def interp_library(h, carry, x, interp):
     return call, result
 
 
-def phase_interp(params, dev, gen, n_blocks=3):
-    C, T, L = CHANNELS, CFG.block_len // CFG.decim, CFG.decim
-    h = params.interp_fir
-    taps = h.shape[-1]
-    sub_len = -(-taps // L)
+def interp_case(h, T, L, dev, gen, n_blocks=3):
+    """K4 against its plain version at x L over streamed blocks; returns
+    (min SNR, max |err|, the first block's (carry, x))."""
+    C = CHANNELS
+    sub_len = -(-h.shape[-1] // L)
     ck = cp = torch.zeros((C, sub_len - 1), device=dev)
     worst, err = math.inf, 0.0
     first = None
@@ -288,69 +441,257 @@ def phase_interp(params, dev, gen, n_blocks=3):
         yk, ck = fir_k.interpolate(h, ck, x, L)
         yp, cp = fir_k.interp_plain(h, cp, x, L)
         torch.cuda.synchronize()
-        s, e = held(f"K4 block {blk}", {"audio": (yp, yk),
-                                        "carry": (cp, ck)})
+        s, e = held(f"K4 x{L} block {blk}", {"audio": (yp, yk),
+                                             "carry": (cp, ck)})
         worst, err = min(worst, s), max(err, e)
-    c0, x0 = first
+    return worst, err, first
+
+
+def phase_interp(P, dev, gen):
+    C, T, L = CHANNELS, CFG.block_len // CFG.decim, CFG.decim
+    h = P["ssb"].interp_fir
+    taps = h.shape[-1]
+    sub_len = -(-taps // L)
+    worst, err, (c0, x0) = interp_case(h, T, L, dev, gen)
     ms = cuda_ms(lambda: fir_k.interpolate(h, c0, x0, L), 10)
     plain_ms = cuda_ms(lambda: fir_k.interp_plain(h, c0, x0, L), 3)
     call, result = interp_library(h, c0, x0, L)
     lib_ms = cuda_ms(call, 10)
     s_lib = snr_db(fir_k.interp_plain(h, c0, x0, L)[0], result())
     print(f"  K4 library call (conv_transpose1d) vs plain: SNR {s_lib:.1f} dB")
+    # the AM/SAM path's shape: x4 from 24 kHz
+    L4, T4 = SAM.decim, SAM.block_len // SAM.decim
+    h4 = P["sam"].interp_fir
+    w4, e4, (c4, x4) = interp_case(h4, T4, L4, dev, gen, n_blocks=2)
+    ms4 = cuda_ms(lambda: fir_k.interpolate(h4, c4, x4, L4), 10)
+    b4, by4 = bound(C * T4 * 4 + C * T4 * L4 * 4, 0.0)
     nbytes = C * T * 4 + C * T * L * 4 + 2 * C * (sub_len - 1) * 4 + taps * 4
-    b_ms, b_by = bound(nbytes, 2.0 * C * T * L * sub_len)
-    print(f"  K4 interp: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
-          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
-          f"{nbytes / 2**20:.0f} MiB)")
-    return dict(name="interp", route="cuda",
-                source="uhsdr_tpu_torch/kernels/interp.cu",
-                replaces="uhsdr_tpu/pallas/fir.py:1003",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, snr_db=worst, ok=True)
+    r = row("interp", "interp.cu", "uhsdr_tpu/pallas/fir.py:1003",
+            err=max(err, e4), snr=min(worst, w4), ms=ms, plain_ms=plain_ms,
+            nbytes=nbytes, flops=2.0 * C * T * L * sub_len,
+            library_ms=lib_ms, library_note="conv_transpose1d with stride",
+            x4=dict(ms=ms4, bound_ms=b4, bound_by=by4))
+    print(f"  K4 interp x{L}: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
+          f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}: {nbytes / 2**20:.0f} MiB); x{L4} "
+          f"({h4.shape[-1]} taps): {ms4:.4f} ms, bound {b4:.4f} ms")
+    return r
+
+
+def pll_block(gen, dev, C, T, t0, fs):
+    """Seeded decimated IQ for the PLL: per channel a carrier 2..40 Hz off
+    tune at -30 ... -6 dBFS (starting phase 1 rad, clear of the phase
+    detector's branch cut), 40% AM at 300 Hz, noise 26 dB below the
+    weakest carrier."""
+    n = torch.arange(T, device=dev, dtype=torch.float64) + t0
+    c = torch.arange(C, device=dev, dtype=torch.float64)[:, None]
+    amp = 10.0 ** (-1.5 + 1.2 * (c % 64) / 63.0)
+    f = 2.0 + 38.0 * (c % 97) / 96.0
+    ph = 1.0 + 2 * math.pi * torch.remainder(f * n / fs, 1.0)
+    env = amp * (1.0 + 0.4 * torch.sin(2 * math.pi * 300.0 / fs * n))
+    z = torch.polar(env, ph).to(torch.complex64)
+    noise = torch.randn((C, T, 2), generator=gen, device=dev) * 1.5e-3
+    return (z + torch.view_as_complex(noise)).contiguous()
+
+
+def phase_pll(P, dev, gen, audio: bool):
+    """K10 (cos/sin out), or with `audio` K9 (audio and fade leveler)."""
+    sp = P["sam"].sam
+    C, T, fs = CHANNELS, SAM.block_len // SAM.decim, SAM.fs_dec
+    scal = pll_k.PllScalars(sp.g1, sp.g2, sp.omega_min, sp.omega_max)
+    K = "K9" if audio else "K10"
+    if audio:
+        def kernel(carry, z):
+            a, co = pll_k.pll_audio(scal, sp.fade.mtauR, sp.fade.mtauI,
+                                    carry, z)
+            return {"audio": a}, co
+
+        def plain(carry, z):
+            a, co = pll_k.pll_audio_plain(scal, sp.fade.mtauR,
+                                          sp.fade.mtauI, carry, z)
+            return {"audio": a}, co
+        n_carry = pll_k.N_CARRY_AUDIO
+    else:
+        def kernel(carry, z):
+            c, s, co = pll_k.pll(scal, carry, z)
+            return {"cos": c, "sin": s}, co
+
+        def plain(carry, z):
+            c, s, co = pll_k.pll_plain(scal, carry, z)
+            return {"cos": c, "sin": s}, co
+        n_carry = pll_k.N_CARRY
+    names = ("phs", "fil_out", "omega2", "dc", "dc_insert")[:n_carry]
+    ck = cp = torch.zeros((n_carry, C), device=dev)
+    worst, err, t0 = math.inf, 0.0, 0
+    first = None
+    for blk, Tk in enumerate((T, 1000, T)):     # 1000: no whole time tile
+        z = pll_block(gen, dev, C, Tk, t0, fs)
+        t0 += Tk
+        if first is None:
+            first = (ck, z)
+        out_k, ck = kernel(ck, z)
+        out_p, cp = plain(cp, z)
+        torch.cuda.synchronize()
+        pairs = {k: (out_p[k], out_k[k]) for k in out_k}
+        # the phase through its cosine and sine: a wrap at 2 pi is no error
+        pairs["phs (cos, sin)"] = (
+            torch.stack([cp[0].cos(), cp[0].sin()]),
+            torch.stack([ck[0].cos(), ck[0].sin()]))
+        for i in range(1, n_carry):
+            pairs[names[i]] = (cp[i], ck[i])
+        s, e = held(f"{K} block {blk} ({Tk} samples)", pairs,
+                    tol_abs=PLL_TOL_ABS)
+        worst, err = min(worst, s), max(err, e)
+    c0, z0 = first
+    ms = cuda_ms(lambda: kernel(c0, z0), 10)
+    plain_ms = cuda_ms(lambda: plain(c0, z0), 1)
+    # bytes: complex IQ in, one (K9) or two (K10) f32 planes out, carries;
+    # about 70 f32 operations a step (sincosf ~25, atan2f ~30, the rest 15)
+    n_out = 1 if audio else 2
+    nbytes = C * T * 8 + n_out * C * T * 4 + 2 * n_carry * C * 4
+    rec_ms = recurrence_ms(T, PLL_STEP_OPS)
+    r = row("pll_audio" if audio else "pll", "pll.cu",
+            f"uhsdr_tpu/pallas/pll.py:{97 if audio else 54}", err=err,
+            snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=70.0 * C * T, recurrence_ms=rec_ms,
+            library_note="no PyTorch call computes a phase-locked loop")
+    print(f"  {K} {r['name']}: {ms:.4f} ms (plain {plain_ms:.1f} ms; "
+          f"recurrence bound {rec_ms:.4f} ms = {T} steps x {PLL_STEP_OPS} "
+          f"dependent ops x {FP32_LATENCY} cycles; {r['bound_by']} bound "
+          f"{r['bound_ms']:.4f} ms, {nbytes / 2**20:.0f} MiB)")
+    return r
+
+
+def phase_pll_cos_sin(P, dev, gen):
+    return phase_pll(P, dev, gen, audio=False)
+
+
+def phase_pll_audio(P, dev, gen):
+    return phase_pll(P, dev, gen, audio=True)
+
+
+def phase_biquad(P, dev, gen):
+    """K11 at the shape SAM's sideband route gives it: the 7-section
+    allpass chain over two paths stacked along channels."""
+    sos = P["sam"].sam.ap_sos[0]
+    S = sos.shape[0]
+    C, T = 2 * CHANNELS, SAM.block_len // SAM.decim
+    sk = sp_ = torch.zeros((S, C, 2), device=dev)
+    worst, err = math.inf, 0.0
+    first = None
+    for blk, Tk in enumerate((T, 1000, T)):     # 1000: no whole time tile
+        x = torch.randn((C, Tk), generator=gen, device=dev) * 0.1
+        if first is None:
+            first = (sk, x)
+        yk, sk = iir_k.biquad_cascade(sos, sk, x)
+        yp, sp_ = iir_k.biquad_cascade_plain(sos, sp_, x)
+        torch.cuda.synchronize()
+        s, e = held(f"K11 block {blk} ({Tk} samples)",
+                    {"audio": (yp, yk), "state": (sp_, sk)})
+        worst, err = min(worst, s), max(err, e)
+    # general coefficients: the PreFilter's high-Q sections, 1000 channels
+    sos_g = P["sam"].audio_sos.sos
+    xg = torch.randn((1000, 1000), generator=gen, device=dev) * 0.1
+    sg = torch.zeros((sos_g.shape[0], 1000, 2), device=dev)
+    yk, sgk = iir_k.biquad_cascade(sos_g, sg, xg)
+    yp, sgp = iir_k.biquad_cascade_plain(sos_g, sg, xg)
+    torch.cuda.synchronize()
+    s, e = held(f"K11 PreFilter SOS ({sos_g.shape[0]} sections)",
+                {"audio": (yp, yk), "state": (sgp, sgk)})
+    worst, err = min(worst, s), max(err, e)
+    s0, x0 = first
+    ms = cuda_ms(lambda: iir_k.biquad_cascade(sos, s0, x0), 10)
+    plain_ms = cuda_ms(lambda: iir_k.biquad_cascade_plain(sos, s0, x0), 1)
+    # bytes: x in, y out, states in and out; 9 f32 operations a section
+    nbytes = 2 * C * T * 4 + 2 * S * C * 2 * 4 + S * 5 * 4
+    rec_ms = recurrence_ms(T, BIQUAD_STEP_OPS)
+    r = row("biquad", "biquad.cu", "uhsdr_tpu/pallas/iir.py:44", err=err,
+            snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=9.0 * S * C * T, recurrence_ms=rec_ms,
+            library_note="torch has no IIR filter call")
+    print(f"  K11 biquad ({S} sections, {C} stacked channels): {ms:.4f} ms "
+          f"(plain {plain_ms:.1f} ms, bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}: {nbytes / 2**20:.0f} MiB; recurrence "
+          f"{rec_ms:.4f} ms)")
+    return r
 
 
 # ---------------------------------------------------------------------------
-# the main path
+# the main paths
 # ---------------------------------------------------------------------------
 
-def main_path(dev, seed, n_warm=2, n_timed=8, n_ref=3, ref_ch=8):
-    C, B = CHANNELS, CFG.block_len
-    blocks = trace_rx.capture(n_warm + n_timed, C, dev, seed, CFG)
-    chain = rx.RxChain(CFG, device=dev)
+def state_snrs(ref: dict, got: dict) -> dict:
+    """{leaf: SNR dB} of two `rx.state_to_numpy` dicts; the PLL phase
+    through its cosine and sine, the NCO phase by equality."""
+    out = {}
+    for f, a in ref.items():
+        b = got[f]
+        if f == "nco_phase":
+            out[f] = math.inf if np.array_equal(a, b) else -math.inf
+        elif f == "sam.phs":
+            out[f] = snr_db(np.stack([np.cos(a), np.sin(a)]),
+                            np.stack([np.cos(b), np.sin(b)]))
+        else:
+            out[f] = snr_db(a, b)
+    return out
+
+
+def main_path(cfg, label, expect, dev, seed, n_timed, n_warm=2, n_ref=3,
+              ref_ch=8):
+    """Drive `RxChain(cfg)` on the card at full width; returns (launches
+    of every kernel on this path, ms/block, Ms/s, worst SNR against the
+    port's CPU chain)."""
+    C, B = CHANNELS, cfg.block_len
+    blocks = trace_rx.capture(n_warm + n_timed, C, dev, seed, cfg)
+    chain = rx.RxChain(cfg, device=dev)
     state = chain.init_state((C,))
     kernels = build.kernels()
     for k in kernels:
         k.launches = 0
-    kept = []
+    kept, kept_state = [], None
     torch.cuda.synchronize()
-    for i, q in blocks[:n_warm]:
-        audio, state, taps = chain(state, i=i, q=q)
-        kept.append(audio[:ref_ch].clone())
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for i, q in blocks[n_warm:]:
+
+    def step(i, q):
+        nonlocal state, kept_state
         audio, state, taps = chain(state, i=i, q=q)
         if len(kept) < n_ref:
             kept.append(audio[:ref_ch].clone())
-    b.record()
-    b.synchronize()
+            if len(kept) == n_ref:
+                # every block's state is made of new tensors, so holding
+                # this one costs no copy inside the timed window
+                kept_state = state
+        return audio, taps
+
+    gc.collect()    # keep earlier phases' garbage out of the timed window
+    for i, q in blocks[:n_warm]:
+        step(i, q)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
+    marks[0].record()
+    for k, (i, q) in enumerate(blocks[n_warm:]):
+        audio, taps = step(i, q)
+        marks[k + 1].record()
+    marks[-1].synchronize()
     launches = {k.name: k.launches for k in kernels}
-    ms_block = a.elapsed_time(b) / n_timed
+    ms_block = marks[0].elapsed_time(marks[-1]) / n_timed
     msps = C * B / (ms_block * 1e-3) / 1e6
-    print(f"main path launches: {launches}")
+    each = [marks[k].elapsed_time(marks[k + 1]) for k in range(n_timed)]
+    print(f"  {label} ms of each timed block: "
+          + " ".join(f"{t:.3f}" for t in each))
+    print(f"  {label} launches: {launches}")
+    for name in expect:
+        check(launches[name] > 0, f"{label} never launched kernel {name}")
     for name, n in launches.items():
-        check(n > 0, f"main path never launched kernel {name}")
+        check(n == 0 or name in expect,
+              f"{label} launched {name}, which is not on its path")
 
     check(tuple(audio.shape) == (C, B), f"audio shape {tuple(audio.shape)}")
-    check(bool(torch.isfinite(audio).all()), "main path audio not finite")
+    check(bool(torch.isfinite(audio).all()), f"{label} audio not finite")
     for f, v in rx.state_to_numpy(state).items():
-        check(bool(np.isfinite(v).all()), f"state {f} not finite")
+        check(bool(np.isfinite(v).all()), f"{label} state {f} not finite")
     check(bool(torch.isfinite(taps["adc_peak"]).all()), "adc_peak")
 
     # the same channels through the port's plain versions on the CPU
-    cpu = rx.RxChain(CFG, device="cpu")
+    cpu = rx.RxChain(cfg, device="cpu")
     s_cpu = cpu.init_state((ref_ch,))
     worst = math.inf
     for blk in range(n_ref):
@@ -358,17 +699,41 @@ def main_path(dev, seed, n_warm=2, n_timed=8, n_ref=3, ref_ch=8):
         y_cpu, s_cpu, _ = cpu(s_cpu, i=i[:ref_ch].cpu(), q=q[:ref_ch].cpu())
         s = snr_db(y_cpu, kept[blk].cpu())
         worst = min(worst, s)
-        print(f"  main path vs CPU chain, block {blk}, ch 0-{ref_ch - 1}: "
+        print(f"  {label} vs CPU chain, block {blk}, ch 0-{ref_ch - 1}: "
               f"SNR {s:.1f} dB")
+
+    def ref_channels(v):
+        return np.take(v, range(ref_ch), axis=v.shape.index(C))
+
+    leaves = state_snrs(rx.state_to_numpy(s_cpu),
+                        {f: ref_channels(v) for f, v in
+                         rx.state_to_numpy(kept_state).items()})
+    low = min(leaves, key=leaves.get)
+    print(f"  {label} state after block {n_ref - 1} vs CPU chain: worst "
+          f"leaf {low} {leaves[low]:.1f} dB of {len(leaves)}")
+    worst = min(worst, leaves[low])
     check(worst >= CHAIN_TOL_DB,
-          f"main path vs CPU chain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
+          f"{label} vs CPU chain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
     y0 = kept[n_ref - 1][0].cpu().double().numpy()
-    spec = np.abs(np.fft.rfft(y0 * np.hanning(len(y0))))
-    f_pk = float(np.fft.rfftfreq(len(y0), 1.0 / CFG.iq_rate)[spec.argmax()])
+    spec = np.abs(np.fft.rfft((y0 - y0.mean()) * np.hanning(len(y0))))
+    freqs = np.fft.rfftfreq(len(y0), 1.0 / cfg.iq_rate)
+    spec[freqs < 100.0] = 0.0           # AM: what is left of the carrier
+    f_pk = float(freqs[spec.argmax()])
     tone = trace_rx.TONE_HZ
-    print(f"  channel 0 audio peak {f_pk:.1f} Hz (tone {tone} Hz)")
-    check(abs(f_pk - tone) < 20.0, f"tone at {f_pk} Hz, not {tone}")
-    return launches, ms_block, msps, worst
+    print(f"  {label} channel 0 audio peak {f_pk:.1f} Hz (tone {tone} Hz)")
+    check(abs(f_pk - tone) < 20.0, f"{label} tone at {f_pk} Hz, not {tone}")
+    return launches, ms_block, msps, worst, n_warm + n_timed
+
+
+SHARED = ("agc", "interp")
+MAIN_PATHS = (
+    ("ssb", CFG, ("front",) + SHARED, 8),
+    ("am", dataclasses.replace(SAM, mode="am"), ("fir_rt",) + SHARED, 8),
+    ("sam_both", dataclasses.replace(SAM, sam_sideband="both"),
+     ("fir_rt", "pll_audio") + SHARED, 8),
+    ("sam_usb", dataclasses.replace(SAM, sam_sideband="usb"),
+     ("fir_rt", "pll", "biquad") + SHARED, 8),
+)
 
 
 def main() -> int:
@@ -382,44 +747,68 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.time()
     card = smi("name,power.limit")
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}, max SM clock "
+          f"{sm_clock_hz() / 1e6:.0f} MHz")
     t0 = time.time()
     logs = build.build_all()
-    print(f"kernels built in {time.time() - t0:.1f} s")
+    n_src = sum(k.lib_of is None for k in build.kernels())
+    print(f"{len(build.kernels())} kernels built from {n_src} sources "
+          f"in {time.time() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    params = rx.make_params(CFG, dev)
-    print(f"config: {CHANNELS} ch x {CFG.block_len} @ {CFG.iq_rate:.0f} Hz, "
-          f"decim {CFG.decim}, stage A {params.front_fir.shape[-1]} taps, "
-          f"stage B {params.front2.shape[-1]} taps, interp "
-          f"{params.interp_fir.shape[-1]} taps, AGC w "
-          f"{params.agc.attack_buffsize}")
+    P = {"ssb": rx.make_params(CFG, dev), "sam": rx.make_params(SAM, dev)}
+    for key, cfg in (("ssb", CFG), ("sam", SAM)):
+        p = P[key]
+        print(f"config {key}: {CHANNELS} ch x {cfg.block_len} @ "
+              f"{cfg.iq_rate:.0f} Hz, decim {cfg.decim}, front "
+              f"{p.front_fir.shape[-1]} taps, stage B "
+              f"{0 if p.front2 is None else p.front2.shape[-1]} taps, "
+              f"PreFilter {p.audio_sos.sections} sections, interp "
+              f"{p.interp_fir.shape[-1]} taps, AGC w {p.agc.attack_buffsize}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     rows = []
-    for phase in (phase_front, phase_agc, phase_interp):
+    for phase in (phase_front, phase_agc, phase_interp, phase_fir_rt,
+                  phase_pll_cos_sin, phase_pll_audio, phase_biquad):
         t1 = time.time()
         print(f"phase {phase.__name__}:")
-        rows.append(phase(params, dev, gen))
+        rows.append(phase(P, dev, gen))
+        torch.cuda.empty_cache()
         print(f"  ({time.time() - t1:.1f} s)")
-    t1 = time.time()
-    print("phase main_path:")
-    launches, ms_block, msps, worst = main_path(dev, args.seed)
+    names = [k.name for k in build.kernels()]
+    check(sorted(r["name"] for r in rows) == sorted(names),
+          f"kernel phases {[r['name'] for r in rows]} != built {names}")
+
+    by_path, per_block = {}, {}
+    for label, cfg, expect, n_timed in MAIN_PATHS:
+        t1 = time.time()
+        print(f"phase main_path {label}:")
+        launches, ms_block, msps, worst, n_blocks = main_path(
+            cfg, label, expect, dev, args.seed, n_timed)
+        by_path[label] = launches
+        per_block[label] = {k: n / n_blocks for k, n in launches.items()}
+        torch.cuda.empty_cache()
+        print(f"main path {label}: mode {cfg.mode}, bw {cfg.bw_key}, "
+              f"sam_sideband {cfg.sam_sideband}, {CHANNELS} ch x "
+              f"{cfg.block_len} int16 @ {cfg.iq_rate / 1e3:.0f} kHz: "
+              f"{ms_block:.3f} ms/block over {n_timed} blocks, {msps:.1f} "
+              f"Ms/s, CPU-chain SNR {worst:.1f} dB "
+              f"({time.time() - t1:.1f} s) on {card}")
     for r in rows:
-        r["launches"] = launches[r["name"]]
-    print(f"main path: {CHANNELS} ch x {CFG.block_len} int16 @ "
-          f"{CFG.iq_rate / 1e3:.0f} kHz: {ms_block:.3f} ms/block, "
-          f"{msps:.1f} Ms/s, CPU-chain SNR {worst:.1f} dB "
-          f"({time.time() - t1:.1f} s) on {card}")
-    for r in rows:               # strict JSON: null where bit-identical
-        if not math.isfinite(r["snr_db"]):
-            r["snr_db"] = None
+        r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()
+                                 if n[r["name"]]}
+        r["launches_per_block"] = {p: per_block[p][r["name"]]
+                                   for p in r["launches_by_path"]}
+        r["launches"] = sum(r["launches_by_path"].values())
+        check(r["launches"] > 0, f"no main path launched {r['name']}")
+    print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

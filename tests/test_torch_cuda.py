@@ -9,9 +9,12 @@ with a card (and no JAX) run
 ragged on purpose: channel counts and block lengths that fill no whole
 thread block or time tile.  Inputs come from a numpy seed.  Kernels and
 plain versions share f32 arithmetic but not the order of their sums, so
-FIR outputs are held to SNR >= 100 dB; the AGC kernel repeats the plain
-machine's operations in order and is held to 120 dB; the chain on the
-card against the chain on the CPU to 80 dB.
+FIR outputs are held to SNR >= 100 dB; the AGC and biquad-cascade
+kernels repeat their plain versions' operations in order and are held to
+120 dB; the PLL kernels' cos/sin/audio to max |err| <= 2e-5 (they repeat
+the plain loop's operations too; tests/test_demod.py holds the TPU
+kernels to 3e-4); the chain on the card against the chain on the CPU to
+80 dB.
 """
 from __future__ import annotations
 
@@ -21,7 +24,11 @@ import torch
 
 from uhsdr_tpu_torch.chain import rx
 from uhsdr_tpu_torch.cuda import agc as agc_k
+from uhsdr_tpu_torch.cuda import build
 from uhsdr_tpu_torch.cuda import fir as fir_k
+from uhsdr_tpu_torch.cuda import iir as iir_k
+from uhsdr_tpu_torch.cuda import pll as pll_k
+from uhsdr_tpu_torch.demod import sam as sam_mod
 from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.ops import agc as agc_ops
 from uhsdr_tpu_torch.ops import iir, nco
@@ -31,6 +38,7 @@ pytestmark = pytest.mark.cuda
 FIR_DB = 100.0
 AGC_DB = 120.0
 CHAIN_DB = 80.0
+PLL_ABS = 2e-5
 FLAGSHIP = dict(mode="usb", bw_key="2P3KHZ", path_name="LPF",
                 translate_hz=12000.0, iq_rate=96000.0)
 
@@ -77,9 +85,14 @@ def test_front_kernel_matches_plain(dev, iq_rate, C, B, dtype):
         ph = nco.advance(ph, delta, B)
 
 
-@pytest.mark.parametrize("C,T", [(40, 1000), (64, 2048)])
-def test_agc_kernel_matches_plain(dev, C, T):
-    params = agc_ops.make_params(12000.0, mode="med", hang_enable=True)
+@pytest.mark.parametrize("C,T,fs", [(40, 1000, 12000.0),
+                                    (64, 2048, 12000.0),
+                                    (33, 1500, 24000.0),      # w = 96
+                                    (8, 700, 32000.0),        # w = 128
+                                    (20, 1000, 48000.0),      # w = 192
+                                    (5, 300, 64000.0)])       # w = 256
+def test_agc_kernel_matches_plain(dev, C, T, fs):
+    params = agc_ops.make_params(fs, mode="med", hang_enable=True)
     p = agc_ops.kernel_params(params)
     w = params.attack_buffsize
     rng = np.random.default_rng(2)
@@ -88,7 +101,7 @@ def test_agc_kernel_matches_plain(dev, C, T):
     level = np.logspace(-1, 4, C)[:, None]
     for blk in range(3):
         n = np.arange(blk * T, (blk + 1) * T)
-        x = level * np.sin(2 * np.pi * 700 * n / 12000.0) * (n < 1.5 * T)
+        x = level * np.sin(2 * np.pi * 700 * n / fs) * (n < 1.5 * T)
         x = torch.from_numpy((x + rng.standard_normal((C, T)) * 0.5)
                              .astype(np.float32)).to(dev)
         n0 = agc_k.AGC.launches
@@ -100,7 +113,8 @@ def test_agc_kernel_matches_plain(dev, C, T):
             assert snr_db(a, b) >= AGC_DB
 
 
-@pytest.mark.parametrize("C,B,L", [(5, 1500, 8), (9, 4096, 4)])
+@pytest.mark.parametrize("C,B,L", [(5, 1500, 8), (9, 4096, 4), (7, 1030, 2),
+                                   (3, 700, 6)])
 def test_interp_kernel_matches_plain(dev, C, B, L):
     rng = np.random.default_rng(3)
     h = torch.from_numpy(rng.standard_normal(93).astype(np.float32)).to(dev)
@@ -121,7 +135,7 @@ def test_interp_kernel_matches_plain(dev, C, B, L):
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((4, 64), device=dev)
     h = torch.zeros(93, device=dev)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):             # carry of another factor
         fir_k.interpolate(h, torch.zeros((4, 11), device=dev), x, 6)
     with pytest.raises(ValueError):
         fir_k.interpolate(h, torch.zeros((4, 11), device=dev),
@@ -154,6 +168,197 @@ def test_chain_on_card_matches_cpu(dev, iq_rate, block_len):
     a, b = rx.state_to_numpy(sc), rx.state_to_numpy(sg)
     for f in a:
         assert snr_db(a[f], b[f]) >= CHAIN_DB, f
+
+
+@pytest.mark.parametrize("C,B,decim,taps,dtype,use_nco", [
+    (13, 1600, 4, 239, "int16", True),     # the SAM flagship's front
+    (3, 4096, 4, 239, "float32", False),
+    (5, 40, 8, 227, "int16", True),        # block shorter than the history
+    (7, 1000, 2, 89, "int16", True),
+    (4, 999, 1, 89, "float32", True),
+    (6, 1536, 6, 120, "int16", False)])
+def test_fir_rt_kernel_matches_plain(dev, C, B, decim, taps, dtype, use_nco):
+    rng = np.random.default_rng(5)
+    h = torch.from_numpy((rng.standard_normal(taps) * 0.05)
+                         .astype(np.float32)).to(dev)
+    delta = int(nco.freq_to_delta(-12000.0, 96000.0))
+    ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
+    ph = torch.from_numpy(rng.integers(0, 2**32, C)).to(dev)
+    for blk in range(3):
+        x = [torch.from_numpy(_int16(rng, (C, B))).to(dev) for _ in "iq"]
+        if dtype == "float32":
+            x = [v.to(torch.float32) / 32768.0 for v in x]
+        kw = dict(nco=(ph, delta) if use_nco else None)
+        n0 = fir_k.FIR_RT.launches
+        yk, ck_new, pk = fir_k.fir_rt(h, ck, *x, decim, **kw)
+        assert fir_k.FIR_RT.launches == n0 + 1
+        yp, cp, pp = fir_k.fir_rt_plain(h, cp, *x, decim, **kw)
+        (ar, ai), c2, _ = fir_k.fir_rt(h, ck, *x, decim, planes_out=True,
+                                       **kw)
+        yr, c3, _ = fir_k.fir_rt(h, ck, *x, decim, real_out=True, **kw)
+        torch.cuda.synchronize()
+        assert yk.dtype == torch.complex64 and yk.shape == (C, B // decim)
+        for a, b in ((yp, yk), (cp, ck_new), (pp, pk), (yp.real, ar),
+                     (yp.imag, ai), (yp.real, yr)):
+            assert snr_db(a, b) >= FIR_DB
+        assert torch.equal(c2, ck_new) and torch.equal(c3, ck_new)
+        ck = ck_new
+        if use_nco:
+            ph = nco.advance(ph, delta, B)
+
+
+def _pll_input(rng, C, T, t0, fs=24000.0):
+    n = np.arange(t0, t0 + T)
+    c = np.arange(C)[:, None]
+    amp = 10.0 ** (-1.5 + 1.2 * c / max(C - 1, 1))
+    z = (amp * (1 + 0.4 * np.sin(2 * np.pi * 300 * n / fs))
+         * np.exp(1j + 2j * np.pi * (2 + 3 * c) * n / fs)
+         + 1.5e-3 * (rng.standard_normal((C, T))
+                     + 1j * rng.standard_normal((C, T))))
+    return torch.from_numpy(z.astype(np.complex64))
+
+
+@pytest.mark.parametrize("C,T", [(40, 1000), (64, 512), (5, 130)])
+def test_pll_kernels_match_plain(dev, C, T):
+    sp = sam_mod.make_params(24000.0)
+    p = pll_k.PllScalars(sp.g1, sp.g2, sp.omega_min, sp.omega_max)
+    mR, mI = sp.fade.mtauR, sp.fade.mtauI
+    rng = np.random.default_rng(6)
+    ck = cp = torch.zeros((3, C), device=dev)
+    ak = apl = torch.zeros((5, C), device=dev)
+    for blk in range(3):
+        z = _pll_input(rng, C, T, blk * T).to(dev)
+        n0, n1 = pll_k.PLL.launches, pll_k.PLL_AUDIO.launches
+        cos_k, sin_k, ck = pll_k.pll(p, ck, z)
+        aud_k, ak = pll_k.pll_audio(p, mR, mI, ak, z)
+        assert (pll_k.PLL.launches, pll_k.PLL_AUDIO.launches) == (n0 + 1,
+                                                                  n1 + 1)
+        cos_p, sin_p, cp = pll_k.pll_plain(p, cp, z)
+        aud_p, apl = pll_k.pll_audio_plain(p, mR, mI, apl, z)
+        torch.cuda.synchronize()
+        for a, b in ((cos_p, cos_k), (sin_p, sin_k), (aud_p, aud_k),
+                     (cp[1:], ck[1:]), (apl[1:], ak[1:]),
+                     (cp[0].cos(), ck[0].cos()), (cp[0].sin(), ck[0].sin()),
+                     (apl[0].cos(), ak[0].cos())):
+            assert float((a - b).abs().max()) <= PLL_ABS
+    assert float(ck[2].abs().max()) > 0.0        # the loop found an offset
+
+
+@pytest.mark.parametrize("C,T,S", [(40, 1000, 7), (64, 256, 7), (9, 130, 1),
+                                   (33, 300, 5), (8, 64, 8)])
+def test_biquad_kernel_matches_plain(dev, C, T, S):
+    rng = np.random.default_rng(7)
+    if S == 7:
+        sos = torch.from_numpy(sam_mod.allpass_sos(sam_mod.C1)).to(dev)
+    else:                       # general stable sections
+        r = rng.uniform(0.5, 0.999, S)
+        th = rng.uniform(0.1, 3.0, S)
+        sos = torch.from_numpy(np.stack(
+            [rng.standard_normal(S), rng.standard_normal(S),
+             rng.standard_normal(S), -2 * r * np.cos(th), r * r],
+            axis=-1).astype(np.float32)).to(dev)
+    sk = sp = torch.zeros((S, C, 2), device=dev)
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal((C, T))
+                             .astype(np.float32)).to(dev)
+        n0 = iir_k.BIQUAD.launches
+        yk, sk = iir_k.biquad_cascade(sos, sk, x)
+        assert iir_k.BIQUAD.launches == n0 + 1
+        yp, sp = iir_k.biquad_cascade_plain(sos, sp, x)
+        torch.cuda.synchronize()
+        assert snr_db(yp, yk) >= AGC_DB and snr_db(sp, sk) >= AGC_DB
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    C, T = 4, 64
+    z = torch.zeros((C, T), dtype=torch.complex64, device=dev)
+    x = torch.zeros((C, T), device=dev)
+    p = pll_k.PllScalars(0.1, 0.01, -0.1, 0.1)
+    with pytest.raises(ValueError):                 # carry of K9's size
+        pll_k.pll(p, torch.zeros((5, C), device=dev), z)
+    with pytest.raises(ValueError):                 # real input
+        pll_k.pll(p, torch.zeros((3, C), device=dev), x)
+    with pytest.raises(ValueError):                 # carry on the CPU
+        pll_k.pll_audio(p, 0.9, 0.99, torch.zeros((5, C)), z)
+    sos = torch.from_numpy(sam_mod.allpass_sos(sam_mod.C0)).to(dev)
+    with pytest.raises(ValueError):                 # state of 6 sections
+        iir_k.biquad_cascade(sos, torch.zeros((6, C, 2), device=dev), x)
+    with pytest.raises(ValueError):                 # more sections than MAXS
+        iir_k.biquad_cascade(torch.zeros((9, 5), device=dev),
+                             torch.zeros((9, C, 2), device=dev), x)
+    with pytest.raises(ValueError):                 # float64 input
+        iir_k.biquad_cascade(sos, torch.zeros((7, C, 2), device=dev),
+                             x.to(torch.float64))
+    h = torch.zeros(89, device=dev)
+    carry = torch.zeros((C, 88), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):                 # block not a multiple
+        fir_k.fir_rt(h, carry, x[:, :63], x[:, :63], 4)
+    with pytest.raises(ValueError):                 # mixed plane dtypes
+        fir_k.fir_rt(h, carry, x, x.to(torch.int16), 4)
+    with pytest.raises(ValueError):                 # decimation 16
+        fir_k.fir_rt(h, carry, x, x, 16)
+    with pytest.raises(ValueError):                 # taps beyond the ring
+        fir_k.fir_rt(torch.zeros(400, device=dev),
+                     torch.zeros((C, 399), dtype=torch.complex64,
+                                 device=dev), x, x, 2)
+    with pytest.raises(ValueError):                 # look-ahead beyond MAXW
+        agc_k.agc(agc_ops.kernel_params(agc_ops.make_params(12000.0)),
+                  torch.zeros((7, C), device=dev),
+                  torch.zeros((C, 300), device=dev), x)
+
+
+def test_failed_build_raises_and_does_not_fall_back(dev, monkeypatch):
+    """A kernel whose build fails raises on a CUDA tensor: the wrapper
+    does not give way to the plain version."""
+    k = iir_k.BIQUAD
+    monkeypatch.setattr(k, "_lib", None)
+    monkeypatch.setattr(k, "flags", k.flags + ("-DFORCED_BUILD_FAILURE",))
+    monkeypatch.setattr(build, "nvcc_path", lambda: "false")
+    sos = torch.from_numpy(sam_mod.allpass_sos(sam_mod.C0)).to(dev)
+    n0 = k.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        iir_k.biquad_cascade(sos, torch.zeros((7, 4, 2), device=dev),
+                             torch.zeros((4, 64), device=dev))
+    assert k.launches == n0
+
+
+@pytest.mark.parametrize("mode,sideband,fade,iq_rate,bw", [
+    ("am", "both", True, 96000.0, "5P0KHZ"),
+    ("am", "both", False, 48000.0, "3P6KHZ"),
+    ("am", "both", True, 48000.0, "5P0KHZ"),      # decimation 2, x2 K4
+    ("sam", "both", True, 96000.0, "5P0KHZ"),
+    ("sam", "both", False, 96000.0, "5P0KHZ"),
+    ("sam", "usb", True, 96000.0, "5P0KHZ"),
+    ("sam", "lsb", False, 48000.0, "3P6KHZ")])
+def test_am_sam_chain_on_card_matches_cpu(dev, mode, sideband, fade, iq_rate,
+                                          bw):
+    from uhsdr_tpu_torch import trace_rx
+    cfg = rx.RxConfig(mode=mode, bw_key=bw, sam_sideband=sideband,
+                      fade_leveler=fade, translate_hz=12000.0,
+                      iq_rate=iq_rate, block_len=2048)
+    gpu, cpu = rx.RxChain(cfg, device=dev), rx.RxChain(cfg, device="cpu")
+    C = 8
+    sg, sc = gpu.init_state((C,)), cpu.init_state((C,))
+    expect = {"fir_rt": 3, "agc": 3, "interp": 3, "front": 0,
+              "pll_audio": 3 * (mode == "sam" and sideband == "both"
+                                and fade),
+              "pll": 3 * (mode == "sam" and not (sideband == "both"
+                                                 and fade)),
+              "biquad": 6 * (mode == "sam" and sideband != "both")}
+    before = {k.name: k.launches for k in build.kernels()}
+    for i, q in trace_rx.capture(3, C, "cpu", 4, cfg):
+        yg, sg, _ = gpu(sg, i=i, q=q)
+        yc, sc, _ = cpu(sc, i=i, q=q)
+        assert snr_db(yc, yg.cpu()) >= CHAIN_DB
+    for k in build.kernels():
+        assert k.launches - before[k.name] == expect[k.name], k.name
+    a, b = rx.state_to_numpy(sc), rx.state_to_numpy(sg)
+    for f in a:
+        if f == "sam.phs":
+            assert snr_db(np.cos(a[f]), np.cos(b[f])) >= CHAIN_DB
+            assert snr_db(np.sin(a[f]), np.sin(b[f])) >= CHAIN_DB
+        else:
+            assert snr_db(a[f], b[f]) >= CHAIN_DB, f
 
 
 def test_cascade_refuses_tf32(dev):

@@ -1,19 +1,24 @@
-"""The port's flagship SSB RX chain (`uhsdr_tpu_torch.chain.rx`) on the CPU,
-where its wrappers run the kernels' plain torch versions:
+"""The port's RX chains (`uhsdr_tpu_torch.chain.rx`) on the CPU, where its
+wrappers run the kernels' plain torch versions:
 
-* against the JAX package's `rx.process_block` on the CPU at the flagship
-  config (usb 2P3KHZ LPF, 12 kHz translate, int16 IQ @ 96 kHz) cut to
+* the flagship SSB chain against the JAX package's `rx.process_block` on
+  the CPU (usb 2P3KHZ LPF, 12 kHz translate, int16 IQ @ 96 kHz) cut to
   8 channels x 4096 samples, over four streamed blocks: audio, ADC peak
   and every state leaf at SNR >= 80 dB;
 * a stream handed from the JAX chain to the port mid-sequence through
   `state_from_numpy`, again at 80 dB;
+* the AM chains (fade leveler on and off, 48 and 96 kHz, with and without
+  the anti-alias lattice) the same way in 2048-sample blocks, with the
+  hand-over in both directions; the SAM chains are in
+  tests/test_torch_rx_sam*.py, which use this module's helpers;
 * against the float64 oracle `tests/golden/ref_chain.py` (usb 2P3KHZ
   select 2 @ 48 kHz, as tests/test_conformance_ref.py runs the JAX chain,
-  whose CPU rows sit at 79.6-112.6 dB) at the conformance bound, 50 dB;
+  whose CPU rows sit at 79.6-112.6 dB) at the conformance bound, 50 dB
+  (the am and sam rows are in tests/test_torch_conformance.py);
 * import hygiene: the port and chip_smoke.py import neither jax nor the
   JAX package;
 * entry points default to CUDA and raise where it is absent; modes and
-  options outside the slice, and an unfused stage B, raise
+  options outside the slices, and an unfused stage B, raise
   NotImplementedError.
 """
 from __future__ import annotations
@@ -71,17 +76,60 @@ def _run_jax(step, state, blk):
     return np.asarray(y), state, taps
 
 
-def _assert_state_close(jstate, tstate, db):
-    got = trx.state_to_numpy(tstate)
-    for f, v in got.items():
-        ref = (getattr(jstate.agc, f[4:]) if f.startswith("agc.")
-               else getattr(jstate, f))
-        ref = np.asarray(ref)
+def _leaf(state, dotted: str):
+    for part in dotted.split("."):
+        state = getattr(state, part)
+    return state
+
+
+def state_snrs(jstate, tstate) -> dict:
+    """{leaf: SNR in dB} of the port's state against the JAX chain's, over
+    every leaf `state_to_numpy` gives.  The PLL phase is compared through
+    its cosine and sine (a wrap at 2 pi is not an error); the NCO phase
+    must be equal."""
+    out = {}
+    for f, v in trx.state_to_numpy(tstate).items():
+        ref = np.asarray(_leaf(jstate, f))
         assert v.shape == ref.shape, f
         if f == "nco_phase":
             np.testing.assert_array_equal(v, ref)
+        elif f == "sam.phs":
+            out[f] = snr_db(np.stack([np.cos(ref), np.sin(ref)]),
+                            np.stack([np.cos(v), np.sin(v)]))
         else:
-            assert snr_db(ref, v) >= db, f
+            out[f] = snr_db(ref, v)
+    return out
+
+
+def _assert_state_close(jstate, tstate, db):
+    for f, s in state_snrs(jstate, tstate).items():
+        assert s >= db, (f, s)
+
+
+def to_jax_state(template, tstate):
+    """The port's RxState as the JAX package's: `template` (a JAX RxState
+    of the same config) with every leaf the port carries replaced."""
+    def put(node, parts, value):
+        if len(parts) == 1:
+            return node._replace(**{parts[0]: value})
+        return node._replace(**{parts[0]: put(getattr(node, parts[0]),
+                                              parts[1:], value)})
+
+    for f, v in trx.state_to_numpy(tstate).items():
+        template = put(template, f.split("."), jnp.asarray(v))
+    return template
+
+
+def _same(a, b) -> bool:
+    """Equality of two params leaves: tensors, scalars, or (named) tuples
+    of them."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return bool(np.all(np.asarray(a) == np.asarray(b)))
 
 
 def test_port_params_match_jax(jax_chain):
@@ -89,13 +137,8 @@ def test_port_params_match_jax(jax_chain):
     _, jp, _ = jax_chain
     tp = trx.make_params(trx.RxConfig(**FLAGSHIP), device="cpu")
     fp = trx.params_from_numpy(jp, device="cpu")
-    for a, b in zip(tp, fp):
-        if isinstance(a, torch.Tensor):
-            assert torch.equal(a, b)
-        elif isinstance(a, tuple) and a and isinstance(a[0], torch.Tensor):
-            assert all(torch.equal(x, y) for x, y in zip(a, b))
-        else:
-            assert np.all(np.asarray(a) == np.asarray(b))
+    for name, a, b in zip(tp._fields, tp, fp):
+        assert _same(a, b), name
     assert (tp.front_fir.shape[-1], tp.front2.shape[-1],
             tp.interp_fir.shape[-1], tp.audio_sos.sections) == (227, 199,
                                                                 93, 5)
@@ -165,6 +208,118 @@ def test_conformance_vs_float64_oracle():
     assert s_db >= CONFORMANCE_DB, s_db
 
 
+# ---------------------------------------------------------------------------
+# AM and SAM chains
+# ---------------------------------------------------------------------------
+
+AM_B = 2048          # IQ-rate samples per block in the AM/SAM chain tests
+
+
+def am_capture(n_blocks, iq_rate, seed=21, translate=12000.0):
+    """int16 IQ blocks for the AM/SAM chains: per channel a carrier
+    3 c Hz above the translate frequency at -6 ... -40 dBFS (starting
+    phase 1 rad, clear of the phase detector's branch cut at pi), 50% AM
+    by a (400 + 50 c) Hz tone, plus noise of 30 counts rms."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(n_blocks * AM_B)
+    c = np.arange(C)[:, None]
+    amp = 0.6 * 32767.0 * 10.0 ** (-np.linspace(6, 40, C) / 20.0)[:, None]
+    z = (amp * (1 + 0.5 * np.sin(2 * np.pi * (400 + 50 * c) * n / iq_rate))
+         * np.exp(1j + 2j * np.pi * (translate + 3 * c) * n / iq_rate)
+         + (rng.standard_normal((C, n.size))
+            + 1j * rng.standard_normal((C, n.size))) * 30.0)
+    i16 = np.clip(np.round(z.real), -32768, 32767).astype(np.int16)
+    q16 = np.clip(np.round(z.imag), -32768, 32767).astype(np.int16)
+    return [(i16[:, k * AM_B:(k + 1) * AM_B], q16[:, k * AM_B:(k + 1) * AM_B])
+            for k in range(n_blocks)]
+
+
+def _run_port(tcfg, tp, ts, blk):
+    return trx.process_block(tcfg, tp, ts, (torch.from_numpy(blk[0]),
+                                            torch.from_numpy(blk[1])))
+
+
+def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB):
+    """Four int16 blocks through the JAX chain and the port, both from
+    zero state: audio and every state leaf held to `zero_db` after every
+    block.  After block 2 the stream is also handed over in both
+    directions (JAX state -> port through `state_from_numpy`, the port's
+    state -> JAX through `state_to_numpy`), and blocks 3-4 of each
+    handed-over stream are held to `handover_db` against the chain the
+    state came from.  Returns the printed numbers."""
+    kw = dict(translate_hz=12000.0, block_len=AM_B, **kw)
+    jcfg = jrx.RxConfig(**kw)
+    jp = jrx.make_params(jcfg)
+    step = jax.jit(lambda s, i, q: jrx.process_block(jcfg, jp, s, (i, q)))
+    tcfg = trx.RxConfig(**kw)
+    tp = trx.make_params(tcfg, device="cpu")
+    for name, a, b in zip(tp._fields, tp,
+                          trx.params_from_numpy(jp, device="cpu")):
+        assert _same(a, b), name
+    blocks = am_capture(N_BLOCKS, jcfg.iq_rate)
+    js = jrx.init_state(jcfg, jp, (C,))
+    ts = trx.init_state(tcfg, tp, (C,))
+    audio_db, mid = [], None
+    yjs, yts = [], []
+    for k, blk in enumerate(blocks):
+        yj, js, tj = _run_jax(step, js, blk)
+        yt, ts, tt = _run_port(tcfg, tp, ts, blk)
+        assert tuple(yt.shape) == (C, AM_B)
+        np.testing.assert_array_equal(tt["adc_peak"].numpy(),
+                                      np.asarray(tj["adc_peak"]))
+        yjs.append(yj)
+        yts.append(yt)
+        audio_db.append(snr_db(yj, yt))
+        leaves = state_snrs(js, ts)
+        worst = min(leaves, key=leaves.get)
+        print(f"\n{kw['mode']} block {k}: audio {audio_db[-1]:.1f} dB, "
+              f"worst state leaf {worst} {leaves[worst]:.1f} dB")
+        assert audio_db[-1] >= zero_db, (k, audio_db[-1])
+        assert leaves[worst] >= zero_db, (k, worst, leaves[worst])
+        if k == 1:
+            mid = (js, ts)
+    js_mid, ts_mid = mid
+    # JAX -> port
+    ts2 = trx.state_from_numpy(jax.tree_util.tree_map(np.asarray, js_mid),
+                               device="cpu")
+    _assert_state_close(js_mid, ts2, np.inf)
+    # port -> JAX
+    js2 = to_jax_state(js_mid, ts_mid)
+    _assert_state_close(js2, ts_mid, np.inf)
+    hand = []
+    for k in (2, 3):
+        yt2, ts2, _ = _run_port(tcfg, tp, ts2, blocks[k])
+        yj2, js2, _ = _run_jax(step, js2, blocks[k])
+        hand.append((snr_db(yjs[k], yt2), snr_db(yts[k], yj2)))
+        print(f"  block {k} after hand-over: JAX->port {hand[-1][0]:.1f} dB, "
+              f"port->JAX {hand[-1][1]:.1f} dB")
+        assert min(hand[-1]) >= handover_db, (k, hand[-1])
+    _assert_state_close(js, ts2, handover_db)
+    _assert_state_close(js2, ts, handover_db)
+    return audio_db, hand
+
+
+@pytest.mark.parametrize("fade,iq_rate,bw", [
+    (True, 96000.0, "5P0KHZ"), (False, 96000.0, "2P5KHZ"),
+    (True, 48000.0, "3P6KHZ"), (False, 48000.0, "5P0KHZ")])
+def test_am_chain_matches_jax_streamed(fade, iq_rate, bw):
+    """AM at 96 kHz (decimation 4 with AGC look-ahead 96, and 8) and at
+    48 kHz (a row with the anti-alias lattice, and a decimation-2 row
+    with look-ahead 96 and a x2 interpolator)."""
+    run_streamed_both_ways(dict(mode="am", bw_key=bw, iq_rate=iq_rate,
+                                fade_leveler=fade), CHAIN_DB)
+
+
+def test_antialias_rows_raise_above_48k():
+    """Rows with a post anti-alias lattice are 48 kHz only, in both
+    packages."""
+    kw = dict(mode="am", bw_key="3P6KHZ", iq_rate=96000.0)
+    with pytest.raises(ValueError, match="48k-rate only"):
+        jrx.make_params(jrx.RxConfig(**kw))
+    with pytest.raises(ValueError, match="48k-rate only"):
+        trx.make_params(trx.RxConfig(**kw), device="cpu")
+
+
 def test_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -178,7 +333,7 @@ def test_imports_neither_jax_nor_the_jax_package():
         "             or m == 'uhsdr_tpu' or m.startswith('uhsdr_tpu.'))\n"
         "n = sum(m.startswith('uhsdr_tpu_torch.') for m in sys.modules)\n"
         "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 15 else 0)\n")
+        "sys.exit(1 if bad or n < 20 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -196,7 +351,8 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="am"), dict(mode="fm"), dict(mode="iq"),
+    dict(mode="sam", sam_sideband="stereo"), dict(mode="fm"),
+    dict(mode="iq"),
     dict(mode="ssbstereo"), dict(nr_enable=True), dict(nb_enable=True),
     dict(notch_enable=True), dict(leaky_nr_enable=True),
     dict(iq_auto_correction=True), dict(bw_key="10P0KHZ"),

@@ -1,16 +1,21 @@
-"""RX signal chain, the flagship SSB slice — the torch counterpart of
-`uhsdr_tpu.chain.rx` (itself the equivalent of the firmware's
-`AudioDriver_RxProcessor`, audio_driver.c:2603-2942, plus its
+"""RX signal chain: the narrow SSB/CW, AM and synchronous-AM slices — the
+torch counterpart of `uhsdr_tpu.chain.rx` (itself the equivalent of the
+firmware's `AudioDriver_RxProcessor`, audio_driver.c:2603-2942, plus its
 decimated-domain post-processing, :2436-2592).
 
-Stage order of the narrow SSB/CW reference-table chain:
+Stage order of the reference-table chains:
 
   int16 (or f32) IQ planes, batched over channels
-    -> ADC peak taps, NCO translation, stage-A decimator, stage-B
-       Hilbert-combine FIR                  [K1: cuda.fir.front]
-    -> SSB demod (the real part, already taken by K1)
+    -> SSB/CW: ADC peak taps, NCO translation, stage-A decimator, stage-B
+       Hilbert-combine FIR, real audio out  [K1: cuda.fir.front]
+       AM/SAM: ADC peak taps, NCO translation, the per-path AM lowpass as
+       the decimator, complex IQ out        [K5: cuda.fir.fir_rt]
+    -> demod: SSB (the real part, already taken by K1); AM envelope and
+       fade leveler; SAM PLL                [K9/K10: cuda.pll] with the
+       sideband allpass chains              [K11: cuda.iir.biquad_cascade]
     -> PreFilter lattice as an exact SOS cascade (blocked matmuls)
-    -> WDSP look-ahead AGC                  [K3: cuda.agc.agc]
+    -> WDSP look-ahead AGC                  [K3: cuda.agc.agc], for AM/SAM
+       followed by its DC blocker
     -> post-AGC scale, EQ biquad1 (pruned empty at neutral settings)
     -> polyphase interpolation to the IQ rate [K4: cuda.fir.interpolate]
     -> anti-alias lattice (48 kHz paths only), treble biquad2
@@ -37,6 +42,8 @@ import torch
 
 from .. import data as refdata
 from ..cuda import fir as fir_kernels
+from ..demod import am as am_mod
+from ..demod import sam as sam_mod
 from ..demod import ssb as ssb_mod
 from ..ops import agc as agc_mod
 from ..ops import design, iir, latconv, nco
@@ -52,8 +59,9 @@ _EMPTY_SOS = np.zeros((0, 5), np.float32)
 POST_AGC_GAIN_SCALING_DECIMATE_4 = 3.46
 POST_AGC_GAIN_SCALING_DECIMATE_2 = 3.46 * 0.6
 
-_ROADMAP_MODES = ("ROADMAP.md queue A item 7 (other RX modes: am/sam/fm, "
-                  "iq/ssbstereo, wide-SSB fronts; kernels K5-K13)")
+_ROADMAP_MODES = ("ROADMAP.md queue A item 7 (other RX modes: fm, "
+                  "iq/ssbstereo/SAM stereo, wide-SSB fronts; kernels K6, K7, "
+                  "K12, K13)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,7 +79,7 @@ def resolve_device(device=None) -> torch.device:
 class RxConfig:
     """Static per-chain configuration (channels sharing a config are
     batched).  The fields keep the JAX package's names and defaults."""
-    mode: str = "usb"              # usb | lsb | cw in this slice
+    mode: str = "usb"              # usb | lsb | cw | am | sam so far
     bw_key: str = "2P3KHZ"
     path_name: str | None = None   # sub-path of the filter registry
     front: str = "ref"             # "ref": the firmware's imported tables
@@ -84,6 +92,8 @@ class RxConfig:
     nb_enable: bool = False
     notch_enable: bool = False
     leaky_nr_enable: bool = False
+    sam_sideband: str = "both"     # SAM: both | usb | lsb
+    fade_leveler: bool = True      # AM/SAM
     iq_auto_correction: bool = False
     front_prec: str = "default"    # accepted; the port computes in FP32
     iq_rate: float = IQ_RATE       # 48 kHz or a multiple (96 kHz flagship)
@@ -126,11 +136,25 @@ FLAGSHIP = RxConfig(mode="usb", bw_key="2P3KHZ", path_name="LPF",
                     translate_hz=12000.0, iq_rate=96000.0, block_len=16384)
 FLAGSHIP_CHANNELS = 8192
 
+# The AM/SAM deployment at the flagship's channel count, rate and block:
+# the 5 kHz AM/SAM path (firmware decimation 2, so 24 kHz after the
+# front), the configuration tools/bench_sam_fm.py times.  Run with
+# mode="am", or mode="sam" and sam_sideband both | usb | lsb.
+SAM_FLAGSHIP = RxConfig(mode="sam", bw_key="5P0KHZ", path_name="AM/SAM",
+                        translate_hz=12000.0, iq_rate=96000.0,
+                        block_len=16384)
+
 
 def check_slice(cfg: RxConfig):
     """Raise NotImplementedError for what this slice does not port."""
-    if cfg.mode not in ("usb", "lsb", "cw"):
+    if cfg.mode not in ("usb", "lsb", "cw", "am", "sam"):
         raise NotImplementedError(f"mode {cfg.mode!r}: {_ROADMAP_MODES}")
+    if cfg.mode == "sam" and cfg.sam_sideband == "stereo":
+        raise NotImplementedError(
+            f"SAM stereo needs the linked stereo AGC (K13): "
+            f"{_ROADMAP_MODES}")
+    if cfg.mode == "sam" and cfg.sam_sideband not in ("both", "usb", "lsb"):
+        raise ValueError(f"sam_sideband {cfg.sam_sideband!r}")
     if cfg.front != "ref":
         raise NotImplementedError(
             f"front {cfg.front!r}: the legacy redesigned front, "
@@ -154,10 +178,13 @@ class RxParams(NamedTuple):
     """Design products for one chain config, resident on one device."""
     nco_delta: int                # uint32 phase increment
     front_fir: torch.Tensor       # (taps,) f32 real stage-A decimator
-    front2: torch.Tensor          # (taps2,) complex64 stage-B Hilbert FIR
+    front2: torch.Tensor | None   # (taps2,) complex64 stage-B Hilbert FIR;
+    #                               None for AM/SAM (no second stage)
     audio_sos: iir.Cascade        # PreFilter lattice as SOS
     interp_fir: torch.Tensor      # (taps,) f32 interpolator
     agc: agc_mod.AgcParams
+    fade: am_mod.FadeLevelerParams
+    sam: sam_mod.SamParams
     iq_gain: float
     iq_phase: float
     post_scale: float             # firmware post-AGC scaling
@@ -169,9 +196,12 @@ class RxParams(NamedTuple):
 class RxState(NamedTuple):
     nco_phase: torch.Tensor       # (C,) int64 in [0, 2^32)
     front_carry: torch.Tensor     # (C, taps-1) complex64 RAW pre-mix IQ
-    front2_carry: torch.Tensor    # (C, taps2-1) complex64 stage-A output
+    front2_carry: torch.Tensor | None  # (C, taps2-1) complex64 stage-A
+    #                                    output; None without a stage B
     audio_sos_state: torch.Tensor  # (S, C, 2)
     agc: agc_mod.AgcState
+    fade: am_mod.FadeLevelerState
+    sam: sam_mod.SamState
     interp_carry: torch.Tensor    # (C, sub_len-1)
     eq1: torch.Tensor
     eq2: torch.Tensor
@@ -216,31 +246,36 @@ def _post_scale(cfg: RxConfig) -> float:
     """Firmware post-AGC scaling, exact (audio_driver.c:2517-2527)."""
     base = (POST_AGC_GAIN_SCALING_DECIMATE_4 if cfg.ref_path["decim"] == 4
             else POST_AGC_GAIN_SCALING_DECIMATE_2)
-    return base * 0.333
+    return base * (0.5 if cfg.mode in ("am", "sam") else 0.333)
 
 
 def _on_device(device, *, nco_delta, front_fir_re, front_fir_im, front2_re,
-               front2_im, audio_sos, interp_fir, agc, iq_gain, iq_phase,
-               post_scale, eq1_sos, eq2_sos, aa_sos) -> RxParams:
+               front2_im, audio_sos, interp_fir, agc, fade, sam, iq_gain,
+               iq_phase, post_scale, eq1_sos, eq2_sos, aa_sos) -> RxParams:
     """NumPy design products (the JAX package's RxParams fields) ->
     the port's RxParams on `device`."""
-    if front2_re is None or np.any(np.asarray(front_fir_im)):
-        raise NotImplementedError(
-            f"complex-tap or single-stage front: {_ROADMAP_MODES}")
+    if np.any(np.asarray(front_fir_im)):
+        raise NotImplementedError(f"complex-tap front: {_ROADMAP_MODES}")
     dev = torch.device(device)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    front2 = (np.asarray(front2_re, np.float32)
-              + 1j * np.asarray(front2_im, np.float32)).astype(np.complex64)
+    front2 = None
+    if front2_re is not None:
+        front2 = torch.as_tensor(
+            (np.asarray(front2_re, np.float32)
+             + 1j * np.asarray(front2_im, np.float32)).astype(np.complex64),
+            device=dev)
     return RxParams(
         nco_delta=int(nco_delta) & nco.MASK32,
         front_fir=f32(front_fir_re),
-        front2=torch.as_tensor(front2, device=dev),
+        front2=front2,
         audio_sos=iir.cascade(audio_sos, dev),
         interp_fir=f32(interp_fir),
         agc=agc_mod.AgcParams(**agc._asdict()),
+        fade=am_mod.FadeLevelerParams(float(fade.mtauR), float(fade.mtauI)),
+        sam=sam_mod.params_from_numpy(sam, dev),
         iq_gain=float(iq_gain),
         iq_phase=float(iq_phase),
         post_scale=float(post_scale),
@@ -250,20 +285,28 @@ def _on_device(device, *, nco_delta, front_fir_re, front_fir_im, front2_re,
 
 
 def make_params(cfg: RxConfig, device=None) -> RxParams:
-    """The narrow SSB/CW reference-table front and post products
-    (chain/rx.py:336-464 of the reference): stage A is the firmware's
-    real decimator lifted to the capture rate, stage B its Hilbert pair
-    fused into one complex FIR g = h_i ∓ j·h_q whose real response is
-    I±Q, the PreFilter and anti-alias lattices run as exact SOS, and the
-    interpolator uses the firmware's taps."""
+    """The reference-table front and post products (chain/rx.py:336-464
+    of the reference).  Narrow SSB/CW: stage A is the firmware's real
+    decimator lifted to the capture rate, stage B its Hilbert pair fused
+    into one complex FIR g = h_i ∓ j·h_q whose real response is I±Q.
+    AM/SAM: the per-path AM lowpass is the decimator, on both planes,
+    and there is no stage B.  The PreFilter and anti-alias lattices run
+    as exact SOS, and the interpolator uses the firmware's taps."""
     check_slice(cfg)
     dev = resolve_device(device)
     rp = cfg.ref_path
     k = cfg.rate_mult
-    sgn = 1.0 if cfg.mode == "lsb" else -1.0      # g = h_i ∓ j·h_q
-    front = _rate_adapt_front(refdata.decimator(rp["dec"]), k, cfg.iq_rate)
-    front2 = (refdata.fir(rp["fir_i"], rp["fir_numtaps"])
-              + 1j * sgn * refdata.fir(rp["fir_q"], rp["fir_numtaps"]))
+    am_sam = cfg.mode in ("am", "sam")
+    if am_sam:
+        front = refdata.fir(rp["fir_i"], rp["fir_numtaps"])
+        front2_re = front2_im = None
+    else:
+        sgn = 1.0 if cfg.mode == "lsb" else -1.0      # g = h_i ∓ j·h_q
+        front = refdata.decimator(rp["dec"])
+        front2 = (refdata.fir(rp["fir_i"], rp["fir_numtaps"])
+                  + 1j * sgn * refdata.fir(rp["fir_q"], rp["fir_numtaps"]))
+        front2_re, front2_im = front2.real, front2.imag
+    front = _rate_adapt_front(front, k, cfg.iq_rate)
     interp_fir = np.zeros(1, np.float64)
     if rp["interpolate"] is not None:
         h_int, _ = refdata.interpolator(rp["interpolate"], rp["decim"])
@@ -277,17 +320,21 @@ def make_params(cfg: RxConfig, device=None) -> RxParams:
         if k != 1:
             raise ValueError(
                 f"post anti-alias lattice is 48k-rate only (iq_rate="
-                f"{cfg.iq_rate}, antialias={rp['antialias']!r})")
+                f"{cfg.iq_rate}, mode={cfg.mode!r}, "
+                f"antialias={rp['antialias']!r})")
         aa_sos = _lattice_sos5(rp["antialias"])
     return _on_device(
         dev,
         nco_delta=nco.freq_to_delta(-cfg.translate_hz, cfg.iq_rate),
         front_fir_re=front, front_fir_im=np.zeros_like(front),
-        front2_re=front2.real, front2_im=front2.imag,
+        front2_re=front2_re, front2_im=front2_im,
         audio_sos=_lattice_sos5(rp["pre"]),
         interp_fir=interp_fir,
         agc=agc_mod.make_params(cfg.fs_dec, mode=cfg.agc_mode,
-                                thresh_db=cfg.agc_thresh_db),
+                                thresh_db=cfg.agc_thresh_db,
+                                remove_dc=am_sam),
+        fade=am_mod.fade_leveler_params(cfg.fs_dec),
+        sam=sam_mod.make_params(cfg.fs_dec),
         iq_gain=1.0, iq_phase=0.0,
         post_scale=_post_scale(cfg),
         eq1_sos=eq_mod.rx_biquad1_sos(cfg.eq, cfg.fs_dec),
@@ -303,7 +350,8 @@ def params_from_numpy(p: Any, device=None) -> RxParams:
         front_fir_re=p.front_fir_re, front_fir_im=p.front_fir_im,
         front2_re=p.front2_re, front2_im=p.front2_im,
         audio_sos=p.audio_sos, interp_fir=p.interp_fir, agc=p.agc,
-        iq_gain=p.iq_gain, iq_phase=p.iq_phase, post_scale=p.post_scale,
+        fade=p.fade, sam=p.sam, iq_gain=p.iq_gain, iq_phase=p.iq_phase,
+        post_scale=p.post_scale,
         eq1_sos=p.eq1_sos, eq2_sos=p.eq2_sos, aa_sos=p.aa_sos)
 
 
@@ -319,49 +367,74 @@ def init_state(cfg: RxConfig, params: RxParams, batch_shape) -> RxState:
         nco_phase=zeros(bs, torch.int64),
         front_carry=fir_ops.init_carry(bs, params.front_fir.shape[-1],
                                        device=dev),
-        front2_carry=fir_ops.init_carry(bs, params.front2.shape[-1],
-                                        device=dev),
+        front2_carry=(None if params.front2 is None else fir_ops.init_carry(
+            bs, params.front2.shape[-1], device=dev)),
         audio_sos_state=zeros((params.audio_sos.sections,) + bs + (2,)),
         agc=agc_mod.init_state(bs, params.agc, device=dev),
+        fade=am_mod.fade_leveler_init(bs, device=dev),
+        sam=sam_mod.init_state(bs, device=dev),
         interp_carry=zeros(bs + (sub_len - 1,)),
         eq1=zeros((params.eq1_sos.sections,) + bs + (2,)),
         eq2=zeros((params.eq2_sos.sections,) + bs + (2,)),
         aa=zeros((params.aa_sos.sections,) + bs + (2,)))
 
 
-def state_from_numpy(s: Any, device=None) -> RxState:
-    """The JAX package's RxState (leaves given as NumPy arrays, e.g. via
-    ``np.asarray``) -> the port's RxState: a stream can move from one
-    chain to the other mid-sequence.  Fields the slice does not carry
-    (fade, sam, nr, ...) are dropped."""
-    dev = resolve_device(device)
+def _map_state(state, fn):
+    """A copy of an RxState (the port's or the reference's) with `fn`
+    applied to every array leaf, nested states rebuilt as the port's
+    types; leaves that are None stay None."""
+    def leaf(v):
+        return None if v is None else fn(v)
 
-    def t(a, dtype=None):
-        a = np.array(a)                     # a writable copy
-        if a.dtype == np.uint32:
-            a = a.astype(np.int64)
-        return torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
-
-    agc = agc_mod.AgcState(**{f: t(getattr(s.agc, f), torch.float32)
+    fade = am_mod.FadeLevelerState(leaf(state.fade.dc),
+                                   leaf(state.fade.dc_insert))
+    sam = sam_mod.SamState(
+        **{f: leaf(getattr(state.sam, f))
+           for f in sam_mod.SamState._fields if f != "fade"},
+        fade=am_mod.FadeLevelerState(leaf(state.sam.fade.dc),
+                                     leaf(state.sam.fade.dc_insert)))
+    agc = agc_mod.AgcState(**{f: leaf(getattr(state.agc, f))
                               for f in agc_mod.AgcState._fields})
-    return RxState(**{f: (agc if f == "agc" else t(getattr(s, f)))
+    nested = dict(agc=agc, fade=fade, sam=sam)
+    return RxState(**{f: nested[f] if f in nested
+                      else leaf(getattr(state, f))
                       for f in RxState._fields})
 
 
+def state_from_numpy(s: Any, device=None) -> RxState:
+    """The JAX package's RxState (leaves given as NumPy arrays, e.g. via
+    ``np.asarray``) -> the port's RxState: a stream can move from one
+    chain to the other mid-sequence.  Fields the slices do not carry
+    (fm, nr, notch, ...) are dropped."""
+    dev = resolve_device(device)
+
+    def t(a):
+        a = np.array(a)                     # a writable copy
+        if a.dtype == np.uint32:
+            a = a.astype(np.int64)
+        return torch.as_tensor(a, device=dev).contiguous()
+
+    return _map_state(s, t)
+
+
 def state_to_numpy(state: RxState) -> dict:
-    """The port's RxState -> {field: NumPy array}, with the AGC fields
-    under ``agc.<name>`` and the NCO phase as uint32 (the JAX package's
-    dtype), for comparison with the reference's state."""
+    """The port's RxState -> {field: NumPy array}, nested fields under
+    dotted names (``agc.volts``, ``sam.fade.dc``) and the NCO phase as
+    uint32 (the JAX package's dtype), for comparison with the
+    reference's state.  A leaf that is None (no stage B) is left out."""
     out = {}
-    for f in RxState._fields:
-        v = getattr(state, f)
-        if f == "agc":
-            for g in agc_mod.AgcState._fields:
-                out[f"agc.{g}"] = getattr(v, g).cpu().numpy()
-        elif f == "nco_phase":
-            out[f] = v.cpu().numpy().astype(np.uint32)
-        else:
-            out[f] = v.cpu().numpy()
+
+    def walk(prefix, v):
+        if v is None:
+            return
+        if isinstance(v, torch.Tensor):
+            a = v.cpu().numpy()
+            out[prefix] = a.astype(np.uint32) if prefix == "nco_phase" else a
+            return
+        for f in v._fields:
+            walk(f"{prefix}.{f}" if prefix else f, getattr(v, f))
+
+    walk("", state)
     return out
 
 
@@ -375,9 +448,10 @@ def _planes(iq):
 
 
 def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq):
-    """IQ correction, ADC peak taps, NCO translation and both front FIR
-    stages, fused in the K1 kernel.  Returns (audio at fs_dec, new_state,
-    taps)."""
+    """IQ correction, ADC peak taps, NCO translation and the front FIR.
+    Narrow SSB/CW: both stages fused in the K1 kernel, real audio at
+    fs_dec out.  AM/SAM: the one real-tap decimating stage in the K5
+    kernel, complex decimated IQ out.  Returns (zf, new_state, taps)."""
     xi, xq = _planes(iq)
     if not (params.iq_gain == 1.0 and params.iq_phase == 0.0):
         # non-identity calibration (audio_driver.c:2254-2316); identity
@@ -386,26 +460,37 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq):
         a, b = fir_kernels.scale_planes(xi, xq)
         xi = a * params.iq_gain
         xq = b + xi * params.iq_phase
-    audio, front_carry, front2_carry, peak = fir_kernels.front(
-        params.front_fir, params.front2, state.front_carry,
-        state.front2_carry, xi.contiguous(), xq.contiguous(),
-        state.nco_phase, params.nco_delta, cfg.decim)
+    xi, xq = xi.contiguous(), xq.contiguous()
+    nco_phase = state.nco_phase
+    if params.front2 is not None:
+        zf, front_carry, front2_carry, peak = fir_kernels.front(
+            params.front_fir, params.front2, state.front_carry,
+            state.front2_carry, xi, xq, nco_phase, params.nco_delta,
+            cfg.decim)
+        translating = True
+    else:
+        front2_carry = None
+        translating = cfg.translate_hz != 0.0
+        zf, front_carry, peak = fir_kernels.fir_rt(
+            params.front_fir, state.front_carry, xi, xq, cfg.decim,
+            nco=(nco_phase, params.nco_delta) if translating else None)
+    if translating:
+        nco_phase = nco.advance(nco_phase, params.nco_delta, xi.shape[-1])
     # ADC clip / signal-level detect (audio_driver.c:2660-2685)
     taps_out = {"adc_peak": peak, "adc_clip": peak > 0.985,
                 "adc_half_clip": peak > 0.5, "adc_quarter_clip": peak > 0.25}
-    state = state._replace(
-        nco_phase=nco.advance(state.nco_phase, params.nco_delta,
-                              xi.shape[-1]),
-        front_carry=front_carry, front2_carry=front2_carry)
-    return audio, state, taps_out
+    state = state._replace(nco_phase=nco_phase, front_carry=front_carry,
+                           front2_carry=front2_carry)
+    return zf, state, taps_out
 
 
 def stage_b(cfg: RxConfig, params: RxParams, state: RxState, zf):
     """Stage B, the Hilbert-combine FIR at fs_dec with real output.  The
     K1 kernel fuses it (and updates front2_carry), so real audio passes
-    through.  An unfused stage B on complex decimated IQ comes with the
-    wide-SSB fronts."""
-    if zf.is_complex():
+    through; AM/SAM have no second stage and their complex decimated IQ
+    passes through too.  An unfused stage B on complex decimated IQ comes
+    with the wide-SSB fronts."""
+    if params.front2 is not None and zf.is_complex():
         raise NotImplementedError(
             f"unfused stage B on complex decimated IQ: {_ROADMAP_MODES}")
     return zf, state
@@ -413,13 +498,24 @@ def stage_b(cfg: RxConfig, params: RxParams, state: RxState, zf):
 
 def _demod_sos_pre_agc(cfg: RxConfig, params: RxParams, state: RxState,
                        zf, taps_out: dict):
-    """SSB demod + the PreFilter cascade (the usb/lsb/cw branch of the
-    reference's `_demod_sos_pre_agc`)."""
+    """Demodulation + the PreFilter cascade (the usb/lsb/cw, am and sam
+    branches of the reference's `_demod_sos_pre_agc`)."""
     check_slice(cfg)
-    audio = ssb_mod.demod(zf)
+    fade_state, sam_state = state.fade, state.sam
+    if cfg.mode == "am":
+        audio, fade_state = am_mod.demod(zf, params.fade, state.fade,
+                                         cfg.fade_leveler)
+    elif cfg.mode == "sam":
+        audio, _, sam_state = sam_mod.demod(
+            params.sam, state.sam, zf, sideband=cfg.sam_sideband,
+            fade_leveler_on=cfg.fade_leveler)
+    else:
+        audio = ssb_mod.demod(zf)
     audio, sos_state = iir.biquad_cascade_dispatch(
         params.audio_sos, state.audio_sos_state, audio)
-    return audio, state._replace(audio_sos_state=sos_state), taps_out
+    state = state._replace(audio_sos_state=sos_state, fade=fade_state,
+                           sam=sam_state)
+    return audio, state, taps_out
 
 
 def demod_pre_agc(cfg: RxConfig, params: RxParams, state: RxState, zf,

@@ -49,14 +49,17 @@ class CudaKernel:
 
     ``launches`` is incremented by the wrapper each time it launches the
     kernel, and nowhere else, so a run can show the kernel was used.
-    ``signatures`` maps each exported C function to (argtypes, restype)."""
+    ``signatures`` maps each exported C function to (argtypes, restype).
+    A second kernel of one source names the first as ``lib_of`` and uses
+    its library, so the source is compiled once."""
 
-    def __init__(self, name: str, source: str, signatures: dict,
-                 extra_flags: tuple = ()):
+    def __init__(self, name: str, source: str, signatures: dict | None = None,
+                 extra_flags: tuple = (), lib_of: "CudaKernel | None" = None):
         self.name = name
         self.source = KERNEL_DIR / source
-        self.signatures = signatures
+        self.signatures = signatures or {}
         self.flags = BASE_FLAGS + ARCH_FLAGS + tuple(extra_flags)
+        self.lib_of = lib_of
         self.launches = 0
         self.build_log = ""
         self._lib = None
@@ -72,7 +75,7 @@ class CudaKernel:
         """Start nvcc for this source unless the library exists; returns
         the process (or None)."""
         out = self._lib_path()
-        if out.exists():
+        if self.lib_of is not None or out.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -93,6 +96,8 @@ class CudaKernel:
 
     def lib(self):
         """The loaded library, building it first if needed."""
+        if self.lib_of is not None:
+            return self.lib_of.lib()
         with self._lock:
             if self._lib is None:
                 self.finish_build(self.start_build())
@@ -118,7 +123,7 @@ def build_all():
     """Build every registered kernel, one nvcc per source in parallel.
     Returns {name: nvcc log} (the -Xptxas -v register/smem report)."""
     # importing the wrapper modules registers their kernels
-    from . import agc, fir  # noqa: F401
+    from . import agc, fir, iir, pll  # noqa: F401
     procs = [(k, k.start_build()) for k in _ALL]
     errors = []
     for k, p in procs:
@@ -134,7 +139,7 @@ def build_all():
 
 
 def kernels() -> list[CudaKernel]:
-    from . import agc, fir  # noqa: F401
+    from . import agc, fir, iir, pll  # noqa: F401
     return list(_ALL)
 
 

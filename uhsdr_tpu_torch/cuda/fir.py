@@ -1,6 +1,7 @@
-"""K1 (the fused RX front) and K4 (the polyphase interpolator): wrappers
-around the hand-written kernels `kernels/front.cu` and `kernels/interp.cu`,
-each beside its plain torch version.
+"""K1 (the fused RX front), K5 (the real-tap decimating front) and K4
+(the polyphase interpolator): wrappers around the hand-written kernels
+`kernels/front.cu`, `kernels/fir_rt.cu` and `kernels/interp.cu`, each
+beside its plain torch version.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
@@ -8,9 +9,9 @@ kernel on the current stream (building it on first use), raises if the
 launch failed, and adds one to the kernel's ``launches`` count.  There is
 no fallback.
 
-K1 replaces uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2 (:179); K4
-replaces uhsdr_tpu/pallas/fir.py::_interp_kernel (:1003).  What bounds
-each on the card is noted in its source.
+K1 replaces uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2 (:179); K5
+replaces ::_fir_kernel_rt_s (:82); K4 replaces ::_interp_kernel (:1003).
+What bounds each on the card is noted in its source.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import ctypes
 import torch
 
 from ..ops import fir as fir_ops
-from ..ops import nco
+from ..ops import nco as nco_ops
 from .build import CudaKernel, stream_ptr
 
 _P = ctypes.c_void_p
@@ -33,6 +34,14 @@ FRONT = CudaKernel("front", "front.cu", {
     "uhsdr_front_tile": ([], _I),
     "uhsdr_front_ring_rows": ([], _I),
     "uhsdr_front_ring2": ([], _I),
+})
+
+FIR_RT = CudaKernel("fir_rt", "fir_rt.cu", {
+    "uhsdr_fir_rt_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
+                             ctypes.c_uint32, _P, _I, _I, _I, _P, _P, _P, _P,
+                             _P], _I),
+    "uhsdr_fir_rt_tile": ([], _I),
+    "uhsdr_fir_rt_ring_rows": ([], _I),
 })
 
 INTERP = CudaKernel("interp", "interp.cu", {
@@ -55,24 +64,112 @@ def scale_planes(xi: torch.Tensor, xq: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# K5: the real-tap decimating front
+# ---------------------------------------------------------------------------
+
+def fir_rt_plain(h, carry, xi, xq, decim: int, nco=None,
+                 real_out: bool = False, planes_out: bool = False):
+    """Plain torch version of K5: scale, peaks, NCO rotation of the block
+    and of the raw history (when `nco` is given), the real-tap FIR h on
+    both planes, decimation.  Returns (y (C, B//decim), new raw carry,
+    peaks (C,)) with y as `fir_rt` describes."""
+    a, b = scale_planes(xi, xq)
+    peaks = torch.maximum(a.abs().amax(-1), b.abs().amax(-1))
+    z = torch.complex(a, b)
+    zr, cr = z, carry
+    if nco is not None:
+        phase, delta = nco
+        n_hist = carry.shape[-1]
+        zr = z * nco_ops.rotor(nco_ops.phase_ramp(phase, delta, z.shape[-1]))
+        cr = carry * nco_ops.rotor(nco_ops.phase_ramp(phase, delta, n_hist,
+                                                      start=-n_hist))
+    y, _ = fir_ops.fir_decimate_block(h, cr, zr, decim)
+    new_carry = torch.cat([carry, z], dim=-1)[..., z.shape[-1]:]
+    if real_out:
+        y = y.real.contiguous()
+    elif planes_out:
+        y = (y.real.contiguous(), y.imag.contiguous())
+    return y, new_carry, peaks
+
+
+def fir_rt(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
+           planes_out: bool = False):
+    """The real-tap decimating front (K5).  h: (taps,) f32 real taps;
+    carry: (C, taps-1) complex64 RAW pre-mix history; xi, xq: (C, B) int16
+    or f32 planes; nco: None, or (phase (C,) int64 in [0, 2^32), the
+    uint32 phase increment) to rotate the input before the filter.
+    Returns (y, new_carry, peaks): y is the decimated complex64 (C,
+    B//decim) signal, or its (real, imag) f32 planes with `planes_out`,
+    or its real plane alone with `real_out`."""
+    if xi.device.type == "cpu":
+        return fir_rt_plain(h, carry, xi, xq, decim, nco, real_out,
+                            planes_out)
+    dev = xi.device
+    _need(xi.ndim == 2, "fir_rt: xi/xq must be (C, B)")
+    C, B = xi.shape
+    taps = h.shape[-1]
+    _need(xi.dtype in (torch.int16, torch.float32) and xq.dtype == xi.dtype
+          and xq.shape == xi.shape, "fir_rt: xi/xq must be int16 or f32 "
+          "planes of one shape")
+    _need(1 <= decim <= 8 and B % decim == 0,
+          f"fir_rt: decimation {decim} outside 1..8, or block {B} not a "
+          f"multiple of it")
+    _need(h.dtype == torch.float32 and h.ndim == 1 and taps >= 2,
+          "fir_rt: h must be (taps,) f32")
+    _need(carry.shape == (C, taps - 1) and carry.dtype == torch.complex64,
+          "fir_rt: carry must be (C, taps-1) complex64")
+    ts = [h, carry, xi, xq]
+    phase, delta = (None, 0) if nco is None else nco
+    if phase is not None:
+        _need(phase.shape == (C,) and phase.dtype == torch.int64,
+              "fir_rt: phase must be (C,) int64")
+        ts.append(phase)
+    _need(all(t.device == dev for t in ts), "fir_rt: tensors on one device")
+    _need(all(t.is_contiguous() for t in ts), "fir_rt: contiguous tensors")
+    lib = FIR_RT.lib()
+    _need(lib.uhsdr_fir_rt_tile() + -(-(taps - 1) // decim)
+          <= lib.uhsdr_fir_rt_ring_rows(),
+          f"fir_rt: {taps} taps at decim {decim} exceed the input ring")
+    T_out = B // decim
+    f32 = dict(dtype=torch.float32, device=dev)
+    if real_out or planes_out:
+        out_kind = 2 if real_out else 0
+        out_a = torch.empty((C, T_out), **f32)
+        out_b = None if real_out else torch.empty((C, T_out), **f32)
+        y = out_a if real_out else (out_a, out_b)
+    else:
+        out_kind, out_b = 1, None
+        y = torch.empty((C, T_out), dtype=torch.complex64, device=dev)
+        out_a = y
+    new_carry = torch.empty_like(carry)
+    peaks = torch.empty((C,), **f32)
+    in_kind = 0 if xi.dtype == torch.int16 else 1
+    err = lib.uhsdr_fir_rt_launch(
+        in_kind, xi.data_ptr(), xq.data_ptr(),
+        INT16_SCALE if in_kind == 0 else 1.0, C, B, carry.data_ptr(),
+        0 if phase is None else 1,
+        None if phase is None else phase.data_ptr(),
+        int(delta) & nco_ops.MASK32, h.data_ptr(), taps, decim, out_kind,
+        out_a.data_ptr(), None if out_b is None else out_b.data_ptr(),
+        new_carry.data_ptr(), peaks.data_ptr(), stream_ptr(dev))
+    FIR_RT.check(err)
+    FIR_RT.launches += 1
+    return y, new_carry, peaks
+
+
+# ---------------------------------------------------------------------------
 # K1: the fused front
 # ---------------------------------------------------------------------------
 
 def front_plain(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
-    """Plain torch version of the K1 front: scale, peaks, NCO rotation of
-    the block and of the raw history, stage A (real taps h, decimate),
-    stage B (complex taps g, real output).  Returns
-    (audio (C, B//decim), new raw carry, new stage-B carry, peaks (C,))."""
-    a, b = scale_planes(xi, xq)
-    peaks = torch.maximum(a.abs().amax(-1), b.abs().amax(-1))
-    n_hist = carry.shape[-1]
-    z = torch.complex(a, b)
-    zr = z * nco.rotor(nco.phase_ramp(phase, delta, z.shape[-1]))
-    cr = carry * nco.rotor(nco.phase_ramp(phase, delta, n_hist,
-                                          start=-n_hist))
-    za, _ = fir_ops.fir_decimate_block(h, cr, zr, decim)
+    """Plain torch version of the K1 front: stage A as `fir_rt_plain`
+    (scale, peaks, NCO rotation of the block and of the raw history, real
+    taps h, decimate), then stage B (complex taps g, real output).
+    Returns (audio (C, B//decim), new raw carry, new stage-B carry,
+    peaks (C,))."""
+    za, new_carry, peaks = fir_rt_plain(h, carry, xi, xq, decim,
+                                        nco=(phase, delta))
     y, new_carry2 = fir_ops.fir_block(g, carry2, za)
-    new_carry = torch.cat([carry, z], dim=-1)[..., z.shape[-1]:]
     return y.real.contiguous(), new_carry, new_carry2, peaks
 
 
@@ -122,7 +219,7 @@ def front(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
     err = lib.uhsdr_front_launch(
         in_kind, xi.data_ptr(), xq.data_ptr(), scale, C, B,
         carry.data_ptr(), carry2.data_ptr(), phase.data_ptr(),
-        int(delta) & nco.MASK32, h.data_ptr(), taps, decim,
+        int(delta) & nco_ops.MASK32, h.data_ptr(), taps, decim,
         g_re.data_ptr(), g_im.data_ptr(), taps2, out.data_ptr(),
         new_carry.data_ptr(), new_carry2.data_ptr(), peaks.data_ptr(),
         stream_ptr(dev))
@@ -151,8 +248,8 @@ def interpolate(h, carry, x, interp: int):
     C, B = x.shape
     taps = h.shape[-1]
     sub_len = -(-taps // interp)
-    _need(interp % 4 == 0, "interpolate: the kernel writes 4 outputs per "
-          "thread, so interp must be a multiple of 4")
+    _need(interp >= 1 and B >= 1, "interpolate: interp >= 1 and a "
+          "non-empty block")
     _need(x.dtype == torch.float32 and h.dtype == torch.float32
           and carry.dtype == torch.float32, "interpolate: f32 tensors")
     _need(carry.shape == (C, sub_len - 1),

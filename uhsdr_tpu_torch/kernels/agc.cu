@@ -21,6 +21,10 @@
 // time tiles; all 256 threads stage each (channel x time) tile through
 // shared memory so global loads and stores stay coalesced, compute the
 // look-ahead max in parallel, and apply the gain law after the walk.
+// The window is a run-time argument (w = 48 at 12 kHz, 96 at 24 kHz, 192
+// at 48 kHz, up to MAXW = 256 as the TPU kernel); the two tiles are sized
+// for MAXW and take 65.8 KB, above the 48 KB a kernel gets without opting
+// in, so they live in dynamic shared memory.
 // Compiled with -fmad=false: the masks compare floats (rm >= volts,
 // hba > hang_level), so the arithmetic keeps the reference's separate
 // f32 multiplies and adds.
@@ -30,10 +34,11 @@ namespace {
 
 constexpr int CB = 32;          // channels per block
 constexpr int TA = 128;         // time tile
-constexpr int MAXW = 64;        // largest look-ahead window
+constexpr int MAXW = 256;       // largest look-ahead window
 constexpr int THREADS = 256;
-constexpr int SX = TA + MAXW + 1;   // odd row strides: conflict-free walk
+constexpr int SX = (TA + MAXW) | 1;   // odd row strides: conflict-free walk
 constexpr int SR = TA + 1;
+constexpr int SMEM_BYTES = CB * (SX + SR) * (int)sizeof(float);
 
 struct Params {
   float attack, fast_d, long_d, hang_d, fast_bm, hang_bm, pop_ratio,
@@ -46,8 +51,10 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
     const float* __restrict__ carry, int C, int T, int w, Params p,
     float* __restrict__ y, float* __restrict__ carry_out,
     float* __restrict__ delay_out) {
-  __shared__ float slab[CB][SX];   // slab[c][j] = xfull[t0 + j]
-  __shared__ float rmv[CB][SR];    // look-ahead max, then volts
+  extern __shared__ float smem[];
+  // slab[c][j] = xfull[t0 + j]; rmv[c][j] = look-ahead max, then volts
+  float (*slab)[SX] = reinterpret_cast<float (*)[SX]>(smem);
+  float (*rmv)[SR] = reinterpret_cast<float (*)[SR]>(smem + CB * SX);
   const int c0 = blockIdx.x * CB;
   const int tid = threadIdx.x;
   const int nc = min(CB, C - c0);
@@ -92,9 +99,17 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
     }
     __syncthreads();
     if (walker) {
+      // Each step's inputs are read one step ahead: both tiles lie in one
+      // shared array, so the compiler cannot itself move the next loads
+      // above this step's store of volts, and the walk would wait on
+      // them.  (The read at j + 1 = TA lands on the rows' pad column.)
+      float rm_next = rmv[tid][0];
+      float ax_next = fabsf(slab[tid][0]);
       for (int j = 0; j < cnt; ++j) {
-        const float rm = rmv[tid][j];
-        const float ax = fabsf(slab[tid][j]);
+        const float rm = rm_next;
+        const float ax = ax_next;
+        rm_next = rmv[tid][j + 1];
+        ax_next = fabsf(slab[tid][j + 1]);
         fba = a_f * fba + p.fast_bm * ax;
         hba = a_h * hba + p.hang_bm * ax;
         hang = fmaxf(hang - one, 0.f);
@@ -158,11 +173,17 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
     }
     __syncthreads();
     if (t0 + TA < T) {   // next tile: its head is this tile's last w
-      for (int i = tid; i < CB * w; i += THREADS) {
-        const int c = i / w, j = i % w;
-        slab[c][j] = slab[c][TA + j];
+      // slab[TA + j] moves to slab[j] in runs of TA columns, lowest first
+      // with a barrier between: a run's targets are the run before's
+      // sources when w > TA
+      for (int j0 = 0; j0 < w; j0 += TA) {
+        const int nj = min(TA, w - j0);
+        for (int i = tid; i < CB * nj; i += THREADS) {
+          const int c = i / nj, j = j0 + i % nj;
+          slab[c][j] = slab[c][TA + j];
+        }
+        __syncthreads();
       }
-      __syncthreads();
     }
   }
 
@@ -201,8 +222,11 @@ int uhsdr_agc_launch(const void* x, const void* delay, const void* carry,
   Params p{attack, fast_d, long_d, hang_d, fast_bm, hang_bm, pop_ratio,
            hang_level, hang_time, hang_en, min_volts, out_target, slope,
            inv_max_input};
-  const int blocks = (C + CB - 1) / CB;
-  agc_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  cudaError_t e = cudaFuncSetAttribute(
+      agc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  agc_kernel<<<(C + CB - 1) / CB, THREADS, SMEM_BYTES,
+               (cudaStream_t)stream>>>(
       (const float*)x, (const float*)delay, (const float*)carry, C, T, w, p,
       (float*)y, (float*)carry_out, (float*)delay_out);
   return (int)cudaGetLastError();

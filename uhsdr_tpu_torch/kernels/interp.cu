@@ -13,7 +13,9 @@
 // left halo from x or the carry, so no block order is needed); a block
 // stages CHUNK low-rate samples of one channel in shared memory and its
 // threads each write 4 consecutive outputs as one 16-byte store, so
-// neighbouring threads write neighbouring addresses.
+// neighbouring threads write neighbouring addresses.  Where interp is no
+// multiple of 4 (the x2 of the 48 kHz decimation-2 paths) four outputs
+// would straddle low-rate samples, and each thread writes one output.
 #include <cuda_runtime.h>
 
 namespace {
@@ -43,7 +45,17 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(
   __syncthreads();
 
   float* yrow = y + ((size_t)c * B + m0) * interp;
-  const int n4 = cnt * interp / 4;
+  if (interp % 4 != 0) {
+    for (int o = tid; o < cnt * interp; o += THREADS) {
+      const int m = o / interp;
+      const int p = o - m * interp;
+      float acc = 0.f;
+      for (int k = 0; k < sub_len; ++k)
+        acc = fmaf(hp[k * interp + p], xs[nh + m - k], acc);
+      yrow[o] = acc;
+    }
+  }
+  const int n4 = interp % 4 == 0 ? cnt * interp / 4 : 0;
   for (int o4 = tid; o4 < n4; o4 += THREADS) {
     const int o = o4 * 4;
     const int m = o / interp;
@@ -74,7 +86,7 @@ __global__ void __launch_bounds__(THREADS) interp_kernel(
 
 extern "C" {
 
-// Requires interp % 4 == 0.  Returns a cudaError_t.
+// Requires interp >= 1.  Returns a cudaError_t.
 int uhsdr_interp_launch(const void* x, const void* carry, int C, int B,
                         const void* h, int taps, int interp, void* y,
                         void* carry_out, void* stream) {

@@ -3,7 +3,7 @@
 Reference: `AudioAgc_RunAgcWdsp` (`audio_agc.c:349-595`) and its setup
 (`audio_agc.c:126-347`), as `uhsdr_tpu.ops.agc` models it:
 
-* a delay line of ``attack_buffsize`` samples (48 at 12 kHz);
+* a delay line of ``attack_buffsize`` samples (48 at 12 kHz, 96 at 24);
 * ``ring_max`` = max |x| over the samples ahead of the delayed output;
 * two one-pole back-averages of the delayed |x| (fast + hang);
 * the 5-state machine (0 attack / 1 fast decay / 2 hang-active /
@@ -13,8 +13,10 @@ Reference: `AudioAgc_RunAgcWdsp` (`audio_agc.c:349-595`) and its setup
 
 `make_params` is a NumPy copy of the reference's.  `run` hands the whole
 stage to the K3 kernel wrapper (`uhsdr_tpu_torch.cuda.agc`), which runs
-the plain torch version for CPU tensors.  The reference's pad to 1024
-channels (ops/agc.py:452-466) is a TPU tiling rule and is not ported.
+the plain torch version for CPU tensors; with ``remove_dc`` (AM/SAM) the
+DC blocker `ops.iir.dc_blocker_block` follows the gain.  The reference's
+pad to 1024 channels (ops/agc.py:452-466) is a TPU tiling rule and is not
+ported.
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ import numpy as np
 import torch
 
 from ..cuda import agc as agc_kernel
+from . import iir
 
 ADC_CLIP_WARN_THRESHOLD = 4096.0   # reference max_input/out_targ
+DC_BLOCKER_R = 0.9999              # audio_agc.c:577-594
 
 
 class AgcParams(NamedTuple):
@@ -191,9 +195,6 @@ def run(params: AgcParams, state: AgcState, x: torch.Tensor):
     """x: (C, T) audio at the decimated rate.  Returns (y, new_state)."""
     if params.agc_off:
         return x * float(params.fixed_gain), state
-    if params.remove_dc:
-        raise NotImplementedError(
-            "AGC DC blocker (AM/SAM): ROADMAP queue A item 7")
     if x.ndim != 2:
         raise NotImplementedError(
             "AGC over a (C, T) batch only; two-channel audio needs the "
@@ -201,7 +202,10 @@ def run(params: AgcParams, state: AgcState, x: torch.Tensor):
     carry = torch.stack([getattr(state, f) for f in CARRY_FIELDS], dim=0)
     y, carry_out, new_delay = agc_kernel.agc(
         kernel_params(params), carry, state.delay, x)
+    dc_state = state.dc
+    if params.remove_dc:        # AM/SAM: after the gain (ops/agc.py:487-490)
+        y, dc_state = iir.dc_blocker_block(DC_BLOCKER_R, dc_state, y)
     new_state = state._replace(
-        delay=new_delay, **{f: carry_out[i]
-                            for i, f in enumerate(CARRY_FIELDS)})
+        delay=new_delay, dc=dc_state,
+        **{f: carry_out[i] for i, f in enumerate(CARRY_FIELDS)})
     return y, new_state

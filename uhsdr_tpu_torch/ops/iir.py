@@ -1,7 +1,7 @@
-"""Biquad cascades (the PreFilter lattice as SOS, the EQ shelves) in
-plain torch.
+"""Biquad cascades (the PreFilter lattice as SOS, the EQ shelves) and the
+first-order smoothers (fade leveler, AGC DC blocker) in plain torch.
 
-Two forms of `uhsdr_tpu.ops.iir`:
+Two cascade forms of `uhsdr_tpu.ops.iir`:
 
 * `biquad_cascade_block`: the DF2T recurrence sample by sample — the
   sequential definition, for blocks the blocked form cannot chunk;
@@ -11,10 +11,15 @@ Two forms of `uhsdr_tpu.ops.iir`:
   matvecs (the reference's ``exact_carry=True``; ~129 dB on the high-Q
   lattice SOS where the dilated F-power pass holds ~52 dB).
 
-The JAX package runs the cascade in XLA outside any Pallas kernel
-(ops/iir.py:232-239), so on the card the matmuls go to `torch.matmul`
-(float32).  On the card they refuse to run with TF32 on: the high-Q
-lattice SOS would lose its exactness silently.
+`one_pole_block` (and `dc_blocker_block` on top of it) computes the
+recurrence as two Toeplitz matmuls: within R-sample chunks, and across
+the chunk ends (see `one_pole_block`).
+
+The JAX package runs all of these in XLA outside any Pallas kernel
+(ops/iir.py:232-239, :255-343), so on the card the matmuls go to
+`torch.matmul` (float32).  On the card they refuse to run with TF32 on:
+the high-Q lattice SOS and the r = 0.9999 DC blocker would lose their
+exactness silently.
 """
 from __future__ import annotations
 
@@ -96,6 +101,13 @@ def cascade(sos: np.ndarray, device, R: int = R_CHUNK) -> Cascade:
                    t(np.ascontiguousarray(F.T)))
 
 
+def _need_fp32_matmul(x: torch.Tensor, what: str):
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            f"{what} needs FP32 matmuls: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
 def biquad_cascade_blocked(c: Cascade, state: torch.Tensor, x: torch.Tensor):
     """Blocked-matmul cascade with the exact sequential chunk carry.
     state (S, ..., 2) per-section DF2T states; x (..., T), T % R == 0.
@@ -106,10 +118,7 @@ def biquad_cascade_blocked(c: Cascade, state: torch.Tensor, x: torch.Tensor):
     n = T // R
     if T % R:
         raise ValueError(f"T={T} is not a multiple of the chunk {R}")
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "biquad_cascade_blocked needs FP32 matmuls: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False")
+    _need_fp32_matmul(x, "biquad_cascade_blocked")
     lead = x.shape[:-1]
     s_vec = torch.movedim(state, 0, -2).reshape(lead + (2 * S,)).to(x.dtype)
     xc = x.reshape(lead + (n, R))
@@ -161,3 +170,78 @@ def biquad_cascade_dispatch(c: Cascade, state: torch.Tensor, x: torch.Tensor):
     if T % R == 0 and T >= 2 * R:
         return biquad_cascade_blocked(c, state, x)
     return biquad_cascade_block(c.sos, state, x)
+
+
+@functools.lru_cache(maxsize=64)
+def _one_pole_tables(a: float, b: float, R: int, n: int, device: str):
+    """Tables of the two-level one-pole, from float64 powers of a:
+      M  (R, R):   b * a^(s-r) for s >= r, the zero-state response inside
+                   a chunk (input r along rows, output s along columns)
+      L  (n, n):   (a^R)^(c-k) for c >= k, the same across chunk ends
+      ap (R,):     a^(s+1), what a carried value adds inside a chunk
+      aq (n,):     (a^R)^(c+1), what the incoming state adds to chunk ends
+    """
+    def lower(q, m, gain):
+        idx = np.arange(m)
+        e = idx[None, :] - idx[:, None]
+        return np.where(e >= 0, gain * np.power(q, np.clip(e, 0, None)), 0.0)
+
+    a64 = np.float64(a)
+    aR = a64 ** R
+    t = functools.partial(torch.as_tensor, device=torch.device(device))
+    return (t(lower(a64, R, np.float64(b)).astype(np.float32)),
+            t(lower(aR, n, 1.0).astype(np.float32)),
+            t(np.power(a64, np.arange(1, R + 1)).astype(np.float32)),
+            t(np.power(aR, np.arange(1, n + 1)).astype(np.float32)))
+
+
+@functools.lru_cache(maxsize=64)
+def decay_table(a: float, T: int, device: str) -> torch.Tensor:
+    """(T,) f32 powers a^1 .. a^T on `device`, taken in float64 and rounded
+    once; cached, so a stream's blocks cost no host-to-device copy."""
+    return torch.as_tensor(
+        np.power(np.float64(a), np.arange(1, T + 1)).astype(np.float32),
+        device=torch.device(device))
+
+
+def one_pole_block(a: float, b: float, state: torch.Tensor, x: torch.Tensor,
+                   R: int = R_CHUNK):
+    """First-order recurrence y[n] = a*y[n-1] + b*x[n] with scalar a, b
+    (the reference's `one_pole_block`, ops/iir.py:302).  state (...,) is
+    y[-1]; x (..., T) real.  Returns (y (..., T), y[..., -1]).
+
+    Computed as a blocked matmul on two levels, with no loop over time:
+    inside R-sample chunks the zero-state response is one lower-triangular
+    Toeplitz product x @ M; the chunk-end values u[c] = a^R u[c-1] +
+    y_loc[c, -1] are a second Toeplitz product over the n = T/R chunk
+    ends; each chunk then adds a^(s+1) times the value carried into it.
+    All powers of a are taken in float64 and rounded once.  T need not
+    be a multiple of R: the block is zero-padded on the right and the
+    state read at T-1."""
+    if np.ndim(a) or np.ndim(b):
+        raise ValueError("one_pole_block takes scalar coefficients")
+    if x.is_complex():
+        raise ValueError("one_pole_block takes real input")
+    _need_fp32_matmul(x, "one_pole_block")
+    T = x.shape[-1]
+    n = -(-T // R)
+    M, L, ap, aq = _one_pole_tables(float(a), float(b), R, n, str(x.device))
+    lead = x.shape[:-1]
+    xp = torch.nn.functional.pad(x, (0, n * R - T)) if n * R != T else x
+    y_loc = xp.reshape(lead + (n, R)) @ M                    # (..., n, R)
+    s0 = state.to(x.dtype)[..., None]                        # (..., 1)
+    u = y_loc[..., -1] @ L + s0 * aq                         # (..., n)
+    prev = torch.cat([s0, u[..., :-1]], dim=-1)              # carried in
+    y = (y_loc + prev[..., None] * ap).reshape(lead + (n * R,))[..., :T]
+    return y, y[..., -1].contiguous()
+
+
+def dc_blocker_block(r: float, state: torch.Tensor, x: torch.Tensor):
+    """One-pole DC removal y[n] = x[n] - x[n-1] + r*y[n-1] (the AGC's
+    AM/SAM DC blocker, `audio_agc.c:577-594`, r = 0.9999; the reference's
+    `dc_blocker_block`, ops/iir.py:333).  state: (..., 2) = [x_prev,
+    y_prev].  Returns (y, new_state)."""
+    xd = torch.cat([state[..., 0:1].to(x.dtype), x], dim=-1)
+    diff = xd[..., 1:] - xd[..., :-1]
+    y, y_last = one_pole_block(float(r), 1.0, state[..., 1], diff)
+    return y, torch.stack([x[..., -1], y_last], dim=-1)

@@ -1,11 +1,13 @@
 """Where the time of the port's main path goes on the card.
 
-    python -m uhsdr_tpu_torch.trace_rx [--seed 7]
+    python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam]
+                                       [--sideband both|usb|lsb] [--seed 7]
 
-Drives `chain.rx.RxChain` at the flagship SSB config (usb 2P3KHZ, 12 kHz
-translate, 8192 channels of int16 IQ @ 96 kHz, 16384-sample blocks) on
-cuda:0 for 2 warm-up, 4 untraced and 4 traced blocks and prints, per
-block:
+Drives `chain.rx.RxChain` on cuda:0 at the flagship SSB config (usb
+2P3KHZ, 12 kHz translate, 8192 channels of int16 IQ @ 96 kHz,
+16384-sample blocks) or, with ``--mode am`` / ``--mode sam``, at the
+AM/SAM flagship (5P0KHZ AM/SAM path, same channel count, rate and block)
+for 2 warm-up, 4 untraced and 4 traced blocks and prints, per block:
 
 * the step time with tracing off (CUDA events around the timed blocks)
   and the host's enqueue time (wall clock of the calls, no sync);
@@ -21,6 +23,7 @@ Exits 2 where CUDA is absent.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import sys
 import time
@@ -34,26 +37,54 @@ TONE_HZ = 700.0      # channel 0's audio tone
 BLOCKS = 4           # untraced blocks, then as many traced
 
 
+def config(mode: str = "usb", sideband: str = "both") -> rx.RxConfig:
+    """The full-width config of a mode: the SSB flagship, or the AM/SAM
+    flagship in that mode and sideband."""
+    if mode == "usb":
+        return rx.FLAGSHIP
+    return dataclasses.replace(rx.SAM_FLAGSHIP, mode=mode,
+                               sam_sideband=sideband)
+
+
 def capture(n_blocks: int, C: int, dev, seed: int,
             cfg: rx.RxConfig = rx.FLAGSHIP):
-    """Seeded int16 IQ blocks (C, cfg.block_len), made on `dev`: channel c
-    carries one tone (TONE_HZ + 10·(c mod 200)) Hz above the translate
-    frequency, so USB audio at that offset, at -60 ... -6 dBFS across
-    channels (channel 0 at -12 dBFS), plus noise of 30 counts rms."""
+    """Seeded int16 IQ blocks (C, cfg.block_len), made on `dev`, plus
+    noise of 30 counts rms.  SSB configs: channel c carries one tone
+    (TONE_HZ + 10·(c mod 200)) Hz above the translate frequency, so USB
+    audio at that offset, at -60 ... -6 dBFS across channels (channel 0 at
+    -12 dBFS).  AM/SAM configs: channel c carries a carrier 3·(c mod 8) Hz
+    above the translate frequency (starting phase 1 rad, clear of the
+    PLL phase detector's branch cut), amplitude-modulated 50% by that
+    tone, at -40 ... -6 dBFS (channel 0 at -12 dBFS)."""
     B = cfg.block_len
+    am = cfg.mode in ("am", "sam")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     c = torch.arange(C, device=dev, dtype=torch.float64)
-    f = cfg.translate_hz + TONE_HZ + 10.0 * (c % 200)
-    amp = 10.0 ** (-3.0 + 2.7 * (c % 64) / 63.0) * 32767.0
+    f_tone = TONE_HZ + 10.0 * (c % 200)
+    if am:
+        f = cfg.translate_hz + 3.0 * (c % 8)
+        amp = 10.0 ** (-2.0 + 1.7 * (c % 64) / 63.0) * 32767.0 / 1.5
+    else:
+        f = cfg.translate_hz + f_tone
+        amp = 10.0 ** (-3.0 + 2.7 * (c % 64) / 63.0) * 32767.0
     amp[0] = 0.25 * 32767.0
     out = []
     for k in range(n_blocks):
         n = torch.arange(k * B, (k + 1) * B, device=dev, dtype=torch.float64)
-        ph = torch.remainder(f[:, None] * n / cfg.iq_rate, 1.0) * (2 * math.pi)
+
+        def turns(freq):
+            return torch.remainder(freq[:, None] * n / cfg.iq_rate,
+                                   1.0) * (2 * math.pi)
+
+        ph = turns(f)
+        env = amp[:, None]
+        if am:
+            ph = ph + 1.0
+            env = env * (1.0 + 0.5 * torch.sin(turns(f_tone)))
 
         def plane(tr):
-            x = amp[:, None] * tr(ph) + 30.0 * torch.randn(
+            x = env * tr(ph) + 30.0 * torch.randn(
                 (C, B), generator=gen, device=dev, dtype=torch.float64)
             return x.round().clamp(-32768, 32767).to(torch.int16)
         out.append((plane(torch.cos), plane(torch.sin)))
@@ -77,6 +108,9 @@ def busy_share(intervals) -> tuple[float, float]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--mode", choices=("usb", "am", "sam"), default="usb")
+    ap.add_argument("--sideband", choices=("both", "usb", "lsb"),
+                    default="both", help="sam_sideband for --mode sam")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_rx: no CUDA device", file=sys.stderr)
@@ -86,10 +120,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    C, B, n = rx.FLAGSHIP_CHANNELS, rx.FLAGSHIP.block_len, BLOCKS
-    chain = rx.RxChain(rx.FLAGSHIP, device=dev)
+    cfg = config(args.mode, args.sideband)
+    C, B, n = rx.FLAGSHIP_CHANNELS, cfg.block_len, BLOCKS
+    print(f"config: mode {cfg.mode}, bw {cfg.bw_key}, sam_sideband "
+          f"{cfg.sam_sideband}, {C} ch x {B} @ {cfg.iq_rate:.0f} Hz")
+    chain = rx.RxChain(cfg, device=dev)
     state = chain.init_state((C,))
-    blocks = capture(2 + 2 * n, C, dev, args.seed)
+    blocks = capture(2 + 2 * n, C, dev, args.seed, cfg)
     for i, q in blocks[:2]:                              # warm-up, build
         _, state, _ = chain(state, i=i, q=q)
     torch.cuda.synchronize()

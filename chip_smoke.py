@@ -11,28 +11,34 @@ first phase that fails:
    `uhsdr_tpu_torch/kernels/` (one nvcc per source, started together) and
    prints the build time and each kernel's register/shared-memory report;
 3. one phase per kernel: K1 (the fused SSB front), K3 (the AGC, at the
-   SSB look-ahead of 48 and the AM/SAM look-ahead of 96), K4 (the
-   interpolator, x8 and x4), K5 (the real-tap AM/SAM front), K10 and K9
-   (the SAM PLL), K11 (the biquad cascade).  Each streams 3 blocks at its
+   SSB look-ahead of 48, the AM/SAM look-ahead of 96 and FM's 192), K4
+   (the interpolator, x8 and x4), K5 (the real-tap AM/SAM front, and the
+   FM front at decimation 2), K10 and K9 (the SAM PLL), K11 (the biquad
+   cascade), K7 and K6 (the complex-tap wide-SSB front with and without
+   the NCO), K12 (the FM discriminator).  Each streams 3 blocks at its
    main path's shapes (8192 channels; K11 at the 16384 stacked channels
    SAM gives it), the middle block ragged where the kernel has a tile to
    be ragged against, through the kernel and through its plain torch
    version on the card, from the same seeded inputs with carries handed
    on.  FIR and cascade outputs and carries are held to SNR >= 90 dB, the
-   PLL's cos/sin/audio and carries to max |err| <= 2e-5; K3 must be
+   PLL's cos/sin/audio and carries to max |err| <= 2e-5, the
+   discriminator's angles to max |err| <= 2e-6 modulo 2 pi; K3 must be
    bit-exact.  It then times the kernel, the plain version and, where
    one PyTorch call computes the same function, that call (`library_ms`,
    never used by the port);
 4. the main paths: `RxChain` on the card at 8192 ch x 16384 int16 samples
    @ 96 kHz, state carried, timed with CUDA events after 2 warm-up
-   and over 8 timed blocks: the flagship SSB config, then the AM/SAM
-   flagship as AM, SAM both sidebands and SAM USB.
-   Every kernel's launch count is set to 0 just before each path and
-   read just after, and each kernel of that path must have been
-   launched.  Audio and state must be finite, channels 0-7 must match
-   the port's CPU chain (plain versions) over the first 3 blocks at SNR
-   >= 80 dB on the audio and on every state leaf, and channel 0's test
-   tone must come out at 700 Hz;
+   and over 8 timed blocks: the flagship SSB config, the AM/SAM
+   flagship as AM, SAM both sidebands and SAM USB, the FM flagship and
+   the wide-SSB flagship; then, at 1024 channels and 4 timed blocks, the
+   wide-SSB flagship untranslated (K6) and the FM flagship with squelch
+   and subtone detection.  Every kernel's launch count is set to 0 just
+   before each path and read just after, and each kernel of that path
+   must have been launched.  Audio and state must be finite, channels
+   0-7 must match the port's CPU chain (plain versions) over the first 3
+   blocks at SNR >= 80 dB on the audio and on every state leaf (boolean
+   and integer leaves equal), and channel 0's test tone must come out of
+   the last block at 700 Hz (FM: 1 kHz);
 5. prints one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
    device line.
 
@@ -57,6 +63,7 @@ from uhsdr_tpu_torch import trace_rx
 from uhsdr_tpu_torch.chain import rx
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import build
+from uhsdr_tpu_torch.cuda import elemwise as ew_k
 from uhsdr_tpu_torch.cuda import fir as fir_k
 from uhsdr_tpu_torch.cuda import iir as iir_k
 from uhsdr_tpu_torch.cuda import pll as pll_k
@@ -66,6 +73,8 @@ from uhsdr_tpu_torch.ops import nco
 
 CFG = rx.FLAGSHIP            # the SSB flagship
 SAM = rx.SAM_FLAGSHIP        # the AM/SAM flagship
+FM = rx.FM_FLAGSHIP          # the FM flagship
+WIDE = rx.WIDE_FLAGSHIP      # the wide-SSB flagship
 CHANNELS = rx.FLAGSHIP_CHANNELS
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, FP32 outside the
@@ -96,6 +105,10 @@ KERNEL_TOL_DB = 90.0
 # scan; these kernels repeat their plain versions' arithmetic and have read
 # 0 on this card, so they are held to a few ulp of a unit-scale value
 PLL_TOL_ABS = 2e-5
+# the JAX package's test holds its polynomial discriminator to 2e-6
+# against arctan2 (tests/test_pallas_fir.py:164-188); angles compared
+# modulo 2 pi (one side of the branch cut may read +pi, the other -pi)
+DISC_TOL_ABS = 2e-6
 CHAIN_TOL_DB = 80.0
 
 
@@ -250,17 +263,27 @@ def phase_front(P, dev, gen, n_blocks=3):
     return r
 
 
-def premixed_planes(carry, xi, xq, phase, delta):
-    """(2C, 1, taps-1+B) f32: the rotated raw history and block of K5's
-    input, I planes then Q planes, as a convolution's input."""
+def premixed_stack(carry, xi, xq, nco_arg):
+    """(C, 2, taps-1+B) f32: the raw history and block of a front's input,
+    rotated by the NCO where `nco_arg` is given, as a convolution's two
+    input channels (real, imaginary)."""
     a, b = fir_k.scale_planes(xi, xq)
     z = torch.complex(a, b)
     n_hist = carry.shape[-1]
-    zr = z * nco.rotor(nco.phase_ramp(phase, delta, z.shape[-1]))
-    cr = carry * nco.rotor(nco.phase_ramp(phase, delta, n_hist,
-                                          start=-n_hist))
-    zf = torch.cat([cr, zr], dim=-1)
-    return torch.cat([zf.real, zf.imag], dim=0)[:, None, :].contiguous()
+    if nco_arg is not None:
+        phase, delta = nco_arg
+        z = z * nco.rotor(nco.phase_ramp(phase, delta, z.shape[-1]))
+        carry = carry * nco.rotor(nco.phase_ramp(phase, delta, n_hist,
+                                                 start=-n_hist))
+    zf = torch.cat([carry, z], dim=-1)
+    return torch.stack([zf.real, zf.imag], dim=1).contiguous()
+
+
+def premixed_planes(carry, xi, xq, phase, delta):
+    """(2C, 1, taps-1+B) f32: K5's mixed input, I planes then Q planes, as
+    a one-channel convolution's input."""
+    st = premixed_stack(carry, xi, xq, (phase, delta))
+    return st.transpose(0, 1).reshape(-1, 1, st.shape[-1]).contiguous()
 
 
 def phase_fir_rt(P, dev, gen):
@@ -321,6 +344,7 @@ def phase_fir_rt(P, dev, gen):
     print(f"  K5 library call (conv1d, stride {decim}, planes mixed "
           f"beforehand) vs plain: SNR {s_lib:.1f} dB")
     del planes, y_lib, y_pl
+    decim2 = fm_front_case(P, dev, gen)
     T_out = B // decim
     fma = C * T_out * 2 * taps
     # bytes: int16 planes in, complex out, carry in and out, phase in,
@@ -331,11 +355,193 @@ def phase_fir_rt(P, dev, gen):
             snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
             flops=2.0 * fma, library_ms=lib_ms,
             library_note="conv1d with stride on planes mixed beforehand "
-                         "(the FIR alone)")
+                         "(the FIR alone)", decim2=decim2)
     print(f"  K5 fir_rt: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
           f"{lib_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by "
           f"{r['bound_by']}: {fma / 1e9:.2f} G FMA, "
           f"{nbytes / 2**20:.0f} MiB)")
+    return r
+
+
+def fm_front_case(P, dev, gen) -> dict:
+    """K5 at the FM flagship's front: 239 taps at decimation 2, complex
+    out, NCO; two streamed blocks (the second ragged) against the plain
+    version, then timed."""
+    params = P["fm"]
+    C, B, decim = CHANNELS, FM.block_len, FM.decim
+    h, delta = params.front_fir, params.nco_delta
+    taps = h.shape[-1]
+    ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
+    phase = torch.zeros((C,), dtype=torch.int64, device=dev)
+    first = None
+    for blk, Bk in enumerate((B, 1000)):
+        xi, xq = iq_block(gen, dev, C, Bk)
+        if first is None:
+            first = (ck, xi, xq, phase)
+        yk, ck, pk_k = fir_k.fir_rt(h, ck, xi, xq, decim, nco=(phase, delta))
+        yp, cp, pk_p = fir_k.fir_rt_plain(h, cp, xi, xq, decim,
+                                          nco=(phase, delta))
+        torch.cuda.synchronize()
+        check(tuple(yk.shape) == (C, Bk // decim) and yk.is_complex(),
+              f"K5 decim {decim} output {tuple(yk.shape)} {yk.dtype}")
+        held(f"K5 FM front ({taps} taps, decim {decim}) block {blk} "
+             f"({Bk} samples)", {"iq": (yp, yk), "raw carry": (cp, ck),
+                                 "peaks": (pk_p, pk_k)})
+        phase = nco.advance(phase, delta, Bk)
+    c0, xi, xq, ph0 = first
+    ms = cuda_ms(lambda: fir_k.fir_rt(h, c0, xi, xq, decim,
+                                      nco=(ph0, delta)), 10)
+    T_out = B // decim
+    fma = C * T_out * 2 * taps
+    nbytes = (2 * C * B * 2 + C * T_out * 8 + 2 * C * (taps - 1) * 8
+              + C * 8 + C * 4 + 4 * taps)
+    b_ms, b_by = bound(nbytes, 2.0 * fma)
+    print(f"  K5 FM front, decim {decim}: {ms:.4f} ms (bound {b_ms:.4f} ms "
+          f"by {b_by}: {fma / 1e9:.2f} G FMA, {nbytes / 2**20:.0f} MiB)")
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, taps=taps, decim=decim)
+
+
+def phase_fir_cx(P, dev, gen):
+    """K7 (NCO fused, the wide-SSB flagship's front) and K6 (no NCO, the
+    untranslated front): 245 complex taps, decimation 4, real output as
+    the chain takes it, three streamed blocks (the middle one shorter than
+    the history); the complex and two-plane outputs at 1024 channels."""
+    params = P["wide"]
+    C, B, decim = CHANNELS, WIDE.block_len, WIDE.decim
+    h, delta = params.front_fir, params.nco_delta
+    taps = h.shape[-1]
+    short = decim * ((taps - 1) // (2 * decim))   # shorter than the history
+    rows = []
+    for K, name, use_nco, line in (("K7", "fir_cx_nco", True, 370),
+                                   ("K6", "fir_cx", False, 47)):
+        ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64,
+                              device=dev)
+        phase = torch.zeros((C,), dtype=torch.int64, device=dev)
+        worst, err = math.inf, 0.0
+        first = None
+        for blk, Bk in enumerate((B, short, B)):
+            xi, xq = iq_block(gen, dev, C, Bk)
+            nco_arg = (phase, delta) if use_nco else None
+            if first is None:
+                first = (ck, xi, xq, nco_arg)
+            yk, ck, pk_k = fir_k.fir_cx(h, ck, xi, xq, decim, nco=nco_arg,
+                                        real_out=True)
+            yp, cp, pk_p = fir_k.fir_cx_plain(h, cp, xi, xq, decim,
+                                              nco=nco_arg, real_out=True)
+            torch.cuda.synchronize()
+            check(tuple(yk.shape) == (C, Bk // decim) and not yk.is_complex(),
+                  f"{K} output {tuple(yk.shape)} {yk.dtype}")
+            s, e = held(f"{K} block {blk} ({Bk} samples)", {
+                "audio": (yp, yk), "raw carry": (cp, ck),
+                "peaks": (pk_p, pk_k)})
+            worst, err = min(worst, s), max(err, e)
+            if use_nco:
+                phase = nco.advance(phase, delta, Bk)
+        # the outputs off the chain's path: complex and two planes
+        n = 1024
+        c1, x1i, x1q = ck[:n].contiguous(), xi[:n], xq[:n]
+        nco1 = (phase[:n].contiguous(), delta) if use_nco else None
+        yc, cn, _ = fir_k.fir_cx(h, c1, x1i, x1q, decim, nco=nco1)
+        (ar, ai), _, _ = fir_k.fir_cx(h, c1, x1i, x1q, decim, nco=nco1,
+                                      planes_out=True)
+        yp, cp1, _ = fir_k.fir_cx_plain(h, c1, x1i, x1q, decim, nco=nco1)
+        torch.cuda.synchronize()
+        s, e = held(f"{K} complex and planes out, {n} channels", {
+            "complex": (yp, yc), "real plane": (yp.real, ar),
+            "imag plane": (yp.imag, ai), "raw carry": (cp1, cn)})
+        worst, err = min(worst, s), max(err, e)
+
+        c0, xi, xq, nco0 = first
+        ms = cuda_ms(lambda: fir_k.fir_cx(h, c0, xi, xq, decim, nco=nco0,
+                                          real_out=True), 10)
+        plain_ms = cuda_ms(lambda: fir_k.fir_cx_plain(
+            h, c0, xi, xq, decim, nco=nco0, real_out=True), 2)
+        # one PyTorch call for the FIR itself, on planes mixed beforehand:
+        # Re y = sum hr*zr - hi*zi, a two-channel convolution
+        stack = premixed_stack(c0, xi, xq, nco0)
+        w = torch.stack([h.real.flip(0), -h.imag.flip(0)])[None].contiguous()
+
+        def library():
+            return torch.nn.functional.conv1d(stack, w, stride=decim)
+
+        lib_ms = cuda_ms(library, 5)
+        y_pl = fir_k.fir_cx_plain(h, c0, xi, xq, decim, nco=nco0,
+                                  real_out=True)[0]
+        s_lib = snr_db(y_pl, library()[:, 0])
+        print(f"  {K} library call (conv1d, 2 channels, stride {decim}, "
+              f"planes mixed beforehand) vs plain: SNR {s_lib:.1f} dB")
+        del stack, y_pl
+        T_out = B // decim
+        fma = C * T_out * 2 * taps          # real output: 2 FMA a tap
+        # bytes: int16 planes in, real audio out, carry in and out, phase
+        # in (K7), peaks out, complex taps in
+        nbytes = (2 * C * B * 2 + C * T_out * 4 + 2 * C * (taps - 1) * 8
+                  + (C * 8 if use_nco else 0) + C * 4 + 8 * taps)
+        r = row(name, "fir_cx.cu", f"uhsdr_tpu/pallas/fir.py:{line}",
+                err=err, snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+                flops=2.0 * fma, library_ms=lib_ms,
+                library_note="conv1d with stride, two input channels, on "
+                             "planes mixed beforehand (the FIR alone)")
+        print(f"  {K} {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
+              f"{lib_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}: {fma / 1e9:.2f} G FMA, "
+              f"{nbytes / 2**20:.0f} MiB)")
+        rows.append(r)
+    return rows
+
+
+def wrapped_max(ref: torch.Tensor, got: torch.Tensor) -> float:
+    """max |ref - got| of two angle tensors, modulo 2 pi."""
+    d = torch.remainder(ref.double() - got.double() + math.pi, 2 * math.pi)
+    return float((d - math.pi).abs().max())
+
+
+def phase_fm_disc(P, dev, gen):
+    """K12 at the FM flagship's shape (8192 ch x 8192 samples of the
+    decimated complex IQ), three streamed blocks, the middle ragged."""
+    C, T = CHANNELS, FM.block_len // FM.decim
+    prev_k = prev_p = torch.zeros((C,), dtype=torch.complex64, device=dev)
+    err, first = 0.0, None
+    for blk, Tk in enumerate((T, 1000, T)):
+        z = torch.view_as_complex(torch.randn((C, Tk, 2), generator=gen,
+                                              device=dev)).contiguous()
+        if first is None:
+            first = (prev_k, z)
+        yk = ew_k.fm_disc(prev_k, z)
+        yp = ew_k.fm_disc_plain(prev_p, z)
+        y2 = ew_k.fm_disc(prev_k, (z.real.contiguous(), z.imag.contiguous()))
+        torch.cuda.synchronize()
+        e = max(wrapped_max(yp, yk), wrapped_max(yp, y2))
+        print(f"  K12 block {blk} ({Tk} samples): max|err| mod 2pi {e:.3e} "
+              f"(complex and planes in)")
+        check(e <= DISC_TOL_ABS, f"K12 block {blk}: max|err| {e:.3e} > "
+                                 f"{DISC_TOL_ABS:.1e}")
+        err = max(err, e)
+        prev_k = prev_p = z[:, -1].contiguous()
+    p0, z0 = first
+    ms = cuda_ms(lambda: ew_k.fm_disc(p0, z0), 20)
+    plain_ms = cuda_ms(lambda: ew_k.fm_disc_plain(p0, z0), 3)
+    z_d = torch.cat([p0[:, None], z0[:, :-1]], dim=-1)
+
+    def library():
+        return torch.angle(torch.conj(z_d) * z0)
+
+    lib_ms = cuda_ms(library, 10)
+    print(f"  K12 library call (torch.angle of conj(z_d) z, z_d shifted "
+          f"beforehand) vs plain: max|err| mod 2pi "
+          f"{wrapped_max(ew_k.fm_disc_plain(p0, z0), library()):.3e}")
+    del z_d
+    # bytes: complex64 in, the carried sample in, f32 angle out; about 40
+    # f32 operations a sample (the product 6, atan2f ~34)
+    nbytes = C * T * 8 + C * 8 + C * T * 4
+    r = row("fm_disc", "fm_disc.cu", "uhsdr_tpu/pallas/elemwise.py:25",
+            err=err, snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=40.0 * C * T, library_ms=lib_ms,
+            library_note="torch.angle(torch.conj(z_d) * z), z_d the block "
+                         "shifted by one sample beforehand")
+    print(f"  K12 fm_disc: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
+          f"{lib_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}: {nbytes / 2**20:.0f} MiB)")
     return r
 
 
@@ -399,12 +605,20 @@ def phase_agc(P, dev, gen):
     e96, ms96, plain96, nb96, fl96, rec96 = agc_case(
         P["sam"].agc, SAM.fs_dec, (T96, 1000, T96), dev, gen)
     b96, by96 = bound(nb96, fl96)
+    T192 = FM.block_len // FM.decim
+    e192, ms192, plain192, nb192, fl192, rec192 = agc_case(
+        P["fm"].agc, rx.IQ_RATE, (T192, 1000, T192), dev, gen)
+    b192, by192 = bound(nb192, fl192)
     return row("agc", "agc.cu", "uhsdr_tpu/pallas/agc.py:159",
-               err=max(err, e96), snr=math.inf, ms=ms, plain_ms=plain_ms,
-               nbytes=nbytes, flops=flops, recurrence_ms=rec_ms,
+               err=max(err, e96, e192), snr=math.inf, ms=ms,
+               plain_ms=plain_ms, nbytes=nbytes, flops=flops,
+               recurrence_ms=rec_ms,
                library_note="no PyTorch call computes a look-ahead AGC",
                w96=dict(ms=ms96, plain_ms=plain96, bound_ms=b96,
-                        bound_by=by96, recurrence_ms=rec96, steps=T96))
+                        bound_by=by96, recurrence_ms=rec96, steps=T96),
+               w192=dict(ms=ms192, plain_ms=plain192, bound_ms=b192,
+                         bound_by=by192, recurrence_ms=rec192,
+                         steps=T192))
 
 
 def interp_library(h, carry, x, interp):
@@ -622,11 +836,13 @@ def phase_biquad(P, dev, gen):
 
 def state_snrs(ref: dict, got: dict) -> dict:
     """{leaf: SNR dB} of two `rx.state_to_numpy` dicts; the PLL phase
-    through its cosine and sine, the NCO phase by equality."""
+    through its cosine and sine; integer leaves (the NCO phases, FM's
+    counters) and boolean ones (FM's squelch and tone decisions) by
+    equality."""
     out = {}
     for f, a in ref.items():
         b = got[f]
-        if f == "nco_phase":
+        if a.dtype == bool or a.dtype.kind in "iu":
             out[f] = math.inf if np.array_equal(a, b) else -math.inf
         elif f == "sam.phs":
             out[f] = snr_db(np.stack([np.cos(a), np.sin(a)]),
@@ -636,12 +852,15 @@ def state_snrs(ref: dict, got: dict) -> dict:
     return out
 
 
-def main_path(cfg, label, expect, dev, seed, n_timed, n_warm=2, n_ref=3,
+def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
               ref_ch=8):
-    """Drive `RxChain(cfg)` on the card at full width; returns (launches
+    """Drive `RxChain(cfg)` on the card at C channels; returns (launches
     of every kernel on this path, ms/block, Ms/s, worst SNR against the
     port's CPU chain)."""
-    C, B = CHANNELS, cfg.block_len
+    B = cfg.block_len
+    fm = cfg.mode == "fm"
+    out_len, fs_out = ((B // cfg.decim, cfg.fs_dec) if fm
+                       else (B, cfg.iq_rate))
     blocks = trace_rx.capture(n_warm + n_timed, C, dev, seed, cfg)
     chain = rx.RxChain(cfg, device=dev)
     state = chain.init_state((C,))
@@ -684,11 +903,15 @@ def main_path(cfg, label, expect, dev, seed, n_timed, n_warm=2, n_ref=3,
         check(n == 0 or name in expect,
               f"{label} launched {name}, which is not on its path")
 
-    check(tuple(audio.shape) == (C, B), f"audio shape {tuple(audio.shape)}")
+    check(tuple(audio.shape) == (C, out_len),
+          f"audio shape {tuple(audio.shape)}")
     check(bool(torch.isfinite(audio).all()), f"{label} audio not finite")
     for f, v in rx.state_to_numpy(state).items():
         check(bool(np.isfinite(v).all()), f"{label} state {f} not finite")
-    check(bool(torch.isfinite(taps["adc_peak"]).all()), "adc_peak")
+    # FM reports no ADC peaks, as the reference's FM branch
+    check(fm != ("adc_peak" in taps), f"{label} taps {sorted(taps)}")
+    if not fm:
+        check(bool(torch.isfinite(taps["adc_peak"]).all()), "adc_peak")
 
     # the same channels through the port's plain versions on the CPU
     cpu = rx.RxChain(cfg, device="cpu")
@@ -714,25 +937,38 @@ def main_path(cfg, label, expect, dev, seed, n_timed, n_warm=2, n_ref=3,
     worst = min(worst, leaves[low])
     check(worst >= CHAIN_TOL_DB,
           f"{label} vs CPU chain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
-    y0 = kept[n_ref - 1][0].cpu().double().numpy()
+    # the last block: with subtone detection the audio opens only after
+    # two detection windows
+    y0 = audio[0].cpu().double().numpy()
     spec = np.abs(np.fft.rfft((y0 - y0.mean()) * np.hanning(len(y0))))
-    freqs = np.fft.rfftfreq(len(y0), 1.0 / cfg.iq_rate)
+    freqs = np.fft.rfftfreq(len(y0), 1.0 / fs_out)
     spec[freqs < 100.0] = 0.0           # AM: what is left of the carrier
     f_pk = float(freqs[spec.argmax()])
-    tone = trace_rx.TONE_HZ
+    tone = trace_rx.tone_hz(cfg)
     print(f"  {label} channel 0 audio peak {f_pk:.1f} Hz (tone {tone} Hz)")
     check(abs(f_pk - tone) < 20.0, f"{label} tone at {f_pk} Hz, not {tone}")
     return launches, ms_block, msps, worst, n_warm + n_timed
 
 
 SHARED = ("agc", "interp")
+FM_KERNELS = ("fir_rt", "fm_disc", "agc")
+DEPTH = 1024          # channels of the paths run at a smaller depth
+# (label, config, kernels it must launch, timed blocks, channels)
 MAIN_PATHS = (
-    ("ssb", CFG, ("front",) + SHARED, 8),
-    ("am", dataclasses.replace(SAM, mode="am"), ("fir_rt",) + SHARED, 8),
+    ("ssb", CFG, ("front",) + SHARED, 8, CHANNELS),
+    ("am", dataclasses.replace(SAM, mode="am"), ("fir_rt",) + SHARED, 8,
+     CHANNELS),
     ("sam_both", dataclasses.replace(SAM, sam_sideband="both"),
-     ("fir_rt", "pll_audio") + SHARED, 8),
+     ("fir_rt", "pll_audio") + SHARED, 8, CHANNELS),
     ("sam_usb", dataclasses.replace(SAM, sam_sideband="usb"),
-     ("fir_rt", "pll", "biquad") + SHARED, 8),
+     ("fir_rt", "pll", "biquad") + SHARED, 8, CHANNELS),
+    ("fm", FM, FM_KERNELS, 8, CHANNELS),
+    ("wide", WIDE, ("fir_cx_nco",) + SHARED, 8, CHANNELS),
+    # the firmware's IQ conversion off: the untranslated front (K6)
+    ("wide_noxlate", dataclasses.replace(WIDE, translate_hz=0.0),
+     ("fir_cx",) + SHARED, 4, DEPTH),
+    ("fm_sql", dataclasses.replace(FM, sql_threshold=10, subtone_hz=88.5),
+     FM_KERNELS, 4, DEPTH),
 )
 
 
@@ -763,8 +999,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    P = {"ssb": rx.make_params(CFG, dev), "sam": rx.make_params(SAM, dev)}
-    for key, cfg in (("ssb", CFG), ("sam", SAM)):
+    configs = {"ssb": CFG, "sam": SAM, "fm": FM, "wide": WIDE}
+    P = {key: rx.make_params(cfg, dev) for key, cfg in configs.items()}
+    for key, cfg in configs.items():
         p = P[key]
         print(f"config {key}: {CHANNELS} ch x {cfg.block_len} @ "
               f"{cfg.iq_rate:.0f} Hz, decim {cfg.decim}, front "
@@ -776,10 +1013,12 @@ def main() -> int:
     gen.manual_seed(args.seed)
     rows = []
     for phase in (phase_front, phase_agc, phase_interp, phase_fir_rt,
-                  phase_pll_cos_sin, phase_pll_audio, phase_biquad):
+                  phase_pll_cos_sin, phase_pll_audio, phase_biquad,
+                  phase_fir_cx, phase_fm_disc):
         t1 = time.time()
         print(f"phase {phase.__name__}:")
-        rows.append(phase(P, dev, gen))
+        r = phase(P, dev, gen)
+        rows.extend(r if isinstance(r, list) else [r])
         torch.cuda.empty_cache()
         print(f"  ({time.time() - t1:.1f} s)")
     names = [k.name for k in build.kernels()]
@@ -787,16 +1026,18 @@ def main() -> int:
           f"kernel phases {[r['name'] for r in rows]} != built {names}")
 
     by_path, per_block = {}, {}
-    for label, cfg, expect, n_timed in MAIN_PATHS:
+    for label, cfg, expect, n_timed, C in MAIN_PATHS:
         t1 = time.time()
         print(f"phase main_path {label}:")
         launches, ms_block, msps, worst, n_blocks = main_path(
-            cfg, label, expect, dev, args.seed, n_timed)
+            cfg, label, expect, dev, args.seed, n_timed, C)
         by_path[label] = launches
         per_block[label] = {k: n / n_blocks for k, n in launches.items()}
         torch.cuda.empty_cache()
         print(f"main path {label}: mode {cfg.mode}, bw {cfg.bw_key}, "
-              f"sam_sideband {cfg.sam_sideband}, {CHANNELS} ch x "
+              f"sam_sideband {cfg.sam_sideband}, translate "
+              f"{cfg.translate_hz:.0f} Hz, sql {cfg.sql_threshold}, subtone "
+              f"{cfg.subtone_hz} Hz, {C} ch x "
               f"{cfg.block_len} int16 @ {cfg.iq_rate / 1e3:.0f} kHz: "
               f"{ms_block:.3f} ms/block over {n_timed} blocks, {msps:.1f} "
               f"Ms/s, CPU-chain SNR {worst:.1f} dB "

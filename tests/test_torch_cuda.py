@@ -13,8 +13,9 @@ FIR outputs are held to SNR >= 100 dB; the AGC and biquad-cascade
 kernels repeat their plain versions' operations in order and are held to
 120 dB; the PLL kernels' cos/sin/audio to max |err| <= 2e-5 (they repeat
 the plain loop's operations too; tests/test_demod.py holds the TPU
-kernels to 3e-4); the chain on the card against the chain on the CPU to
-80 dB.
+kernels to 3e-4); the FM discriminator to max |err| <= 2e-6 modulo 2 pi
+(an angle at the branch cut may come out as +pi or -pi); the chain on
+the card against the chain on the CPU to 80 dB.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 from uhsdr_tpu_torch.chain import rx
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import build
+from uhsdr_tpu_torch.cuda import elemwise as ew_k
 from uhsdr_tpu_torch.cuda import fir as fir_k
 from uhsdr_tpu_torch.cuda import iir as iir_k
 from uhsdr_tpu_torch.cuda import pll as pll_k
@@ -39,6 +41,7 @@ FIR_DB = 100.0
 AGC_DB = 120.0
 CHAIN_DB = 80.0
 PLL_ABS = 2e-5
+DISC_ABS = 2e-6
 FLAGSHIP = dict(mode="usb", bw_key="2P3KHZ", path_name="LPF",
                 translate_hz=12000.0, iq_rate=96000.0)
 
@@ -339,12 +342,13 @@ def test_am_sam_chain_on_card_matches_cpu(dev, mode, sideband, fade, iq_rate,
     gpu, cpu = rx.RxChain(cfg, device=dev), rx.RxChain(cfg, device="cpu")
     C = 8
     sg, sc = gpu.init_state((C,)), cpu.init_state((C,))
-    expect = {"fir_rt": 3, "agc": 3, "interp": 3, "front": 0,
-              "pll_audio": 3 * (mode == "sam" and sideband == "both"
-                                and fade),
-              "pll": 3 * (mode == "sam" and not (sideband == "both"
-                                                 and fade)),
-              "biquad": 6 * (mode == "sam" and sideband != "both")}
+    expect = {k.name: 0 for k in build.kernels()}
+    expect.update({"fir_rt": 3, "agc": 3, "interp": 3,
+                   "pll_audio": 3 * (mode == "sam" and sideband == "both"
+                                     and fade),
+                   "pll": 3 * (mode == "sam" and not (sideband == "both"
+                                                      and fade)),
+                   "biquad": 6 * (mode == "sam" and sideband != "both")})
     before = {k.name: k.launches for k in build.kernels()}
     for i, q in trace_rx.capture(3, C, "cpu", 4, cfg):
         yg, sg, _ = gpu(sg, i=i, q=q)
@@ -371,3 +375,148 @@ def test_cascade_refuses_tf32(dev):
             iir.biquad_cascade_blocked(c, state, x)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("C,B,decim,taps,dtype,use_nco", [
+    (13, 1600, 4, 245, "int16", True),     # the wide-SSB flagship's front
+    (3, 4096, 4, 245, "float32", False),
+    (5, 40, 4, 245, "int16", True),        # block shorter than the history
+    (7, 1000, 2, 92, "int16", False),      # 10P0KHZ @ 48 kHz
+    (4, 999, 1, 89, "float32", True),
+    (6, 1536, 8, 131, "int16", True)])
+def test_fir_cx_kernels_match_plain(dev, C, B, decim, taps, dtype, use_nco):
+    """K6 (no NCO) and K7 (NCO fused) against their plain version, every
+    output form, streamed over three blocks."""
+    rng = np.random.default_rng(8)
+    h = torch.from_numpy(((rng.standard_normal(taps)
+                           + 1j * rng.standard_normal(taps)) * 0.05)
+                         .astype(np.complex64)).to(dev)
+    delta = int(nco.freq_to_delta(-12000.0, 96000.0))
+    ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
+    ph = torch.from_numpy(rng.integers(0, 2**32, C)).to(dev)
+    counter = fir_k.FIR_CX_NCO if use_nco else fir_k.FIR_CX
+    other = fir_k.FIR_CX if use_nco else fir_k.FIR_CX_NCO
+    for blk in range(3):
+        x = [torch.from_numpy(_int16(rng, (C, B))).to(dev) for _ in "iq"]
+        if dtype == "float32":
+            x = [v.to(torch.float32) / 32768.0 for v in x]
+        kw = dict(nco=(ph, delta) if use_nco else None)
+        n0, n_other = counter.launches, other.launches
+        yr, ck_new, pk = fir_k.fir_cx(h, ck, *x, decim, real_out=True, **kw)
+        assert (counter.launches, other.launches) == (n0 + 1, n_other)
+        yp, cp, pp = fir_k.fir_cx_plain(h, cp, *x, decim, **kw)
+        yk, c2, _ = fir_k.fir_cx(h, ck, *x, decim, **kw)
+        (ar, ai), c3, _ = fir_k.fir_cx(h, ck, *x, decim, planes_out=True,
+                                       **kw)
+        torch.cuda.synchronize()
+        assert yk.dtype == torch.complex64 and yk.shape == (C, B // decim)
+        for a, b in ((yp.real, yr), (cp, ck_new), (pp, pk), (yp, yk),
+                     (yp.real, ar), (yp.imag, ai)):
+            assert snr_db(a, b) >= FIR_DB
+        assert torch.equal(c2, ck_new) and torch.equal(c3, ck_new)
+        ck = ck_new
+        if use_nco:
+            ph = nco.advance(ph, delta, B)
+
+
+def _wrapped_err(ref, got) -> float:
+    """max |ref - got| of two angle tensors, modulo 2 pi."""
+    d = torch.remainder(ref.double() - got.double() + np.pi, 2 * np.pi)
+    return float((d - np.pi).abs().max())
+
+
+@pytest.mark.parametrize("C,T,planes", [(40, 1000, False), (7, 4096, True),
+                                        (300, 33, False), (3, 1, False)])
+def test_fm_disc_kernel_matches_plain(dev, C, T, planes):
+    rng = np.random.default_rng(9)
+    zp = torch.from_numpy((rng.standard_normal(C) + 1j
+                           * rng.standard_normal(C)).astype(np.complex64))
+    prev = zp.to(dev)
+    for _ in range(3):
+        z = torch.from_numpy((rng.standard_normal((C, T)) + 1j
+                              * rng.standard_normal((C, T)))
+                             .astype(np.complex64)).to(dev)
+        arg = (z.real.contiguous(), z.imag.contiguous()) if planes else z
+        n0 = ew_k.FM_DISC.launches
+        yk = ew_k.fm_disc(prev, arg)
+        assert ew_k.FM_DISC.launches == n0 + 1
+        yp = ew_k.fm_disc_plain(prev, z)
+        torch.cuda.synchronize()
+        assert yk.shape == (C, T) and yk.dtype == torch.float32
+        assert _wrapped_err(yp, yk) <= DISC_ABS
+        prev = z[:, -1].contiguous()
+
+
+def test_slice3_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    C, T = 4, 64
+    x = torch.zeros((C, T), device=dev)
+    h = torch.zeros(89, dtype=torch.complex64, device=dev)
+    carry = torch.zeros((C, 88), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):                 # real taps
+        fir_k.fir_cx(h.real.contiguous(), carry, x, x, 4)
+    with pytest.raises(ValueError):                 # taps beyond the ring
+        fir_k.fir_cx(torch.zeros(400, dtype=torch.complex64, device=dev),
+                     torch.zeros((C, 399), dtype=torch.complex64,
+                                 device=dev), x, x, 2)
+    with pytest.raises(ValueError):                 # carry on the CPU
+        fir_k.fir_cx(h, carry.cpu(), x, x, 4)
+    z = torch.zeros((C, T), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):                 # real input
+        ew_k.fm_disc(torch.zeros(C, dtype=torch.complex64, device=dev), x)
+    with pytest.raises(ValueError):                 # z_prev of another size
+        ew_k.fm_disc(torch.zeros(C + 1, dtype=torch.complex64, device=dev), z)
+
+
+@pytest.mark.parametrize("mode,bw,iq_rate,translate,sql,subtone", [
+    ("fm", "3P6KHZ", 48000.0, 12000.0, 0, 0.0),
+    ("fm", "5P0KHZ", 96000.0, 12000.0, 10, 88.5),
+    ("usb", "5P0KHZ", 96000.0, 12000.0, 0, 0.0),      # K7
+    ("usb", "4P0KHZ", 48000.0, 0.0, 0, 0.0),          # K6, both lattices
+    ("lsb", "10P0KHZ", 48000.0, 12000.0, 0, 0.0)])
+def test_fm_wide_chain_on_card_matches_cpu(dev, mode, bw, iq_rate, translate,
+                                           sql, subtone):
+    from uhsdr_tpu_torch import trace_rx
+    cfg = rx.RxConfig(mode=mode, bw_key=bw, translate_hz=translate,
+                      iq_rate=iq_rate, block_len=2048, sql_threshold=sql,
+                      subtone_hz=subtone)
+    gpu, cpu = rx.RxChain(cfg, device=dev), rx.RxChain(cfg, device="cpu")
+    C = 8
+    sg, sc = gpu.init_state((C,)), cpu.init_state((C,))
+    fm = mode == "fm"
+    expect = {k.name: 0 for k in build.kernels()}
+    expect.update({"agc": 3} if fm else {"agc": 3, "interp": 3})
+    expect["fir_rt" if fm else "fir_cx_nco" if translate else "fir_cx"] = 3
+    if fm:
+        expect["fm_disc"] = 3
+    before = {k.name: k.launches for k in build.kernels()}
+    for i, q in trace_rx.capture(3, C, "cpu", 4, cfg):
+        yg, sg, _ = gpu(sg, i=i, q=q)
+        yc, sc, _ = cpu(sc, i=i, q=q)
+        assert snr_db(yc, yg.cpu()) >= CHAIN_DB
+    for k in build.kernels():
+        assert k.launches - before[k.name] == expect[k.name], k.name
+    a, b = rx.state_to_numpy(sc), rx.state_to_numpy(sg)
+    for f in a:
+        if a[f].dtype == bool or a[f].dtype.kind in "iu":
+            assert np.array_equal(a[f], b[f]), f
+        else:
+            assert snr_db(a[f], b[f]) >= CHAIN_DB, f
+
+
+@pytest.mark.parametrize("kw", [FLAGSHIP, dict(mode="usb", bw_key="5P0KHZ",
+                                               path_name="LPF",
+                                               translate_hz=12000.0,
+                                               iq_rate=96000.0)])
+def test_retuned_chain_on_card_matches_cpu(dev, kw):
+    """tune_offset_hz moved between blocks, on the card and on the CPU."""
+    from uhsdr_tpu_torch import trace_rx
+    cfg = rx.RxConfig(**kw, block_len=2048)
+    gpu, cpu = rx.RxChain(cfg, device=dev), rx.RxChain(cfg, device="cpu")
+    C = 8
+    sg, sc = gpu.init_state((C,)), cpu.init_state((C,))
+    for (i, q), off in zip(trace_rx.capture(3, C, "cpu", 5, cfg),
+                           (None, 350.0, -1234.5)):
+        yg, sg, _ = gpu(sg, i=i, q=q, tune_offset_hz=off)
+        yc, sc, _ = cpu(sc, i=i, q=q, tune_offset_hz=off)
+        assert snr_db(yc, yg.cpu()) >= CHAIN_DB
+    assert torch.equal(sg.nco_phase.cpu(), sc.nco_phase)

@@ -9,8 +9,9 @@ wrappers run the kernels' plain torch versions:
   `state_from_numpy`, again at 80 dB;
 * the AM chains (fade leveler on and off, 48 and 96 kHz, with and without
   the anti-alias lattice) the same way in 2048-sample blocks, with the
-  hand-over in both directions; the SAM chains are in
-  tests/test_torch_rx_sam*.py, which use this module's helpers;
+  hand-over in both directions; the SAM, FM and wide-SSB chains are in
+  tests/test_torch_rx_sam*.py, test_torch_fm.py and test_torch_wide.py,
+  which use this module's helpers;
 * against the float64 oracle `tests/golden/ref_chain.py` (usb 2P3KHZ
   select 2 @ 48 kHz, as tests/test_conformance_ref.py runs the JAX chain,
   whose CPU rows sit at 79.6-112.6 dB) at the conformance bound, 50 dB
@@ -86,13 +87,16 @@ def state_snrs(jstate, tstate) -> dict:
     """{leaf: SNR in dB} of the port's state against the JAX chain's, over
     every leaf `state_to_numpy` gives.  The PLL phase is compared through
     its cosine and sine (a wrap at 2 pi is not an error); the NCO phase
-    must be equal."""
+    must be equal; boolean and integer leaves (the FM squelch and tone
+    detector's) read inf where equal and -inf where not."""
     out = {}
     for f, v in trx.state_to_numpy(tstate).items():
         ref = np.asarray(_leaf(jstate, f))
         assert v.shape == ref.shape, f
         if f == "nco_phase":
             np.testing.assert_array_equal(v, ref)
+        elif v.dtype == bool or v.dtype.kind in "iu":
+            out[f] = np.inf if np.array_equal(v, ref) else -np.inf
         elif f == "sam.phs":
             out[f] = snr_db(np.stack([np.cos(ref), np.sin(ref)]),
                             np.stack([np.cos(v), np.sin(v)]))
@@ -239,15 +243,18 @@ def _run_port(tcfg, tp, ts, blk):
                                             torch.from_numpy(blk[1])))
 
 
-def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB):
+def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB, capture=None,
+                           last_audio_db=None):
     """Four int16 blocks through the JAX chain and the port, both from
     zero state: audio and every state leaf held to `zero_db` after every
-    block.  After block 2 the stream is also handed over in both
-    directions (JAX state -> port through `state_from_numpy`, the port's
-    state -> JAX through `state_to_numpy`), and blocks 3-4 of each
-    handed-over stream are held to `handover_db` against the chain the
-    state came from.  Returns the printed numbers."""
-    kw = dict(translate_hz=12000.0, block_len=AM_B, **kw)
+    block (and the last block's audio to `last_audio_db` where given).
+    After block 2 the stream is also handed over in both directions (JAX
+    state -> port through `state_from_numpy`, the port's state -> JAX
+    through `state_to_numpy`), and blocks 3-4 of each handed-over stream
+    are held to `handover_db` against the chain the state came from.
+    `capture(n_blocks, iq_rate)` makes the blocks (default `am_capture`).
+    Returns the printed numbers."""
+    kw = {"translate_hz": 12000.0, "block_len": AM_B, **kw}
     jcfg = jrx.RxConfig(**kw)
     jp = jrx.make_params(jcfg)
     step = jax.jit(lambda s, i, q: jrx.process_block(jcfg, jp, s, (i, q)))
@@ -256,7 +263,8 @@ def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB):
     for name, a, b in zip(tp._fields, tp,
                           trx.params_from_numpy(jp, device="cpu")):
         assert _same(a, b), name
-    blocks = am_capture(N_BLOCKS, jcfg.iq_rate)
+    blocks = (capture or am_capture)(N_BLOCKS, jcfg.iq_rate)
+    out_len = AM_B // tcfg.decim if tcfg.mode == "fm" else AM_B
     js = jrx.init_state(jcfg, jp, (C,))
     ts = trx.init_state(tcfg, tp, (C,))
     audio_db, mid = [], None
@@ -264,9 +272,11 @@ def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB):
     for k, blk in enumerate(blocks):
         yj, js, tj = _run_jax(step, js, blk)
         yt, ts, tt = _run_port(tcfg, tp, ts, blk)
-        assert tuple(yt.shape) == (C, AM_B)
-        np.testing.assert_array_equal(tt["adc_peak"].numpy(),
-                                      np.asarray(tj["adc_peak"]))
+        assert tuple(yt.shape) == (C, out_len)
+        assert ("adc_peak" in tt) == ("adc_peak" in tj)
+        if "adc_peak" in tt:
+            np.testing.assert_array_equal(tt["adc_peak"].numpy(),
+                                          np.asarray(tj["adc_peak"]))
         yjs.append(yj)
         yts.append(yt)
         audio_db.append(snr_db(yj, yt))
@@ -278,6 +288,8 @@ def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB):
         assert leaves[worst] >= zero_db, (k, worst, leaves[worst])
         if k == 1:
             mid = (js, ts)
+    if last_audio_db is not None:
+        assert audio_db[-1] >= last_audio_db, audio_db
     js_mid, ts_mid = mid
     # JAX -> port
     ts2 = trx.state_from_numpy(jax.tree_util.tree_map(np.asarray, js_mid),
@@ -332,8 +344,10 @@ def test_imports_neither_jax_nor_the_jax_package():
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'uhsdr_tpu' or m.startswith('uhsdr_tpu.'))\n"
         "n = sum(m.startswith('uhsdr_tpu_torch.') for m in sys.modules)\n"
-        "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 20 else 0)\n")
+        "new = {'uhsdr_tpu_torch.demod.fm', 'uhsdr_tpu_torch.cuda.elemwise',\n"
+        "       'uhsdr_tpu_torch.cuda.fir', 'uhsdr_tpu_torch.trace_rx'}\n"
+        "print(n, bad, sorted(new - set(sys.modules)))\n"
+        "sys.exit(1 if bad or n < 25 or new - set(sys.modules) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -351,11 +365,11 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="sam", sam_sideband="stereo"), dict(mode="fm"),
-    dict(mode="iq"),
+    dict(mode="sam", sam_sideband="stereo"),
+    dict(mode="fm", notch_enable=True), dict(mode="iq"),
     dict(mode="ssbstereo"), dict(nr_enable=True), dict(nb_enable=True),
     dict(notch_enable=True), dict(leaky_nr_enable=True),
-    dict(iq_auto_correction=True), dict(bw_key="10P0KHZ"),
+    dict(iq_auto_correction=True), dict(mode="iq", bw_key="10P0KHZ"),
     dict(front="scipy")])
 def test_outside_the_slice_raises(kw):
     cfg = trx.RxConfig(**{**FLAGSHIP, **kw})
@@ -364,8 +378,9 @@ def test_outside_the_slice_raises(kw):
 
 
 def test_unfused_stage_b_raises():
-    """K1 fuses stage B, so the chain's stage B passes real audio through
-    and refuses complex decimated IQ until the wide-SSB fronts come."""
+    """K1 fuses stage B at every NCO delta, so the chain's stage B passes
+    real audio through and refuses complex decimated IQ (the reference's
+    unfused route, which nothing in the port calls)."""
     cfg = trx.RxConfig(**FLAGSHIP)
     p = trx.make_params(cfg, device="cpu")
     s = trx.init_state(cfg, p, (2,))

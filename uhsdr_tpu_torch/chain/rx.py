@@ -1,5 +1,5 @@
-"""RX signal chain: the narrow SSB/CW, AM and synchronous-AM slices — the
-torch counterpart of `uhsdr_tpu.chain.rx` (itself the equivalent of the
+"""RX signal chain: the narrow and wide SSB/CW, AM, synchronous-AM and FM
+slices — the torch counterpart of `uhsdr_tpu.chain.rx` (itself the equivalent of the
 firmware's `AudioDriver_RxProcessor`, audio_driver.c:2603-2942, plus its
 decimated-domain post-processing, :2436-2592).
 
@@ -8,11 +8,18 @@ Stage order of the reference-table chains:
   int16 (or f32) IQ planes, batched over channels
     -> SSB/CW: ADC peak taps, NCO translation, stage-A decimator, stage-B
        Hilbert-combine FIR, real audio out  [K1: cuda.fir.front]
-       AM/SAM: ADC peak taps, NCO translation, the per-path AM lowpass as
-       the decimator, complex IQ out        [K5: cuda.fir.fir_rt]
-    -> demod: SSB (the real part, already taken by K1); AM envelope and
-       fade leveler; SAM PLL                [K9/K10: cuda.pll] with the
-       sideband allpass chains              [K11: cuda.iir.biquad_cascade]
+       wide SSB: ADC peak taps, NCO translation, one complex-tap
+       decimating FIR (Hilbert pair ⊛ decimator), real audio out
+                                            [K7, K6 untranslated:
+                                             cuda.fir.fir_cx]
+       AM/SAM/FM: ADC peak taps, NCO translation, the per-path AM lowpass
+       as the decimator, complex IQ out     [K5: cuda.fir.fir_rt]
+    -> demod: SSB (the real part, already taken by K1/K7); AM envelope
+       and fade leveler; SAM PLL            [K9/K10: cuda.pll] with the
+       sideband allpass chains              [K11: cuda.iir.biquad_cascade];
+       FM discriminator                     [K12: cuda.elemwise.fm_disc],
+       de-emphasis, squelch, subtone gate, FM_RX_SCALING; the FM chain
+       then runs the AGC and biquad2 alone at 48 kHz
     -> PreFilter lattice as an exact SOS cascade (blocked matmuls)
     -> WDSP look-ahead AGC                  [K3: cuda.agc.agc], for AM/SAM
        followed by its DC blocker
@@ -43,6 +50,7 @@ import torch
 from .. import data as refdata
 from ..cuda import fir as fir_kernels
 from ..demod import am as am_mod
+from ..demod import fm as fm_mod
 from ..demod import sam as sam_mod
 from ..demod import ssb as ssb_mod
 from ..ops import agc as agc_mod
@@ -58,10 +66,13 @@ _EMPTY_SOS = np.zeros((0, 5), np.float32)
 # post-AGC output scaling (audio_driver.h:362-364, audio_driver.c:2517-2527)
 POST_AGC_GAIN_SCALING_DECIMATE_4 = 3.46
 POST_AGC_GAIN_SCALING_DECIMATE_2 = 3.46 * 0.6
+# FM audio scaling ahead of the AGC (audio_driver.c:1494-1495)
+FM_RX_SCALING_2K5 = 10000.0
+FM_RX_SCALING_5K = FM_RX_SCALING_2K5 / 2.0
 
-_ROADMAP_MODES = ("ROADMAP.md queue A item 7 (other RX modes: fm, "
-                  "iq/ssbstereo/SAM stereo, wide-SSB fronts; kernels K6, K7, "
-                  "K12, K13)")
+_ROADMAP_MODES = ("ROADMAP.md queue A item 7 (other RX modes: "
+                  "iq/ssbstereo/SAM stereo with the linked stereo AGC, "
+                  "kernel K13)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -79,7 +90,7 @@ def resolve_device(device=None) -> torch.device:
 class RxConfig:
     """Static per-chain configuration (channels sharing a config are
     batched).  The fields keep the JAX package's names and defaults."""
-    mode: str = "usb"              # usb | lsb | cw | am | sam so far
+    mode: str = "usb"              # usb | lsb | cw | am | sam | fm so far
     bw_key: str = "2P3KHZ"
     path_name: str | None = None   # sub-path of the filter registry
     front: str = "ref"             # "ref": the firmware's imported tables
@@ -92,9 +103,12 @@ class RxConfig:
     nb_enable: bool = False
     notch_enable: bool = False
     leaky_nr_enable: bool = False
+    sql_threshold: int = 0         # FM squelch
+    subtone_hz: float = 0.0        # FM subaudible tone detect
     sam_sideband: str = "both"     # SAM: both | usb | lsb
     fade_leveler: bool = True      # AM/SAM
     iq_auto_correction: bool = False
+    fm_dev5: bool = False          # FM deviation 5 kHz (else 2.5 kHz)
     front_prec: str = "default"    # accepted; the port computes in FP32
     iq_rate: float = IQ_RATE       # 48 kHz or a multiple (96 kHz flagship)
     eq: eq_mod.EqSettings = eq_mod.EqSettings()   # tone controls
@@ -144,10 +158,25 @@ SAM_FLAGSHIP = RxConfig(mode="sam", bw_key="5P0KHZ", path_name="AM/SAM",
                         translate_hz=12000.0, iq_rate=96000.0,
                         block_len=16384)
 
+# The FM deployment at the flagship's channel count, rate and block: the
+# 5 kHz FM path (the 89-tap lowpass lifted to 96 kHz, decimation 2 to the
+# reference's 48 kHz FM chain), the FM configuration
+# tools/bench_sam_fm.py:55 times.
+FM_FLAGSHIP = RxConfig(mode="fm", bw_key="5P0KHZ", path_name="FM",
+                       translate_hz=12000.0, iq_rate=96000.0,
+                       block_len=16384)
+
+# The wide-SSB deployment: the narrowest wide-SSB row that runs at 96 kHz
+# (5P0KHZ, no anti-alias lattice): one 245-tap complex front decimating
+# by 4 to 24 kHz, x4 interpolation.
+WIDE_FLAGSHIP = RxConfig(mode="usb", bw_key="5P0KHZ", path_name="LPF",
+                         translate_hz=12000.0, iq_rate=96000.0,
+                         block_len=16384)
+
 
 def check_slice(cfg: RxConfig):
     """Raise NotImplementedError for what this slice does not port."""
-    if cfg.mode not in ("usb", "lsb", "cw", "am", "sam"):
+    if cfg.mode not in ("usb", "lsb", "cw", "am", "sam", "fm"):
         raise NotImplementedError(f"mode {cfg.mode!r}: {_ROADMAP_MODES}")
     if cfg.mode == "sam" and cfg.sam_sideband == "stereo":
         raise NotImplementedError(
@@ -158,10 +187,6 @@ def check_slice(cfg: RxConfig):
     if cfg.front != "ref":
         raise NotImplementedError(
             f"front {cfg.front!r}: the legacy redesigned front, "
-            f"{_ROADMAP_MODES}")
-    if not refdata.uses_decimated_iq(cfg.ref_path, cfg.mode):
-        raise NotImplementedError(
-            f"wide SSB path {cfg.bw_key}: complex-tap front (K6/K7), "
             f"{_ROADMAP_MODES}")
     for flag, what in (("nr_enable", "spectral NR (nr/spectral.py)"),
                        ("nb_enable", "noise blanker (nr/blanker.py)"),
@@ -177,14 +202,16 @@ def check_slice(cfg: RxConfig):
 class RxParams(NamedTuple):
     """Design products for one chain config, resident on one device."""
     nco_delta: int                # uint32 phase increment
-    front_fir: torch.Tensor       # (taps,) f32 real stage-A decimator
+    front_fir: torch.Tensor       # (taps,) the decimating front: f32 real
+    #                               taps, or complex64 for wide SSB
     front2: torch.Tensor | None   # (taps2,) complex64 stage-B Hilbert FIR;
-    #                               None for AM/SAM (no second stage)
+    #                               None without a second stage
     audio_sos: iir.Cascade        # PreFilter lattice as SOS
     interp_fir: torch.Tensor      # (taps,) f32 interpolator
     agc: agc_mod.AgcParams
     fade: am_mod.FadeLevelerParams
     sam: sam_mod.SamParams
+    fm: fm_mod.FmParams | None    # FM only
     iq_gain: float
     iq_phase: float
     post_scale: float             # firmware post-AGC scaling
@@ -202,6 +229,7 @@ class RxState(NamedTuple):
     agc: agc_mod.AgcState
     fade: am_mod.FadeLevelerState
     sam: sam_mod.SamState
+    fm: fm_mod.FmState | None     # FM only
     interp_carry: torch.Tensor    # (C, sub_len-1)
     eq1: torch.Tensor
     eq2: torch.Tensor
@@ -243,39 +271,44 @@ def _lattice_sos5(name: str | None) -> np.ndarray:
 
 
 def _post_scale(cfg: RxConfig) -> float:
-    """Firmware post-AGC scaling, exact (audio_driver.c:2517-2527)."""
+    """Firmware post-AGC scaling, exact (audio_driver.c:2517-2527); FM's
+    scaling ahead of its AGC (:1494-1495)."""
+    if cfg.mode == "fm":
+        return FM_RX_SCALING_5K if cfg.fm_dev5 else FM_RX_SCALING_2K5
     base = (POST_AGC_GAIN_SCALING_DECIMATE_4 if cfg.ref_path["decim"] == 4
             else POST_AGC_GAIN_SCALING_DECIMATE_2)
     return base * (0.5 if cfg.mode in ("am", "sam") else 0.333)
 
 
 def _on_device(device, *, nco_delta, front_fir_re, front_fir_im, front2_re,
-               front2_im, audio_sos, interp_fir, agc, fade, sam, iq_gain,
+               front2_im, audio_sos, interp_fir, agc, fade, sam, fm, iq_gain,
                iq_phase, post_scale, eq1_sos, eq2_sos, aa_sos) -> RxParams:
     """NumPy design products (the JAX package's RxParams fields) ->
-    the port's RxParams on `device`."""
-    if np.any(np.asarray(front_fir_im)):
-        raise NotImplementedError(f"complex-tap front: {_ROADMAP_MODES}")
+    the port's RxParams on `device`.  The front stays real f32 unless its
+    imaginary taps are non-zero (wide SSB: complex64)."""
     dev = torch.device(device)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    front2 = None
-    if front2_re is not None:
-        front2 = torch.as_tensor(
-            (np.asarray(front2_re, np.float32)
-             + 1j * np.asarray(front2_im, np.float32)).astype(np.complex64),
+    def c64(re, im):
+        return torch.as_tensor(
+            (np.asarray(re, np.float32)
+             + 1j * np.asarray(im, np.float32)).astype(np.complex64),
             device=dev)
+
+    front = (c64(front_fir_re, front_fir_im)
+             if np.any(np.asarray(front_fir_im)) else f32(front_fir_re))
     return RxParams(
         nco_delta=int(nco_delta) & nco.MASK32,
-        front_fir=f32(front_fir_re),
-        front2=front2,
+        front_fir=front,
+        front2=None if front2_re is None else c64(front2_re, front2_im),
         audio_sos=iir.cascade(audio_sos, dev),
         interp_fir=f32(interp_fir),
         agc=agc_mod.AgcParams(**agc._asdict()),
         fade=am_mod.FadeLevelerParams(float(fade.mtauR), float(fade.mtauI)),
         sam=sam_mod.params_from_numpy(sam, dev),
+        fm=None if fm is None else fm_mod.params_from_numpy(fm, dev),
         iq_gain=float(iq_gain),
         iq_phase=float(iq_phase),
         post_scale=float(post_scale),
@@ -289,24 +322,33 @@ def make_params(cfg: RxConfig, device=None) -> RxParams:
     of the reference).  Narrow SSB/CW: stage A is the firmware's real
     decimator lifted to the capture rate, stage B its Hilbert pair fused
     into one complex FIR g = h_i ∓ j·h_q whose real response is I±Q.
-    AM/SAM: the per-path AM lowpass is the decimator, on both planes,
-    and there is no stage B.  The PreFilter and anti-alias lattices run
-    as exact SOS, and the interpolator uses the firmware's taps."""
+    Wide SSB: the Hilbert pair runs before the (real) decimator, which
+    commutes with Re(·), so the whole front is ONE complex decimating FIR
+    g ⊛ dec with real output.  AM/SAM/FM: the per-path AM lowpass is the
+    decimator, on both planes (FM: decimation 1 at 48 kHz, its chain stays
+    at 48 kHz), and there is no stage B.  The PreFilter and anti-alias
+    lattices run as exact SOS, and the interpolator uses the firmware's
+    taps."""
     check_slice(cfg)
     dev = resolve_device(device)
     rp = cfg.ref_path
     k = cfg.rate_mult
     am_sam = cfg.mode in ("am", "sam")
-    if am_sam:
+    fm = cfg.mode == "fm"
+    front2_re = front2_im = None
+    if am_sam or fm:
         front = refdata.fir(rp["fir_i"], rp["fir_numtaps"])
-        front2_re = front2_im = None
     else:
         sgn = 1.0 if cfg.mode == "lsb" else -1.0      # g = h_i ∓ j·h_q
-        front = refdata.decimator(rp["dec"])
-        front2 = (refdata.fir(rp["fir_i"], rp["fir_numtaps"])
-                  + 1j * sgn * refdata.fir(rp["fir_q"], rp["fir_numtaps"]))
-        front2_re, front2_im = front2.real, front2.imag
+        g = (refdata.fir(rp["fir_i"], rp["fir_numtaps"])
+             + 1j * sgn * refdata.fir(rp["fir_q"], rp["fir_numtaps"]))
+        if refdata.uses_decimated_iq(rp, cfg.mode):   # narrow SSB/CW
+            front = refdata.decimator(rp["dec"])
+            front2_re, front2_im = g.real, g.imag
+        else:                                         # wide SSB
+            front = np.convolve(g, refdata.decimator(rp["dec"]))
     front = _rate_adapt_front(front, k, cfg.iq_rate)
+    fs_dec = IQ_RATE if fm else cfg.fs_dec     # the FM chain runs at 48 kHz
     interp_fir = np.zeros(1, np.float64)
     if rp["interpolate"] is not None:
         h_int, _ = refdata.interpolator(rp["interpolate"], rp["decim"])
@@ -326,18 +368,22 @@ def make_params(cfg: RxConfig, device=None) -> RxParams:
     return _on_device(
         dev,
         nco_delta=nco.freq_to_delta(-cfg.translate_hz, cfg.iq_rate),
-        front_fir_re=front, front_fir_im=np.zeros_like(front),
+        front_fir_re=front.real, front_fir_im=front.imag,
         front2_re=front2_re, front2_im=front2_im,
         audio_sos=_lattice_sos5(rp["pre"]),
         interp_fir=interp_fir,
-        agc=agc_mod.make_params(cfg.fs_dec, mode=cfg.agc_mode,
+        agc=agc_mod.make_params(fs_dec, mode=cfg.agc_mode,
                                 thresh_db=cfg.agc_thresh_db,
                                 remove_dc=am_sam),
         fade=am_mod.fade_leveler_params(cfg.fs_dec),
         sam=sam_mod.make_params(cfg.fs_dec),
+        fm=(fm_mod.numpy_params(IQ_RATE, cfg.sql_threshold, cfg.subtone_hz)
+            if fm else None),
         iq_gain=1.0, iq_phase=0.0,
         post_scale=_post_scale(cfg),
-        eq1_sos=eq_mod.rx_biquad1_sos(cfg.eq, cfg.fs_dec),
+        eq1_sos=eq_mod.rx_biquad1_sos(cfg.eq, fs_dec),
+        # the reference designs biquad2 at the IQ rate even where the FM
+        # chain runs it on 48 kHz audio (chain/rx.py:460, :1050-1052)
         eq2_sos=eq_mod.rx_biquad2_sos(cfg.eq, cfg.iq_rate),
         aa_sos=aa_sos)
 
@@ -350,7 +396,8 @@ def params_from_numpy(p: Any, device=None) -> RxParams:
         front_fir_re=p.front_fir_re, front_fir_im=p.front_fir_im,
         front2_re=p.front2_re, front2_im=p.front2_im,
         audio_sos=p.audio_sos, interp_fir=p.interp_fir, agc=p.agc,
-        fade=p.fade, sam=p.sam, iq_gain=p.iq_gain, iq_phase=p.iq_phase,
+        fade=p.fade, sam=p.sam, fm=p.fm, iq_gain=p.iq_gain,
+        iq_phase=p.iq_phase,
         post_scale=p.post_scale,
         eq1_sos=p.eq1_sos, eq2_sos=p.eq2_sos, aa_sos=p.aa_sos)
 
@@ -373,6 +420,8 @@ def init_state(cfg: RxConfig, params: RxParams, batch_shape) -> RxState:
         agc=agc_mod.init_state(bs, params.agc, device=dev),
         fade=am_mod.fade_leveler_init(bs, device=dev),
         sam=sam_mod.init_state(bs, device=dev),
+        fm=(None if params.fm is None
+            else fm_mod.init_state(bs, params.fm, device=dev)),
         interp_carry=zeros(bs + (sub_len - 1,)),
         eq1=zeros((params.eq1_sos.sections,) + bs + (2,)),
         eq2=zeros((params.eq2_sos.sections,) + bs + (2,)),
@@ -395,7 +444,9 @@ def _map_state(state, fn):
                                      leaf(state.sam.fade.dc_insert)))
     agc = agc_mod.AgcState(**{f: leaf(getattr(state.agc, f))
                               for f in agc_mod.AgcState._fields})
-    nested = dict(agc=agc, fade=fade, sam=sam)
+    fm = None if state.fm is None else fm_mod.FmState(
+        **{f: leaf(getattr(state.fm, f)) for f in fm_mod.FmState._fields})
+    nested = dict(agc=agc, fade=fade, sam=sam, fm=fm)
     return RxState(**{f: nested[f] if f in nested
                       else leaf(getattr(state, f))
                       for f in RxState._fields})
@@ -405,7 +456,7 @@ def state_from_numpy(s: Any, device=None) -> RxState:
     """The JAX package's RxState (leaves given as NumPy arrays, e.g. via
     ``np.asarray``) -> the port's RxState: a stream can move from one
     chain to the other mid-sequence.  Fields the slices do not carry
-    (fm, nr, notch, ...) are dropped."""
+    (nr, notch, ...) are dropped; uint32 leaves become int64."""
     dev = resolve_device(device)
 
     def t(a):
@@ -417,11 +468,15 @@ def state_from_numpy(s: Any, device=None) -> RxState:
     return _map_state(s, t)
 
 
+_UINT32_LEAVES = ("nco_phase", "fm.tone_phase")
+
+
 def state_to_numpy(state: RxState) -> dict:
     """The port's RxState -> {field: NumPy array}, nested fields under
-    dotted names (``agc.volts``, ``sam.fade.dc``) and the NCO phase as
+    dotted names (``agc.volts``, ``sam.fade.dc``) and the NCO phases as
     uint32 (the JAX package's dtype), for comparison with the
-    reference's state.  A leaf that is None (no stage B) is left out."""
+    reference's state.  A leaf that is None (no stage B, no FM state) is
+    left out."""
     out = {}
 
     def walk(prefix, v):
@@ -429,7 +484,8 @@ def state_to_numpy(state: RxState) -> dict:
             return
         if isinstance(v, torch.Tensor):
             a = v.cpu().numpy()
-            out[prefix] = a.astype(np.uint32) if prefix == "nco_phase" else a
+            out[prefix] = (a.astype(np.uint32) if prefix in _UINT32_LEAVES
+                           else a)
             return
         for f in v._fields:
             walk(f"{prefix}.{f}" if prefix else f, getattr(v, f))
@@ -447,11 +503,28 @@ def _planes(iq):
             iq.imag.to(torch.float32).contiguous())
 
 
-def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq):
+def _tune_offset_delta(offset_hz, fs: float) -> int:
+    """A tune offset (Hz) -> uint32 NCO delta, in float32 on the host with
+    the reference's arithmetic (chain/rx.py:603-614): the fraction of a
+    turn split into two 16-bit halves, each exact in f32, so the result
+    is bit-equal to the JAX chain's in-graph delta."""
+    f32 = np.float32
+    frac = np.mod(-f32(offset_hz) / f32(fs), f32(1.0))
+    hi = np.floor(frac * f32(65536.0))
+    lo = np.floor((frac * f32(65536.0) - hi) * f32(65536.0))
+    return (int(hi) * 65536 + int(lo)) & nco.MASK32
+
+
+def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
+                  tune_offset_hz=None):
     """IQ correction, ADC peak taps, NCO translation and the front FIR.
     Narrow SSB/CW: both stages fused in the K1 kernel, real audio at
-    fs_dec out.  AM/SAM: the one real-tap decimating stage in the K5
-    kernel, complex decimated IQ out.  Returns (zf, new_state, taps)."""
+    fs_dec out.  Wide SSB: the complex-tap front, K7 when translating and
+    K6 when not, real audio out.  AM/SAM/FM: the one real-tap decimating
+    stage in the K5 kernel, complex decimated IQ out (FM reports no ADC
+    peaks, as the reference's FM branch).  `tune_offset_hz` (the live
+    retune, the reference's LO step) adds its delta to the translation.
+    Returns (zf, new_state, taps)."""
     xi, xq = _planes(iq)
     if not (params.iq_gain == 1.0 and params.iq_phase == 0.0):
         # non-identity calibration (audio_driver.c:2254-2316); identity
@@ -461,24 +534,34 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq):
         xi = a * params.iq_gain
         xq = b + xi * params.iq_phase
     xi, xq = xi.contiguous(), xq.contiguous()
+    delta = params.nco_delta
+    if tune_offset_hz is not None:
+        delta = (delta + _tune_offset_delta(tune_offset_hz, cfg.iq_rate)) \
+            & nco.MASK32
+    translating = cfg.translate_hz != 0.0 or tune_offset_hz is not None
     nco_phase = state.nco_phase
+    front2_carry = state.front2_carry
+    nco_arg = (nco_phase, delta) if translating else None
     if params.front2 is not None:
+        # K1 rotates at any delta, 0 included
         zf, front_carry, front2_carry, peak = fir_kernels.front(
             params.front_fir, params.front2, state.front_carry,
-            state.front2_carry, xi, xq, nco_phase, params.nco_delta,
-            cfg.decim)
+            state.front2_carry, xi, xq, nco_phase, delta, cfg.decim)
         translating = True
+    elif params.front_fir.is_complex():
+        zf, front_carry, peak = fir_kernels.fir_cx(
+            params.front_fir, state.front_carry, xi, xq, cfg.decim,
+            nco=nco_arg, real_out=True)
     else:
-        front2_carry = None
-        translating = cfg.translate_hz != 0.0
         zf, front_carry, peak = fir_kernels.fir_rt(
             params.front_fir, state.front_carry, xi, xq, cfg.decim,
-            nco=(nco_phase, params.nco_delta) if translating else None)
+            nco=nco_arg)
     if translating:
-        nco_phase = nco.advance(nco_phase, params.nco_delta, xi.shape[-1])
+        nco_phase = nco.advance(nco_phase, delta, xi.shape[-1])
     # ADC clip / signal-level detect (audio_driver.c:2660-2685)
-    taps_out = {"adc_peak": peak, "adc_clip": peak > 0.985,
-                "adc_half_clip": peak > 0.5, "adc_quarter_clip": peak > 0.25}
+    taps_out = {} if cfg.mode == "fm" else {
+        "adc_peak": peak, "adc_clip": peak > 0.985,
+        "adc_half_clip": peak > 0.5, "adc_quarter_clip": peak > 0.25}
     state = state._replace(nco_phase=nco_phase, front_carry=front_carry,
                            front2_carry=front2_carry)
     return zf, state, taps_out
@@ -486,13 +569,14 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq):
 
 def stage_b(cfg: RxConfig, params: RxParams, state: RxState, zf):
     """Stage B, the Hilbert-combine FIR at fs_dec with real output.  The
-    K1 kernel fuses it (and updates front2_carry), so real audio passes
-    through; AM/SAM have no second stage and their complex decimated IQ
-    passes through too.  An unfused stage B on complex decimated IQ comes
-    with the wide-SSB fronts."""
+    K1 kernel fuses it at every NCO delta (and updates front2_carry), so
+    real audio passes through; the other fronts have no second stage and
+    their output passes through too.  The reference's unfused stage B
+    (chain/rx.py:939-982) has no caller in the port."""
     if params.front2 is not None and zf.is_complex():
         raise NotImplementedError(
-            f"unfused stage B on complex decimated IQ: {_ROADMAP_MODES}")
+            "an unfused stage B on complex decimated IQ: K1 fuses stage B "
+            "at every NCO delta (ROADMAP.md port status)")
     return zf, state
 
 
@@ -520,9 +604,16 @@ def _demod_sos_pre_agc(cfg: RxConfig, params: RxParams, state: RxState,
 
 def demod_pre_agc(cfg: RxConfig, params: RxParams, state: RxState, zf,
                   taps_out: dict | None = None):
+    """Everything up to the AGC.  FM: the demodulator at 48 kHz and
+    FM_RX_SCALING (the reference applies the AGC after the scale,
+    audio_driver.c:2824-2836)."""
+    taps_out = {} if taps_out is None else taps_out
+    if cfg.mode == "fm":
+        audio, fm_state = fm_mod.demod(params.fm, state.fm, zf)
+        return audio * params.post_scale, state._replace(fm=fm_state), \
+            taps_out
     zf, state = stage_b(cfg, params, state, zf)
-    return _demod_sos_pre_agc(cfg, params, state, zf,
-                              {} if taps_out is None else taps_out)
+    return _demod_sos_pre_agc(cfg, params, state, zf, taps_out)
 
 
 def post_to_dec(cfg: RxConfig, params: RxParams, state: RxState, audio,
@@ -551,19 +642,34 @@ def interp_stage(cfg: RxConfig, params: RxParams, state: RxState, audio,
                                    eq2=eq2_state), taps_out
 
 
+def post_after_agc(cfg: RxConfig, params: RxParams, state: RxState, audio,
+                   taps_out: dict):
+    """The post-AGC half: scaling, EQ biquad1, interpolation, anti-alias
+    lattice, treble biquad2.  FM: biquad2 alone (its chain stays at
+    48 kHz)."""
+    if cfg.mode == "fm":
+        audio, eq2_state = iir.biquad_cascade_dispatch(params.eq2_sos,
+                                                       state.eq2, audio)
+        return audio, state._replace(eq2=eq2_state), taps_out
+    audio, state, taps_out = post_to_dec(cfg, params, state, audio, taps_out)
+    return interp_stage(cfg, params, state, audio, taps_out)
+
+
 def demod_and_post(cfg: RxConfig, params: RxParams, state: RxState, zf,
                    taps_out: dict | None = None):
     audio, state, taps_out = demod_pre_agc(cfg, params, state, zf, taps_out)
     audio, agc_state = agc_mod.run(params.agc, state.agc, audio)
     state = state._replace(agc=agc_state)
-    audio, state, taps_out = post_to_dec(cfg, params, state, audio, taps_out)
-    return interp_stage(cfg, params, state, audio, taps_out)
+    return post_after_agc(cfg, params, state, audio, taps_out)
 
 
-def process_block(cfg: RxConfig, params: RxParams, state: RxState, iq):
+def process_block(cfg: RxConfig, params: RxParams, state: RxState, iq,
+                  tune_offset_hz=None):
     """iq: an (i, q) tuple of (C, block) int16 or f32 planes, or a complex
-    (C, block) tensor.  Returns (audio (C, block), new_state, taps)."""
-    zf, state, taps_out = process_front(cfg, params, state, iq)
+    (C, block) tensor.  Returns (audio, new_state, taps): audio is (C,
+    block) at the IQ rate, or (C, block // decim) at 48 kHz for FM."""
+    zf, state, taps_out = process_front(cfg, params, state, iq,
+                                        tune_offset_hz)
     return demod_and_post(cfg, params, state, zf, taps_out)
 
 
@@ -584,9 +690,11 @@ class RxChain:
             a = torch.from_numpy(np.ascontiguousarray(a))
         return a.to(self.device).contiguous()
 
-    def __call__(self, state: RxState, iq=None, i=None, q=None):
+    def __call__(self, state: RxState, iq=None, i=None, q=None,
+                 tune_offset_hz=None):
         """iq: complex (C, block) array; or i=, q=: int16 or f32 planes
-        (NumPy arrays or tensors)."""
+        (NumPy arrays or tensors).  tune_offset_hz: an extra frequency
+        shift on top of the translation (the live retune)."""
         if iq is not None:
             if not np.iscomplexobj(iq) and not (
                     isinstance(iq, torch.Tensor) and iq.is_complex()):
@@ -597,4 +705,5 @@ class RxChain:
         i, q = self._tensor(i), self._tensor(q)
         if i.dtype != torch.int16:
             i, q = i.to(torch.float32), q.to(torch.float32)
-        return process_block(self.cfg, self.params, state, (i, q))
+        return process_block(self.cfg, self.params, state, (i, q),
+                             tune_offset_hz)

@@ -1,7 +1,8 @@
-"""K1 (the fused RX front), K5 (the real-tap decimating front) and K4
-(the polyphase interpolator): wrappers around the hand-written kernels
-`kernels/front.cu`, `kernels/fir_rt.cu` and `kernels/interp.cu`, each
-beside its plain torch version.
+"""K1 (the fused RX front), K5 (the real-tap decimating front), K6/K7 (the
+complex-tap decimating front, without and with the NCO) and K4 (the
+polyphase interpolator): wrappers around the hand-written kernels
+`kernels/front.cu`, `kernels/fir_rt.cu`, `kernels/fir_cx.cu` and
+`kernels/interp.cu`, each beside its plain torch version.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
@@ -10,7 +11,8 @@ launch failed, and adds one to the kernel's ``launches`` count.  There is
 no fallback.
 
 K1 replaces uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2 (:179); K5
-replaces ::_fir_kernel_rt_s (:82); K4 replaces ::_interp_kernel (:1003).
+replaces ::_fir_kernel_rt_s (:82); K6 ::_fir_kernel (:47); K7
+::_fir_nco_kernel (:370); K4 ::_interp_kernel (:1003).
 What bounds each on the card is noted in its source.
 """
 from __future__ import annotations
@@ -44,6 +46,16 @@ FIR_RT = CudaKernel("fir_rt", "fir_rt.cu", {
     "uhsdr_fir_rt_ring_rows": ([], _I),
 })
 
+# one source and library, two kernels: K6 (no NCO) and K7 (NCO fused)
+FIR_CX = CudaKernel("fir_cx", "fir_cx.cu", {
+    "uhsdr_fir_cx_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
+                             ctypes.c_uint32, _P, _I, _I, _I, _P, _P, _P, _P,
+                             _P], _I),
+    "uhsdr_fir_cx_tile": ([], _I),
+    "uhsdr_fir_cx_ring_rows": ([], _I),
+})
+FIR_CX_NCO = CudaKernel("fir_cx_nco", "fir_cx.cu", lib_of=FIR_CX)
+
 INTERP = CudaKernel("interp", "interp.cu", {
     "uhsdr_interp_launch": ([_P, _P, _I, _I, _P, _I, _I, _P, _P, _P], _I),
 })
@@ -64,15 +76,15 @@ def scale_planes(xi: torch.Tensor, xq: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# K5: the real-tap decimating front
+# K5: the real-tap decimating front; K6/K7: the complex-tap one
 # ---------------------------------------------------------------------------
 
 def fir_rt_plain(h, carry, xi, xq, decim: int, nco=None,
                  real_out: bool = False, planes_out: bool = False):
     """Plain torch version of K5: scale, peaks, NCO rotation of the block
-    and of the raw history (when `nco` is given), the real-tap FIR h on
-    both planes, decimation.  Returns (y (C, B//decim), new raw carry,
-    peaks (C,)) with y as `fir_rt` describes."""
+    and of the raw history (when `nco` is given), the FIR h on both
+    planes, decimation.  Returns (y (C, B//decim), new raw carry, peaks
+    (C,)) with y as `fir_rt` describes."""
     a, b = scale_planes(xi, xq)
     peaks = torch.maximum(a.abs().amax(-1), b.abs().amax(-1))
     z = torch.complex(a, b)
@@ -92,44 +104,45 @@ def fir_rt_plain(h, carry, xi, xq, decim: int, nco=None,
     return y, new_carry, peaks
 
 
-def fir_rt(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
-           planes_out: bool = False):
-    """The real-tap decimating front (K5).  h: (taps,) f32 real taps;
-    carry: (C, taps-1) complex64 RAW pre-mix history; xi, xq: (C, B) int16
-    or f32 planes; nco: None, or (phase (C,) int64 in [0, 2^32), the
-    uint32 phase increment) to rotate the input before the filter.
-    Returns (y, new_carry, peaks): y is the decimated complex64 (C,
-    B//decim) signal, or its (real, imag) f32 planes with `planes_out`,
-    or its real plane alone with `real_out`."""
-    if xi.device.type == "cpu":
-        return fir_rt_plain(h, carry, xi, xq, decim, nco, real_out,
-                            planes_out)
+def fir_cx_plain(h, carry, xi, xq, decim: int, nco=None,
+                 real_out: bool = False, planes_out: bool = False):
+    """Plain torch version of K6 (no `nco`) and K7: `fir_rt_plain` with
+    complex taps h, so y = sum_k h[k] z[m*decim - k] is complex before
+    `real_out` takes its real part."""
+    return fir_rt_plain(h, carry, xi, xq, decim, nco, real_out, planes_out)
+
+
+def _decimate(name: str, kernel: CudaKernel, h_dtype, h, carry, xi, xq,
+              decim: int, nco, real_out: bool, planes_out: bool):
+    """Check the arguments of a decimating-front kernel (K5, K6, K7: one
+    C interface), launch it and count the launch on `kernel`."""
     dev = xi.device
-    _need(xi.ndim == 2, "fir_rt: xi/xq must be (C, B)")
+    _need(xi.ndim == 2, f"{name}: xi/xq must be (C, B)")
     C, B = xi.shape
     taps = h.shape[-1]
     _need(xi.dtype in (torch.int16, torch.float32) and xq.dtype == xi.dtype
-          and xq.shape == xi.shape, "fir_rt: xi/xq must be int16 or f32 "
+          and xq.shape == xi.shape, f"{name}: xi/xq must be int16 or f32 "
           "planes of one shape")
     _need(1 <= decim <= 8 and B % decim == 0,
-          f"fir_rt: decimation {decim} outside 1..8, or block {B} not a "
+          f"{name}: decimation {decim} outside 1..8, or block {B} not a "
           f"multiple of it")
-    _need(h.dtype == torch.float32 and h.ndim == 1 and taps >= 2,
-          "fir_rt: h must be (taps,) f32")
+    _need(h.dtype == h_dtype and h.ndim == 1 and taps >= 2,
+          f"{name}: h must be (taps,) {h_dtype}")
     _need(carry.shape == (C, taps - 1) and carry.dtype == torch.complex64,
-          "fir_rt: carry must be (C, taps-1) complex64")
+          f"{name}: carry must be (C, taps-1) complex64")
     ts = [h, carry, xi, xq]
     phase, delta = (None, 0) if nco is None else nco
     if phase is not None:
         _need(phase.shape == (C,) and phase.dtype == torch.int64,
-              "fir_rt: phase must be (C,) int64")
+              f"{name}: phase must be (C,) int64")
         ts.append(phase)
-    _need(all(t.device == dev for t in ts), "fir_rt: tensors on one device")
-    _need(all(t.is_contiguous() for t in ts), "fir_rt: contiguous tensors")
-    lib = FIR_RT.lib()
-    _need(lib.uhsdr_fir_rt_tile() + -(-(taps - 1) // decim)
-          <= lib.uhsdr_fir_rt_ring_rows(),
-          f"fir_rt: {taps} taps at decim {decim} exceed the input ring")
+    _need(all(t.device == dev for t in ts), f"{name}: tensors on one device")
+    _need(all(t.is_contiguous() for t in ts), f"{name}: contiguous tensors")
+    lib = kernel.lib()
+    prefix = f"uhsdr_{name}"           # the C interface's names
+    _need(getattr(lib, f"{prefix}_tile")() + -(-(taps - 1) // decim)
+          <= getattr(lib, f"{prefix}_ring_rows")(),
+          f"{name}: {taps} taps at decim {decim} exceed the input ring")
     T_out = B // decim
     f32 = dict(dtype=torch.float32, device=dev)
     if real_out or planes_out:
@@ -144,7 +157,7 @@ def fir_rt(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
     new_carry = torch.empty_like(carry)
     peaks = torch.empty((C,), **f32)
     in_kind = 0 if xi.dtype == torch.int16 else 1
-    err = lib.uhsdr_fir_rt_launch(
+    err = getattr(lib, f"{prefix}_launch")(
         in_kind, xi.data_ptr(), xq.data_ptr(),
         INT16_SCALE if in_kind == 0 else 1.0, C, B, carry.data_ptr(),
         0 if phase is None else 1,
@@ -152,9 +165,38 @@ def fir_rt(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
         int(delta) & nco_ops.MASK32, h.data_ptr(), taps, decim, out_kind,
         out_a.data_ptr(), None if out_b is None else out_b.data_ptr(),
         new_carry.data_ptr(), peaks.data_ptr(), stream_ptr(dev))
-    FIR_RT.check(err)
-    FIR_RT.launches += 1
+    kernel.check(err)
+    kernel.launches += 1
     return y, new_carry, peaks
+
+
+def fir_rt(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
+           planes_out: bool = False):
+    """The real-tap decimating front (K5).  h: (taps,) f32 real taps;
+    carry: (C, taps-1) complex64 RAW pre-mix history; xi, xq: (C, B) int16
+    or f32 planes; nco: None, or (phase (C,) int64 in [0, 2^32), the
+    uint32 phase increment) to rotate the input before the filter.
+    Returns (y, new_carry, peaks): y is the decimated complex64 (C,
+    B//decim) signal, or its (real, imag) f32 planes with `planes_out`,
+    or its real plane alone with `real_out`."""
+    if xi.device.type == "cpu":
+        return fir_rt_plain(h, carry, xi, xq, decim, nco, real_out,
+                            planes_out)
+    return _decimate("fir_rt", FIR_RT, torch.float32, h, carry, xi, xq,
+                     decim, nco, real_out, planes_out)
+
+
+def fir_cx(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
+           planes_out: bool = False):
+    """The complex-tap decimating front: K6 without `nco`, K7 with it
+    (each counts its own launches).  h: (taps,) complex64 taps; the other
+    arguments and the result as `fir_rt`'s."""
+    if xi.device.type == "cpu":
+        return fir_cx_plain(h, carry, xi, xq, decim, nco, real_out,
+                            planes_out)
+    return _decimate("fir_cx", FIR_CX if nco is None else FIR_CX_NCO,
+                     torch.complex64, h, carry, xi, xq, decim, nco,
+                     real_out, planes_out)
 
 
 # ---------------------------------------------------------------------------

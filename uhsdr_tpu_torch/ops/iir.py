@@ -101,7 +101,7 @@ def cascade(sos: np.ndarray, device, R: int = R_CHUNK) -> Cascade:
                    t(np.ascontiguousarray(F.T)))
 
 
-def _need_fp32_matmul(x: torch.Tensor, what: str):
+def need_fp32_matmul(x: torch.Tensor, what: str):
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             f"{what} needs FP32 matmuls: set "
@@ -118,7 +118,7 @@ def biquad_cascade_blocked(c: Cascade, state: torch.Tensor, x: torch.Tensor):
     n = T // R
     if T % R:
         raise ValueError(f"T={T} is not a multiple of the chunk {R}")
-    _need_fp32_matmul(x, "biquad_cascade_blocked")
+    need_fp32_matmul(x, "biquad_cascade_blocked")
     lead = x.shape[:-1]
     s_vec = torch.movedim(state, 0, -2).reshape(lead + (2 * S,)).to(x.dtype)
     xc = x.reshape(lead + (n, R))
@@ -222,7 +222,7 @@ def one_pole_block(a: float, b: float, state: torch.Tensor, x: torch.Tensor,
         raise ValueError("one_pole_block takes scalar coefficients")
     if x.is_complex():
         raise ValueError("one_pole_block takes real input")
-    _need_fp32_matmul(x, "one_pole_block")
+    need_fp32_matmul(x, "one_pole_block")
     T = x.shape[-1]
     n = -(-T // R)
     M, L, ap, aq = _one_pole_tables(float(a), float(b), R, n, str(x.device))

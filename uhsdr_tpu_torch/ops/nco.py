@@ -47,8 +47,8 @@ def phase_ramp(phase0: torch.Tensor, delta, n: int,
     k = torch.arange(n, dtype=torch.int64, device=phase0.device)
     d = delta if isinstance(delta, torch.Tensor) else torch.tensor(
         int(delta), dtype=torch.int64, device=phase0.device)
-    d = d[..., None] if d.ndim else d
     p0 = (phase0 + _mul_mod32(d, start % TWO32))[..., None]
+    d = d[..., None] if d.ndim else d
     # delta * k: k < 2^31 and delta < 2^32 stay below 2^63
     return (p0 + ((d * k) & MASK32)) & MASK32
 

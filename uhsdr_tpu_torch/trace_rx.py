@@ -1,13 +1,15 @@
 """Where the time of the port's main path goes on the card.
 
-    python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam]
+    python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam|fm|wide]
                                        [--sideband both|usb|lsb] [--seed 7]
 
 Drives `chain.rx.RxChain` on cuda:0 at the flagship SSB config (usb
 2P3KHZ, 12 kHz translate, 8192 channels of int16 IQ @ 96 kHz,
 16384-sample blocks) or, with ``--mode am`` / ``--mode sam``, at the
-AM/SAM flagship (5P0KHZ AM/SAM path, same channel count, rate and block)
-for 2 warm-up, 4 untraced and 4 traced blocks and prints, per block:
+AM/SAM flagship (5P0KHZ AM/SAM path, same channel count, rate and
+block), ``--mode fm`` at the FM flagship (5P0KHZ FM path) and ``--mode
+wide`` at the wide-SSB flagship (usb 5P0KHZ, one complex-tap front), for
+2 warm-up, 4 untraced and 4 traced blocks and prints, per block:
 
 * the step time with tracing off (CUDA events around the timed blocks)
   and the host's enqueue time (wall clock of the calls, no sync);
@@ -34,16 +36,29 @@ import torch
 from .chain import rx
 
 TONE_HZ = 700.0      # channel 0's audio tone
+FM_TONE_HZ = 1000.0  # channel 0's audio tone in FM configs
+FM_DEVIATION_HZ = 2000.0
+SUBTONE_DEVIATION_HZ = 300.0
 BLOCKS = 4           # untraced blocks, then as many traced
 
 
 def config(mode: str = "usb", sideband: str = "both") -> rx.RxConfig:
-    """The full-width config of a mode: the SSB flagship, or the AM/SAM
-    flagship in that mode and sideband."""
+    """The full-width config of a mode: the SSB flagship, the FM or the
+    wide-SSB flagship, or the AM/SAM flagship in that mode and
+    sideband."""
     if mode == "usb":
         return rx.FLAGSHIP
+    if mode == "fm":
+        return rx.FM_FLAGSHIP
+    if mode == "wide":
+        return rx.WIDE_FLAGSHIP
     return dataclasses.replace(rx.SAM_FLAGSHIP, mode=mode,
                                sam_sideband=sideband)
+
+
+def tone_hz(cfg: rx.RxConfig) -> float:
+    """The audio tone channel 0 of `capture` carries."""
+    return FM_TONE_HZ if cfg.mode == "fm" else TONE_HZ
 
 
 def capture(n_blocks: int, C: int, dev, seed: int,
@@ -55,14 +70,18 @@ def capture(n_blocks: int, C: int, dev, seed: int,
     -12 dBFS).  AM/SAM configs: channel c carries a carrier 3·(c mod 8) Hz
     above the translate frequency (starting phase 1 rad, clear of the
     PLL phase detector's branch cut), amplitude-modulated 50% by that
-    tone, at -40 ... -6 dBFS (channel 0 at -12 dBFS)."""
+    tone, at -40 ... -6 dBFS (channel 0 at -12 dBFS).  FM configs: the
+    AM/SAM carriers, frequency-modulated at 2 kHz deviation by a
+    (FM_TONE_HZ + 10·(c mod 200)) Hz tone and, where the config detects a
+    subaudible tone, on even channels by that tone at 300 Hz deviation."""
     B = cfg.block_len
     am = cfg.mode in ("am", "sam")
+    fm = cfg.mode == "fm"
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     c = torch.arange(C, device=dev, dtype=torch.float64)
-    f_tone = TONE_HZ + 10.0 * (c % 200)
-    if am:
+    f_tone = tone_hz(cfg) + 10.0 * (c % 200)
+    if am or fm:
         f = cfg.translate_hz + 3.0 * (c % 8)
         amp = 10.0 ** (-2.0 + 1.7 * (c % 64) / 63.0) * 32767.0 / 1.5
     else:
@@ -79,7 +98,14 @@ def capture(n_blocks: int, C: int, dev, seed: int,
 
         ph = turns(f)
         env = amp[:, None]
-        if am:
+        if fm:
+            ph = ph + 1.0 + FM_DEVIATION_HZ / f_tone[:, None] * torch.sin(
+                turns(f_tone))
+            if cfg.subtone_hz:
+                sub = torch.full_like(f, cfg.subtone_hz)
+                ph = ph + ((c % 2 == 0)[:, None] * SUBTONE_DEVIATION_HZ
+                           / cfg.subtone_hz * torch.sin(turns(sub)))
+        elif am:
             ph = ph + 1.0
             env = env * (1.0 + 0.5 * torch.sin(turns(f_tone)))
 
@@ -108,7 +134,8 @@ def busy_share(intervals) -> tuple[float, float]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--mode", choices=("usb", "am", "sam"), default="usb")
+    ap.add_argument("--mode", choices=("usb", "am", "sam", "fm", "wide"),
+                    default="usb")
     ap.add_argument("--sideband", choices=("both", "usb", "lsb"),
                     default="both", help="sam_sideband for --mode sam")
     args = ap.parse_args()

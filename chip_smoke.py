@@ -15,30 +15,39 @@ first phase that fails:
    (the interpolator, x8 and x4), K5 (the real-tap AM/SAM front, and the
    FM front at decimation 2), K10 and K9 (the SAM PLL), K11 (the biquad
    cascade), K7 and K6 (the complex-tap wide-SSB front with and without
-   the NCO), K12 (the FM discriminator).  Each streams 3 blocks at its
-   main path's shapes (8192 channels; K11 at the 16384 stacked channels
-   SAM gives it), the middle block ragged where the kernel has a tile to
-   be ragged against, through the kernel and through its plain torch
-   version on the card, from the same seeded inputs with carries handed
-   on.  FIR and cascade outputs and carries are held to SNR >= 90 dB, the
-   PLL's cos/sin/audio and carries to max |err| <= 2e-5, the
-   discriminator's angles to max |err| <= 2e-6 modulo 2 pi; K3 must be
-   bit-exact.  It then times the kernel, the plain version and, where
-   one PyTorch call computes the same function, that call (`library_ms`,
-   never used by the port);
+   the NCO), K12 (the FM discriminator), K13 (the linked stereo AGC's
+   machine), K1 with the two-channel modes' two stage-B filters
+   (`front_pair`), K8 (the TX analytic FIR, NCO and conjugation on and
+   off) and the TX ALC recurrence.  Each streams 2-3 blocks at its main
+   path's shapes (8192 channels; K11 at the 16384 stacked channels SAM
+   gives it; the ALC's plain loop at 4096 samples), the middle block
+   ragged where the kernel has a tile or a history to be ragged against,
+   through the kernel and through its plain torch version on the card,
+   from the same seeded inputs with carries handed on.  FIR and cascade
+   outputs and carries are held to SNR >= 90 dB, the PLL's cos/sin/audio
+   and carries to max |err| <= 2e-5, the discriminator's angles to max
+   |err| <= 2e-6 modulo 2 pi; K3, K13 and the ALC must be bit-exact.  It
+   then times the kernel, the plain version and, where one PyTorch call
+   computes the same function, that call (`library_ms`, never used by the
+   port);
 4. the main paths: `RxChain` on the card at 8192 ch x 16384 int16 samples
    @ 96 kHz, state carried, timed with CUDA events after 2 warm-up
    and over 8 timed blocks: the flagship SSB config, the AM/SAM
-   flagship as AM, SAM both sidebands and SAM USB, the FM flagship and
-   the wide-SSB flagship; then, at 1024 channels and 4 timed blocks, the
-   wide-SSB flagship untranslated (K6) and the FM flagship with squelch
-   and subtone detection.  Every kernel's launch count is set to 0 just
-   before each path and read just after, and each kernel of that path
-   must have been launched.  Audio and state must be finite, channels
-   0-7 must match the port's CPU chain (plain versions) over the first 3
-   blocks at SNR >= 80 dB on the audio and on every state leaf (boolean
-   and integer leaves equal), and channel 0's test tone must come out of
-   the last block at 700 Hz (FM: 1 kHz);
+   flagship as AM, SAM both sidebands and SAM USB, the FM flagship, the
+   wide-SSB flagship and the two-channel flagship (ssbstereo); then, at
+   1024 channels and 4 timed blocks, the wide-SSB flagship untranslated
+   (K6), the FM flagship with squelch and subtone detection, iq on the
+   flagship's row and SAM stereo.  Then `TxChain` at the TX flagship
+   (usb, 8192 ch x 16384 f32 audio @ 48 kHz, 8 timed blocks) and at 1024
+   channels lsb, am, cw and the legacy-front lsb.  Every kernel's launch
+   count is set to 0 just before each path and read just after, and each
+   kernel of that path must have been launched.  Output and state must be
+   finite, channels 0-7 must match the port's CPU chain (plain versions)
+   over the first 3 blocks at SNR >= 80 dB on the output and on every
+   state leaf (boolean and integer leaves equal), and channel 0's test
+   tone must come out of the last block where it belongs (RX: 700 Hz,
+   FM 1 kHz; TX: above or below the translate frequency, the AM and CW
+   carriers);
 5. prints one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
    device line.
 
@@ -59,9 +68,10 @@ import time
 import numpy as np
 import torch
 
-from uhsdr_tpu_torch import trace_rx
-from uhsdr_tpu_torch.chain import rx
+from uhsdr_tpu_torch import trace_rx, trace_tx
+from uhsdr_tpu_torch.chain import rx, tx
 from uhsdr_tpu_torch.cuda import agc as agc_k
+from uhsdr_tpu_torch.cuda import alc as alc_k
 from uhsdr_tpu_torch.cuda import build
 from uhsdr_tpu_torch.cuda import elemwise as ew_k
 from uhsdr_tpu_torch.cuda import fir as fir_k
@@ -75,6 +85,8 @@ CFG = rx.FLAGSHIP            # the SSB flagship
 SAM = rx.SAM_FLAGSHIP        # the AM/SAM flagship
 FM = rx.FM_FLAGSHIP          # the FM flagship
 WIDE = rx.WIDE_FLAGSHIP      # the wide-SSB flagship
+STEREO = rx.STEREO_FLAGSHIP  # the two-channel flagship
+TXF = tx.TX_FLAGSHIP         # the TX flagship
 CHANNELS = rx.FLAGSHIP_CHANNELS
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, FP32 outside the
@@ -98,6 +110,11 @@ PLL_STEP_OPS = 24
 # K11 (kernels/biquad.cu): a section's state to its next state: the output
 # add, a1*y, the subtraction, the s2 add; sections overlap across samples.
 BIQUAD_STEP_OPS = 4
+# the ALC (kernels/alc.cu), alc_val to the next: the product with x, its
+# magnitude, the division by the knee (IEEE, counted as 4), the
+# subtraction, the compare's select, the two products and the
+# difference, the clamps: 12
+ALC_STEP_OPS = 12
 FP32_LATENCY = 4
 
 KERNEL_TOL_DB = 90.0
@@ -556,10 +573,12 @@ def agc_block(gen, dev, C, T, t0, fs):
     return (level * tone * on + noise).contiguous()
 
 
-def agc_case(agc_params, fs, lengths, dev, gen):
+def agc_case(agc_params, fs, lengths, dev, gen, time_len=None):
     """K3 against its plain version over streamed blocks of `lengths`
-    samples, bit for bit; then times at the first block's length.
-    Returns (max |err|, ms, plain ms, bytes, flops, recurrence ms)."""
+    samples, bit for bit; then times at the first block's length (the
+    kernel, with `time_len`, on a fresh block of that length: the window,
+    not the length, is what the plain check tests).  Returns (max |err|,
+    ms, plain ms, bytes, flops, recurrence ms, timed length)."""
     C = CHANNELS
     p = agc_ops.kernel_params(agc_params)
     w = agc_params.attack_buffsize
@@ -583,31 +602,36 @@ def agc_case(agc_params, fs, lengths, dev, gen):
     check(err == 0.0, f"K3 w={w}: not bit-exact against its plain version "
                       f"(max|err| {err:.3e})")
     c0, d0, x0 = first
-    T = lengths[0]
-    ms = cuda_ms(lambda: agc_k.agc(p, c0, d0, x0), 10)
     plain_ms = cuda_ms(lambda: agc_k.agc_plain(p, c0, d0, x0), 1)
+    T = time_len or lengths[0]
+    if T != lengths[0]:
+        x0 = agc_block(gen, dev, C, T, 0, fs)
+    ms = cuda_ms(lambda: agc_k.agc(p, c0, d0, x0), 10)
     # work: x in, y out, carries and delay in and out; about 60 f32
     # operations per machine step and gain law
     nbytes = 2 * C * T * 4 + 2 * (agc_k.N_CARRY * C + C * w) * 4
     rec_ms = recurrence_ms(T, AGC_STEP_OPS)
     b_ms, b_by = bound(nbytes, 60.0 * C * T)
-    print(f"  K3 agc w={w}, T={T}: {ms:.4f} ms (plain {plain_ms:.1f} ms; "
-          f"recurrence bound {rec_ms:.4f} ms = {T} steps x {AGC_STEP_OPS} "
-          f"dependent ops x {FP32_LATENCY} cycles; {b_by} bound "
-          f"{b_ms:.4f} ms)")
-    return err, ms, plain_ms, nbytes, 60.0 * C * T, rec_ms
+    print(f"  K3 agc w={w}, T={T}: {ms:.4f} ms (plain {plain_ms:.1f} ms at "
+          f"{lengths[0]} steps; recurrence bound {rec_ms:.4f} ms = {T} steps "
+          f"x {AGC_STEP_OPS} dependent ops x {FP32_LATENCY} cycles; {b_by} "
+          f"bound {b_ms:.4f} ms)")
+    return err, ms, plain_ms, nbytes, 60.0 * C * T, rec_ms, T
 
 
 def phase_agc(P, dev, gen):
     T48, T96 = CFG.block_len // CFG.decim, SAM.block_len // SAM.decim
-    err, ms, plain_ms, nbytes, flops, rec_ms = agc_case(
+    err, ms, plain_ms, nbytes, flops, rec_ms, _ = agc_case(
         P["ssb"].agc, CFG.fs_dec, (T48, T48, T48), dev, gen)
-    e96, ms96, plain96, nb96, fl96, rec96 = agc_case(
+    e96, ms96, plain96, nb96, fl96, rec96, _ = agc_case(
         P["sam"].agc, SAM.fs_dec, (T96, 1000, T96), dev, gen)
     b96, by96 = bound(nb96, fl96)
+    # FM's look-ahead of 192: the plain loop checks 2048-step blocks; the
+    # kernel is timed at the FM block's 8192 steps
     T192 = FM.block_len // FM.decim
-    e192, ms192, plain192, nb192, fl192, rec192 = agc_case(
-        P["fm"].agc, rx.IQ_RATE, (T192, 1000, T192), dev, gen)
+    e192, ms192, plain192, nb192, fl192, rec192, _ = agc_case(
+        P["fm"].agc, rx.IQ_RATE, (2048, 1000, 2048), dev, gen,
+        time_len=T192)
     b192, by192 = bound(nb192, fl192)
     return row("agc", "agc.cu", "uhsdr_tpu/pallas/agc.py:159",
                err=max(err, e96, e192), snr=math.inf, ms=ms,
@@ -616,9 +640,9 @@ def phase_agc(P, dev, gen):
                library_note="no PyTorch call computes a look-ahead AGC",
                w96=dict(ms=ms96, plain_ms=plain96, bound_ms=b96,
                         bound_by=by96, recurrence_ms=rec96, steps=T96),
-               w192=dict(ms=ms192, plain_ms=plain192, bound_ms=b192,
-                         bound_by=by192, recurrence_ms=rec192,
-                         steps=T192))
+               w192=dict(ms=ms192, plain_ms=plain192, plain_steps=2048,
+                         bound_ms=b192, bound_by=by192,
+                         recurrence_ms=rec192, steps=T192))
 
 
 def interp_library(h, carry, x, interp):
@@ -830,6 +854,232 @@ def phase_biquad(P, dev, gen):
     return r
 
 
+def phase_agc_scan(P, dev, gen):
+    """K13 at the two-channel flagship's shape (8192 channels x 2048
+    steps at 12 kHz): two channels of AGC input through the linked
+    detector and its look-ahead max, then the machine on the kernel and on
+    its plain version, bit for bit, over three streamed blocks (the
+    middle one ragged)."""
+    params = P["stereo"].agc
+    p = agc_ops.kernel_params(params)
+    C, w = CHANNELS, params.attack_buffsize
+    T, fs = STEREO.block_len // STEREO.decim, STEREO.fs_dec
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    delay = torch.zeros((C, 2, w), device=dev)
+    err, t0, first = 0.0, 0, None
+    for blk, Tk in enumerate((T, 1000, T)):
+        x = torch.stack([agc_block(gen, dev, C, Tk, t0, fs),
+                         0.5 * agc_block(gen, dev, C, Tk, t0, fs)], dim=1)
+        t0 += Tk
+        xfull = torch.cat([delay, x], dim=-1)
+        delay = xfull[..., xfull.shape[-1] - w:]
+        a = xfull.abs().amax(dim=-2)
+        rm = agc_k.look_ahead_max(a, w, Tk).contiguous()
+        ax = a[:, :Tk].contiguous()
+        if first is None:
+            first = (ck, rm, ax)
+        vk, ck = agc_k.agc_scan(p, ck, rm, ax)
+        vp, cp = agc_k.agc_scan_plain(p, cp, rm, ax)
+        torch.cuda.synchronize()
+        pairs = {"volts": (vp, vk)}
+        for i, f in enumerate(agc_ops.CARRY_FIELDS):
+            pairs[f] = (cp[i], ck[i])
+        _, e = held(f"K13 block {blk} ({Tk} steps)", pairs)
+        err = max(err, e)
+    check(err == 0.0, f"K13: not bit-exact against its plain version "
+                      f"(max|err| {err:.3e})")
+    c0, rm0, ax0 = first
+    ms = cuda_ms(lambda: agc_k.agc_scan(p, c0, rm0, ax0), 10)
+    plain_ms = cuda_ms(lambda: agc_k.agc_scan_plain(p, c0, rm0, ax0), 1)
+    # bytes: rm and ax in, volts out, carries in and out; about 50 f32
+    # operations a step
+    nbytes = 3 * C * T * 4 + 2 * agc_k.N_CARRY * C * 4
+    rec_ms = recurrence_ms(T, AGC_STEP_OPS)
+    r = row("agc_scan", "agc.cu", "uhsdr_tpu/pallas/agc.py:126", err=err,
+            snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=50.0 * C * T, recurrence_ms=rec_ms,
+            library_note="no PyTorch call computes the AGC's 5-state "
+                         "machine")
+    print(f"  K13 agc_scan, T={T}: {ms:.4f} ms (plain {plain_ms:.1f} ms; "
+          f"recurrence bound {rec_ms:.4f} ms; {r['bound_by']} bound "
+          f"{r['bound_ms']:.4f} ms, {nbytes / 2**20:.0f} MiB)")
+    return r
+
+
+def phase_front_pair(P, dev, gen):
+    """K1 with the two-channel modes' two stage-B filters at the
+    two-channel flagship's shape, the pair's 1810-sample raw history;
+    three streamed blocks, the middle one shorter than the history."""
+    params = P["stereo"]
+    C, B, decim = CHANNELS, STEREO.block_len, STEREO.decim
+    h, g, delta = params.front_fir, params.front2, params.nco_delta
+    taps, taps2 = h.shape[-1], g.shape[-1]
+    n_keep = rx._raw_history_len(STEREO, params)
+    ck = cp = torch.zeros((C, n_keep), dtype=torch.complex64, device=dev)
+    c2k = c2p = torch.zeros((C, taps2 - 1), dtype=torch.complex64,
+                            device=dev)
+    phase = torch.zeros((C,), dtype=torch.int64, device=dev)
+    worst, err, first = math.inf, 0.0, None
+    for blk, Bk in enumerate((B, 800, B)):
+        xi, xq = iq_block(gen, dev, C, Bk)
+        if first is None:
+            first = (ck, c2k, xi, xq, phase)
+        yk, ck, c2k, pk_k = fir_k.front(h, g, ck, c2k, xi, xq, phase, delta,
+                                        decim)
+        yp, cp, c2p, pk_p = fir_k.front_plain(h, g, cp, c2p, xi, xq, phase,
+                                              delta, decim)
+        torch.cuda.synchronize()
+        check(tuple(yk.shape) == (C, 2, Bk // decim),
+              f"front_pair output {tuple(yk.shape)}")
+        s, e = held(f"K1 pair block {blk} ({Bk} samples)", {
+            "audio (L, R)": (yp, yk), "raw carry": (cp, ck),
+            "front2 carry": (c2p, c2k), "peaks": (pk_p, pk_k)})
+        worst, err = min(worst, s), max(err, e)
+        phase = nco.advance(phase, delta, Bk)
+    ck0, c2k0, xi, xq, ph0 = first
+    ms = cuda_ms(lambda: fir_k.front(h, g, ck0, c2k0, xi, xq, ph0, delta,
+                                     decim), 10)
+    plain_ms = cuda_ms(lambda: fir_k.front_plain(h, g, ck0, c2k0, xi, xq,
+                                                 ph0, delta, decim), 2)
+    T_out = B // decim
+    fma = C * T_out * (2 * taps + 2 * 2 * taps2)
+    # bytes: int16 planes in, two audio planes out, the raw history's last
+    # taps-1 in and n_keep out, the stage-B carry in and out, phase in,
+    # peaks out, taps in
+    nbytes = (2 * C * B * 2 + 2 * C * T_out * 4 + C * (taps - 1) * 8
+              + C * n_keep * 8 + 2 * C * (taps2 - 1) * 8 + C * 8 + C * 4
+              + 4 * (taps + 4 * taps2))
+    r = row("front_pair", "front.cu", "uhsdr_tpu/pallas/fir.py:179",
+            err=err, snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=2.0 * fma,
+            library_note="no one PyTorch call mixes, decimates and runs "
+                         "both FIR stages")
+    print(f"  K1 front_pair: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']}: {fma / 1e9:.2f} G "
+          f"FMA, {nbytes / 2**20:.0f} MiB)")
+    return r
+
+
+def phase_fir_real(P, dev, gen):
+    """K8 at the TX flagship's shape (8192 ch x 16384 f32 audio, the
+    201-tap TX Hilbert pair), with the NCO and without, conjugated and
+    not: two streamed blocks each, the second shorter than the history."""
+    params = P["tx"].ssb
+    C, B = CHANNELS, TXF.block_len
+    h, delta = params.fir, params.nco_delta
+    taps = h.shape[-1]
+    worst, err = math.inf, 0.0
+    for use_nco, conj in ((True, False), (True, True), (False, False),
+                          (False, True)):
+        ck = cp = torch.zeros((C, taps - 1), device=dev)
+        phase = torch.zeros((C,), dtype=torch.int64, device=dev)
+        for blk, Bk in enumerate((B, 100)):
+            x = torch.randn((C, Bk), generator=gen, device=dev) * 1e4
+            kw = dict(nco=(phase, delta) if use_nco else None, conj=conj)
+            yk, ck = fir_k.fir_real(h, ck, x, **kw)
+            yp, cp = fir_k.fir_real_plain(h, cp, x, **kw)
+            torch.cuda.synchronize()
+            check(tuple(yk.shape) == (C, Bk) and yk.is_complex(),
+                  f"K8 output {tuple(yk.shape)} {yk.dtype}")
+            s, e = held(f"K8 nco {use_nco} conj {conj} block {blk} "
+                        f"({Bk} samples)", {"iq": (yp, yk),
+                                            "carry": (cp, ck)})
+            worst, err = min(worst, s), max(err, e)
+            phase = nco.advance(phase, delta, Bk)
+            del yk, yp
+    x = torch.randn((C, B), generator=gen, device=dev) * 1e4
+    c0 = torch.zeros((C, taps - 1), device=dev)
+    ph0 = torch.zeros((C,), dtype=torch.int64, device=dev)
+    ms = cuda_ms(lambda: fir_k.fir_real(h, c0, x, nco=(ph0, delta)), 10)
+    ms_no_nco = cuda_ms(lambda: fir_k.fir_real(h, c0, x), 10)
+    plain_ms = cuda_ms(lambda: fir_k.fir_real_plain(h, c0, x,
+                                                    nco=(ph0, delta)), 2)
+    # one PyTorch call for the FIR itself (no rotation): a convolution with
+    # two output channels, the real and imaginary taps
+    xfull = torch.cat([c0, x], dim=-1)[:, None, :]
+    w = torch.stack([h.real.flip(0), h.imag.flip(0)])[:, None, :].contiguous()
+
+    def library():
+        return torch.nn.functional.conv1d(xfull, w)
+
+    lib_ms = cuda_ms(library, 5)
+    y_lib = library()
+    s_lib = snr_db(fir_k.fir_real_plain(h, c0, x)[0],
+                   torch.complex(y_lib[:, 0], y_lib[:, 1]))
+    print(f"  K8 library call (conv1d, 2 output channels, no rotation) vs "
+          f"plain: SNR {s_lib:.1f} dB")
+    del xfull, y_lib
+    fma = C * B * taps * 2
+    # bytes: audio in, complex IQ out, carry in and out, phase in, taps in
+    nbytes = C * B * 4 + C * B * 8 + 2 * C * (taps - 1) * 4 + C * 8 + 8 * taps
+    r = row("fir_real", "fir_real.cu", "uhsdr_tpu/pallas/fir.py:911",
+            err=err, snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=2.0 * fma, library_ms=lib_ms,
+            library_note="conv1d with two output channels (the real and "
+                         "imaginary taps) over carry ++ block, the FIR "
+                         "alone", ms_no_nco=ms_no_nco)
+    print(f"  K8 fir_real: {ms:.4f} ms with the NCO, {ms_no_nco:.4f} ms "
+          f"without (plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
+          f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}: "
+          f"{fma / 1e9:.2f} G FMA, {nbytes / 2**20:.0f} MiB)")
+    return r
+
+
+def tx_level_block(gen, dev, C, T, t0):
+    """ALC input in the count domain: 700 Hz bursts at 1e3 ... 5e4 counts
+    across channels (the knee is 3e4), gated on and off, plus noise."""
+    n = torch.arange(T, device=dev, dtype=torch.float32) + t0
+    level = torch.logspace(3, 4.7, C, device=dev)[:, None]
+    tone = torch.sin(2 * math.pi * 700.0 / 48000.0 * n)[None, :]
+    on = (torch.remainder(n, 3000.0) < 1500.0).to(torch.float32)[None, :]
+    noise = torch.randn((C, T), generator=gen, device=dev)
+    return (level * tone * on + noise).contiguous()
+
+
+def phase_alc(P, dev, gen):
+    """The ALC recurrence at 8192 channels, bit for bit against its plain
+    loop over 4096 + 1000 samples; timed at 4096 and at the TX flagship's
+    16384."""
+    params = P["tx"].alc
+    C, T = CHANNELS, 4096
+    vk = vp = torch.ones((C,), device=dev)
+    err, t0, first = 0.0, 0, None
+    for blk, Tk in enumerate((T, 1000)):
+        x = tx_level_block(gen, dev, C, Tk, t0) * params.postfilt_gain
+        t0 += Tk
+        if first is None:
+            first = (vk, x)
+        gk, vk = alc_k.alc_gains(params.decay, vk, x)
+        gp, vp = alc_k.alc_gains_plain(params.decay, vp, x)
+        torch.cuda.synchronize()
+        _, e = held(f"ALC block {blk} ({Tk} samples)",
+                    {"gains": (gp, gk), "alc_val": (vp, vk)})
+        err = max(err, e)
+    check(err == 0.0, f"ALC: not bit-exact against its plain version "
+                      f"(max|err| {err:.3e})")
+    check(float(vk.min()) < 0.9, "ALC: the gain never moved")
+    v0, x0 = first
+    ms4k = cuda_ms(lambda: alc_k.alc_gains(params.decay, v0, x0), 10)
+    plain_ms = cuda_ms(lambda: alc_k.alc_gains_plain(params.decay, v0, x0),
+                       1)
+    TB = TXF.block_len
+    xb = tx_level_block(gen, dev, C, TB, 0) * params.postfilt_gain
+    ms = cuda_ms(lambda: alc_k.alc_gains(params.decay, v0, xb), 10)
+    # bytes: x in, gains out, the gain in and out; about 12 f32
+    # operations a step
+    nbytes = 2 * C * TB * 4 + 2 * C * 4
+    rec_ms = recurrence_ms(TB, ALC_STEP_OPS)
+    r = row("alc", "alc.cu", "uhsdr_tpu/mod/alc.py:72", err=err,
+            snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=12.0 * C * TB, recurrence_ms=rec_ms,
+            library_note="no PyTorch call computes the ALC recurrence",
+            tpu_kernel=False, plain_steps=T, ms_4096=ms4k)
+    print(f"  ALC: {ms:.4f} ms at {TB} steps, {ms4k:.4f} ms at {T} (plain "
+          f"{plain_ms:.1f} ms at {T}; recurrence bound {rec_ms:.4f} ms; "
+          f"{r['bound_by']} bound {r['bound_ms']:.4f} ms)")
+    return r
+
+
 # ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
@@ -852,47 +1102,25 @@ def state_snrs(ref: dict, got: dict) -> dict:
     return out
 
 
-def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
-              ref_ch=8):
-    """Drive `RxChain(cfg)` on the card at C channels; returns (launches
-    of every kernel on this path, ms/block, Ms/s, worst SNR against the
-    port's CPU chain)."""
-    B = cfg.block_len
-    fm = cfg.mode == "fm"
-    out_len, fs_out = ((B // cfg.decim, cfg.fs_dec) if fm
-                       else (B, cfg.iq_rate))
-    blocks = trace_rx.capture(n_warm + n_timed, C, dev, seed, cfg)
-    chain = rx.RxChain(cfg, device=dev)
-    state = chain.init_state((C,))
+def timed_run(step, blocks, label, expect, n_warm, n_timed):
+    """Set every kernel's launch count to 0, run `step(block)` over the
+    warm-up blocks and then the timed ones between CUDA events, read the
+    counts and check that each kernel of `expect`, and no other, was
+    launched.  Returns (launches, ms/block, the last step's result)."""
     kernels = build.kernels()
     for k in kernels:
         k.launches = 0
-    kept, kept_state = [], None
     torch.cuda.synchronize()
-
-    def step(i, q):
-        nonlocal state, kept_state
-        audio, state, taps = chain(state, i=i, q=q)
-        if len(kept) < n_ref:
-            kept.append(audio[:ref_ch].clone())
-            if len(kept) == n_ref:
-                # every block's state is made of new tensors, so holding
-                # this one costs no copy inside the timed window
-                kept_state = state
-        return audio, taps
-
     gc.collect()    # keep earlier phases' garbage out of the timed window
-    for i, q in blocks[:n_warm]:
-        step(i, q)
+    for blk in blocks[:n_warm]:
+        step(blk)
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
     marks[0].record()
-    for k, (i, q) in enumerate(blocks[n_warm:]):
-        audio, taps = step(i, q)
+    for k, blk in enumerate(blocks[n_warm:]):
+        out = step(blk)
         marks[k + 1].record()
     marks[-1].synchronize()
     launches = {k.name: k.launches for k in kernels}
-    ms_block = marks[0].elapsed_time(marks[-1]) / n_timed
-    msps = C * B / (ms_block * 1e-3) / 1e6
     each = [marks[k].elapsed_time(marks[k + 1]) for k in range(n_timed)]
     print(f"  {label} ms of each timed block: "
           + " ".join(f"{t:.3f}" for t in each))
@@ -902,8 +1130,40 @@ def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     for name, n in launches.items():
         check(n == 0 or name in expect,
               f"{label} launched {name}, which is not on its path")
+    return launches, marks[0].elapsed_time(marks[-1]) / n_timed, out
 
-    check(tuple(audio.shape) == (C, out_len),
+
+def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
+              ref_ch=8):
+    """Drive `RxChain(cfg)` on the card at C channels; returns (launches
+    of every kernel on this path, ms/block, Ms/s, worst SNR against the
+    port's CPU chain)."""
+    B = cfg.block_len
+    fm = cfg.mode == "fm"
+    out_len, fs_out = ((B // cfg.decim, cfg.fs_dec) if fm
+                       else (B, cfg.iq_rate))
+    out_shape = (C,) + ((2,) if cfg.n_audio > 1 else ()) + (out_len,)
+    blocks = trace_rx.capture(n_warm + n_timed, C, dev, seed, cfg)
+    chain = rx.RxChain(cfg, device=dev)
+    state = chain.init_state((C,))
+    kept, kept_state = [], None
+
+    def step(blk):
+        nonlocal state, kept_state
+        audio, state, taps = chain(state, i=blk[0], q=blk[1])
+        if len(kept) < n_ref:
+            kept.append(audio[:ref_ch].clone())
+            if len(kept) == n_ref:
+                # every block's state is made of new tensors, so holding
+                # this one costs no copy inside the timed window
+                kept_state = state
+        return audio, taps
+
+    launches, ms_block, (audio, taps) = timed_run(step, blocks, label, expect,
+                                                  n_warm, n_timed)
+    msps = C * B / (ms_block * 1e-3) / 1e6
+
+    check(tuple(audio.shape) == out_shape,
           f"audio shape {tuple(audio.shape)}")
     check(bool(torch.isfinite(audio).all()), f"{label} audio not finite")
     for f, v in rx.state_to_numpy(state).items():
@@ -938,8 +1198,9 @@ def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     check(worst >= CHAIN_TOL_DB,
           f"{label} vs CPU chain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
     # the last block: with subtone detection the audio opens only after
-    # two detection windows
-    y0 = audio[0].cpu().double().numpy()
+    # two detection windows; two-channel audio: the left channel (USB,
+    # filtered I, SAM's LSB), which carries the tone in each
+    y0 = audio[0].reshape(-1, out_len)[0].cpu().double().numpy()
     spec = np.abs(np.fft.rfft((y0 - y0.mean()) * np.hanning(len(y0))))
     freqs = np.fft.rfftfreq(len(y0), 1.0 / fs_out)
     spec[freqs < 100.0] = 0.0           # AM: what is left of the carrier
@@ -947,6 +1208,64 @@ def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     tone = trace_rx.tone_hz(cfg)
     print(f"  {label} channel 0 audio peak {f_pk:.1f} Hz (tone {tone} Hz)")
     check(abs(f_pk - tone) < 20.0, f"{label} tone at {f_pk} Hz, not {tone}")
+    return launches, ms_block, msps, worst, n_warm + n_timed
+
+
+def tx_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
+            ref_ch=8):
+    """Drive `TxChain(cfg)` on the card at C channels; returns (launches
+    of every kernel on this path, ms/block, Ms/s of audio in, worst SNR
+    against the port's CPU chain), as `main_path` does for RX."""
+    B = cfg.block_len
+    blocks = trace_tx.capture(n_warm + n_timed, C, dev, seed, cfg)
+    chain = tx.TxChain(cfg, device=dev)
+    state = chain.init_state((C,))
+    kept, kept_state = [], None
+
+    def step(audio):
+        nonlocal state, kept_state
+        i, q, state = chain(state, audio)
+        if len(kept) < n_ref:
+            kept.append(torch.complex(i[:ref_ch], q[:ref_ch]))
+            if len(kept) == n_ref:
+                kept_state = state
+        return i, q
+
+    launches, ms_block, (i, q) = timed_run(step, blocks, label, expect,
+                                           n_warm, n_timed)
+    msps = C * B / (ms_block * 1e-3) / 1e6
+    check(tuple(i.shape) == (C, B) and tuple(q.shape) == (C, B),
+          f"IQ shape {tuple(i.shape)}")
+    check(bool(torch.isfinite(i).all() and torch.isfinite(q).all()),
+          f"{label} IQ not finite")
+    for f, v in tx.state_to_numpy(state).items():
+        check(bool(np.isfinite(v).all()), f"{label} state {f} not finite")
+
+    cpu = tx.TxChain(cfg, device="cpu")
+    s_cpu = cpu.init_state((ref_ch,))
+    worst = math.inf
+    for blk in range(n_ref):
+        ic, qc, s_cpu = cpu(s_cpu, blocks[blk][:ref_ch].cpu())
+        s = snr_db(torch.complex(ic, qc), kept[blk].cpu())
+        worst = min(worst, s)
+        print(f"  {label} vs CPU chain, block {blk}, ch 0-{ref_ch - 1}: "
+              f"SNR {s:.1f} dB")
+    leaves = state_snrs(tx.state_to_numpy(s_cpu),
+                        {f: v[:ref_ch] if v.shape[0] == C else
+                         np.take(v, range(ref_ch), axis=1)
+                         for f, v in tx.state_to_numpy(kept_state).items()})
+    low = min(leaves, key=leaves.get)
+    print(f"  {label} state after block {n_ref - 1} vs CPU chain: worst "
+          f"leaf {low} {leaves[low]:.1f} dB of {len(leaves)}")
+    worst = min(worst, leaves[low])
+    check(worst >= CHAIN_TOL_DB,
+          f"{label} vs CPU chain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
+    z = (i[0] + 1j * q[0]).cpu().to(torch.complex128).numpy()
+    spec = np.abs(np.fft.fft(z * np.hanning(len(z))))
+    f_pk = float(np.fft.fftfreq(len(z), 1.0 / tx.IQ_RATE)[spec.argmax()])
+    want = trace_tx.expected_peak_hz(cfg)
+    print(f"  {label} channel 0 IQ peak {f_pk:.1f} Hz (expected {want} Hz)")
+    check(abs(f_pk - want) < 20.0, f"{label} peak at {f_pk} Hz, not {want}")
     return launches, ms_block, msps, worst, n_warm + n_timed
 
 
@@ -969,6 +1288,22 @@ MAIN_PATHS = (
      ("fir_cx",) + SHARED, 4, DEPTH),
     ("fm_sql", dataclasses.replace(FM, sql_threshold=10, subtone_hz=88.5),
      FM_KERNELS, 4, DEPTH),
+    ("ssbstereo", STEREO, ("front_pair", "agc_scan", "interp"), 8, CHANNELS),
+    ("iq", dataclasses.replace(STEREO, mode="iq"),
+     ("front_pair", "agc_scan", "interp"), 4, DEPTH),
+    ("sam_stereo", dataclasses.replace(SAM, sam_sideband="stereo"),
+     ("fir_rt", "pll", "biquad", "agc_scan", "interp"), 4, DEPTH),
+)
+TX_VOICE = ("fir_real", "alc")
+# (label, config, kernels it must launch, timed blocks, channels); CW's
+# keyed carrier runs no kernel (nor does the reference's)
+TX_PATHS = (
+    ("tx_usb", TXF, TX_VOICE, 8, CHANNELS),
+    ("tx_lsb", dataclasses.replace(TXF, mode="lsb"), TX_VOICE, 4, DEPTH),
+    ("tx_am", dataclasses.replace(TXF, mode="am"), TX_VOICE, 4, DEPTH),
+    ("tx_cw", dataclasses.replace(TXF, mode="cw"), (), 4, DEPTH),
+    ("tx_lsb_scipy", dataclasses.replace(TXF, mode="lsb", front="scipy"),
+     TX_VOICE, 4, DEPTH),
 )
 
 
@@ -999,7 +1334,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    configs = {"ssb": CFG, "sam": SAM, "fm": FM, "wide": WIDE}
+    configs = {"ssb": CFG, "sam": SAM, "fm": FM, "wide": WIDE,
+               "stereo": STEREO}
     P = {key: rx.make_params(cfg, dev) for key, cfg in configs.items()}
     for key, cfg in configs.items():
         p = P[key]
@@ -1009,12 +1345,19 @@ def main() -> int:
               f"{0 if p.front2 is None else p.front2.shape[-1]} taps, "
               f"PreFilter {p.audio_sos.sections} sections, interp "
               f"{p.interp_fir.shape[-1]} taps, AGC w {p.agc.attack_buffsize}")
+    P["tx"] = tx.make_params(TXF, dev)
+    print(f"config tx: {CHANNELS} ch x {TXF.block_len} @ "
+          f"{tx.IQ_RATE:.0f} Hz, mode {TXF.mode}, front {TXF.front}, "
+          f"analytic FIR {P['tx'].ssb.fir.shape[-1]} taps, voice SOS "
+          f"{P['tx'].voice_sos.sections} sections, ALC delay "
+          f"{P['tx'].alc.delay}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     rows = []
     for phase in (phase_front, phase_agc, phase_interp, phase_fir_rt,
                   phase_pll_cos_sin, phase_pll_audio, phase_biquad,
-                  phase_fir_cx, phase_fm_disc):
+                  phase_fir_cx, phase_fm_disc, phase_agc_scan,
+                  phase_front_pair, phase_fir_real, phase_alc):
         t1 = time.time()
         print(f"phase {phase.__name__}:")
         r = phase(P, dev, gen)
@@ -1039,6 +1382,20 @@ def main() -> int:
               f"{cfg.translate_hz:.0f} Hz, sql {cfg.sql_threshold}, subtone "
               f"{cfg.subtone_hz} Hz, {C} ch x "
               f"{cfg.block_len} int16 @ {cfg.iq_rate / 1e3:.0f} kHz: "
+              f"{ms_block:.3f} ms/block over {n_timed} blocks, {msps:.1f} "
+              f"Ms/s, CPU-chain SNR {worst:.1f} dB "
+              f"({time.time() - t1:.1f} s) on {card}")
+    for label, cfg, expect, n_timed, C in TX_PATHS:
+        t1 = time.time()
+        print(f"phase tx_path {label}:")
+        launches, ms_block, msps, worst, n_blocks = tx_path(
+            cfg, label, expect, dev, args.seed, n_timed, C)
+        by_path[label] = launches
+        per_block[label] = {k: n / n_blocks for k, n in launches.items()}
+        torch.cuda.empty_cache()
+        print(f"tx path {label}: mode {cfg.mode}, front {cfg.front}, "
+              f"translate {cfg.translate_hz:.0f} Hz, {C} ch x "
+              f"{cfg.block_len} f32 @ {tx.IQ_RATE / 1e3:.0f} kHz: "
               f"{ms_block:.3f} ms/block over {n_timed} blocks, {msps:.1f} "
               f"Ms/s, CPU-chain SNR {worst:.1f} dB "
               f"({time.time() - t1:.1f} s) on {card}")

@@ -520,3 +520,228 @@ def test_retuned_chain_on_card_matches_cpu(dev, kw):
         yc, sc, _ = cpu(sc, i=i, q=q, tune_offset_hz=off)
         assert snr_db(yc, yg.cpu()) >= CHAIN_DB
     assert torch.equal(sg.nco_phase.cpu(), sc.nco_phase)
+
+
+# ---------------------------------------------------------------------------
+# the two-channel modes (K13, K1 with two stage-B filters) and TX (K8, the
+# ALC recurrence)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C,T,fs", [(40, 1000, 12000.0), (64, 2048, 12000.0),
+                                    (33, 130, 24000.0), (5, 300, 48000.0)])
+def test_agc_scan_kernel_matches_plain(dev, C, T, fs):
+    """K13 against its plain version, bit for bit (both repeat the machine
+    step's operations in order; the kernel is built with -fmad=false)."""
+    params = agc_ops.make_params(fs, mode="med", hang_enable=True)
+    p = agc_ops.kernel_params(params)
+    w = params.attack_buffsize
+    rng = np.random.default_rng(10)
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    level = np.logspace(-1, 4, C)[:, None]
+    for blk in range(3):
+        n = np.arange(blk * T, (blk + 1) * T + w)
+        a = np.abs(level * np.sin(2 * np.pi * 700 * n / fs) * (n < 1.5 * T)
+                   + rng.standard_normal((C, T + w)) * 0.5)
+        a = torch.from_numpy(a.astype(np.float32)).to(dev)
+        rm = agc_k.look_ahead_max(a, w, T).contiguous()
+        ax = a[:, :T].contiguous()
+        n0 = agc_k.AGC_SCAN.launches
+        vk, ck = agc_k.agc_scan(p, ck, rm, ax)
+        assert agc_k.AGC_SCAN.launches == n0 + 1
+        vp, cp = agc_k.agc_scan_plain(p, cp, rm, ax)
+        torch.cuda.synchronize()
+        assert torch.equal(vp, vk) and torch.equal(cp, ck)
+
+
+@pytest.mark.parametrize("iq_rate,C,B,mode,dtype", [
+    (96000.0, 13, 1600, "ssbstereo", "int16"),
+    (96000.0, 3, 4096, "iq", "float32"),
+    (48000.0, 5, 2000, "ssbstereo", "int16"),
+    (96000.0, 6, 400, "iq", "int16")])         # block shorter than history
+def test_front_pair_kernel_matches_plain(dev, iq_rate, C, B, mode, dtype):
+    """K1 with the two-channel modes' two stage-B filters and the pair's
+    long raw history, against its plain version."""
+    cfg = rx.RxConfig(**{**FLAGSHIP, "iq_rate": iq_rate, "mode": mode})
+    p = rx.make_params(cfg, dev)
+    h, g, delta = p.front_fir, p.front2, p.nco_delta
+    assert g.shape[0] == 2
+    n_keep = rx._raw_history_len(cfg, p)
+    rng = np.random.default_rng(11)
+    ck = cp = torch.zeros((C, n_keep), dtype=torch.complex64, device=dev)
+    c2k = c2p = torch.zeros((C, g.shape[-1] - 1), dtype=torch.complex64,
+                            device=dev)
+    ph = torch.from_numpy(rng.integers(0, 2**32, C)).to(dev)
+    for _ in range(3):
+        x = [torch.from_numpy(_int16(rng, (C, B))).to(dev) for _ in "iq"]
+        if dtype == "float32":
+            x = [v.to(torch.float32) / 32768.0 for v in x]
+        n0, n1 = fir_k.FRONT_PAIR.launches, fir_k.FRONT.launches
+        yk, ck, c2k, pk = fir_k.front(h, g, ck, c2k, *x, ph, delta,
+                                      cfg.decim)
+        assert (fir_k.FRONT_PAIR.launches, fir_k.FRONT.launches) == (n0 + 1,
+                                                                     n1)
+        yp, cp, c2p, pp = fir_k.front_plain(h, g, cp, c2p, *x, ph, delta,
+                                            cfg.decim)
+        torch.cuda.synchronize()
+        assert yk.shape == (C, 2, B // cfg.decim)
+        for a, b in ((yp, yk), (c2p, c2k), (pp, pk)):
+            assert snr_db(a, b) >= FIR_DB
+        assert torch.equal(cp, ck)
+        ph = nco.advance(ph, delta, B)
+
+
+@pytest.mark.parametrize("C,B,use_nco,conj", [
+    (13, 1600, True, False), (3, 4096, True, True), (5, 100, False, False),
+    (7, 999, False, True)])
+def test_fir_real_kernel_matches_plain(dev, C, B, use_nco, conj):
+    """K8 against its plain version over three streamed blocks (the third
+    case's blocks are shorter than the history)."""
+    rng = np.random.default_rng(12)
+    h = torch.from_numpy(((rng.standard_normal(201)
+                           + 1j * rng.standard_normal(201)) * 0.05)
+                         .astype(np.complex64)).to(dev)
+    delta = int(nco.freq_to_delta(6000.0, 48000.0))
+    ck = cp = torch.zeros((C, 200), device=dev)
+    ph = torch.from_numpy(rng.integers(0, 2**32, C)).to(dev)
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal((C, B))
+                             .astype(np.float32)).to(dev)
+        kw = dict(nco=(ph, delta) if use_nco else None, conj=conj)
+        n0 = fir_k.FIR_REAL.launches
+        yk, ck = fir_k.fir_real(h, ck, x, **kw)
+        assert fir_k.FIR_REAL.launches == n0 + 1
+        yp, cp = fir_k.fir_real_plain(h, cp, x, **kw)
+        torch.cuda.synchronize()
+        assert yk.dtype == torch.complex64 and yk.shape == (C, B)
+        assert snr_db(yp, yk) >= FIR_DB and torch.equal(cp, ck)
+        ph = nco.advance(ph, delta, B)
+
+
+@pytest.mark.parametrize("C,T,decay", [(40, 1000, 3.1622776e-05),
+                                       (64, 2048, 0.02), (5, 130, 0.02)])
+def test_alc_kernel_matches_plain(dev, C, T, decay):
+    """The ALC recurrence against its plain version, bit for bit, on audio
+    that crosses the knee in both directions."""
+    from uhsdr_tpu_torch.cuda import alc as alc_k
+    rng = np.random.default_rng(13)
+    vk = vp = torch.ones(C, device=dev)
+    level = np.logspace(3, 5, C)[:, None]
+    for blk in range(3):
+        n = np.arange(blk * T, (blk + 1) * T)
+        x = level * np.sin(2 * np.pi * 700 * n / 48000.0) * (n % 700 < 400)
+        x = torch.from_numpy((x + rng.standard_normal((C, T)))
+                             .astype(np.float32)).to(dev)
+        n0 = alc_k.ALC.launches
+        gk, vk = alc_k.alc_gains(decay, vk, x)
+        assert alc_k.ALC.launches == n0 + 1
+        gp, vp = alc_k.alc_gains_plain(decay, vp, x)
+        torch.cuda.synchronize()
+        assert torch.equal(gp, gk) and torch.equal(vp, vk)
+
+
+def test_slice4_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from uhsdr_tpu_torch.cuda import alc as alc_k
+    C, T = 4, 64
+    x = torch.zeros((C, T), device=dev)
+    p = agc_ops.kernel_params(agc_ops.make_params(12000.0))
+    with pytest.raises(ValueError):                 # carry of 6 rows
+        agc_k.agc_scan(p, torch.zeros((6, C), device=dev), x, x)
+    with pytest.raises(ValueError):                 # shapes differ
+        agc_k.agc_scan(p, torch.zeros((7, C), device=dev), x, x[:, :32])
+    h = torch.zeros(201, dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):                 # complex carry
+        fir_k.fir_real(h, torch.zeros((C, 200), dtype=torch.complex64,
+                                      device=dev), x)
+    with pytest.raises(ValueError):                 # taps beyond the ring
+        fir_k.fir_real(torch.zeros(400, dtype=torch.complex64, device=dev),
+                       torch.zeros((C, 399), device=dev), x)
+    with pytest.raises(ValueError):                 # alc_val of C + 1
+        alc_k.alc_gains(0.02, torch.ones(C + 1, device=dev), x)
+    cfg = rx.RxConfig(**{**FLAGSHIP, "mode": "ssbstereo"})
+    pp = rx.make_params(cfg, dev)
+    xi = torch.zeros((C, 256), dtype=torch.int16, device=dev)
+    ph = torch.zeros(C, dtype=torch.int64, device=dev)
+    c2 = torch.zeros((C, pp.front2.shape[-1] - 1), dtype=torch.complex64,
+                     device=dev)
+    with pytest.raises(ValueError):                 # raw history too short
+        fir_k.front(pp.front_fir, pp.front2,
+                    torch.zeros((C, 100), dtype=torch.complex64, device=dev),
+                    c2, xi, xi, ph, pp.nco_delta, cfg.decim)
+    with pytest.raises(ValueError):                 # three stage-B filters
+        fir_k.front(pp.front_fir, torch.cat([pp.front2, pp.front2[:1]]),
+                    torch.zeros((C, 226), dtype=torch.complex64, device=dev),
+                    c2, xi, xi, ph, pp.nco_delta, cfg.decim)
+
+
+def _launch_deltas(before):
+    return {k.name: k.launches - before[k.name] for k in build.kernels()}
+
+
+@pytest.mark.parametrize("mode,sideband,iq_rate,bw", [
+    ("ssbstereo", "both", 96000.0, "2P3KHZ"),
+    ("iq", "both", 48000.0, "2P3KHZ"),
+    ("sam", "stereo", 96000.0, "5P0KHZ"),
+    ("sam", "stereo", 48000.0, "3P6KHZ")])
+def test_two_channel_chain_on_card_matches_cpu(dev, mode, sideband, iq_rate,
+                                               bw):
+    from uhsdr_tpu_torch import trace_rx
+    cfg = rx.RxConfig(mode=mode, bw_key=bw, sam_sideband=sideband,
+                      translate_hz=12000.0, iq_rate=iq_rate, block_len=2048)
+    gpu, cpu = rx.RxChain(cfg, device=dev), rx.RxChain(cfg, device="cpu")
+    C = 8
+    sg, sc = gpu.init_state((C,)), cpu.init_state((C,))
+    sam = mode == "sam"
+    expect = {k.name: 0 for k in build.kernels()}
+    expect.update({"agc_scan": 3, "interp": 3})
+    expect.update({"fir_rt": 3, "pll": 3, "biquad": 6} if sam
+                  else {"front_pair": 3})
+    before = {k.name: k.launches for k in build.kernels()}
+    for i, q in trace_rx.capture(3, C, "cpu", 4, cfg):
+        yg, sg, _ = gpu(sg, i=i, q=q)
+        yc, sc, _ = cpu(sc, i=i, q=q)
+        assert yg.shape == (C, 2, 2048)
+        assert snr_db(yc, yg.cpu()) >= CHAIN_DB
+    assert _launch_deltas(before) == expect
+    a, b = rx.state_to_numpy(sc, cfg), rx.state_to_numpy(sg, cfg)
+    for f in a:
+        if f == "sam.phs":
+            assert snr_db(np.cos(a[f]), np.cos(b[f])) >= CHAIN_DB
+            assert snr_db(np.sin(a[f]), np.sin(b[f])) >= CHAIN_DB
+        elif a[f].dtype.kind in "iu":
+            assert np.array_equal(a[f], b[f]), f
+        else:
+            assert snr_db(a[f], b[f]) >= CHAIN_DB, f
+
+
+@pytest.mark.parametrize("mode,front", [("usb", "ref"), ("lsb", "ref"),
+                                        ("am", "ref"), ("cw", "ref"),
+                                        ("lsb", "scipy")])
+def test_tx_chain_on_card_matches_cpu(dev, mode, front):
+    from uhsdr_tpu_torch.chain import tx
+    cfg = tx.TxConfig(mode=mode, front=front, block_len=2048)
+    gpu, cpu = tx.TxChain(cfg, device=dev), tx.TxChain(cfg, device="cpu")
+    C = 8
+    sg, sc = gpu.init_state((C,)), cpu.init_state((C,))
+    rng = np.random.default_rng(14)
+    before = {k.name: k.launches for k in build.kernels()}
+    for blk in range(3):
+        n = np.arange(blk * 2048, (blk + 1) * 2048)
+        a = (np.logspace(-2, 0, C)[:, None]
+             * np.sin(2 * np.pi * 700 * n / 48000.0)
+             + 0.01 * rng.standard_normal((C, 2048))).astype(np.float32)
+        if mode == "cw":
+            a = (np.abs(a) > 0.1).astype(np.float32)
+        ig, qg, sg = gpu(sg, a)
+        ic, qc, sc = cpu(sc, a)
+        assert snr_db(torch.complex(ic, qc),
+                      torch.complex(ig, qg).cpu()) >= CHAIN_DB
+    voice = mode != "cw"
+    expect = {k.name: 0 for k in build.kernels()}
+    expect.update({"fir_real": 3 * voice, "alc": 3 * voice})
+    assert _launch_deltas(before) == expect
+    a, b = tx.state_to_numpy(sc), tx.state_to_numpy(sg)
+    for f in a:
+        if a[f].dtype.kind in "iu":
+            assert np.array_equal(a[f], b[f]), f
+        else:
+            assert snr_db(a[f], b[f]) >= CHAIN_DB, f

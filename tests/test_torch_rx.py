@@ -83,14 +83,15 @@ def _leaf(state, dotted: str):
     return state
 
 
-def state_snrs(jstate, tstate) -> dict:
+def state_snrs(jstate, tstate, cfg=None) -> dict:
     """{leaf: SNR in dB} of the port's state against the JAX chain's, over
-    every leaf `state_to_numpy` gives.  The PLL phase is compared through
+    every leaf `state_to_numpy` gives (with `cfg`, in the reference's
+    layout of the two-channel modes).  The PLL phase is compared through
     its cosine and sine (a wrap at 2 pi is not an error); the NCO phase
     must be equal; boolean and integer leaves (the FM squelch and tone
     detector's) read inf where equal and -inf where not."""
     out = {}
-    for f, v in trx.state_to_numpy(tstate).items():
+    for f, v in trx.state_to_numpy(tstate, cfg).items():
         ref = np.asarray(_leaf(jstate, f))
         assert v.shape == ref.shape, f
         if f == "nco_phase":
@@ -105,12 +106,12 @@ def state_snrs(jstate, tstate) -> dict:
     return out
 
 
-def _assert_state_close(jstate, tstate, db):
-    for f, s in state_snrs(jstate, tstate).items():
+def _assert_state_close(jstate, tstate, db, cfg=None):
+    for f, s in state_snrs(jstate, tstate, cfg).items():
         assert s >= db, (f, s)
 
 
-def to_jax_state(template, tstate):
+def to_jax_state(template, tstate, cfg=None):
     """The port's RxState as the JAX package's: `template` (a JAX RxState
     of the same config) with every leaf the port carries replaced."""
     def put(node, parts, value):
@@ -119,7 +120,7 @@ def to_jax_state(template, tstate):
         return node._replace(**{parts[0]: put(getattr(node, parts[0]),
                                               parts[1:], value)})
 
-    for f, v in trx.state_to_numpy(tstate).items():
+    for f, v in trx.state_to_numpy(tstate, cfg).items():
         template = put(template, f.split("."), jnp.asarray(v))
     return template
 
@@ -261,10 +262,11 @@ def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB, capture=None,
     tcfg = trx.RxConfig(**kw)
     tp = trx.make_params(tcfg, device="cpu")
     for name, a, b in zip(tp._fields, tp,
-                          trx.params_from_numpy(jp, device="cpu")):
+                          trx.params_from_numpy(jp, device="cpu", cfg=tcfg)):
         assert _same(a, b), name
     blocks = (capture or am_capture)(N_BLOCKS, jcfg.iq_rate)
     out_len = AM_B // tcfg.decim if tcfg.mode == "fm" else AM_B
+    out_shape = (C,) + ((2,) if tcfg.n_audio > 1 else ()) + (out_len,)
     js = jrx.init_state(jcfg, jp, (C,))
     ts = trx.init_state(tcfg, tp, (C,))
     audio_db, mid = [], None
@@ -272,7 +274,7 @@ def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB, capture=None,
     for k, blk in enumerate(blocks):
         yj, js, tj = _run_jax(step, js, blk)
         yt, ts, tt = _run_port(tcfg, tp, ts, blk)
-        assert tuple(yt.shape) == (C, out_len)
+        assert tuple(yt.shape) == out_shape
         assert ("adc_peak" in tt) == ("adc_peak" in tj)
         if "adc_peak" in tt:
             np.testing.assert_array_equal(tt["adc_peak"].numpy(),
@@ -280,7 +282,7 @@ def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB, capture=None,
         yjs.append(yj)
         yts.append(yt)
         audio_db.append(snr_db(yj, yt))
-        leaves = state_snrs(js, ts)
+        leaves = state_snrs(js, ts, tcfg)
         worst = min(leaves, key=leaves.get)
         print(f"\n{kw['mode']} block {k}: audio {audio_db[-1]:.1f} dB, "
               f"worst state leaf {worst} {leaves[worst]:.1f} dB")
@@ -293,11 +295,11 @@ def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB, capture=None,
     js_mid, ts_mid = mid
     # JAX -> port
     ts2 = trx.state_from_numpy(jax.tree_util.tree_map(np.asarray, js_mid),
-                               device="cpu")
-    _assert_state_close(js_mid, ts2, np.inf)
+                               device="cpu", cfg=tcfg)
+    _assert_state_close(js_mid, ts2, np.inf, tcfg)
     # port -> JAX
-    js2 = to_jax_state(js_mid, ts_mid)
-    _assert_state_close(js2, ts_mid, np.inf)
+    js2 = to_jax_state(js_mid, ts_mid, tcfg)
+    _assert_state_close(js2, ts_mid, np.inf, tcfg)
     hand = []
     for k in (2, 3):
         yt2, ts2, _ = _run_port(tcfg, tp, ts2, blocks[k])
@@ -306,8 +308,8 @@ def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB, capture=None,
         print(f"  block {k} after hand-over: JAX->port {hand[-1][0]:.1f} dB, "
               f"port->JAX {hand[-1][1]:.1f} dB")
         assert min(hand[-1]) >= handover_db, (k, hand[-1])
-    _assert_state_close(js, ts2, handover_db)
-    _assert_state_close(js2, ts, handover_db)
+    _assert_state_close(js, ts2, handover_db, tcfg)
+    _assert_state_close(js2, ts, handover_db, tcfg)
     return audio_db, hand
 
 
@@ -345,9 +347,12 @@ def test_imports_neither_jax_nor_the_jax_package():
         "             or m == 'uhsdr_tpu' or m.startswith('uhsdr_tpu.'))\n"
         "n = sum(m.startswith('uhsdr_tpu_torch.') for m in sys.modules)\n"
         "new = {'uhsdr_tpu_torch.demod.fm', 'uhsdr_tpu_torch.cuda.elemwise',\n"
-        "       'uhsdr_tpu_torch.cuda.fir', 'uhsdr_tpu_torch.trace_rx'}\n"
+        "       'uhsdr_tpu_torch.cuda.fir', 'uhsdr_tpu_torch.trace_rx',\n"
+        "       'uhsdr_tpu_torch.mod.alc', 'uhsdr_tpu_torch.mod.modulators',\n"
+        "       'uhsdr_tpu_torch.chain.tx', 'uhsdr_tpu_torch.cuda.alc',\n"
+        "       'uhsdr_tpu_torch.cuda.agc', 'uhsdr_tpu_torch.trace_tx'}\n"
         "print(n, bad, sorted(new - set(sys.modules)))\n"
-        "sys.exit(1 if bad or n < 25 or new - set(sys.modules) else 0)\n")
+        "sys.exit(1 if bad or n < 30 or new - set(sys.modules) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -365,13 +370,20 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="sam", sam_sideband="stereo"),
-    dict(mode="fm", notch_enable=True), dict(mode="iq"),
-    dict(mode="ssbstereo"), dict(nr_enable=True), dict(nb_enable=True),
-    dict(notch_enable=True), dict(leaky_nr_enable=True),
-    dict(iq_auto_correction=True), dict(mode="iq", bw_key="10P0KHZ"),
-    dict(front="scipy")])
+    dict(tx_mode="fm"),
+    dict(mode="fm", notch_enable=True), dict(mode="ssbstereo", front="scipy"),
+    dict(mode="ssbstereo", bw_key="5P0KHZ"), dict(nr_enable=True),
+    dict(nb_enable=True), dict(notch_enable=True),
+    dict(leaky_nr_enable=True), dict(iq_auto_correction=True),
+    dict(mode="iq", bw_key="10P0KHZ"), dict(front="scipy")])
 def test_outside_the_slice_raises(kw):
+    """RX options still outside the port (the two-channel modes on the wide
+    rows run the reference's legacy front) and FM TX."""
+    if "tx_mode" in kw:
+        from uhsdr_tpu_torch.chain import tx as ttx
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ttx.TxChain(ttx.TxConfig(mode=kw["tx_mode"]), device="cpu")
+        return
     cfg = trx.RxConfig(**{**FLAGSHIP, **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trx.RxChain(cfg, device="cpu")

@@ -223,4 +223,4 @@ def test_sam_demod_matches_jax(sideband, fade):
         assert leaves[low] >= SAM_DB, leaves
     assert bool((ts.ap_state != 0).any()) == (sideband != "both")
     with pytest.raises(ValueError, match="sideband"):
-        tsam.demod(tp, ts, torch.from_numpy(blk), "stereo", fade)
+        tsam.demod(tp, ts, torch.from_numpy(blk), "dsb", fade)

@@ -1,5 +1,6 @@
-"""RX signal chain: the narrow and wide SSB/CW, AM, synchronous-AM and FM
-slices — the torch counterpart of `uhsdr_tpu.chain.rx` (itself the equivalent of the
+"""RX signal chain: the narrow and wide SSB/CW, AM, synchronous-AM, FM and
+two-channel (iq, ssbstereo, SAM stereo) slices — the torch counterpart of
+`uhsdr_tpu.chain.rx` (itself the equivalent of the
 firmware's `AudioDriver_RxProcessor`, audio_driver.c:2603-2942, plus its
 decimated-domain post-processing, :2436-2592).
 
@@ -8,6 +9,8 @@ Stage order of the reference-table chains:
   int16 (or f32) IQ planes, batched over channels
     -> SSB/CW: ADC peak taps, NCO translation, stage-A decimator, stage-B
        Hilbert-combine FIR, real audio out  [K1: cuda.fir.front]
+       iq/ssbstereo: the same with two stage-B filters, two-channel
+       audio (C, 2, T) out                  [K1, counted as front_pair]
        wide SSB: ADC peak taps, NCO translation, one complex-tap
        decimating FIR (Hilbert pair ⊛ decimator), real audio out
                                             [K7, K6 untranslated:
@@ -22,9 +25,11 @@ Stage order of the reference-table chains:
        then runs the AGC and biquad2 alone at 48 kHz
     -> PreFilter lattice as an exact SOS cascade (blocked matmuls)
     -> WDSP look-ahead AGC                  [K3: cuda.agc.agc], for AM/SAM
-       followed by its DC blocker
+       followed by its DC blocker; two-channel audio: the linked stereo
+       AGC, one machine on max(|L|, |R|)    [K13: cuda.agc.agc_scan]
     -> post-AGC scale, EQ biquad1 (pruned empty at neutral settings)
-    -> polyphase interpolation to the IQ rate [K4: cuda.fir.interpolate]
+    -> polyphase interpolation to the IQ rate [K4: cuda.fir.interpolate;
+                                               two channels as 2C rows]
     -> anti-alias lattice (48 kHz paths only), treble biquad2
   audio out (IQ rate, real)
 
@@ -70,9 +75,9 @@ POST_AGC_GAIN_SCALING_DECIMATE_2 = 3.46 * 0.6
 FM_RX_SCALING_2K5 = 10000.0
 FM_RX_SCALING_5K = FM_RX_SCALING_2K5 / 2.0
 
-_ROADMAP_MODES = ("ROADMAP.md queue A item 7 (other RX modes: "
-                  "iq/ssbstereo/SAM stereo with the linked stereo AGC, "
-                  "kernel K13)")
+_ROADMAP_MODES = ("ROADMAP.md queue A item 7 (other RX modes and options: "
+                  "the legacy scipy front, NR, blanker, LMS, IQ "
+                  "auto-correction)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -90,7 +95,8 @@ def resolve_device(device=None) -> torch.device:
 class RxConfig:
     """Static per-chain configuration (channels sharing a config are
     batched).  The fields keep the JAX package's names and defaults."""
-    mode: str = "usb"              # usb | lsb | cw | am | sam | fm so far
+    mode: str = "usb"              # usb | lsb | cw | am | sam | fm | iq |
+    #                                ssbstereo
     bw_key: str = "2P3KHZ"
     path_name: str | None = None   # sub-path of the filter registry
     front: str = "ref"             # "ref": the firmware's imported tables
@@ -105,7 +111,7 @@ class RxConfig:
     leaky_nr_enable: bool = False
     sql_threshold: int = 0         # FM squelch
     subtone_hz: float = 0.0        # FM subaudible tone detect
-    sam_sideband: str = "both"     # SAM: both | usb | lsb
+    sam_sideband: str = "both"     # SAM: both | usb | lsb | stereo
     fade_leveler: bool = True      # AM/SAM
     iq_auto_correction: bool = False
     fm_dev5: bool = False          # FM deviation 5 kHz (else 2.5 kHz)
@@ -119,9 +125,27 @@ class RxConfig:
 
     @property
     def ref_path(self) -> dict:
-        """The firmware FilterPathInfo row (audio_filter.c:147-928)."""
+        """The firmware FilterPathInfo row (audio_filter.c:147-928).  The
+        two-channel modes run the firmware's SSB rows (the demod-mode
+        branch comes after the filters, audio_driver.c:2757-2777)."""
         return refdata.find_path(self.mode, self.bw_key,
                                  select_id=self.ref_select_id)
+
+    @property
+    def n_audio(self) -> int:
+        """1 (mono) or 2: IQ as stereo, LSB/USB stereo, SAM stereo — the
+        reference's USE_TWO_CHANNEL_AUDIO modes (audio_driver.c:2618)."""
+        if self.mode in ("iq", "ssbstereo"):
+            return 2
+        return 2 if self.mode == "sam" and self.sam_sideband == "stereo" \
+            else 1
+
+    @property
+    def front_pair(self) -> bool:
+        """The front feeds the two audio channels through a filter pair:
+        iq and ssbstereo (on the reference-table front, the only one the
+        port runs)."""
+        return self.mode in ("iq", "ssbstereo")
 
     @property
     def rate_mult(self) -> int:
@@ -166,6 +190,13 @@ FM_FLAGSHIP = RxConfig(mode="fm", bw_key="5P0KHZ", path_name="FM",
                        translate_hz=12000.0, iq_rate=96000.0,
                        block_len=16384)
 
+# The two-channel deployment: the flagship's filter with both sidebands
+# demodulated at once, USB left and LSB right (audio_driver.c:2774-2777);
+# mode="iq" on the same row gives the filtered I and Q.
+STEREO_FLAGSHIP = RxConfig(mode="ssbstereo", bw_key="2P3KHZ",
+                           path_name="LPF", translate_hz=12000.0,
+                           iq_rate=96000.0, block_len=16384)
+
 # The wide-SSB deployment: the narrowest wide-SSB row that runs at 96 kHz
 # (5P0KHZ, no anti-alias lattice): one 245-tap complex front decimating
 # by 4 to 24 kHz, x4 interpolation.
@@ -175,19 +206,27 @@ WIDE_FLAGSHIP = RxConfig(mode="usb", bw_key="5P0KHZ", path_name="LPF",
 
 
 def check_slice(cfg: RxConfig):
-    """Raise NotImplementedError for what this slice does not port."""
-    if cfg.mode not in ("usb", "lsb", "cw", "am", "sam", "fm"):
+    """Raise NotImplementedError for what the port does not run yet."""
+    if cfg.mode not in ("usb", "lsb", "cw", "am", "sam", "fm", "iq",
+                        "ssbstereo"):
         raise NotImplementedError(f"mode {cfg.mode!r}: {_ROADMAP_MODES}")
-    if cfg.mode == "sam" and cfg.sam_sideband == "stereo":
-        raise NotImplementedError(
-            f"SAM stereo needs the linked stereo AGC (K13): "
-            f"{_ROADMAP_MODES}")
-    if cfg.mode == "sam" and cfg.sam_sideband not in ("both", "usb", "lsb"):
+    if cfg.mode == "sam" and cfg.sam_sideband not in ("both", "usb", "lsb",
+                                                      "stereo"):
         raise ValueError(f"sam_sideband {cfg.sam_sideband!r}")
     if cfg.front != "ref":
         raise NotImplementedError(
             f"front {cfg.front!r}: the legacy redesigned front, "
             f"{_ROADMAP_MODES}")
+    if cfg.front_pair:
+        try:
+            narrow = refdata.uses_decimated_iq(cfg.ref_path, "usb")
+        except KeyError:
+            narrow = False
+        if not narrow:
+            # the reference runs these rows on its legacy scipy front
+            raise NotImplementedError(
+                f"mode {cfg.mode!r} on the {cfg.bw_key} row (the legacy "
+                f"redesigned front): {_ROADMAP_MODES}")
     for flag, what in (("nr_enable", "spectral NR (nr/spectral.py)"),
                        ("nb_enable", "noise blanker (nr/blanker.py)"),
                        ("notch_enable", "LMS notch (ops/lms.py)"),
@@ -204,7 +243,8 @@ class RxParams(NamedTuple):
     nco_delta: int                # uint32 phase increment
     front_fir: torch.Tensor       # (taps,) the decimating front: f32 real
     #                               taps, or complex64 for wide SSB
-    front2: torch.Tensor | None   # (taps2,) complex64 stage-B Hilbert FIR;
+    front2: torch.Tensor | None   # (taps2,) complex64 stage-B Hilbert FIR,
+    #                               (2, taps2) for the two-channel modes;
     #                               None without a second stage
     audio_sos: iir.Cascade        # PreFilter lattice as SOS
     interp_fir: torch.Tensor      # (taps,) f32 interpolator
@@ -222,9 +262,14 @@ class RxParams(NamedTuple):
 
 class RxState(NamedTuple):
     nco_phase: torch.Tensor       # (C,) int64 in [0, 2^32)
-    front_carry: torch.Tensor     # (C, taps-1) complex64 RAW pre-mix IQ
+    front_carry: torch.Tensor     # (C, taps-1) complex64 RAW pre-mix IQ;
+    #                               iq/ssbstereo: (C, taps-1 + decim *
+    #                               (taps2-1)), the reference's pair's
     front2_carry: torch.Tensor | None  # (C, taps2-1) complex64 stage-A
     #                                    output; None without a stage B
+    # the post chain's leaves carry an audio-channel axis (2,) after C in
+    # the two-channel modes, as the reference's (its NUM_AUDIO_CHANNELS
+    # loops), but for the linked AGC's shared machine leaves
     audio_sos_state: torch.Tensor  # (S, C, 2)
     agc: agc_mod.AgcState
     fade: am_mod.FadeLevelerState
@@ -317,6 +362,36 @@ def _on_device(device, *, nco_delta, front_fir_re, front_fir_im, front2_re,
         aa_sos=iir.cascade(aa_sos, dev))
 
 
+def _front_design(cfg: RxConfig):
+    """(stage-A or only front FIR, stage-B FIR or None) as NumPy arrays,
+    before the lift to the capture rate.  Narrow SSB/CW: the firmware's
+    real decimator, then its Hilbert pair fused into one complex FIR g =
+    h_i ∓ j·h_q whose real response is I±Q.  iq/ssbstereo: the same
+    decimator, then two such filters, one per audio channel
+    (audio_driver.c:2770-2777): ssbstereo g0 = h_i - j·h_q (USB), g1 =
+    h_i + j·h_q (LSB); iq g0 = h_i (filtered I), g1 = -j·h_q (Re of
+    -j(a+jb) is b: filtered Q).  The reference folds each into one
+    input-rate filter dec ⊛ upsample(g_k) (chain/rx.py:364-398); by the
+    noble identity that is this stage A followed by g_k.  Wide SSB: the
+    Hilbert pair before the (real) decimator, one complex FIR g ⊛ dec.
+    AM/SAM/FM: the per-path AM lowpass, no stage B."""
+    rp = cfg.ref_path
+    if cfg.mode in ("am", "sam", "fm"):
+        return refdata.fir(rp["fir_i"], rp["fir_numtaps"]), None
+    h_i = refdata.fir(rp["fir_i"], rp["fir_numtaps"])
+    h_q = refdata.fir(rp["fir_q"], rp["fir_numtaps"])
+    dec = refdata.decimator(rp["dec"])
+    if cfg.front_pair:
+        gs = ((h_i - 1j * h_q, h_i + 1j * h_q) if cfg.mode == "ssbstereo"
+              else (h_i.astype(complex), -1j * h_q))
+        return dec, np.stack(gs)
+    sgn = 1.0 if cfg.mode == "lsb" else -1.0          # g = h_i ∓ j·h_q
+    g = h_i + 1j * sgn * h_q
+    if refdata.uses_decimated_iq(rp, cfg.mode):       # narrow SSB/CW
+        return dec, g
+    return np.convolve(g, dec), None                  # wide SSB
+
+
 def make_params(cfg: RxConfig, device=None) -> RxParams:
     """The reference-table front and post products (chain/rx.py:336-464
     of the reference).  Narrow SSB/CW: stage A is the firmware's real
@@ -335,18 +410,7 @@ def make_params(cfg: RxConfig, device=None) -> RxParams:
     k = cfg.rate_mult
     am_sam = cfg.mode in ("am", "sam")
     fm = cfg.mode == "fm"
-    front2_re = front2_im = None
-    if am_sam or fm:
-        front = refdata.fir(rp["fir_i"], rp["fir_numtaps"])
-    else:
-        sgn = 1.0 if cfg.mode == "lsb" else -1.0      # g = h_i ∓ j·h_q
-        g = (refdata.fir(rp["fir_i"], rp["fir_numtaps"])
-             + 1j * sgn * refdata.fir(rp["fir_q"], rp["fir_numtaps"]))
-        if refdata.uses_decimated_iq(rp, cfg.mode):   # narrow SSB/CW
-            front = refdata.decimator(rp["dec"])
-            front2_re, front2_im = g.real, g.imag
-        else:                                         # wide SSB
-            front = np.convolve(g, refdata.decimator(rp["dec"]))
+    front, front2 = _front_design(cfg)
     front = _rate_adapt_front(front, k, cfg.iq_rate)
     fs_dec = IQ_RATE if fm else cfg.fs_dec     # the FM chain runs at 48 kHz
     interp_fir = np.zeros(1, np.float64)
@@ -369,7 +433,8 @@ def make_params(cfg: RxConfig, device=None) -> RxParams:
         dev,
         nco_delta=nco.freq_to_delta(-cfg.translate_hz, cfg.iq_rate),
         front_fir_re=front.real, front_fir_im=front.imag,
-        front2_re=front2_re, front2_im=front2_im,
+        front2_re=None if front2 is None else front2.real,
+        front2_im=None if front2 is None else front2.imag,
         audio_sos=_lattice_sos5(rp["pre"]),
         interp_fir=interp_fir,
         agc=agc_mod.make_params(fs_dec, mode=cfg.agc_mode,
@@ -388,13 +453,25 @@ def make_params(cfg: RxConfig, device=None) -> RxParams:
         aa_sos=aa_sos)
 
 
-def params_from_numpy(p: Any, device=None) -> RxParams:
+def params_from_numpy(p: Any, device=None,
+                      cfg: RxConfig | None = None) -> RxParams:
     """The JAX package's RxParams (NumPy leaves) -> the port's RxParams,
-    so both chains run off one set of design products."""
+    so both chains run off one set of design products.  The two-channel
+    modes' (2, taps) input-rate front pair is kept factored in the port
+    (stage A, then two stage-B filters; see `_front_design`): its factors
+    come from `cfg` through the port's own design copy."""
+    front = dict(front_fir_re=p.front_fir_re, front_fir_im=p.front_fir_im,
+                 front2_re=p.front2_re, front2_im=p.front2_im)
+    if np.ndim(p.front_fir_re) == 2:
+        if cfg is None or not cfg.front_pair:
+            raise ValueError("a (2, taps) front pair: pass the two-channel "
+                             "mode's cfg")
+        stage_a, pair = _front_design(cfg)
+        stage_a = _rate_adapt_front(stage_a, cfg.rate_mult, cfg.iq_rate)
+        front = dict(front_fir_re=stage_a, front_fir_im=np.zeros(1),
+                     front2_re=pair.real, front2_im=pair.imag)
     return _on_device(
-        resolve_device(device), nco_delta=p.nco_delta,
-        front_fir_re=p.front_fir_re, front_fir_im=p.front_fir_im,
-        front2_re=p.front2_re, front2_im=p.front2_im,
+        resolve_device(device), nco_delta=p.nco_delta, **front,
         audio_sos=p.audio_sos, interp_fir=p.interp_fir, agc=p.agc,
         fade=p.fade, sam=p.sam, fm=p.fm, iq_gain=p.iq_gain,
         iq_phase=p.iq_phase,
@@ -402,9 +479,21 @@ def params_from_numpy(p: Any, device=None) -> RxParams:
         eq1_sos=p.eq1_sos, eq2_sos=p.eq2_sos, aa_sos=p.aa_sos)
 
 
+def _raw_history_len(cfg: RxConfig, params: RxParams) -> int:
+    """Samples of raw IQ the front carries: its taps - 1, or for the
+    two-channel modes the reference's input-rate pair's (stage A's taps
+    - 1 + decim * (taps2 - 1), whose last stage-A taps - 1 feed K1)."""
+    n = params.front_fir.shape[-1] - 1
+    if cfg.front_pair:
+        n += cfg.decim * (params.front2.shape[-1] - 1)
+    return n
+
+
 def init_state(cfg: RxConfig, params: RxParams, batch_shape) -> RxState:
     bs = tuple(batch_shape)
     dev = params.front_fir.device
+    # two-channel modes: the post chain runs per audio channel
+    bs_post = bs + ((2,) if cfg.n_audio > 1 else ())
 
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -412,20 +501,23 @@ def init_state(cfg: RxConfig, params: RxParams, batch_shape) -> RxState:
     sub_len = -(-params.interp_fir.shape[-1] // cfg.decim)
     return RxState(
         nco_phase=zeros(bs, torch.int64),
-        front_carry=fir_ops.init_carry(bs, params.front_fir.shape[-1],
-                                       device=dev),
+        front_carry=fir_ops.init_carry(
+            bs, _raw_history_len(cfg, params) + 1, device=dev),
         front2_carry=(None if params.front2 is None else fir_ops.init_carry(
             bs, params.front2.shape[-1], device=dev)),
-        audio_sos_state=zeros((params.audio_sos.sections,) + bs + (2,)),
-        agc=agc_mod.init_state(bs, params.agc, device=dev),
-        fade=am_mod.fade_leveler_init(bs, device=dev),
-        sam=sam_mod.init_state(bs, device=dev),
+        audio_sos_state=zeros((params.audio_sos.sections,) + bs_post + (2,)),
+        # two-channel modes: the LINKED stereo AGC (one machine)
+        agc=(agc_mod.init_state_stereo(bs, params.agc, device=dev)
+             if cfg.n_audio > 1
+             else agc_mod.init_state(bs, params.agc, device=dev)),
+        fade=am_mod.fade_leveler_init(bs_post, device=dev),
+        sam=sam_mod.init_state(bs, device=dev, n_audio=cfg.n_audio),
         fm=(None if params.fm is None
             else fm_mod.init_state(bs, params.fm, device=dev)),
-        interp_carry=zeros(bs + (sub_len - 1,)),
-        eq1=zeros((params.eq1_sos.sections,) + bs + (2,)),
-        eq2=zeros((params.eq2_sos.sections,) + bs + (2,)),
-        aa=zeros((params.aa_sos.sections,) + bs + (2,)))
+        interp_carry=zeros(bs_post + (sub_len - 1,)),
+        eq1=zeros((params.eq1_sos.sections,) + bs_post + (2,)),
+        eq2=zeros((params.eq2_sos.sections,) + bs_post + (2,)),
+        aa=zeros((params.aa_sos.sections,) + bs_post + (2,)))
 
 
 def _map_state(state, fn):
@@ -452,11 +544,31 @@ def _map_state(state, fn):
                       for f in RxState._fields})
 
 
-def state_from_numpy(s: Any, device=None) -> RxState:
+def _stage_a_history(cfg: RxConfig, params: RxParams, raw: torch.Tensor,
+                     phase: torch.Tensor) -> torch.Tensor:
+    """The last taps2 - 1 stage-A outputs of a two-channel front, rebuilt
+    from its raw history (C, n) (samples -n .. -1): mixed by the NCO as
+    the reference mixes its carry (chain/rx.py:742-755) and filtered by
+    stage A, the decimation phase aligned to the end of the history
+    (blocks are multiples of the decimation)."""
+    h = params.front_fir
+    n, n_hist = raw.shape[-1], h.shape[-1] - 1
+    z = raw * nco.rotor(nco.phase_ramp(phase, params.nco_delta, n,
+                                       start=-n))
+    za, _ = fir_ops.fir_decimate_block(h, z[..., :n_hist], z[..., n_hist:],
+                                       cfg.decim)
+    return za.contiguous()
+
+
+def state_from_numpy(s: Any, device=None,
+                     cfg: RxConfig | None = None) -> RxState:
     """The JAX package's RxState (leaves given as NumPy arrays, e.g. via
     ``np.asarray``) -> the port's RxState: a stream can move from one
     chain to the other mid-sequence.  Fields the slices do not carry
-    (nr, notch, ...) are dropped; uint32 leaves become int64."""
+    (nr, notch, ...) are dropped; uint32 leaves become int64.  The
+    two-channel modes need `cfg`: the reference carries its pair's raw
+    history on both planes (C, 2, n) and no stage-B history, the port
+    the raw history once and the stage-A history, rebuilt here."""
     dev = resolve_device(device)
 
     def t(a):
@@ -465,18 +577,25 @@ def state_from_numpy(s: Any, device=None) -> RxState:
             a = a.astype(np.int64)
         return torch.as_tensor(a, device=dev).contiguous()
 
-    return _map_state(s, t)
+    state = _map_state(s, t)
+    if cfg is not None and cfg.front_pair:
+        raw = state.front_carry[..., 0, :].contiguous()
+        state = state._replace(front_carry=raw, front2_carry=_stage_a_history(
+            cfg, make_params(cfg, dev), raw, state.nco_phase))
+    return state
 
 
 _UINT32_LEAVES = ("nco_phase", "fm.tone_phase")
 
 
-def state_to_numpy(state: RxState) -> dict:
+def state_to_numpy(state: RxState, cfg: RxConfig | None = None) -> dict:
     """The port's RxState -> {field: NumPy array}, nested fields under
     dotted names (``agc.volts``, ``sam.fade.dc``) and the NCO phases as
     uint32 (the JAX package's dtype), for comparison with the
     reference's state.  A leaf that is None (no stage B, no FM state) is
-    left out."""
+    left out.  With the cfg of a two-channel mode the leaves are the
+    reference's: the raw history on both planes (C, 2, n), no stage-B
+    history."""
     out = {}
 
     def walk(prefix, v):
@@ -491,6 +610,10 @@ def state_to_numpy(state: RxState) -> dict:
             walk(f"{prefix}.{f}" if prefix else f, getattr(v, f))
 
     walk("", state)
+    if cfg is not None and cfg.front_pair:
+        fc = out["front_carry"]
+        out["front_carry"] = np.repeat(fc[..., None, :], 2, axis=-2)
+        out.pop("front2_carry", None)
     return out
 
 
@@ -519,7 +642,8 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
                   tune_offset_hz=None):
     """IQ correction, ADC peak taps, NCO translation and the front FIR.
     Narrow SSB/CW: both stages fused in the K1 kernel, real audio at
-    fs_dec out.  Wide SSB: the complex-tap front, K7 when translating and
+    fs_dec out; iq/ssbstereo: K1 with two stage-B filters, (C, 2, T)
+    audio out.  Wide SSB: the complex-tap front, K7 when translating and
     K6 when not, real audio out.  AM/SAM/FM: the one real-tap decimating
     stage in the K5 kernel, complex decimated IQ out (FM reports no ADC
     peaks, as the reference's FM branch).  `tune_offset_hz` (the live
@@ -589,6 +713,8 @@ def _demod_sos_pre_agc(cfg: RxConfig, params: RxParams, state: RxState,
     if cfg.mode == "am":
         audio, fade_state = am_mod.demod(zf, params.fade, state.fade,
                                          cfg.fade_leveler)
+    # iq/ssbstereo (audio_driver.c:2770-2777): K1's two real outputs ARE
+    # the two channels (filtered I/Q, or USB/LSB), as SSB's is its audio
     elif cfg.mode == "sam":
         audio, _, sam_state = sam_mod.demod(
             params.sam, state.sam, zf, sideband=cfg.sam_sideband,
@@ -629,11 +755,15 @@ def post_to_dec(cfg: RxConfig, params: RxParams, state: RxState, audio,
 
 def interp_stage(cfg: RxConfig, params: RxParams, state: RxState, audio,
                  taps_out: dict):
-    """Interpolation back to the IQ rate (K4), the anti-alias lattice and
-    the treble biquad2."""
-    audio48, interp_carry = fir_kernels.interpolate(
-        params.interp_fir, state.interp_carry, audio.contiguous(),
-        cfg.decim)
+    """Interpolation back to the IQ rate (K4; two-channel audio as 2C
+    rows), the anti-alias lattice and the treble biquad2."""
+    lead, ic = audio.shape[:-1], state.interp_carry
+    rows = audio.reshape(-1, audio.shape[-1]).contiguous()
+    y, interp_carry = fir_kernels.interpolate(
+        params.interp_fir, ic.reshape(rows.shape[0], ic.shape[-1]),
+        rows, cfg.decim)
+    audio48 = y.reshape(lead + y.shape[-1:])
+    interp_carry = interp_carry.reshape(ic.shape)
     audio48, aa_state = iir.biquad_cascade_dispatch(params.aa_sos, state.aa,
                                                     audio48)
     audio48, eq2_state = iir.biquad_cascade_dispatch(params.eq2_sos,
@@ -658,7 +788,8 @@ def post_after_agc(cfg: RxConfig, params: RxParams, state: RxState, audio,
 def demod_and_post(cfg: RxConfig, params: RxParams, state: RxState, zf,
                    taps_out: dict | None = None):
     audio, state, taps_out = demod_pre_agc(cfg, params, state, zf, taps_out)
-    audio, agc_state = agc_mod.run(params.agc, state.agc, audio)
+    agc_run = agc_mod.run_stereo if cfg.n_audio > 1 else agc_mod.run
+    audio, agc_state = agc_run(params.agc, state.agc, audio)
     state = state._replace(agc=agc_state)
     return post_after_agc(cfg, params, state, audio, taps_out)
 
@@ -667,7 +798,8 @@ def process_block(cfg: RxConfig, params: RxParams, state: RxState, iq,
                   tune_offset_hz=None):
     """iq: an (i, q) tuple of (C, block) int16 or f32 planes, or a complex
     (C, block) tensor.  Returns (audio, new_state, taps): audio is (C,
-    block) at the IQ rate, or (C, block // decim) at 48 kHz for FM."""
+    block) at the IQ rate, (C, 2, block) in the two-channel modes, or
+    (C, block // decim) at 48 kHz for FM."""
     zf, state, taps_out = process_front(cfg, params, state, iq,
                                         tune_offset_hz)
     return demod_and_post(cfg, params, state, zf, taps_out)

@@ -1,5 +1,6 @@
-"""K3 (the WDSP look-ahead AGC): wrapper around the hand-written kernel
-`kernels/agc.cu`, beside its plain torch version.
+"""K3 (the WDSP look-ahead AGC) and K13 (its 5-state machine alone):
+wrappers around the hand-written kernels of `kernels/agc.cu`, each beside
+its plain torch version.
 
 The wrapper takes the plain version only for tensors on the CPU.  For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
@@ -7,9 +8,11 @@ kernel on the current stream (building it on first use), raises if the
 launch failed, and adds one to ``AGC.launches``.  There is no fallback.
 
 Replaces uhsdr_tpu/pallas/agc.py::_make_fused_kernel (:159) with
-_make_machine_step (:36), entered from ops/agc.py:481.  On this card the
-kernel is bound by its recurrence (T dependent steps per channel), not
-by its bytes; see the note in the source.
+_make_machine_step (:36), entered from ops/agc.py:481; K13 replaces
+::_make_kernel (:126), entered through agc_scan_pallas (:376) from
+ops/agc.py::_run_machine (the linked stereo AGC).  On this card both
+are bound by their recurrence (T dependent steps per channel), not by
+their bytes; see the note in the source.
 """
 from __future__ import annotations
 
@@ -29,7 +32,12 @@ AGC = CudaKernel("agc", "agc.cu", {
     "uhsdr_agc_launch": ([_P, _P, _P, _I, _I, _I] + [_F] * 14
                          + [_P, _P, _P, _P], _I),
     "uhsdr_agc_max_window": ([], _I),
+    "uhsdr_agc_scan_launch": ([_P, _P, _P, _I, _I] + [_F] * 11
+                              + [_P, _P, _P], _I),
 }, extra_flags=("-fmad=false",))
+# one source and library, two kernels: K3 (the whole AGC) and K13 (the
+# machine alone)
+AGC_SCAN = CudaKernel("agc_scan", "agc.cu", lib_of=AGC)
 
 N_CARRY = 7   # volts, save_volts, hang_counter, decay_type, state, fba, hba
 
@@ -119,32 +127,48 @@ def machine_step(p: AgcScalars, carry, rm, fb, hb):
     return new_volts, new_save, new_hang, new_decay, new_state
 
 
-def agc_plain(p: AgcScalars, carry, delay, x):
-    """Plain torch version of K3: the delay line, the look-ahead max, the
-    back-averages updated before each step, `machine_step` in a time
-    loop, then the gain law.  carry (7, C); delay (C, w); x (C, T).
-    Returns (y (C, T), new_carry (7, C), new_delay (C, w))."""
-    T = x.shape[-1]
-    w = delay.shape[-1]
-    xfull = torch.cat([delay, x], dim=-1)
-    od = xfull[:, :T]
-    a = xfull.abs()
-    rm = a[:, 1:].unfold(-1, w, 1).amax(-1)[:, :T]   # max a[n+1 .. n+w]
-    ax = a[:, :T]
+def look_ahead_max(a: torch.Tensor, w: int, T: int) -> torch.Tensor:
+    """rm[..., n] = max a[..., n+1 .. n+w] for n < T, over a (..., w+T)
+    detector series (|x| of the delay line and the block)."""
+    return a[..., 1:].unfold(-1, w, 1).amax(-1)[..., :T]
+
+
+def agc_scan_plain(p: AgcScalars, carry, rm, ax):
+    """Plain torch version of K13: per step the back-averages of `ax`
+    update, then `machine_step` on `rm`, in a time loop.  carry (7, C);
+    rm, ax (C, T).  Returns (volts (C, T), new_carry (7, C))."""
     a_f = _f32(np.float32(1.0) - np.float32(p.fast_backmult))
     a_h = _f32(np.float32(1.0) - np.float32(p.hang_backmult))
     volts, save, hang, decay, st, fba, hba = carry.unbind(0)
     mc = (volts, save, hang, decay, st)
     vs = []
-    for n in range(T):
+    for n in range(rm.shape[-1]):
         fba = a_f * fba + p.fast_backmult * ax[:, n]
         hba = a_h * hba + p.hang_backmult * ax[:, n]
         mc = machine_step(p, mc, rm[:, n], fba, hba)
         vs.append(mc[0])
-    v = torch.stack(vs, dim=-1)
+    return torch.stack(vs, dim=-1), torch.stack(list(mc) + [fba, hba], dim=0)
+
+
+def gain_law(p: AgcScalars, v: torch.Tensor) -> torch.Tensor:
+    """The log-domain gain (out_target - slope*min(log10(v/max_in), 0))
+    / v of the volts series."""
     vo = torch.clamp_max(torch.log10(p.inv_max_input * v), 0.0)
-    y = od * ((p.out_target - p.slope_constant * vo) / v)
-    new_carry = torch.stack(list(mc) + [fba, hba], dim=0)
+    return (p.out_target - p.slope_constant * vo) / v
+
+
+def agc_plain(p: AgcScalars, carry, delay, x):
+    """Plain torch version of K3: the delay line, the look-ahead max, the
+    machine walk of `agc_scan_plain`, then the gain law.  carry (7, C);
+    delay (C, w); x (C, T).  Returns (y (C, T), new_carry (7, C),
+    new_delay (C, w))."""
+    T = x.shape[-1]
+    w = delay.shape[-1]
+    xfull = torch.cat([delay, x], dim=-1)
+    a = xfull.abs()
+    v, new_carry = agc_scan_plain(p, carry, look_ahead_max(a, w, T),
+                                  a[:, :T])
+    y = xfull[:, :T] * gain_law(p, v)
     return y, new_carry, xfull[:, xfull.shape[-1] - w:]
 
 
@@ -183,3 +207,34 @@ def agc(p: AgcScalars, carry, delay, x):
     AGC.check(err)
     AGC.launches += 1
     return y, new_carry, new_delay
+
+
+def agc_scan(p: AgcScalars, carry, rm, ax):
+    """The AGC machine alone (K13).  carry: (7, C) f32 in the order
+    [volts, save, hang, decay, state, fba, hba]; rm (the look-ahead max)
+    and ax (the delayed |x|): (C, T) f32.  Returns (volts (C, T),
+    new_carry (7, C))."""
+    if rm.device.type == "cpu":
+        return agc_scan_plain(p, carry, rm, ax)
+    dev = rm.device
+    if rm.ndim != 2 or ax.shape != rm.shape or rm.shape[-1] < 1:
+        raise ValueError("agc_scan: rm and ax must be (C, T) of one shape")
+    C, T = rm.shape
+    if carry.shape != (N_CARRY, C):
+        raise ValueError("agc_scan: carry must be (7, C)")
+    ts = (carry, rm, ax)
+    if any(t.dtype != torch.float32 or t.device != dev
+           or not t.is_contiguous() for t in ts):
+        raise ValueError("agc_scan: contiguous f32 tensors on one device")
+    volts = torch.empty_like(rm)
+    new_carry = torch.empty_like(carry)
+    lib = AGC_SCAN.lib()
+    err = lib.uhsdr_agc_scan_launch(
+        rm.data_ptr(), ax.data_ptr(), carry.data_ptr(), C, T,
+        p.attack_mult, p.fast_decay_mult, p.decay_mult, p.hang_decay_mult,
+        p.fast_backmult, p.hang_backmult, p.pop_ratio, p.hang_level,
+        p.hang_time, 1.0 if p.hang_enable else 0.0, p.min_volts,
+        volts.data_ptr(), new_carry.data_ptr(), stream_ptr(dev))
+    AGC_SCAN.check(err)
+    AGC_SCAN.launches += 1
+    return volts, new_carry

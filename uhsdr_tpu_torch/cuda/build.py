@@ -123,7 +123,7 @@ def build_all():
     """Build every registered kernel, one nvcc per source in parallel.
     Returns {name: nvcc log} (the -Xptxas -v register/smem report)."""
     # importing the wrapper modules registers their kernels
-    from . import agc, elemwise, fir, iir, pll  # noqa: F401
+    from . import agc, alc, elemwise, fir, iir, pll  # noqa: F401
     procs = [(k, k.start_build()) for k in _ALL]
     errors = []
     for k, p in procs:
@@ -139,7 +139,7 @@ def build_all():
 
 
 def kernels() -> list[CudaKernel]:
-    from . import agc, elemwise, fir, iir, pll  # noqa: F401
+    from . import agc, alc, elemwise, fir, iir, pll  # noqa: F401
     return list(_ALL)
 
 

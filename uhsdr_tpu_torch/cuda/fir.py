@@ -1,8 +1,10 @@
-"""K1 (the fused RX front), K5 (the real-tap decimating front), K6/K7 (the
-complex-tap decimating front, without and with the NCO) and K4 (the
-polyphase interpolator): wrappers around the hand-written kernels
-`kernels/front.cu`, `kernels/fir_rt.cu`, `kernels/fir_cx.cu` and
-`kernels/interp.cu`, each beside its plain torch version.
+"""K1 (the fused RX front, with one stage-B filter or the two-channel
+modes' two), K5 (the real-tap decimating front), K6/K7 (the complex-tap
+decimating front, without and with the NCO), K4 (the polyphase
+interpolator) and K8 (the TX analytic FIR): wrappers around the
+hand-written kernels `kernels/front.cu`, `kernels/fir_rt.cu`,
+`kernels/fir_cx.cu`, `kernels/interp.cu` and `kernels/fir_real.cu`, each
+beside its plain torch version.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
@@ -12,7 +14,8 @@ no fallback.
 
 K1 replaces uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2 (:179); K5
 replaces ::_fir_kernel_rt_s (:82); K6 ::_fir_kernel (:47); K7
-::_fir_nco_kernel (:370); K4 ::_interp_kernel (:1003).
+::_fir_nco_kernel (:370); K4 ::_interp_kernel (:1003); K8
+::_fir_real_kernel (:911).
 What bounds each on the card is noted in its source.
 """
 from __future__ import annotations
@@ -30,13 +33,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 FRONT = CudaKernel("front", "front.cu", {
-    "uhsdr_front_launch": ([_I, _P, _P, _F, _I, _I, _P, _P, _P,
-                            ctypes.c_uint32, _P, _I, _I, _P, _P, _I, _P, _P,
-                            _P, _P, _P], _I),
+    "uhsdr_front_launch": ([_I, _P, _P, _F, _I, _I, _I, _P, _P, _P,
+                            ctypes.c_uint32, _P, _I, _I, _P, _P, _I, _I, _P,
+                            _P, _P, _P, _P], _I),
     "uhsdr_front_tile": ([], _I),
     "uhsdr_front_ring_rows": ([], _I),
     "uhsdr_front_ring2": ([], _I),
 })
+# one source and library, counted apart: K1 with the two-channel modes'
+# two stage-B filters
+FRONT_PAIR = CudaKernel("front_pair", "front.cu", lib_of=FRONT)
 
 FIR_RT = CudaKernel("fir_rt", "fir_rt.cu", {
     "uhsdr_fir_rt_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
@@ -58,6 +64,13 @@ FIR_CX_NCO = CudaKernel("fir_cx_nco", "fir_cx.cu", lib_of=FIR_CX)
 
 INTERP = CudaKernel("interp", "interp.cu", {
     "uhsdr_interp_launch": ([_P, _P, _I, _I, _P, _I, _I, _P, _P, _P], _I),
+})
+
+FIR_REAL = CudaKernel("fir_real", "fir_real.cu", {
+    "uhsdr_fir_real_launch": ([_P, _I, _I, _P, _P, _I, _I, _I, _P,
+                               ctypes.c_uint32, _P, _P, _P], _I),
+    "uhsdr_fir_real_tile": ([], _I),
+    "uhsdr_fir_real_ring": ([], _I),
 })
 
 INT16_SCALE = 1.0 / 32768.0
@@ -205,36 +218,54 @@ def fir_cx(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
 
 def front_plain(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
     """Plain torch version of the K1 front: stage A as `fir_rt_plain`
-    (scale, peaks, NCO rotation of the block and of the raw history, real
-    taps h, decimate), then stage B (complex taps g, real output).
-    Returns (audio (C, B//decim), new raw carry, new stage-B carry,
-    peaks (C,))."""
-    za, new_carry, peaks = fir_rt_plain(h, carry, xi, xq, decim,
-                                        nco=(phase, delta))
-    y, new_carry2 = fir_ops.fir_block(g, carry2, za)
-    return y.real.contiguous(), new_carry, new_carry2, peaks
+    (scale, peaks, NCO rotation of the block and of the raw history's last
+    taps-1 samples, real taps h, decimate), then stage B (complex taps g,
+    real output) for each row of g.  Returns (audio (C, B//decim), or (C,
+    nb, B//decim) for g of nb rows, the new raw carry (as long as
+    `carry`), the new stage-B carry, peaks (C,))."""
+    n_hist = h.shape[-1] - 1
+    za, _, peaks = fir_rt_plain(h, carry[..., carry.shape[-1] - n_hist:],
+                                xi, xq, decim, nco=(phase, delta))
+    a, b = scale_planes(xi, xq)
+    new_carry = torch.cat([carry, torch.complex(a, b)],
+                          dim=-1)[..., xi.shape[-1]:]
+    if g.ndim == 1:
+        y, new_carry2 = fir_ops.fir_block(g, carry2, za)
+        return y.real.contiguous(), new_carry, new_carry2, peaks
+    ys = []
+    for gb in g:
+        y, new_carry2 = fir_ops.fir_block(gb, carry2, za)
+        ys.append(y.real)
+    return torch.stack(ys, dim=1), new_carry, new_carry2, peaks
 
 
 def front(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
     """The fused front (K1).  h: (taps,) f32 real stage-A taps; g:
-    (taps2,) complex64 stage-B taps; carry: (C, taps-1) complex64 RAW
-    pre-mix history; carry2: (C, taps2-1) complex64 stage-A history;
-    xi, xq: (C, B) int16 or f32 planes; phase: (C,) int64 NCO phases in
-    [0, 2^32); delta: the uint32 phase increment.  Returns
-    (audio, new_carry, new_carry2, peaks) as `front_plain`."""
+    (taps2,) complex64 stage-B taps, or (2, taps2) for the two-channel
+    modes (counted as `front_pair`); carry: (C, n_keep) complex64 RAW
+    pre-mix history, n_keep >= taps-1 (the last taps-1 feed stage A);
+    carry2: (C, taps2-1) complex64 stage-A history; xi, xq: (C, B) int16
+    or f32 planes; phase: (C,) int64 NCO phases in [0, 2^32); delta: the
+    uint32 phase increment.  Returns (audio, new_carry, new_carry2, peaks)
+    as `front_plain`."""
     if xi.device.type == "cpu":
         return front_plain(h, g, carry, carry2, xi, xq, phase, delta, decim)
     dev = xi.device
     C, B = xi.shape
     taps, taps2 = h.shape[-1], g.shape[-1]
+    nb = 1 if g.ndim == 1 else g.shape[0]
+    n_keep = carry.shape[-1]
     _need(xi.dtype in (torch.int16, torch.float32) and xq.dtype == xi.dtype
           and xq.shape == xi.shape, "front: xi/xq must be int16 or f32 "
           "planes of one shape")
     _need(B % decim == 0, f"front: block {B} not a multiple of {decim}")
     _need(h.dtype == torch.float32 and g.dtype == torch.complex64,
           "front: h f32, g complex64")
-    _need(carry.shape == (C, taps - 1) and carry.dtype == torch.complex64,
-          "front: carry must be (C, taps-1) complex64")
+    _need(g.ndim in (1, 2) and nb in (1, 2),
+          "front: g must be (taps2,) or (2, taps2)")
+    _need(carry.ndim == 2 and carry.shape[0] == C and n_keep >= taps - 1
+          and carry.dtype == torch.complex64,
+          "front: carry must be (C, n_keep >= taps-1) complex64")
     _need(carry2.shape == (C, taps2 - 1) and carry2.dtype == torch.complex64,
           "front: carry2 must be (C, taps2-1) complex64")
     _need(phase.shape == (C,) and phase.dtype == torch.int64,
@@ -252,21 +283,23 @@ def front(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
     g_re = g.real.contiguous()
     g_im = g.imag.contiguous()
     T_out = B // decim
-    out = torch.empty((C, T_out), dtype=torch.float32, device=dev)
+    out = torch.empty((C, nb, T_out) if g.ndim == 2 else (C, T_out),
+                      dtype=torch.float32, device=dev)
     new_carry = torch.empty_like(carry)
     new_carry2 = torch.empty_like(carry2)
     peaks = torch.empty((C,), dtype=torch.float32, device=dev)
     in_kind = 0 if xi.dtype == torch.int16 else 1
     scale = INT16_SCALE if in_kind == 0 else 1.0
     err = lib.uhsdr_front_launch(
-        in_kind, xi.data_ptr(), xq.data_ptr(), scale, C, B,
+        in_kind, xi.data_ptr(), xq.data_ptr(), scale, C, B, n_keep,
         carry.data_ptr(), carry2.data_ptr(), phase.data_ptr(),
         int(delta) & nco_ops.MASK32, h.data_ptr(), taps, decim,
-        g_re.data_ptr(), g_im.data_ptr(), taps2, out.data_ptr(),
+        g_re.data_ptr(), g_im.data_ptr(), taps2, nb, out.data_ptr(),
         new_carry.data_ptr(), new_carry2.data_ptr(), peaks.data_ptr(),
         stream_ptr(dev))
-    FRONT.check(err)
-    FRONT.launches += 1
+    counter = FRONT_PAIR if g.ndim == 2 else FRONT
+    counter.check(err)
+    counter.launches += 1
     return out, new_carry, new_carry2, peaks
 
 
@@ -308,4 +341,63 @@ def interpolate(h, carry, x, interp: int):
                                   new_carry.data_ptr(), stream_ptr(dev))
     INTERP.check(err)
     INTERP.launches += 1
+    return y, new_carry
+
+
+# ---------------------------------------------------------------------------
+# K8: the TX analytic FIR
+# ---------------------------------------------------------------------------
+
+def fir_real_plain(h, carry, x, nco=None, conj: bool = False):
+    """Plain torch version of K8: y = x (*) h for real x and complex h at
+    decimation 1 over the carried real history, conjugated with `conj`,
+    then rotated by the NCO ramp where `nco` = (phase (C,) int64, delta)
+    is given.  Returns (y (C, B) complex64, new carry (C, taps-1) f32)."""
+    y, new_carry = fir_ops.fir_block(h, carry, x)
+    if conj:
+        y = y.conj().resolve_conj()
+    if nco is not None:
+        phase, delta = nco
+        y = y * nco_ops.rotor(nco_ops.phase_ramp(phase, delta, x.shape[-1]))
+    return y, new_carry
+
+
+def fir_real(h, carry, x, nco=None, conj: bool = False):
+    """The TX analytic FIR (K8).  h: (taps,) complex64; carry: (C,
+    taps-1) f32 real history; x: (C, B) f32 audio; nco: None, or (phase
+    (C,) int64 in [0, 2^32), the uint32 phase increment) to rotate the
+    output; conj: conjugate before the rotation (LSB).  Returns (y (C, B)
+    complex64, new_carry)."""
+    if x.device.type == "cpu":
+        return fir_real_plain(h, carry, x, nco, conj)
+    dev = x.device
+    _need(x.ndim == 2 and x.dtype == torch.float32,
+          "fir_real: x must be (C, B) f32")
+    C, B = x.shape
+    taps = h.shape[-1]
+    _need(h.dtype == torch.complex64 and h.ndim == 1 and taps >= 2,
+          "fir_real: h must be (taps,) complex64")
+    _need(carry.shape == (C, taps - 1) and carry.dtype == torch.float32,
+          "fir_real: carry must be (C, taps-1) f32")
+    ts = [h, carry, x]
+    phase, delta = (None, 0) if nco is None else nco
+    if phase is not None:
+        _need(phase.shape == (C,) and phase.dtype == torch.int64,
+              "fir_real: phase must be (C,) int64")
+        ts.append(phase)
+    _need(all(t.device == dev for t in ts), "fir_real: tensors on one device")
+    _need(all(t.is_contiguous() for t in ts), "fir_real: contiguous tensors")
+    lib = FIR_REAL.lib()
+    _need(taps - 1 + lib.uhsdr_fir_real_tile() <= lib.uhsdr_fir_real_ring(),
+          f"fir_real: {taps} taps exceed the history ring")
+    y = torch.empty((C, B), dtype=torch.complex64, device=dev)
+    new_carry = torch.empty_like(carry)
+    err = lib.uhsdr_fir_real_launch(
+        x.data_ptr(), C, B, carry.data_ptr(), h.data_ptr(), taps,
+        1 if conj else 0, 0 if phase is None else 1,
+        None if phase is None else phase.data_ptr(),
+        int(delta) & nco_ops.MASK32, y.data_ptr(), new_carry.data_ptr(),
+        stream_ptr(dev))
+    FIR_REAL.check(err)
+    FIR_REAL.launches += 1
     return y, new_carry

@@ -12,7 +12,8 @@ Per sample:
   3. Sideband separation: 4 paths (delayed(ai), bi, delayed(bq), aq) each
      through a 7-stage cascade of 2nd-order allpasses
      ``y[n] = c*x[n] + x[n-2] - c*y[n-2]`` (coefficient sets C0/C1,
-     `audio_driver.c:1932-1953`), combined to USB or LSB.
+     `audio_driver.c:1932-1953`), combined to USB or LSB, or to both as
+     two-channel audio (stereo: LSB left, USB right).
   4. Fade leveler (see demod.am).
 
 Three routes, as the reference's (demod/sam.py:154-236): sideband 'both'
@@ -20,8 +21,9 @@ with the fade leveler runs the fused K9 kernel (`cuda.pll.pll_audio`);
 everything else runs K10 (`cuda.pll.pll`, cos/sin of the loop phase) and
 plain torch mixing; a single sideband then runs the two C0 paths and the
 two C1 paths stacked along channels through K11 (`cuda.iir.
-biquad_cascade`), one launch per coefficient set.  Two-channel 'stereo'
-needs the linked stereo AGC and is not in this slice.
+biquad_cascade`), one launch per coefficient set; 'stereo' runs the
+same route and keeps both sidebands, (C, 2, T), with the fade leveler per
+audio channel against the one carrier estimate.
 """
 from __future__ import annotations
 
@@ -99,8 +101,12 @@ class SamState(NamedTuple):
     fade: am.FadeLevelerState
 
 
-def init_state(batch_shape, device=None) -> SamState:
+def init_state(batch_shape, device=None, n_audio: int = 1) -> SamState:
+    """n_audio=2 for the stereo sideband (two-channel audio out,
+    `audio_driver.c:2092-2095`): the fade leveler then runs per audio
+    channel (`audio_driver.c:2108`)."""
     bs = tuple(batch_shape)
+    fade_shape = bs + ((n_audio,) if n_audio > 1 else ())
 
     def zeros(shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
@@ -108,15 +114,17 @@ def init_state(batch_shape, device=None) -> SamState:
     return SamState(
         phs=zeros(bs), fil_out=zeros(bs), omega2=zeros(bs),
         ap_state=zeros((4, N_STAGES) + bs + (2,)), ds=zeros(bs + (2,)),
-        fade=am.fade_leveler_init(bs, device=device))
+        fade=am.fade_leveler_init(fade_shape, device=device))
 
 
 def demod(params: SamParams, state: SamState, iq: torch.Tensor,
           sideband: str = "usb", fade_leveler_on: bool = True):
     """iq (C, T) complex64 at the decimated rate -> (audio (C, T), the
     carrier-offset estimate omega2 (C,) in rad/sample, new_state).
-    sideband: 'usb' | 'lsb' | 'both' (both = plain product detector)."""
-    if sideband not in ("usb", "lsb", "both"):
+    sideband: 'usb' | 'lsb' | 'both' (both = plain product detector) |
+    'stereo' (audio (C, 2, T), LSB left and USB right, state from
+    ``init_state(bs, n_audio=2)``)."""
+    if sideband not in ("usb", "lsb", "both", "stereo"):
         raise ValueError(f"sam sideband {sideband!r}")
     scalars = pll_kernel.PllScalars(params.g1, params.g2, params.omega_min,
                                     params.omega_max)
@@ -157,13 +165,19 @@ def demod(params: SamParams, state: SamState, iq: torch.Tensor,
         ap_state = torch.stack([st0o[:, :C], st1o[:, :C],
                                 st0o[:, C:], st1o[:, C:]], dim=0)
         ds_new = torch.stack([ai[:, -1], bq[:, -1]], dim=-1)
-        if sideband == "usb":
-            audio = (ai_ps - bi_ps) + (aq_ps + bq_ps)
-        else:
-            audio = (ai_ps + bi_ps) - (aq_ps - bq_ps)
+        side = {}
+        if sideband != "lsb":
+            side["usb"] = (ai_ps - bi_ps) + (aq_ps + bq_ps)
+        if sideband != "usb":
+            side["lsb"] = (ai_ps + bi_ps) - (aq_ps - bq_ps)
+        # stereo: LSB left, USB right (audio_driver.c:2092-2095)
+        audio = (torch.stack([side["lsb"], side["usb"]], dim=-2)
+                 if sideband == "stereo" else side[sideband])
 
     fade_state = state.fade
     if fade_leveler_on:
+        if audio.ndim == corr_re.ndim + 1:      # stereo: one carrier
+            corr_re = corr_re[..., None, :].expand(audio.shape)
         audio, fade_state = am.fade_leveler(params.fade, fade_state, audio,
                                             corr_re)
     new_state = SamState(phs=co[0], fil_out=co[1], omega2=co[2],

@@ -25,6 +25,21 @@
 // at 48 kHz, up to MAXW = 256 as the TPU kernel); the two tiles are sized
 // for MAXW and take 65.8 KB, above the 48 KB a kernel gets without opting
 // in, so they live in dynamic shared memory.
+//
+// K13, the AGC machine alone, in the same source: it replaces
+// uhsdr_tpu/pallas/agc.py::_make_kernel (agc_scan_pallas, entered from
+// ops/agc.py::_run_machine for the linked stereo AGC of the two-channel
+// modes).  Per channel it takes the look-ahead max rm and the delayed
+// |x| ax, both (C, T), runs the back-averages and the machine step, and
+// emits the volts series and the carries; the delay line, the linked
+// detector and the gain law stay in torch around it.  Bound: the same
+// recurrence as K3 (its bytes, rm and ax in and volts out, take ~0.06 ms
+// at 8192 x 2048).  Design: K3's walk without the delay slab or the
+// look-ahead max: a block owns CB = 32 channels, 128 threads stage each
+// (channel x time) tile of rm and ax through shared memory coalesced,
+// one warp walks them (one thread a channel, each step's inputs read one
+// step ahead) and writes the volts back over the rm tile, which all
+// threads then store coalesced.  K3 and K13 share `machine_step`.
 // Compiled with -fmad=false: the masks compare floats (rm >= volts,
 // hba > hang_level), so the arithmetic keeps the reference's separate
 // f32 multiplies and adds.
@@ -39,12 +54,100 @@ constexpr int THREADS = 256;
 constexpr int SX = (TA + MAXW) | 1;   // odd row strides: conflict-free walk
 constexpr int SR = TA + 1;
 constexpr int SMEM_BYTES = CB * (SX + SR) * (int)sizeof(float);
+constexpr int SCAN_THREADS = 128;   // K13: staging threads per block
 
 struct Params {
   float attack, fast_d, long_d, hang_d, fast_bm, hang_bm, pop_ratio,
       hang_level, hang_time, hang_en, min_volts, out_target, slope,
       inv_max_input;
 };
+
+struct Machine {
+  float volts, save, hang, decay, st, fba, hba;
+};
+
+__device__ __forceinline__ Machine load_machine(const float* carry, int C,
+                                               int c) {
+  Machine m;
+  m.volts = carry[0 * (size_t)C + c];
+  m.save = carry[1 * (size_t)C + c];
+  m.hang = carry[2 * (size_t)C + c];
+  m.decay = carry[3 * (size_t)C + c];
+  m.st = carry[4 * (size_t)C + c];
+  m.fba = carry[5 * (size_t)C + c];
+  m.hba = carry[6 * (size_t)C + c];
+  return m;
+}
+
+__device__ __forceinline__ void store_machine(const Machine& m, float* carry,
+                                              int C, int c) {
+  carry[0 * (size_t)C + c] = m.volts;
+  carry[1 * (size_t)C + c] = m.save;
+  carry[2 * (size_t)C + c] = m.hang;
+  carry[3 * (size_t)C + c] = m.decay;
+  carry[4 * (size_t)C + c] = m.st;
+  carry[5 * (size_t)C + c] = m.fba;
+  carry[6 * (size_t)C + c] = m.hba;
+}
+
+// One step of the 5-state machine, shared by K3 and K13: the back-averages
+// of |x| update first, then the branch masks (differenced as
+// pallas/agc.py:84-118 does) pick the new volts, state, save, hang and
+// decay.  a_f, a_h: 1 - fast_bm, 1 - hang_bm.
+__device__ __forceinline__ void machine_step(Machine& m, const Params& p,
+                                             float a_f, float a_h, float rm,
+                                             float ax) {
+  const float one = 1.f;
+  m.fba = a_f * m.fba + p.fast_bm * ax;
+  m.hba = a_h * m.hba + p.hang_bm * ax;
+  m.hang = fmaxf(m.hang - one, 0.f);
+
+  const float volts = m.volts, st = m.st;
+  const float att = rm >= volts ? 1.f : 0.f;
+  const float natt = one - att;
+  const float is0 = st < 0.5f ? 1.f : 0.f;
+  const float is1 = (st > 0.5f && st < 1.5f) ? 1.f : 0.f;
+  const float is2 = (st > 1.5f && st < 2.5f) ? 1.f : 0.f;
+  const float is3 = (st > 2.5f && st < 3.5f) ? 1.f : 0.f;
+  const float is4 = st > 3.5f ? 1.f : 0.f;
+  const float ht = p.hang_en * (m.hba > p.hang_level ? 1.f : 0.f);
+  const float s0_fast = volts > p.pop_ratio * m.fba ? 1.f : 0.f;
+  const float s1_fastc = volts > m.save ? 1.f : 0.f;
+  const float hc_wait = m.hang > 0.5f ? 1.f : 0.f;
+
+  const float nf0 = is0 * natt;
+  const float m0f = nf0 * s0_fast;
+  const float m0nf = nf0 - m0f;
+  const float m0h = m0nf * ht;
+  const float m0l = m0nf - m0h;
+  const float nf1 = is1 * natt;
+  const float m1f = nf1 * s1_fastc;
+  const float m1nf = nf1 - m1f;
+  const float m1w = m1nf * hc_wait;
+  const float m1z = m1nf - m1w;
+  const float m1h = m1z * m.decay;
+  const float m1l = m1z - m1h;
+  const float n2 = is2 * natt;
+  const float m2s = n2 * hc_wait;
+  const float m2d = n2 - m2s;
+  const float m3d = is3 * natt;
+  const float m4d = is4 * natt;
+
+  const float gF = m0f + m1f;
+  const float gL = m0l + m1l + m3d;
+  const float gH = m1h + m2d + m4d;
+  const float gW = m0h + m1w + m2s;
+  const float keff =
+      att * p.attack + gF * p.fast_d + gL * p.long_d + gH * p.hang_d;
+  const float new_volts = fmaxf(volts + (rm - volts) * keff, p.min_volts);
+  const float new_st = gF + gW * 2.f + gL * 3.f + gH * 4.f;
+  const float save_upd = att * (one - (is0 + is1));
+  m.save = save_upd * volts + (one - save_upd) * m.save;
+  m.hang = m0h * p.hang_time + (one - m0h) * m.hang;
+  m.decay = m0h * one + (one - (m0h + m0l)) * m.decay;
+  m.st = new_st;
+  m.volts = new_volts;
+}
 
 __global__ void __launch_bounds__(THREADS) agc_kernel(
     const float* __restrict__ x, const float* __restrict__ delay,
@@ -64,22 +167,11 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
     slab[c][j] = c < nc ? delay[(size_t)(c0 + c) * w + j] : 0.f;
   }
   // the walking warp's carries
-  float volts = 0.f, save = 0.f, hang = 0.f, decay = 0.f, st = 0.f,
-        fba = 0.f, hba = 0.f;
+  Machine m{};
   const bool walker = tid < CB && tid < nc;
-  if (walker) {
-    const int c = c0 + tid;
-    volts = carry[0 * (size_t)C + c];
-    save = carry[1 * (size_t)C + c];
-    hang = carry[2 * (size_t)C + c];
-    decay = carry[3 * (size_t)C + c];
-    st = carry[4 * (size_t)C + c];
-    fba = carry[5 * (size_t)C + c];
-    hba = carry[6 * (size_t)C + c];
-  }
-  const float one = 1.f;
-  const float a_f = one - p.fast_bm;
-  const float a_h = one - p.hang_bm;
+  if (walker) m = load_machine(carry, C, c0 + tid);
+  const float a_f = 1.f - p.fast_bm;
+  const float a_h = 1.f - p.hang_bm;
 
   int cnt = 0;
   for (int t0 = 0; t0 < T; t0 += TA) {
@@ -92,9 +184,9 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
     for (int i = tid; i < CB * TA; i += THREADS) {
       const int c = i / TA, j = i % TA;
       if (c < nc && j < cnt) {
-        float m = fabsf(slab[c][j + 1]);
-        for (int k = 2; k <= w; ++k) m = fmaxf(m, fabsf(slab[c][j + k]));
-        rmv[c][j] = m;
+        float mx = fabsf(slab[c][j + 1]);
+        for (int k = 2; k <= w; ++k) mx = fmaxf(mx, fabsf(slab[c][j + k]));
+        rmv[c][j] = mx;
       }
     }
     __syncthreads();
@@ -110,55 +202,8 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
         const float ax = ax_next;
         rm_next = rmv[tid][j + 1];
         ax_next = fabsf(slab[tid][j + 1]);
-        fba = a_f * fba + p.fast_bm * ax;
-        hba = a_h * hba + p.hang_bm * ax;
-        hang = fmaxf(hang - one, 0.f);
-
-        const float att = rm >= volts ? 1.f : 0.f;
-        const float natt = one - att;
-        const float is0 = st < 0.5f ? 1.f : 0.f;
-        const float is1 = (st > 0.5f && st < 1.5f) ? 1.f : 0.f;
-        const float is2 = (st > 1.5f && st < 2.5f) ? 1.f : 0.f;
-        const float is3 = (st > 2.5f && st < 3.5f) ? 1.f : 0.f;
-        const float is4 = st > 3.5f ? 1.f : 0.f;
-        const float ht = p.hang_en * (hba > p.hang_level ? 1.f : 0.f);
-        const float s0_fast = volts > p.pop_ratio * fba ? 1.f : 0.f;
-        const float s1_fastc = volts > save ? 1.f : 0.f;
-        const float hc_wait = hang > 0.5f ? 1.f : 0.f;
-
-        const float nf0 = is0 * natt;
-        const float m0f = nf0 * s0_fast;
-        const float m0nf = nf0 - m0f;
-        const float m0h = m0nf * ht;
-        const float m0l = m0nf - m0h;
-        const float nf1 = is1 * natt;
-        const float m1f = nf1 * s1_fastc;
-        const float m1nf = nf1 - m1f;
-        const float m1w = m1nf * hc_wait;
-        const float m1z = m1nf - m1w;
-        const float m1h = m1z * decay;
-        const float m1l = m1z - m1h;
-        const float n2 = is2 * natt;
-        const float m2s = n2 * hc_wait;
-        const float m2d = n2 - m2s;
-        const float m3d = is3 * natt;
-        const float m4d = is4 * natt;
-
-        const float gF = m0f + m1f;
-        const float gL = m0l + m1l + m3d;
-        const float gH = m1h + m2d + m4d;
-        const float gW = m0h + m1w + m2s;
-        const float keff =
-            att * p.attack + gF * p.fast_d + gL * p.long_d + gH * p.hang_d;
-        const float new_volts = fmaxf(volts + (rm - volts) * keff, p.min_volts);
-        const float new_st = gF + gW * 2.f + gL * 3.f + gH * 4.f;
-        const float save_upd = att * (one - (is0 + is1));
-        save = save_upd * volts + (one - save_upd) * save;
-        hang = m0h * p.hang_time + (one - m0h) * hang;
-        decay = m0h * one + (one - (m0h + m0l)) * decay;
-        st = new_st;
-        volts = new_volts;
-        rmv[tid][j] = new_volts;
+        machine_step(m, p, a_f, a_h, rm, ax);
+        rmv[tid][j] = m.volts;
       }
     }
     __syncthreads();
@@ -192,16 +237,59 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
     const int c = i / w, j = i % w;
     if (c < nc) delay_out[(size_t)(c0 + c) * w + j] = slab[c][cnt + j];
   }
-  if (walker) {
-    const int c = c0 + tid;
-    carry_out[0 * (size_t)C + c] = volts;
-    carry_out[1 * (size_t)C + c] = save;
-    carry_out[2 * (size_t)C + c] = hang;
-    carry_out[3 * (size_t)C + c] = decay;
-    carry_out[4 * (size_t)C + c] = st;
-    carry_out[5 * (size_t)C + c] = fba;
-    carry_out[6 * (size_t)C + c] = hba;
+  if (walker) store_machine(m, carry_out, C, c0 + tid);
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS) agc_scan_kernel(
+    const float* __restrict__ rm, const float* __restrict__ ax,
+    const float* __restrict__ carry, int C, int T, Params p,
+    float* __restrict__ volts_out, float* __restrict__ carry_out) {
+  // rms[c][j] = rm[t0 + j], then the volts of that step; axs = ax
+  __shared__ float rms[CB][SR];
+  __shared__ float axs[CB][SR];
+  const int c0 = blockIdx.x * CB;
+  const int tid = threadIdx.x;
+  const int nc = min(CB, C - c0);
+  Machine m{};
+  const bool walker = tid < nc;
+  if (walker) m = load_machine(carry, C, c0 + tid);
+  const float a_f = 1.f - p.fast_bm;
+  const float a_h = 1.f - p.hang_bm;
+
+  for (int t0 = 0; t0 < T; t0 += TA) {
+    const int cnt = min(TA, T - t0);
+    for (int i = tid; i < CB * TA; i += SCAN_THREADS) {
+      const int c = i / TA, j = i % TA;
+      if (c < nc && j < cnt) {
+        const size_t o = (size_t)(c0 + c) * T + t0 + j;
+        rms[c][j] = rm[o];
+        axs[c][j] = ax[o];
+      }
+    }
+    __syncthreads();
+    if (walker) {
+      // inputs read one step ahead, as in K3 (the read at j + 1 = TA
+      // lands on the rows' pad column)
+      float rm_next = rms[tid][0];
+      float ax_next = axs[tid][0];
+      for (int j = 0; j < cnt; ++j) {
+        const float r = rm_next;
+        const float a = ax_next;
+        rm_next = rms[tid][j + 1];
+        ax_next = axs[tid][j + 1];
+        machine_step(m, p, a_f, a_h, r, a);
+        rms[tid][j] = m.volts;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < CB * TA; i += SCAN_THREADS) {
+      const int c = i / TA, j = i % TA;
+      if (c < nc && j < cnt)
+        volts_out[(size_t)(c0 + c) * T + t0 + j] = rms[c][j];
+    }
+    __syncthreads();
   }
+  if (walker) store_machine(m, carry_out, C, c0 + tid);
 }
 
 }  // namespace
@@ -229,6 +317,24 @@ int uhsdr_agc_launch(const void* x, const void* delay, const void* carry,
                (cudaStream_t)stream>>>(
       (const float*)x, (const float*)delay, (const float*)carry, C, T, w, p,
       (float*)y, (float*)carry_out, (float*)delay_out);
+  return (int)cudaGetLastError();
+}
+
+// K13.  rm, ax, volts_out: (C, T) f32; carry, carry_out: (7, C).  The
+// gain-law parameters (out_target, slope, inv_max_input) are not read.
+// Returns a cudaError_t.  Requires T >= 1.
+int uhsdr_agc_scan_launch(const void* rm, const void* ax, const void* carry,
+                          int C, int T, float attack, float fast_d,
+                          float long_d, float hang_d, float fast_bm,
+                          float hang_bm, float pop_ratio, float hang_level,
+                          float hang_time, float hang_en, float min_volts,
+                          void* volts_out, void* carry_out, void* stream) {
+  Params p{attack, fast_d, long_d, hang_d, fast_bm, hang_bm, pop_ratio,
+           hang_level, hang_time, hang_en, min_volts, 0.f, 0.f, 0.f};
+  agc_scan_kernel<<<(C + CB - 1) / CB, SCAN_THREADS, 0,
+                    (cudaStream_t)stream>>>(
+      (const float*)rm, (const float*)ax, (const float*)carry, C, T, p,
+      (float*)volts_out, (float*)carry_out);
   return (int)cudaGetLastError();
 }
 

@@ -10,13 +10,21 @@
 //   stage A: real-tap decimating FIR, output m at input index m*decim;
 //   stage B: complex-tap FIR at the decimated rate, real output
 //     Re(zA (*) g) (the fused Hilbert pair, I±Q);
-//   emits the audio, the new raw history (last taps-1 scaled inputs), the
-//   new stage-B history (last taps2-1 stage-A outputs) and the peaks.
+//   emits the audio, the new raw history (last n_keep >= taps-1 scaled
+//   inputs), the new stage-B history (last taps2-1 stage-A outputs) and
+//   the peaks.
+// The two-channel modes (iq, ssbstereo) run the same kernel with NB = 2
+// stage-B filters on the one stage-A output: the reference's input-rate
+// (2, taps) filter pair dec (*) upsample(g_k) (chain/rx.py:364-398) is,
+// by the noble identity, stage A then g_k at the decimated rate.  Their
+// raw history is the pair's (n_keep = taps-1 + decim*(taps2-1)), so the
+// kernel reads the last taps-1 of a longer carry and writes n_keep.
 //
 // Bound on this card: operations.  At 8192 ch x 16384 samples, decim 8,
 // 227 + 199 taps it is 7.6 G FMA (stage A) + 6.7 G FMA (stage B) of
 // FP32 on the CUDA cores (no tensor cores, no TF32), against 0.58 GB of
-// memory traffic.
+// memory traffic; NB = 2 doubles stage B (21 G FMA at the ssbstereo
+// flagship).
 //
 // Design: one thread block per channel walks the block's time tiles IN
 // ORDER (GPU blocks run in no order, so the TPU's sequential time grid
@@ -46,10 +54,10 @@ __device__ __forceinline__ void rotor(uint32_t ph, float* s, float* c) {
   sincospif(x, s, c);
 }
 
-template <typename Tin>
+template <typename Tin, int NB>
 __global__ void __launch_bounds__(TT) front_kernel(
     const Tin* __restrict__ xi, const Tin* __restrict__ xq, float in_scale,
-    int B, const float2* __restrict__ carry_in,
+    int B, int n_keep, const float2* __restrict__ carry_in,
     const float2* __restrict__ carry2_in, const int64_t* __restrict__ phase,
     uint32_t delta, const float* __restrict__ h, int taps, int decim,
     const float* __restrict__ g_re, const float* __restrict__ g_im,
@@ -61,8 +69,8 @@ __global__ void __launch_bounds__(TT) front_kernel(
   float* zr = ring_i + decim * QS;          // RB
   float* zi = zr + RB;
   float* hs = zi + RB;                      // taps
-  float* gr = hs + taps;                    // taps2
-  float* gi = gr + taps2;
+  float* gr = hs + taps;                    // NB * taps2
+  float* gi = gr + NB * taps2;
   __shared__ float warp_pk[TT / 32];
 
   const int c = blockIdx.x;
@@ -75,14 +83,16 @@ __global__ void __launch_bounds__(TT) front_kernel(
   const int OFF = decim * QA;   // bias keeps ring indices non-negative
 
   for (int k = tid; k < taps; k += TT) hs[k] = h[k];
-  for (int k = tid; k < taps2; k += TT) {
+  for (int k = tid; k < NB * taps2; k += TT) {
     gr[k] = g_re[k];
     gi[k] = g_im[k];
   }
-  // raw history sample j sits at absolute index n = j - n_hist
+  // raw history sample j sits at absolute index n = j - n_hist; it is
+  // column n_keep - n_hist + j of the carried row
+  const float2* hist = carry_in + (size_t)c * n_keep + (n_keep - n_hist);
   for (int j = tid; j < n_hist; j += TT) {
     const int n = j - n_hist;
-    const float2 v = carry_in[(size_t)c * n_hist + j];
+    const float2 v = hist[j];
     float s, co;
     rotor(ph0 + delta * (uint32_t)n, &s, &co);
     const int no = n + OFF;
@@ -141,31 +151,40 @@ __global__ void __launch_bounds__(TT) front_kernel(
     }
     __syncthreads();
 
-    // stage B: y[M] = Re(sum_k g[k] z[M-k])
+    // stage B: y_b[M] = Re(sum_k g_b[k] z[M-k]), one stage-A sample load
+    // feeding every filter
     if (M < T_out) {
-      float y = 0.f;
+      float y[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) y[b] = 0.f;
       for (int k = 0; k < taps2; ++k) {
         const int p = (M - k) & (RB - 1);
-        y = fmaf(gr[k], zr[p], y);
-        y = fmaf(-gi[k], zi[p], y);
+        const float a = zr[p], q = zi[p];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          y[b] = fmaf(gr[b * taps2 + k], a, y[b]);
+          y[b] = fmaf(-gi[b * taps2 + k], q, y[b]);
+        }
       }
-      out[(size_t)c * T_out + M] = y;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        out[((size_t)c * NB + b) * T_out + M] = y[b];
     }
     __syncthreads();
   }
 
-  // new raw history: the last n_hist samples of (history ++ block),
+  // new raw history: the last n_keep samples of (history ++ block),
   // scaled, before rotation
-  for (int j = tid; j < n_hist; j += TT) {
-    const int n = B - n_hist + j;
+  for (int j = tid; j < n_keep; j += TT) {
+    const int n = B - n_keep + j;
     float2 v;
     if (n >= 0) {
       v = make_float2(as_f32(xi[row + n]) * in_scale,
                       as_f32(xq[row + n]) * in_scale);
     } else {
-      v = carry_in[(size_t)c * n_hist + (j + B)];
+      v = carry_in[(size_t)c * n_keep + (j + B)];
     }
-    carry_out[(size_t)c * n_hist + j] = v;
+    carry_out[(size_t)c * n_keep + j] = v;
   }
   // new stage-B history: the last n_hist2 stage-A outputs
   for (int j = tid; j < n_hist2; j += TT) {
@@ -183,21 +202,22 @@ __global__ void __launch_bounds__(TT) front_kernel(
   }
 }
 
-template <typename Tin>
+template <typename Tin, int NB>
 int launch(const void* xi, const void* xq, float in_scale, int C, int B,
-           const void* carry_in, const void* carry2_in, const void* phase,
-           uint32_t delta, const void* h, int taps, int decim,
-           const void* g_re, const void* g_im, int taps2, void* out,
-           void* carry_out, void* carry2_out, void* peaks,
+           int n_keep, const void* carry_in, const void* carry2_in,
+           const void* phase, uint32_t delta, const void* h, int taps,
+           int decim, const void* g_re, const void* g_im, int taps2,
+           void* out, void* carry_out, void* carry2_out, void* peaks,
            cudaStream_t stream) {
   const size_t smem =
-      (size_t)(2 * decim * QS + 2 * RB + taps + 2 * taps2) * sizeof(float);
+      (size_t)(2 * decim * QS + 2 * RB + taps + 2 * NB * taps2) *
+      sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      front_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      front_kernel<Tin, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  front_kernel<Tin><<<C, TT, smem, stream>>>(
-      (const Tin*)xi, (const Tin*)xq, in_scale, B,
+  front_kernel<Tin, NB><<<C, TT, smem, stream>>>(
+      (const Tin*)xi, (const Tin*)xq, in_scale, B, n_keep,
       (const float2*)carry_in, (const float2*)carry2_in,
       (const int64_t*)phase, delta, (const float*)h, taps, decim,
       (const float*)g_re, (const float*)g_im, taps2, (float*)out,
@@ -214,22 +234,29 @@ int uhsdr_front_tile() { return TT; }
 int uhsdr_front_ring_rows() { return QA; }
 int uhsdr_front_ring2() { return RB; }
 
-// in_kind: 0 = int16 planes, 1 = float32 planes.  Returns a cudaError_t.
+// in_kind: 0 = int16 planes, 1 = float32 planes.  nb: 1 or 2 stage-B
+// filters (g_re, g_im: nb rows of taps2; out: (C, nb, B/decim)).  The raw
+// carry rows hold n_keep >= taps-1 samples.  Returns a cudaError_t.
 int uhsdr_front_launch(int in_kind, const void* xi, const void* xq,
-                       float in_scale, int C, int B, const void* carry_in,
-                       const void* carry2_in, const void* phase,
-                       unsigned int delta, const void* h, int taps,
-                       int decim, const void* g_re, const void* g_im,
-                       int taps2, void* out, void* carry_out,
-                       void* carry2_out, void* peaks, void* stream) {
-  if (in_kind == 0)
-    return launch<int16_t>(xi, xq, in_scale, C, B, carry_in, carry2_in,
-                           phase, delta, h, taps, decim, g_re, g_im, taps2,
-                           out, carry_out, carry2_out, peaks,
-                           (cudaStream_t)stream);
-  return launch<float>(xi, xq, in_scale, C, B, carry_in, carry2_in, phase,
-                       delta, h, taps, decim, g_re, g_im, taps2, out,
-                       carry_out, carry2_out, peaks, (cudaStream_t)stream);
+                       float in_scale, int C, int B, int n_keep,
+                       const void* carry_in, const void* carry2_in,
+                       const void* phase, unsigned int delta, const void* h,
+                       int taps, int decim, const void* g_re,
+                       const void* g_im, int taps2, int nb, void* out,
+                       void* carry_out, void* carry2_out, void* peaks,
+                       void* stream) {
+  using Launch = int (*)(const void*, const void*, float, int, int, int,
+                         const void*, const void*, const void*, uint32_t,
+                         const void*, int, int, const void*, const void*,
+                         int, void*, void*, void*, void*, cudaStream_t);
+  static const Launch table[2][2] = {
+      {launch<int16_t, 1>, launch<int16_t, 2>},
+      {launch<float, 1>, launch<float, 2>}};
+  if (nb < 1 || nb > 2) return (int)cudaErrorInvalidValue;
+  return table[in_kind != 0][nb - 1](
+      xi, xq, in_scale, C, B, n_keep, carry_in, carry2_in, phase, delta, h,
+      taps, decim, g_re, g_im, taps2, out, carry_out, carry2_out, peaks,
+      (cudaStream_t)stream);
 }
 
 const char* uhsdr_error_string(int e) {

@@ -14,9 +14,12 @@ Reference: `AudioAgc_RunAgcWdsp` (`audio_agc.c:349-595`) and its setup
 `make_params` is a NumPy copy of the reference's.  `run` hands the whole
 stage to the K3 kernel wrapper (`uhsdr_tpu_torch.cuda.agc`), which runs
 the plain torch version for CPU tensors; with ``remove_dc`` (AM/SAM) the
-DC blocker `ops.iir.dc_blocker_block` follows the gain.  The reference's
-pad to 1024 channels (ops/agc.py:452-466) is a TPU tiling rule and is not
-ported.
+DC blocker `ops.iir.dc_blocker_block` follows the gain.  `run_stereo` is
+the linked two-channel AGC of the iq, ssbstereo and SAM stereo modes: the
+delay line, the linked detector, its look-ahead max and the gain law in
+torch around the machine, which runs on K13 (`_run_machine`).  The
+reference's pad to 1024 channels (ops/agc.py:452-466) is a TPU tiling
+rule and is not ported.
 """
 from __future__ import annotations
 
@@ -196,9 +199,8 @@ def run(params: AgcParams, state: AgcState, x: torch.Tensor):
     if params.agc_off:
         return x * float(params.fixed_gain), state
     if x.ndim != 2:
-        raise NotImplementedError(
-            "AGC over a (C, T) batch only; two-channel audio needs the "
-            "linked stereo AGC (K13, ROADMAP queue B)")
+        raise ValueError("run: AGC over a (C, T) batch; two-channel "
+                         "(C, 2, T) audio takes the linked `run_stereo`")
     carry = torch.stack([getattr(state, f) for f in CARRY_FIELDS], dim=0)
     y, carry_out, new_delay = agc_kernel.agc(
         kernel_params(params), carry, state.delay, x)
@@ -208,4 +210,57 @@ def run(params: AgcParams, state: AgcState, x: torch.Tensor):
     new_state = state._replace(
         delay=new_delay, dc=dc_state,
         **{f: carry_out[i] for i, f in enumerate(CARRY_FIELDS)})
+    return y, new_state
+
+
+def init_state_stereo(batch_shape, params: AgcParams,
+                      device=None) -> AgcState:
+    """Linked two-channel AGC state (the reference's use_stereo path,
+    audio_agc.c:349-595; ops/agc.py:273-284 of the JAX package): the
+    delay line carries both channels (..., 2, w) and the DC blocker is per
+    channel (..., 2, 2), but the detector and machine state is shared
+    (one gain for both channels)."""
+    bs = tuple(batch_shape)
+    st = init_state(bs, params, device)
+    return st._replace(
+        delay=torch.zeros(bs + (2, params.attack_buffsize),
+                          dtype=torch.float32, device=device),
+        dc=torch.zeros(bs + (2, 2), dtype=torch.float32, device=device))
+
+
+def _run_machine(params: AgcParams, state: AgcState, ring_max, abs_out):
+    """The machine on the precomputed look-ahead max and delayed |x|
+    ((C, T) each), on K13.  Returns (volts (C, T), the new machine
+    carries in CARRY_FIELDS order)."""
+    carry = torch.stack([getattr(state, f) for f in CARRY_FIELDS], dim=0)
+    volts, carry_out = agc_kernel.agc_scan(
+        kernel_params(params), carry, ring_max.contiguous(),
+        abs_out.contiguous())
+    return volts, carry_out.unbind(0)
+
+
+def run_stereo(params: AgcParams, state: AgcState, x: torch.Tensor):
+    """Linked stereo AGC: x (C, 2, T) -> (y (C, 2, T), new_state), the
+    reference's use_stereo semantics (AudioAgc_RunAgcWdsp,
+    audio_agc.c:383-394, 571-576): the look-ahead detector takes
+    max(|L|, |R|), one 5-state machine runs, and the same log-domain gain
+    multiplies both delayed channels.  State from `init_state_stereo`."""
+    if params.agc_off:
+        return x * float(params.fixed_gain), state
+    if x.ndim != 3 or x.shape[-2] != 2:
+        raise ValueError("run_stereo: x must be (C, 2, T)")
+    T = x.shape[-1]
+    w = params.attack_buffsize
+    xfull = torch.cat([state.delay, x], dim=-1)          # (C, 2, w+T)
+    a = xfull.abs().amax(dim=-2)                         # linked detector
+    volts, mach = _run_machine(params, state,
+                               agc_kernel.look_ahead_max(a, w, T), a[:, :T])
+    gain = agc_kernel.gain_law(kernel_params(params), volts)
+    y = xfull[..., :T] * gain[:, None, :]
+    dc_state = state.dc
+    if params.remove_dc:        # SAM stereo: per channel, after the gain
+        y, dc_state = iir.dc_blocker_block(DC_BLOCKER_R, dc_state, y)
+    new_state = state._replace(
+        delay=xfull[..., xfull.shape[-1] - w:], dc=dc_state,
+        **dict(zip(CARRY_FIELDS, mach)))
     return y, new_state

@@ -66,3 +66,10 @@ def mix(iq: torch.Tensor, phase0: torch.Tensor, delta):
     Returns (shifted_iq, new_phase0)."""
     n = iq.shape[-1]
     return iq * rotor(phase_ramp(phase0, delta, n)), advance(phase0, delta, n)
+
+
+def tone_iq(phase0: torch.Tensor, delta, n: int):
+    """Complex exponential block exp(j*phase[n]) (the reference's
+    `tone_iq`, softdds_genIQSingleTone).  Returns (osc (..., n) complex64,
+    new_phase0)."""
+    return rotor(phase_ramp(phase0, delta, n)), advance(phase0, delta, n)

@@ -1,14 +1,17 @@
 """Where the time of the port's main path goes on the card.
 
-    python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam|fm|wide]
-                                       [--sideband both|usb|lsb] [--seed 7]
+    python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam|fm|wide|ssbstereo]
+                                       [--sideband both|usb|lsb|stereo]
+                                       [--seed 7]
 
 Drives `chain.rx.RxChain` on cuda:0 at the flagship SSB config (usb
 2P3KHZ, 12 kHz translate, 8192 channels of int16 IQ @ 96 kHz,
 16384-sample blocks) or, with ``--mode am`` / ``--mode sam``, at the
 AM/SAM flagship (5P0KHZ AM/SAM path, same channel count, rate and
-block), ``--mode fm`` at the FM flagship (5P0KHZ FM path) and ``--mode
-wide`` at the wide-SSB flagship (usb 5P0KHZ, one complex-tap front), for
+block), ``--mode fm`` at the FM flagship (5P0KHZ FM path), ``--mode
+wide`` at the wide-SSB flagship (usb 5P0KHZ, one complex-tap front) and
+``--mode ssbstereo`` at the two-channel flagship (the SSB flagship's row,
+both sidebands, the linked stereo AGC), for
 2 warm-up, 4 untraced and 4 traced blocks and prints, per block:
 
 * the step time with tracing off (CUDA events around the timed blocks)
@@ -52,6 +55,8 @@ def config(mode: str = "usb", sideband: str = "both") -> rx.RxConfig:
         return rx.FM_FLAGSHIP
     if mode == "wide":
         return rx.WIDE_FLAGSHIP
+    if mode == "ssbstereo":
+        return rx.STEREO_FLAGSHIP
     return dataclasses.replace(rx.SAM_FLAGSHIP, mode=mode,
                                sam_sideband=sideband)
 
@@ -131,52 +136,37 @@ def busy_share(intervals) -> tuple[float, float]:
     return busy, iv[-1][1] - iv[0][0]
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--mode", choices=("usb", "am", "sam", "fm", "wide"),
-                    default="usb")
-    ap.add_argument("--sideband", choices=("both", "usb", "lsb"),
-                    default="both", help="sam_sideband for --mode sam")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("trace_rx: no CUDA device", file=sys.stderr)
-        return 2
+def profile_blocks(step, state, blocks, samples: int) -> int:
+    """Run `state = step(state, block)` over 2 warm-up, BLOCKS untraced and
+    BLOCKS traced blocks and print the untraced device time and host
+    enqueue per block, then under the profiler the device busy share and
+    the device time of every kernel by name.  `samples`: input samples a
+    block, for the rate.  Returns the exit code."""
     from torch.profiler import ProfilerActivity, profile
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    cfg = config(args.mode, args.sideband)
-    C, B, n = rx.FLAGSHIP_CHANNELS, cfg.block_len, BLOCKS
-    print(f"config: mode {cfg.mode}, bw {cfg.bw_key}, sam_sideband "
-          f"{cfg.sam_sideband}, {C} ch x {B} @ {cfg.iq_rate:.0f} Hz")
-    chain = rx.RxChain(cfg, device=dev)
-    state = chain.init_state((C,))
-    blocks = capture(2 + 2 * n, C, dev, args.seed, cfg)
-    for i, q in blocks[:2]:                              # warm-up, build
-        _, state, _ = chain(state, i=i, q=q)
+    n = BLOCKS
+    for blk in blocks[:2]:                               # warm-up, build
+        state = step(state, blk)
     torch.cuda.synchronize()
 
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     host = 0.0
     a.record()
-    for i, q in blocks[2:2 + n]:
+    for blk in blocks[2:2 + n]:
         t0 = time.perf_counter()
-        _, state, _ = chain(state, i=i, q=q)
+        state = step(state, blk)
         host += time.perf_counter() - t0
     b.record()
     b.synchronize()
     step_ms = a.elapsed_time(b) / n
     print(f"untraced: {step_ms:.4f} ms/block on the device, host enqueue "
           f"{host / n * 1e3:.4f} ms/block, "
-          f"{C * B / step_ms / 1e3:.1f} Ms/s ({C} ch x {B})")
+          f"{samples / step_ms / 1e3:.1f} Ms/s")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i, q in blocks[2 + n:]:
-            _, state, _ = chain(state, i=i, q=q)
+        for blk in blocks[2 + n:2 + 2 * n]:
+            state = step(state, blk)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / n
     kern = [e for e in prof.events()
@@ -200,6 +190,35 @@ def main() -> int:
         print(f"{us / n / 1e3:9.4f} {100 * us / total:5.1f}% "
               f"{cnt / n:11.1f}  {name[:90]}")
     return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--mode", choices=("usb", "am", "sam", "fm", "wide",
+                                       "ssbstereo"), default="usb")
+    ap.add_argument("--sideband", choices=("both", "usb", "lsb", "stereo"),
+                    default="both", help="sam_sideband for --mode sam")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("trace_rx: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = config(args.mode, args.sideband)
+    C, B = rx.FLAGSHIP_CHANNELS, cfg.block_len
+    print(f"config: mode {cfg.mode}, bw {cfg.bw_key}, sam_sideband "
+          f"{cfg.sam_sideband}, {C} ch x {B} @ {cfg.iq_rate:.0f} Hz")
+    chain = rx.RxChain(cfg, device=dev)
+
+    def step(state, blk):
+        _, state, _ = chain(state, i=blk[0], q=blk[1])
+        return state
+
+    return profile_blocks(step, chain.init_state((C,)),
+                          capture(2 + 2 * BLOCKS, C, dev, args.seed, cfg),
+                          C * B)
 
 
 if __name__ == "__main__":

@@ -18,10 +18,14 @@ first phase that fails:
    the NCO), K12 (the FM discriminator), K13 (the linked stereo AGC's
    machine), K1 with the two-channel modes' two stage-B filters
    (`front_pair`), K8 (the TX analytic FIR, NCO and conjugation on and
-   off) and the TX ALC recurrence.  Each streams 2-3 blocks at its main
-   path's shapes (8192 channels; K11 at the 16384 stacked channels SAM
-   gives it; the ALC's plain loop at 4096 samples), the middle block
-   ragged where the kernel has a tile or a history to be ragged against,
+   off), the TX ALC recurrence, K2 (the fused blocked SOS cascade, at
+   the SSB PreFilter's shape and timed at every path's cascade shape), K14
+   (the grouped biquad scan, at SAM's stacked allpass shape, also held
+   against K11) and K15 (the modulated-taps SSB front).  Each streams 2-3
+   blocks at its main path's shapes (8192 channels; K11 and K14 at the
+   16384 stacked channels SAM gives them; the ALC's plain loop at 4096
+   samples), the middle block ragged where the kernel has a tile or a
+   history to be ragged against,
    through the kernel and through its plain torch version on the card,
    from the same seeded inputs with carries handed on.  FIR and cascade
    outputs and carries are held to SNR >= 90 dB, the PLL's cos/sin/audio
@@ -34,14 +38,20 @@ first phase that fails:
    @ 96 kHz, state carried, timed with CUDA events after 2 warm-up
    and over 8 timed blocks: the flagship SSB config, the AM/SAM
    flagship as AM, SAM both sidebands and SAM USB, the FM flagship, the
-   wide-SSB flagship and the two-channel flagship (ssbstereo); then, at
-   1024 channels and 4 timed blocks, the wide-SSB flagship untranslated
-   (K6), the FM flagship with squelch and subtone detection, iq on the
-   flagship's row and SAM stereo.  Then `TxChain` at the TX flagship
-   (usb, 8192 ch x 16384 f32 audio @ 48 kHz, 8 timed blocks) and at 1024
-   channels lsb, am, cw and the legacy-front lsb.  Every kernel's launch
-   count is set to 0 just before each path and read just after, and each
-   kernel of that path must have been launched.  Output and state must be
+   wide-SSB flagship, the two-channel flagship (ssbstereo) and the SSB
+   flagship with UHSDR_FRONT_MT=1 set around it alone (`ssb_mt`: K15 in
+   place of K1); then, at 1024 channels and 4 timed blocks, the wide-SSB
+   flagship untranslated (K6), the FM flagship with squelch and subtone
+   detection, iq on the flagship's row and SAM stereo.  Then `TxChain` at
+   the TX flagship (usb, 8192 ch x 16384 f32 audio @ 48 kHz, 8 timed
+   blocks) and at 1024 channels lsb, am, cw and the legacy-front lsb.
+   Then the entry path `biquad_grouped`: SAM usb's stacked allpass inputs
+   (16384 x 4096, both coefficient sets) through `biquad_cascade(impl=
+   "grouped")`, 4 timed blocks, state carried.  Every kernel's launch
+   count is set to 0 just before each path and read just after, each
+   kernel of that path must have been launched and no other, and every
+   built kernel must have been launched by a chain path or the entry
+   path.  Output and state must be
    finite, channels 0-7 must match the port's CPU chain (plain versions)
    over the first 3 blocks at SNR >= 80 dB on the output and on every
    state leaf (boolean and integer leaves equal), and channel 0's test
@@ -61,6 +71,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1080,6 +1091,187 @@ def phase_alc(P, dev, gen):
     return r
 
 
+def blocked_work(S: int, C: int, T: int, R: int = 128) -> tuple[float, float]:
+    """(bytes, FP32 operations) of one K2 call: x in and y out, the states
+    in and out, the tables; per chunk and channel the Toeplitz triangle
+    R(R+1)/2, the state terms HS (2S R), G (R 2S) and F^T (4 S^2) FMAs."""
+    nbytes = 2 * C * T * 4 + 2 * S * C * 2 * 4 + (R * R + 4 * S * R
+                                                   + 4 * S * S) * 4
+    fma = C * (T // R) * (R * (R + 1) / 2 + 4 * S * R + 4 * S * S)
+    return nbytes, 2.0 * fma
+
+
+def phase_blocked(P, dev, gen):
+    """K2 at the SSB flagship's PreFilter (8192 ch x 2048 samples, 5
+    sections): three streamed blocks of 1920, 2176 and 2048 samples (no
+    multiple of 8 chunks, the first two) against its plain version (the
+    cuBLAS matmuls and the 16-step carry loop the chains ran before K2);
+    then one block and the times at every other path's cascade shape: the
+    AM/SAM PreFilter (8192 x 4096), ssbstereo's (8192 x 2 x 2048), FM's
+    2-section squelch HPF (8192 x 8192) and the TX SOPRANO voice bandpass
+    (8192 x 16384)."""
+    C = CHANNELS
+    c = P["ssb"].audio_sos
+    S = c.sections
+    sk = sp = torch.zeros((S, C, 2), device=dev)
+    worst, err, first = math.inf, 0.0, None
+    for blk, T in enumerate((1920, 2176, 2048)):
+        x = torch.randn((C, T), generator=gen, device=dev) * 0.1
+        if first is None or T == 2048:
+            first = (sk, x)
+        yk, sk = iir_k.blocked_cascade(c, sk, x)
+        yp, sp = iir_k.blocked_cascade_plain(c, sp, x)
+        torch.cuda.synchronize()
+        s, e = held(f"K2 PreFilter block {blk} ({T} samples)",
+                    {"audio": (yp, yk), "state": (sp, sk)})
+        worst, err = min(worst, s), max(err, e)
+    s0, x0 = first
+    T = x0.shape[-1]
+    ms = cuda_ms(lambda: iir_k.blocked_cascade(c, s0, x0), 20)
+    plain_ms = cuda_ms(lambda: iir_k.blocked_cascade_plain(c, s0, x0), 5)
+    nbytes, flops = blocked_work(S, C, T)
+    shapes = {}
+    others = (("am", P["sam"].audio_sos, (C, SAM.block_len // SAM.decim)),
+              ("ssbstereo", P["stereo"].audio_sos,
+               (C, 2, STEREO.block_len // STEREO.decim)),
+              ("fm_squelch", P["fm"].fm.squelch_sos,
+               (C, FM.block_len // FM.decim)),
+              ("tx_voice", P["tx"].voice_sos, (C, TXF.block_len)))
+    for label, cs, shape in others:
+        Sk = cs.sections
+        x = torch.randn(shape, generator=gen, device=dev) * 0.1
+        st = torch.zeros((Sk,) + shape[:-1] + (2,), device=dev)
+        yk, sko = iir_k.blocked_cascade(cs, st, x)
+        yp, spo = iir_k.blocked_cascade_plain(cs, st, x)
+        torch.cuda.synchronize()
+        s, e = held(f"K2 {label} {tuple(shape)} {Sk} sections",
+                    {"audio": (yp, yk), "state": (spo, sko)})
+        worst, err = min(worst, s), max(err, e)
+        del yk, yp
+        k_ms = cuda_ms(lambda: iir_k.blocked_cascade(cs, st, x), 10)
+        p_ms = cuda_ms(lambda: iir_k.blocked_cascade_plain(cs, st, x), 3)
+        nb, fl = blocked_work(Sk, x.numel() // shape[-1], shape[-1])
+        b_ms, b_by = bound(nb, fl)
+        shapes[label] = dict(shape=list(shape), sections=Sk, ms=k_ms,
+                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  K2 {label} {tuple(shape)}: {k_ms:.4f} ms (plain {p_ms:.3f}"
+              f" ms, bound {b_ms:.4f} ms by {b_by}: {fl / 2e9:.2f} G FMA, "
+              f"{nb / 2**20:.0f} MiB)")
+        del x, st
+    r = row("blocked", "blocked.cu", "uhsdr_tpu/pallas/iir.py:224", err=err,
+            snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes, flops=flops,
+            library_note="no one PyTorch call runs an SOS cascade (the "
+                         "plain version is the cuBLAS matmul form)",
+            shapes=shapes)
+    print(f"  K2 blocked PreFilter ({C} x {T}, {S} sections): {ms:.4f} ms "
+          f"(plain {plain_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}: {flops / 2e9:.2f} G FMA, "
+          f"{nbytes / 2**20:.0f} MiB)")
+    return r
+
+
+def phase_biquad_grouped(P, dev, gen):
+    """K14 at SAM's stacked allpass shape (16384 x 4096, both coefficient
+    sets), three streamed blocks (the middle one of 1000 samples ends
+    inside a group) against its plain version and against K11."""
+    C, T = 2 * CHANNELS, SAM.block_len // SAM.decim
+    worst, err, times = math.inf, 0.0, {}
+    for cset, sos in enumerate(P["sam"].sam.ap_sos):
+        S = sos.shape[0]
+        sk = sp = sq = torch.zeros((S, C, 2), device=dev)
+        first = None
+        for blk, Tk in enumerate((T, 1000, T)):
+            x = torch.randn((C, Tk), generator=gen, device=dev) * 0.1
+            if first is None:
+                first = (sk, x)
+            yk, sk = iir_k.biquad_cascade(sos, sk, x, impl="grouped")
+            yp, sp = iir_k.biquad_grouped_plain(sos, sp, x)
+            yq, sq = iir_k.biquad_cascade(sos, sq, x)
+            torch.cuda.synchronize()
+            s, e = held(f"K14 set {cset} block {blk} ({Tk} samples)",
+                        {"audio": (yp, yk), "state": (sp, sk),
+                         "audio vs K11": (yq, yk), "state vs K11": (sq, sk)})
+            worst, err = min(worst, s), max(err, e)
+            del yk, yp, yq
+        s0, x0 = first
+        times[cset] = (cuda_ms(lambda: iir_k.biquad_cascade(
+            sos, s0, x0, impl="grouped"), 10),
+            cuda_ms(lambda: iir_k.biquad_grouped_plain(sos, s0, x0), 2),
+            cuda_ms(lambda: iir_k.biquad_cascade(sos, s0, x0), 10))
+    ms, plain_ms, k11_ms = times[0]
+    S = P["sam"].sam.ap_sos[0].shape[0]
+    nbytes = 2 * C * T * 4 + 2 * S * C * 2 * 4
+    r = row("biquad_grouped", "biquad.cu", "uhsdr_tpu/pallas/iir.py:112",
+            err=err, snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            # about 13 f32 operations a sample and section: the local
+            # scan 7, the correction 4, the output 2
+            flops=13.0 * S * C * T, library_note="torch has no IIR filter "
+                                                 "call", k11_ms=k11_ms,
+            set1=dict(ms=times[1][0], plain_ms=times[1][1],
+                      k11_ms=times[1][2]))
+    print(f"  K14 biquad_grouped ({S} sections, {C} x {T}, groups of 32): "
+          f"{ms:.4f} ms, set 1 {times[1][0]:.4f} ms (K11 {k11_ms:.4f} / "
+          f"{times[1][2]:.4f} ms; plain {plain_ms:.1f} ms; bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
+    return r
+
+
+def phase_front_mt(P, dev, gen):
+    """K15 at the SSB flagship's front (8192 ch x 16384 int16, 227 + 199
+    taps, decimation 8): three streamed blocks, the middle one of 800
+    samples (shorter than the stage-A history's span at the decimated
+    rate), against its plain version."""
+    params = P["ssb"]
+    C, B, decim = CHANNELS, CFG.block_len, CFG.decim
+    h, g, delta = params.front_fir, params.front2, params.nco_delta
+    taps, taps2 = h.shape[-1], g.shape[-1]
+    ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
+    c2k = c2p = torch.zeros((C, taps2 - 1), dtype=torch.complex64,
+                            device=dev)
+    phase = torch.zeros((C,), dtype=torch.int64, device=dev)
+    worst, err, first = math.inf, 0.0, None
+    for blk, Bk in enumerate((B, 800, B)):
+        xi, xq = iq_block(gen, dev, C, Bk)
+        if first is None:
+            first = (ck, c2k, xi, xq, phase)
+        yk, ck, c2k, pk_k = fir_k.front_mt(h, g, ck, c2k, xi, xq, phase,
+                                           delta, decim)
+        yp, cp, c2p, pk_p = fir_k.front_mt_plain(h, g, cp, c2p, xi, xq,
+                                                 phase, delta, decim)
+        torch.cuda.synchronize()
+        check(tuple(yk.shape) == (C, Bk // decim),
+              f"K15 output {tuple(yk.shape)}")
+        s, e = held(f"K15 block {blk} ({Bk} samples)", {
+            "audio": (yp, yk), "raw carry": (cp, ck),
+            "front2 carry": (c2p, c2k), "peaks": (pk_p, pk_k)})
+        worst, err = min(worst, s), max(err, e)
+        phase = nco.advance(phase, delta, Bk)
+    ck0, c2k0, xi, xq, ph0 = first
+    ms = cuda_ms(lambda: fir_k.front_mt(h, g, ck0, c2k0, xi, xq, ph0, delta,
+                                        decim), 10)
+    plain_ms = cuda_ms(lambda: fir_k.front_mt_plain(h, g, ck0, c2k0, xi, xq,
+                                                    ph0, delta, decim), 2)
+    k1_ms = cuda_ms(lambda: fir_k.front(h, g, ck0, c2k0, xi, xq, ph0, delta,
+                                        decim), 10)
+    # work: stage A with complex taps, 4 FMAs a tap per output; stage B as
+    # K1's; bytes as K1's plus the sine taps
+    T_out = B // decim
+    fma = C * T_out * (4 * taps + 2 * taps2)
+    nbytes = (2 * C * B * 2 + C * T_out * 4 + 2 * C * (taps - 1) * 8
+              + 2 * C * (taps2 - 1) * 8 + C * 8 + C * 4
+              + 4 * (2 * taps + 2 * taps2))
+    r = row("front_mt", "front.cu", "uhsdr_tpu/pallas/fir.py:287", err=err,
+            snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=2.0 * fma, k1_ms=k1_ms,
+            library_note="no one PyTorch call mixes, decimates and runs "
+                         "both FIR stages")
+    print(f"  K15 front_mt: {ms:.4f} ms (K1 {k1_ms:.4f} ms in this call; "
+          f"plain {plain_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}: {fma / 1e9:.2f} G FMA, "
+          f"{nbytes / 2**20:.0f} MiB)")
+    return r
+
+
 # ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
@@ -1211,6 +1403,50 @@ def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     return launches, ms_block, msps, worst, n_warm + n_timed
 
 
+def grouped_path(P, dev, seed, n_timed=4, n_warm=2):
+    """The entry path of K14: SAM usb's stacked allpass inputs (16384 x
+    4096: its four paths, two per coefficient set) through
+    `biquad_cascade(impl="grouped")`, one call per coefficient set a
+    block, state carried; the last block's outputs and the final states
+    held against K11 over the same blocks.  No block's output outlives
+    the next block, so the timed blocks allocate no new device memory.
+    Returns (launches, ms/block, worst SNR against K11, blocks run)."""
+    sos = P["sam"].sam.ap_sos
+    C, T = 2 * CHANNELS, SAM.block_len // SAM.decim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    blocks = [[torch.randn((C, T), generator=gen, device=dev) * 0.1
+               for _ in sos] for _ in range(n_warm + n_timed)]
+    states = [torch.zeros((s.shape[0], C, 2), device=dev) for s in sos]
+
+    def step(blk):
+        ys = []
+        for k, (s, x) in enumerate(zip(sos, blk)):
+            y, states[k] = iir_k.biquad_cascade(s, states[k], x,
+                                                impl="grouped")
+            ys.append(y)
+        return ys
+
+    launches, ms_block, ys = timed_run(step, blocks, "biquad_grouped",
+                                       ("biquad_grouped",), n_warm, n_timed)
+    check(all(bool(torch.isfinite(y).all()) for y in ys + states),
+          "biquad_grouped: output or state not finite")
+    # the same blocks through K11, outside the counted window
+    ref = [torch.zeros((s.shape[0], C, 2), device=dev) for s in sos]
+    for blk in blocks:
+        y_ref = []
+        for k, (s, x) in enumerate(zip(sos, blk)):
+            y, ref[k] = iir_k.biquad_cascade(s, ref[k], x)
+            y_ref.append(y)
+    worst = min(*(snr_db(a, b) for a, b in zip(y_ref, ys)),
+                *(snr_db(r, st) for r, st in zip(ref, states)))
+    print(f"  biquad_grouped vs K11: worst SNR {worst:.1f} dB (the last "
+          f"block and the final states)")
+    check(worst >= KERNEL_TOL_DB,
+          f"biquad_grouped vs K11: {worst:.1f} dB < {KERNEL_TOL_DB} dB")
+    return launches, ms_block, worst, n_warm + n_timed
+
+
 def tx_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
             ref_ch=8):
     """Drive `TxChain(cfg)` on the card at C channels; returns (launches
@@ -1269,8 +1505,11 @@ def tx_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     return launches, ms_block, msps, worst, n_warm + n_timed
 
 
-SHARED = ("agc", "interp")
-FM_KERNELS = ("fir_rt", "fm_disc", "agc")
+# "blocked" (K2): every path whose cascade stage is non-empty (the
+# PreFilter; FM's squelch HPF; the TX voice bandpass), all but wide SSB
+SHARED = ("agc", "interp", "blocked")
+FM_KERNELS = ("fir_rt", "fm_disc", "agc", "blocked")
+TWO_CH = ("agc_scan", "interp", "blocked")
 DEPTH = 1024          # channels of the paths run at a smaller depth
 # (label, config, kernels it must launch, timed blocks, channels)
 MAIN_PATHS = (
@@ -1282,19 +1521,23 @@ MAIN_PATHS = (
     ("sam_usb", dataclasses.replace(SAM, sam_sideband="usb"),
      ("fir_rt", "pll", "biquad") + SHARED, 8, CHANNELS),
     ("fm", FM, FM_KERNELS, 8, CHANNELS),
-    ("wide", WIDE, ("fir_cx_nco",) + SHARED, 8, CHANNELS),
+    ("wide", WIDE, ("fir_cx_nco", "agc", "interp"), 8, CHANNELS),
+    ("ssbstereo", STEREO, ("front_pair",) + TWO_CH, 8, CHANNELS),
+    # the reference's modulated-taps gate (UHSDR_FRONT_MT=1, set around
+    # this path alone): K15 in place of K1
+    ("ssb_mt", CFG, ("front_mt",) + SHARED, 8, CHANNELS),
     # the firmware's IQ conversion off: the untranslated front (K6)
     ("wide_noxlate", dataclasses.replace(WIDE, translate_hz=0.0),
-     ("fir_cx",) + SHARED, 4, DEPTH),
+     ("fir_cx", "agc", "interp"), 4, DEPTH),
     ("fm_sql", dataclasses.replace(FM, sql_threshold=10, subtone_hz=88.5),
      FM_KERNELS, 4, DEPTH),
-    ("ssbstereo", STEREO, ("front_pair", "agc_scan", "interp"), 8, CHANNELS),
-    ("iq", dataclasses.replace(STEREO, mode="iq"),
-     ("front_pair", "agc_scan", "interp"), 4, DEPTH),
+    ("iq", dataclasses.replace(STEREO, mode="iq"), ("front_pair",) + TWO_CH,
+     4, DEPTH),
     ("sam_stereo", dataclasses.replace(SAM, sam_sideband="stereo"),
-     ("fir_rt", "pll", "biquad", "agc_scan", "interp"), 4, DEPTH),
+     ("fir_rt", "pll", "biquad") + TWO_CH, 4, DEPTH),
 )
-TX_VOICE = ("fir_real", "alc")
+PATH_ENV = {"ssb_mt": {"UHSDR_FRONT_MT": "1"}}
+TX_VOICE = ("fir_real", "alc", "blocked")
 # (label, config, kernels it must launch, timed blocks, channels); CW's
 # keyed carrier runs no kernel (nor does the reference's)
 TX_PATHS = (
@@ -1357,7 +1600,8 @@ def main() -> int:
     for phase in (phase_front, phase_agc, phase_interp, phase_fir_rt,
                   phase_pll_cos_sin, phase_pll_audio, phase_biquad,
                   phase_fir_cx, phase_fm_disc, phase_agc_scan,
-                  phase_front_pair, phase_fir_real, phase_alc):
+                  phase_front_pair, phase_fir_real, phase_alc,
+                  phase_blocked, phase_biquad_grouped, phase_front_mt):
         t1 = time.time()
         print(f"phase {phase.__name__}:")
         r = phase(P, dev, gen)
@@ -1372,8 +1616,14 @@ def main() -> int:
     for label, cfg, expect, n_timed, C in MAIN_PATHS:
         t1 = time.time()
         print(f"phase main_path {label}:")
-        launches, ms_block, msps, worst, n_blocks = main_path(
-            cfg, label, expect, dev, args.seed, n_timed, C)
+        env = PATH_ENV.get(label, {})
+        os.environ.update(env)
+        try:
+            launches, ms_block, msps, worst, n_blocks = main_path(
+                cfg, label, expect, dev, args.seed, n_timed, C)
+        finally:
+            for k in env:
+                os.environ.pop(k)
         by_path[label] = launches
         per_block[label] = {k: n / n_blocks for k, n in launches.items()}
         torch.cuda.empty_cache()
@@ -1399,6 +1649,18 @@ def main() -> int:
               f"{ms_block:.3f} ms/block over {n_timed} blocks, {msps:.1f} "
               f"Ms/s, CPU-chain SNR {worst:.1f} dB "
               f"({time.time() - t1:.1f} s) on {card}")
+    t1 = time.time()
+    print("phase entry path biquad_grouped:")
+    launches, ms_block, worst, n_blocks = grouped_path(P, dev, args.seed)
+    by_path["biquad_grouped"] = launches
+    per_block["biquad_grouped"] = {k: n / n_blocks
+                                   for k, n in launches.items()}
+    torch.cuda.empty_cache()
+    print(f"entry path biquad_grouped: {2 * CHANNELS} ch x "
+          f"{SAM.block_len // SAM.decim} f32, both allpass sets: "
+          f"{ms_block:.3f} ms/block over 4 blocks, K11 SNR {worst:.1f} dB "
+          f"({time.time() - t1:.1f} s) on {card}")
+    # a kernel counts as launched by a chain path or by the entry path
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()
                                  if n[r["name"]]}

@@ -56,6 +56,19 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _k2_per_block(cfg, params) -> int:
+    """K2 launches a block: one per non-empty cascade the chain runs (FM:
+    the squelch HPF and the treble shelf; the others: the PreFilter, EQ
+    biquad1, the anti-alias lattice and the treble shelf).  Every block of
+    these tests chunks (T % 128 == 0, T >= 256)."""
+    if cfg.mode == "fm":
+        cs = (params.fm.squelch_sos, params.eq2_sos)
+    else:
+        cs = (params.audio_sos, params.eq1_sos, params.aa_sos,
+              params.eq2_sos)
+    return sum(c.sections > 0 for c in cs)
+
+
 def _int16(rng, shape, std=3277.0):
     return np.clip(np.round(rng.standard_normal(shape) * std), -32768,
                    32767).astype(np.int16)
@@ -348,7 +361,8 @@ def test_am_sam_chain_on_card_matches_cpu(dev, mode, sideband, fade, iq_rate,
                                      and fade),
                    "pll": 3 * (mode == "sam" and not (sideband == "both"
                                                       and fade)),
-                   "biquad": 6 * (mode == "sam" and sideband != "both")})
+                   "biquad": 6 * (mode == "sam" and sideband != "both"),
+                   "blocked": 3 * _k2_per_block(cfg, gpu.params)})
     before = {k.name: k.launches for k in build.kernels()}
     for i, q in trace_rx.capture(3, C, "cpu", 4, cfg):
         yg, sg, _ = gpu(sg, i=i, q=q)
@@ -488,6 +502,7 @@ def test_fm_wide_chain_on_card_matches_cpu(dev, mode, bw, iq_rate, translate,
     expect["fir_rt" if fm else "fir_cx_nco" if translate else "fir_cx"] = 3
     if fm:
         expect["fm_disc"] = 3
+    expect["blocked"] = 3 * _k2_per_block(cfg, gpu.params)
     before = {k.name: k.launches for k in build.kernels()}
     for i, q in trace_rx.capture(3, C, "cpu", 4, cfg):
         yg, sg, _ = gpu(sg, i=i, q=q)
@@ -506,7 +521,8 @@ def test_fm_wide_chain_on_card_matches_cpu(dev, mode, bw, iq_rate, translate,
 @pytest.mark.parametrize("kw", [FLAGSHIP, dict(mode="usb", bw_key="5P0KHZ",
                                                path_name="LPF",
                                                translate_hz=12000.0,
-                                               iq_rate=96000.0)])
+                                               iq_rate=96000.0),
+                                dict(FLAGSHIP, mode="ssbstereo")])
 def test_retuned_chain_on_card_matches_cpu(dev, kw):
     """tune_offset_hz moved between blocks, on the card and on the CPU."""
     from uhsdr_tpu_torch import trace_rx
@@ -695,6 +711,7 @@ def test_two_channel_chain_on_card_matches_cpu(dev, mode, sideband, iq_rate,
     expect.update({"agc_scan": 3, "interp": 3})
     expect.update({"fir_rt": 3, "pll": 3, "biquad": 6} if sam
                   else {"front_pair": 3})
+    expect["blocked"] = 3 * _k2_per_block(cfg, gpu.params)
     before = {k.name: k.launches for k in build.kernels()}
     for i, q in trace_rx.capture(3, C, "cpu", 4, cfg):
         yg, sg, _ = gpu(sg, i=i, q=q)
@@ -737,7 +754,8 @@ def test_tx_chain_on_card_matches_cpu(dev, mode, front):
                       torch.complex(ig, qg).cpu()) >= CHAIN_DB
     voice = mode != "cw"
     expect = {k.name: 0 for k in build.kernels()}
-    expect.update({"fir_real": 3 * voice, "alc": 3 * voice})
+    expect.update({"fir_real": 3 * voice, "alc": 3 * voice,
+                   "blocked": 3 * voice})
     assert _launch_deltas(before) == expect
     a, b = tx.state_to_numpy(sc), tx.state_to_numpy(sg)
     for f in a:
@@ -745,3 +763,184 @@ def test_tx_chain_on_card_matches_cpu(dev, mode, front):
             assert np.array_equal(a[f], b[f]), f
         else:
             assert snr_db(a[f], b[f]) >= CHAIN_DB, f
+
+
+# ---------------------------------------------------------------------------
+# K2 (the fused blocked cascade), K14 (the grouped biquad scan), K15 (the
+# modulated-taps front)
+# ---------------------------------------------------------------------------
+
+# K2 sums the Toeplitz products in another order than cuBLAS does for its
+# plain version; on SOPRANO's poles near z = 1 the two f32 forms sit about
+# 95-110 dB apart (tests/test_torch_blocked.py), so 90 dB, the bound
+# chip_smoke.py holds K2 to
+K2_DB = 90.0
+
+
+def _sos5(name):
+    from uhsdr_tpu_torch.chain import tx
+    if name == "prefilter":
+        return rx._lattice_sos5(rx.RxConfig(**FLAGSHIP).ref_path["pre"])
+    if name == "squelch":
+        return rx.make_params(rx.FM_FLAGSHIP, "cpu").fm.squelch_sos.sos \
+            .numpy()
+    return tx._lattice_sos5("IIR_TX_SOPRANO")
+
+
+@pytest.mark.parametrize("name,lead,lengths", [
+    ("prefilter", (40,), (1024, 1920, 2176)),
+    ("prefilter", (9, 2), (384, 256, 512)),         # the stereo layout
+    ("soprano", (13,), (2048, 640, 128 * 17)),
+    ("squelch", (8,), (1024, 384, 1024))])
+def test_blocked_kernel_matches_plain(dev, name, lead, lengths):
+    c = iir.cascade(_sos5(name), dev)
+    S = c.sections
+    rng = np.random.default_rng(21)
+    sk = sp = torch.zeros((S,) + lead + (2,), device=dev)
+    for T in lengths:
+        x = torch.from_numpy((rng.standard_normal(lead + (T,)) * 0.1)
+                             .astype(np.float32)).to(dev)
+        n0 = iir_k.BLOCKED.launches
+        yk, sk = iir_k.blocked_cascade(c, sk, x)
+        assert iir_k.BLOCKED.launches == n0 + 1
+        yp, sp = iir_k.blocked_cascade_plain(c, sp, x)
+        torch.cuda.synchronize()
+        assert yk.shape == x.shape and sk.shape == sp.shape
+        assert snr_db(yp, yk) >= K2_DB and snr_db(sp, sk) >= K2_DB
+
+
+def test_dispatch_takes_k11_where_blocks_do_not_chunk(dev):
+    """T = 200 (and 128, one chunk): the dispatch runs K11 on the
+    flattened rows, not K2, and matches the sequential recurrence on the
+    CPU."""
+    c = iir.cascade(_sos5("prefilter"), dev)
+    rng = np.random.default_rng(22)
+    for T in (200, 128):
+        x = (rng.standard_normal((5, 2, T)) * 0.1).astype(np.float32)
+        s0 = torch.zeros((5, 5, 2, 2), device=dev)
+        n2, n11 = iir_k.BLOCKED.launches, iir_k.BIQUAD.launches
+        yk, sk = iir_k.cascade_dispatch(c, s0, torch.from_numpy(x).to(dev))
+        assert (iir_k.BLOCKED.launches, iir_k.BIQUAD.launches) == (n2,
+                                                                   n11 + 1)
+        yc, sc = iir.biquad_cascade_block(c.sos.cpu(), s0.cpu(),
+                                          torch.from_numpy(x))
+        assert yk.shape == (5, 2, T) and sk.shape == (5, 5, 2, 2)
+        assert snr_db(yc, yk.cpu()) >= AGC_DB
+        assert snr_db(sc, sk.cpu()) >= AGC_DB
+
+
+@pytest.mark.parametrize("C,T,L", [(40, 4096, 32), (9, 1000, 32),
+                                   (16, 512, 16), (5, 4000, 64)])
+def test_grouped_kernel_matches_plain_and_k11(dev, C, T, L):
+    """K14 repeats its plain version's operations in order (120 dB) and
+    gives K11's result (90 dB); T = 1000 and 4000 end inside a group."""
+    rng = np.random.default_rng(23)
+    for cset in (sam_mod.C0, sam_mod.C1):
+        sos = torch.from_numpy(sam_mod.allpass_sos(cset)).to(dev)
+        S = sos.shape[0]
+        sk = sp = sq = torch.zeros((S, C, 2), device=dev)
+        for _ in range(2):
+            x = torch.from_numpy((rng.standard_normal((C, T)) * 0.1)
+                                 .astype(np.float32)).to(dev)
+            n0, n11 = iir_k.BIQUAD_GROUPED.launches, iir_k.BIQUAD.launches
+            yk, sk = iir_k.biquad_cascade(sos, sk, x, impl="grouped",
+                                          group_len=L)
+            assert (iir_k.BIQUAD_GROUPED.launches,
+                    iir_k.BIQUAD.launches) == (n0 + 1, n11)
+            yp, sp = iir_k.biquad_grouped_plain(sos, sp, x, L)
+            yq, sq = iir_k.biquad_cascade(sos, sq, x)
+            torch.cuda.synchronize()
+            assert snr_db(yp, yk) >= AGC_DB and snr_db(sp, sk) >= AGC_DB
+            assert snr_db(yq, yk) >= K2_DB and snr_db(sq, sk) >= K2_DB
+
+
+@pytest.mark.parametrize("iq_rate,C,B,dtype", [
+    (96000.0, 13, 1600, "int16"), (96000.0, 3, 4096, "float32"),
+    (48000.0, 5, 2000, "int16"), (96000.0, 6, 200, "int16")])
+def test_front_mt_kernel_matches_plain(dev, iq_rate, C, B, dtype):
+    """K15 against its plain version from a random NCO phase, three
+    streamed blocks (B = 200: shorter than the raw history)."""
+    cfg = rx.RxConfig(**{**FLAGSHIP, "iq_rate": iq_rate})
+    p = rx.make_params(cfg, dev)
+    h, g, delta = p.front_fir, p.front2, p.nco_delta
+    rng = np.random.default_rng(24)
+    ck = cp = torch.zeros((C, h.shape[-1] - 1), dtype=torch.complex64,
+                          device=dev)
+    c2k = c2p = torch.zeros((C, g.shape[-1] - 1), dtype=torch.complex64,
+                            device=dev)
+    ph = torch.from_numpy(rng.integers(0, 2**32, C)).to(dev)
+    for _ in range(3):
+        x = [torch.from_numpy(_int16(rng, (C, B))).to(dev) for _ in "iq"]
+        if dtype == "float32":
+            x = [v.to(torch.float32) / 32768.0 for v in x]
+        n0, n1 = fir_k.FRONT_MT.launches, fir_k.FRONT.launches
+        yk, ck, c2k, pk = fir_k.front_mt(h, g, ck, c2k, *x, ph, delta,
+                                         cfg.decim)
+        assert (fir_k.FRONT_MT.launches, fir_k.FRONT.launches) == (n0 + 1,
+                                                                   n1)
+        yp, cp, c2p, pp = fir_k.front_mt_plain(h, g, cp, c2p, *x, ph, delta,
+                                               cfg.decim)
+        torch.cuda.synchronize()
+        assert yk.shape == (C, B // cfg.decim)
+        for a, b in ((yp, yk), (c2p, c2k), (pp, pk)):
+            assert snr_db(a, b) >= FIR_DB
+        assert torch.equal(cp, ck)
+        ph = nco.advance(ph, delta, B)
+
+
+def test_mt_chain_on_card_matches_cpu(dev, monkeypatch):
+    """The SSB flagship with UHSDR_FRONT_MT=1: K15 in place of K1, on the
+    card and on the CPU."""
+    from uhsdr_tpu_torch import trace_rx
+    monkeypatch.setenv("UHSDR_FRONT_MT", "1")
+    cfg = rx.RxConfig(**FLAGSHIP, block_len=2048)
+    gpu, cpu = rx.RxChain(cfg, device=dev), rx.RxChain(cfg, device="cpu")
+    C = 8
+    sg, sc = gpu.init_state((C,)), cpu.init_state((C,))
+    before = {k.name: k.launches for k in build.kernels()}
+    for i, q in trace_rx.capture(3, C, "cpu", 6, cfg):
+        yg, sg, _ = gpu(sg, i=i, q=q)
+        yc, sc, _ = cpu(sc, i=i, q=q)
+        assert snr_db(yc, yg.cpu()) >= CHAIN_DB
+    expect = {k.name: 0 for k in build.kernels()}
+    expect.update({"front_mt": 3, "agc": 3, "interp": 3,
+                   "blocked": 3 * _k2_per_block(cfg, gpu.params)})
+    assert _launch_deltas(before) == expect
+    a, b = rx.state_to_numpy(sc), rx.state_to_numpy(sg)
+    for f in a:
+        assert snr_db(a[f], b[f]) >= CHAIN_DB, f
+
+
+def test_slice5_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    c = iir.cascade(_sos5("prefilter"), dev)
+    x = torch.zeros((4, 256), device=dev)
+    s = torch.zeros((5, 4, 2), device=dev)
+    with pytest.raises(ValueError):                 # T not a multiple of 128
+        iir_k.blocked_cascade(c, s, x[:, :200])
+    with pytest.raises(ValueError):                 # state of 3 rows
+        iir_k.blocked_cascade(c, s[:, :3], x)
+    with pytest.raises(ValueError):                 # misaligned rows
+        iir_k.blocked_cascade(c, torch.zeros((5, 3, 2), device=dev),
+                              torch.zeros(3 * 256 + 1, device=dev)[1:]
+                              .reshape(3, 256))
+    with pytest.raises(ValueError):                 # tables on the CPU
+        iir_k.blocked_cascade(iir.cascade(_sos5("prefilter"), "cpu"), s, x)
+    sos = torch.from_numpy(sam_mod.allpass_sos(sam_mod.C0)).to(dev)
+    s7 = torch.zeros((7, 4, 2), device=dev)
+    with pytest.raises(ValueError):                 # group length 48
+        iir_k.biquad_cascade(sos, s7, x, impl="grouped", group_len=48)
+    with pytest.raises(ValueError):                 # more than 512 groups
+        iir_k.biquad_cascade(sos, s7, torch.zeros((4, 513 * 16),
+                                                  device=dev),
+                             impl="grouped", group_len=16)
+    cfg = rx.RxConfig(**{**FLAGSHIP, "mode": "ssbstereo"})
+    pp = rx.make_params(cfg, dev)
+    xi = torch.zeros((4, 256), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError):                 # two stage-B filters
+        fir_k.front_mt(pp.front_fir, pp.front2,
+                       torch.zeros((4, 1810), dtype=torch.complex64,
+                                   device=dev),
+                       torch.zeros((4, 198), dtype=torch.complex64,
+                                   device=dev),
+                       xi, xi, torch.zeros(4, dtype=torch.int64, device=dev),
+                       pp.nco_delta, cfg.decim)

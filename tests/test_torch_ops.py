@@ -30,6 +30,7 @@ from uhsdr_tpu.ops import fir as jfir
 from uhsdr_tpu.ops import iir as jiir
 from uhsdr_tpu.ops import nco as jnco
 from uhsdr_tpu_torch.chain import rx as trx
+from uhsdr_tpu_torch.cuda import iir as iir_k
 from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.ops import fir as tfir
 from uhsdr_tpu_torch.ops import iir as tiir
@@ -189,18 +190,20 @@ def test_prefilter_cascade_matches_jax(flagship, reference):
 
 
 def test_cascade_dispatch_forms():
-    """The dispatch: empty cascades pass through, chunkable blocks take the
-    blocked form, short blocks the sequential one (same numbers)."""
+    """The dispatch (`cuda/iir.py::cascade_dispatch`, on CPU tensors the
+    kernels' plain versions): empty cascades pass through, chunkable
+    blocks take the blocked form (K2), short blocks the sequential one
+    (K11; same numbers)."""
     sos = trx._lattice_sos5(trx.RxConfig(**FLAGSHIP).ref_path["pre"])
     casc = tiir.cascade(sos, "cpu")
     empty = tiir.cascade(np.zeros((0, 5), np.float32), "cpu")
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (2, 256)).astype(np.float32))
     s0 = torch.zeros((5, 2, 2))
-    y, s = tiir.biquad_cascade_dispatch(empty, torch.zeros((0, 2, 2)), x)
+    y, s = iir_k.cascade_dispatch(empty, torch.zeros((0, 2, 2)), x)
     assert y is x and s.shape == (0, 2, 2)
-    yb, sb = tiir.biquad_cascade_dispatch(casc, s0, x)
-    ys, ss = tiir.biquad_cascade_dispatch(casc, s0, x[:, :200])
+    yb, sb = iir_k.cascade_dispatch(casc, s0, x)
+    ys, ss = iir_k.cascade_dispatch(casc, s0, x[:, :200])
     yq, sq = tiir.biquad_cascade_block(casc.sos, s0, x[:, :200])
     assert snr_db(yq, yb[:, :200]) >= IIR_DB
     assert torch.equal(ys, yq) and torch.equal(ss, sq)

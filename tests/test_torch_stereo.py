@@ -286,3 +286,36 @@ def test_two_channel_params_and_state_layout():
     assert tuple(s.audio_sos_state.shape) == (5, 3, 2, 2)
     n = trx.state_to_numpy(s, cfg)
     assert n["front_carry"].shape == (3, 2, 1810) and "front2_carry" not in n
+
+
+@pytest.mark.parametrize("mode", ["ssbstereo", "iq"])
+def test_two_channel_retune_matches_jax(mode):
+    """The dial moved between blocks 1 and 2 (+350 Hz twice, then
+    -1234.5 Hz twice) on a two-channel front at 48 kHz.  The reference
+    mixes its pair's whole raw history with the block's delta
+    (chain/rx.py:742-755 of the JAX package), so the port rebuilds the
+    stage-A history from the carried raw history on every retuned block:
+    audio and every state leaf >= 80 dB in every block (`-s` prints
+    them)."""
+    kw = dict(mode=mode, bw_key="2P3KHZ", translate_hz=12000.0,
+              iq_rate=48000.0, block_len=common.AM_B)
+    jcfg = jrx.RxConfig(**kw)
+    jp = jrx.make_params(jcfg)
+    tuned = jax.jit(lambda s, i, q, t: jrx.process_block(
+        jcfg, jp, s, (i, q), tune_offset_hz=t))
+    tcfg = trx.RxConfig(**kw)
+    chain = trx.RxChain(tcfg, device="cpu")
+    js = jrx.init_state(jcfg, jp, (common.C,))
+    ts = chain.init_state((common.C,))
+    blocks = common.am_capture(4, jcfg.iq_rate)
+    for k, (blk, off) in enumerate(zip(blocks, (350.0, 350.0, -1234.5,
+                                                -1234.5))):
+        yj, js, _ = tuned(js, jnp.asarray(blk[0]), jnp.asarray(blk[1]),
+                          jnp.float32(off))
+        yt, ts, _ = chain(ts, i=blk[0], q=blk[1], tune_offset_hz=off)
+        leaves = common.state_snrs(js, ts, tcfg)
+        leaves["audio"] = snr_db(np.asarray(yj), yt)
+        low = min(leaves, key=leaves.get)
+        print(f"\n{mode} retune, block {k} (offset {off} Hz): audio "
+              f"{leaves['audio']:.1f} dB, worst {low} {leaves[low]:.1f} dB")
+        assert leaves[low] >= common.CHAIN_DB, (k, low, leaves[low])

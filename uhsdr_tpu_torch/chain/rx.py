@@ -8,7 +8,9 @@ Stage order of the reference-table chains:
 
   int16 (or f32) IQ planes, batched over channels
     -> SSB/CW: ADC peak taps, NCO translation, stage-A decimator, stage-B
-       Hilbert-combine FIR, real audio out  [K1: cuda.fir.front]
+       Hilbert-combine FIR, real audio out  [K1: cuda.fir.front; under
+       UHSDR_FRONT_MT=1 and a static delta K15: cuda.fir.front_mt, the
+       translation in modulated stage-A taps]
        iq/ssbstereo: the same with two stage-B filters, two-channel
        audio (C, 2, T) out                  [K1, counted as front_pair]
        wide SSB: ADC peak taps, NCO translation, one complex-tap
@@ -23,7 +25,8 @@ Stage order of the reference-table chains:
        FM discriminator                     [K12: cuda.elemwise.fm_disc],
        de-emphasis, squelch, subtone gate, FM_RX_SCALING; the FM chain
        then runs the AGC and biquad2 alone at 48 kHz
-    -> PreFilter lattice as an exact SOS cascade (blocked matmuls)
+    -> PreFilter lattice as an exact SOS cascade [K2: cuda.iir.
+       blocked_cascade; blocks that do not chunk K11]
     -> WDSP look-ahead AGC                  [K3: cuda.agc.agc], for AM/SAM
        followed by its DC blocker; two-channel audio: the linked stereo
        AGC, one machine on max(|L|, |R|)    [K13: cuda.agc.agc_scan]
@@ -40,12 +43,14 @@ plain torch versions only when the caller asks for ``device="cpu"``.
 Modes and options outside the slice raise NotImplementedError naming the
 ROADMAP item that brings them.  ``front_prec`` is accepted for
 configuration parity with the JAX package, but the port always computes
-in full FP32 (the kernels use FP32 FMAs, never TF32 or bf16; the
-cascade's matmuls refuse to run on the card with TF32 on, which is
-PyTorch's default and which callers that compare numbers pin).
+in full FP32 (the kernels use FP32 FMAs, never TF32 or bf16, K15
+included, whose TPU counterpart runs one bf16 pass; the smoothers'
+matmuls and the cascade's plain form refuse to run on the card with
+TF32 on, which callers that compare numbers pin off).
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
@@ -54,6 +59,7 @@ import torch
 
 from .. import data as refdata
 from ..cuda import fir as fir_kernels
+from ..cuda import iir as iir_k
 from ..demod import am as am_mod
 from ..demod import fm as fm_mod
 from ..demod import sam as sam_mod
@@ -545,16 +551,15 @@ def _map_state(state, fn):
 
 
 def _stage_a_history(cfg: RxConfig, params: RxParams, raw: torch.Tensor,
-                     phase: torch.Tensor) -> torch.Tensor:
+                     phase: torch.Tensor, delta: int) -> torch.Tensor:
     """The last taps2 - 1 stage-A outputs of a two-channel front, rebuilt
-    from its raw history (C, n) (samples -n .. -1): mixed by the NCO as
-    the reference mixes its carry (chain/rx.py:742-755) and filtered by
-    stage A, the decimation phase aligned to the end of the history
-    (blocks are multiples of the decimation)."""
+    from its raw history (C, n) (samples -n .. -1): mixed by the NCO at
+    `delta` as the reference mixes its carry (chain/rx.py:742-755) and
+    filtered by stage A, the decimation phase aligned to the end of the
+    history (blocks are multiples of the decimation)."""
     h = params.front_fir
     n, n_hist = raw.shape[-1], h.shape[-1] - 1
-    z = raw * nco.rotor(nco.phase_ramp(phase, params.nco_delta, n,
-                                       start=-n))
+    z = raw * nco.rotor(nco.phase_ramp(phase, delta, n, start=-n))
     za, _ = fir_ops.fir_decimate_block(h, z[..., :n_hist], z[..., n_hist:],
                                        cfg.decim)
     return za.contiguous()
@@ -580,8 +585,9 @@ def state_from_numpy(s: Any, device=None,
     state = _map_state(s, t)
     if cfg is not None and cfg.front_pair:
         raw = state.front_carry[..., 0, :].contiguous()
+        params = make_params(cfg, dev)
         state = state._replace(front_carry=raw, front2_carry=_stage_a_history(
-            cfg, make_params(cfg, dev), raw, state.nco_phase))
+            cfg, params, raw, state.nco_phase, params.nco_delta))
     return state
 
 
@@ -666,11 +672,21 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
     nco_phase = state.nco_phase
     front2_carry = state.front2_carry
     nco_arg = (nco_phase, delta) if translating else None
+    if cfg.front_pair and tune_offset_hz is not None:
+        # the reference mixes its pair's whole raw history with this
+        # block's delta (chain/rx.py:742-755): the stage-A outputs made
+        # with an earlier delta are rebuilt from the raw history
+        front2_carry = _stage_a_history(cfg, params, state.front_carry,
+                                        nco_phase, delta)
     if params.front2 is not None:
-        # K1 rotates at any delta, 0 included
-        zf, front_carry, front2_carry, peak = fir_kernels.front(
+        # K1 rotates at any delta, 0 included; K15 under the reference's
+        # own gate (pallas/fir.py:589-593): a mono front, a static delta
+        mt = (params.front2.ndim == 1 and tune_offset_hz is None
+              and os.environ.get("UHSDR_FRONT_MT") == "1")
+        front = fir_kernels.front_mt if mt else fir_kernels.front
+        zf, front_carry, front2_carry, peak = front(
             params.front_fir, params.front2, state.front_carry,
-            state.front2_carry, xi, xq, nco_phase, delta, cfg.decim)
+            front2_carry, xi, xq, nco_phase, delta, cfg.decim)
         translating = True
     elif params.front_fir.is_complex():
         zf, front_carry, peak = fir_kernels.fir_cx(
@@ -721,7 +737,7 @@ def _demod_sos_pre_agc(cfg: RxConfig, params: RxParams, state: RxState,
             fade_leveler_on=cfg.fade_leveler)
     else:
         audio = ssb_mod.demod(zf)
-    audio, sos_state = iir.biquad_cascade_dispatch(
+    audio, sos_state = iir_k.cascade_dispatch(
         params.audio_sos, state.audio_sos_state, audio)
     state = state._replace(audio_sos_state=sos_state, fade=fade_state,
                            sam=sam_state)
@@ -747,8 +763,8 @@ def post_to_dec(cfg: RxConfig, params: RxParams, state: RxState, audio,
     """Decimated-rate post-AGC stages: the firmware's post-AGC scaling
     and EQ biquad1."""
     audio = audio * params.post_scale
-    audio, eq1_state = iir.biquad_cascade_dispatch(params.eq1_sos,
-                                                   state.eq1, audio)
+    audio, eq1_state = iir_k.cascade_dispatch(params.eq1_sos, state.eq1,
+                                              audio)
     taps_out["audio_dec"] = audio
     return audio, state._replace(eq1=eq1_state), taps_out
 
@@ -764,10 +780,10 @@ def interp_stage(cfg: RxConfig, params: RxParams, state: RxState, audio,
         rows, cfg.decim)
     audio48 = y.reshape(lead + y.shape[-1:])
     interp_carry = interp_carry.reshape(ic.shape)
-    audio48, aa_state = iir.biquad_cascade_dispatch(params.aa_sos, state.aa,
-                                                    audio48)
-    audio48, eq2_state = iir.biquad_cascade_dispatch(params.eq2_sos,
-                                                     state.eq2, audio48)
+    audio48, aa_state = iir_k.cascade_dispatch(params.aa_sos, state.aa,
+                                               audio48)
+    audio48, eq2_state = iir_k.cascade_dispatch(params.eq2_sos, state.eq2,
+                                                audio48)
     return audio48, state._replace(interp_carry=interp_carry, aa=aa_state,
                                    eq2=eq2_state), taps_out
 
@@ -778,8 +794,8 @@ def post_after_agc(cfg: RxConfig, params: RxParams, state: RxState, audio,
     lattice, treble biquad2.  FM: biquad2 alone (its chain stays at
     48 kHz)."""
     if cfg.mode == "fm":
-        audio, eq2_state = iir.biquad_cascade_dispatch(params.eq2_sos,
-                                                       state.eq2, audio)
+        audio, eq2_state = iir_k.cascade_dispatch(params.eq2_sos,
+                                                  state.eq2, audio)
         return audio, state._replace(eq2=eq2_state), taps_out
     audio, state, taps_out = post_to_dec(cfg, params, state, audio, taps_out)
     return interp_stage(cfg, params, state, audio, taps_out)

@@ -4,7 +4,8 @@ the equivalent of the firmware's `TxProcessor_Run`,
 
   audio in (48 kHz, batched over channels)
     -> voice conditioning: TX bandpass (the SOPRANO lattice as an exact SOS
-       cascade, blocked matmuls) + voice compressor/ALC
+       cascade)                             [K2: cuda.iir.blocked_cascade]
+       + voice compressor/ALC
        (`TxProcessor_PrepareVoice` :440, `TxProcessor_VoiceCompressor` :173)
                                             [the ALC kernel: cuda.alc]
     -> per-mode modulator: SSB / AM / CW    (mod.modulators)
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import data as refdata
+from ..cuda import iir as iir_k
 from ..mod import alc as alc_mod
 from ..mod import modulators as mods
 from ..ops import design, iir, latconv, nco
@@ -204,7 +206,7 @@ def process_block(cfg: TxConfig, params: TxParams, state: TxState,
         if params.in_scale != 1.0:
             audio = audio * params.in_scale
         if params.voice_sos is not None:
-            audio, sos_state = iir.biquad_cascade_dispatch(
+            audio, sos_state = iir_k.cascade_dispatch(
                 params.voice_sos, sos_state, audio)
         if params.alc is not None:
             audio, alc_state = alc_mod.run(params.alc, alc_state, audio)

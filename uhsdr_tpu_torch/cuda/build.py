@@ -18,6 +18,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import weakref
 
 import torch
 
@@ -141,6 +142,25 @@ def build_all():
 def kernels() -> list[CudaKernel]:
     from . import agc, alc, elemwise, fir, iir, pll  # noqa: F401
     return list(_ALL)
+
+
+_DERIVED: dict = {}
+
+
+def derived(t: torch.Tensor, key, make):
+    """A table derived on the host from the values of tensor `t` (the
+    taps or coefficients a kernel's wrapper rebuilds into its own form):
+    `make(values as a numpy array)` runs once per (tensor, version, key)
+    and is cached while `t` lives, so a stream's blocks pay no
+    device-to-host copy."""
+    slot = (id(t), key)
+    hit = _DERIVED.get(slot)
+    if hit is not None and hit[0]() is t and hit[1] == t._version:
+        return hit[2]
+    out = make(t.detach().cpu().numpy())
+    _DERIVED[slot] = (weakref.ref(t, lambda _: _DERIVED.pop(slot, None)),
+                      t._version, out)
+    return out
 
 
 def stream_ptr(device) -> int:

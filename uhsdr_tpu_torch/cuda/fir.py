@@ -1,7 +1,8 @@
 """K1 (the fused RX front, with one stage-B filter or the two-channel
-modes' two), K5 (the real-tap decimating front), K6/K7 (the complex-tap
-decimating front, without and with the NCO), K4 (the polyphase
-interpolator) and K8 (the TX analytic FIR): wrappers around the
+modes' two), K15 (K1 with the translation in modulated stage-A taps), K5
+(the real-tap decimating front), K6/K7 (the complex-tap decimating
+front, without and with the NCO), K4 (the polyphase interpolator) and K8
+(the TX analytic FIR): wrappers around the
 hand-written kernels `kernels/front.cu`, `kernels/fir_rt.cu`,
 `kernels/fir_cx.cu`, `kernels/interp.cu` and `kernels/fir_real.cu`, each
 beside its plain torch version.
@@ -12,7 +13,10 @@ kernel on the current stream (building it on first use), raises if the
 launch failed, and adds one to the kernel's ``launches`` count.  There is
 no fallback.
 
-K1 replaces uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2 (:179); K5
+K1 replaces uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2 (:179); K15
+::_fir_kernel_rt_s2_mt (:287), which the reference selects for a static
+NCO delta under UHSDR_FRONT_MT=1 and runs in one bf16 pass on the TPU
+(the port computes it in FP32 like every kernel); K5
 replaces ::_fir_kernel_rt_s (:82); K6 ::_fir_kernel (:47); K7
 ::_fir_nco_kernel (:370); K4 ::_interp_kernel (:1003); K8
 ::_fir_real_kernel (:911).
@@ -22,11 +26,12 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..ops import fir as fir_ops
 from ..ops import nco as nco_ops
-from .build import CudaKernel, stream_ptr
+from .build import CudaKernel, derived, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,8 +39,8 @@ _F = ctypes.c_float
 
 FRONT = CudaKernel("front", "front.cu", {
     "uhsdr_front_launch": ([_I, _P, _P, _F, _I, _I, _I, _P, _P, _P,
-                            ctypes.c_uint32, _P, _I, _I, _P, _P, _I, _I, _P,
-                            _P, _P, _P, _P], _I),
+                            ctypes.c_uint32, _P, _I, _I, _P, _P, _P, _I, _I,
+                            _P, _P, _P, _P, _P], _I),
     "uhsdr_front_tile": ([], _I),
     "uhsdr_front_ring_rows": ([], _I),
     "uhsdr_front_ring2": ([], _I),
@@ -43,6 +48,8 @@ FRONT = CudaKernel("front", "front.cu", {
 # one source and library, counted apart: K1 with the two-channel modes'
 # two stage-B filters
 FRONT_PAIR = CudaKernel("front_pair", "front.cu", lib_of=FRONT)
+# and K15, the modulated-taps front
+FRONT_MT = CudaKernel("front_mt", "front.cu", lib_of=FRONT)
 
 FIR_RT = CudaKernel("fir_rt", "fir_rt.cu", {
     "uhsdr_fir_rt_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
@@ -250,6 +257,69 @@ def front(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
     as `front_plain`."""
     if xi.device.type == "cpu":
         return front_plain(h, g, carry, carry2, xi, xq, phase, delta, decim)
+    return _launch_front(FRONT_PAIR if g.ndim == 2 else FRONT, h, None, g,
+                         carry, carry2, xi, xq, phase, delta, decim)
+
+
+def modulated_taps(h: torch.Tensor, delta: int):
+    """K15's stage-A taps h[k] e^{-j delta k} as (hc, hs) f32 on h's
+    device: hc = h cos(delta k), hs = -h sin(delta k), from the exact
+    uint32 phase delta k mod 2^32 in float64 (the reference's,
+    pallas/fir.py:603-612), rounded once; built once per (h, delta)."""
+    d = int(delta) & nco_ops.MASK32
+
+    def make(v):
+        h64 = np.asarray(v, np.float64)
+        ang = np.array([(d * k) % nco_ops.TWO32 for k in range(h64.size)],
+                       np.float64) * (2.0 * np.pi / nco_ops.TWO32)
+        return (torch.as_tensor((h64 * np.cos(ang)).astype(np.float32),
+                                device=h.device),
+                torch.as_tensor((-h64 * np.sin(ang)).astype(np.float32),
+                                device=h.device))
+    return derived(h, ("modulated", d), make)
+
+
+def front_mt_plain(h, g, carry, carry2, xi, xq, phase, delta: int,
+                   decim: int):
+    """Plain torch version of K15: stage A with the modulated complex taps
+    on the raw, unrotated block and raw history (its last taps-1
+    samples), the absolute rotor e^{j(phase + delta decim m)} on the
+    decimated output, then K1's stage B (one filter).  Returns (audio
+    (C, B//decim), the new raw carry, the new stage-B carry, peaks (C,))
+    as `front_plain`."""
+    hc, hs = modulated_taps(h, delta)
+    n_hist = h.shape[-1] - 1
+    a, b = scale_planes(xi, xq)
+    peaks = torch.maximum(a.abs().amax(-1), b.abs().amax(-1))
+    z = torch.complex(a, b)
+    w, _ = fir_ops.fir_decimate_block(
+        torch.complex(hc, hs), carry[..., carry.shape[-1] - n_hist:], z,
+        decim)
+    za = w * nco_ops.rotor(nco_ops.phase_ramp(
+        phase, (int(delta) * decim) & nco_ops.MASK32, w.shape[-1]))
+    new_carry = torch.cat([carry, z], dim=-1)[..., xi.shape[-1]:]
+    y, new_carry2 = fir_ops.fir_block(g, carry2, za)
+    return y.real.contiguous(), new_carry, new_carry2, peaks
+
+
+def front_mt(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
+    """The modulated-taps front (K15): `front` with one stage-B filter,
+    the translation folded into the stage-A taps (`modulated_taps`, for
+    the static `delta`) and applied at the decimated rate.  Arguments and
+    result as `front`'s."""
+    if xi.device.type == "cpu":
+        return front_mt_plain(h, g, carry, carry2, xi, xq, phase, delta,
+                              decim)
+    _need(g.ndim == 1, "front_mt: one stage-B filter, g (taps2,)")
+    hc, hs = modulated_taps(h, delta)
+    return _launch_front(FRONT_MT, hc, hs, g, carry, carry2, xi, xq, phase,
+                         delta, decim)
+
+
+def _launch_front(counter: CudaKernel, h, h_sin, g, carry, carry2, xi, xq,
+                  phase, delta: int, decim: int):
+    """Check a front's arguments, launch K1 (h_sin None) or K15 and count
+    the launch on `counter`."""
     dev = xi.device
     C, B = xi.shape
     taps, taps2 = h.shape[-1], g.shape[-1]
@@ -270,7 +340,8 @@ def front(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
           "front: carry2 must be (C, taps2-1) complex64")
     _need(phase.shape == (C,) and phase.dtype == torch.int64,
           "front: phase must be (C,) int64")
-    ts = (h, g, carry, carry2, xi, xq, phase)
+    ts = (h, g, carry, carry2, xi, xq, phase) + (
+        () if h_sin is None else (h_sin,))
     _need(all(t.device == dev for t in ts), "front: tensors on one device")
     _need(all(t.is_contiguous() for t in ts), "front: contiguous tensors")
     lib = FRONT.lib()
@@ -294,10 +365,9 @@ def front(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
         in_kind, xi.data_ptr(), xq.data_ptr(), scale, C, B, n_keep,
         carry.data_ptr(), carry2.data_ptr(), phase.data_ptr(),
         int(delta) & nco_ops.MASK32, h.data_ptr(), taps, decim,
-        g_re.data_ptr(), g_im.data_ptr(), taps2, nb, out.data_ptr(),
-        new_carry.data_ptr(), new_carry2.data_ptr(), peaks.data_ptr(),
-        stream_ptr(dev))
-    counter = FRONT_PAIR if g.ndim == 2 else FRONT
+        None if h_sin is None else h_sin.data_ptr(), g_re.data_ptr(),
+        g_im.data_ptr(), taps2, nb, out.data_ptr(), new_carry.data_ptr(),
+        new_carry2.data_ptr(), peaks.data_ptr(), stream_ptr(dev))
     counter.check(err)
     counter.launches += 1
     return out, new_carry, new_carry2, peaks

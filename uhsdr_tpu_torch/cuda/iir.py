@@ -1,25 +1,35 @@
-"""K11 (the biquad cascade): wrapper around the hand-written kernel
-`kernels/biquad.cu`, beside its plain torch version.
+"""K11 and K14 (the biquad cascade, sequential and by a two-level scan)
+and K2 (the fused blocked SOS cascade): wrappers around the hand-written
+kernels `kernels/biquad.cu` and `kernels/blocked.cu`, each beside its
+plain torch version.
 
-The wrapper takes the plain version only for tensors on the CPU.  For
-CUDA tensors it checks device, dtype, shape and contiguity, launches the
+A wrapper takes the plain version only for tensors on the CPU.  For CUDA
+tensors it checks device, dtype, shape and contiguity, launches its
 kernel on the current stream (building it on first use), raises if the
-launch failed, and adds one to ``BIQUAD.launches``.  There is no fallback.
+launch failed, and adds one to the kernel's ``launches`` count.  There is
+no fallback.
 
-Replaces uhsdr_tpu/pallas/iir.py::_make_kernel (:44), entered from
-`biquad_cascade_pallas` (:336).  On the slice's path it runs SAM's two
-stacked 7-section z^-2 allpass chains (demod/sam.py:213-216); it takes
-any SOS rows [b0, b1, b2, a1, a2], up to 8 sections.  On the card it is
-bound by its bytes; see the note in the source.
+K11 replaces uhsdr_tpu/pallas/iir.py::_make_kernel (:44), entered from
+`biquad_cascade_pallas` (:336); on the slice's path it runs SAM's two
+stacked 7-section z^-2 allpass chains (demod/sam.py:213-216) and the
+cascade blocks the blocked form cannot chunk (`cascade_dispatch`).  K14
+replaces ::_make_kernel_grouped (:112), `biquad_cascade_pallas(impl=
+"grouped")`: the same function by a two-level scan.  K2 replaces
+::_make_blocked_kernel (:224), `biquad_cascade_blocked_pallas` (:263):
+the whole cascade in 128-sample chunks with the exact chunk carry, the
+chains' PreFilter, FM squelch HPF and TX voice bandpass.  What bounds
+each on the card is noted in its source.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from ..ops import iir as iir_ops
-from .build import CudaKernel, stream_ptr
+from .build import CudaKernel, derived, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -27,8 +37,39 @@ _I = ctypes.c_int
 BIQUAD = CudaKernel("biquad", "biquad.cu", {
     "uhsdr_biquad_launch": ([_P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
     "uhsdr_biquad_max_sections": ([], _I),
+    "uhsdr_biquad_grouped_launch": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+                                    _I),
+    "uhsdr_biquad_grouped_max_groups": ([], _I),
+    "uhsdr_biquad_grouped_levels": ([], _I),
 }, extra_flags=("-fmad=false",))
+# one source and library, counted apart: K14, the grouped scan
+BIQUAD_GROUPED = CudaKernel("biquad_grouped", "biquad.cu", lib_of=BIQUAD)
 
+BLOCKED = CudaKernel("blocked", "blocked.cu", {
+    "uhsdr_blocked_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+                             _I),
+    "uhsdr_blocked_chunk": ([], _I),
+    "uhsdr_blocked_max_sections": ([], _I),
+})
+
+GROUP_LENS = (16, 32, 64)     # the group lengths K14 is built for
+GROUPED_LEVELS = 9            # (A^L)^(2^j), j < 9: up to 512 groups
+
+
+def _need(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _f32_on(ts, dev, name: str):
+    _need(all(t.dtype == torch.float32 and t.device == dev
+              and t.is_contiguous() for t in ts),
+          f"{name}: contiguous f32 tensors on one device")
+
+
+# ---------------------------------------------------------------------------
+# K11 and K14: the biquad cascade
+# ---------------------------------------------------------------------------
 
 def biquad_cascade_plain(sos, state, x):
     """Plain torch version of K11: the sequential DF2T recurrence
@@ -36,34 +77,219 @@ def biquad_cascade_plain(sos, state, x):
     return iir_ops.biquad_cascade_block(sos, state, x)
 
 
-def biquad_cascade(sos, state, x):
-    """S-section biquad cascade (K11).  sos: (S, 5) f32 rows
-    [b0, b1, b2, a1, a2]; state: (S, C, 2) f32 DF2T states; x: (C, T) f32.
-    Returns (y (C, T), new_state (S, C, 2))."""
+@functools.lru_cache(maxsize=64)
+def _grouped_table_np(sos_key: tuple, L: int) -> np.ndarray:
+    """K14's per-section records, from float64 as the TPU kernel builds
+    them (pallas/iir.py:133-144): [b0, b1 - a1 b0, b2 - a2 b0, -a1, -a2],
+    then A^1 .. A^L and (A^L)^(2^j) for j < GROUPED_LEVELS, each 2 x 2
+    row-major, A = [[-a1, 1], [-a2, 0]]; rounded to f32 once."""
+    sos = np.asarray(sos_key, np.float64).reshape(-1, 5)
+    recs = []
+    for b0, b1, b2, a1, a2 in sos:
+        A = np.array([[-a1, 1.0], [-a2, 0.0]])
+        powers = [A]
+        for _ in range(L - 1):
+            powers.append(powers[-1] @ A)
+        levels, M = [], powers[-1]
+        for _ in range(GROUPED_LEVELS):
+            levels.append(M)
+            M = M @ M
+        recs.append(np.concatenate(
+            [[b0, b1 - a1 * b0, b2 - a2 * b0, -a1, -a2]]
+            + [P.reshape(-1) for P in powers + levels]))
+    return np.concatenate(recs).astype(np.float32)
+
+
+def grouped_table(sos: torch.Tensor, L: int) -> torch.Tensor:
+    """K14's table for `sos` on its device, built once per (tensor,
+    group length)."""
+    return derived(sos, ("grouped", L), lambda v: torch.as_tensor(
+        _grouped_table_np(tuple(np.asarray(v, np.float64).reshape(-1)
+                                .tolist()), L), device=sos.device))
+
+
+def biquad_grouped_plain(sos, state, x, group_len: int = 32):
+    """Plain torch version of K14: per section, the local scans of all
+    groups of `group_len` samples at once (a loop over the group's
+    samples), the scan over the group ends with (A^L)^(2^j) (a loop over
+    the levels), the correction by A^(l+1) and the output; the operations
+    and their order are the kernel's.  A ragged last group is padded with
+    zeros and the end state read at T-1.  sos (S, 5); state (S, C, 2); x
+    (C, T).  Returns (y (C, T), new_state (S, C, 2))."""
+    L = group_len
+    S = sos.shape[0]
+    C, T = x.shape
+    G = -(-T // L)
+    tab = grouped_table(sos, L).reshape(S, -1).cpu()
+    t_last, g_last = (T - 1) % L, G - 1
+    xg = torch.nn.functional.pad(x, (0, G * L - T)).reshape(C, G, L)
+    new_state = []
+    for k in range(S):
+        rec = [float(v) for v in tab[k]]
+        b0, g1, g2, a11, a21 = rec[:5]
+        P = np.asarray(rec[5:5 + 4 * L], np.float32).reshape(L, 4)
+        Q = np.asarray(rec[5 + 4 * L:], np.float32).reshape(-1, 4)
+        f32 = functools.partial(torch.tensor, dtype=torch.float32)
+        b0, g1, g2, a11, a21 = (f32(v) for v in (b0, g1, g2, a11, a21))
+        s10, s20 = state[k, :, 0], state[k, :, 1]
+        c1 = g1 * xg
+        c2 = g2 * xg
+        c1[:, 0, 0] = c1[:, 0, 0] + (a11 * s10 + s20)
+        c2[:, 0, 0] = c2[:, 0, 0] + a21 * s10
+        v1p = torch.zeros((C, G), dtype=x.dtype, device=x.device)
+        v2p = torch.zeros_like(v1p)
+        v1 = []
+        for l in range(L):
+            n1 = c1[..., l] + a11 * v1p + v2p
+            n2 = c2[..., l] + a21 * v1p
+            v1.append(n1)
+            v1p, v2p = n1, n2
+            if l == t_last:
+                v2end = n2[:, g_last]
+        e1, e2 = v1p.clone(), v2p.clone()
+        d = 1
+        for q in Q:
+            if d >= G:
+                break
+            p1, p2 = e1[:, :-d], e2[:, :-d]
+            e1[:, d:], e2[:, d:] = (e1[:, d:] + float(q[0]) * p1
+                                    + float(q[1]) * p2,
+                                    e2[:, d:] + float(q[2]) * p1
+                                    + float(q[3]) * p2)
+            d *= 2
+        zero = torch.zeros((C, 1), dtype=x.dtype, device=x.device)
+        q1 = torch.cat([zero, e1[:, :-1]], dim=-1)
+        q2 = torch.cat([zero, e2[:, :-1]], dim=-1)
+        prev = torch.cat([s10[:, None], q1[:, 1:]], dim=-1)
+        ys = []
+        for l in range(L):
+            u1 = v1[l] + float(P[l, 0]) * q1 + float(P[l, 1]) * q2
+            ys.append(b0 * xg[..., l] + prev)
+            prev = u1
+            if l == t_last:
+                s1_end = u1[:, g_last]
+        s2_end = (v2end + float(P[t_last, 2]) * q1[:, g_last]
+                  + float(P[t_last, 3]) * q2[:, g_last])
+        xg = torch.stack(ys, dim=-1)
+        new_state.append(torch.stack([s1_end, s2_end], dim=-1))
+    y = xg.reshape(C, G * L)[:, :T].contiguous()
+    return y, torch.stack(new_state, dim=0)
+
+
+def biquad_cascade(sos, state, x, impl: str = "sequential",
+                   group_len: int = 32):
+    """S-section biquad cascade.  sos: (S, 5) f32 rows [b0, b1, b2, a1,
+    a2]; state: (S, C, 2) f32 DF2T states; x: (C, T) f32.  impl
+    "sequential" is K11 (the recurrence, one thread a channel); "grouped"
+    is K14 (the two-level scan in groups of `group_len` samples, the
+    counterpart of `biquad_cascade_pallas(impl="grouped")`).  Returns
+    (y (C, T), new_state (S, C, 2))."""
+    _need(impl in ("sequential", "grouped"),
+          f"biquad_cascade: impl {impl!r} is not sequential or grouped")
+    grouped = impl == "grouped"
     if x.device.type == "cpu":
-        return biquad_cascade_plain(sos, state, x)
+        return (biquad_grouped_plain(sos, state, x, group_len) if grouped
+                else biquad_cascade_plain(sos, state, x))
     dev = x.device
-    if x.ndim != 2 or x.shape[-1] < 1:
-        raise ValueError("biquad_cascade: x must be (C, T), T >= 1")
+    _need(x.ndim == 2 and x.shape[-1] >= 1,
+          "biquad_cascade: x must be (C, T), T >= 1")
     C, T = x.shape
     lib = BIQUAD.lib()
     S = sos.shape[0]
-    if sos.shape != (S, 5) or not 1 <= S <= lib.uhsdr_biquad_max_sections():
-        raise ValueError(
-            f"biquad_cascade: sos must be (S, 5) with 1 <= S <= "
-            f"{lib.uhsdr_biquad_max_sections()}, got {tuple(sos.shape)}")
-    if state.shape != (S, C, 2):
-        raise ValueError("biquad_cascade: state must be (S, C, 2)")
-    ts = (sos, state, x)
-    if any(t.dtype != torch.float32 or t.device != dev
-           or not t.is_contiguous() for t in ts):
-        raise ValueError("biquad_cascade: contiguous f32 tensors on one "
-                         "device")
+    _need(sos.shape == (S, 5)
+          and 1 <= S <= lib.uhsdr_biquad_max_sections(),
+          f"biquad_cascade: sos must be (S, 5) with 1 <= S <= "
+          f"{lib.uhsdr_biquad_max_sections()}, got {tuple(sos.shape)}")
+    _need(state.shape == (S, C, 2), "biquad_cascade: state must be (S, C, 2)")
+    _f32_on((sos, state, x), dev, "biquad_cascade")
     y = torch.empty_like(x)
     new_state = torch.empty_like(state)
-    err = lib.uhsdr_biquad_launch(
-        x.data_ptr(), state.data_ptr(), sos.data_ptr(), S, C, T,
-        y.data_ptr(), new_state.data_ptr(), stream_ptr(dev))
-    BIQUAD.check(err)
-    BIQUAD.launches += 1
+    if grouped:
+        _need(group_len in GROUP_LENS
+              and lib.uhsdr_biquad_grouped_levels() == GROUPED_LEVELS,
+              f"biquad_cascade: group_len {group_len} not in {GROUP_LENS}")
+        G = -(-T // group_len)
+        _need(G <= lib.uhsdr_biquad_grouped_max_groups(),
+              f"biquad_cascade: {G} groups of {group_len} exceed "
+              f"{lib.uhsdr_biquad_grouped_max_groups()}")
+        tab = grouped_table(sos, group_len)
+        err = lib.uhsdr_biquad_grouped_launch(
+            x.data_ptr(), state.data_ptr(), tab.data_ptr(), S, C, T,
+            group_len, y.data_ptr(), new_state.data_ptr(), stream_ptr(dev))
+        counter = BIQUAD_GROUPED
+    else:
+        err = lib.uhsdr_biquad_launch(
+            x.data_ptr(), state.data_ptr(), sos.data_ptr(), S, C, T,
+            y.data_ptr(), new_state.data_ptr(), stream_ptr(dev))
+        counter = BIQUAD
+    counter.check(err)
+    counter.launches += 1
     return y, new_state
+
+
+# ---------------------------------------------------------------------------
+# K2: the fused blocked cascade
+# ---------------------------------------------------------------------------
+
+def blocked_cascade_plain(c: iir_ops.Cascade, state, x):
+    """Plain torch version of K2: the blocked matmuls with the exact
+    sequential chunk carry (`ops.iir.biquad_cascade_blocked`), the form
+    the chains ran on the card through cuBLAS before K2."""
+    return iir_ops.biquad_cascade_blocked(c, state, x)
+
+
+def blocked_cascade(c: iir_ops.Cascade, state, x):
+    """The whole SOS cascade `c` in 128-sample chunks with the exact chunk
+    carry (K2).  state: (S, ..., 2) f32 DF2T states; x: (..., T) f32, T a
+    multiple of 128; the batch dims flatten to one channel axis (the
+    stereo PreFilter's (C, 2, T) runs as 2C rows).  Returns (y (..., T),
+    new_state (S, ..., 2))."""
+    if x.device.type == "cpu":
+        return blocked_cascade_plain(c, state, x)
+    dev = x.device
+    S = c.sections
+    T = x.shape[-1]
+    lib = BLOCKED.lib()
+    R = lib.uhsdr_blocked_chunk()
+    _need(tuple(c.M.shape) == (R, R),
+          f"blocked_cascade: tables for {R}-sample chunks, got "
+          f"{tuple(c.M.shape)}")
+    _need(1 <= S <= lib.uhsdr_blocked_max_sections(),
+          f"blocked_cascade: {S} sections outside 1.."
+          f"{lib.uhsdr_blocked_max_sections()}")
+    _need(x.ndim >= 1 and T >= R and T % R == 0,
+          f"blocked_cascade: T={T} is not a positive multiple of {R}")
+    _need(tuple(state.shape) == (S,) + tuple(x.shape[:-1]) + (2,),
+          "blocked_cascade: state must be (S, ..., 2) for x (..., T)")
+    _f32_on((x, state, c.M, c.HS, c.G, c.Ft), dev, "blocked_cascade")
+    _need(x.data_ptr() % 16 == 0, "blocked_cascade: x must be 16-byte "
+          "aligned")
+    C = x.numel() // T
+    y = torch.empty_like(x)
+    new_state = torch.empty_like(state)
+    err = lib.uhsdr_blocked_launch(
+        x.data_ptr(), state.data_ptr(), c.M.data_ptr(), c.HS.data_ptr(),
+        c.G.data_ptr(), c.Ft.data_ptr(), S, C, T, y.data_ptr(),
+        new_state.data_ptr(), stream_ptr(dev))
+    BLOCKED.check(err)
+    BLOCKED.launches += 1
+    return y, new_state
+
+
+def cascade_dispatch(c: iir_ops.Cascade, state, x):
+    """The chains' cascade stage: empty cascades pass through; blocks that
+    chunk (T % 128 == 0, at least two chunks: the reference's
+    `blocked_ok`) take K2; any other block takes K11, the same DF2T
+    function, its batch dims flattened to channels (the reference falls to
+    its Pallas cascade off the CPU, ops/iir.py:241-252).  On CPU tensors
+    both run their plain versions."""
+    if c.sections == 0:
+        return x, state
+    T = x.shape[-1]
+    R = c.M.shape[0]
+    if T % R == 0 and T >= 2 * R:
+        return blocked_cascade(c, state, x)
+    S = c.sections
+    y, st = biquad_cascade(c.sos, state.reshape(S, -1, 2).contiguous(),
+                           x.reshape(-1, T).contiguous())
+    return y.reshape(x.shape), st.reshape(state.shape)

@@ -10,7 +10,8 @@ hysteresis 3, subtone ratio threshold 1.75, debounce 2/5, Goertzel window
 The discriminator ``atan2(I'Q - IQ', I'I + QQ')`` is K12
 (`cuda.elemwise.fm_disc`) with a one-sample carry.  De-emphasis and HPF
 are one-pole recurrences (`ops.iir.one_pole_block`).  The squelch noise
-estimate samples the HPF'd discriminator every 32 samples (the
+estimate (its 2-section HPF on K2, `cuda.iir.cascade_dispatch`) samples
+the HPF'd discriminator every 32 samples (the
 reference's 1500 Hz block cadence) and runs its hysteresis at that
 cadence, here without a loop over sub-blocks (`_squelch_scan`).  Subtone
 detection projects the de-emphasised audio onto 3 bins (on, below, above
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..cuda import elemwise
+from ..cuda import iir as iir_k
 from ..ops import iir, nco
 
 LPF_ALPHA = 0.05       # de-emphasis (reference FM_RX_LPF_ALPHA)
@@ -219,7 +221,7 @@ def demod(params: FmParams, state: FmState, iq: torch.Tensor):
     audio, hpf_last = iir.one_pole_block(ah, ah, state.hpf_b, deemph - a_d)
 
     # --- squelch noise estimate ---
-    sq, sos_state = iir.biquad_cascade_dispatch(
+    sq, sos_state = iir_k.cascade_dispatch(
         params.squelch_sos, state.sql_sos_state, angle)
     n_sub = T // SUBBLOCK
     noise = torch.sqrt(torch.abs(sq[..., : n_sub * SUBBLOCK: SUBBLOCK]))

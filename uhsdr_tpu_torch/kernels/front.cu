@@ -20,6 +20,20 @@
 // raw history is the pair's (n_keep = taps-1 + decim*(taps2-1)), so the
 // kernel reads the last taps-1 of a longer carry and writes n_keep.
 //
+// K15, the modulated-taps front (the template's MT = true), replaces
+// uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2_mt, which the reference
+// selects for a static NCO delta under UHSDR_FRONT_MT=1 (fir.py:589-593):
+// the translation folded into complex stage-A taps h'[k] = h[k]
+// e^{-j delta k} (hc = h cos(delta k), hs = -h sin(delta k), built on the
+// host from the exact uint32 phase in float64), stage A on the raw,
+// unrotated input (no rotation of the block or of the raw history), and
+// the absolute rotor e^{j(phase0 + delta decim m)} applied to the
+// decimated stage-A output, its uint32 phase exact at that rate:
+//   y[m] = e^{j(phase0 + delta m decim)} sum_k h'[k] x[m decim - k].
+// Stage B, the peaks and both carries are K1's.  The TPU kernel runs its
+// dots in one bf16 pass; this one in FP32 FMAs, as every kernel here.
+// Complex taps double stage A's FMAs (21.9 G at the SSB flagship).
+//
 // Bound on this card: operations.  At 8192 ch x 16384 samples, decim 8,
 // 227 + 199 taps it is 7.6 G FMA (stage A) + 6.7 G FMA (stage B) of
 // FP32 on the CUDA cores (no tensor cores, no TF32), against 0.58 GB of
@@ -54,14 +68,14 @@ __device__ __forceinline__ void rotor(uint32_t ph, float* s, float* c) {
   sincospif(x, s, c);
 }
 
-template <typename Tin, int NB>
+template <typename Tin, int NB, bool MT>
 __global__ void __launch_bounds__(TT) front_kernel(
     const Tin* __restrict__ xi, const Tin* __restrict__ xq, float in_scale,
     int B, int n_keep, const float2* __restrict__ carry_in,
     const float2* __restrict__ carry2_in, const int64_t* __restrict__ phase,
     uint32_t delta, const float* __restrict__ h, int taps, int decim,
-    const float* __restrict__ g_re, const float* __restrict__ g_im,
-    int taps2, float* __restrict__ out, float2* __restrict__ carry_out,
+    const float* __restrict__ h_sin, const float* __restrict__ g_re,
+    const float* __restrict__ g_im, int taps2, float* __restrict__ out, float2* __restrict__ carry_out,
     float2* __restrict__ carry2_out, float* __restrict__ peaks) {
   extern __shared__ float smem[];
   float* ring_r = smem;                     // decim * QS
@@ -69,7 +83,8 @@ __global__ void __launch_bounds__(TT) front_kernel(
   float* zr = ring_i + decim * QS;          // RB
   float* zi = zr + RB;
   float* hs = zi + RB;                      // taps
-  float* gr = hs + taps;                    // NB * taps2
+  float* hsn = hs + taps;                   // MT: taps (the sine taps)
+  float* gr = hsn + (MT ? taps : 0);        // NB * taps2
   float* gi = gr + NB * taps2;
   __shared__ float warp_pk[TT / 32];
 
@@ -82,7 +97,10 @@ __global__ void __launch_bounds__(TT) front_kernel(
   const size_t row = (size_t)c * B;
   const int OFF = decim * QA;   // bias keeps ring indices non-negative
 
-  for (int k = tid; k < taps; k += TT) hs[k] = h[k];
+  for (int k = tid; k < taps; k += TT) {
+    hs[k] = h[k];
+    if (MT) hsn[k] = h_sin[k];
+  }
   for (int k = tid; k < NB * taps2; k += TT) {
     gr[k] = g_re[k];
     gi[k] = g_im[k];
@@ -93,10 +111,15 @@ __global__ void __launch_bounds__(TT) front_kernel(
   for (int j = tid; j < n_hist; j += TT) {
     const int n = j - n_hist;
     const float2 v = hist[j];
-    float s, co;
-    rotor(ph0 + delta * (uint32_t)n, &s, &co);
     const int no = n + OFF;
     const int idx = (no % decim) * QS + ((no / decim) & (QA - 1));
+    if (MT) {             // the taps carry the relative phase
+      ring_r[idx] = v.x;
+      ring_i[idx] = v.y;
+      continue;
+    }
+    float s, co;
+    rotor(ph0 + delta * (uint32_t)n, &s, &co);
     ring_r[idx] = v.x * co - v.y * s;
     ring_i[idx] = v.x * s + v.y * co;
   }
@@ -119,10 +142,15 @@ __global__ void __launch_bounds__(TT) front_kernel(
       const float a = as_f32(xi[row + n]) * in_scale;
       const float b = as_f32(xq[row + n]) * in_scale;
       pk = fmaxf(pk, fmaxf(fabsf(a), fabsf(b)));
-      float s, co;
-      rotor(ph0 + delta * (uint32_t)n, &s, &co);
       const int no = n + OFF;
       const int idx = (no % decim) * QS + ((no / decim) & (QA - 1));
+      if (MT) {
+        ring_r[idx] = a;
+        ring_i[idx] = b;
+        continue;
+      }
+      float s, co;
+      rotor(ph0 + delta * (uint32_t)n, &s, &co);
       ring_r[idx] = a * co - b * s;
       ring_i[idx] = a * s + b * co;
     }
@@ -142,9 +170,24 @@ __global__ void __launch_bounds__(TT) front_kernel(
         for (int k = b; k < taps; k += decim, ++a) {
           const int q = (qb - a) & (QA - 1);
           const float hk = hs[k];
-          ar = fmaf(hk, rr[q], ar);
-          ai = fmaf(hk, ri[q], ai);
+          if (MT) {         // complex taps hc + j hs on raw samples
+            const float sk = hsn[k], vr = rr[q], vi = ri[q];
+            ar = fmaf(hk, vr, ar);
+            ar = fmaf(-sk, vi, ar);
+            ai = fmaf(sk, vr, ai);
+            ai = fmaf(hk, vi, ai);
+          } else {
+            ar = fmaf(hk, rr[q], ar);
+            ai = fmaf(hk, ri[q], ai);
+          }
         }
+      }
+      if (MT) {             // the absolute rotor at the decimated rate
+        float s, co;
+        rotor(ph0 + delta * (uint32_t)(M * decim), &s, &co);
+        const float wr = ar, wi = ai;
+        ar = wr * co - wi * s;
+        ai = wr * s + wi * co;
       }
       zr[M & (RB - 1)] = ar;
       zi[M & (RB - 1)] = ai;
@@ -202,26 +245,26 @@ __global__ void __launch_bounds__(TT) front_kernel(
   }
 }
 
-template <typename Tin, int NB>
+template <typename Tin, int NB, bool MT>
 int launch(const void* xi, const void* xq, float in_scale, int C, int B,
            int n_keep, const void* carry_in, const void* carry2_in,
            const void* phase, uint32_t delta, const void* h, int taps,
-           int decim, const void* g_re, const void* g_im, int taps2,
-           void* out, void* carry_out, void* carry2_out, void* peaks,
-           cudaStream_t stream) {
+           int decim, const void* h_sin, const void* g_re, const void* g_im,
+           int taps2, void* out, void* carry_out, void* carry2_out,
+           void* peaks, cudaStream_t stream) {
   const size_t smem =
-      (size_t)(2 * decim * QS + 2 * RB + taps + 2 * NB * taps2) *
-      sizeof(float);
+      (size_t)(2 * decim * QS + 2 * RB + (MT ? 2 : 1) * taps +
+               2 * NB * taps2) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      front_kernel<Tin, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      front_kernel<Tin, NB, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  front_kernel<Tin, NB><<<C, TT, smem, stream>>>(
+  front_kernel<Tin, NB, MT><<<C, TT, smem, stream>>>(
       (const Tin*)xi, (const Tin*)xq, in_scale, B, n_keep,
       (const float2*)carry_in, (const float2*)carry2_in,
       (const int64_t*)phase, delta, (const float*)h, taps, decim,
-      (const float*)g_re, (const float*)g_im, taps2, (float*)out,
-      (float2*)carry_out, (float2*)carry2_out, (float*)peaks);
+      (const float*)h_sin, (const float*)g_re, (const float*)g_im, taps2,
+      (float*)out, (float2*)carry_out, (float2*)carry2_out, (float*)peaks);
   return (int)cudaGetLastError();
 }
 
@@ -236,27 +279,35 @@ int uhsdr_front_ring2() { return RB; }
 
 // in_kind: 0 = int16 planes, 1 = float32 planes.  nb: 1 or 2 stage-B
 // filters (g_re, g_im: nb rows of taps2; out: (C, nb, B/decim)).  The raw
-// carry rows hold n_keep >= taps-1 samples.  Returns a cudaError_t.
+// carry rows hold n_keep >= taps-1 samples.  h_sin: NULL for K1; for K15
+// (nb 1 only) the modulated taps' sine part, h then their cosine part.
+// Returns a cudaError_t.
 int uhsdr_front_launch(int in_kind, const void* xi, const void* xq,
                        float in_scale, int C, int B, int n_keep,
                        const void* carry_in, const void* carry2_in,
                        const void* phase, unsigned int delta, const void* h,
-                       int taps, int decim, const void* g_re,
-                       const void* g_im, int taps2, int nb, void* out,
+                       int taps, int decim, const void* h_sin,
+                       const void* g_re, const void* g_im, int taps2,
+                       int nb, void* out,
                        void* carry_out, void* carry2_out, void* peaks,
                        void* stream) {
   using Launch = int (*)(const void*, const void*, float, int, int, int,
                          const void*, const void*, const void*, uint32_t,
                          const void*, int, int, const void*, const void*,
-                         int, void*, void*, void*, void*, cudaStream_t);
-  static const Launch table[2][2] = {
-      {launch<int16_t, 1>, launch<int16_t, 2>},
-      {launch<float, 1>, launch<float, 2>}};
-  if (nb < 1 || nb > 2) return (int)cudaErrorInvalidValue;
-  return table[in_kind != 0][nb - 1](
+                         const void*, int, void*, void*, void*, void*,
+                         cudaStream_t);
+  // [in_kind][NB = 1, NB = 2, K15]
+  static const Launch table[2][3] = {
+      {launch<int16_t, 1, false>, launch<int16_t, 2, false>,
+       launch<int16_t, 1, true>},
+      {launch<float, 1, false>, launch<float, 2, false>,
+       launch<float, 1, true>}};
+  if (nb < 1 || nb > 2 || (h_sin != nullptr && nb != 1))
+    return (int)cudaErrorInvalidValue;
+  return table[in_kind != 0][h_sin != nullptr ? 2 : nb - 1](
       xi, xq, in_scale, C, B, n_keep, carry_in, carry2_in, phase, delta, h,
-      taps, decim, g_re, g_im, taps2, out, carry_out, carry2_out, peaks,
-      (cudaStream_t)stream);
+      taps, decim, h_sin, g_re, g_im, taps2, out, carry_out, carry2_out,
+      peaks, (cudaStream_t)stream);
 }
 
 const char* uhsdr_error_string(int e) {

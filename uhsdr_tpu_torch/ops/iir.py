@@ -16,10 +16,12 @@ recurrence as two Toeplitz matmuls: within R-sample chunks, and across
 the chunk ends (see `one_pole_block`).
 
 The JAX package runs all of these in XLA outside any Pallas kernel
-(ops/iir.py:232-239, :255-343), so on the card the matmuls go to
-`torch.matmul` (float32).  On the card they refuse to run with TF32 on:
-the high-Q lattice SOS and the r = 0.9999 DC blocker would lose their
-exactness silently.
+(ops/iir.py:232-239, :255-343).  On the card the chains' cascades run on
+kernels (`cuda/iir.py::cascade_dispatch`: K2, whose plain version is
+`biquad_cascade_blocked`, and K11); the smoothers' matmuls go to
+`torch.matmul` (float32).  On the card the matmuls refuse to run with
+TF32 on: the high-Q lattice SOS and the r = 0.9999 DC blocker would lose
+their exactness silently.
 """
 from __future__ import annotations
 
@@ -157,19 +159,6 @@ def biquad_cascade_block(sos: torch.Tensor, state: torch.Tensor,
         ys = out
         new_states.append(torch.stack([s1, s2], dim=-1))
     return torch.stack(ys, dim=-1), torch.stack(new_states, dim=0)
-
-
-def biquad_cascade_dispatch(c: Cascade, state: torch.Tensor, x: torch.Tensor):
-    """The chain's cascade: empty cascades pass through; blocks that chunk
-    (T % R == 0, at least two chunks — the reference's `blocked_ok`) take
-    the blocked exact-carry form; anything else runs sequentially."""
-    if c.sections == 0:
-        return x, state
-    T = x.shape[-1]
-    R = c.M.shape[0]
-    if T % R == 0 and T >= 2 * R:
-        return biquad_cascade_blocked(c, state, x)
-    return biquad_cascade_block(c.sos, state, x)
 
 
 @functools.lru_cache(maxsize=64)

@@ -15,7 +15,11 @@ both sidebands, the linked stereo AGC), for
 2 warm-up, 4 untraced and 4 traced blocks and prints, per block:
 
 * the step time with tracing off (CUDA events around the timed blocks)
-  and the host's enqueue time (wall clock of the calls, no sync);
+  and the host's enqueue time (wall clock of the calls, no sync), with
+  what can hold the host in it: the caching allocator's device
+  allocations and frees over those blocks (each a cudaMalloc/cudaFree,
+  which waits for the card) and the calls PyTorch reports as
+  synchronising (`torch.cuda.set_sync_debug_mode`) in one more block;
 * under `torch.profiler` (CUPTI), the device time of every kernel by
   name, the device's busy share of the traced window (union of kernel
   intervals over first-start..last-end) and the step time with tracing
@@ -32,6 +36,7 @@ import dataclasses
 import math
 import sys
 import time
+import warnings
 from collections import defaultdict
 
 import torch
@@ -150,6 +155,7 @@ def profile_blocks(step, state, blocks, samples: int) -> int:
 
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     host = 0.0
+    mem0 = torch.cuda.memory_stats()
     a.record()
     for blk in blocks[2:2 + n]:
         t0 = time.perf_counter()
@@ -157,10 +163,27 @@ def profile_blocks(step, state, blocks, samples: int) -> int:
         host += time.perf_counter() - t0
     b.record()
     b.synchronize()
+    mem = {k: torch.cuda.memory_stats().get(k, 0) - mem0.get(k, 0)
+           for k in ("num_device_alloc", "num_device_free")}
     step_ms = a.elapsed_time(b) / n
     print(f"untraced: {step_ms:.4f} ms/block on the device, host enqueue "
           f"{host / n * 1e3:.4f} ms/block, "
-          f"{samples / step_ms / 1e3:.1f} Ms/s")
+          f"{samples / step_ms / 1e3:.1f} Ms/s; device allocations "
+          f"{mem['num_device_alloc'] / n:.1f}, frees "
+          f"{mem['num_device_free'] / n:.1f} a block")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state = step(state, blocks[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    print(f"synchronising calls in one block: {len(syncs)}"
+          + "".join(f"\n  {w.filename}:{w.lineno} {w.message}"
+                    for w in syncs[:5]))
+    torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -21,7 +21,10 @@ first phase that fails:
    off), the TX ALC recurrence, K2 (the fused blocked SOS cascade, at
    the SSB PreFilter's shape and timed at every path's cascade shape), K14
    (the grouped biquad scan, at SAM's stacked allpass shape, also held
-   against K11) and K15 (the modulated-taps SSB front).  Each streams 2-3
+   against K11), K15 (the modulated-taps SSB front), and the row variants
+   of K3 (per-channel [min_volts, slope, hang_level], at the fleet's
+   merged AGC shape 5120 x 4096) and K13 (per-channel [min_volts,
+   hang_level], at 8192 x 2048).  Each streams 2-3
    blocks at its main path's shapes (8192 channels; K11 and K14 at the
    16384 stacked channels SAM gives them; the ALC's plain loop at 4096
    samples), the middle block ragged where the kernel has a tile or a
@@ -47,7 +50,29 @@ first phase that fails:
    blocks) and at 1024 channels lsb, am, cw and the legacy-front lsb.
    Then the entry path `biquad_grouped`: SAM usb's stacked allpass inputs
    (16384 x 4096, both coefficient sets) through `biquad_cascade(impl=
-   "grouped")`, 4 timed blocks, state carried.  Every kernel's launch
+   "grouped")`, 4 timed blocks, state carried.  Then the mixed-mode fleet
+   (`parallel.fleet.ChannelFleet`, six groups of 1024 channels: usb, lsb,
+   cw, am, sam, fm at 48 kHz, 16384-sample f32 blocks, AGC thresholds
+   60/50/70/60/55/60 dB) twice over the same blocks: `fleet`, the
+   stage-batched step (one K3 launch with (3, 5120) rows for the five
+   12 kHz groups), and `fleet_separate`, each group's chain; 2 + 6
+   blocks each.  The two must agree bit for bit (a fresh pair, in
+   lockstep, outside the timed runs), channels 0-7 of each group must
+   match the port's CPU fleet over the first 2 blocks at 80 dB, and
+   each group's channel 0 tone must come out.  Then `wideband`
+   (`WidebandFleet`: 16.8 M wideband samples a block through the
+   4096-channel analysis bank into usb on 2730 channels and am on 1366;
+   channels 0-7 of each group's bank output through the port's CPU
+   fleet over the first 2 blocks, audio and every state leaf at 80 dB;
+   the bank held to the direct mix-filter-decimate form on 8 channels
+   at 80 dB), `wideband_tx` (`WidebandTxFleet`: 4096 TX-flagship
+   channels of 4096 samples through the synthesis bank; channels 0-7 of
+   the chains' IQ before the bank and their state against the port's
+   CPU `TxChain` over the first 2 blocks at 80 dB; channels 0 and 4095
+   must land at their centre plus translate and tone) and the
+   entry path `agc_stereo_rows` (`ops.agc.run_stereo` at 12 kHz on
+   8192 x 2 x 2048 with a threshold per channel: K13's rows; channels
+   0-7 against the CPU at 90 dB).  Every kernel's launch
    count is set to 0 just before each path and read just after, each
    kernel of that path must have been launched and no other, and every
    built kernel must have been launched by a chain path or the entry
@@ -90,7 +115,10 @@ from uhsdr_tpu_torch.cuda import iir as iir_k
 from uhsdr_tpu_torch.cuda import pll as pll_k
 from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.ops import agc as agc_ops
+from uhsdr_tpu_torch.ops import channelizer as chz
+from uhsdr_tpu_torch.ops import fir as fir_ops
 from uhsdr_tpu_torch.ops import nco
+from uhsdr_tpu_torch.parallel import fleet as pfleet
 
 CFG = rx.FLAGSHIP            # the SSB flagship
 SAM = rx.SAM_FLAGSHIP        # the AM/SAM flagship
@@ -99,6 +127,21 @@ WIDE = rx.WIDE_FLAGSHIP      # the wide-SSB flagship
 STEREO = rx.STEREO_FLAGSHIP  # the two-channel flagship
 TXF = tx.TX_FLAGSHIP         # the TX flagship
 CHANNELS = rx.FLAGSHIP_CHANNELS
+
+# The mixed-mode fleet (BASELINE config 5, `pfleet.FLEET_MIX`): six groups
+# of 1024 channels at 48 kHz, 16384-sample f32 blocks.  The five 12 kHz
+# groups share one K3 launch with (3, 5120) rows and one K4 launch; FM
+# keeps its own K3 at 48 kHz.
+FLEET_GROUP_CHANNELS = pfleet.FLEET_GROUP_CHANNELS
+FLEET_BLOCK = pfleet.FLEET_MIX[0].block_len
+# The wideband deployment (`pfleet.WIDEBAND_MIX`): M = 4096 channels of
+# 4096 samples behind one analysis bank; its TX mirror, `WIDEBAND_TX`.
+WB_M, WB_T = pfleet.WIDEBAND_CHANNELS, pfleet.WIDEBAND_MIX[0].block_len
+# The entry path of K13's rows: the linked stereo AGC at 12 kHz with a
+# threshold per channel (no chain of the reference gives run_stereo
+# per-channel settings).
+STEREO_ROWS_T = 2048
+STEREO_ROWS_THRESH = np.linspace(40.0, 80.0, CHANNELS)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, FP32 outside the
 # tensor cores
@@ -584,14 +627,17 @@ def agc_block(gen, dev, C, T, t0, fs):
     return (level * tone * on + noise).contiguous()
 
 
-def agc_case(agc_params, fs, lengths, dev, gen, time_len=None):
+def agc_case(agc_params, fs, lengths, dev, gen, time_len=None, C=CHANNELS,
+             name="K3"):
     """K3 against its plain version over streamed blocks of `lengths`
     samples, bit for bit; then times at the first block's length (the
     kernel, with `time_len`, on a fresh block of that length: the window,
-    not the length, is what the plain check tests).  Returns (max |err|,
-    ms, plain ms, bytes, flops, recurrence ms, timed length)."""
-    C = CHANNELS
-    p = agc_ops.kernel_params(agc_params)
+    not the length, is what the plain check tests).  Per-channel settings
+    in `agc_params` run the row variant.  Returns (max |err|, ms, plain
+    ms, bytes, flops, recurrence ms, timed length)."""
+    kp = agc_ops.kernel_params(agc_params, C)
+    p = kp.scalars
+    rows = None if kp.rows is None else torch.as_tensor(kp.rows, device=dev)
     w = agc_params.attack_buffsize
     carry_k = carry_p = torch.zeros((agc_k.N_CARRY, C), device=dev)
     dl_k = dl_p = torch.zeros((C, w), device=dev)
@@ -602,31 +648,32 @@ def agc_case(agc_params, fs, lengths, dev, gen, time_len=None):
         t0 += T
         if first is None:
             first = (carry_k, dl_k, x)
-        yk, carry_k, dl_k = agc_k.agc(p, carry_k, dl_k, x)
-        yp, carry_p, dl_p = agc_k.agc_plain(p, carry_p, dl_p, x)
+        yk, carry_k, dl_k = agc_k.agc(p, carry_k, dl_k, x, rows)
+        yp, carry_p, dl_p = agc_k.agc_plain(p, carry_p, dl_p, x, rows)
         torch.cuda.synchronize()
         pairs = {"audio": (yp, yk), "delay": (dl_p, dl_k)}
         for i, f in enumerate(agc_ops.CARRY_FIELDS):
             pairs[f] = (carry_p[i], carry_k[i])
-        _, e = held(f"K3 w={w} block {blk} ({T} samples)", pairs)
+        _, e = held(f"{name} w={w} block {blk} ({T} samples)", pairs)
         err = max(err, e)
-    check(err == 0.0, f"K3 w={w}: not bit-exact against its plain version "
-                      f"(max|err| {err:.3e})")
+    check(err == 0.0, f"{name} w={w}: not bit-exact against its plain "
+                      f"version (max|err| {err:.3e})")
     c0, d0, x0 = first
-    plain_ms = cuda_ms(lambda: agc_k.agc_plain(p, c0, d0, x0), 1)
+    plain_ms = cuda_ms(lambda: agc_k.agc_plain(p, c0, d0, x0, rows), 1)
     T = time_len or lengths[0]
     if T != lengths[0]:
         x0 = agc_block(gen, dev, C, T, 0, fs)
-    ms = cuda_ms(lambda: agc_k.agc(p, c0, d0, x0), 10)
-    # work: x in, y out, carries and delay in and out; about 60 f32
-    # operations per machine step and gain law
-    nbytes = 2 * C * T * 4 + 2 * (agc_k.N_CARRY * C + C * w) * 4
+    ms = cuda_ms(lambda: agc_k.agc(p, c0, d0, x0, rows), 10)
+    # work: x in, y out, carries and delay in and out (and the rows in);
+    # about 60 f32 operations per machine step and gain law
+    nbytes = (2 * C * T * 4 + 2 * (agc_k.N_CARRY * C + C * w) * 4
+              + (0 if rows is None else rows.numel() * 4))
     rec_ms = recurrence_ms(T, AGC_STEP_OPS)
     b_ms, b_by = bound(nbytes, 60.0 * C * T)
-    print(f"  K3 agc w={w}, T={T}: {ms:.4f} ms (plain {plain_ms:.1f} ms at "
-          f"{lengths[0]} steps; recurrence bound {rec_ms:.4f} ms = {T} steps "
-          f"x {AGC_STEP_OPS} dependent ops x {FP32_LATENCY} cycles; {b_by} "
-          f"bound {b_ms:.4f} ms)")
+    print(f"  {name} agc w={w}, {C} x {T}: {ms:.4f} ms (plain "
+          f"{plain_ms:.1f} ms at {lengths[0]} steps; recurrence bound "
+          f"{rec_ms:.4f} ms = {T} steps x {AGC_STEP_OPS} dependent ops x "
+          f"{FP32_LATENCY} cycles; {b_by} bound {b_ms:.4f} ms)")
     return err, ms, plain_ms, nbytes, 60.0 * C * T, rec_ms, T
 
 
@@ -872,7 +919,7 @@ def phase_agc_scan(P, dev, gen):
     its plain version, bit for bit, over three streamed blocks (the
     middle one ragged)."""
     params = P["stereo"].agc
-    p = agc_ops.kernel_params(params)
+    p = agc_ops.kernel_params(params).scalars
     C, w = CHANNELS, params.attack_buffsize
     T, fs = STEREO.block_len // STEREO.decim, STEREO.fs_dec
     ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
@@ -914,6 +961,88 @@ def phase_agc_scan(P, dev, gen):
     print(f"  K13 agc_scan, T={T}: {ms:.4f} ms (plain {plain_ms:.1f} ms; "
           f"recurrence bound {rec_ms:.4f} ms; {r['bound_by']} bound "
           f"{r['bound_ms']:.4f} ms, {nbytes / 2**20:.0f} MiB)")
+    return r
+
+
+def fleet_thresholds() -> np.ndarray:
+    """The AGC thresholds of the fleet's five 12 kHz groups, a group's
+    1024 channels each: the per-channel rows their merged K3 takes."""
+    return np.concatenate([np.full(FLEET_GROUP_CHANNELS, c.agc_thresh_db)
+                           for c in pfleet.FLEET_MIX if c.mode != "fm"])
+
+
+def phase_agc_rows(P, dev, gen):
+    """K3 with per-channel rows at the fleet's merged AGC shape: the five
+    12 kHz groups' 5120 channels x 4096 steps, look-ahead 48, thresholds
+    60/50/70/60/55 dB, bit for bit against its plain version over three
+    streamed blocks (the middle one ragged)."""
+    th = fleet_thresholds()
+    C, T = th.size, FLEET_BLOCK // 4
+    params = agc_ops.make_params(12000.0, thresh_db=th)
+    err, ms, plain_ms, nbytes, flops, rec_ms, _ = agc_case(
+        params, 12000.0, (T, 1000, T), dev, gen, C=C, name="K3 rows")
+    # the scalar K3 at the same shape, for the cost of the rows
+    p60 = agc_ops.kernel_params(agc_ops.make_params(12000.0)).scalars
+    x = agc_block(gen, dev, C, T, 0, 12000.0)
+    c0 = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    d0 = torch.zeros((C, params.attack_buffsize), device=dev)
+    scalar_ms = cuda_ms(lambda: agc_k.agc(p60, c0, d0, x), 10)
+    print(f"  K3 scalar at the same shape: {scalar_ms:.4f} ms")
+    return row("agc_rows", "agc.cu", "uhsdr_tpu/pallas/agc.py:176",
+               err=err, snr=math.inf, ms=ms, plain_ms=plain_ms,
+               nbytes=nbytes, flops=flops, recurrence_ms=rec_ms,
+               library_note="no PyTorch call computes a look-ahead AGC",
+               channels=C, steps=T, scalar_ms=scalar_ms)
+
+
+def phase_agc_scan_rows(P, dev, gen):
+    """K13 with per-channel rows (min_volts, hang_level) at the
+    `agc_stereo_rows` entry path's shape, 8192 channels x 2048 steps,
+    thresholds 40 ... 80 dB across the channels, bit for bit against its
+    plain version over three streamed blocks (the middle one ragged)."""
+    C, T, w = CHANNELS, STEREO_ROWS_T, 48
+    params = agc_ops.make_params(12000.0, thresh_db=STEREO_ROWS_THRESH)
+    kp = agc_ops.kernel_params(params, C)
+    p = kp.scalars
+    rows = torch.as_tensor(kp.scan_rows, device=dev)
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    err, t0, first = 0.0, 0, None
+    for blk, Tk in enumerate((T, 1000, T)):
+        a = agc_block(gen, dev, C, Tk + w, t0, 12000.0).abs()
+        t0 += Tk
+        rm = agc_k.look_ahead_max(a, w, Tk).contiguous()
+        ax = a[:, :Tk].contiguous()
+        if first is None:
+            first = (ck, rm, ax)
+        vk, ck = agc_k.agc_scan(p, ck, rm, ax, rows)
+        vp, cp = agc_k.agc_scan_plain(p, cp, rm, ax, rows)
+        torch.cuda.synchronize()
+        pairs = {"volts": (vp, vk)}
+        for i, f in enumerate(agc_ops.CARRY_FIELDS):
+            pairs[f] = (cp[i], ck[i])
+        _, e = held(f"K13 rows block {blk} ({Tk} steps)", pairs)
+        err = max(err, e)
+    check(err == 0.0, f"K13 rows: not bit-exact against its plain version "
+                      f"(max|err| {err:.3e})")
+    c0, rm0, ax0 = first
+    ms = cuda_ms(lambda: agc_k.agc_scan(p, c0, rm0, ax0, rows), 10)
+    # the scalar K13 on the same inputs, for the cost of the rows
+    p60 = agc_ops.kernel_params(agc_ops.make_params(12000.0)).scalars
+    scalar_ms = cuda_ms(lambda: agc_k.agc_scan(p60, c0, rm0, ax0), 10)
+    plain_ms = cuda_ms(lambda: agc_k.agc_scan_plain(p, c0, rm0, ax0, rows),
+                       1)
+    # bytes: rm and ax in, volts out, carries in and out, the two rows in
+    nbytes = 3 * C * T * 4 + 2 * agc_k.N_CARRY * C * 4 + 2 * C * 4
+    rec_ms = recurrence_ms(T, AGC_STEP_OPS)
+    r = row("agc_scan_rows", "agc.cu", "uhsdr_tpu/pallas/agc.py:128",
+            err=err, snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=50.0 * C * T, recurrence_ms=rec_ms, scalar_ms=scalar_ms,
+            library_note="no PyTorch call computes the AGC's 5-state "
+                         "machine")
+    print(f"  K13 rows agc_scan, {C} x {T}: {ms:.4f} ms (scalar "
+          f"{scalar_ms:.4f} ms on the same inputs; plain "
+          f"{plain_ms:.1f} ms; recurrence bound {rec_ms:.4f} ms; "
+          f"{r['bound_by']} bound {r['bound_ms']:.4f} ms)")
     return r
 
 
@@ -1298,7 +1427,10 @@ def timed_run(step, blocks, label, expect, n_warm, n_timed):
     """Set every kernel's launch count to 0, run `step(block)` over the
     warm-up blocks and then the timed ones between CUDA events, read the
     counts and check that each kernel of `expect`, and no other, was
-    launched.  Returns (launches, ms/block, the last step's result)."""
+    launched.  Returns (launches, ms/block: the mean over the timed
+    window, the last step's result); prints each timed block, their
+    median and the caching allocator's device allocations (cudaMalloc
+    calls, each of which waits for the card) inside the window."""
     kernels = build.kernels()
     for k in kernels:
         k.launches = 0
@@ -1307,22 +1439,27 @@ def timed_run(step, blocks, label, expect, n_warm, n_timed):
     for blk in blocks[:n_warm]:
         step(blk)
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
+    allocs0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
     marks[0].record()
     for k, blk in enumerate(blocks[n_warm:]):
         out = step(blk)
         marks[k + 1].record()
     marks[-1].synchronize()
+    allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs0
     launches = {k.name: k.launches for k in kernels}
     each = [marks[k].elapsed_time(marks[k + 1]) for k in range(n_timed)]
+    mean = marks[0].elapsed_time(marks[-1]) / n_timed
     print(f"  {label} ms of each timed block: "
-          + " ".join(f"{t:.3f}" for t in each))
+          + " ".join(f"{t:.3f}" for t in each)
+          + f" (mean {mean:.3f}, median {float(np.median(each)):.3f}); "
+          f"device allocations in the window: {allocs}")
     print(f"  {label} launches: {launches}")
     for name in expect:
         check(launches[name] > 0, f"{label} never launched kernel {name}")
     for name, n in launches.items():
         check(n == 0 or name in expect,
               f"{label} launched {name}, which is not on its path")
-    return launches, marks[0].elapsed_time(marks[-1]) / n_timed, out
+    return launches, mean, out
 
 
 def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
@@ -1447,6 +1584,35 @@ def grouped_path(P, dev, seed, n_timed=4, n_warm=2):
     return launches, ms_block, worst, n_warm + n_timed
 
 
+def tx_vs_cpu(cfg, label, blocks, kept, kept_state, C):
+    """The first channels of `blocks` (each (C, T) audio) through a CPU
+    `TxChain(cfg)`: its (i + j q) against `kept` (the card's, one (ref_ch,
+    T) tensor a block) and its state after them against `kept_state`
+    (the card's, all C channels), every leaf; held >= CHAIN_TOL_DB.
+    Returns the worst SNR."""
+    ref_ch = kept[0].shape[0]
+    cpu = tx.TxChain(cfg, device="cpu")
+    s_cpu = cpu.init_state((ref_ch,))
+    worst = math.inf
+    for blk, got in enumerate(kept):
+        ic, qc, s_cpu = cpu(s_cpu, blocks[blk][:ref_ch].cpu())
+        s = snr_db(torch.complex(ic, qc), got.cpu())
+        worst = min(worst, s)
+        print(f"  {label} vs CPU chain, block {blk}, ch 0-{ref_ch - 1}: "
+              f"SNR {s:.1f} dB")
+    leaves = state_snrs(tx.state_to_numpy(s_cpu),
+                        {f: v[:ref_ch] if v.shape[0] == C else
+                         np.take(v, range(ref_ch), axis=1)
+                         for f, v in tx.state_to_numpy(kept_state).items()})
+    low = min(leaves, key=leaves.get)
+    print(f"  {label} state after block {len(kept) - 1} vs CPU chain: worst "
+          f"leaf {low} {leaves[low]:.1f} dB of {len(leaves)}")
+    worst = min(worst, leaves[low])
+    check(worst >= CHAIN_TOL_DB,
+          f"{label} vs CPU chain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
+    return worst
+
+
 def tx_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
             ref_ch=8):
     """Drive `TxChain(cfg)` on the card at C channels; returns (launches
@@ -1477,25 +1643,7 @@ def tx_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     for f, v in tx.state_to_numpy(state).items():
         check(bool(np.isfinite(v).all()), f"{label} state {f} not finite")
 
-    cpu = tx.TxChain(cfg, device="cpu")
-    s_cpu = cpu.init_state((ref_ch,))
-    worst = math.inf
-    for blk in range(n_ref):
-        ic, qc, s_cpu = cpu(s_cpu, blocks[blk][:ref_ch].cpu())
-        s = snr_db(torch.complex(ic, qc), kept[blk].cpu())
-        worst = min(worst, s)
-        print(f"  {label} vs CPU chain, block {blk}, ch 0-{ref_ch - 1}: "
-              f"SNR {s:.1f} dB")
-    leaves = state_snrs(tx.state_to_numpy(s_cpu),
-                        {f: v[:ref_ch] if v.shape[0] == C else
-                         np.take(v, range(ref_ch), axis=1)
-                         for f, v in tx.state_to_numpy(kept_state).items()})
-    low = min(leaves, key=leaves.get)
-    print(f"  {label} state after block {n_ref - 1} vs CPU chain: worst "
-          f"leaf {low} {leaves[low]:.1f} dB of {len(leaves)}")
-    worst = min(worst, leaves[low])
-    check(worst >= CHAIN_TOL_DB,
-          f"{label} vs CPU chain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
+    worst = tx_vs_cpu(cfg, label, blocks, kept, kept_state, C)
     z = (i[0] + 1j * q[0]).cpu().to(torch.complex128).numpy()
     spec = np.abs(np.fft.fft(z * np.hanning(len(z))))
     f_pk = float(np.fft.fftfreq(len(z), 1.0 / tx.IQ_RATE)[spec.argmax()])
@@ -1503,6 +1651,334 @@ def tx_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     print(f"  {label} channel 0 IQ peak {f_pk:.1f} Hz (expected {want} Hz)")
     check(abs(f_pk - want) < 20.0, f"{label} peak at {f_pk} Hz, not {want}")
     return launches, ms_block, msps, worst, n_warm + n_timed
+
+
+# ---------------------------------------------------------------------------
+# the fleet, wideband and per-channel AGC paths
+# ---------------------------------------------------------------------------
+
+def fleet_configs() -> list:
+    return [dataclasses.replace(c, block_len=FLEET_BLOCK)
+            for c in pfleet.FLEET_MIX]
+
+
+def tone_peak_hz(y: torch.Tensor, fs: float) -> float:
+    """The strongest audio frequency above 100 Hz of a channel's block."""
+    y0 = y.cpu().double().numpy()
+    spec = np.abs(np.fft.rfft((y0 - y0.mean()) * np.hanning(len(y0))))
+    freqs = np.fft.rfftfreq(len(y0), 1.0 / fs)
+    spec[freqs < 100.0] = 0.0
+    return float(freqs[spec.argmax()])
+
+
+def fleet_path(label, fused, blocks, dev, n_timed, n_warm=2, n_ref=2,
+               ref_ch=8):
+    """Drive `ChannelFleet` on the card, six groups of 1024 channels, by
+    `step_fused` (cross-group stage batching) or `step_separate` (each
+    group's chain); keeps channels 0-7 of each group's audio for the
+    warm-up blocks and the states after them.  Returns (launches,
+    ms/block, Ms/s of input samples, kept audio, kept states)."""
+    cfgs = fleet_configs()
+    C = FLEET_GROUP_CHANNELS
+    fl = pfleet.ChannelFleet(cfgs, np.repeat(np.arange(len(cfgs)), C),
+                             device=dev)
+    step_fn = fl.step_fused if fused else fl.step_separate
+    kept, kept_states = [], []
+
+    def step(planes):
+        outs = step_fn(planes)
+        if len(kept) < n_ref:
+            kept.append([o[:ref_ch].clone() for o in outs])
+            if len(kept) == n_ref:
+                # channels 0-7 of each state leaf, copied to the host in
+                # the last warm-up block: no state outlives its block
+                kept_states.extend(first_channels(g, ref_ch)
+                                   for g in fl.groups)
+        return outs
+
+    expect = FLEET_KERNELS if fused else FLEET_SEPARATE_KERNELS
+    launches, ms_block, outs = timed_run(step, blocks, label, expect, n_warm,
+                                         n_timed)
+    msps = C * len(cfgs) * FLEET_BLOCK / (ms_block * 1e-3) / 1e6
+    for g, y in zip(fl.groups, outs):
+        check(tuple(y.shape) == (C, FLEET_BLOCK),
+              f"{label} {g.cfg.mode} audio {tuple(y.shape)}")
+        check(bool(torch.isfinite(y).all()), f"{label} {g.cfg.mode} audio")
+        for f, v in rx.state_to_numpy(g.state).items():
+            check(bool(np.isfinite(v).all()),
+                  f"{label} {g.cfg.mode} state {f} not finite")
+        f_pk = tone_peak_hz(y[0], g.cfg.iq_rate)
+        tone = trace_rx.tone_hz(g.cfg)
+        print(f"  {label} {g.cfg.mode} channel 0 audio peak {f_pk:.1f} Hz "
+              f"(tone {tone} Hz)")
+        check(abs(f_pk - tone) < 20.0,
+              f"{label} {g.cfg.mode} tone at {f_pk} Hz, not {tone}")
+    return launches, ms_block, msps, kept, kept_states
+
+
+def first_channels(group, n: int) -> dict:
+    """`rx.state_to_numpy` of a fleet group's state, its channels 0..n-1
+    (the channel axis: the one of the group's width)."""
+    C = group.channel_idx.size
+    return {f: np.take(v, range(n), axis=v.shape.index(C))
+            for f, v in rx.state_to_numpy(group.state).items()}
+
+
+def fleet_vs_cpu(label, cfgs, blocks, kept, kept_states, ref_ch=8):
+    """Channels 0-7 of each group (blocks[b][g]: group g's (i, q) of
+    block b, their first ref_ch rows taken) through the port's fused
+    fleet on the CPU (plain versions) over the blocks kept: audio and
+    every state leaf >= CHAIN_TOL_DB.  Returns the worst SNR."""
+    cpu = pfleet.ChannelFleet(cfgs, np.repeat(np.arange(len(cfgs)), ref_ch),
+                              device="cpu")
+    worst = math.inf
+    for b, ys in enumerate(kept):
+        outs = cpu.step_fused([(i[:ref_ch].cpu(), q[:ref_ch].cpu())
+                               for i, q in blocks[b]])
+        for g, y_cpu, y in zip(cpu.groups, outs, ys):
+            s = snr_db(y_cpu, y.cpu())
+            worst = min(worst, s)
+            print(f"  {label} vs CPU fleet, block {b}, {g.cfg.mode} ch 0-"
+                  f"{ref_ch - 1}: SNR {s:.1f} dB")
+    for g, st in zip(cpu.groups, kept_states):
+        leaves = state_snrs(rx.state_to_numpy(g.state), st)
+        low = min(leaves, key=leaves.get)
+        print(f"  {label} {g.cfg.mode} state vs CPU fleet: worst leaf {low} "
+              f"{leaves[low]:.1f} dB of {len(leaves)}")
+        worst = min(worst, leaves[low])
+    check(worst >= CHAIN_TOL_DB,
+          f"{label} vs CPU fleet: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
+    return worst
+
+
+def fleet_lockstep(blocks, dev):
+    """`step_fused` and `step_separate` on two fresh fleets over the same
+    blocks, outside the timed runs: each group's audio and every state
+    leaf compared after every block, bit for bit (every kernel computes a
+    channel on its own, so the batching must change no bit; a leaf that
+    differs would be held at >= 120 dB and named).  Also records the
+    merged AGC's K3 calls: one a block, with (3, 5120) rows.  Returns
+    (equal leaves and outputs, compared, the rows shapes seen)."""
+    cfgs = fleet_configs()
+    assign = np.repeat(np.arange(len(cfgs)), FLEET_GROUP_CHANNELS)
+    a = pfleet.ChannelFleet(cfgs, assign, device=dev)
+    b = pfleet.ChannelFleet(cfgs, assign, device=dev)
+    rows_seen = []
+    real = agc_k.agc
+
+    def spy(p, carry, delay, x, rows=None):
+        if rows is not None:
+            rows_seen.append(tuple(rows.shape))
+        return real(p, carry, delay, x, rows)
+
+    n_eq = n_all = 0
+    agc_k.agc = spy
+    try:
+        for k, planes in enumerate(blocks):
+            ya = a.step_fused(planes)
+            agc_k.agc = real
+            yb = b.step_separate(planes)
+            agc_k.agc = spy
+            pairs = {f"{g.cfg.mode} audio": (y2.cpu().numpy(),
+                                             y1.cpu().numpy())
+                     for g, y1, y2 in zip(a.groups, ya, yb)}
+            for ga, gb in zip(a.groups, b.groups):
+                sa, sb = rx.state_to_numpy(ga.state), rx.state_to_numpy(
+                    gb.state)
+                check(sa.keys() == sb.keys(), "fleet state leaves differ")
+                pairs.update({f"{ga.cfg.mode} {f}": (sb[f], sa[f])
+                              for f in sa})
+            for what, (x1, x2) in pairs.items():
+                n_all += 1
+                if np.array_equal(x1, x2):
+                    n_eq += 1
+                    continue
+                s = (snr_db(x1, x2) if x1.dtype.kind in "fc"
+                     else -math.inf)
+                print(f"  fleet vs fleet_separate block {k}: {what} not "
+                      f"bit-equal, SNR {s:.1f} dB")
+                check(s >= 120.0, f"fleet vs fleet_separate: {what} "
+                                  f"{s:.1f} dB < 120 dB")
+    finally:
+        agc_k.agc = real
+    print(f"  fleet vs fleet_separate over {len(blocks)} blocks: {n_eq} of "
+          f"{n_all} outputs and state leaves bit-equal; merged K3 rows "
+          f"{sorted(set(rows_seen))}, {len(rows_seen)} calls")
+    n_rows = sum(c.mode != "fm" for c in cfgs) * FLEET_GROUP_CHANNELS
+    check(rows_seen == [(3, n_rows)] * len(blocks),
+          f"fleet: merged K3 calls with rows {rows_seen}")
+    return n_eq, n_all
+
+
+def direct_channel(h: torch.Tensor, x: torch.Tensor, m: int, M: int):
+    """Channel m of an M-channel analysis bank in its direct form: mix
+    down by exp(-j 2 pi m i / M), filter by the prototype h, decimate by M
+    from an empty history (the port's copy of
+    tests/test_channelizer.py::_direct_channel)."""
+    i = torch.arange(x.shape[-1], device=x.device, dtype=torch.float64)
+    mixed = (x.to(torch.complex128)
+             * torch.exp(-2j * math.pi * m * i / M)).to(torch.complex64)
+    carry = torch.zeros(x.shape[:-1] + (h.shape[-1] - 1,),
+                        dtype=torch.complex64, device=x.device)
+    y, _ = fir_ops.fir_decimate_block(h, carry, mixed, M)
+    return y
+
+
+def wideband_path(dev, seed, n_timed, n_warm=2, n_ref=2, ref_ch=8):
+    """Drive `WidebandFleet` on the card: one wideband stream of 16.8 M
+    samples a block (seeded noise at 0.1 rms a plane) through the 4096-
+    channel analysis bank into usb (2730 channels) and am (1366): the
+    fused step; the step is `process_block_device`'s two halves, so that
+    channels 0-7 of each group's bank planes and audio, and the states,
+    are kept over the first n_ref blocks.  Those planes then go through
+    the port's CPU fleet (audio and every state leaf >= CHAIN_TOL_DB),
+    and the bank's first block, from zero state, is held against the
+    direct form on 8 channels (>= CHAIN_TOL_DB).  Returns (launches,
+    ms/block, Ms/s of wideband samples, worst SNR of the fleet, worst
+    SNR of the bank)."""
+    n_usb = pfleet.wideband_counts(WB_M)[0]
+    cfgs = [dataclasses.replace(c, block_len=WB_T)
+            for c in pfleet.WIDEBAND_MIX]
+    wf = pfleet.WidebandFleet(cfgs, pfleet.wideband_counts(WB_M), device=dev)
+    B = wf.wideband_block
+    blocks = trace_rx.wideband_capture(n_warm + n_timed, B, dev, seed)
+    kept_planes, kept, kept_states = [], [], []
+
+    def step(blk):
+        planes = wf.channel_planes(*blk)
+        outs = wf.fleet.process_block_device(planes)
+        if len(kept) < n_ref:
+            kept_planes.append([(i[:ref_ch].clone(), q[:ref_ch].clone())
+                                for i, q in planes])
+            kept.append([y[:ref_ch].clone() for y in outs])
+            if len(kept) == n_ref:
+                kept_states.extend(first_channels(g, ref_ch)
+                                   for g in wf.groups)
+        return outs
+
+    launches, ms_block, outs = timed_run(step, blocks, "wideband",
+                                         WIDEBAND_KERNELS, n_warm, n_timed)
+    msps = B / (ms_block * 1e-3) / 1e6
+    check([tuple(y.shape) for y in outs] == [(n_usb, WB_T),
+                                             (WB_M - n_usb, WB_T)],
+          f"wideband audio {[tuple(y.shape) for y in outs]}")
+    check(all(bool(torch.isfinite(y).all()) for y in outs),
+          "wideband audio not finite")
+    for g in wf.groups:
+        for f, v in rx.state_to_numpy(g.state).items():
+            check(bool(np.isfinite(v).all()),
+                  f"wideband {g.cfg.mode} state {f} not finite")
+    worst_fleet = fleet_vs_cpu("wideband", cfgs, kept_planes, kept,
+                               kept_states, ref_ch)
+    x0 = torch.complex(*blocks[0])
+    y, _ = wf.bank(wf.bank.init_state(), x0)
+    h = torch.as_tensor(wf.bank.prototype, device=dev)
+    worst = math.inf
+    for m in (0, 1, 2, n_usb - 1, n_usb, WB_M // 2, WB_M - 2, WB_M - 1):
+        s = snr_db(direct_channel(h, x0, m, WB_M), y[m])
+        worst = min(worst, s)
+        print(f"  wideband bank channel {m} vs the direct form: SNR "
+              f"{s:.1f} dB")
+    check(worst >= CHAIN_TOL_DB,
+          f"wideband bank vs direct form: {worst:.1f} dB < {CHAIN_TOL_DB}")
+    return launches, ms_block, msps, worst_fleet, worst
+
+
+def wideband_tx_path(dev, seed, n_timed, n_warm=2, n_ref=2, ref_ch=8):
+    """Drive `WidebandTxFleet` on the card: 4096 channels of the TX
+    flagship (usb, reference front, 6 kHz translate) at 4096 samples,
+    trace_tx's tones, through the synthesis bank to 16.8 M wideband IQ
+    samples a block; the step is `process_block_device`'s two halves, so
+    that channels 0-7 of the chains' (i, q) before the bank are kept over
+    the first n_ref blocks and held, with the state after them, against
+    the port's CPU `TxChain` (>= CHAIN_TOL_DB).  Channel 0's tone must
+    land at its channel centre (0 Hz) plus the translate and the tone,
+    channel M-1's at -48 kHz plus its own.  Returns (launches, ms/block,
+    Ms/s of wideband samples, worst SNR against the CPU chain)."""
+    cfg = dataclasses.replace(pfleet.WIDEBAND_TX, block_len=WB_T)
+    wf = pfleet.WidebandTxFleet([cfg], [WB_M], device=dev)
+    blocks = trace_tx.capture(n_warm + n_timed, WB_M, dev, seed, cfg)
+    kept, kept_state = [], None
+
+    def step(a):
+        nonlocal kept_state
+        i_ch, q_ch = wf.chain_iq([a])
+        out = wf.synthesize(i_ch, q_ch)
+        if len(kept) < n_ref:
+            kept.append(torch.complex(i_ch[:ref_ch], q_ch[:ref_ch]))
+            if len(kept) == n_ref:
+                kept_state = wf.groups[0][1]
+        return out
+
+    launches, ms_block, (i, q) = timed_run(step, blocks, "wideband_tx",
+                                           TX_VOICE, n_warm, n_timed)
+    n_out = WB_M * WB_T
+    msps = n_out / (ms_block * 1e-3) / 1e6
+    check(tuple(i.shape) == (n_out,) and tuple(q.shape) == (n_out,),
+          f"wideband_tx IQ {tuple(i.shape)}")
+    check(bool(torch.isfinite(i).all() and torch.isfinite(q).all()),
+          "wideband_tx IQ not finite")
+    worst = tx_vs_cpu(cfg, "wideband_tx", blocks, kept, kept_state, WB_M)
+    fs_wide = WB_M * tx.IQ_RATE
+    z = torch.complex(i, q).to(torch.complex128)
+    win = torch.hann_window(n_out, dtype=torch.float64, device=z.device)
+    spec = torch.fft.fft(z * win).abs().cpu().numpy()
+    freqs = np.fft.fftfreq(n_out, 1.0 / fs_wide)
+    for m in (0, WB_M - 1):
+        centre = float(chz.channel_center_hz(m, WB_M, fs_wide))
+        band = np.abs(freqs - centre) < tx.IQ_RATE / 2
+        f_pk = float(freqs[band][spec[band].argmax()])
+        want = (centre + trace_tx.expected_peak_hz(cfg)
+                + 10.0 * (m % 200))
+        print(f"  wideband_tx channel {m} peak {f_pk:.1f} Hz (centre "
+              f"{centre:.0f} Hz, expected {want:.1f} Hz)")
+        check(abs(f_pk - want) < max(20.0, 2 * fs_wide / n_out),
+              f"wideband_tx channel {m} at {f_pk} Hz, not {want}")
+    return launches, ms_block, msps, worst
+
+
+def agc_stereo_rows_path(dev, seed, n_timed=4, n_warm=2, n_ref=2,
+                         ref_ch=8):
+    """The entry path of K13's rows: `ops.agc.run_stereo` at 12 kHz on
+    (8192, 2, 2048) audio with a threshold per channel (40 ... 80 dB),
+    state carried; channels 0-7 against the same call on the CPU (plain
+    versions) over the first blocks, >= KERNEL_TOL_DB.  Returns
+    (launches, ms/block, Ms/s of input samples, worst SNR)."""
+    C, T = CHANNELS, STEREO_ROWS_T
+    params = agc_ops.make_params(12000.0, thresh_db=STEREO_ROWS_THRESH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    blocks = [torch.stack([agc_block(gen, dev, C, T, k * T, 12000.0),
+                           0.5 * agc_block(gen, dev, C, T, k * T, 12000.0)],
+                          dim=1) for k in range(n_warm + n_timed)]
+    state = agc_ops.init_state_stereo((C,), params, device=dev)
+    setup = agc_ops.make_setup(params, C, dev)
+    kept = []
+
+    def step(x):
+        nonlocal state
+        y, state = agc_ops.run_stereo(params, state, x, setup)
+        if len(kept) < n_ref:
+            kept.append(y[:ref_ch].clone())
+        return y
+
+    launches, ms_block, y = timed_run(step, blocks, "agc_stereo_rows",
+                                      ("agc_scan_rows",), n_warm, n_timed)
+    check(tuple(y.shape) == (C, 2, T) and bool(torch.isfinite(y).all()),
+          "agc_stereo_rows output")
+    p8 = agc_ops.make_params(12000.0, thresh_db=STEREO_ROWS_THRESH[:ref_ch])
+    s8 = agc_ops.init_state_stereo((ref_ch,), p8)
+    worst = math.inf
+    for k in range(n_ref):
+        y_cpu, s8 = agc_ops.run_stereo(p8, s8, blocks[k][:ref_ch].cpu())
+        s = snr_db(y_cpu, kept[k].cpu())
+        worst = min(worst, s)
+        print(f"  agc_stereo_rows vs CPU, block {k}, ch 0-{ref_ch - 1}: "
+              f"SNR {s:.1f} dB")
+    check(worst >= KERNEL_TOL_DB,
+          f"agc_stereo_rows vs CPU: {worst:.1f} dB < {KERNEL_TOL_DB} dB")
+    msps = C * 2 * T / (ms_block * 1e-3) / 1e6
+    return launches, ms_block, msps, worst
 
 
 # "blocked" (K2): every path whose cascade stage is non-empty (the
@@ -1538,6 +2014,14 @@ MAIN_PATHS = (
 )
 PATH_ENV = {"ssb_mt": {"UHSDR_FRONT_MT": "1"}}
 TX_VOICE = ("fir_real", "alc", "blocked")
+# the fleet: K1 (usb, lsb, cw), K5 (am, sam, fm), K9 (sam both), K12 (fm),
+# K2, K3 with rows (the five 12 kHz groups' merged AGC), K3 (FM's), K4
+FLEET_SEPARATE_KERNELS = ("front", "fir_rt", "pll_audio", "fm_disc",
+                          "blocked", "agc", "interp")
+FLEET_KERNELS = FLEET_SEPARATE_KERNELS + ("agc_rows",)
+WIDEBAND_KERNELS = ("front", "fir_rt", "blocked", "agc", "interp")
+FLEET_TIMED = 6          # timed blocks of the fleet paths (2 warm-up)
+WIDEBAND_TIMED = 6       # and of the wideband paths
 # (label, config, kernels it must launch, timed blocks, channels); CW's
 # keyed carrier runs no kernel (nor does the reference's)
 TX_PATHS = (
@@ -1601,7 +2085,8 @@ def main() -> int:
                   phase_pll_cos_sin, phase_pll_audio, phase_biquad,
                   phase_fir_cx, phase_fm_disc, phase_agc_scan,
                   phase_front_pair, phase_fir_real, phase_alc,
-                  phase_blocked, phase_biquad_grouped, phase_front_mt):
+                  phase_blocked, phase_biquad_grouped, phase_front_mt,
+                  phase_agc_rows, phase_agc_scan_rows):
         t1 = time.time()
         print(f"phase {phase.__name__}:")
         r = phase(P, dev, gen)
@@ -1660,7 +2145,82 @@ def main() -> int:
           f"{SAM.block_len // SAM.decim} f32, both allpass sets: "
           f"{ms_block:.3f} ms/block over 4 blocks, K11 SNR {worst:.1f} dB "
           f"({time.time() - t1:.1f} s) on {card}")
-    # a kernel counts as launched by a chain path or by the entry path
+    # the fleet, twice over the same blocks: stage-batched and per group;
+    # the CPU check of the stage-batched run after both timed runs
+    cfgs = fleet_configs()
+    fleet_blocks = trace_rx.fleet_capture(cfgs, 2 + FLEET_TIMED,
+                                          FLEET_GROUP_CHANNELS, dev,
+                                          args.seed)
+    n_fleet = FLEET_GROUP_CHANNELS * len(cfgs)
+    fleet_kept = None
+    for label, fused in (("fleet", True), ("fleet_separate", False)):
+        t1 = time.time()
+        print(f"phase fleet path {label}:")
+        launches, ms_block, msps, kept, kept_states = fleet_path(
+            label, fused, fleet_blocks, dev, FLEET_TIMED)
+        by_path[label] = launches
+        per_block[label] = {k: n / len(fleet_blocks)
+                            for k, n in launches.items()}
+        if fused:
+            fleet_kept = (kept, kept_states)
+        del kept, kept_states
+        torch.cuda.empty_cache()
+        print(f"fleet path {label}: {len(cfgs)} groups "
+              f"({', '.join(c.mode for c in cfgs)}) x "
+              f"{FLEET_GROUP_CHANNELS} ch = {n_fleet} ch x {FLEET_BLOCK} f32 "
+              f"@ 48 kHz: {ms_block:.3f} ms/block over {FLEET_TIMED} "
+              f"blocks, {msps:.1f} Ms/s ({time.time() - t1:.1f} s) on "
+              f"{card}")
+    t1 = time.time()
+    print("phase fleet vs the CPU fleet:")
+    worst = fleet_vs_cpu("fleet", cfgs, fleet_blocks, *fleet_kept)
+    del fleet_kept
+    print(f"fleet vs CPU fleet, channels 0-7 of each group, blocks 0-1: "
+          f"worst {worst:.1f} dB ({time.time() - t1:.1f} s)")
+    t1 = time.time()
+    print("phase fleet lockstep (fleet against fleet_separate):")
+    n_eq, n_all = fleet_lockstep(fleet_blocks, dev)
+    del fleet_blocks
+    torch.cuda.empty_cache()
+    print(f"fleet vs fleet_separate: {n_eq} of {n_all} bit-equal "
+          f"({time.time() - t1:.1f} s)")
+    t1 = time.time()
+    print("phase wideband path:")
+    launches, ms_block, msps, worst_fleet, worst = wideband_path(
+        dev, args.seed, WIDEBAND_TIMED)
+    by_path["wideband"] = launches
+    per_block["wideband"] = {k: n / (2 + WIDEBAND_TIMED)
+                             for k, n in launches.items()}
+    torch.cuda.empty_cache()
+    print(f"wideband path: {WB_M} ch x {WB_T} (usb {2 * WB_M // 3}, am "
+          f"{WB_M - 2 * WB_M // 3}) from {WB_M * WB_T} wideband samples: "
+          f"{ms_block:.3f} ms/block over {WIDEBAND_TIMED} blocks, "
+          f"{msps:.1f} Ms/s (wideband), CPU-fleet SNR {worst_fleet:.1f} dB, "
+          f"bank vs direct form {worst:.1f} dB "
+          f"({time.time() - t1:.1f} s) on {card}")
+    t1 = time.time()
+    print("phase wideband_tx path:")
+    launches, ms_block, msps, worst = wideband_tx_path(dev, args.seed,
+                                                       WIDEBAND_TIMED)
+    by_path["wideband_tx"] = launches
+    per_block["wideband_tx"] = {k: n / (2 + WIDEBAND_TIMED)
+                                for k, n in launches.items()}
+    torch.cuda.empty_cache()
+    print(f"wideband_tx path: {WB_M} ch x {WB_T} {TXF.mode} to "
+          f"{WB_M * WB_T} wideband samples: {ms_block:.3f} ms/block over "
+          f"{WIDEBAND_TIMED} blocks, {msps:.1f} Ms/s (wideband), CPU-chain "
+          f"SNR {worst:.1f} dB ({time.time() - t1:.1f} s) on {card}")
+    t1 = time.time()
+    print("phase entry path agc_stereo_rows:")
+    launches, ms_block, msps, worst = agc_stereo_rows_path(dev, args.seed)
+    by_path["agc_stereo_rows"] = launches
+    per_block["agc_stereo_rows"] = {k: n / 6 for k, n in launches.items()}
+    torch.cuda.empty_cache()
+    print(f"entry path agc_stereo_rows: {CHANNELS} ch x 2 x "
+          f"{STEREO_ROWS_T} @ 12 kHz, thresholds 40-80 dB: {ms_block:.3f} "
+          f"ms/block over 4 blocks, {msps:.1f} Ms/s, CPU SNR {worst:.1f} dB "
+          f"({time.time() - t1:.1f} s) on {card}")
+    # a kernel counts as launched by a chain path or by an entry path
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()
                                  if n[r["name"]]}

@@ -15,7 +15,11 @@ kernels repeat their plain versions' operations in order and are held to
 the plain loop's operations too; tests/test_demod.py holds the TPU
 kernels to 3e-4); the FM discriminator to max |err| <= 2e-6 modulo 2 pi
 (an angle at the branch cut may come out as +pi or -pi); the chain on
-the card against the chain on the CPU to 80 dB.
+the card against the chain on the CPU to 80 dB.  K3 and K13 with
+per-channel rows must be bit-exact with their plain versions, and a
+channel with rows must give the bits it gives alone with scalars; the
+mixed-mode fleet's stage-batched step must be bit-equal to its groups
+run as separate chains.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from uhsdr_tpu_torch.demod import sam as sam_mod
 from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.ops import agc as agc_ops
 from uhsdr_tpu_torch.ops import iir, nco
+from uhsdr_tpu_torch.parallel import fleet as fleet_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -109,7 +114,7 @@ def test_front_kernel_matches_plain(dev, iq_rate, C, B, dtype):
                                     (5, 300, 64000.0)])       # w = 256
 def test_agc_kernel_matches_plain(dev, C, T, fs):
     params = agc_ops.make_params(fs, mode="med", hang_enable=True)
-    p = agc_ops.kernel_params(params)
+    p = agc_ops.kernel_params(params).scalars
     w = params.attack_buffsize
     rng = np.random.default_rng(2)
     ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
@@ -157,7 +162,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fir_k.interpolate(h, torch.zeros((4, 11), device=dev),
                           x.to(torch.float64), 8)
     with pytest.raises(ValueError):
-        agc_k.agc(agc_ops.kernel_params(agc_ops.make_params(12000.0)),
+        agc_k.agc(agc_ops.kernel_params(agc_ops.make_params(12000.0)).scalars,
                   torch.zeros((7, 4), device=dev),
                   torch.zeros((4, 48)), x)
 
@@ -318,7 +323,7 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
                      torch.zeros((C, 399), dtype=torch.complex64,
                                  device=dev), x, x, 2)
     with pytest.raises(ValueError):                 # look-ahead beyond MAXW
-        agc_k.agc(agc_ops.kernel_params(agc_ops.make_params(12000.0)),
+        agc_k.agc(agc_ops.kernel_params(agc_ops.make_params(12000.0)).scalars,
                   torch.zeros((7, C), device=dev),
                   torch.zeros((C, 300), device=dev), x)
 
@@ -549,7 +554,7 @@ def test_agc_scan_kernel_matches_plain(dev, C, T, fs):
     """K13 against its plain version, bit for bit (both repeat the machine
     step's operations in order; the kernel is built with -fmad=false)."""
     params = agc_ops.make_params(fs, mode="med", hang_enable=True)
-    p = agc_ops.kernel_params(params)
+    p = agc_ops.kernel_params(params).scalars
     w = params.attack_buffsize
     rng = np.random.default_rng(10)
     ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
@@ -659,7 +664,7 @@ def test_slice4_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from uhsdr_tpu_torch.cuda import alc as alc_k
     C, T = 4, 64
     x = torch.zeros((C, T), device=dev)
-    p = agc_ops.kernel_params(agc_ops.make_params(12000.0))
+    p = agc_ops.kernel_params(agc_ops.make_params(12000.0)).scalars
     with pytest.raises(ValueError):                 # carry of 6 rows
         agc_k.agc_scan(p, torch.zeros((6, C), device=dev), x, x)
     with pytest.raises(ValueError):                 # shapes differ
@@ -944,3 +949,118 @@ def test_slice5_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                    device=dev),
                        xi, xi, torch.zeros(4, dtype=torch.int64, device=dev),
                        pp.nco_delta, cfg.decim)
+
+
+@pytest.mark.parametrize("C,T,fs", [(40, 1000, 12000.0), (70, 2048, 24000.0),
+                                    (5, 300, 48000.0)])
+def test_agc_rows_kernel_bit_exact(dev, C, T, fs):
+    """K3 with (3, C) rows: bit-exact with its plain version over three
+    streamed blocks, and each channel bit-equal to itself run alone with
+    scalar settings."""
+    th = np.linspace(40.0, 80.0, C)
+    params = agc_ops.make_params(fs, mode="med", hang_enable=True,
+                                 thresh_db=th)
+    kp = agc_ops.kernel_params(params, C)
+    rows = torch.as_tensor(kp.rows, device=dev)
+    w = params.attack_buffsize
+    rng = np.random.default_rng(21)
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    dk = dp = torch.zeros((C, w), device=dev)
+    level = np.logspace(-1, 4, C)[:, None]
+    xs = []
+    for blk in range(3):
+        n = np.arange(blk * T, (blk + 1) * T)
+        x = level * np.sin(2 * np.pi * 700 * n / fs) * (n < 1.5 * T)
+        x = torch.from_numpy((x + rng.standard_normal((C, T)) * 0.5)
+                             .astype(np.float32)).to(dev)
+        xs.append(x)
+        n0 = agc_k.AGC_ROWS.launches
+        yk, ck, dk = agc_k.agc(kp.scalars, ck, dk, x, rows)
+        assert agc_k.AGC_ROWS.launches == n0 + 1
+        yp, cp, dp = agc_k.agc_plain(kp.scalars, cp, dp, x, rows)
+        for a, b in ((yp, yk), (cp, ck), (dp, dk)):
+            assert torch.equal(a, b)
+    for c in (0, C // 2, C - 1):
+        p1 = agc_ops.kernel_params(agc_ops.make_params(
+            fs, mode="med", hang_enable=True, thresh_db=float(th[c])))
+        c1 = torch.zeros((agc_k.N_CARRY, 1), device=dev)
+        d1 = torch.zeros((1, w), device=dev)
+        for blk, x in enumerate(xs):
+            y1, c1, d1 = agc_k.agc(p1.scalars, c1, d1,
+                                   x[c:c + 1].contiguous())
+        assert torch.equal(y1[0], yk[c]) and torch.equal(c1[:, 0], ck[:, c])
+    with pytest.raises(ValueError, match="rows"):
+        agc_k.agc(kp.scalars, ck, dk, xs[0], rows[:2].contiguous())
+
+
+@pytest.mark.parametrize("C,T", [(40, 1000), (129, 2048)])
+def test_agc_scan_rows_kernel_bit_exact(dev, C, T):
+    """K13 with (2, C) rows: bit-exact with its plain version over three
+    streamed blocks, each channel as alone with scalars."""
+    th = np.linspace(40.0, 80.0, C)
+    params = agc_ops.make_params(12000.0, mode="med", hang_enable=True,
+                                 thresh_db=th)
+    kp = agc_ops.kernel_params(params, C)
+    rows = torch.as_tensor(kp.scan_rows, device=dev)
+    rng = np.random.default_rng(22)
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    ins = []
+    for blk in range(3):
+        a = torch.from_numpy(np.abs(rng.standard_normal((C, T + 48)))
+                             .astype(np.float32) * np.logspace(-1, 4, C)
+                             [:, None].astype(np.float32)).to(dev)
+        rm = agc_k.look_ahead_max(a, 48, T).contiguous()
+        ax = a[:, :T].contiguous()
+        ins.append((rm, ax))
+        n0 = agc_k.AGC_SCAN_ROWS.launches
+        vk, ck = agc_k.agc_scan(kp.scalars, ck, rm, ax, rows)
+        assert agc_k.AGC_SCAN_ROWS.launches == n0 + 1
+        vp, cp = agc_k.agc_scan_plain(kp.scalars, cp, rm, ax, rows)
+        assert torch.equal(vp, vk) and torch.equal(cp, ck)
+    for c in (0, C - 1):
+        p1 = agc_ops.kernel_params(agc_ops.make_params(
+            12000.0, mode="med", hang_enable=True, thresh_db=float(th[c])))
+        c1 = torch.zeros((agc_k.N_CARRY, 1), device=dev)
+        for rm, ax in ins:
+            v1, c1 = agc_k.agc_scan(p1.scalars, c1, rm[c:c + 1].contiguous(),
+                                    ax[c:c + 1].contiguous())
+        assert torch.equal(v1[0], vk[c]) and torch.equal(c1[:, 0], ck[:, c])
+
+
+def test_fleet_fused_bit_equal_to_separate_chains(dev):
+    """A small fleet on the card (usb 60 dB, cw 70 dB, am 55 dB, fm; 3-9
+    channels a group): the stage-batched step (usb and cw in one K1
+    launch, the 12 kHz groups in one K3 launch with rows and one K4
+    launch) bit-equal to the groups run as separate chains, output and
+    every state leaf, over three blocks."""
+    kws = [dict(mode="usb", bw_key="2P3KHZ", path_name="LPF",
+                agc_thresh_db=60.0),
+           dict(mode="cw", bw_key="500HZ", path_name="750Hz",
+                agc_thresh_db=70.0),
+           dict(mode="am", bw_key="2P5KHZ", path_name="AM/SAM",
+                agc_thresh_db=55.0),
+           dict(mode="fm", bw_key="5P0KHZ", path_name="FM")]
+    cfgs = [rx.RxConfig(**kw, translate_hz=6000.0, block_len=2048)
+            for kw in kws]
+    assign = [0] * 5 + [1] * 9 + [2] * 3 + [3] * 4
+    fused = fleet_mod.ChannelFleet(cfgs, assign, device=dev)
+    separate = fleet_mod.ChannelFleet(cfgs, assign, device=dev)
+    rng = np.random.default_rng(23)
+    for blk in range(3):
+        planes = [tuple(torch.from_numpy(
+            rng.standard_normal((g.channel_idx.size, 2048)).astype(
+                np.float32) * 0.1).to(dev) for _ in range(2))
+            for g in fused.groups]
+        n_rows = agc_k.AGC_ROWS.launches
+        n_front = fir_k.FRONT.launches
+        ya = fused.process_block_device(planes)
+        assert agc_k.AGC_ROWS.launches == n_rows + 1
+        assert fir_k.FRONT.launches == n_front + 1
+        yb = separate.step_separate(planes)
+        for a, b in zip(ya, yb):
+            assert torch.equal(a, b)
+        for ga, gb in zip(fused.groups, separate.groups):
+            sa, sb = rx.state_to_numpy(ga.state), rx.state_to_numpy(gb.state)
+            assert sa.keys() == sb.keys()
+            for f in sa:
+                np.testing.assert_array_equal(sa[f], sb[f], err_msg=f)

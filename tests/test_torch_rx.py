@@ -19,11 +19,14 @@ wrappers run the kernels' plain torch versions:
 * import hygiene: the port and chip_smoke.py import neither jax nor the
   JAX package;
 * entry points default to CUDA and raise where it is absent; modes and
-  options outside the slices, and an unfused stage B, raise
-  NotImplementedError.
+  options outside the slices, the settings of those options away from
+  their defaults, and an unfused stage B, raise NotImplementedError;
+* `RxConfig` has the JAX package's fields with its defaults, and the
+  backend selectors and ``cw_offset_hz`` change nothing.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -350,7 +353,10 @@ def test_imports_neither_jax_nor_the_jax_package():
         "       'uhsdr_tpu_torch.cuda.fir', 'uhsdr_tpu_torch.trace_rx',\n"
         "       'uhsdr_tpu_torch.mod.alc', 'uhsdr_tpu_torch.mod.modulators',\n"
         "       'uhsdr_tpu_torch.chain.tx', 'uhsdr_tpu_torch.cuda.alc',\n"
-        "       'uhsdr_tpu_torch.cuda.agc', 'uhsdr_tpu_torch.trace_tx'}\n"
+        "       'uhsdr_tpu_torch.cuda.agc', 'uhsdr_tpu_torch.trace_tx',\n"
+        "       'uhsdr_tpu_torch.parallel.fleet',\n"
+        "       'uhsdr_tpu_torch.ops.channelizer',\n"
+        "       'uhsdr_tpu_torch.ops.fftutil'}\n"
         "print(n, bad, sorted(new - set(sys.modules)))\n"
         "sys.exit(1 if bad or n < 30 or new - set(sys.modules) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -375,7 +381,11 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
     dict(mode="ssbstereo", bw_key="5P0KHZ"), dict(nr_enable=True),
     dict(nb_enable=True), dict(notch_enable=True),
     dict(leaky_nr_enable=True), dict(iq_auto_correction=True),
-    dict(mode="iq", bw_key="10P0KHZ"), dict(front="scipy")])
+    dict(mode="iq", bw_key="10P0KHZ"), dict(front="scipy"),
+    dict(nr_enable=True, nr_strength=100), dict(nb_enable=True, nb_setting=3),
+    dict(notch_enable=True, leaky_notch=True),
+    dict(nr_enable=True, nr_prec_escalate=False),
+    dict(front="scipy", high_taps=False)])
 def test_outside_the_slice_raises(kw):
     """RX options still outside the port (the two-channel modes on the wide
     rows run the reference's legacy front) and FM TX."""
@@ -401,3 +411,31 @@ def test_unfused_stage_b_raises():
     assert out is audio and s2 is s
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trx.stage_b(cfg, p, s, torch.ones((2, 16), dtype=torch.complex64))
+
+
+def test_rx_config_fields_match_jax():
+    """The port's RxConfig names every field of the JAX package's, with
+    equal defaults (the tone settings compared field by field)."""
+    def fields(cls):
+        out = {}
+        for f in dataclasses.fields(cls):
+            v = f.default
+            out[f.name] = dataclasses.asdict(v) if dataclasses.is_dataclass(
+                v) else v
+        return out
+
+    assert fields(trx.RxConfig) == fields(jrx.RxConfig)
+
+
+def test_parity_fields_change_nothing():
+    """cw_offset_hz (read by no chain code), the backend selectors and the
+    settings of options that are off build the same chain."""
+    base = trx.RxConfig(**FLAGSHIP)
+    p0 = trx.make_params(base, device="cpu")
+    for kw in (dict(cw_offset_hz=500.0), dict(front_impl="pallas"),
+               dict(iir_impl="scan"), dict(nr_strength=100),
+               dict(nb_setting=3), dict(leaky_notch=True),
+               dict(high_taps=False), dict(nr_prec_escalate=False)):
+        p = trx.make_params(dataclasses.replace(base, **kw), device="cpu")
+        for name, a, b in zip(p._fields, p, p0):
+            assert _same(a, b), (kw, name)

@@ -76,7 +76,7 @@ def test_agc_scan_plain_matches_pallas_and_xla_scan():
     fs, C, T = 12000.0, 1024, 256
     jp = jagc.make_params(fs, hang_enable=True)
     tp = tagc.make_params(fs, hang_enable=True)
-    p = tagc.kernel_params(tp)
+    p = tagc.kernel_params(tp).scalars
     pp = jagc._pallas_params(jp, np.float32(jp.hang_time_samples),
                              fused=False, scalar=True)
     w = tp.attack_buffsize

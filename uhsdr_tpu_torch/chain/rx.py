@@ -41,15 +41,22 @@ hold torch tensors on one device; entry points default to
 ``device="cuda"`` and raise where CUDA is absent, and run the kernels'
 plain torch versions only when the caller asks for ``device="cpu"``.
 Modes and options outside the slice raise NotImplementedError naming the
-ROADMAP item that brings them.  ``front_prec`` is accepted for
-configuration parity with the JAX package, but the port always computes
-in full FP32 (the kernels use FP32 FMAs, never TF32 or bf16, K15
+ROADMAP item that brings them.  `RxConfig` has every field of the JAX
+package's, under its names and defaults.  ``cw_offset_hz`` (read by no
+chain code in either package), the backend selectors ``front_impl`` and
+``iir_impl``, and ``front_prec`` are accepted for configuration parity:
+the port computes the same thing for every value.  ``high_taps``,
+``nr_strength``, ``nb_setting``, ``leaky_notch`` and
+``nr_prec_escalate`` are the settings of options the port does not run
+yet and are accepted at their defaults.  The port always computes in
+full FP32 (the kernels use FP32 FMAs, never TF32 or bf16, K15
 included, whose TPU counterpart runs one bf16 pass; the smoothers'
 matmuls and the cascade's plain form refuse to run on the card with
 TF32 on, which callers that compare numbers pin off).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Any, NamedTuple
@@ -109,21 +116,29 @@ class RxConfig:
     ref_select_id: int | None = None  # FilterPathInfo row selector
     translate_hz: float = 6000.0   # reference: ±6k/±12k (audio_driver.c:445)
     block_len: int = 4096          # IQ-rate samples per block
+    high_taps: bool = True         # the legacy front's 199- vs 89-tap filter
     agc_mode: str = "med"
     agc_thresh_db: float = 60.0
     nr_enable: bool = False
+    nr_strength: int = 141         # spectral NR (nr_enable)
     nb_enable: bool = False
+    nb_setting: int = 8            # noise blanker (nb_enable), 0..15
     notch_enable: bool = False
     leaky_nr_enable: bool = False
+    leaky_notch: bool = False      # leaky LMS as the notch (notch_enable)
     sql_threshold: int = 0         # FM squelch
     subtone_hz: float = 0.0        # FM subaudible tone detect
     sam_sideband: str = "both"     # SAM: both | usb | lsb | stereo
     fade_leveler: bool = True      # AM/SAM
+    cw_offset_hz: float = 700.0    # accepted; no chain code reads it
     iq_auto_correction: bool = False
     fm_dev5: bool = False          # FM deviation 5 kHz (else 2.5 kHz)
+    front_impl: str = "auto"       # accepted; the port's front is its kernel
     front_prec: str = "default"    # accepted; the port computes in FP32
+    iir_impl: str = "auto"         # accepted; the cascades are K2 / K11
     iq_rate: float = IQ_RATE       # 48 kHz or a multiple (96 kHz flagship)
     eq: eq_mod.EqSettings = eq_mod.EqSettings()   # tone controls
+    nr_prec_escalate: bool = True  # NR's front precision (nr_enable)
 
     @property
     def path(self) -> filterpaths.FilterPath:
@@ -173,6 +188,8 @@ class RxConfig:
         return self.iq_rate / self.decim
 
 
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(RxConfig)}
+
 # The flagship deployment, the chain bench.py times (bench.py:89-113): the
 # BASELINE's "10k simultaneous SSB channels @96 kHz", run at 8192
 # channels of int16 IQ planes.
@@ -213,6 +230,17 @@ WIDE_FLAGSHIP = RxConfig(mode="usb", bw_key="5P0KHZ", path_name="LPF",
 
 def check_slice(cfg: RxConfig):
     """Raise NotImplementedError for what the port does not run yet."""
+    # the settings of options the port does not run yet: accepted at their
+    # defaults, refused where their option is on and they differ
+    for field, on in (("high_taps", cfg.front != "ref"),
+                      ("nr_strength", cfg.nr_enable),
+                      ("nr_prec_escalate", cfg.nr_enable),
+                      ("nb_setting", cfg.nb_enable),
+                      ("leaky_notch", cfg.notch_enable)):
+        if on and getattr(cfg, field) != _DEFAULTS[field]:
+            raise NotImplementedError(
+                f"{field}={getattr(cfg, field)!r}: ROADMAP.md queue A "
+                f"item 7")
     if cfg.mode not in ("usb", "lsb", "cw", "am", "sam", "fm", "iq",
                         "ssbstereo"):
         raise NotImplementedError(f"mode {cfg.mode!r}: {_ROADMAP_MODES}")

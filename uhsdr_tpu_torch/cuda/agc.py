@@ -13,6 +13,13 @@ _make_machine_step (:36), entered from ops/agc.py:481; K13 replaces
 ops/agc.py::_run_machine (the linked stereo AGC).  On this card both
 are bound by their recurrence (T dependent steps per channel), not by
 their bytes; see the note in the source.
+
+Per-channel gain-law rows (the TPU kernels' `chan` operand): `agc` and
+`agc_scan` take ``rows=None`` (the scalar settings of `AgcScalars`) or
+an f32 table, (3, C) [min_volts, slope_constant, hang_level] for K3 and
+(2, C) [min_volts, hang_level] for K13, whose values replace those
+scalars channel by channel.  The row launches are counted apart, as
+``AGC_ROWS`` and ``AGC_SCAN_ROWS``.
 """
 from __future__ import annotations
 
@@ -29,15 +36,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 AGC = CudaKernel("agc", "agc.cu", {
-    "uhsdr_agc_launch": ([_P, _P, _P, _I, _I, _I] + [_F] * 14
+    "uhsdr_agc_launch": ([_P, _P, _P, _P, _I, _I, _I] + [_F] * 14
                          + [_P, _P, _P, _P], _I),
     "uhsdr_agc_max_window": ([], _I),
-    "uhsdr_agc_scan_launch": ([_P, _P, _P, _I, _I] + [_F] * 11
+    "uhsdr_agc_scan_launch": ([_P, _P, _P, _P, _I, _I] + [_F] * 11
                               + [_P, _P, _P], _I),
 }, extra_flags=("-fmad=false",))
-# one source and library, two kernels: K3 (the whole AGC) and K13 (the
-# machine alone)
+# one source and library, four kernels: K3 (the whole AGC) and K13 (the
+# machine alone), each with scalar settings and with per-channel rows
 AGC_SCAN = CudaKernel("agc_scan", "agc.cu", lib_of=AGC)
+AGC_ROWS = CudaKernel("agc_rows", "agc.cu", lib_of=AGC)
+AGC_SCAN_ROWS = CudaKernel("agc_scan_rows", "agc.cu", lib_of=AGC)
 
 N_CARRY = 7   # volts, save_volts, hang_counter, decay_type, state, fba, hba
 
@@ -60,16 +69,23 @@ class AgcScalars(NamedTuple):
     inv_max_input: float
 
 
+N_ROWS_AGC = 3    # K3's rows: min_volts, slope_constant, hang_level
+N_ROWS_SCAN = 2   # K13's rows: min_volts, hang_level
+
+
 def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def machine_step(p: AgcScalars, carry, rm, fb, hb):
+def machine_step(p: AgcScalars, carry, rm, fb, hb, chan=None):
     """One step of the 5-state machine on (C,) tensors, as the reference's
     masked-arithmetic scan body `_make_xla_step` (ops/agc.py:362-427):
     every branch is a 0/1 mask and the outcomes are blended.  carry =
-    (volts, save_volts, hang_counter, decay_type, state)."""
+    (volts, save_volts, hang_counter, decay_type, state).  chan: None, or
+    the (C,) tensors (min_volts, hang_level) in place of the scalars."""
     volts, save_volts, hang_counter, decay_type, st = carry
+    min_volts, hang_level = ((p.min_volts, p.hang_level) if chan is None
+                             else chan)
     hang_en = 1.0 if p.hang_enable else 0.0
     hang_counter = torch.clamp_min(hang_counter - 1.0, 0.0)
 
@@ -87,7 +103,7 @@ def machine_step(p: AgcScalars, carry, rm, fb, hb):
     is3 = ((st > 2.5) & (st < 3.5)).to(f)
     is4 = (st > 3.5).to(f)
 
-    ht = hang_en * (hb > p.hang_level).to(f)
+    ht = hang_en * (hb > hang_level).to(f)
     s0_fast = (volts > p.pop_ratio * fb).to(f)
     s1_fastc = (volts > save_volts).to(f)
     hc_wait = (hang_counter > 0.5).to(f)
@@ -123,7 +139,8 @@ def machine_step(p: AgcScalars, carry, rm, fb, hb):
     new_save = save_upd * volts + (1.0 - save_upd) * save_volts
     new_hang = m0h * p.hang_time + (1.0 - m0h) * hang_counter
     new_decay = m0h * 1.0 + (1.0 - (m0h + m0l)) * decay_type
-    new_volts = torch.clamp_min(new_volts, p.min_volts)
+    new_volts = (torch.clamp_min(new_volts, min_volts) if chan is None
+                 else torch.maximum(new_volts, min_volts))
     return new_volts, new_save, new_hang, new_decay, new_state
 
 
@@ -133,51 +150,66 @@ def look_ahead_max(a: torch.Tensor, w: int, T: int) -> torch.Tensor:
     return a[..., 1:].unfold(-1, w, 1).amax(-1)[..., :T]
 
 
-def agc_scan_plain(p: AgcScalars, carry, rm, ax):
+def agc_scan_plain(p: AgcScalars, carry, rm, ax, rows=None):
     """Plain torch version of K13: per step the back-averages of `ax`
     update, then `machine_step` on `rm`, in a time loop.  carry (7, C);
-    rm, ax (C, T).  Returns (volts (C, T), new_carry (7, C))."""
+    rm, ax (C, T); rows None or (2, C) [min_volts, hang_level].  Returns
+    (volts (C, T), new_carry (7, C))."""
     a_f = _f32(np.float32(1.0) - np.float32(p.fast_backmult))
     a_h = _f32(np.float32(1.0) - np.float32(p.hang_backmult))
     volts, save, hang, decay, st, fba, hba = carry.unbind(0)
+    chan = None if rows is None else (rows[0], rows[1])
     mc = (volts, save, hang, decay, st)
     vs = []
     for n in range(rm.shape[-1]):
         fba = a_f * fba + p.fast_backmult * ax[:, n]
         hba = a_h * hba + p.hang_backmult * ax[:, n]
-        mc = machine_step(p, mc, rm[:, n], fba, hba)
+        mc = machine_step(p, mc, rm[:, n], fba, hba, chan)
         vs.append(mc[0])
     return torch.stack(vs, dim=-1), torch.stack(list(mc) + [fba, hba], dim=0)
 
 
-def gain_law(p: AgcScalars, v: torch.Tensor) -> torch.Tensor:
+def gain_law(p: AgcScalars, v: torch.Tensor, slope=None) -> torch.Tensor:
     """The log-domain gain (out_target - slope*min(log10(v/max_in), 0))
-    / v of the volts series."""
+    / v of the (C, T) volts series; slope None (the scalar) or a (C,)
+    tensor."""
     vo = torch.clamp_max(torch.log10(p.inv_max_input * v), 0.0)
-    return (p.out_target - p.slope_constant * vo) / v
+    slope = p.slope_constant if slope is None else slope[:, None]
+    return (p.out_target - slope * vo) / v
 
 
-def agc_plain(p: AgcScalars, carry, delay, x):
+def agc_plain(p: AgcScalars, carry, delay, x, rows=None):
     """Plain torch version of K3: the delay line, the look-ahead max, the
     machine walk of `agc_scan_plain`, then the gain law.  carry (7, C);
-    delay (C, w); x (C, T).  Returns (y (C, T), new_carry (7, C),
+    delay (C, w); x (C, T); rows None or (3, C) [min_volts,
+    slope_constant, hang_level].  Returns (y (C, T), new_carry (7, C),
     new_delay (C, w))."""
     T = x.shape[-1]
     w = delay.shape[-1]
     xfull = torch.cat([delay, x], dim=-1)
     a = xfull.abs()
-    v, new_carry = agc_scan_plain(p, carry, look_ahead_max(a, w, T),
-                                  a[:, :T])
-    y = xfull[:, :T] * gain_law(p, v)
+    v, new_carry = agc_scan_plain(
+        p, carry, look_ahead_max(a, w, T), a[:, :T],
+        None if rows is None else rows[0::2])
+    y = xfull[:, :T] * gain_law(p, v, None if rows is None else rows[1])
     return y, new_carry, xfull[:, xfull.shape[-1] - w:]
 
 
-def agc(p: AgcScalars, carry, delay, x):
+def _check_rows(rows, n: int, C: int, dev, what: str):
+    if rows is not None and (
+            rows.shape != (n, C) or rows.dtype != torch.float32
+            or rows.device != dev or not rows.is_contiguous()):
+        raise ValueError(f"{what}: rows must be a contiguous ({n}, C) f32 "
+                         f"tensor on the input's device")
+
+
+def agc(p: AgcScalars, carry, delay, x, rows=None):
     """The whole AGC stage (K3).  carry: (7, C) f32 in the order
     [volts, save, hang, decay, state, fba, hba]; delay: (C, w) f32;
-    x: (C, T) f32.  Returns (y, new_carry, new_delay)."""
+    x: (C, T) f32; rows: None or (3, C) f32 [min_volts, slope_constant,
+    hang_level].  Returns (y, new_carry, new_delay)."""
     if x.device.type == "cpu":
-        return agc_plain(p, carry, delay, x)
+        return agc_plain(p, carry, delay, x, rows)
     dev = x.device
     if x.ndim != 2:
         raise ValueError("agc: x must be (C, T)")
@@ -193,11 +225,13 @@ def agc(p: AgcScalars, carry, delay, x):
     if any(t.dtype != torch.float32 or t.device != dev
            or not t.is_contiguous() for t in ts):
         raise ValueError("agc: contiguous f32 tensors on one device")
+    _check_rows(rows, N_ROWS_AGC, C, dev, "agc")
     y = torch.empty_like(x)
     new_carry = torch.empty_like(carry)
     new_delay = torch.empty_like(delay)
     err = lib.uhsdr_agc_launch(
-        x.data_ptr(), delay.data_ptr(), carry.data_ptr(), C, T, w,
+        x.data_ptr(), delay.data_ptr(), carry.data_ptr(),
+        None if rows is None else rows.data_ptr(), C, T, w,
         p.attack_mult, p.fast_decay_mult, p.decay_mult, p.hang_decay_mult,
         p.fast_backmult, p.hang_backmult, p.pop_ratio, p.hang_level,
         p.hang_time, 1.0 if p.hang_enable else 0.0, p.min_volts,
@@ -205,17 +239,17 @@ def agc(p: AgcScalars, carry, delay, x):
         y.data_ptr(), new_carry.data_ptr(), new_delay.data_ptr(),
         stream_ptr(dev))
     AGC.check(err)
-    AGC.launches += 1
+    (AGC if rows is None else AGC_ROWS).launches += 1
     return y, new_carry, new_delay
 
 
-def agc_scan(p: AgcScalars, carry, rm, ax):
+def agc_scan(p: AgcScalars, carry, rm, ax, rows=None):
     """The AGC machine alone (K13).  carry: (7, C) f32 in the order
     [volts, save, hang, decay, state, fba, hba]; rm (the look-ahead max)
-    and ax (the delayed |x|): (C, T) f32.  Returns (volts (C, T),
-    new_carry (7, C))."""
+    and ax (the delayed |x|): (C, T) f32; rows: None or (2, C) f32
+    [min_volts, hang_level].  Returns (volts (C, T), new_carry (7, C))."""
     if rm.device.type == "cpu":
-        return agc_scan_plain(p, carry, rm, ax)
+        return agc_scan_plain(p, carry, rm, ax, rows)
     dev = rm.device
     if rm.ndim != 2 or ax.shape != rm.shape or rm.shape[-1] < 1:
         raise ValueError("agc_scan: rm and ax must be (C, T) of one shape")
@@ -226,15 +260,17 @@ def agc_scan(p: AgcScalars, carry, rm, ax):
     if any(t.dtype != torch.float32 or t.device != dev
            or not t.is_contiguous() for t in ts):
         raise ValueError("agc_scan: contiguous f32 tensors on one device")
+    _check_rows(rows, N_ROWS_SCAN, C, dev, "agc_scan")
     volts = torch.empty_like(rm)
     new_carry = torch.empty_like(carry)
     lib = AGC_SCAN.lib()
     err = lib.uhsdr_agc_scan_launch(
-        rm.data_ptr(), ax.data_ptr(), carry.data_ptr(), C, T,
+        rm.data_ptr(), ax.data_ptr(), carry.data_ptr(),
+        None if rows is None else rows.data_ptr(), C, T,
         p.attack_mult, p.fast_decay_mult, p.decay_mult, p.hang_decay_mult,
         p.fast_backmult, p.hang_backmult, p.pop_ratio, p.hang_level,
         p.hang_time, 1.0 if p.hang_enable else 0.0, p.min_volts,
         volts.data_ptr(), new_carry.data_ptr(), stream_ptr(dev))
     AGC_SCAN.check(err)
-    AGC_SCAN.launches += 1
+    (AGC_SCAN if rows is None else AGC_SCAN_ROWS).launches += 1
     return volts, new_carry

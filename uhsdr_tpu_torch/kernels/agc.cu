@@ -40,6 +40,16 @@
 // one warp walks them (one thread a channel, each step's inputs read one
 // step ahead) and writes the volts back over the rm tile, which all
 // threads then store coalesced.  K3 and K13 share `machine_step`.
+// Per-channel gain-law rows (the TPU kernels' `chan` operand,
+// pallas/agc.py:126-133 and :176-190): both kernels are templates on
+// ROWS.  Without rows every channel takes the scalar settings, and the
+// code is what it was before rows existed.  With rows, K3 takes a (3, C)
+// f32 table [min_volts, slope_constant, hang_level] and K13 a (2, C)
+// table [min_volts, hang_level]: the walking thread loads its channel's
+// min_volts and hang_level into registers once, before the time loop,
+// and K3 stages its block's 32 slopes in shared memory beside the two
+// tiles for the gain-law pass.  A channel with rows gives the bits it
+// gives alone with the same values as scalars.
 // Compiled with -fmad=false: the masks compare floats (rm >= volts,
 // hba > hang_level), so the arithmetic keeps the reference's separate
 // f32 multiplies and adds.
@@ -54,6 +64,8 @@ constexpr int THREADS = 256;
 constexpr int SX = (TA + MAXW) | 1;   // odd row strides: conflict-free walk
 constexpr int SR = TA + 1;
 constexpr int SMEM_BYTES = CB * (SX + SR) * (int)sizeof(float);
+// K3 with rows: the block's slopes after the two tiles
+constexpr int SMEM_ROWS_BYTES = SMEM_BYTES + CB * (int)sizeof(float);
 constexpr int SCAN_THREADS = 128;   // K13: staging threads per block
 
 struct Params {
@@ -93,9 +105,12 @@ __device__ __forceinline__ void store_machine(const Machine& m, float* carry,
 // One step of the 5-state machine, shared by K3 and K13: the back-averages
 // of |x| update first, then the branch masks (differenced as
 // pallas/agc.py:84-118 does) pick the new volts, state, save, hang and
-// decay.  a_f, a_h: 1 - fast_bm, 1 - hang_bm.
+// decay.  a_f, a_h: 1 - fast_bm, 1 - hang_bm; hang_level and min_volts
+// are the channel's (its row, or the scalar settings).
 __device__ __forceinline__ void machine_step(Machine& m, const Params& p,
-                                             float a_f, float a_h, float rm,
+                                             float a_f, float a_h,
+                                             float hang_level,
+                                             float min_volts, float rm,
                                              float ax) {
   const float one = 1.f;
   m.fba = a_f * m.fba + p.fast_bm * ax;
@@ -110,7 +125,7 @@ __device__ __forceinline__ void machine_step(Machine& m, const Params& p,
   const float is2 = (st > 1.5f && st < 2.5f) ? 1.f : 0.f;
   const float is3 = (st > 2.5f && st < 3.5f) ? 1.f : 0.f;
   const float is4 = st > 3.5f ? 1.f : 0.f;
-  const float ht = p.hang_en * (m.hba > p.hang_level ? 1.f : 0.f);
+  const float ht = p.hang_en * (m.hba > hang_level ? 1.f : 0.f);
   const float s0_fast = volts > p.pop_ratio * m.fba ? 1.f : 0.f;
   const float s1_fastc = volts > m.save ? 1.f : 0.f;
   const float hc_wait = m.hang > 0.5f ? 1.f : 0.f;
@@ -139,7 +154,7 @@ __device__ __forceinline__ void machine_step(Machine& m, const Params& p,
   const float gW = m0h + m1w + m2s;
   const float keff =
       att * p.attack + gF * p.fast_d + gL * p.long_d + gH * p.hang_d;
-  const float new_volts = fmaxf(volts + (rm - volts) * keff, p.min_volts);
+  const float new_volts = fmaxf(volts + (rm - volts) * keff, min_volts);
   const float new_st = gF + gW * 2.f + gL * 3.f + gH * 4.f;
   const float save_upd = att * (one - (is0 + is1));
   m.save = save_upd * volts + (one - save_upd) * m.save;
@@ -149,18 +164,26 @@ __device__ __forceinline__ void machine_step(Machine& m, const Params& p,
   m.volts = new_volts;
 }
 
+// rows: (3, C) [min_volts, slope_constant, hang_level] when ROWS, else
+// not read.
+template <bool ROWS>
 __global__ void __launch_bounds__(THREADS) agc_kernel(
     const float* __restrict__ x, const float* __restrict__ delay,
-    const float* __restrict__ carry, int C, int T, int w, Params p,
-    float* __restrict__ y, float* __restrict__ carry_out,
-    float* __restrict__ delay_out) {
+    const float* __restrict__ carry, const float* __restrict__ rows, int C,
+    int T, int w, Params p, float* __restrict__ y,
+    float* __restrict__ carry_out, float* __restrict__ delay_out) {
   extern __shared__ float smem[];
-  // slab[c][j] = xfull[t0 + j]; rmv[c][j] = look-ahead max, then volts
+  // slab[c][j] = xfull[t0 + j]; rmv[c][j] = look-ahead max, then volts;
+  // with rows, slope_s[c] = the channel's slope constant
   float (*slab)[SX] = reinterpret_cast<float (*)[SX]>(smem);
   float (*rmv)[SR] = reinterpret_cast<float (*)[SR]>(smem + CB * SX);
+  float* slope_s = smem + CB * (SX + SR);
   const int c0 = blockIdx.x * CB;
   const int tid = threadIdx.x;
   const int nc = min(CB, C - c0);
+  if constexpr (ROWS) {
+    if (tid < nc) slope_s[tid] = rows[1 * (size_t)C + c0 + tid];
+  }
 
   for (int i = tid; i < CB * w; i += THREADS) {
     const int c = i / w, j = i % w;
@@ -169,7 +192,14 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
   // the walking warp's carries
   Machine m{};
   const bool walker = tid < CB && tid < nc;
-  if (walker) m = load_machine(carry, C, c0 + tid);
+  float hang_level = p.hang_level, min_volts = p.min_volts;
+  if (walker) {
+    m = load_machine(carry, C, c0 + tid);
+    if constexpr (ROWS) {
+      min_volts = rows[0 * (size_t)C + c0 + tid];
+      hang_level = rows[2 * (size_t)C + c0 + tid];
+    }
+  }
   const float a_f = 1.f - p.fast_bm;
   const float a_h = 1.f - p.hang_bm;
 
@@ -202,7 +232,7 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
         const float ax = ax_next;
         rm_next = rmv[tid][j + 1];
         ax_next = fabsf(slab[tid][j + 1]);
-        machine_step(m, p, a_f, a_h, rm, ax);
+        machine_step(m, p, a_f, a_h, hang_level, min_volts, rm, ax);
         rmv[tid][j] = m.volts;
       }
     }
@@ -212,8 +242,9 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
       if (c < nc && j < cnt) {
         const float v = rmv[c][j];
         const float vo = fminf(log10f(p.inv_max_input * v), 0.f);
+        const float slope = ROWS ? slope_s[c] : p.slope;
         y[(size_t)(c0 + c) * T + t0 + j] =
-            slab[c][j] * ((p.out_target - p.slope * vo) / v);
+            slab[c][j] * ((p.out_target - slope * vo) / v);
       }
     }
     __syncthreads();
@@ -240,10 +271,13 @@ __global__ void __launch_bounds__(THREADS) agc_kernel(
   if (walker) store_machine(m, carry_out, C, c0 + tid);
 }
 
+// rows: (2, C) [min_volts, hang_level] when ROWS, else not read.
+template <bool ROWS>
 __global__ void __launch_bounds__(SCAN_THREADS) agc_scan_kernel(
     const float* __restrict__ rm, const float* __restrict__ ax,
-    const float* __restrict__ carry, int C, int T, Params p,
-    float* __restrict__ volts_out, float* __restrict__ carry_out) {
+    const float* __restrict__ carry, const float* __restrict__ rows, int C,
+    int T, Params p, float* __restrict__ volts_out,
+    float* __restrict__ carry_out) {
   // rms[c][j] = rm[t0 + j], then the volts of that step; axs = ax
   __shared__ float rms[CB][SR];
   __shared__ float axs[CB][SR];
@@ -252,7 +286,14 @@ __global__ void __launch_bounds__(SCAN_THREADS) agc_scan_kernel(
   const int nc = min(CB, C - c0);
   Machine m{};
   const bool walker = tid < nc;
-  if (walker) m = load_machine(carry, C, c0 + tid);
+  float hang_level = p.hang_level, min_volts = p.min_volts;
+  if (walker) {
+    m = load_machine(carry, C, c0 + tid);
+    if constexpr (ROWS) {
+      min_volts = rows[0 * (size_t)C + c0 + tid];
+      hang_level = rows[1 * (size_t)C + c0 + tid];
+    }
+  }
   const float a_f = 1.f - p.fast_bm;
   const float a_h = 1.f - p.hang_bm;
 
@@ -277,7 +318,7 @@ __global__ void __launch_bounds__(SCAN_THREADS) agc_scan_kernel(
         const float a = ax_next;
         rm_next = rms[tid][j + 1];
         ax_next = axs[tid][j + 1];
-        machine_step(m, p, a_f, a_h, r, a);
+        machine_step(m, p, a_f, a_h, hang_level, min_volts, r, a);
         rms[tid][j] = m.volts;
       }
     }
@@ -298,9 +339,12 @@ extern "C" {
 
 int uhsdr_agc_max_window() { return MAXW; }
 
-// Returns a cudaError_t.  Requires 1 <= w <= MAXW and T >= 1.
+// Returns a cudaError_t.  Requires 1 <= w <= MAXW and T >= 1.  rows: a
+// (3, C) f32 table [min_volts, slope_constant, hang_level], or nullptr
+// for the scalar settings.
 int uhsdr_agc_launch(const void* x, const void* delay, const void* carry,
-                     int C, int T, int w, float attack, float fast_d,
+                     const void* rows, int C, int T, int w, float attack,
+                     float fast_d,
                      float long_d, float hang_d, float fast_bm,
                      float hang_bm, float pop_ratio, float hang_level,
                      float hang_time, float hang_en, float min_volts,
@@ -310,31 +354,52 @@ int uhsdr_agc_launch(const void* x, const void* delay, const void* carry,
   Params p{attack, fast_d, long_d, hang_d, fast_bm, hang_bm, pop_ratio,
            hang_level, hang_time, hang_en, min_volts, out_target, slope,
            inv_max_input};
-  cudaError_t e = cudaFuncSetAttribute(
-      agc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  agc_kernel<<<(C + CB - 1) / CB, THREADS, SMEM_BYTES,
-               (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)delay, (const float*)carry, C, T, w, p,
-      (float*)y, (float*)carry_out, (float*)delay_out);
+  const int grid = (C + CB - 1) / CB;
+  cudaError_t e;
+  if (rows == nullptr) {
+    e = cudaFuncSetAttribute(agc_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    agc_kernel<false><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)delay, (const float*)carry, nullptr,
+        C, T, w, p, (float*)y, (float*)carry_out, (float*)delay_out);
+  } else {
+    e = cudaFuncSetAttribute(agc_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_ROWS_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    agc_kernel<true><<<grid, THREADS, SMEM_ROWS_BYTES,
+                       (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)delay, (const float*)carry,
+        (const float*)rows, C, T, w, p, (float*)y, (float*)carry_out,
+        (float*)delay_out);
+  }
   return (int)cudaGetLastError();
 }
 
-// K13.  rm, ax, volts_out: (C, T) f32; carry, carry_out: (7, C).  The
-// gain-law parameters (out_target, slope, inv_max_input) are not read.
-// Returns a cudaError_t.  Requires T >= 1.
+// K13.  rm, ax, volts_out: (C, T) f32; carry, carry_out: (7, C); rows: a
+// (2, C) f32 table [min_volts, hang_level], or nullptr for the scalar
+// settings.  The gain-law parameters (out_target, slope, inv_max_input)
+// are not read.  Returns a cudaError_t.  Requires T >= 1.
 int uhsdr_agc_scan_launch(const void* rm, const void* ax, const void* carry,
-                          int C, int T, float attack, float fast_d,
+                          const void* rows, int C, int T, float attack,
+                          float fast_d,
                           float long_d, float hang_d, float fast_bm,
                           float hang_bm, float pop_ratio, float hang_level,
                           float hang_time, float hang_en, float min_volts,
                           void* volts_out, void* carry_out, void* stream) {
   Params p{attack, fast_d, long_d, hang_d, fast_bm, hang_bm, pop_ratio,
            hang_level, hang_time, hang_en, min_volts, 0.f, 0.f, 0.f};
-  agc_scan_kernel<<<(C + CB - 1) / CB, SCAN_THREADS, 0,
-                    (cudaStream_t)stream>>>(
-      (const float*)rm, (const float*)ax, (const float*)carry, C, T, p,
-      (float*)volts_out, (float*)carry_out);
+  const int grid = (C + CB - 1) / CB;
+  if (rows == nullptr)
+    agc_scan_kernel<false><<<grid, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)rm, (const float*)ax, (const float*)carry, nullptr, C,
+        T, p, (float*)volts_out, (float*)carry_out);
+  else
+    agc_scan_kernel<true><<<grid, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)rm, (const float*)ax, (const float*)carry,
+        (const float*)rows, C, T, p, (float*)volts_out, (float*)carry_out);
   return (int)cudaGetLastError();
 }
 

@@ -20,6 +20,17 @@ delay line, the linked detector, its look-ahead max and the gain law in
 torch around the machine, which runs on K13 (`_run_machine`).  The
 reference's pad to 1024 channels (ops/agc.py:452-466) is a TPU tiling
 rule and is not ported.
+
+Per-channel settings: `make_params` takes (C,) ``thresh_db``,
+``slope_db`` or ``hang_thresh_db``, and the gain-law fields it derives
+(min_volts, slope_constant, hang_level, fixed_gain) are then (C,)
+arrays.  `kernel_params` turns them into the kernels' rows, as the
+reference's `_chan_rows` (ops/agc.py:240-246) does, and K3 and K13 take
+them in place of the scalars.  `make_setup` copies the rows to the
+device once; a stream passes its result to every block's `run` or
+`run_stereo`.  With the AGC off a (C,) fixed gain multiplies channel
+by channel, in `run_stereo` too (the reference's `run_stereo` cannot
+broadcast it there).
 """
 from __future__ import annotations
 
@@ -74,8 +85,7 @@ def make_params(fs: float, mode: str = "med", thresh_db: float = 60.0,
                 remove_dc: bool = False) -> AgcParams:
     """The reference's AGC setup (a copy of uhsdr_tpu/ops/agc.py:71-142).
     thresh_db / slope_db / hang_thresh_db may be (C,) arrays for
-    per-channel settings; `run` raises for those until the kernel takes
-    per-channel rows (ROADMAP queue A)."""
+    per-channel settings, which the kernels take as rows."""
     thresh_db = np.asarray(thresh_db, np.float64)
     slope_db = np.asarray(slope_db, np.float64)
     hang_thresh_db = np.asarray(hang_thresh_db, np.float64)
@@ -169,15 +179,50 @@ def init_state(batch_shape, params: AgcParams, device=None) -> AgcState:
         dc=torch.zeros(bs + (2,), dtype=torch.float32, device=device))
 
 
-def kernel_params(params: AgcParams) -> agc_kernel.AgcScalars:
-    """AgcParams -> the scalar set the K3 kernel and its plain version
-    take (the reference's `_pallas_params`, fused form)."""
-    if any(np.ndim(v) for v in (params.min_volts, params.slope_constant,
-                                params.hang_level, params.fixed_gain)):
-        raise NotImplementedError(
-            "per-channel AGC settings: ROADMAP queue A (AGC per-channel "
-            "rows in the K3 kernel)")
-    return agc_kernel.AgcScalars(
+class KernelParams(NamedTuple):
+    """What the kernels take: the scalar settings and, where any gain-law
+    field is per channel, the rows (each None otherwise)."""
+    scalars: agc_kernel.AgcScalars
+    rows: np.ndarray | None        # (3, C) f32 [min_volts, slope_constant,
+    #                                hang_level]: K3's
+    scan_rows: np.ndarray | None   # (2, C) f32 [min_volts, hang_level]: K13's
+
+
+def per_channel(params: AgcParams) -> bool:
+    """Whether a gain-law field is a (C,) array (the reference's `not
+    _scalar_params`)."""
+    return any(np.ndim(v) > 0 for v in (params.min_volts,
+                                         params.slope_constant,
+                                         params.hang_level,
+                                         params.fixed_gain))
+
+
+def kernel_params(params: AgcParams, C: int | None = None) -> KernelParams:
+    """AgcParams -> the scalar set the K3 and K13 kernels and their plain
+    versions take (the reference's `_pallas_params`), plus the rows of
+    the per-channel fields broadcast to C channels and cast to f32 once
+    (the reference's `_chan_rows`).  With rows the scalar slots of
+    min_volts, slope_constant and hang_level hold NaN: the kernels read
+    the rows there."""
+    rows = scan_rows = None
+    if per_channel(params):
+        if C is None:
+            raise ValueError("per-channel AGC settings: pass the channel "
+                             "count C")
+
+        def row(v):
+            return np.broadcast_to(np.asarray(v, np.float32), (C,))
+
+        mv, sc, hl = (row(params.min_volts), row(params.slope_constant),
+                      row(params.hang_level))
+        rows = np.ascontiguousarray(np.stack([mv, sc, hl]))
+        scan_rows = np.ascontiguousarray(np.stack([mv, hl]))
+    nan = float("nan")
+
+    def scalar(v):
+        return nan if rows is not None else float(v)
+
+    return KernelParams(agc_kernel.AgcScalars(
         attack_mult=float(params.attack_mult),
         fast_decay_mult=float(params.fast_decay_mult),
         decay_mult=float(params.decay_mult),
@@ -185,25 +230,68 @@ def kernel_params(params: AgcParams) -> agc_kernel.AgcScalars:
         fast_backmult=float(params.fast_backmult),
         hang_backmult=float(params.hang_backmult),
         pop_ratio=float(params.pop_ratio),
-        hang_level=float(params.hang_level),
+        hang_level=scalar(params.hang_level),
         hang_time=float(params.hang_time_samples),
         hang_enable=bool(params.hang_enable),
-        min_volts=float(params.min_volts),
+        min_volts=scalar(params.min_volts),
         out_target=float(params.out_target),
-        slope_constant=float(params.slope_constant),
-        inv_max_input=float(params.inv_max_input))
+        slope_constant=scalar(params.slope_constant),
+        inv_max_input=float(params.inv_max_input)), rows, scan_rows)
 
 
-def run(params: AgcParams, state: AgcState, x: torch.Tensor):
-    """x: (C, T) audio at the decimated rate.  Returns (y, new_state)."""
+class AgcSetup(NamedTuple):
+    """The operands of one AgcParams at C channels on one device, as every
+    block's `run` or `run_stereo` hands them to K3, K13 and the gain law:
+    made once by `make_setup` and passed in, so that a stream's blocks
+    pay no host-to-device copy of the per-channel tables."""
+    scalars: agc_kernel.AgcScalars
+    rows: torch.Tensor | None         # (3, C) K3's rows, or None
+    scan_rows: torch.Tensor | None    # (2, C) K13's rows, or None
+    gain: torch.Tensor | float        # the AGC-off gain: (C,) or a scalar
+
+
+def make_setup(params: AgcParams, C: int, device=None) -> AgcSetup:
+    """`kernel_params` of `params` at C channels, its rows (and a (C,)
+    fixed gain) copied to `device` once."""
+    kp = kernel_params(params, C)
+
+    def on(a):
+        return None if a is None else torch.as_tensor(a, device=device)
+
+    g = params.fixed_gain
+    gain = (float(g) if np.ndim(g) == 0 else
+            on(np.broadcast_to(np.asarray(g, np.float32), (C,)).copy()))
+    return AgcSetup(kp.scalars, on(kp.rows), on(kp.scan_rows), gain)
+
+
+def _fixed_gain(setup: AgcSetup, x: torch.Tensor):
+    """x ((C, T) or (C, 2, T)) times the fixed gain of the AGC off, per
+    channel where it is a (C,) array."""
+    g = setup.gain
+    if isinstance(g, float):
+        return x * g
+    return x * g.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+def _setup_for(params, setup, x) -> AgcSetup:
+    return make_setup(params, x.shape[0], x.device) if setup is None \
+        else setup
+
+
+def run(params: AgcParams, state: AgcState, x: torch.Tensor,
+        setup: AgcSetup | None = None):
+    """x: (C, T) audio at the decimated rate.  Returns (y, new_state).
+    setup: `make_setup(params, C, x.device)`, made once for a stream;
+    None makes it here, for this call."""
+    setup = _setup_for(params, setup, x)
     if params.agc_off:
-        return x * float(params.fixed_gain), state
+        return _fixed_gain(setup, x), state
     if x.ndim != 2:
         raise ValueError("run: AGC over a (C, T) batch; two-channel "
                          "(C, 2, T) audio takes the linked `run_stereo`")
     carry = torch.stack([getattr(state, f) for f in CARRY_FIELDS], dim=0)
     y, carry_out, new_delay = agc_kernel.agc(
-        kernel_params(params), carry, state.delay, x)
+        setup.scalars, carry, state.delay, x, setup.rows)
     dc_state = state.dc
     if params.remove_dc:        # AM/SAM: after the gain (ops/agc.py:487-490)
         y, dc_state = iir.dc_blocker_block(DC_BLOCKER_R, dc_state, y)
@@ -228,34 +316,38 @@ def init_state_stereo(batch_shape, params: AgcParams,
         dc=torch.zeros(bs + (2, 2), dtype=torch.float32, device=device))
 
 
-def _run_machine(params: AgcParams, state: AgcState, ring_max, abs_out):
+def _run_machine(setup: AgcSetup, state: AgcState, ring_max, abs_out):
     """The machine on the precomputed look-ahead max and delayed |x|
     ((C, T) each), on K13.  Returns (volts (C, T), the new machine
     carries in CARRY_FIELDS order)."""
     carry = torch.stack([getattr(state, f) for f in CARRY_FIELDS], dim=0)
     volts, carry_out = agc_kernel.agc_scan(
-        kernel_params(params), carry, ring_max.contiguous(),
-        abs_out.contiguous())
+        setup.scalars, carry, ring_max.contiguous(), abs_out.contiguous(),
+        setup.scan_rows)
     return volts, carry_out.unbind(0)
 
 
-def run_stereo(params: AgcParams, state: AgcState, x: torch.Tensor):
+def run_stereo(params: AgcParams, state: AgcState, x: torch.Tensor,
+               setup: AgcSetup | None = None):
     """Linked stereo AGC: x (C, 2, T) -> (y (C, 2, T), new_state), the
     reference's use_stereo semantics (AudioAgc_RunAgcWdsp,
     audio_agc.c:383-394, 571-576): the look-ahead detector takes
     max(|L|, |R|), one 5-state machine runs, and the same log-domain gain
-    multiplies both delayed channels.  State from `init_state_stereo`."""
+    multiplies both delayed channels.  State from `init_state_stereo`;
+    setup as for `run`."""
+    setup = _setup_for(params, setup, x)
     if params.agc_off:
-        return x * float(params.fixed_gain), state
+        return _fixed_gain(setup, x), state
     if x.ndim != 3 or x.shape[-2] != 2:
         raise ValueError("run_stereo: x must be (C, 2, T)")
     T = x.shape[-1]
     w = params.attack_buffsize
     xfull = torch.cat([state.delay, x], dim=-1)          # (C, 2, w+T)
     a = xfull.abs().amax(dim=-2)                         # linked detector
-    volts, mach = _run_machine(params, state,
+    volts, mach = _run_machine(setup, state,
                                agc_kernel.look_ahead_max(a, w, T), a[:, :T])
-    gain = agc_kernel.gain_law(kernel_params(params), volts)
+    gain = agc_kernel.gain_law(
+        setup.scalars, volts, None if setup.rows is None else setup.rows[1])
     y = xfull[..., :T] * gain[:, None, :]
     dc_state = state.dc
     if params.remove_dc:        # SAM stereo: per channel, after the gain

@@ -1,7 +1,9 @@
 """Where the time of the port's main path goes on the card.
 
-    python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam|fm|wide|ssbstereo]
+    python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam|fm|wide|ssbstereo
+                                               |fleet|fleet_separate|wideband]
                                        [--sideband both|usb|lsb|stereo]
+                                       [--group-channels 1024] [--warm 2]
                                        [--seed 7]
 
 Drives `chain.rx.RxChain` on cuda:0 at the flagship SSB config (usb
@@ -11,8 +13,14 @@ AM/SAM flagship (5P0KHZ AM/SAM path, same channel count, rate and
 block), ``--mode fm`` at the FM flagship (5P0KHZ FM path), ``--mode
 wide`` at the wide-SSB flagship (usb 5P0KHZ, one complex-tap front) and
 ``--mode ssbstereo`` at the two-channel flagship (the SSB flagship's row,
-both sidebands, the linked stereo AGC), for
-2 warm-up, 4 untraced and 4 traced blocks and prints, per block:
+both sidebands, the linked stereo AGC); ``--mode fleet`` drives
+`parallel.fleet.ChannelFleet` at its mixed-mode deployment (FLEET_MIX:
+six groups of 1024 channels of f32 planes @ 48 kHz) through its
+stage-batched step, ``--mode fleet_separate`` the same through each
+group's chain, ``--mode wideband`` `WidebandFleet` at WIDEBAND_MIX (16.8 M
+wideband samples a block, 4096 channels); ``--group-channels`` sets a
+fleet group's width.  Each runs ``--warm`` (2) warm-up, 4 untraced and 4
+traced blocks and prints, per block:
 
 * the step time with tracing off (CUDA events around the timed blocks)
   and the host's enqueue time (wall clock of the calls, no sync), with
@@ -42,6 +50,7 @@ from collections import defaultdict
 import torch
 
 from .chain import rx
+from .parallel import fleet
 
 TONE_HZ = 700.0      # channel 0's audio tone
 FM_TONE_HZ = 1000.0  # channel 0's audio tone in FM configs
@@ -127,6 +136,33 @@ def capture(n_blocks: int, C: int, dev, seed: int,
     return out
 
 
+def fleet_capture(cfgs, n_blocks: int, C: int, dev, seed: int) -> list:
+    """blocks[b][g] = fleet group g's (i, q) f32 planes of block b, C
+    channels: `capture` for its config, in full scale 1.0.  The SSB
+    tones sit above the translate frequency; an LSB group's capture is
+    made 1400 Hz lower, so channel 0's tone lies 700 Hz below it."""
+    per_group = []
+    for g, cfg in enumerate(cfgs):
+        ccfg = cfg
+        if cfg.mode == "lsb":
+            ccfg = dataclasses.replace(
+                cfg, translate_hz=cfg.translate_hz - 2 * TONE_HZ)
+        per_group.append([(i.to(torch.float32) / 32768.0,
+                           q.to(torch.float32) / 32768.0) for i, q in
+                          capture(n_blocks, C, dev, seed + g, ccfg)])
+    return [[per_group[g][b] for g in range(len(cfgs))]
+            for b in range(n_blocks)]
+
+
+def wideband_capture(n_blocks: int, B: int, dev, seed: int) -> list:
+    """Seeded wideband (i, q) f32 noise planes of B samples, 0.1 rms."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [(torch.randn(B, generator=gen, device=dev) * 0.1,
+             torch.randn(B, generator=gen, device=dev) * 0.1)
+            for _ in range(n_blocks)]
+
+
 def busy_share(intervals) -> tuple[float, float]:
     """(busy us, window us) of a list of (start, end) intervals."""
     iv = sorted(intervals)
@@ -141,36 +177,46 @@ def busy_share(intervals) -> tuple[float, float]:
     return busy, iv[-1][1] - iv[0][0]
 
 
-def profile_blocks(step, state, blocks, samples: int) -> int:
-    """Run `state = step(state, block)` over 2 warm-up, BLOCKS untraced and
-    BLOCKS traced blocks and print the untraced device time and host
-    enqueue per block, then under the profiler the device busy share and
-    the device time of every kernel by name.  `samples`: input samples a
-    block, for the rate.  Returns the exit code."""
+def profile_blocks(step, state, blocks, samples: int, warm: int = 2) -> int:
+    """Run `state = step(state, block)` over `warm` warm-up, BLOCKS
+    untraced and BLOCKS traced blocks and print the untraced device time
+    and host enqueue per block (the window's mean, and each block's with
+    its device allocations), then under the profiler the device busy
+    share and the device time of every kernel by name.  `samples`: input
+    samples a block, for the rate.  Returns the exit code."""
     from torch.profiler import ProfilerActivity, profile
     n = BLOCKS
-    for blk in blocks[:2]:                               # warm-up, build
+    for blk in blocks[:warm]:                            # warm-up, build
         state = step(state, blk)
     torch.cuda.synchronize()
 
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    host = 0.0
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    host, allocs = [], []
     mem0 = torch.cuda.memory_stats()
-    a.record()
-    for blk in blocks[2:2 + n]:
+    prev = mem0.get("num_device_alloc", 0)
+    marks[0].record()
+    for k, blk in enumerate(blocks[warm:warm + n]):
         t0 = time.perf_counter()
         state = step(state, blk)
-        host += time.perf_counter() - t0
-    b.record()
-    b.synchronize()
+        host.append(time.perf_counter() - t0)
+        marks[k + 1].record()
+        now = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        allocs.append(now - prev)
+        prev = now
+    marks[-1].synchronize()
     mem = {k: torch.cuda.memory_stats().get(k, 0) - mem0.get(k, 0)
            for k in ("num_device_alloc", "num_device_free")}
-    step_ms = a.elapsed_time(b) / n
-    print(f"untraced: {step_ms:.4f} ms/block on the device, host enqueue "
-          f"{host / n * 1e3:.4f} ms/block, "
+    each = [marks[k].elapsed_time(marks[k + 1]) for k in range(n)]
+    step_ms = marks[0].elapsed_time(marks[-1]) / n
+    print(f"untraced: {step_ms:.4f} ms/block on the device (mean; median "
+          f"{sorted(each)[n // 2]:.4f}), host enqueue "
+          f"{sum(host) / n * 1e3:.4f} ms/block, "
           f"{samples / step_ms / 1e3:.1f} Ms/s; device allocations "
           f"{mem['num_device_alloc'] / n:.1f}, frees "
           f"{mem['num_device_free'] / n:.1f} a block")
+    for k in range(n):
+        print(f"  untraced block {k}: device {each[k]:.4f} ms, host "
+              f"{host[k] * 1e3:.4f} ms, device allocations {allocs[k]}")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -219,9 +265,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--mode", choices=("usb", "am", "sam", "fm", "wide",
-                                       "ssbstereo"), default="usb")
+                                       "ssbstereo", "fleet",
+                                       "fleet_separate", "wideband"),
+                    default="usb")
     ap.add_argument("--sideband", choices=("both", "usb", "lsb", "stereo"),
                     default="both", help="sam_sideband for --mode sam")
+    ap.add_argument("--group-channels", type=int,
+                    default=fleet.FLEET_GROUP_CHANNELS,
+                    help="channels a fleet group (--mode fleet, "
+                         "fleet_separate)")
+    ap.add_argument("--warm", type=int, default=2, help="warm-up blocks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_rx: no CUDA device", file=sys.stderr)
@@ -229,6 +282,33 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    n = args.warm + 2 * BLOCKS
+    if args.mode in ("fleet", "fleet_separate"):
+        C = args.group_channels
+        cfgs = fleet.FLEET_MIX
+        fl = fleet.ChannelFleet(
+            cfgs, [k for k in range(len(cfgs)) for _ in range(C)],
+            device=dev)
+        run = fl.step_fused if args.mode == "fleet" else fl.step_separate
+        print(f"config: {args.mode}, {', '.join(c.mode for c in cfgs)} x "
+              f"{C} ch x {cfgs[0].block_len} f32 @ 48 kHz, {args.warm} "
+              f"warm-up blocks")
+        # above the deployment's width, 4 distinct blocks in turn: 10 of
+        # 4096 channels a group would hold 32 GB of input
+        distinct = n if C <= fleet.FLEET_GROUP_CHANNELS else 4
+        blocks = fleet_capture(cfgs, distinct, C, dev, args.seed)
+        return profile_blocks(lambda s, blk: run(blk), None,
+                              [blocks[k % distinct] for k in range(n)],
+                              C * len(cfgs) * cfgs[0].block_len, args.warm)
+    if args.mode == "wideband":
+        wf = fleet.WidebandFleet(fleet.WIDEBAND_MIX, fleet.wideband_counts(),
+                                 device=dev)
+        print(f"config: wideband, {wf.n_channels} channels "
+              f"{fleet.wideband_counts()} x {wf.block_len}")
+        return profile_blocks(
+            lambda s, blk: wf.process_block_device(*blk), None,
+            wideband_capture(n, wf.wideband_block, dev, args.seed),
+            wf.wideband_block, args.warm)
     cfg = config(args.mode, args.sideband)
     C, B = rx.FLAGSHIP_CHANNELS, cfg.block_len
     print(f"config: mode {cfg.mode}, bw {cfg.bw_key}, sam_sideband "
@@ -240,8 +320,8 @@ def main() -> int:
         return state
 
     return profile_blocks(step, chain.init_state((C,)),
-                          capture(2 + 2 * BLOCKS, C, dev, args.seed, cfg),
-                          C * B)
+                          capture(n, C, dev, args.seed, cfg), C * B,
+                          args.warm)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """Where the time of the port's TX path goes on the card.
 
-    python -m uhsdr_tpu_torch.trace_tx [--mode usb|lsb|am|cw]
+    python -m uhsdr_tpu_torch.trace_tx [--mode usb|lsb|am|cw|wideband]
                                        [--front ref|scipy] [--seed 7]
 
 Drives `chain.tx.TxChain` on cuda:0 at the TX flagship (usb, reference
 front, 6 kHz translate, 8192 channels of f32 audio @ 48 kHz in
 16384-sample blocks; the configuration bench_tx.py times) or another
-mode or front at the same width, for 2 warm-up, 4 untraced and 4 traced
+mode or front at the same width (``--mode wideband``: the wideband TX
+fleet, `parallel.fleet.WidebandTxFleet` at WIDEBAND_TX, 4096 channels of
+4096 samples into one synthesis bank), for 2 warm-up, 4 untraced and 4 traced
 blocks, and prints per block the device time with tracing off (CUDA
 events), the host's enqueue time (wall clock of the calls, no sync), and
 under `torch.profiler` the device time of every kernel by name and the
@@ -26,6 +28,7 @@ import sys
 import torch
 
 from .chain import tx
+from .parallel import fleet
 from .trace_rx import BLOCKS, profile_blocks
 
 TONE_HZ = 700.0      # channel 0's audio tone
@@ -80,8 +83,8 @@ def capture(n_blocks: int, C: int, dev, seed: int, cfg: tx.TxConfig):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--mode", choices=("usb", "lsb", "am", "cw"),
-                    default="usb")
+    ap.add_argument("--mode", choices=("usb", "lsb", "am", "cw",
+                                       "wideband"), default="usb")
     ap.add_argument("--front", choices=("ref", "scipy"), default="ref")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -90,6 +93,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.mode == "wideband":
+        cfg, M = fleet.WIDEBAND_TX, fleet.WIDEBAND_CHANNELS
+        wf = fleet.WidebandTxFleet([cfg], [M], device=dev)
+        print(f"config: wideband TX, {M} channels of TX {cfg.mode} x "
+              f"{cfg.block_len} -> {M * cfg.block_len} wideband samples")
+        return profile_blocks(
+            lambda s, audio: wf.process_block_device([audio]), None,
+            capture(2 + 2 * BLOCKS, M, dev, args.seed, cfg),
+            M * cfg.block_len)
     cfg = config(args.mode, args.front)
     C, B = tx.TX_FLAGSHIP_CHANNELS, cfg.block_len
     print(f"config: TX mode {cfg.mode}, front {cfg.front}, {C} ch x {B} "

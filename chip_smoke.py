@@ -10,7 +10,8 @@ first phase that fails:
 2. builds every hand-written kernel from the sources in
    `uhsdr_tpu_torch/kernels/` (one nvcc per source, started together) and
    prints the build time and each kernel's register/shared-memory report;
-3. one phase per kernel: K1 (the fused SSB front), K3 (the AGC, at the
+3. one phase per kernel: K1 (the fused SSB front; also 64 channels of
+   f32 @ 48 kHz and of int16 @ 192 kHz), K3 (the AGC, at the
    SSB look-ahead of 48, the AM/SAM look-ahead of 96 and FM's 192), K4
    (the interpolator, x8 and x4), K5 (the real-tap AM/SAM front, and the
    FM front at decimation 2), K10 and K9 (the SAM PLL), K11 (the biquad
@@ -283,20 +284,20 @@ def iq_block(gen, dev, C, B, std=3277.0):
     return plane(), plane()
 
 
-def phase_front(P, dev, gen, n_blocks=3):
-    params = P["ssb"]
-    C, B, decim = CHANNELS, CFG.block_len, CFG.decim
-    h, g = params.front_fir, params.front2
-    taps, taps2 = h.shape[-1], g.shape[-1]
-    delta = params.nco_delta
-    ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
-    c2k = c2p = torch.zeros((C, taps2 - 1), dtype=torch.complex64,
+def front_stream(h, g, n_keep, delta, decim, C, lengths, dtype, dev, gen,
+                 label):
+    """K1 against its plain version over streamed blocks of `lengths`
+    samples from zero carries and seeded NCO phases.  Returns (min SNR,
+    max abs err, the first block's inputs)."""
+    ck = cp = torch.zeros((C, n_keep), dtype=torch.complex64, device=dev)
+    c2k = c2p = torch.zeros((C, g.shape[-1] - 1), dtype=torch.complex64,
                             device=dev)
-    phase = torch.zeros((C,), dtype=torch.int64, device=dev)
-    worst, err = math.inf, 0.0
-    first = None
-    for blk in range(n_blocks):
-        xi, xq = iq_block(gen, dev, C, B)
+    phase = torch.randint(0, 2**32, (C,), generator=gen, device=dev)
+    worst, err, first = math.inf, 0.0, None
+    for blk, Bk in enumerate(lengths):
+        xi, xq = iq_block(gen, dev, C, Bk)
+        if dtype == torch.float32:
+            xi, xq = xi.to(dtype) / 32768.0, xq.to(dtype) / 32768.0
         if first is None:
             first = (ck, c2k, xi, xq, phase)
         yk, ck, c2k, pk_k = fir_k.front(h, g, ck, c2k, xi, xq, phase, delta,
@@ -304,11 +305,54 @@ def phase_front(P, dev, gen, n_blocks=3):
         yp, cp, c2p, pk_p = fir_k.front_plain(h, g, cp, c2p, xi, xq, phase,
                                               delta, decim)
         torch.cuda.synchronize()
-        s, e = held(f"K1 block {blk}", {
+        check(yk.shape == yp.shape, f"{label} output {tuple(yk.shape)}")
+        s, e = held(f"{label} block {blk} ({Bk} samples)", {
             "audio": (yp, yk), "raw carry": (cp, ck),
             "front2 carry": (c2p, c2k), "peaks": (pk_p, pk_k)})
         worst, err = min(worst, s), max(err, e)
-        phase = nco.advance(phase, delta, B)
+        phase = nco.advance(phase, delta, Bk)
+    return worst, err, first
+
+
+def phase_front(P, dev, gen):
+    """K1 at the SSB flagship's shape (8192 ch, int16 @ 96 kHz, decim 8,
+    227 + 199 taps): three streamed blocks, the middle one of 9000
+    samples (two whole tiles and a ragged one); then 64 channels of each
+    other shape K1 serves: f32 planes at 48 kHz (decim 4, 83 taps, the
+    fleet's and `wideband`'s) and int16 at 192 kHz (decim 16, 455 taps),
+    each with a ragged middle block.  K1's shared-memory rule in the
+    library and in cuda/fir.py must agree at every shape the port sends
+    it."""
+    lib = fir_k.FRONT.lib()
+    for rate in (48000.0, 96000.0, 192000.0):
+        for mode in ("usb", "ssbstereo"):
+            cfg = dataclasses.replace(CFG, iq_rate=rate, mode=mode)
+            p = rx.make_params(cfg, "cpu")
+            taps, taps2 = p.front_fir.shape[-1], p.front2.shape[-1]
+            nb = 1 if p.front2.ndim == 1 else 2
+            for size in (2, 4):
+                want = fir_k.front_geometry(taps, taps2, cfg.decim, nb,
+                                            size).smem
+                got = lib.uhsdr_front_smem(taps, taps2, cfg.decim, nb, size)
+                check(got == want, f"K1 shared memory at {rate:.0f} Hz, "
+                                   f"nb {nb}, {size}-byte samples: library "
+                                   f"{got}, cuda/fir.py {want}")
+    params = P["ssb"]
+    C, B, decim = CHANNELS, CFG.block_len, CFG.decim
+    h, g, delta = params.front_fir, params.front2, params.nco_delta
+    taps, taps2 = h.shape[-1], g.shape[-1]
+    worst, err, first = front_stream(h, g, taps - 1, delta, decim, C,
+                                     (B, 9000, B), torch.int16, dev, gen,
+                                     "K1")
+    for rate, dtype, mid in ((48000.0, torch.float32, 6000),
+                             (192000.0, torch.int16, 5008)):
+        cfg = dataclasses.replace(CFG, iq_rate=rate)
+        p = rx.make_params(cfg, dev)
+        s, e, _ = front_stream(
+            p.front_fir, p.front2, p.front_fir.shape[-1] - 1, p.nco_delta,
+            cfg.decim, 64, (B, mid, B), dtype, dev, gen,
+            f"K1 {rate / 1000:.0f} kHz {str(dtype)[6:]} decim {cfg.decim}")
+        worst, err = min(worst, s), max(err, e)
     ck0, c2k0, xi, xq, ph0 = first
     ms = cuda_ms(lambda: fir_k.front(h, g, ck0, c2k0, xi, xq, ph0, delta,
                                      decim), 10)

@@ -81,8 +81,15 @@ def _int16(rng, shape, std=3277.0):
 
 @pytest.mark.parametrize("iq_rate,C,B,dtype", [
     (96000.0, 13, 1600, "int16"), (96000.0, 3, 4096, "float32"),
-    (48000.0, 5, 2000, "int16")])
+    (48000.0, 5, 2000, "int16"),
+    (192000.0, 4, 5008, "int16"),     # decim 16: a tile and a ragged one
+    (96000.0, 7, 9000, "int16"),      # two tiles and a ragged one
+    (48000.0, 3, 6000, "float32"),    # the fleet's shape, ragged
+    (48000.0, 3, 1004, "int16"),      # less than a tile, rows unaligned
+    (96000.0, 1, 16384, "int16")])    # one channel, four whole tiles
 def test_front_kernel_matches_plain(dev, iq_rate, C, B, dtype):
+    """K1 against its plain version from a random NCO phase, three
+    streamed blocks."""
     p = rx.make_params(rx.RxConfig(**{**FLAGSHIP, "iq_rate": iq_rate}), dev)
     decim = rx.RxConfig(**{**FLAGSHIP, "iq_rate": iq_rate}).decim
     h, g, delta = p.front_fir, p.front2, p.nco_delta
@@ -104,6 +111,22 @@ def test_front_kernel_matches_plain(dev, iq_rate, C, B, dtype):
             assert snr_db(a, b) >= FIR_DB
         ck, cp = list(outk[1:3]), list(outp[1:3])
         ph = nco.advance(ph, delta, B)
+
+
+def test_front_geometry_matches_library(dev):
+    """K1's shared memory as the library computes it equals cuda/fir.py's
+    rule at every rate, filter count and sample size the port sends."""
+    lib = fir_k.FRONT.lib()
+    for rate in (48000.0, 96000.0, 192000.0):
+        for mode in ("usb", "ssbstereo"):
+            cfg = rx.RxConfig(**{**FLAGSHIP, "iq_rate": rate, "mode": mode})
+            p = rx.make_params(cfg, "cpu")
+            taps, taps2 = p.front_fir.shape[-1], p.front2.shape[-1]
+            nb = 1 if p.front2.ndim == 1 else 2
+            for size in (2, 4):
+                assert lib.uhsdr_front_smem(taps, taps2, cfg.decim, nb,
+                                            size) == fir_k.front_geometry(
+                    taps, taps2, cfg.decim, nb, size).smem
 
 
 @pytest.mark.parametrize("C,T,fs", [(40, 1000, 12000.0),
@@ -578,7 +601,9 @@ def test_agc_scan_kernel_matches_plain(dev, C, T, fs):
     (96000.0, 13, 1600, "ssbstereo", "int16"),
     (96000.0, 3, 4096, "iq", "float32"),
     (48000.0, 5, 2000, "ssbstereo", "int16"),
-    (96000.0, 6, 400, "iq", "int16")])         # block shorter than history
+    (96000.0, 6, 400, "iq", "int16"),          # block shorter than history
+    (192000.0, 3, 1600, "ssbstereo", "float32"),   # shorter than n_keep
+    (96000.0, 2, 9000, "ssbstereo", "int16")])     # two tiles, ragged
 def test_front_pair_kernel_matches_plain(dev, iq_rate, C, B, mode, dtype):
     """K1 with the two-channel modes' two stage-B filters and the pair's
     long raw history, against its plain version."""

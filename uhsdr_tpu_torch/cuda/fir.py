@@ -25,6 +25,7 @@ What bounds each on the card is noted in its source.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,6 +42,11 @@ FRONT = CudaKernel("front", "front.cu", {
     "uhsdr_front_launch": ([_I, _P, _P, _F, _I, _I, _I, _P, _P, _P,
                             ctypes.c_uint32, _P, _I, _I, _P, _P, _P, _I, _I,
                             _P, _P, _P, _P, _P], _I),
+    "uhsdr_front_threads": ([], _I),
+    "uhsdr_front_outputs_per_thread": ([], _I),
+    "uhsdr_front_tile_bytes": ([], _I),
+    "uhsdr_front_smem_max": ([], _I),
+    "uhsdr_front_smem": ([_I, _I, _I, _I, _I], _I),
     "uhsdr_front_tile": ([], _I),
     "uhsdr_front_ring_rows": ([], _I),
     "uhsdr_front_ring2": ([], _I),
@@ -223,6 +229,108 @@ def fir_cx(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
 # K1: the fused front
 # ---------------------------------------------------------------------------
 
+# K1's geometry constants, as `kernels/front.cu` defines them (the wrapper
+# checks them against the library's getters when it first loads it):
+# threads a block, outputs a thread holds in registers, bytes of a plane
+# a tile aims at, the dynamic shared memory a block may take (bytes).
+FRONT_THREADS = 128
+FRONT_R = 8
+FRONT_TILE_BYTES = 8192
+FRONT_SMEM_MAX = 225 * 1024
+FRONT_ROTOR_GROUP = 8          # samples a thread rotates from one sincospif
+# K15's (PR 5's body): outputs a tile, stage-A ring rows a phase, stage-B
+# ring length
+FRONT_MT_TILE = 128
+FRONT_MT_RING_ROWS = 256
+FRONT_MT_RING2 = 512
+
+
+class FrontGeometry(NamedTuple):
+    """K1's tiles for one shape (`kernels/front.cu::geometry`)."""
+    e: int           # column of a polyphase row's sample 0 (R | e)
+    ze: int          # index of stage-A output 0 in its buffer (R | ze)
+    ap: int          # polyphase tap row length (R | ap)
+    t_tile: int      # outputs a tile (R | t_tile)
+    p: int           # polyphase-row groups of stage A
+    pb: int          # tap groups of stage B
+    smem: int        # dynamic shared memory, bytes
+
+
+def _pad(i: int) -> int:
+    return i + i // FRONT_R
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def front_geometry(taps: int, taps2: int, decim: int, nb: int,
+                   in_bytes: int = 2,
+                   n_keep: int | None = None) -> FrontGeometry:
+    """K1's tile geometry for stage-A `taps` at `decim`, `nb` stage-B
+    filters of `taps2`, planes of `in_bytes` a sample (2: int16, 4: f32)
+    and a raw carry of `n_keep` (default taps - 1).  A tile holds t_tile
+    outputs, about FRONT_TILE_BYTES of each plane and more than either
+    halo, so a halo copy never overlaps its source.  Raises ValueError
+    for a shape K1 does not take: nb outside 1..2, n_keep < taps - 1, or
+    buffers past FRONT_SMEM_MAX."""
+    n_keep = taps - 1 if n_keep is None else n_keep
+    _need(taps >= 1 and taps2 >= 1 and decim >= 1 and nb in (1, 2)
+          and in_bytes in (2, 4),
+          f"front: taps {taps}, taps2 {taps2}, decim {decim}, nb {nb}, "
+          f"{in_bytes}-byte samples")
+    _need(n_keep >= taps - 1,
+          f"front: raw carry of {n_keep} < taps - 1 = {taps - 1}")
+    R = FRONT_R
+    a0 = -(-taps // decim)                 # taps of polyphase row 0
+    ap = _round_up(a0, R)
+    e, ze = ap, _round_up(taps2, R)
+    nob = max(FRONT_TILE_BYTES // in_bytes // (decim * R),
+              -(-max(taps2 - 1, e + 1) // R), 1)
+    t_tile = nob * R
+    share = max(FRONT_THREADS // nob, 1)
+    p, pb = min(share, decim), min(share, taps2)
+    rs = _pad(e + t_tile) + 1
+    zs = _pad(ze + t_tile - 1) + 1
+    pt = _pad(t_tile - 1) + 1
+    st = _round_up(t_tile * decim * in_bytes, 16) // 4
+    floats = (2 * st + _round_up(2 * decim * rs, 4) + _round_up(2 * zs, 4)
+              + _round_up(decim * ap, 4) + 2 * nb * ze
+              + _round_up(pt * max(2 * p, nb * pb), 4)
+              + 2 * FRONT_ROTOR_GROUP)
+    _need(4 * floats <= FRONT_SMEM_MAX,
+          f"front: {taps} + {taps2} taps at decim {decim} need {4 * floats} "
+          f"bytes of shared memory, past {FRONT_SMEM_MAX}")
+    return FrontGeometry(e, ze, ap, t_tile, p, pb, 4 * floats)
+
+
+def front_mt_fits(taps: int, taps2: int, decim: int):
+    """K15's ring rule (PR 5's): raises ValueError where the stage-A or
+    the stage-B history does not fit its ring."""
+    _need(FRONT_MT_TILE + -(-(taps - 1) // decim) <= FRONT_MT_RING_ROWS,
+          f"front: {taps} taps at decim {decim} exceed the stage-A ring")
+    _need(FRONT_MT_TILE + taps2 - 1 <= FRONT_MT_RING2,
+          f"front: {taps2} stage-B taps exceed the stage-B ring")
+
+
+def _front_lib():
+    """The front library, its geometry constants checked against this
+    module's when it is first used (the mark lives on the library)."""
+    lib = FRONT.lib()
+    if not getattr(lib, "geometry_checked", False):
+        got = (lib.uhsdr_front_threads(), lib.uhsdr_front_outputs_per_thread(),
+               lib.uhsdr_front_tile_bytes(), lib.uhsdr_front_smem_max(),
+               lib.uhsdr_front_tile(), lib.uhsdr_front_ring_rows(),
+               lib.uhsdr_front_ring2())
+        want = (FRONT_THREADS, FRONT_R, FRONT_TILE_BYTES, FRONT_SMEM_MAX,
+                FRONT_MT_TILE, FRONT_MT_RING_ROWS, FRONT_MT_RING2)
+        if got != want:
+            raise RuntimeError(f"front.cu's geometry {got} differs from "
+                               f"cuda/fir.py's {want}")
+        lib.geometry_checked = True
+    return lib
+
+
 def front_plain(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
     """Plain torch version of the K1 front: stage A as `fir_rt_plain`
     (scale, peaks, NCO rotation of the block and of the raw history's last
@@ -344,13 +452,11 @@ def _launch_front(counter: CudaKernel, h, h_sin, g, carry, carry2, xi, xq,
         () if h_sin is None else (h_sin,))
     _need(all(t.device == dev for t in ts), "front: tensors on one device")
     _need(all(t.is_contiguous() for t in ts), "front: contiguous tensors")
-    lib = FRONT.lib()
-    tile, rows, ring2 = (lib.uhsdr_front_tile(), lib.uhsdr_front_ring_rows(),
-                         lib.uhsdr_front_ring2())
-    _need(tile + -(-(taps - 1) // decim) <= rows,
-          f"front: {taps} taps at decim {decim} exceed the stage-A ring")
-    _need(tile + taps2 - 1 <= ring2,
-          f"front: {taps2} stage-B taps exceed the stage-B ring")
+    if h_sin is None:
+        front_geometry(taps, taps2, decim, nb, xi.element_size(), n_keep)
+    else:
+        front_mt_fits(taps, taps2, decim)
+    lib = _front_lib()
     g_re = g.real.contiguous()
     g_im = g.imag.contiguous()
     T_out = B // decim

@@ -20,7 +20,53 @@
 // raw history is the pair's (n_keep = taps-1 + decim*(taps2-1)), so the
 // kernel reads the last taps-1 of a longer carry and writes n_keep.
 //
-// K15, the modulated-taps front (the template's MT = true), replaces
+// Bound on this card: operations.  At 8192 ch x 16384 samples, decim 8,
+// 227 + 199 taps it is 7.6 G FMA (stage A) + 6.7 G FMA (stage B) of FP32
+// on the CUDA cores (no tensor cores, no TF32), against 0.58 GB of memory
+// traffic; NB = 2 doubles stage B.  An SM issues four FMA warp
+// instructions a clock but serves one shared-memory wavefront, so a FIR
+// that loads a tap and a sample for each FMA is held by its shared loads
+// (PR 6's body, one output a thread: ~1,480 warp loads against 852 FMAs
+// an output, 8.9x the FMA bound).
+//
+// Design (a register-blocked FIR).  One thread block of NT threads per
+// channel walks the block's time tiles IN ORDER (blocks run in no order,
+// so the TPU's sequential time grid becomes a loop inside the block).  A
+// tile is T_TILE outputs (about TILE_BYTES of each plane; more where a
+// halo would not fit), in linear shared-memory buffers whose first
+// columns hold the halo; at a tile's end the last columns are copied to
+// the front, so no index wraps.
+//   staging: the next tile's planes are copied to shared memory by
+//     cp.async (16 bytes a thread) while this tile is filtered, so no
+//     thread waits on device memory inside the tile loop.
+//   load: a thread takes 8 consecutive staged samples, one sincospif on
+//     the exact uint32 phase of the first and a complex product with a
+//     per-block table e^{j 2pi delta r / 2^32}, r < 8, for the others,
+//     and stores them polyphase (row = sample mod decim) so stage A's
+//     sequences are contiguous.
+//   stage A: a thread owns R consecutive outputs of one group of
+//     polyphase rows; for row b it slides a window of R samples through
+//     registers, so each tap (a broadcast load) and each new sample (one
+//     load) feed 2R FMAs.  Rows are zero-padded to whole chunks of R taps
+//     (10-14% more FMAs than the taps need, against a guarded tail chunk
+//     that measured slower), so the hot loop has no test.  The rows are
+//     split over P groups so that every thread works at every
+//     decimation; the P partial sums are added in a fixed order.
+//   stage B: the same window over the stage-A outputs, the taps kept as
+//     (gr, -gi) pairs (NB = 2: one float4 for both filters) and padded
+//     with zeros to whole chunks, split over PB groups, the partial sums
+//     added in a fixed order.
+//   Shared buffers are padded one word in R (index i + i/R), so threads
+//   R outputs apart read distinct banks.  Every sum's order depends on
+//   the shapes alone, never on the channel count or a channel's place in
+//   the launch: batching channels changes no bit.  For finite inputs the
+//   zero taps change no bit of a sum; a non-finite sample reaches the
+//   few outputs whose padded taps span it.
+// What holds it now: at the SSB flagship it runs at ~2.8x its FMA bound;
+// stage A, stage B and the load each cost a share (PERF.md section 6,
+// `python -m uhsdr_tpu_torch.trace_front`), no one of them dominant.
+//
+// K15, the modulated-taps front, replaces
 // uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2_mt, which the reference
 // selects for a static NCO delta under UHSDR_FRONT_MT=1 (fir.py:589-593):
 // the translation folded into complex stage-A taps h'[k] = h[k]
@@ -32,27 +78,22 @@
 //   y[m] = e^{j(phase0 + delta m decim)} sum_k h'[k] x[m decim - k].
 // Stage B, the peaks and both carries are K1's.  The TPU kernel runs its
 // dots in one bf16 pass; this one in FP32 FMAs, as every kernel here.
-// Complex taps double stage A's FMAs (21.9 G at the SSB flagship).
-//
-// Bound on this card: operations.  At 8192 ch x 16384 samples, decim 8,
-// 227 + 199 taps it is 7.6 G FMA (stage A) + 6.7 G FMA (stage B) of
-// FP32 on the CUDA cores (no tensor cores, no TF32), against 0.58 GB of
-// memory traffic; NB = 2 doubles stage B (21 G FMA at the ssbstereo
-// flagship).
-//
-// Design: one thread block per channel walks the block's time tiles IN
-// ORDER (GPU blocks run in no order, so the TPU's sequential time grid
-// and its VMEM halo scratch become a loop inside the block).  The halos
-// live in shared-memory rings: stage A's input ring is stored
-// polyphase (row = sample index mod decim) so that the threads of a
-// warp, one per output, read consecutive words for every tap; stage B's
-// ring holds the last RB stage-A outputs.  Each tap is one FP32 FMA per
-// plane.  Simple and exact first: no tensor cores, no vector loads.
+// Complex taps double stage A's FMAs (21.9 G at the SSB flagship).  Its
+// body is PR 5's, one output a thread (front_mt_kernel): the halos live
+// in shared-memory rings, stage A's stored polyphase.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// ---- K1 geometry (cuda/fir.py::front_geometry mirrors it) ----
+constexpr int NT = 128;          // threads per block
+constexpr int R = 8;             // outputs a thread holds in registers
+constexpr int TILE_BYTES = 8192; // bytes of a plane a tile aims at
+constexpr int SMEM_MAX = 225 * 1024;   // dynamic shared memory, bytes
+constexpr int G = 8;             // samples a thread rotates at once
+
+// ---- K15 geometry (PR 5's) ----
 constexpr int TT = 128;         // outputs per time tile = threads per block
 constexpr int QA = 256;         // ring rows per phase (power of two)
 constexpr int QS = QA + 1;      // padded row stride: conflict-free writes
@@ -68,24 +109,464 @@ __device__ __forceinline__ void rotor(uint32_t ph, float* s, float* c) {
   sincospif(x, s, c);
 }
 
-template <typename Tin, int NB, bool MT>
-__global__ void __launch_bounds__(TT) front_kernel(
+// the padded index of a buffer element: one spare word in R, so threads
+// R elements apart read distinct banks (i >= 0)
+__host__ __device__ __forceinline__ int pad(int i) {
+  return i + (int)((unsigned)i / R);
+}
+
+__host__ __device__ __forceinline__ int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+struct Geom {
+  int e;       // column of a row's sample 0 (= ap)
+  int ze;      // index of stage-A output 0: taps2 rounded up to R
+  int ap;      // polyphase tap row length: ceil(taps/decim) rounded up to R
+  int t_tile;  // outputs a tile, a multiple of R
+  int p;       // polyphase-row groups in stage A
+  int pb;      // tap groups in stage B
+  int rs;      // row stride of the input buffer (float2)
+  int zs;      // stage-B buffer length (float2)
+  int pt;      // partial-sum row length (padded)
+  int st;      // staging buffer of a plane (floats)
+  int smem;    // dynamic shared memory, bytes
+};
+
+// The tile geometry for (taps, taps2, decim, nb) on planes of in_bytes a
+// sample; false if it does not fit.  cuda/fir.py::front_geometry is the
+// same rule.
+bool geometry(int taps, int taps2, int decim, int nb, int in_bytes,
+              Geom* g) {
+  if (taps < 1 || taps2 < 1 || decim < 1 || nb < 1 || nb > 2) return false;
+  const int a0 = (taps + decim - 1) / decim;    // taps of polyphase row 0
+  g->ap = round_up(a0, R);
+  g->e = g->ap;
+  g->ze = round_up(taps2, R);
+  int nob = TILE_BYTES / in_bytes / (decim * R);
+  const int need = (taps2 - 1 > g->e + 1 ? taps2 - 1 : g->e + 1);
+  nob = nob > (need + R - 1) / R ? nob : (need + R - 1) / R;
+  nob = nob > 1 ? nob : 1;
+  g->t_tile = nob * R;
+  const int share = NT / nob > 1 ? NT / nob : 1;
+  g->p = share < decim ? share : decim;
+  g->pb = share < taps2 ? share : taps2;
+  g->rs = pad(g->e + g->t_tile) + 1;
+  g->zs = pad(g->ze + g->t_tile - 1) + 1;
+  g->pt = pad(g->t_tile - 1) + 1;
+  g->st = round_up(g->t_tile * decim * in_bytes, 16) / 4;
+  const int part = g->pt * (2 * g->p > nb * g->pb ? 2 * g->p : nb * g->pb);
+  const long floats = 2L * g->st + round_up(2 * decim * g->rs, 4) +
+                      round_up(2 * g->zs, 4) + round_up(decim * g->ap, 4) +
+                      2 * nb * g->ze + round_up(part, 4) + 2 * G;
+  if (floats * 4 > SMEM_MAX) return false;
+  g->smem = (int)(floats * 4);
+  return true;
+}
+
+// 16-byte asynchronous copies from device memory to shared memory
+// (cp.async: no register holds the data, so the copy of the next tile
+// runs under this tile's FIR work)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Stage tb samples of both planes from sample n0 of this channel's rows
+// into si, sq: asynchronous 16-byte copies where the rows are aligned
+// (`vec`), element copies for the rest.
+template <typename Tin>
+__device__ __forceinline__ void stage_tile(const Tin* __restrict__ xi,
+                                           const Tin* __restrict__ xq,
+                                           int n0, int tb, bool vec, Tin* si,
+                                           Tin* sq) {
+  constexpr int V = 16 / sizeof(Tin);   // samples in 16 bytes
+  const int nv = vec ? tb / V : 0;
+  for (int k = threadIdx.x; k < nv; k += NT) {
+    cp_async16(si + k * V, xi + n0 + k * V);
+    cp_async16(sq + k * V, xq + n0 + k * V);
+  }
+  for (int k = nv * V + threadIdx.x; k < tb; k += NT) {
+    si[k] = xi[n0 + k];
+    sq[k] = xq[n0 + k];
+  }
+  cp_async_commit();
+}
+
+// 8 staged samples of one plane as floats (16-byte shared loads).  int16
+// to exact floats: x = float(2^23 + (x + 2^15)) - (2^23 + 2^15), built
+// from the bits (integer work and FADD in place of the slower I2F).
+__device__ __forceinline__ void unpack8(const int16_t* p, float* x) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned ws[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned u = ws[k] ^ 0x80008000u;
+    x[2 * k] = __uint_as_float(0x4B000000u | (u & 0xffffu)) - 8421376.f;
+    x[2 * k + 1] = __uint_as_float(0x4B000000u | (u >> 16)) - 8421376.f;
+  }
+}
+
+__device__ __forceinline__ void unpack8(const float* p, float* x) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+}
+
+// stage B's taps: (gr, -gi) for one filter, both filters in one float4
+template <int NB> struct Taps2;
+template <> struct Taps2<1> { using T = float2; };
+template <> struct Taps2<2> { using T = float4; };
+
+__device__ __forceinline__ void acc_b(float* y, float2 g, float2 z) {
+  y[0] = fmaf(g.x, z.x, y[0]);
+  y[0] = fmaf(g.y, z.y, y[0]);
+}
+__device__ __forceinline__ void acc_b(float* y, float4 g, float2 z) {
+  y[0] = fmaf(g.x, z.x, y[0]);
+  y[0] = fmaf(g.y, z.y, y[0]);
+  y[1] = fmaf(g.z, z.x, y[1]);
+  y[1] = fmaf(g.w, z.y, y[1]);
+}
+
+// Stage A, one chunk of R taps a0 .. a0+R-1 of polyphase row b for R
+// outputs: hb = the row's taps from a0 (zero past the row's end), xr =
+// the row at column R*(E/R + ob - a0/R).  Output r takes u_b[ob*R + r -
+// a] from w[(r - a) % R]; step i brings u_b[ob*R - a - 1] into the slot
+// the last output has used (at the chunk's last step only if `more`
+// chunks follow).
+__device__ __forceinline__ void chunk_a(float (&ar)[R], float (&ai)[R],
+                                        float2 (&w)[R],
+                                        const float* __restrict__ hb,
+                                        const float2* xr, bool more) {
+  float4 h4;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (i % 4 == 0) h4 = *reinterpret_cast<const float4*>(hb + i);
+    const float hk = i % 4 == 0 ? h4.x : i % 4 == 1 ? h4.y
+                   : i % 4 == 2 ? h4.z : h4.w;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float2 v = w[(r - i + R) % R];
+      ar[r] = fmaf(hk, v.x, ar[r]);
+      ai[r] = fmaf(hk, v.y, ai[r]);
+    }
+    if (i < R - 1 || more) w[(R - 1 - i) % R] = xr[-i - 2];
+  }
+}
+
+// Stage B, one chunk of R taps k0 .. k0+R-1 (zero past taps2): gk = the
+// taps from k0, zr = the stage-A buffer at index R*(ZE/R + ob - k0/R);
+// the window walks as in chunk_a.
+template <int NB, typename GT>
+__device__ __forceinline__ void chunk_b(float (&y)[R][NB], float2 (&w)[R],
+                                        const GT* __restrict__ gk,
+                                        const float2* zr, bool more) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const GT g = gk[i];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc_b(y[r], g, w[(r - i + R) % R]);
+    if (i < R - 1 || more) w[(R - 1 - i) % R] = zr[-i - 2];
+  }
+}
+
+// Buffers (shared memory, float2 unless noted):
+//   si, sq (Tin): the raw planes of a tile, staged;
+//   xbuf: D rows of RS; sample n of the tile (n < 0: the halo) in row
+//     n mod D, column E + floor(n/D) + (n mod D > 0), so that row
+//     (D - b) % D holds u_b[j] = x[jD - b] at column E + j for every b;
+//   zbuf: stage-A output m (m < 0: the halo) at index ZE + m;
+//   hp (float): D rows of AP polyphase taps, row b = h[D a + b], zero
+//     beyond; gt: ZE stage-B taps, zero past taps2; part: partial sums;
+//     tab: rotors.
+// Every index goes through pad().  E and ZE are multiples of R, so inside
+// an R-step chunk every load sits at a compile-time offset from one base.
+template <typename Tin, int NB>
+__global__ void __launch_bounds__(NT, 3) front_kernel(
+    const Tin* __restrict__ xi, const Tin* __restrict__ xq, float in_scale,
+    int B, int n_keep, const float2* __restrict__ carry_in,
+    const float2* __restrict__ carry2_in, const int64_t* __restrict__ phase,
+    uint32_t delta, const float* __restrict__ h, int taps, int decim,
+    const float* __restrict__ g_re, const float* __restrict__ g_im,
+    int taps2, Geom geo, float* __restrict__ out,
+    float2* __restrict__ carry_out, float2* __restrict__ carry2_out,
+    float* __restrict__ peaks) {
+  using GT = typename Taps2<NB>::T;
+  extern __shared__ float4 smem4[];
+  const int D = decim, E = geo.e, ZE = geo.ze, AP = geo.ap;
+  const int T_TILE = geo.t_tile, RS = geo.rs, PT = geo.pt;
+  const int HB = taps2 - 1;
+  float* sp = reinterpret_cast<float*>(smem4);
+  Tin* si = reinterpret_cast<Tin*>(sp);
+  Tin* sq = reinterpret_cast<Tin*>(sp + geo.st);
+  sp += 2 * geo.st;
+  float2* xbuf = reinterpret_cast<float2*>(sp);
+  sp += round_up(2 * D * RS, 4);
+  float2* zbuf = reinterpret_cast<float2*>(sp);
+  sp += round_up(2 * geo.zs, 4);
+  float* hp = sp;
+  sp += round_up(D * AP, 4);
+  GT* gt = reinterpret_cast<GT*>(sp);
+  sp += 2 * NB * ZE;
+  float* part = sp;
+  sp += round_up(PT * (2 * geo.p > NB * geo.pb ? 2 * geo.p : NB * geo.pb), 4);
+  float2* tab = reinterpret_cast<float2*>(sp);
+  __shared__ float warp_pk[NT / 32];
+
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int n_hist = taps - 1;
+  const int T_out = B / D;
+  const uint32_t ph0 = (uint32_t)phase[c];
+  const size_t row = (size_t)c * B;
+  // 16-byte loads where this channel's rows are aligned
+  const bool vec = ((reinterpret_cast<uintptr_t>(xi + row) |
+                     reinterpret_cast<uintptr_t>(xq + row)) & 15) == 0;
+  if (T_out > 0)
+    stage_tile(xi + row, xq + row, 0, min(T_TILE, T_out) * D, vec, si, sq);
+
+  for (int k = tid; k < D * AP; k += NT) {
+    const int b = k / AP, src = D * (k - b * AP) + b;
+    hp[k] = src < taps ? h[src] : 0.f;
+  }
+  for (int k = tid; k < ZE; k += NT) {      // zero taps up to ZE
+    const bool in = k < taps2;
+    const float r0 = in ? g_re[k] : 0.f, i0 = in ? -g_im[k] : 0.f;
+    if (NB == 1) {
+      reinterpret_cast<float2*>(gt)[k] = make_float2(r0, i0);
+    } else {
+      reinterpret_cast<float4*>(gt)[k] = make_float4(
+          r0, i0, in ? g_re[taps2 + k] : 0.f, in ? -g_im[taps2 + k] : 0.f);
+    }
+  }
+  if (tid < G) {
+    float s, co;
+    rotor(delta * (uint32_t)tid, &s, &co);
+    tab[tid] = make_float2(co, s);
+  }
+  // the halo columns 0..E: the rotated raw history where a column holds a
+  // sample n in [-(taps-1), 0), zero elsewhere
+  const float2* hist = carry_in + (size_t)c * n_keep + (n_keep - n_hist);
+  for (int idx = tid; idx < D * (E + 1); idx += NT) {
+    const int r = idx / (E + 1), col = idx - r * (E + 1);
+    const int n = (col - E - (r > 0)) * D + r;
+    float2 z = make_float2(0.f, 0.f);
+    if (n < 0 && n >= -n_hist) {
+      const float2 v = hist[n + n_hist];
+      float s, co;
+      rotor(ph0 + delta * (uint32_t)n, &s, &co);
+      z = make_float2(v.x * co - v.y * s, v.x * s + v.y * co);
+    }
+    xbuf[r * RS + pad(col)] = z;
+  }
+  for (int j = tid; j < ZE; j += NT)
+    zbuf[pad(j)] = j >= ZE - HB ? carry2_in[(size_t)c * HB + j - (ZE - HB)]
+                                : make_float2(0.f, 0.f);
+  float pk = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int nob = T_TILE / R;
+  const int step_r = (G * NT) % D, step_c = (G * NT) / D;
+  int tv = 0;                      // valid outputs of the last tile
+  for (int t0 = 0; t0 < T_out; t0 += T_TILE) {
+    tv = min(T_TILE, T_out - t0);
+    const int n0 = t0 * D, tb = tv * D;
+
+    // scale, peak, rotate, store polyphase
+    // sample l0 = G j sits in row l0 % D, column E + l0 / D (+1 in rows
+    // > 0); both move by a constant as j moves by NT
+    int rr0 = (G * tid) % D, cq0 = E + (G * tid) / D;
+    for (int j = tid; j * G < tb; j += NT) {
+      const int l0 = j * G;
+      const int valid = min(G, tb - l0);
+      float a[G], b[G];
+      unpack8(si + l0, a);
+      unpack8(sq + l0, b);
+      // the scale folded into the rotor; the peak taken on raw values
+      float s0, c0;
+      rotor(ph0 + delta * (uint32_t)(n0 + l0), &s0, &c0);
+      s0 *= in_scale;
+      c0 *= in_scale;
+      int rr = rr0, cq = cq0;
+      int p0 = pad(cq), p1 = pad(cq + 1);    // columns of rows 0 and > 0
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        if (r < valid) {
+          pk = fmaxf(pk, fmaxf(fabsf(a[r]), fabsf(b[r])));
+          const float2 t = tab[r];
+          const float co = c0 * t.x - s0 * t.y;
+          const float sn = s0 * t.x + c0 * t.y;
+          xbuf[rr * RS + (rr > 0 ? p1 : p0)] =
+              make_float2(a[r] * co - b[r] * sn, a[r] * sn + b[r] * co);
+        }
+        if (++rr == D) {
+          rr = 0;
+          p0 = p1;
+          p1 = pad(++cq + 1);
+        }
+      }
+      rr0 += step_r;
+      cq0 += step_c;
+      if (rr0 >= D) {
+        rr0 -= D;
+        ++cq0;
+      }
+    }
+    __syncthreads();
+    // the next tile's planes, copied while this one is filtered
+    if (t0 + T_TILE < T_out)
+      stage_tile(xi + row, xq + row, n0 + tb,
+                 min(T_TILE, T_out - t0 - T_TILE) * D, vec, si, sq);
+
+    // stage A, item (ob, pg): outputs m = ob*R + r over the rows of group
+    // pg; row b's window w[s % R] holds u_b[ob*R + s] for s in
+    // [-a, R-1-a] at tap a
+    for (int it = tid; it < nob * geo.p; it += NT) {
+      const int ob = it % nob, pg = it / nob;
+      if (ob * R >= tv) continue;
+      float ar[R], ai[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) ar[r] = ai[r] = 0.f;
+      const int b_hi = (pg + 1) * D / geo.p;
+      for (int b = pg * D / geo.p; b < b_hi; ++b) {
+        // u_b[ob*R + s] at column R*(E/R + ob) + s
+        const float2* xr = xbuf + (b == 0 ? 0 : D - b) * RS +
+                           (R + 1) * (E / R + ob);
+        const float* hb = hp + b * AP;
+        float2 w[R];
+#pragma unroll
+        for (int s = 0; s < R; ++s) w[s] = xr[s];
+        for (int a0 = 0; a0 < AP; a0 += R, xr -= R + 1)
+          chunk_a(ar, ai, w, hb + a0, xr, a0 + R < AP);
+      }
+      float2* pp = reinterpret_cast<float2*>(part) + pg * PT + (R + 1) * ob;
+#pragma unroll
+      for (int r = 0; r < R; ++r) pp[r] = make_float2(ar[r], ai[r]);
+    }
+    __syncthreads();
+    // the P partial sums, in group order, are the stage-A outputs
+    for (int m = tid; m < tv; m += NT) {
+      const float2* pp = reinterpret_cast<const float2*>(part) + pad(m);
+      float2 z = pp[0];
+      for (int pg = 1; pg < geo.p; ++pg) {
+        const float2 v = pp[pg * PT];
+        z.x += v.x;
+        z.y += v.y;
+      }
+      zbuf[pad(ZE + m)] = z;
+    }
+    __syncthreads();
+
+    // stage B, item (ob, pbi): taps [k_lo, k_hi) (whole chunks of the ZE
+    // zero-padded taps) of outputs m = ob*R + r, y[m] = Re sum_k g[k]
+    // z[m - k]; the window w[s % R] holds z[ob*R + s] for s in
+    // [-k, R-1-k] at tap k
+    for (int it = tid; it < nob * geo.pb; it += NT) {
+      const int ob = it % nob, pbi = it / nob;
+      if (ob * R >= tv) continue;
+      const int k_lo = R * (pbi * (ZE / R) / geo.pb);
+      const int k_hi = R * ((pbi + 1) * (ZE / R) / geo.pb);
+      float y[R][NB];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int q = 0; q < NB; ++q) y[r][q] = 0.f;
+      // z[ob*R - k0 + s] at index R*(ZE/R + ob - k0/R) + s
+      const float2* zr = zbuf + (R + 1) * (ZE / R + ob - k_lo / R);
+      float2 w[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) w[s] = zr[s];
+      for (int k0 = k_lo; k0 < k_hi; k0 += R, zr -= R + 1)
+        chunk_b(y, w, gt + k0, zr, k0 + R < k_hi);
+      float* pp = part + pbi * NB * PT + (R + 1) * ob;
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+#pragma unroll
+        for (int r = 0; r < R; ++r) pp[q * PT + r] = y[r][q];
+    }
+    __syncthreads();
+    // the PB partial sums, in group order, are the audio
+    for (int m = tid; m < tv; m += NT) {
+#pragma unroll
+      for (int q = 0; q < NB; ++q) {
+        const float* pp = part + q * PT + pad(m);
+        float y = pp[0];
+        for (int pbi = 1; pbi < geo.pb; ++pbi) y += pp[pbi * NB * PT];
+        out[((size_t)c * NB + q) * T_out + t0 + m] = y;
+      }
+    }
+    if (t0 + T_TILE < T_out) {
+      // the next tile's halos: columns T_TILE .. T_TILE+E of each row to
+      // 0..E, the last HB stage-A outputs (T_TILE > E, T_TILE >= HB: the
+      // copies do not overlap their sources)
+      for (int k = tid; k < D * (E + 1); k += NT) {
+        const int r = k / (E + 1), col = k - r * (E + 1);
+        xbuf[r * RS + pad(col)] = xbuf[r * RS + pad(T_TILE + col)];
+      }
+      for (int j = ZE - HB + tid; j < ZE; j += NT)
+        zbuf[pad(j)] = zbuf[pad(T_TILE + j)];
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // new raw history: the last n_keep samples of (history ++ block),
+  // scaled, before rotation
+  for (int j = tid; j < n_keep; j += NT) {
+    const int n = B - n_keep + j;
+    float2 v;
+    if (n >= 0) {
+      v = make_float2(as_f32(xi[row + n]) * in_scale,
+                      as_f32(xq[row + n]) * in_scale);
+    } else {
+      v = carry_in[(size_t)c * n_keep + (j + B)];
+    }
+    carry_out[(size_t)c * n_keep + j] = v;
+  }
+  // new stage-B history: the last HB stage-A outputs
+  for (int j = tid; j < HB; j += NT)
+    carry2_out[(size_t)c * HB + j] = zbuf[pad(ZE - HB + tv + j)];
+  for (int o = 16; o > 0; o >>= 1)
+    pk = fmaxf(pk, __shfl_xor_sync(0xffffffffu, pk, o));
+  if ((tid & 31) == 0) warp_pk[tid >> 5] = pk;
+  __syncthreads();
+  if (tid == 0) {
+    float m = warp_pk[0];
+    for (int w = 1; w < NT / 32; ++w) m = fmaxf(m, warp_pk[w]);
+    peaks[c] = m * in_scale;   // max commutes with the rounded scaling
+  }
+}
+
+// K15 (PR 5's body): one output a thread, halos in shared-memory rings
+template <typename Tin>
+__global__ void __launch_bounds__(TT) front_mt_kernel(
     const Tin* __restrict__ xi, const Tin* __restrict__ xq, float in_scale,
     int B, int n_keep, const float2* __restrict__ carry_in,
     const float2* __restrict__ carry2_in, const int64_t* __restrict__ phase,
     uint32_t delta, const float* __restrict__ h, int taps, int decim,
     const float* __restrict__ h_sin, const float* __restrict__ g_re,
-    const float* __restrict__ g_im, int taps2, float* __restrict__ out, float2* __restrict__ carry_out,
-    float2* __restrict__ carry2_out, float* __restrict__ peaks) {
+    const float* __restrict__ g_im, int taps2, float* __restrict__ out,
+    float2* __restrict__ carry_out, float2* __restrict__ carry2_out,
+    float* __restrict__ peaks) {
   extern __shared__ float smem[];
   float* ring_r = smem;                     // decim * QS
   float* ring_i = ring_r + decim * QS;
   float* zr = ring_i + decim * QS;          // RB
   float* zi = zr + RB;
   float* hs = zi + RB;                      // taps
-  float* hsn = hs + taps;                   // MT: taps (the sine taps)
-  float* gr = hsn + (MT ? taps : 0);        // NB * taps2
-  float* gi = gr + NB * taps2;
+  float* hsn = hs + taps;                   // taps (the sine taps)
+  float* gr = hsn + taps;                   // taps2
+  float* gi = gr + taps2;
   __shared__ float warp_pk[TT / 32];
 
   const int c = blockIdx.x;
@@ -99,29 +580,23 @@ __global__ void __launch_bounds__(TT) front_kernel(
 
   for (int k = tid; k < taps; k += TT) {
     hs[k] = h[k];
-    if (MT) hsn[k] = h_sin[k];
+    hsn[k] = h_sin[k];
   }
-  for (int k = tid; k < NB * taps2; k += TT) {
+  for (int k = tid; k < taps2; k += TT) {
     gr[k] = g_re[k];
     gi[k] = g_im[k];
   }
   // raw history sample j sits at absolute index n = j - n_hist; it is
-  // column n_keep - n_hist + j of the carried row
+  // column n_keep - n_hist + j of the carried row; the taps carry the
+  // relative phase, so it is stored unrotated
   const float2* hist = carry_in + (size_t)c * n_keep + (n_keep - n_hist);
   for (int j = tid; j < n_hist; j += TT) {
     const int n = j - n_hist;
     const float2 v = hist[j];
     const int no = n + OFF;
     const int idx = (no % decim) * QS + ((no / decim) & (QA - 1));
-    if (MT) {             // the taps carry the relative phase
-      ring_r[idx] = v.x;
-      ring_i[idx] = v.y;
-      continue;
-    }
-    float s, co;
-    rotor(ph0 + delta * (uint32_t)n, &s, &co);
-    ring_r[idx] = v.x * co - v.y * s;
-    ring_i[idx] = v.x * s + v.y * co;
+    ring_r[idx] = v.x;
+    ring_i[idx] = v.y;
   }
   // stage-B history: output index m = j - n_hist2
   for (int j = tid; j < n_hist2; j += TT) {
@@ -144,20 +619,14 @@ __global__ void __launch_bounds__(TT) front_kernel(
       pk = fmaxf(pk, fmaxf(fabsf(a), fabsf(b)));
       const int no = n + OFF;
       const int idx = (no % decim) * QS + ((no / decim) & (QA - 1));
-      if (MT) {
-        ring_r[idx] = a;
-        ring_i[idx] = b;
-        continue;
-      }
-      float s, co;
-      rotor(ph0 + delta * (uint32_t)n, &s, &co);
-      ring_r[idx] = a * co - b * s;
-      ring_i[idx] = a * s + b * co;
+      ring_r[idx] = a;
+      ring_i[idx] = b;
     }
     __syncthreads();
 
     // stage A: sample decim*M - k with k = decim*a + b lives in phase
-    // row (decim - b) % decim at ring row M - a - (b > 0)
+    // row (decim - b) % decim at ring row M - a - (b > 0); complex taps
+    // hc + j hs on raw samples
     const int M = t0 + tid;
     if (M < T_out) {
       float ar = 0.f, ai = 0.f;
@@ -170,48 +639,33 @@ __global__ void __launch_bounds__(TT) front_kernel(
         for (int k = b; k < taps; k += decim, ++a) {
           const int q = (qb - a) & (QA - 1);
           const float hk = hs[k];
-          if (MT) {         // complex taps hc + j hs on raw samples
-            const float sk = hsn[k], vr = rr[q], vi = ri[q];
-            ar = fmaf(hk, vr, ar);
-            ar = fmaf(-sk, vi, ar);
-            ai = fmaf(sk, vr, ai);
-            ai = fmaf(hk, vi, ai);
-          } else {
-            ar = fmaf(hk, rr[q], ar);
-            ai = fmaf(hk, ri[q], ai);
-          }
+          const float sk = hsn[k], vr = rr[q], vi = ri[q];
+          ar = fmaf(hk, vr, ar);
+          ar = fmaf(-sk, vi, ar);
+          ai = fmaf(sk, vr, ai);
+          ai = fmaf(hk, vi, ai);
         }
       }
-      if (MT) {             // the absolute rotor at the decimated rate
-        float s, co;
-        rotor(ph0 + delta * (uint32_t)(M * decim), &s, &co);
-        const float wr = ar, wi = ai;
-        ar = wr * co - wi * s;
-        ai = wr * s + wi * co;
-      }
+      // the absolute rotor at the decimated rate
+      float s, co;
+      rotor(ph0 + delta * (uint32_t)(M * decim), &s, &co);
+      const float wr = ar, wi = ai;
+      ar = wr * co - wi * s;
+      ai = wr * s + wi * co;
       zr[M & (RB - 1)] = ar;
       zi[M & (RB - 1)] = ai;
     }
     __syncthreads();
 
-    // stage B: y_b[M] = Re(sum_k g_b[k] z[M-k]), one stage-A sample load
-    // feeding every filter
+    // stage B: y[M] = Re(sum_k g[k] z[M-k])
     if (M < T_out) {
-      float y[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) y[b] = 0.f;
+      float y = 0.f;
       for (int k = 0; k < taps2; ++k) {
         const int p = (M - k) & (RB - 1);
-        const float a = zr[p], q = zi[p];
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          y[b] = fmaf(gr[b * taps2 + k], a, y[b]);
-          y[b] = fmaf(-gi[b * taps2 + k], q, y[b]);
-        }
+        y = fmaf(gr[k], zr[p], y);
+        y = fmaf(-gi[k], zi[p], y);
       }
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        out[((size_t)c * NB + b) * T_out + M] = y[b];
+      out[(size_t)c * T_out + M] = y;
     }
     __syncthreads();
   }
@@ -245,26 +699,59 @@ __global__ void __launch_bounds__(TT) front_kernel(
   }
 }
 
-template <typename Tin, int NB, bool MT>
-int launch(const void* xi, const void* xq, float in_scale, int C, int B,
-           int n_keep, const void* carry_in, const void* carry2_in,
-           const void* phase, uint32_t delta, const void* h, int taps,
-           int decim, const void* h_sin, const void* g_re, const void* g_im,
-           int taps2, void* out, void* carry_out, void* carry2_out,
-           void* peaks, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(2 * decim * QS + 2 * RB + (MT ? 2 : 1) * taps +
-               2 * NB * taps2) * sizeof(float);
+struct Args {
+  const void *xi, *xq;
+  float in_scale;
+  int C, B, n_keep;
+  const void *carry_in, *carry2_in, *phase;
+  uint32_t delta;
+  const void* h;
+  int taps, decim;
+  const void *h_sin, *g_re, *g_im;
+  int taps2;
+  void *out, *carry_out, *carry2_out, *peaks;
+  cudaStream_t stream;
+};
+
+template <typename Tin, int NB>
+int launch_k1(const Args& a) {
+  Geom geo;
+  if (!geometry(a.taps, a.taps2, a.decim, NB, (int)sizeof(Tin), &geo))
+    return (int)cudaErrorInvalidValue;
+  auto kern = front_kernel<Tin, NB>;
   cudaError_t e = cudaFuncSetAttribute(
-      front_kernel<Tin, NB, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(kern,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<a.C, NT, geo.smem, a.stream>>>(
+      (const Tin*)a.xi, (const Tin*)a.xq, a.in_scale, a.B, a.n_keep,
+      (const float2*)a.carry_in, (const float2*)a.carry2_in,
+      (const int64_t*)a.phase, a.delta, (const float*)a.h, a.taps, a.decim,
+      (const float*)a.g_re, (const float*)a.g_im, a.taps2, geo,
+      (float*)a.out, (float2*)a.carry_out, (float2*)a.carry2_out,
+      (float*)a.peaks);
+  return (int)cudaGetLastError();
+}
+
+template <typename Tin>
+int launch_mt(const Args& a) {
+  const size_t smem =
+      (size_t)(2 * a.decim * QS + 2 * RB + 2 * a.taps + 2 * a.taps2) *
+      sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      front_mt_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  front_kernel<Tin, NB, MT><<<C, TT, smem, stream>>>(
-      (const Tin*)xi, (const Tin*)xq, in_scale, B, n_keep,
-      (const float2*)carry_in, (const float2*)carry2_in,
-      (const int64_t*)phase, delta, (const float*)h, taps, decim,
-      (const float*)h_sin, (const float*)g_re, (const float*)g_im, taps2,
-      (float*)out, (float2*)carry_out, (float2*)carry2_out, (float*)peaks);
+  front_mt_kernel<Tin><<<a.C, TT, smem, a.stream>>>(
+      (const Tin*)a.xi, (const Tin*)a.xq, a.in_scale, a.B, a.n_keep,
+      (const float2*)a.carry_in, (const float2*)a.carry2_in,
+      (const int64_t*)a.phase, a.delta, (const float*)a.h, a.taps, a.decim,
+      (const float*)a.h_sin, (const float*)a.g_re, (const float*)a.g_im,
+      a.taps2, (float*)a.out, (float2*)a.carry_out, (float2*)a.carry2_out,
+      (float*)a.peaks);
   return (int)cudaGetLastError();
 }
 
@@ -272,7 +759,17 @@ int launch(const void* xi, const void* xq, float in_scale, int C, int B,
 
 extern "C" {
 
-// Tile geometry the wrapper checks shapes against.
+// K1's geometry constants (cuda/fir.py checks its copy against them).
+int uhsdr_front_threads() { return NT; }
+int uhsdr_front_outputs_per_thread() { return R; }
+int uhsdr_front_tile_bytes() { return TILE_BYTES; }
+int uhsdr_front_smem_max() { return SMEM_MAX; }
+// K1's dynamic shared memory for a shape, or -1 where it does not fit.
+int uhsdr_front_smem(int taps, int taps2, int decim, int nb, int in_bytes) {
+  Geom g;
+  return geometry(taps, taps2, decim, nb, in_bytes, &g) ? g.smem : -1;
+}
+// K15's tile geometry.
 int uhsdr_front_tile() { return TT; }
 int uhsdr_front_ring_rows() { return QA; }
 int uhsdr_front_ring2() { return RB; }
@@ -291,23 +788,17 @@ int uhsdr_front_launch(int in_kind, const void* xi, const void* xq,
                        int nb, void* out,
                        void* carry_out, void* carry2_out, void* peaks,
                        void* stream) {
-  using Launch = int (*)(const void*, const void*, float, int, int, int,
-                         const void*, const void*, const void*, uint32_t,
-                         const void*, int, int, const void*, const void*,
-                         const void*, int, void*, void*, void*, void*,
-                         cudaStream_t);
+  using Launch = int (*)(const Args&);
   // [in_kind][NB = 1, NB = 2, K15]
   static const Launch table[2][3] = {
-      {launch<int16_t, 1, false>, launch<int16_t, 2, false>,
-       launch<int16_t, 1, true>},
-      {launch<float, 1, false>, launch<float, 2, false>,
-       launch<float, 1, true>}};
+      {launch_k1<int16_t, 1>, launch_k1<int16_t, 2>, launch_mt<int16_t>},
+      {launch_k1<float, 1>, launch_k1<float, 2>, launch_mt<float>}};
   if (nb < 1 || nb > 2 || (h_sin != nullptr && nb != 1))
     return (int)cudaErrorInvalidValue;
-  return table[in_kind != 0][h_sin != nullptr ? 2 : nb - 1](
-      xi, xq, in_scale, C, B, n_keep, carry_in, carry2_in, phase, delta, h,
-      taps, decim, h_sin, g_re, g_im, taps2, out, carry_out, carry2_out,
-      peaks, (cudaStream_t)stream);
+  const Args a{xi, xq, in_scale, C, B, n_keep, carry_in, carry2_in, phase,
+               delta, h, taps, decim, h_sin, g_re, g_im, taps2, out,
+               carry_out, carry2_out, peaks, (cudaStream_t)stream};
+  return table[in_kind != 0][h_sin != nullptr ? 2 : nb - 1](a);
 }
 
 const char* uhsdr_error_string(int e) {

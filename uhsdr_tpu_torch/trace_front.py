@@ -1,0 +1,172 @@
+"""Where K1's time goes on the card, phase by phase.
+
+    python -m uhsdr_tpu_torch.trace_front [--seed 7]
+
+Builds `kernels/front.cu` as it is and three variants of it, each with one
+phase of K1's tile loop left out: the load (staged planes to rotated
+polyphase samples), stage A, stage B.  Times the four through
+`cuda.fir.front`, each library in turn in the kernel's place, on the
+same inputs (CUDA events, 10 launches after one) at the
+shapes the port sends K1: the SSB flagship (8192 ch x 16384 int16 @ 96
+kHz, decim 8), the two-channel flagship's two stage-B filters, the
+fleet's f32 planes at 48 kHz (1024 ch, decim 4) and int16 at 192 kHz
+(8192 ch, decim 16).  Prints, per shape, each variant's ms and what the
+left-out phase costs while the others still run (the whole kernel's time
+less the variant's), beside the FMA bound at the card's published FP32
+peak, then one JSON line.  The variants' outputs are wrong: they only
+time.  The variants build into `_build/` beside the kernels.  Exits 2
+where CUDA is absent.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+
+import torch
+
+from .chain import rx
+from .cuda import build
+from .cuda import fir as fir_k
+
+PEAK_FMA_S = 33.5e12        # H100 SXM, FP32 outside the tensor cores / 2
+# the loop header of each phase in front.cu and the same loop run 0 times
+PHASES = {
+    "load": ("for (int j = tid; j * G < tb; j += NT) {",
+             "for (int j = tid; j * G < 0; j += NT) {"),
+    "stage_a": ("for (int it = tid; it < nob * geo.p; it += NT) {",
+                "for (int it = tid; it < 0; it += NT) {"),
+    "stage_b": ("for (int it = tid; it < nob * geo.pb; it += NT) {",
+                "for (int it = tid; it < 0; it += NT) {"),
+}
+SHAPES = (("ssb", dict(mode="usb", iq_rate=96000.0), 8192, torch.int16),
+          ("ssbstereo", dict(mode="ssbstereo", iq_rate=96000.0), 8192,
+           torch.int16),
+          ("fleet_48k_f32", dict(mode="usb", iq_rate=48000.0), 1024,
+           torch.float32),
+          ("usb_192k", dict(mode="usb", iq_rate=192000.0), 8192,
+           torch.int16))
+BLOCK = 16384
+
+
+def build_variants() -> dict:
+    """{variant: ctypes library}: the kernel's own library ("whole") and
+    one build without each phase, nvcc processes started together."""
+    src = (build.KERNEL_DIR / "front.cu").read_text()
+    out = build.BUILD_DIR / "trace_front"
+    out.mkdir(parents=True, exist_ok=True)
+    flags = build.BASE_FLAGS + build.ARCH_FLAGS
+    procs, paths = {}, {}
+    for name, (loop, empty) in PHASES.items():
+        if src.count(loop) != 1:
+            raise RuntimeError(f"front.cu: the {name} loop '{loop}' is not "
+                               f"there once; update trace_front.PHASES")
+        text = src.replace(loop, empty)
+        tag = hashlib.sha1((text + " ".join(flags)).encode()).hexdigest()
+        cu = out / f"front_no_{name}.cu"
+        so = out / f"front_no_{name}-{tag[:12]}.so"
+        paths[f"no_{name}"] = so
+        if not so.exists():
+            cu.write_text(text)
+            procs[name] = subprocess.Popen(
+                [build.nvcc_path(), *flags, "-o", str(so), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {"whole": fir_k.FRONT.lib()}
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for no_{name}:\n{log}")
+    for name, so in paths.items():
+        lib = ctypes.CDLL(str(so))
+        for fn, (argtypes, restype) in fir_k.FRONT.signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs[name] = lib
+    return libs
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def shape_inputs(kw: dict, C: int, dtype, dev, gen):
+    cfg = rx.RxConfig(bw_key="2P3KHZ", path_name="LPF", translate_hz=12000.0,
+                      **kw)
+    p = rx.make_params(cfg, dev)
+    n_keep = rx._raw_history_len(cfg, p)
+    x = [(torch.randn((C, BLOCK), generator=gen, device=dev) * 3277.0)
+         .round().clamp(-32768, 32767) for _ in range(2)]
+    x = [v.to(torch.int16) if dtype == torch.int16 else v / 32768.0
+         for v in x]
+    carry = (torch.randn((C, n_keep), generator=gen, device=dev) * 0.1
+             ).to(torch.complex64)
+    carry2 = (torch.randn((C, p.front2.shape[-1] - 1), generator=gen,
+                          device=dev) * 0.1).to(torch.complex64)
+    phase = torch.randint(0, 2**32, (C,), generator=gen, device=dev)
+    nb = 1 if p.front2.ndim == 1 else 2
+    fma = C * (BLOCK // cfg.decim) * (2 * p.front_fir.shape[-1]
+                                      + 2 * nb * p.front2.shape[-1])
+    return (p.front_fir, p.front2, carry, carry2, *x, phase, p.nco_delta,
+            cfg.decim), fma
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=7)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("trace_front: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"card: {card}")
+    libs = build_variants()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    result = {}
+    for label, kw, C, dtype in SHAPES:
+        inputs, fma = shape_inputs(kw, C, dtype, dev, gen)
+        # whole, variants, variants reversed, whole: two readings each
+        order = list(libs) + list(libs)[::-1]
+        ms = {name: [] for name in libs}
+        try:
+            for name in order:
+                # fir.front launches through the library it finds here
+                fir_k.FRONT._lib = libs[name]
+                ms[name].append(cuda_ms(lambda: fir_k.front(*inputs)))
+        finally:
+            fir_k.FRONT._lib = libs["whole"]
+        mean = {name: sum(v) / len(v) for name, v in ms.items()}
+        bound = fma / PEAK_FMA_S * 1e3
+        cost = {ph: mean["whole"] - mean[f"no_{ph}"] for ph in PHASES}
+        print(f"{label}: {C} ch, whole {mean['whole']:.4f} ms "
+              f"({', '.join(f'{v:.4f}' for v in ms['whole'])}), FMA bound "
+              f"{bound:.4f} ms; left out: "
+              + ", ".join(f"{ph} {mean[f'no_{ph}']:.4f} "
+                          f"(costs {cost[ph]:.4f})" for ph in PHASES))
+        result[label] = dict(channels=C, whole_ms=mean["whole"],
+                             fma_bound_ms=bound,
+                             without_ms={ph: mean[f"no_{ph}"]
+                                         for ph in PHASES},
+                             phase_cost_ms=cost)
+    print(json.dumps({"card": card, "k1_phases": result}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

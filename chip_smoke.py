@@ -13,8 +13,10 @@ first phase that fails:
 3. one phase per kernel: K1 (the fused SSB front; also 64 channels of
    f32 @ 48 kHz and of int16 @ 192 kHz), K3 (the AGC, at the
    SSB look-ahead of 48, the AM/SAM look-ahead of 96 and FM's 192), K4
-   (the interpolator, x8 and x4), K5 (the real-tap AM/SAM front, and the
-   FM front at decimation 2), K10 and K9 (the SAM PLL), K11 (the biquad
+   (the interpolator, x8 and x4), K5 (the real-tap AM/SAM front; also 64
+   channels of int16 @ 192 kHz at decimation 16, the FM front at
+   decimation 2 and 64 channels of the fleet's f32 FM front @ 48 kHz at
+   decimation 1), K10 and K9 (the SAM PLL), K11 (the biquad
    cascade), K7 and K6 (the complex-tap wide-SSB front with and without
    the NCO), K12 (the FM discriminator), K13 (the linked stereo AGC's
    machine), K1 with the two-channel modes' two stage-B filters
@@ -106,7 +108,7 @@ import numpy as np
 import torch
 
 from uhsdr_tpu_torch import trace_rx, trace_tx
-from uhsdr_tpu_torch.chain import rx, tx
+from uhsdr_tpu_torch.chain import filterpaths, rx, tx
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import alc as alc_k
 from uhsdr_tpu_torch.cuda import build
@@ -401,19 +403,18 @@ def premixed_planes(carry, xi, xq, phase, delta):
     return st.transpose(0, 1).reshape(-1, 1, st.shape[-1]).contiguous()
 
 
-def phase_fir_rt(P, dev, gen):
-    params = P["sam"]
-    C, B, decim = CHANNELS, SAM.block_len, SAM.decim
-    h = params.front_fir
+def fir_rt_stream(h, delta, decim, C, lengths, dtype, dev, gen, label):
+    """K5 (NCO on, complex out) against its plain version over streamed
+    blocks of `lengths` samples from a zero carry and seeded NCO phases.
+    Returns (min SNR, max abs err, the first block's inputs)."""
     taps = h.shape[-1]
-    delta = params.nco_delta
     ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
-    phase = torch.zeros((C,), dtype=torch.int64, device=dev)
-    short = decim * ((taps - 1) // (2 * decim))   # shorter than the history
-    worst, err = math.inf, 0.0
-    first = None
-    for blk, Bk in enumerate((B, short, B)):
+    phase = torch.randint(0, 2**32, (C,), generator=gen, device=dev)
+    worst, err, first = math.inf, 0.0, None
+    for blk, Bk in enumerate(lengths):
         xi, xq = iq_block(gen, dev, C, Bk)
+        if dtype == torch.float32:
+            xi, xq = xi.to(dtype) / 32768.0, xq.to(dtype) / 32768.0
         if first is None:
             first = (ck, xi, xq, phase)
         yk, ck, pk_k = fir_k.fir_rt(h, ck, xi, xq, decim, nco=(phase, delta))
@@ -421,15 +422,65 @@ def phase_fir_rt(P, dev, gen):
                                           nco=(phase, delta))
         torch.cuda.synchronize()
         check(tuple(yk.shape) == (C, Bk // decim) and yk.is_complex(),
-              f"K5 output {tuple(yk.shape)} {yk.dtype}")
-        s, e = held(f"K5 block {blk} ({Bk} samples)", {
+              f"{label} output {tuple(yk.shape)} {yk.dtype}")
+        s, e = held(f"{label} block {blk} ({Bk} samples)", {
             "iq": (yp, yk), "raw carry": (cp, ck), "peaks": (pk_p, pk_k)})
         worst, err = min(worst, s), max(err, e)
         phase = nco.advance(phase, delta, Bk)
+    return worst, err, first
+
+
+def k5_shapes() -> set:
+    """{(taps, decim)} of every AM, SAM and FM row at 48, 96 and 192 kHz:
+    the shapes the port sends K5."""
+    shapes = set()
+    for rate in (48000.0, 96000.0, 192000.0):
+        for mode in ("am", "sam", "fm"):
+            for fp in filterpaths.paths_for_mode(mode):
+                cfg = rx.RxConfig(mode=mode, bw_key=fp.bw_key,
+                                  path_name=fp.name, iq_rate=rate)
+                taps = rx._rate_adapt_front(rx._front_design(cfg)[0],
+                                            cfg.rate_mult, rate).shape[-1]
+                shapes.add((taps, cfg.decim))
+    return shapes
+
+
+def phase_fir_rt(P, dev, gen):
+    """K5 at the AM/SAM flagship's shape (8192 ch, int16 @ 96 kHz, decim
+    4, 239 taps): three streamed blocks, the middle one shorter than the
+    history; 64 channels of int16 at 192 kHz on a narrow row (decim 16,
+    479 taps) with a ragged middle block; the options off the SAM path
+    (f32 planes, no NCO, planes and real out); then the FM shapes
+    (`fm_front_case`).  K5's shared-memory rule in the library and in
+    cuda/fir.py must agree at every shape the port sends it."""
+    lib = fir_k.FRONT.lib()
+    for taps, decim in sorted(k5_shapes()):
+        for size in (2, 4):
+            want = fir_k.fir_rt_geometry(taps, decim, size).smem
+            got = lib.uhsdr_front_smem(taps, 1, decim, 0, size)
+            check(got == want, f"K5 shared memory at {taps} taps, decim "
+                               f"{decim}, {size}-byte samples: library "
+                               f"{got}, cuda/fir.py {want}")
+    params = P["sam"]
+    C, B, decim = CHANNELS, SAM.block_len, SAM.decim
+    h = params.front_fir
+    taps = h.shape[-1]
+    delta = params.nco_delta
+    short = decim * ((taps - 1) // (2 * decim))   # shorter than the history
+    worst, err, first = fir_rt_stream(h, delta, decim, C, (B, short, B),
+                                      torch.int16, dev, gen, "K5")
+    cfg = dataclasses.replace(SAM, bw_key="2P3KHZ", iq_rate=192000.0)
+    p = rx.make_params(cfg, dev)
+    s, e, _ = fir_rt_stream(
+        p.front_fir, p.nco_delta, cfg.decim, 64, (B, 5008, B), torch.int16,
+        dev, gen, f"K5 192 kHz int16 decim {cfg.decim} "
+                  f"({p.front_fir.shape[-1]} taps)")
+    worst, err = min(worst, s), max(err, e)
     # the options off the SAM path: f32 planes, no NCO, planes and real out
     n = 1024
-    xf = [v[:n].to(torch.float32) / 32768.0 for v in (xi, xq)]
-    c1 = ck[:n].contiguous()
+    xf = [v.to(torch.float32) / 32768.0 for v in iq_block(gen, dev, n, B)]
+    c1 = 0.1 * torch.randn((n, taps - 1), generator=gen, device=dev,
+                           dtype=torch.complex64)
     (ar, ai), cn, pk_k = fir_k.fir_rt(h, c1, *xf, decim, planes_out=True)
     yr, _, _ = fir_k.fir_rt(h, c1, *xf, decim, real_out=True)
     yp, cp1, pk_p = fir_k.fir_rt_plain(h, c1, *xf, decim)
@@ -459,14 +510,15 @@ def phase_fir_rt(P, dev, gen):
     print(f"  K5 library call (conv1d, stride {decim}, planes mixed "
           f"beforehand) vs plain: SNR {s_lib:.1f} dB")
     del planes, y_lib, y_pl
-    decim2 = fm_front_case(P, dev, gen)
+    decim2, s, e = fm_front_case(P, dev, gen)
+    worst, err = min(worst, s), max(err, e)
     T_out = B // decim
     fma = C * T_out * 2 * taps
     # bytes: int16 planes in, complex out, carry in and out, phase in,
     # peaks out, taps in
     nbytes = (2 * C * B * 2 + C * T_out * 8 + 2 * C * (taps - 1) * 8
               + C * 8 + C * 4 + 4 * taps)
-    r = row("fir_rt", "fir_rt.cu", "uhsdr_tpu/pallas/fir.py:82", err=err,
+    r = row("fir_rt", "front.cu", "uhsdr_tpu/pallas/fir.py:82", err=err,
             snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
             flops=2.0 * fma, library_ms=lib_ms,
             library_note="conv1d with stride on planes mixed beforehand "
@@ -478,31 +530,26 @@ def phase_fir_rt(P, dev, gen):
     return r
 
 
-def fm_front_case(P, dev, gen) -> dict:
+def fm_front_case(P, dev, gen) -> tuple:
     """K5 at the FM flagship's front: 239 taps at decimation 2, complex
     out, NCO; two streamed blocks (the second ragged) against the plain
-    version, then timed."""
+    version, then timed; then 64 channels of the fleet's FM front (f32
+    planes at 48 kHz, 89 taps, decimation 1) with a ragged middle block.
+    Returns (the timing dict, min SNR, max abs err)."""
     params = P["fm"]
     C, B, decim = CHANNELS, FM.block_len, FM.decim
     h, delta = params.front_fir, params.nco_delta
     taps = h.shape[-1]
-    ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
-    phase = torch.zeros((C,), dtype=torch.int64, device=dev)
-    first = None
-    for blk, Bk in enumerate((B, 1000)):
-        xi, xq = iq_block(gen, dev, C, Bk)
-        if first is None:
-            first = (ck, xi, xq, phase)
-        yk, ck, pk_k = fir_k.fir_rt(h, ck, xi, xq, decim, nco=(phase, delta))
-        yp, cp, pk_p = fir_k.fir_rt_plain(h, cp, xi, xq, decim,
-                                          nco=(phase, delta))
-        torch.cuda.synchronize()
-        check(tuple(yk.shape) == (C, Bk // decim) and yk.is_complex(),
-              f"K5 decim {decim} output {tuple(yk.shape)} {yk.dtype}")
-        held(f"K5 FM front ({taps} taps, decim {decim}) block {blk} "
-             f"({Bk} samples)", {"iq": (yp, yk), "raw carry": (cp, ck),
-                                 "peaks": (pk_p, pk_k)})
-        phase = nco.advance(phase, delta, Bk)
+    worst, err, first = fir_rt_stream(
+        h, delta, decim, C, (B, 1000), torch.int16, dev, gen,
+        f"K5 FM front ({taps} taps, decim {decim})")
+    cfg = dataclasses.replace(FM, iq_rate=48000.0)
+    p = rx.make_params(cfg, dev)
+    s, e, _ = fir_rt_stream(
+        p.front_fir, p.nco_delta, cfg.decim, 64, (B, 6001, B),
+        torch.float32, dev, gen, f"K5 48 kHz f32 decim {cfg.decim} "
+                                 f"({p.front_fir.shape[-1]} taps)")
+    worst, err = min(worst, s), max(err, e)
     c0, xi, xq, ph0 = first
     ms = cuda_ms(lambda: fir_k.fir_rt(h, c0, xi, xq, decim,
                                       nco=(ph0, delta)), 10)
@@ -513,7 +560,8 @@ def fm_front_case(P, dev, gen) -> dict:
     b_ms, b_by = bound(nbytes, 2.0 * fma)
     print(f"  K5 FM front, decim {decim}: {ms:.4f} ms (bound {b_ms:.4f} ms "
           f"by {b_by}: {fma / 1e9:.2f} G FMA, {nbytes / 2**20:.0f} MiB)")
-    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, taps=taps, decim=decim)
+    return (dict(ms=ms, bound_ms=b_ms, bound_by=b_by, taps=taps,
+                 decim=decim), worst, err)
 
 
 def phase_fir_cx(P, dev, gen):

@@ -220,7 +220,12 @@ def test_chain_on_card_matches_cpu(dev, iq_rate, block_len):
     (5, 40, 8, 227, "int16", True),        # block shorter than the history
     (7, 1000, 2, 89, "int16", True),
     (4, 999, 1, 89, "float32", True),
-    (6, 1536, 6, 120, "int16", False)])
+    (6, 1536, 6, 120, "int16", False),
+    (3, 4208, 16, 479, "int16", True),     # 192 kHz narrow AM/SAM, ragged
+    (5, 4200, 1, 89, "float32", True),     # the fleet's FM at 48 kHz
+    (1, 1600, 4, 239, "int16", True),      # one channel
+    (4, 400, 4, 239, "float32", True),     # shorter than one tile
+    (9, 2056, 8, 479, "int16", False)])    # four row groups, ragged
 def test_fir_rt_kernel_matches_plain(dev, C, B, decim, taps, dtype, use_nco):
     rng = np.random.default_rng(5)
     h = torch.from_numpy((rng.standard_normal(taps) * 0.05)
@@ -249,6 +254,36 @@ def test_fir_rt_kernel_matches_plain(dev, C, B, decim, taps, dtype, use_nco):
         ck = ck_new
         if use_nco:
             ph = nco.advance(ph, delta, B)
+
+
+@pytest.mark.parametrize("B,decim,taps,dtype", [
+    (16200, 4, 239, "int16"),               # the SAM flagship's front
+    (8208, 16, 479, "int16"),               # 192 kHz narrow AM/SAM
+    (4100, 1, 89, "float32")])              # the fleet's FM at 48 kHz
+def test_fir_rt_batch_invariant(dev, B, decim, taps, dtype):
+    """Channels 0-7 of a 1024-channel K5 launch are bit-equal to the same
+    8 channels launched alone: no sum's order depends on the channel
+    count or a channel's place in the launch."""
+    C = 1024
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy((rng.standard_normal(taps) * 0.05)
+                         .astype(np.float32)).to(dev)
+    delta = int(nco.freq_to_delta(12000.0, 96000.0))
+    carry = torch.from_numpy((0.1 * (rng.standard_normal((C, taps - 1))
+                                     + 1j * rng.standard_normal(
+                                         (C, taps - 1))))
+                             .astype(np.complex64)).to(dev)
+    ph = torch.from_numpy(rng.integers(0, 2**32, C)).to(dev)
+    x = [torch.from_numpy(_int16(rng, (C, B))).to(dev) for _ in "iq"]
+    if dtype == "float32":
+        x = [v.to(torch.float32) / 32768.0 for v in x]
+    full = fir_k.fir_rt(h, carry, *x, decim, nco=(ph, delta))
+    part = fir_k.fir_rt(h, carry[:8].contiguous(),
+                        *(v[:8].contiguous() for v in x), decim,
+                        nco=(ph[:8].contiguous(), delta))
+    torch.cuda.synchronize()
+    for a, b in zip(full, part):
+        assert torch.equal(a[:8], b)
 
 
 def _pll_input(rng, C, T, t0, fs=24000.0):
@@ -339,12 +374,12 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fir_k.fir_rt(h, carry, x[:, :63], x[:, :63], 4)
     with pytest.raises(ValueError):                 # mixed plane dtypes
         fir_k.fir_rt(h, carry, x, x.to(torch.int16), 4)
-    with pytest.raises(ValueError):                 # decimation 16
-        fir_k.fir_rt(h, carry, x, x, 16)
-    with pytest.raises(ValueError):                 # taps beyond the ring
-        fir_k.fir_rt(torch.zeros(400, device=dev),
-                     torch.zeros((C, 399), dtype=torch.complex64,
-                                 device=dev), x, x, 2)
+    with pytest.raises(ValueError):                 # decimation 0
+        fir_k.fir_rt(h, carry, x, x, 0)
+    with pytest.raises(ValueError):                 # taps past the buffers
+        fir_k.fir_rt(torch.zeros(20000, device=dev),
+                     torch.zeros((C, 19999), dtype=torch.complex64,
+                                 device=dev), x, x, 4)
     with pytest.raises(ValueError):                 # look-ahead beyond MAXW
         agc_k.agc(agc_ops.kernel_params(agc_ops.make_params(12000.0)).scalars,
                   torch.zeros((7, C), device=dev),

@@ -1,9 +1,9 @@
 """K1 (the fused RX front, with one stage-B filter or the two-channel
 modes' two), K15 (K1 with the translation in modulated stage-A taps), K5
-(the real-tap decimating front), K6/K7 (the complex-tap decimating
-front, without and with the NCO), K4 (the polyphase interpolator) and K8
-(the TX analytic FIR): wrappers around the
-hand-written kernels `kernels/front.cu`, `kernels/fir_rt.cu`,
+(the real-tap decimating front, K1's stage A alone), K6/K7 (the
+complex-tap decimating front, without and with the NCO), K4 (the
+polyphase interpolator) and K8 (the TX analytic FIR): wrappers around the
+hand-written kernels `kernels/front.cu` (K1, K15, K5),
 `kernels/fir_cx.cu`, `kernels/interp.cu` and `kernels/fir_real.cu`, each
 beside its plain torch version.
 
@@ -50,20 +50,18 @@ FRONT = CudaKernel("front", "front.cu", {
     "uhsdr_front_tile": ([], _I),
     "uhsdr_front_ring_rows": ([], _I),
     "uhsdr_front_ring2": ([], _I),
+    "uhsdr_fir_rt_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
+                             ctypes.c_uint32, _P, _I, _I, _I, _P, _P, _P, _P,
+                             _P], _I),
+    "uhsdr_front_smem_aim": ([], _I),
 })
 # one source and library, counted apart: K1 with the two-channel modes'
 # two stage-B filters
 FRONT_PAIR = CudaKernel("front_pair", "front.cu", lib_of=FRONT)
-# and K15, the modulated-taps front
+# K15, the modulated-taps front
 FRONT_MT = CudaKernel("front_mt", "front.cu", lib_of=FRONT)
-
-FIR_RT = CudaKernel("fir_rt", "fir_rt.cu", {
-    "uhsdr_fir_rt_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
-                             ctypes.c_uint32, _P, _I, _I, _I, _P, _P, _P, _P,
-                             _P], _I),
-    "uhsdr_fir_rt_tile": ([], _I),
-    "uhsdr_fir_rt_ring_rows": ([], _I),
-})
+# and K5, the real-tap decimating front (K1 with no stage B)
+FIR_RT = CudaKernel("fir_rt", "front.cu", lib_of=FRONT)
 
 # one source and library, two kernels: K6 (no NCO) and K7 (NCO fused)
 FIR_CX = CudaKernel("fir_cx", "fir_cx.cu", {
@@ -138,10 +136,28 @@ def fir_cx_plain(h, carry, xi, xq, decim: int, nco=None,
     return fir_rt_plain(h, carry, xi, xq, decim, nco, real_out, planes_out)
 
 
-def _decimate(name: str, kernel: CudaKernel, h_dtype, h, carry, xi, xq,
-              decim: int, nco, real_out: bool, planes_out: bool):
+def _fir_rt_lib(taps: int, decim: int, in_bytes: int):
+    """K5's library, once its tile rule takes the shape."""
+    fir_rt_geometry(taps, decim, in_bytes)
+    return _front_lib()
+
+
+def _fir_cx_lib(taps: int, decim: int, in_bytes: int):
+    """K6/K7's library, once their input ring takes the shape."""
+    _need(decim <= 8, f"fir_cx: decimation {decim} outside 1..8")
+    lib = FIR_CX.lib()
+    _need(lib.uhsdr_fir_cx_tile() + -(-(taps - 1) // decim)
+          <= lib.uhsdr_fir_cx_ring_rows(),
+          f"fir_cx: {taps} taps at decim {decim} exceed the input ring")
+    return lib
+
+
+def _decimate(name: str, kernel: CudaKernel, fits, h_dtype, h, carry, xi,
+              xq, decim: int, nco, real_out: bool, planes_out: bool):
     """Check the arguments of a decimating-front kernel (K5, K6, K7: one
-    C interface), launch it and count the launch on `kernel`."""
+    C interface), launch it and count the launch on `kernel`.
+    `fits(taps, decim, in_bytes)` raises where the kernel's buffers do not
+    take the shape, else returns its library."""
     dev = xi.device
     _need(xi.ndim == 2, f"{name}: xi/xq must be (C, B)")
     C, B = xi.shape
@@ -149,9 +165,9 @@ def _decimate(name: str, kernel: CudaKernel, h_dtype, h, carry, xi, xq,
     _need(xi.dtype in (torch.int16, torch.float32) and xq.dtype == xi.dtype
           and xq.shape == xi.shape, f"{name}: xi/xq must be int16 or f32 "
           "planes of one shape")
-    _need(1 <= decim <= 8 and B % decim == 0,
-          f"{name}: decimation {decim} outside 1..8, or block {B} not a "
-          f"multiple of it")
+    _need(decim >= 1 and B % decim == 0,
+          f"{name}: decimation {decim} < 1, or block {B} not a multiple "
+          f"of it")
     _need(h.dtype == h_dtype and h.ndim == 1 and taps >= 2,
           f"{name}: h must be (taps,) {h_dtype}")
     _need(carry.shape == (C, taps - 1) and carry.dtype == torch.complex64,
@@ -164,11 +180,7 @@ def _decimate(name: str, kernel: CudaKernel, h_dtype, h, carry, xi, xq,
         ts.append(phase)
     _need(all(t.device == dev for t in ts), f"{name}: tensors on one device")
     _need(all(t.is_contiguous() for t in ts), f"{name}: contiguous tensors")
-    lib = kernel.lib()
-    prefix = f"uhsdr_{name}"           # the C interface's names
-    _need(getattr(lib, f"{prefix}_tile")() + -(-(taps - 1) // decim)
-          <= getattr(lib, f"{prefix}_ring_rows")(),
-          f"{name}: {taps} taps at decim {decim} exceed the input ring")
+    lib = fits(taps, decim, xi.element_size())
     T_out = B // decim
     f32 = dict(dtype=torch.float32, device=dev)
     if real_out or planes_out:
@@ -183,7 +195,7 @@ def _decimate(name: str, kernel: CudaKernel, h_dtype, h, carry, xi, xq,
     new_carry = torch.empty_like(carry)
     peaks = torch.empty((C,), **f32)
     in_kind = 0 if xi.dtype == torch.int16 else 1
-    err = getattr(lib, f"{prefix}_launch")(
+    err = getattr(lib, f"uhsdr_{name}_launch")(
         in_kind, xi.data_ptr(), xq.data_ptr(),
         INT16_SCALE if in_kind == 0 else 1.0, C, B, carry.data_ptr(),
         0 if phase is None else 1,
@@ -208,8 +220,8 @@ def fir_rt(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
     if xi.device.type == "cpu":
         return fir_rt_plain(h, carry, xi, xq, decim, nco, real_out,
                             planes_out)
-    return _decimate("fir_rt", FIR_RT, torch.float32, h, carry, xi, xq,
-                     decim, nco, real_out, planes_out)
+    return _decimate("fir_rt", FIR_RT, _fir_rt_lib, torch.float32, h,
+                     carry, xi, xq, decim, nco, real_out, planes_out)
 
 
 def fir_cx(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
@@ -221,8 +233,8 @@ def fir_cx(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
         return fir_cx_plain(h, carry, xi, xq, decim, nco, real_out,
                             planes_out)
     return _decimate("fir_cx", FIR_CX if nco is None else FIR_CX_NCO,
-                     torch.complex64, h, carry, xi, xq, decim, nco,
-                     real_out, planes_out)
+                     _fir_cx_lib, torch.complex64, h, carry, xi, xq, decim,
+                     nco, real_out, planes_out)
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +250,9 @@ FRONT_R = 8
 FRONT_TILE_BYTES = 8192
 FRONT_SMEM_MAX = 225 * 1024
 FRONT_ROTOR_GROUP = 8          # samples a thread rotates from one sincospif
+# K5's shared memory aim, bytes: three blocks of FRONT_THREADS an SM
+# (3 x (72 KB + the 1 KB a block reserves) within the SM's 228 KB)
+FIR_RT_SMEM_AIM = 72 * 1024
 # K15's (PR 5's body): outputs a tile, stage-A ring rows a phase, stage-B
 # ring length
 FRONT_MT_TILE = 128
@@ -246,13 +261,13 @@ FRONT_MT_RING2 = 512
 
 
 class FrontGeometry(NamedTuple):
-    """K1's tiles for one shape (`kernels/front.cu::geometry`)."""
+    """K1's or K5's tiles for one shape (`kernels/front.cu::geometry`)."""
     e: int           # column of a polyphase row's sample 0 (R | e)
-    ze: int          # index of stage-A output 0 in its buffer (R | ze)
+    ze: int          # index of stage-A output 0 in its buffer (R | ze; K5 0)
     ap: int          # polyphase tap row length (R | ap)
     t_tile: int      # outputs a tile (R | t_tile)
     p: int           # polyphase-row groups of stage A
-    pb: int          # tap groups of stage B
+    pb: int          # tap groups of stage B (K5 0)
     smem: int        # dynamic shared memory, bytes
 
 
@@ -269,14 +284,16 @@ def front_geometry(taps: int, taps2: int, decim: int, nb: int,
                    n_keep: int | None = None) -> FrontGeometry:
     """K1's tile geometry for stage-A `taps` at `decim`, `nb` stage-B
     filters of `taps2`, planes of `in_bytes` a sample (2: int16, 4: f32)
-    and a raw carry of `n_keep` (default taps - 1).  A tile holds t_tile
-    outputs, about FRONT_TILE_BYTES of each plane and more than either
-    halo, so a halo copy never overlaps its source.  Raises ValueError
-    for a shape K1 does not take: nb outside 1..2, n_keep < taps - 1, or
+    and a raw carry of `n_keep` (default taps - 1); nb = 0 is K5's
+    (`fir_rt_geometry`).  A tile holds t_tile outputs, about
+    FRONT_TILE_BYTES of each plane and more than either halo, so a halo
+    copy never overlaps its source; K5 halves it (down to its halo) until
+    the buffers are within FIR_RT_SMEM_AIM.  Raises ValueError for a shape
+    the kernel does not take: nb outside 0..2, n_keep < taps - 1, or
     buffers past FRONT_SMEM_MAX."""
     n_keep = taps - 1 if n_keep is None else n_keep
-    _need(taps >= 1 and taps2 >= 1 and decim >= 1 and nb in (1, 2)
-          and in_bytes in (2, 4),
+    _need(taps >= 1 and decim >= 1 and nb in (0, 1, 2)
+          and (nb == 0 or taps2 >= 1) and in_bytes in (2, 4),
           f"front: taps {taps}, taps2 {taps2}, decim {decim}, nb {nb}, "
           f"{in_bytes}-byte samples")
     _need(n_keep >= taps - 1,
@@ -284,24 +301,37 @@ def front_geometry(taps: int, taps2: int, decim: int, nb: int,
     R = FRONT_R
     a0 = -(-taps // decim)                 # taps of polyphase row 0
     ap = _round_up(a0, R)
-    e, ze = ap, _round_up(taps2, R)
-    nob = max(FRONT_TILE_BYTES // in_bytes // (decim * R),
-              -(-max(taps2 - 1, e + 1) // R), 1)
-    t_tile = nob * R
-    share = max(FRONT_THREADS // nob, 1)
-    p, pb = min(share, decim), min(share, taps2)
-    rs = _pad(e + t_tile) + 1
-    zs = _pad(ze + t_tile - 1) + 1
-    pt = _pad(t_tile - 1) + 1
-    st = _round_up(t_tile * decim * in_bytes, 16) // 4
-    floats = (2 * st + _round_up(2 * decim * rs, 4) + _round_up(2 * zs, 4)
-              + _round_up(decim * ap, 4) + 2 * nb * ze
-              + _round_up(pt * max(2 * p, nb * pb), 4)
-              + 2 * FRONT_ROTOR_GROUP)
+    e, ze = ap, (_round_up(taps2, R) if nb else 0)
+    lo = -(-max(taps2 - 1 if nb else 0, e + 1) // R)
+    nob = max(FRONT_TILE_BYTES // in_bytes // (decim * R), lo)
+    while True:
+        t_tile = nob * R
+        share = max(FRONT_THREADS // nob, 1)
+        p, pb = min(share, decim), (min(share, taps2) if nb else 0)
+        rs = _pad(e + t_tile) + 1
+        zs = _pad(ze + t_tile - 1) + 1 if nb else 0
+        pt = _pad(t_tile - 1) + 1
+        st = _round_up(t_tile * decim * in_bytes, 16) // 4
+        part = (pt * max(2 * p, nb * pb) if nb
+                else pt * 2 * p if p > 1 else 0)
+        floats = (2 * st + _round_up(2 * decim * rs, 4) + _round_up(2 * zs, 4)
+                  + _round_up(decim * ap, 4) + 2 * nb * ze
+                  + _round_up(part, 4) + 2 * FRONT_ROTOR_GROUP)
+        if nb or 4 * floats <= FIR_RT_SMEM_AIM or nob == lo:
+            break
+        nob = max(nob // 2, lo)
     _need(4 * floats <= FRONT_SMEM_MAX,
-          f"front: {taps} + {taps2} taps at decim {decim} need {4 * floats} "
-          f"bytes of shared memory, past {FRONT_SMEM_MAX}")
+          f"front: {taps} + {taps2 if nb else 0} taps at decim {decim} need "
+          f"{4 * floats} bytes of shared memory, past {FRONT_SMEM_MAX}")
     return FrontGeometry(e, ze, ap, t_tile, p, pb, 4 * floats)
+
+
+def fir_rt_geometry(taps: int, decim: int, in_bytes: int = 2
+                    ) -> FrontGeometry:
+    """K5's tile geometry: `front_geometry` with no stage B (no stage-B
+    buffers; with one row group no partial-sum buffer: the outputs go
+    straight out).  Raises ValueError where it does not fit."""
+    return front_geometry(taps, 1, decim, 0, in_bytes)
 
 
 def front_mt_fits(taps: int, taps2: int, decim: int):
@@ -321,9 +351,10 @@ def _front_lib():
         got = (lib.uhsdr_front_threads(), lib.uhsdr_front_outputs_per_thread(),
                lib.uhsdr_front_tile_bytes(), lib.uhsdr_front_smem_max(),
                lib.uhsdr_front_tile(), lib.uhsdr_front_ring_rows(),
-               lib.uhsdr_front_ring2())
+               lib.uhsdr_front_ring2(), lib.uhsdr_front_smem_aim())
         want = (FRONT_THREADS, FRONT_R, FRONT_TILE_BYTES, FRONT_SMEM_MAX,
-                FRONT_MT_TILE, FRONT_MT_RING_ROWS, FRONT_MT_RING2)
+                FRONT_MT_TILE, FRONT_MT_RING_ROWS, FRONT_MT_RING2,
+                FIR_RT_SMEM_AIM)
         if got != want:
             raise RuntimeError(f"front.cu's geometry {got} differs from "
                                f"cuda/fir.py's {want}")

@@ -23,11 +23,11 @@
 // 16384 samples, decim 4, 245 complex taps, real output) it is 16.4 G FMA
 // of FP32 on the CUDA cores against 0.63 GiB of memory traffic.
 //
-// Design: K5's (kernels/fir_rt.cu).  One thread block per channel walks
-// the block's time tiles in order; the halo lives in a shared-memory ring
-// stored polyphase (row = sample index mod decim, padded stride) so that
-// the threads of a warp, one per output, read consecutive words for every
-// tap.  Ring samples and taps are stored as interleaved (re, im) pairs, so
+// Design: one output a thread over a shared-memory ring.  One thread
+// block per channel walks the block's time tiles in order; the halo lives
+// in the ring, stored polyphase (row = sample index mod decim, padded
+// stride) so that the threads of a warp, one per output, read consecutive
+// words for every tap.  Ring samples and taps are stored as interleaved (re, im) pairs, so
 // each tap costs two 8-byte shared loads (the tap is a broadcast) for its
 // two FMAs (real output) or four (complex output).  No tensor cores, no
 // TF32.

@@ -15,12 +15,12 @@
 // samples, 201 taps) it is 54 G FMA of FP32 on the CUDA cores against
 // 1.5 GiB of memory traffic (0.48 ms).
 //
-// Design: K5's ring (kernels/fir_rt.cu) at decimation 1 with one plane.
-// One thread block per channel walks the block's time tiles in order;
-// the history lives in a shared-memory ring of RING real samples, and the
-// taps as (re, im) pairs, so each tap is one sample load (consecutive
-// words across the warp), one broadcast 8-byte tap load and two FP32
-// FMAs.  Simple first: no register blocking, no tensor cores.
+// Design: one output a thread over a shared-memory history ring, at
+// decimation 1 with one plane.  One thread block per channel walks the
+// block's time tiles in order; the history lives in the ring of RING real
+// samples, and the taps as (re, im) pairs, so each tap is one sample load
+// (consecutive words across the warp), one broadcast 8-byte tap load and
+// two FP32 FMAs.  Simple first: no register blocking, no tensor cores.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -66,6 +66,25 @@
 // stage A, stage B and the load each cost a share (PERF.md section 6,
 // `python -m uhsdr_tpu_torch.trace_front`), no one of them dominant.
 //
+// K5, the real-tap decimating front of AM, SAM and FM, is K1 with no
+// stage B (front_kernel<Tin, 0, NCO>).  It replaces
+// uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s (fir_decimate_pallas's
+// real-taps branch, entered from chain/rx.py:857 for the AM/SAM fronts
+// and :763 for FM's).  Per channel: K1's scale and peaks; the rotation
+// only with the NCO on (NCO = false: each sample is only scaled, the
+// phase is not read); y[m] = sum_k h[k] z[m*decim - k] on both planes;
+// y written as two f32 planes, one interleaved complex64 array or the
+// real plane alone; the new raw history (the last taps-1 scaled inputs)
+// and the peaks.  It has no stage-B buffers.  With one row group (P = 1)
+// a thread writes its R outputs straight out; with more, one thread an
+// output adds the P partial sums in order and writes it (coalesced
+// float2 or f32 stores).  Its tile is K1's, halved until the block's
+// shared memory is within SMEM_AIM, so three blocks of 4 warps share an
+// SM at every shape the chains send it (decimation 1 to 16).  Bound on
+// this card: operations.  At the SAM flagship (8192 ch x 16384 int16,
+// decim 4, 239 taps) it is 16.0 G FMA of FP32 against 0.77 GiB of memory
+// traffic.
+//
 // K15, the modulated-taps front, replaces
 // uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2_mt, which the reference
 // selects for a static NCO delta under UHSDR_FRONT_MT=1 (fir.py:589-593):
@@ -92,6 +111,11 @@ constexpr int R = 8;             // outputs a thread holds in registers
 constexpr int TILE_BYTES = 8192; // bytes of a plane a tile aims at
 constexpr int SMEM_MAX = 225 * 1024;   // dynamic shared memory, bytes
 constexpr int G = 8;             // samples a thread rotates at once
+// K5's aim, bytes: three blocks an SM (3 x (72 KB + 1 KB the block
+// reserves) within the SM's 228 KB)
+constexpr int SMEM_AIM = 72 * 1024;
+
+enum OutKind { OUT_PLANES = 0, OUT_INTERLEAVED = 1, OUT_REAL = 2 };
 
 // ---- K15 geometry (PR 5's) ----
 constexpr int TT = 128;         // outputs per time tile = threads per block
@@ -133,32 +157,46 @@ struct Geom {
   int smem;    // dynamic shared memory, bytes
 };
 
+// floats of the partial-sum buffer: stage A's P groups (two planes) and
+// stage B's PB groups of nb filters; K5 (nb = 0) with one group has none
+__host__ __device__ __forceinline__ int part_floats(const Geom& g, int nb) {
+  if (nb == 0) return g.p > 1 ? g.pt * 2 * g.p : 0;
+  return g.pt * (2 * g.p > nb * g.pb ? 2 * g.p : nb * g.pb);
+}
+
 // The tile geometry for (taps, taps2, decim, nb) on planes of in_bytes a
-// sample; false if it does not fit.  cuda/fir.py::front_geometry is the
-// same rule.
+// sample; false if it does not fit.  nb = 0 is K5 (taps2 unused): no
+// stage-B buffers, and the tile halved (down to the halo) until the
+// buffers are within SMEM_AIM.  cuda/fir.py::front_geometry is the same
+// rule.
 bool geometry(int taps, int taps2, int decim, int nb, int in_bytes,
               Geom* g) {
-  if (taps < 1 || taps2 < 1 || decim < 1 || nb < 1 || nb > 2) return false;
+  if (taps < 1 || decim < 1 || nb < 0 || nb > 2 || (nb > 0 && taps2 < 1))
+    return false;
   const int a0 = (taps + decim - 1) / decim;    // taps of polyphase row 0
   g->ap = round_up(a0, R);
   g->e = g->ap;
-  g->ze = round_up(taps2, R);
+  g->ze = nb > 0 ? round_up(taps2, R) : 0;
+  const int need = (nb > 0 && taps2 - 1 > g->e + 1 ? taps2 - 1 : g->e + 1);
+  const int lo = (need + R - 1) / R;            // tiles longer than halos
   int nob = TILE_BYTES / in_bytes / (decim * R);
-  const int need = (taps2 - 1 > g->e + 1 ? taps2 - 1 : g->e + 1);
-  nob = nob > (need + R - 1) / R ? nob : (need + R - 1) / R;
-  nob = nob > 1 ? nob : 1;
-  g->t_tile = nob * R;
-  const int share = NT / nob > 1 ? NT / nob : 1;
-  g->p = share < decim ? share : decim;
-  g->pb = share < taps2 ? share : taps2;
-  g->rs = pad(g->e + g->t_tile) + 1;
-  g->zs = pad(g->ze + g->t_tile - 1) + 1;
-  g->pt = pad(g->t_tile - 1) + 1;
-  g->st = round_up(g->t_tile * decim * in_bytes, 16) / 4;
-  const int part = g->pt * (2 * g->p > nb * g->pb ? 2 * g->p : nb * g->pb);
-  const long floats = 2L * g->st + round_up(2 * decim * g->rs, 4) +
-                      round_up(2 * g->zs, 4) + round_up(decim * g->ap, 4) +
-                      2 * nb * g->ze + round_up(part, 4) + 2 * G;
+  nob = nob > lo ? nob : lo;
+  long floats;
+  for (;;) {
+    g->t_tile = nob * R;
+    const int share = NT / nob > 1 ? NT / nob : 1;
+    g->p = share < decim ? share : decim;
+    g->pb = nb == 0 ? 0 : share < taps2 ? share : taps2;
+    g->rs = pad(g->e + g->t_tile) + 1;
+    g->zs = nb > 0 ? pad(g->ze + g->t_tile - 1) + 1 : 0;
+    g->pt = pad(g->t_tile - 1) + 1;
+    g->st = round_up(g->t_tile * decim * in_bytes, 16) / 4;
+    floats = 2L * g->st + round_up(2 * decim * g->rs, 4) +
+             round_up(2 * g->zs, 4) + round_up(decim * g->ap, 4) +
+             2 * nb * g->ze + round_up(part_floats(*g, nb), 4) + 2 * G;
+    if (nb > 0 || floats * 4 <= SMEM_AIM || nob == lo) break;
+    nob = nob / 2 > lo ? nob / 2 : lo;
+  }
   if (floats * 4 > SMEM_MAX) return false;
   g->smem = (int)(floats * 4);
   return true;
@@ -222,7 +260,9 @@ __device__ __forceinline__ void unpack8(const float* p, float* x) {
 }
 
 // stage B's taps: (gr, -gi) for one filter, both filters in one float4
+// (K5, NB = 0: none)
 template <int NB> struct Taps2;
+template <> struct Taps2<0> { using T = float; };
 template <> struct Taps2<1> { using T = float2; };
 template <> struct Taps2<2> { using T = float4; };
 
@@ -263,6 +303,19 @@ __device__ __forceinline__ void chunk_a(float (&ar)[R], float (&ai)[R],
   }
 }
 
+// K5's output m: (re, im) as out_kind asks
+__device__ __forceinline__ void put_out(float* __restrict__ out_a,
+                                        float* __restrict__ out_b,
+                                        int out_kind, size_t m, float re,
+                                        float im) {
+  if (out_kind == OUT_INTERLEAVED) {
+    reinterpret_cast<float2*>(out_a)[m] = make_float2(re, im);
+  } else {
+    out_a[m] = re;
+    if (out_kind == OUT_PLANES) out_b[m] = im;
+  }
+}
+
 // Stage B, one chunk of R taps k0 .. k0+R-1 (zero past taps2): gk = the
 // taps from k0, zr = the stage-A buffer at index R*(ZE/R + ob - k0/R);
 // the window walks as in chunk_a.
@@ -290,7 +343,10 @@ __device__ __forceinline__ void chunk_b(float (&y)[R][NB], float2 (&w)[R],
 //     tab: rotors.
 // Every index goes through pad().  E and ZE are multiples of R, so inside
 // an R-step chunk every load sits at a compile-time offset from one base.
-template <typename Tin, int NB>
+// NB = 0 is K5: no zbuf, gt or stage B; the stage-A outputs go to out
+// (and out_b) as out_kind asks.  NCO = false (K5 only) skips the
+// rotation and never reads phase.
+template <typename Tin, int NB, bool NCO>
 __global__ void __launch_bounds__(NT, 3) front_kernel(
     const Tin* __restrict__ xi, const Tin* __restrict__ xq, float in_scale,
     int B, int n_keep, const float2* __restrict__ carry_in,
@@ -299,7 +355,7 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
     const float* __restrict__ g_re, const float* __restrict__ g_im,
     int taps2, Geom geo, float* __restrict__ out,
     float2* __restrict__ carry_out, float2* __restrict__ carry2_out,
-    float* __restrict__ peaks) {
+    float* __restrict__ peaks, float* __restrict__ out_b, int out_kind) {
   using GT = typename Taps2<NB>::T;
   extern __shared__ float4 smem4[];
   const int D = decim, E = geo.e, ZE = geo.ze, AP = geo.ap;
@@ -318,7 +374,7 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
   GT* gt = reinterpret_cast<GT*>(sp);
   sp += 2 * NB * ZE;
   float* part = sp;
-  sp += round_up(PT * (2 * geo.p > NB * geo.pb ? 2 * geo.p : NB * geo.pb), 4);
+  sp += round_up(part_floats(geo, NB), 4);
   float2* tab = reinterpret_cast<float2*>(sp);
   __shared__ float warp_pk[NT / 32];
 
@@ -326,7 +382,7 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
   const int tid = threadIdx.x;
   const int n_hist = taps - 1;
   const int T_out = B / D;
-  const uint32_t ph0 = (uint32_t)phase[c];
+  const uint32_t ph0 = NCO ? (uint32_t)phase[c] : 0u;
   const size_t row = (size_t)c * B;
   // 16-byte loads where this channel's rows are aligned
   const bool vec = ((reinterpret_cast<uintptr_t>(xi + row) |
@@ -338,17 +394,19 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
     const int b = k / AP, src = D * (k - b * AP) + b;
     hp[k] = src < taps ? h[src] : 0.f;
   }
-  for (int k = tid; k < ZE; k += NT) {      // zero taps up to ZE
-    const bool in = k < taps2;
-    const float r0 = in ? g_re[k] : 0.f, i0 = in ? -g_im[k] : 0.f;
-    if (NB == 1) {
-      reinterpret_cast<float2*>(gt)[k] = make_float2(r0, i0);
-    } else {
-      reinterpret_cast<float4*>(gt)[k] = make_float4(
-          r0, i0, in ? g_re[taps2 + k] : 0.f, in ? -g_im[taps2 + k] : 0.f);
+  if constexpr (NB > 0) {
+    for (int k = tid; k < ZE; k += NT) {      // zero taps up to ZE
+      const bool in = k < taps2;
+      const float r0 = in ? g_re[k] : 0.f, i0 = in ? -g_im[k] : 0.f;
+      if (NB == 1) {
+        reinterpret_cast<float2*>(gt)[k] = make_float2(r0, i0);
+      } else {
+        reinterpret_cast<float4*>(gt)[k] = make_float4(
+            r0, i0, in ? g_re[taps2 + k] : 0.f, in ? -g_im[taps2 + k] : 0.f);
+      }
     }
   }
-  if (tid < G) {
+  if (NCO && tid < G) {
     float s, co;
     rotor(delta * (uint32_t)tid, &s, &co);
     tab[tid] = make_float2(co, s);
@@ -362,15 +420,21 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
     float2 z = make_float2(0.f, 0.f);
     if (n < 0 && n >= -n_hist) {
       const float2 v = hist[n + n_hist];
-      float s, co;
-      rotor(ph0 + delta * (uint32_t)n, &s, &co);
-      z = make_float2(v.x * co - v.y * s, v.x * s + v.y * co);
+      if constexpr (NCO) {
+        float s, co;
+        rotor(ph0 + delta * (uint32_t)n, &s, &co);
+        z = make_float2(v.x * co - v.y * s, v.x * s + v.y * co);
+      } else {
+        z = v;
+      }
     }
     xbuf[r * RS + pad(col)] = z;
   }
-  for (int j = tid; j < ZE; j += NT)
-    zbuf[pad(j)] = j >= ZE - HB ? carry2_in[(size_t)c * HB + j - (ZE - HB)]
-                                : make_float2(0.f, 0.f);
+  if constexpr (NB > 0) {
+    for (int j = tid; j < ZE; j += NT)
+      zbuf[pad(j)] = j >= ZE - HB ? carry2_in[(size_t)c * HB + j - (ZE - HB)]
+                                  : make_float2(0.f, 0.f);
+  }
   float pk = 0.f;
   cp_async_wait_all();
   __syncthreads();
@@ -393,21 +457,28 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
       unpack8(si + l0, a);
       unpack8(sq + l0, b);
       // the scale folded into the rotor; the peak taken on raw values
-      float s0, c0;
-      rotor(ph0 + delta * (uint32_t)(n0 + l0), &s0, &c0);
-      s0 *= in_scale;
-      c0 *= in_scale;
+      float s0 = 0.f, c0 = in_scale;
+      if constexpr (NCO) {
+        rotor(ph0 + delta * (uint32_t)(n0 + l0), &s0, &c0);
+        s0 *= in_scale;
+        c0 *= in_scale;
+      }
       int rr = rr0, cq = cq0;
       int p0 = pad(cq), p1 = pad(cq + 1);    // columns of rows 0 and > 0
 #pragma unroll
       for (int r = 0; r < G; ++r) {
         if (r < valid) {
           pk = fmaxf(pk, fmaxf(fabsf(a[r]), fabsf(b[r])));
-          const float2 t = tab[r];
-          const float co = c0 * t.x - s0 * t.y;
-          const float sn = s0 * t.x + c0 * t.y;
-          xbuf[rr * RS + (rr > 0 ? p1 : p0)] =
-              make_float2(a[r] * co - b[r] * sn, a[r] * sn + b[r] * co);
+          float2 z;
+          if constexpr (NCO) {
+            const float2 t = tab[r];
+            const float co = c0 * t.x - s0 * t.y;
+            const float sn = s0 * t.x + c0 * t.y;
+            z = make_float2(a[r] * co - b[r] * sn, a[r] * sn + b[r] * co);
+          } else {
+            z = make_float2(a[r] * in_scale, b[r] * in_scale);
+          }
+          xbuf[rr * RS + (rr > 0 ? p1 : p0)] = z;
         }
         if (++rr == D) {
           rr = 0;
@@ -449,60 +520,88 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
         for (int a0 = 0; a0 < AP; a0 += R, xr -= R + 1)
           chunk_a(ar, ai, w, hb + a0, xr, a0 + R < AP);
       }
+      if constexpr (NB == 0) {
+        if (geo.p == 1) {
+          // K5, one group: these R sums are the outputs
+          const size_t o = (size_t)c * T_out + t0 + ob * R;
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (ob * R + r < tv)
+              put_out(out, out_b, out_kind, o + r, ar[r], ai[r]);
+          continue;
+        }
+      }
       float2* pp = reinterpret_cast<float2*>(part) + pg * PT + (R + 1) * ob;
 #pragma unroll
       for (int r = 0; r < R; ++r) pp[r] = make_float2(ar[r], ai[r]);
     }
     __syncthreads();
-    // the P partial sums, in group order, are the stage-A outputs
-    for (int m = tid; m < tv; m += NT) {
-      const float2* pp = reinterpret_cast<const float2*>(part) + pad(m);
-      float2 z = pp[0];
-      for (int pg = 1; pg < geo.p; ++pg) {
-        const float2 v = pp[pg * PT];
-        z.x += v.x;
-        z.y += v.y;
+    if constexpr (NB == 0) {
+      // K5: the P partial sums, in group order, are the outputs
+      if (geo.p > 1) {
+        for (int m = tid; m < tv; m += NT) {
+          const float2* pp = reinterpret_cast<const float2*>(part) + pad(m);
+          float2 z = pp[0];
+          for (int pg = 1; pg < geo.p; ++pg) {
+            const float2 v = pp[pg * PT];
+            z.x += v.x;
+            z.y += v.y;
+          }
+          put_out(out, out_b, out_kind, (size_t)c * T_out + t0 + m, z.x,
+                  z.y);
+        }
       }
-      zbuf[pad(ZE + m)] = z;
-    }
-    __syncthreads();
+    } else {
+      // the P partial sums, in group order, are the stage-A outputs
+      for (int m = tid; m < tv; m += NT) {
+        const float2* pp = reinterpret_cast<const float2*>(part) + pad(m);
+        float2 z = pp[0];
+        for (int pg = 1; pg < geo.p; ++pg) {
+          const float2 v = pp[pg * PT];
+          z.x += v.x;
+          z.y += v.y;
+        }
+        zbuf[pad(ZE + m)] = z;
+      }
+      __syncthreads();
 
-    // stage B, item (ob, pbi): taps [k_lo, k_hi) (whole chunks of the ZE
-    // zero-padded taps) of outputs m = ob*R + r, y[m] = Re sum_k g[k]
-    // z[m - k]; the window w[s % R] holds z[ob*R + s] for s in
-    // [-k, R-1-k] at tap k
-    for (int it = tid; it < nob * geo.pb; it += NT) {
-      const int ob = it % nob, pbi = it / nob;
-      if (ob * R >= tv) continue;
-      const int k_lo = R * (pbi * (ZE / R) / geo.pb);
-      const int k_hi = R * ((pbi + 1) * (ZE / R) / geo.pb);
-      float y[R][NB];
+      // stage B, item (ob, pbi): taps [k_lo, k_hi) (whole chunks of the ZE
+      // zero-padded taps) of outputs m = ob*R + r, y[m] = Re sum_k g[k]
+      // z[m - k]; the window w[s % R] holds z[ob*R + s] for s in
+      // [-k, R-1-k] at tap k
+      for (int it = tid; it < nob * geo.pb; it += NT) {
+        const int ob = it % nob, pbi = it / nob;
+        if (ob * R >= tv) continue;
+        const int k_lo = R * (pbi * (ZE / R) / geo.pb);
+        const int k_hi = R * ((pbi + 1) * (ZE / R) / geo.pb);
+        float y[R][NB];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+        for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int q = 0; q < NB; ++q) y[r][q] = 0.f;
-      // z[ob*R - k0 + s] at index R*(ZE/R + ob - k0/R) + s
-      const float2* zr = zbuf + (R + 1) * (ZE / R + ob - k_lo / R);
-      float2 w[R];
+          for (int q = 0; q < NB; ++q) y[r][q] = 0.f;
+        // z[ob*R - k0 + s] at index R*(ZE/R + ob - k0/R) + s
+        const float2* zr = zbuf + (R + 1) * (ZE / R + ob - k_lo / R);
+        float2 w[R];
 #pragma unroll
-      for (int s = 0; s < R; ++s) w[s] = zr[s];
-      for (int k0 = k_lo; k0 < k_hi; k0 += R, zr -= R + 1)
-        chunk_b(y, w, gt + k0, zr, k0 + R < k_hi);
-      float* pp = part + pbi * NB * PT + (R + 1) * ob;
+        for (int s = 0; s < R; ++s) w[s] = zr[s];
+        for (int k0 = k_lo; k0 < k_hi; k0 += R, zr -= R + 1)
+          chunk_b(y, w, gt + k0, zr, k0 + R < k_hi);
+        float* pp = part + pbi * NB * PT + (R + 1) * ob;
 #pragma unroll
-      for (int q = 0; q < NB; ++q)
+        for (int q = 0; q < NB; ++q)
 #pragma unroll
-        for (int r = 0; r < R; ++r) pp[q * PT + r] = y[r][q];
-    }
-    __syncthreads();
-    // the PB partial sums, in group order, are the audio
-    for (int m = tid; m < tv; m += NT) {
+          for (int r = 0; r < R; ++r) pp[q * PT + r] = y[r][q];
+      }
+      __syncthreads();
+      // the PB partial sums, in group order, are the audio
+      for (int m = tid; m < tv; m += NT) {
 #pragma unroll
-      for (int q = 0; q < NB; ++q) {
-        const float* pp = part + q * PT + pad(m);
-        float y = pp[0];
-        for (int pbi = 1; pbi < geo.pb; ++pbi) y += pp[pbi * NB * PT];
-        out[((size_t)c * NB + q) * T_out + t0 + m] = y;
+        for (int q = 0; q < NB; ++q) {
+          const float* pp = part + q * PT + pad(m);
+          float y = pp[0];
+          for (int pbi = 1; pbi < geo.pb; ++pbi) y += pp[pbi * NB * PT];
+          out[((size_t)c * NB + q) * T_out + t0 + m] = y;
+        }
       }
     }
     if (t0 + T_TILE < T_out) {
@@ -513,8 +612,10 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
         const int r = k / (E + 1), col = k - r * (E + 1);
         xbuf[r * RS + pad(col)] = xbuf[r * RS + pad(T_TILE + col)];
       }
-      for (int j = ZE - HB + tid; j < ZE; j += NT)
-        zbuf[pad(j)] = zbuf[pad(T_TILE + j)];
+      if constexpr (NB > 0) {
+        for (int j = ZE - HB + tid; j < ZE; j += NT)
+          zbuf[pad(j)] = zbuf[pad(T_TILE + j)];
+      }
     }
     cp_async_wait_all();
     __syncthreads();
@@ -534,8 +635,10 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
     carry_out[(size_t)c * n_keep + j] = v;
   }
   // new stage-B history: the last HB stage-A outputs
-  for (int j = tid; j < HB; j += NT)
-    carry2_out[(size_t)c * HB + j] = zbuf[pad(ZE - HB + tv + j)];
+  if constexpr (NB > 0) {
+    for (int j = tid; j < HB; j += NT)
+      carry2_out[(size_t)c * HB + j] = zbuf[pad(ZE - HB + tv + j)];
+  }
   for (int o = 16; o > 0; o >>= 1)
     pk = fmaxf(pk, __shfl_xor_sync(0xffffffffu, pk, o));
   if ((tid & 31) == 0) warp_pk[tid >> 5] = pk;
@@ -711,14 +814,17 @@ struct Args {
   int taps2;
   void *out, *carry_out, *carry2_out, *peaks;
   cudaStream_t stream;
+  void* out_b;        // K5: the imaginary plane (out_kind OUT_PLANES)
+  int out_kind;       // K5: OutKind
 };
 
-template <typename Tin, int NB>
-int launch_k1(const Args& a) {
+// K1 (NB = 1, 2; NCO) and K5 (NB = 0)
+template <typename Tin, int NB, bool NCO>
+int launch_front(const Args& a) {
   Geom geo;
   if (!geometry(a.taps, a.taps2, a.decim, NB, (int)sizeof(Tin), &geo))
     return (int)cudaErrorInvalidValue;
-  auto kern = front_kernel<Tin, NB>;
+  auto kern = front_kernel<Tin, NB, NCO>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
   if (e != cudaSuccess) return (int)e;
@@ -732,7 +838,7 @@ int launch_k1(const Args& a) {
       (const int64_t*)a.phase, a.delta, (const float*)a.h, a.taps, a.decim,
       (const float*)a.g_re, (const float*)a.g_im, a.taps2, geo,
       (float*)a.out, (float2*)a.carry_out, (float2*)a.carry2_out,
-      (float*)a.peaks);
+      (float*)a.peaks, (float*)a.out_b, a.out_kind);
   return (int)cudaGetLastError();
 }
 
@@ -764,7 +870,9 @@ int uhsdr_front_threads() { return NT; }
 int uhsdr_front_outputs_per_thread() { return R; }
 int uhsdr_front_tile_bytes() { return TILE_BYTES; }
 int uhsdr_front_smem_max() { return SMEM_MAX; }
-// K1's dynamic shared memory for a shape, or -1 where it does not fit.
+int uhsdr_front_smem_aim() { return SMEM_AIM; }
+// K1's (nb 1, 2) or K5's (nb 0, taps2 unused) dynamic shared memory for
+// a shape, or -1 where it does not fit.
 int uhsdr_front_smem(int taps, int taps2, int decim, int nb, int in_bytes) {
   Geom g;
   return geometry(taps, taps2, decim, nb, in_bytes, &g) ? g.smem : -1;
@@ -791,14 +899,44 @@ int uhsdr_front_launch(int in_kind, const void* xi, const void* xq,
   using Launch = int (*)(const Args&);
   // [in_kind][NB = 1, NB = 2, K15]
   static const Launch table[2][3] = {
-      {launch_k1<int16_t, 1>, launch_k1<int16_t, 2>, launch_mt<int16_t>},
-      {launch_k1<float, 1>, launch_k1<float, 2>, launch_mt<float>}};
+      {launch_front<int16_t, 1, true>, launch_front<int16_t, 2, true>,
+       launch_mt<int16_t>},
+      {launch_front<float, 1, true>, launch_front<float, 2, true>,
+       launch_mt<float>}};
   if (nb < 1 || nb > 2 || (h_sin != nullptr && nb != 1))
     return (int)cudaErrorInvalidValue;
   const Args a{xi, xq, in_scale, C, B, n_keep, carry_in, carry2_in, phase,
                delta, h, taps, decim, h_sin, g_re, g_im, taps2, out,
-               carry_out, carry2_out, peaks, (cudaStream_t)stream};
+               carry_out, carry2_out, peaks, (cudaStream_t)stream,
+               nullptr, 0};
   return table[in_kind != 0][h_sin != nullptr ? 2 : nb - 1](a);
+}
+
+// K5.  in_kind: 0 = int16 planes, 1 = float32 planes.  use_nco: 0 leaves
+// the input unrotated (phase is not read).  out_kind: 0 = two f32 planes
+// (out_a, out_b), 1 = one interleaved complex64 array (out_a), 2 = the
+// real plane alone (out_a).  The raw carry rows hold taps-1 samples.
+// Returns a cudaError_t.
+int uhsdr_fir_rt_launch(int in_kind, const void* xi, const void* xq,
+                        float in_scale, int C, int B, const void* carry_in,
+                        int use_nco, const void* phase, unsigned int delta,
+                        const void* h, int taps, int decim, int out_kind,
+                        void* out_a, void* out_b, void* carry_out,
+                        void* peaks, void* stream) {
+  using Launch = int (*)(const Args&);
+  // [in_kind][use_nco]
+  static const Launch table[2][2] = {
+      {launch_front<int16_t, 0, false>, launch_front<int16_t, 0, true>},
+      {launch_front<float, 0, false>, launch_front<float, 0, true>}};
+  if (out_kind < OUT_PLANES || out_kind > OUT_REAL ||
+      (out_kind == OUT_PLANES && out_b == nullptr) ||
+      (use_nco != 0 && phase == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{xi, xq, in_scale, C, B, taps - 1, carry_in, nullptr, phase,
+               delta, h, taps, decim, nullptr, nullptr, nullptr, 0, out_a,
+               carry_out, nullptr, peaks, (cudaStream_t)stream, out_b,
+               out_kind};
+  return table[in_kind != 0][use_nco != 0](a);
 }
 
 const char* uhsdr_error_string(int e) {

@@ -1,21 +1,24 @@
-"""Where K1's time goes on the card, phase by phase.
+"""Where K1's and K5's time goes on the card, phase by phase.
 
     python -m uhsdr_tpu_torch.trace_front [--seed 7]
 
 Builds `kernels/front.cu` as it is and three variants of it, each with one
-phase of K1's tile loop left out: the load (staged planes to rotated
-polyphase samples), stage A, stage B.  Times the four through
-`cuda.fir.front`, each library in turn in the kernel's place, on the
-same inputs (CUDA events, 10 launches after one) at the
-shapes the port sends K1: the SSB flagship (8192 ch x 16384 int16 @ 96
-kHz, decim 8), the two-channel flagship's two stage-B filters, the
-fleet's f32 planes at 48 kHz (1024 ch, decim 4) and int16 at 192 kHz
-(8192 ch, decim 16).  Prints, per shape, each variant's ms and what the
-left-out phase costs while the others still run (the whole kernel's time
-less the variant's), beside the FMA bound at the card's published FP32
-peak, then one JSON line.  The variants' outputs are wrong: they only
-time.  The variants build into `_build/` beside the kernels.  Exits 2
-where CUDA is absent.
+phase of the tile loop left out: the load (staged planes to rotated
+polyphase samples), stage A, stage B (K1's; K5, the same kernel with no
+stage B, has none).  Times the four through `cuda.fir.front` (K1) or
+`cuda.fir.fir_rt` (K5), each library in turn in the kernel's place, on
+the same inputs (CUDA events, 10 launches after one) at the shapes the
+port sends them: K1 at the SSB flagship (8192 ch x 16384 int16 @ 96 kHz,
+decim 8), the two-channel flagship's two stage-B filters, the fleet's
+f32 planes at 48 kHz (1024 ch, decim 4) and int16 at 192 kHz (8192 ch,
+decim 16); K5 at the AM/SAM flagship (8192 ch x 16384 int16 @ 96 kHz,
+decim 4, 239 taps) and the FM flagship (decim 2).  Prints, per shape,
+each variant's ms and what the left-out phase costs while the others
+still run (the whole kernel's time less the variant's), the rest (the
+whole less every phase's cost), beside the FMA bound at the card's
+published FP32 peak, then one JSON line.  The variants' outputs are
+wrong: they only time.  The variants build into `_build/` beside the
+kernels.  Exits 2 where CUDA is absent.
 """
 from __future__ import annotations
 
@@ -42,13 +45,19 @@ PHASES = {
     "stage_b": ("for (int it = tid; it < nob * geo.pb; it += NT) {",
                 "for (int it = tid; it < 0; it += NT) {"),
 }
-SHAPES = (("ssb", dict(mode="usb", iq_rate=96000.0), 8192, torch.int16),
+# (label, config, channels, plane dtype, the kernel: K1 or K5)
+SHAPES = (("ssb", dict(mode="usb", iq_rate=96000.0), 8192, torch.int16,
+           "K1"),
           ("ssbstereo", dict(mode="ssbstereo", iq_rate=96000.0), 8192,
-           torch.int16),
+           torch.int16, "K1"),
           ("fleet_48k_f32", dict(mode="usb", iq_rate=48000.0), 1024,
-           torch.float32),
+           torch.float32, "K1"),
           ("usb_192k", dict(mode="usb", iq_rate=192000.0), 8192,
-           torch.int16))
+           torch.int16, "K1"),
+          ("sam_k5", dict(mode="sam", bw_key="5P0KHZ", path_name="AM/SAM",
+                          iq_rate=96000.0), 8192, torch.int16, "K5"),
+          ("fm_k5", dict(mode="fm", bw_key="5P0KHZ", path_name="FM",
+                         iq_rate=96000.0), 8192, torch.int16, "K5"))
 BLOCK = 16384
 
 
@@ -102,8 +111,10 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 
 def shape_inputs(kw: dict, C: int, dtype, dev, gen):
-    cfg = rx.RxConfig(bw_key="2P3KHZ", path_name="LPF", translate_hz=12000.0,
-                      **kw)
+    """(the launch's callable, its FMAs) at one shape: K1's `front`, or
+    K5's `fir_rt` (NCO on, complex out) where the row has no stage B."""
+    cfg = rx.RxConfig(**{"bw_key": "2P3KHZ", "path_name": "LPF",
+                         "translate_hz": 12000.0, **kw})
     p = rx.make_params(cfg, dev)
     n_keep = rx._raw_history_len(cfg, p)
     x = [(torch.randn((C, BLOCK), generator=gen, device=dev) * 3277.0)
@@ -112,14 +123,19 @@ def shape_inputs(kw: dict, C: int, dtype, dev, gen):
          for v in x]
     carry = (torch.randn((C, n_keep), generator=gen, device=dev) * 0.1
              ).to(torch.complex64)
+    phase = torch.randint(0, 2**32, (C,), generator=gen, device=dev)
+    if p.front2 is None:
+        fma = C * (BLOCK // cfg.decim) * 2 * p.front_fir.shape[-1]
+        args = (p.front_fir, carry, *x, cfg.decim)
+        return (lambda: fir_k.fir_rt(*args, nco=(phase, p.nco_delta))), fma
     carry2 = (torch.randn((C, p.front2.shape[-1] - 1), generator=gen,
                           device=dev) * 0.1).to(torch.complex64)
-    phase = torch.randint(0, 2**32, (C,), generator=gen, device=dev)
     nb = 1 if p.front2.ndim == 1 else 2
     fma = C * (BLOCK // cfg.decim) * (2 * p.front_fir.shape[-1]
                                       + 2 * nb * p.front2.shape[-1])
-    return (p.front_fir, p.front2, carry, carry2, *x, phase, p.nco_delta,
-            cfg.decim), fma
+    args = (p.front_fir, p.front2, carry, carry2, *x, phase, p.nco_delta,
+            cfg.decim)
+    return (lambda: fir_k.front(*args)), fma
 
 
 def main() -> int:
@@ -139,32 +155,36 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     result = {}
-    for label, kw, C, dtype in SHAPES:
-        inputs, fma = shape_inputs(kw, C, dtype, dev, gen)
+    for label, kw, C, dtype, kernel in SHAPES:
+        launch, fma = shape_inputs(kw, C, dtype, dev, gen)
+        phases = [ph for ph in PHASES if kernel == "K1" or ph != "stage_b"]
+        names = ["whole"] + [f"no_{ph}" for ph in phases]
         # whole, variants, variants reversed, whole: two readings each
-        order = list(libs) + list(libs)[::-1]
-        ms = {name: [] for name in libs}
+        ms = {name: [] for name in names}
         try:
-            for name in order:
-                # fir.front launches through the library it finds here
+            for name in names + names[::-1]:
+                # fir.front and fir.fir_rt launch through the library
+                # they find here
                 fir_k.FRONT._lib = libs[name]
-                ms[name].append(cuda_ms(lambda: fir_k.front(*inputs)))
+                ms[name].append(cuda_ms(launch))
         finally:
             fir_k.FRONT._lib = libs["whole"]
         mean = {name: sum(v) / len(v) for name, v in ms.items()}
         bound = fma / PEAK_FMA_S * 1e3
-        cost = {ph: mean["whole"] - mean[f"no_{ph}"] for ph in PHASES}
-        print(f"{label}: {C} ch, whole {mean['whole']:.4f} ms "
+        cost = {ph: mean["whole"] - mean[f"no_{ph}"] for ph in phases}
+        rest = mean["whole"] - sum(cost.values())
+        print(f"{label} ({kernel}): {C} ch, whole {mean['whole']:.4f} ms "
               f"({', '.join(f'{v:.4f}' for v in ms['whole'])}), FMA bound "
               f"{bound:.4f} ms; left out: "
               + ", ".join(f"{ph} {mean[f'no_{ph}']:.4f} "
-                          f"(costs {cost[ph]:.4f})" for ph in PHASES))
-        result[label] = dict(channels=C, whole_ms=mean["whole"],
-                             fma_bound_ms=bound,
+                          f"(costs {cost[ph]:.4f})" for ph in phases)
+              + f"; the rest {rest:.4f}")
+        result[label] = dict(kernel=kernel, channels=C,
+                             whole_ms=mean["whole"], fma_bound_ms=bound,
                              without_ms={ph: mean[f"no_{ph}"]
-                                         for ph in PHASES},
-                             phase_cost_ms=cost)
-    print(json.dumps({"card": card, "k1_phases": result}))
+                                         for ph in phases},
+                             phase_cost_ms=cost, rest_ms=rest)
+    print(json.dumps({"card": card, "phases": result}))
     return 0
 
 

@@ -12,7 +12,9 @@ first phase that fails:
    prints the build time and each kernel's register/shared-memory report;
 3. one phase per kernel: K1 (the fused SSB front; also 64 channels of
    f32 @ 48 kHz and of int16 @ 192 kHz), K3 (the AGC, at the
-   SSB look-ahead of 48, the AM/SAM look-ahead of 96 and FM's 192), K4
+   SSB look-ahead of 48, the AM/SAM look-ahead of 96 and FM's 192, and at
+   the fleet's FM group, 1024 x 16384 at w 192; its shared memory held to
+   `agc_geometry`'s), K4
    (the interpolator, x8 and x4), K5 (the real-tap AM/SAM front; also 64
    channels of int16 @ 192 kHz at decimation 16, the FM front at
    decimation 2 and 64 channels of the fleet's f32 FM front @ 48 kHz at
@@ -154,10 +156,16 @@ PEAK_FP32_S = 67e12
 # The floor of a recurrence kernel is not its bytes: a channel's T steps
 # are a chain of dependent f32 operations, each at least FP32_LATENCY
 # cycles.  Hand counts of the loop-carried chain per step, at source level:
-# K3 (kernels/agc.cu), volts to the next volts: the compare rm >= volts,
-# its select, 1 - att, nine mask products and differences, three sums into
-# keff, the update multiply and add, the min-volts max.
-AGC_STEP_OPS = 18
+# K3 and K13 (kernels/agc.cu::machine_step, in select form), volts to the
+# next volts: the compare volts > pop_ratio * fba (rm >= volts
+# and volts > save beside it), the fast predicate, two selects of the
+# multiplier, the update multiply and add (rm - volts beside the compares),
+# the min-volts max.
+AGC_STEP_OPS = 7
+# the blended step's count (pallas/agc.py:84-118's form), printed beside:
+# the compare, its select, 1 - att, nine mask products and differences,
+# three sums into keff, the update multiply and add, the min-volts max
+AGC_STEP_OPS_BLENDED = 18
 # K9/K10 (kernels/pll.cu): the loop phs -> sincosf (range reduction and
 # polynomial, ~11 deep) -> mix (2) -> atan2f (division, polynomial and
 # quadrant fix-up, ~22) -> loop filter (5) -> phase add and mod (8) is 48
@@ -725,12 +733,17 @@ def agc_case(agc_params, fs, lengths, dev, gen, time_len=None, C=CHANNELS,
     samples, bit for bit; then times at the first block's length (the
     kernel, with `time_len`, on a fresh block of that length: the window,
     not the length, is what the plain check tests).  Per-channel settings
-    in `agc_params` run the row variant.  Returns (max |err|, ms, plain
-    ms, bytes, flops, recurrence ms, timed length)."""
+    in `agc_params` run the row variant.  The library's shared memory must
+    be `agc_geometry`'s.  Returns (max |err|, ms, plain ms, bytes, flops,
+    recurrence ms, timed length)."""
     kp = agc_ops.kernel_params(agc_params, C)
     p = kp.scalars
     rows = None if kp.rows is None else torch.as_tensor(kp.rows, device=dev)
     w = agc_params.attack_buffsize
+    geo = agc_k.agc_geometry(C, lengths[0], w, rows is not None)
+    smem = agc_k.AGC.lib().uhsdr_agc_smem(w)
+    check(smem == geo.smem, f"{name} w={w}: the library's shared memory "
+                            f"{smem} != agc_geometry's {geo.smem}")
     carry_k = carry_p = torch.zeros((agc_k.N_CARRY, C), device=dev)
     dl_k = dl_p = torch.zeros((C, w), device=dev)
     err, t0 = 0.0, 0
@@ -765,7 +778,10 @@ def agc_case(agc_params, fs, lengths, dev, gen, time_len=None, C=CHANNELS,
     print(f"  {name} agc w={w}, {C} x {T}: {ms:.4f} ms (plain "
           f"{plain_ms:.1f} ms at {lengths[0]} steps; recurrence bound "
           f"{rec_ms:.4f} ms = {T} steps x {AGC_STEP_OPS} dependent ops x "
-          f"{FP32_LATENCY} cycles; {b_by} bound {b_ms:.4f} ms)")
+          f"{FP32_LATENCY} cycles, "
+          f"{recurrence_ms(T, AGC_STEP_OPS_BLENDED):.4f} ms at the blended "
+          f"step's {AGC_STEP_OPS_BLENDED}; {b_by} bound {b_ms:.4f} ms; "
+          f"{geo.smem} B shared, {geo.grid} blocks)")
     return err, ms, plain_ms, nbytes, 60.0 * C * T, rec_ms, T
 
 
@@ -783,16 +799,29 @@ def phase_agc(P, dev, gen):
         P["fm"].agc, rx.IQ_RATE, (2048, 1000, 2048), dev, gen,
         time_len=T192)
     b192, by192 = bound(nb192, fl192)
+    # the fleet's FM group: 1024 channels x 16384 steps at 48 kHz, w 192
+    fm48 = pfleet.FLEET_MIX[-1]
+    check(fm48.mode == "fm", "the fleet's last group is FM")
+    efm, msfm, plainfm, nbfm, flfm, recfm, _ = agc_case(
+        rx.make_params(fm48, dev).agc, fm48.fs_dec,
+        (FLEET_BLOCK, 1000, FLEET_BLOCK), dev, gen,
+        C=FLEET_GROUP_CHANNELS, name="K3 fleet FM")
+    bfm, byfm = bound(nbfm, flfm)
     return row("agc", "agc.cu", "uhsdr_tpu/pallas/agc.py:159",
-               err=max(err, e96, e192), snr=math.inf, ms=ms,
+               err=max(err, e96, e192, efm), snr=math.inf, ms=ms,
                plain_ms=plain_ms, nbytes=nbytes, flops=flops,
                recurrence_ms=rec_ms,
+               recurrence_blended_ms=recurrence_ms(T48, AGC_STEP_OPS_BLENDED),
                library_note="no PyTorch call computes a look-ahead AGC",
                w96=dict(ms=ms96, plain_ms=plain96, bound_ms=b96,
                         bound_by=by96, recurrence_ms=rec96, steps=T96),
                w192=dict(ms=ms192, plain_ms=plain192, plain_steps=2048,
                          bound_ms=b192, bound_by=by192,
-                         recurrence_ms=rec192, steps=T192))
+                         recurrence_ms=rec192, steps=T192),
+               fleet_fm=dict(ms=msfm, plain_ms=plainfm, bound_ms=bfm,
+                             bound_by=byfm, recurrence_ms=recfm,
+                             channels=FLEET_GROUP_CHANNELS,
+                             steps=FLEET_BLOCK))
 
 
 def interp_library(h, carry, x, interp):
@@ -1045,14 +1074,18 @@ def phase_agc_scan(P, dev, gen):
     # operations a step
     nbytes = 3 * C * T * 4 + 2 * agc_k.N_CARRY * C * 4
     rec_ms = recurrence_ms(T, AGC_STEP_OPS)
+    rec18 = recurrence_ms(T, AGC_STEP_OPS_BLENDED)
     r = row("agc_scan", "agc.cu", "uhsdr_tpu/pallas/agc.py:126", err=err,
             snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
             flops=50.0 * C * T, recurrence_ms=rec_ms,
+            recurrence_blended_ms=rec18,
             library_note="no PyTorch call computes the AGC's 5-state "
                          "machine")
     print(f"  K13 agc_scan, T={T}: {ms:.4f} ms (plain {plain_ms:.1f} ms; "
-          f"recurrence bound {rec_ms:.4f} ms; {r['bound_by']} bound "
-          f"{r['bound_ms']:.4f} ms, {nbytes / 2**20:.0f} MiB)")
+          f"recurrence bound {rec_ms:.4f} ms at {AGC_STEP_OPS} ops, "
+          f"{rec18:.4f} at the blended step's {AGC_STEP_OPS_BLENDED}; "
+          f"{r['bound_by']} bound {r['bound_ms']:.4f} ms, "
+          f"{nbytes / 2**20:.0f} MiB)")
     return r
 
 
@@ -1083,6 +1116,7 @@ def phase_agc_rows(P, dev, gen):
     return row("agc_rows", "agc.cu", "uhsdr_tpu/pallas/agc.py:176",
                err=err, snr=math.inf, ms=ms, plain_ms=plain_ms,
                nbytes=nbytes, flops=flops, recurrence_ms=rec_ms,
+               recurrence_blended_ms=recurrence_ms(T, AGC_STEP_OPS_BLENDED),
                library_note="no PyTorch call computes a look-ahead AGC",
                channels=C, steps=T, scalar_ms=scalar_ms)
 
@@ -1126,14 +1160,17 @@ def phase_agc_scan_rows(P, dev, gen):
     # bytes: rm and ax in, volts out, carries in and out, the two rows in
     nbytes = 3 * C * T * 4 + 2 * agc_k.N_CARRY * C * 4 + 2 * C * 4
     rec_ms = recurrence_ms(T, AGC_STEP_OPS)
+    rec18 = recurrence_ms(T, AGC_STEP_OPS_BLENDED)
     r = row("agc_scan_rows", "agc.cu", "uhsdr_tpu/pallas/agc.py:128",
             err=err, snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
-            flops=50.0 * C * T, recurrence_ms=rec_ms, scalar_ms=scalar_ms,
+            flops=50.0 * C * T, recurrence_ms=rec_ms,
+            recurrence_blended_ms=rec18, scalar_ms=scalar_ms,
             library_note="no PyTorch call computes the AGC's 5-state "
                          "machine")
     print(f"  K13 rows agc_scan, {C} x {T}: {ms:.4f} ms (scalar "
           f"{scalar_ms:.4f} ms on the same inputs; plain "
-          f"{plain_ms:.1f} ms; recurrence bound {rec_ms:.4f} ms; "
+          f"{plain_ms:.1f} ms; recurrence bound {rec_ms:.4f} ms at "
+          f"{AGC_STEP_OPS} ops, {rec18:.4f} at {AGC_STEP_OPS_BLENDED}; "
           f"{r['bound_by']} bound {r['bound_ms']:.4f} ms)")
     return r
 

@@ -9,9 +9,12 @@ with a card (and no JAX) run
 ragged on purpose: channel counts and block lengths that fill no whole
 thread block or time tile.  Inputs come from a numpy seed.  Kernels and
 plain versions share f32 arithmetic but not the order of their sums, so
-FIR outputs are held to SNR >= 100 dB; the AGC and biquad-cascade
-kernels repeat their plain versions' operations in order and are held to
-120 dB; the PLL kernels' cos/sin/audio to max |err| <= 2e-5 (they repeat
+FIR outputs are held to SNR >= 100 dB; the biquad-cascade kernels
+repeat their plain versions' operations in order and are held to 120 dB
+(`AGC_DB`); the AGC kernels K3 and K13, which repeat them too and are
+built with -fmad=false, must be bit-exact (K3 at w from 48 to 256, over
+one step, a tile less and more one and one tile; its shared memory is
+`agc_geometry`'s); the PLL kernels' cos/sin/audio to max |err| <= 2e-5 (they repeat
 the plain loop's operations too; tests/test_demod.py holds the TPU
 kernels to 3e-4); the FM discriminator to max |err| <= 2e-6 modulo 2 pi
 (an angle at the branch cut may come out as +pi or -pi); the chain on
@@ -129,13 +132,24 @@ def test_front_geometry_matches_library(dev):
                     taps, taps2, cfg.decim, nb, size).smem
 
 
-@pytest.mark.parametrize("C,T,fs", [(40, 1000, 12000.0),
-                                    (64, 2048, 12000.0),
-                                    (33, 1500, 24000.0),      # w = 96
-                                    (8, 700, 32000.0),        # w = 128
-                                    (20, 1000, 48000.0),      # w = 192
-                                    (5, 300, 64000.0)])       # w = 256
+# K3's time tile (32 steps) and look-ahead w = 48 at 12 kHz, 96 at 24,
+# 128 at 32, 192 at 48, 256 at 64: every w is longer than the tile
+AGC_SHAPES = [(40, 1000, 12000.0),
+              (64, 2048, 12000.0),
+              (33, 1500, 24000.0),      # w = 96
+              (8, 700, 32000.0),        # w = 128
+              (20, 1000, 48000.0),      # w = 192
+              (5, 300, 64000.0),        # w = 256
+              (1, 1, 12000.0),          # one channel, one step
+              (31, 31, 12000.0),        # the tile - 1
+              (31, 33, 48000.0),        # the tile + 1
+              (1, 32, 64000.0)]         # one tile, w = 8 tiles
+
+
+@pytest.mark.parametrize("C,T,fs", AGC_SHAPES)
 def test_agc_kernel_matches_plain(dev, C, T, fs):
+    """K3 against its plain version over three streamed blocks, bit for
+    bit."""
     params = agc_ops.make_params(fs, mode="med", hang_enable=True)
     p = agc_ops.kernel_params(params).scalars
     w = params.attack_buffsize
@@ -154,7 +168,41 @@ def test_agc_kernel_matches_plain(dev, C, T, fs):
         yp, cp, dp = agc_k.agc_plain(p, cp, dp, x)
         torch.cuda.synchronize()
         for a, b in ((yp, yk), (cp, ck), (dp, dk)):
-            assert snr_db(a, b) >= AGC_DB
+            assert float((a - b).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("C,T,fs", AGC_SHAPES)
+def test_agc_smem_matches_geometry(dev, C, T, fs):
+    """The library's K3 shared memory is `agc_geometry`'s."""
+    w = agc_ops.make_params(fs).attack_buffsize
+    lib = agc_k.AGC.lib()
+    for rows in (False, True):
+        assert lib.uhsdr_agc_smem(w) == agc_k.agc_geometry(C, T, w,
+                                                           rows).smem
+    assert lib.uhsdr_agc_smem(agc_k.AGC_MAXW + 1) == -1
+
+
+@pytest.mark.parametrize("w", [1, 2, 5, 31, 32, 33, 63, 255, 256])
+def test_agc_kernel_any_window(dev, w):
+    """K3 at look-ahead windows no chain sends (below the 32-step tile the
+    front warp takes one output at a time), bit for bit over three
+    streamed blocks of 1, 37 and 100 steps."""
+    p = agc_ops.kernel_params(agc_ops.make_params(
+        12000.0, mode="med", hang_enable=True)).scalars
+    C = 37
+    rng = np.random.default_rng(w)
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    dk = dp = torch.from_numpy(rng.standard_normal((C, w))
+                               .astype(np.float32)).to(dev)
+    for T in (1, 37, 100):
+        x = torch.from_numpy((rng.standard_normal((C, T))
+                              * np.logspace(-1, 4, C)[:, None])
+                             .astype(np.float32)).to(dev)
+        yk, ck, dk = agc_k.agc(p, ck, dk, x)
+        yp, cp, dp = agc_k.agc_plain(p, cp, dp, x)
+        torch.cuda.synchronize()
+        for a, b in ((yp, yk), (cp, ck), (dp, dk)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("C,B,L", [(5, 1500, 8), (9, 4096, 4), (7, 1030, 2),
@@ -1012,7 +1060,8 @@ def test_slice5_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("C,T,fs", [(40, 1000, 12000.0), (70, 2048, 24000.0),
-                                    (5, 300, 48000.0)])
+                                    (5, 300, 48000.0), (1, 1, 12000.0),
+                                    (31, 33, 48000.0)])
 def test_agc_rows_kernel_bit_exact(dev, C, T, fs):
     """K3 with (3, C) rows: bit-exact with its plain version over three
     streamed blocks, and each channel bit-equal to itself run alone with

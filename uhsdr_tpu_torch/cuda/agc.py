@@ -14,6 +14,12 @@ ops/agc.py::_run_machine (the linked stereo AGC).  On this card both
 are bound by their recurrence (T dependent steps per channel), not by
 their bytes; see the note in the source.
 
+K3's design has a torch mirror here, run by the CPU tests against the
+plain versions: `agc_geometry` (the launcher's tile rule),
+`look_ahead_ring` (the front warp's van Herk / Gil-Werman sliding max
+over its sample ring), `machine_step_select` (the select-form step K3 and
+K13 share) and `agc_design` (the three together with the gain law).
+
 Per-channel gain-law rows (the TPU kernels' `chan` operand): `agc` and
 `agc_scan` take ``rows=None`` (the scalar settings of `AgcScalars`) or
 an f32 table, (3, C) [min_volts, slope_constant, hang_level] for K3 and
@@ -39,6 +45,7 @@ AGC = CudaKernel("agc", "agc.cu", {
     "uhsdr_agc_launch": ([_P, _P, _P, _P, _I, _I, _I] + [_F] * 14
                          + [_P, _P, _P, _P], _I),
     "uhsdr_agc_max_window": ([], _I),
+    "uhsdr_agc_smem": ([_I], _I),
     "uhsdr_agc_scan_launch": ([_P, _P, _P, _P, _I, _I] + [_F] * 11
                               + [_P, _P, _P], _I),
 }, extra_flags=("-fmad=false",))
@@ -49,6 +56,16 @@ AGC_ROWS = CudaKernel("agc_rows", "agc.cu", lib_of=AGC)
 AGC_SCAN_ROWS = CudaKernel("agc_scan_rows", "agc.cu", lib_of=AGC)
 
 N_CARRY = 7   # volts, save_volts, hang_counter, decay_type, state, fba, hba
+
+# K3's tiles (`kernels/agc.cu`): 32 channels a block, time tiles of 32
+# steps through 4 stage buffers, a walker warp, a front warp and 4 gain-law
+# warps; named barriers 1-12 hand the stages on
+AGC_CB = 32
+AGC_MAXW = 256
+AGC_TILE = 32
+AGC_STAGES = 4
+AGC_THREADS = 64 + 32 * 4
+AGC_BARRIERS = 3 * AGC_STAGES
 
 
 class AgcScalars(NamedTuple):
@@ -195,6 +212,173 @@ def agc_plain(p: AgcScalars, carry, delay, x, rows=None):
     return y, new_carry, xfull[:, xfull.shape[-1] - w:]
 
 
+class AgcGeometry(NamedTuple):
+    """K3's tiles for one launch (`kernels/agc.cu::geometry`)."""
+    tile: int         # time steps a stage buffer holds
+    stages: int       # stage buffers in the ring
+    threads: int      # a block's: walker, front and gain-law warps
+    ring: int         # slots of a channel's sample ring (w rounded up to
+                      # the tile, and 3 tiles)
+    ring_stride: int  # its row stride, floats (odd)
+    h_stride: int     # the segment-suffix maxima's row stride (odd)
+    smem: int         # dynamic shared memory, bytes
+    grid: int         # blocks of AGC_CB channels
+    tiles: int        # time tiles a block walks
+
+
+def agc_geometry(C: int, T: int, w: int, rows: bool = False) -> AgcGeometry:
+    """K3's geometry for C channels of T steps at look-ahead w (the
+    launcher's rule; rows change nothing: a gain-law thread keeps its
+    slopes in registers).  Raises ValueError outside 1 <= w <= 256."""
+    if not (1 <= w <= AGC_MAXW and T >= 1 and C >= 1):
+        raise ValueError(f"agc: look-ahead {w} outside the kernel's "
+                         f"1..{AGC_MAXW}, or an empty block")
+    ring = -(-w // AGC_TILE) * AGC_TILE + 3 * AGC_TILE
+    rs, hs = ring | 1, w | 1
+    smem = 4 * (AGC_STAGES * AGC_CB * (AGC_TILE + 1) * 2 + AGC_CB * rs
+                + AGC_CB * hs)
+    return AgcGeometry(AGC_TILE, AGC_STAGES, AGC_THREADS, ring, rs, hs, smem,
+                       -(-C // AGC_CB), -(-T // AGC_TILE))
+
+
+def look_ahead_ring(delay: torch.Tensor, x: torch.Tensor,
+                    tile: int = AGC_TILE):
+    """K3's front warp in torch, tile for tile: a ring of R = w rounded up
+    to the tile and 3 tiles more, xfull[m] in slot (m - w) mod R, tiles 0
+    and 1 in it before the first, tile j+2 as tile j starts; xfull is cut into segments of w samples (the delay line is the
+    first); G, the max from the segment's start, runs along; when a
+    segment is complete, a backward pass writes H, the max to its end,
+    into w slots; rm[n] = max(H[n+1], G[n+w]).  For w >= tile, where a
+    tile holds at most one segment end, each tile first reads its samples
+    and the H its outputs need, and the outputs after the segment's end
+    read the new H; for w < tile, one output at a time.  delay (C, w), x
+    (C, T).  Returns (rm, xs = xfull[:, :T], the new delay line), each
+    equal to what the plain version computes: max is exact."""
+    C, w = delay.shape
+    T = x.shape[-1]
+    R = -(-w // tile) * tile + 3 * tile
+    ring = torch.zeros((C, R), dtype=x.dtype)
+    hmax = torch.zeros((C, w), dtype=x.dtype)
+    ring[:, R - w:] = delay
+
+    def put(t):
+        for i in range(t * tile, min((t + 1) * tile, T)):
+            ring[:, i % R] = x[:, i]
+
+    def suffix(last):
+        h = torch.zeros(C, dtype=x.dtype)
+        sl = last
+        for k in range(w - 1, -1, -1):
+            h = torch.maximum(h, ring[:, sl].abs())
+            hmax[:, k] = h
+            sl = sl - 1 if sl else R - 1
+
+    put(0)
+    put(1)
+    suffix(R - 1)
+    rm, xs = torch.empty_like(x), torch.empty_like(x)
+    gm = torch.zeros(C, dtype=x.dtype)
+    ph, ia, ib = 0, 0, R - w  # m mod w, the slots of xfull[m], xfull[m - w]
+    for j in range(-(-T // tile)):
+        put(j + 2)
+        n0, cnt = j * tile, min(tile, T - j * tile)
+        if w >= tile:
+            gv = ring[:, [(ia + i) % R for i in range(tile)]].abs()
+            hn = hmax[:, [(ph + 1 + i) % w for i in range(tile)]].clone()
+            rs = 0 if ph == 0 else w - ph
+            for i in range(tile):
+                gm = gv[:, i] if i == rs else torch.maximum(gm, gv[:, i])
+                gv[:, i] = gm
+            ie = w - 1 - ph
+            if ie < cnt:
+                suffix((ia + ie) % R)
+                hn[:, ie:] = hmax[:, :tile - ie]
+            rm[:, n0:n0 + cnt] = torch.maximum(hn, gv)[:, :cnt]
+            xs[:, n0:n0 + cnt] = ring[:, [(ib + i) % R for i in range(cnt)]]
+            gm = gv[:, tile - 1].clone()
+        else:
+            for i in range(cnt):
+                a = ring[:, (ia + i) % R].abs()
+                p = (ph + i) % w
+                gm = a if p == 0 else torch.maximum(gm, a)
+                if p == w - 1:
+                    suffix((ia + i) % R)
+                rm[:, n0 + i] = torch.maximum(
+                    hmax[:, 0 if p == w - 1 else p + 1], gm)
+                xs[:, n0 + i] = ring[:, (ib + i) % R]
+        ph, ia, ib = (ph + cnt) % w, (ia + cnt) % R, (ib + cnt) % R
+    return rm, xs, ring[:, [(T + d - w) % R for d in range(w)]]
+
+
+def machine_step_select(p: AgcScalars, carry, rm, fb, hb, chan=None):
+    """The machine step in select form (`kernels/agc.cu::machine_step`,
+    K3's and K13's) on (C,) tensors, with `machine_step`'s arguments and
+    results: three compares of volts pick the new volts among the
+    candidates volts + (rm - volts) * k for the attack, fast-decay and the
+    state's own multiplier (0 holds), and the state, save, hang and decay
+    are chosen by the same predicates.
+    State and decay_type are whole numbers in the carry."""
+    volts, save, hang, decay, st = carry
+    min_volts, hang_level = ((p.min_volts, p.hang_level) if chan is None
+                             else chan)
+    f = torch.float32
+
+    def k(v):
+        return torch.tensor(v, dtype=f)
+    hc = torch.clamp_min(hang - 1.0, 0.0)
+    s = ((st > 0.5).int() + (st > 1.5).int() + (st > 2.5).int()
+         + (st > 3.5).int())
+    ht = (hb > hang_level) & p.hang_enable
+    wait = hc > 0.5
+    hold = ((s == 0) & ht) | (((s == 1) | (s == 2)) & wait)
+    hangd = (s == 4) | ((s == 2) & ~wait) | ((s == 1) & ~wait & (decay > 0.5))
+    st_slow = torch.where(hold, 2, torch.where(hangd, 4, 3))
+    k_slow = torch.where(hold, k(0.0), torch.where(
+        hangd, k(p.hang_decay_mult), k(p.decay_mult)))
+
+    d = rm - volts
+    v_slow = volts + d * k_slow
+    v_fast = volts + d * p.fast_decay_mult
+    v_att = volts + d * p.attack_mult
+    att = rm >= volts
+    f0 = volts > p.pop_ratio * fb
+    f1 = volts > save
+    fast = ((s == 0) & f0) | ((s == 1) & f1)
+    new_volts = torch.where(att, v_att, torch.where(fast, v_fast, v_slow))
+    new_volts = (torch.clamp_min(new_volts, min_volts) if chan is None
+                 else torch.maximum(new_volts, min_volts))
+    new_state = torch.where(att, 0, torch.where(fast, 1, st_slow)).to(f)
+    new_save = torch.where(att & (s >= 2), volts, save)
+    s0_slow = ~att & (s == 0) & ~f0
+    new_hang = torch.where(s0_slow & ht, k(p.hang_time), hc)
+    new_decay = torch.where(s0_slow, ht, decay > 0.5).to(f)
+    return new_volts, new_save, new_hang, new_decay, new_state
+
+
+def agc_design(p: AgcScalars, carry, delay, x, rows=None,
+               tile: int = AGC_TILE):
+    """K3's algorithm in torch: the front warp's ring max
+    (`look_ahead_ring`), the walker's select-form steps
+    (`machine_step_select`) and the gain law, with `agc_plain`'s
+    arguments and results, bit for bit."""
+    rm, xs, new_delay = look_ahead_ring(delay, x, tile)
+    a_f = _f32(np.float32(1.0) - np.float32(p.fast_backmult))
+    a_h = _f32(np.float32(1.0) - np.float32(p.hang_backmult))
+    volts, save, hang, decay, st, fba, hba = carry.unbind(0)
+    chan = None if rows is None else (rows[0], rows[2])
+    mc = (volts, save, hang, decay, st)
+    ax = xs.abs()
+    vs = []
+    for n in range(x.shape[-1]):
+        fba = a_f * fba + p.fast_backmult * ax[:, n]
+        hba = a_h * hba + p.hang_backmult * ax[:, n]
+        mc = machine_step_select(p, mc, rm[:, n], fba, hba, chan)
+        vs.append(mc[0])
+    v = torch.stack(vs, dim=-1)
+    y = xs * gain_law(p, v, None if rows is None else rows[1])
+    return y, torch.stack(list(mc) + [fba, hba], dim=0), new_delay
+
+
 def _check_rows(rows, n: int, C: int, dev, what: str):
     if rows is not None and (
             rows.shape != (n, C) or rows.dtype != torch.float32
@@ -215,10 +399,7 @@ def agc(p: AgcScalars, carry, delay, x, rows=None):
         raise ValueError("agc: x must be (C, T)")
     C, T = x.shape
     w = delay.shape[-1]
-    lib = AGC.lib()
-    if not (1 <= w <= lib.uhsdr_agc_max_window() and T >= 1):
-        raise ValueError(f"agc: look-ahead {w} outside the kernel's "
-                         f"1..{lib.uhsdr_agc_max_window()}, or empty block")
+    agc_geometry(C, T, w, rows is not None)     # raises outside the tiles
     if carry.shape != (N_CARRY, C) or delay.shape != (C, w):
         raise ValueError("agc: carry must be (7, C) and delay (C, w)")
     ts = (carry, delay, x)
@@ -229,7 +410,7 @@ def agc(p: AgcScalars, carry, delay, x, rows=None):
     y = torch.empty_like(x)
     new_carry = torch.empty_like(carry)
     new_delay = torch.empty_like(delay)
-    err = lib.uhsdr_agc_launch(
+    err = AGC.lib().uhsdr_agc_launch(
         x.data_ptr(), delay.data_ptr(), carry.data_ptr(),
         None if rows is None else rows.data_ptr(), C, T, w,
         p.attack_mult, p.fast_decay_mult, p.decay_mult, p.hang_decay_mult,

@@ -61,36 +61,45 @@ SHAPES = (("ssb", dict(mode="usb", iq_rate=96000.0), 8192, torch.int16,
 BLOCK = 16384
 
 
-def build_variants() -> dict:
+def build_variants(kernel: build.CudaKernel = fir_k.FRONT,
+                   variants: dict | None = None) -> dict:
     """{variant: ctypes library}: the kernel's own library ("whole") and
-    one build without each phase, nvcc processes started together."""
-    src = (build.KERNEL_DIR / "front.cu").read_text()
-    out = build.BUILD_DIR / "trace_front"
+    one build of its source for each variant, {name: ((text, replacement),
+    ...)} (by default K1's: "no_<phase>" for each of `PHASES`, the phase's
+    loop header replaced by one that runs 0 times), with the kernel's
+    flags, nvcc processes started together, into `_build/trace_<source>/`."""
+    if variants is None:
+        variants = {f"no_{ph}": (pair,) for ph, pair in PHASES.items()}
+    stem = kernel.source.stem
+    src = kernel.source.read_text()
+    out = build.BUILD_DIR / f"trace_{stem}"
     out.mkdir(parents=True, exist_ok=True)
-    flags = build.BASE_FLAGS + build.ARCH_FLAGS
     procs, paths = {}, {}
-    for name, (loop, empty) in PHASES.items():
-        if src.count(loop) != 1:
-            raise RuntimeError(f"front.cu: the {name} loop '{loop}' is not "
-                               f"there once; update trace_front.PHASES")
-        text = src.replace(loop, empty)
-        tag = hashlib.sha1((text + " ".join(flags)).encode()).hexdigest()
-        cu = out / f"front_no_{name}.cu"
-        so = out / f"front_no_{name}-{tag[:12]}.so"
-        paths[f"no_{name}"] = so
+    for name, pairs in variants.items():
+        text = src
+        for old, new in pairs:
+            if src.count(old) != 1:
+                raise RuntimeError(f"{kernel.source.name}: '{old}' is not "
+                                   f"there once; update the trace's PHASES")
+            text = text.replace(old, new)
+        tag = hashlib.sha1((text + " ".join(kernel.flags)).encode()
+                           ).hexdigest()
+        cu = out / f"{stem}_{name}.cu"
+        so = out / f"{stem}_{name}-{tag[:12]}.so"
+        paths[name] = so
         if not so.exists():
             cu.write_text(text)
             procs[name] = subprocess.Popen(
-                [build.nvcc_path(), *flags, "-o", str(so), str(cu)],
+                [build.nvcc_path(), *kernel.flags, "-o", str(so), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {"whole": fir_k.FRONT.lib()}
+    libs = {"whole": kernel.lib()}
     for name, p in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for no_{name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
     for name, so in paths.items():
         lib = ctypes.CDLL(str(so))
-        for fn, (argtypes, restype) in fir_k.FRONT.signatures.items():
+        for fn, (argtypes, restype) in kernel.signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         libs[name] = lib

@@ -23,8 +23,10 @@ first phase that fails:
    the NCO), K12 (the FM discriminator), K13 (the linked stereo AGC's
    machine), K1 with the two-channel modes' two stage-B filters
    (`front_pair`), K8 (the TX analytic FIR, NCO and conjugation on and
-   off), the TX ALC recurrence, K2 (the fused blocked SOS cascade, at
-   the SSB PreFilter's shape and timed at every path's cascade shape), K14
+   off, its output at 100 dB and its history bit-equal, its shared
+   memory held to `fir_real_geometry`'s), the TX ALC recurrence, K2 (the
+   fused blocked SOS cascade, at the SSB PreFilter's shape and timed at
+   every path's cascade shape), K14
    (the grouped biquad scan, at SAM's stacked allpass shape, also held
    against K11), K15 (the modulated-taps SSB front), and the row variants
    of K3 (per-channel [min_volts, slope, hang_level], at the fleet's
@@ -183,6 +185,9 @@ ALC_STEP_OPS = 12
 FP32_LATENCY = 4
 
 KERNEL_TOL_DB = 90.0
+# K8 against its plain version (tests/test_torch_cuda.py's FIR_DB): both
+# sum the same f32 products, in another order
+FIR_TOL_DB = 100.0
 # the JAX package's tests hold the TPU PLL kernels to 3e-4 against the XLA
 # scan; these kernels repeat their plain versions' arithmetic and have read
 # 0 on this card, so they are held to a few ulp of a unit-scale value
@@ -1232,11 +1237,21 @@ def phase_front_pair(P, dev, gen):
 def phase_fir_real(P, dev, gen):
     """K8 at the TX flagship's shape (8192 ch x 16384 f32 audio, the
     201-tap TX Hilbert pair), with the NCO and without, conjugated and
-    not: two streamed blocks each, the second shorter than the history."""
+    not: two streamed blocks each, the second shorter than the history;
+    the output held to FIR_TOL_DB and the new history bit-equal.  K8's
+    shared-memory rule in the library and in cuda/fir.py must agree at
+    every block length the TX paths send it.  Timed at the flagship, with
+    and without the NCO, and at `wideband_tx`'s 4096 x 4096."""
     params = P["tx"].ssb
     C, B = CHANNELS, TXF.block_len
     h, delta = params.fir, params.nco_delta
     taps = h.shape[-1]
+    lib = fir_k.FIR_REAL.lib()
+    for Bk in (B, WB_T, 100, 2048):
+        want = fir_k.fir_real_geometry(taps, Bk).smem
+        got = lib.uhsdr_fir_real_smem(taps, Bk)
+        check(got == want, f"K8 shared memory at {taps} taps, block {Bk}: "
+                           f"library {got}, cuda/fir.py {want}")
     worst, err = math.inf, 0.0
     for use_nco, conj in ((True, False), (True, True), (False, False),
                           (False, True)):
@@ -1250,9 +1265,11 @@ def phase_fir_real(P, dev, gen):
             torch.cuda.synchronize()
             check(tuple(yk.shape) == (C, Bk) and yk.is_complex(),
                   f"K8 output {tuple(yk.shape)} {yk.dtype}")
-            s, e = held(f"K8 nco {use_nco} conj {conj} block {blk} "
-                        f"({Bk} samples)", {"iq": (yp, yk),
-                                            "carry": (cp, ck)})
+            label = f"K8 nco {use_nco} conj {conj} block {blk} ({Bk} samples)"
+            s, e = held(label, {"iq": (yp, yk), "carry": (cp, ck)})
+            check(s >= FIR_TOL_DB and torch.equal(cp, ck),
+                  f"{label}: SNR {s:.1f} dB < {FIR_TOL_DB}, or the carry "
+                  f"not bit-equal")
             worst, err = min(worst, s), max(err, e)
             phase = nco.advance(phase, delta, Bk)
             del yk, yp
@@ -1261,6 +1278,10 @@ def phase_fir_real(P, dev, gen):
     ph0 = torch.zeros((C,), dtype=torch.int64, device=dev)
     ms = cuda_ms(lambda: fir_k.fir_real(h, c0, x, nco=(ph0, delta)), 10)
     ms_no_nco = cuda_ms(lambda: fir_k.fir_real(h, c0, x), 10)
+    xw, cw = x[:WB_M, :WB_T].contiguous(), c0[:WB_M]
+    ms_wb = cuda_ms(lambda: fir_k.fir_real(h, cw, xw, nco=(ph0[:WB_M],
+                                                             delta)), 10)
+    del xw
     plain_ms = cuda_ms(lambda: fir_k.fir_real_plain(h, c0, x,
                                                     nco=(ph0, delta)), 2)
     # one PyTorch call for the FIR itself (no rotation): a convolution with
@@ -1286,10 +1307,12 @@ def phase_fir_real(P, dev, gen):
             flops=2.0 * fma, library_ms=lib_ms,
             library_note="conv1d with two output channels (the real and "
                          "imaginary taps) over carry ++ block, the FIR "
-                         "alone", ms_no_nco=ms_no_nco)
+                         "alone", ms_no_nco=ms_no_nco,
+            ms_wideband_tx=ms_wb)
     print(f"  K8 fir_real: {ms:.4f} ms with the NCO, {ms_no_nco:.4f} ms "
-          f"without (plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
-          f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}: "
+          f"without, {ms_wb:.4f} ms at {WB_M} x {WB_T} (plain "
+          f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']}: "
           f"{fma / 1e9:.2f} G FMA, {nbytes / 2**20:.0f} MiB)")
     return r
 

@@ -719,19 +719,31 @@ def test_front_pair_kernel_matches_plain(dev, iq_rate, C, B, mode, dtype):
         ph = nco.advance(ph, delta, B)
 
 
-@pytest.mark.parametrize("C,B,use_nco,conj", [
-    (13, 1600, True, False), (3, 4096, True, True), (5, 100, False, False),
-    (7, 999, False, True)])
-def test_fir_real_kernel_matches_plain(dev, C, B, use_nco, conj):
-    """K8 against its plain version over three streamed blocks (the third
-    case's blocks are shorter than the history)."""
-    rng = np.random.default_rng(12)
-    h = torch.from_numpy(((rng.standard_normal(201)
-                           + 1j * rng.standard_normal(201)) * 0.05)
+def _fir_real_case(rng, dev, C, taps):
+    h = torch.from_numpy(((rng.standard_normal(taps)
+                           + 1j * rng.standard_normal(taps)) * 0.05)
                          .astype(np.complex64)).to(dev)
-    delta = int(nco.freq_to_delta(6000.0, 48000.0))
-    ck = cp = torch.zeros((C, 200), device=dev)
     ph = torch.from_numpy(rng.integers(0, 2**32, C)).to(dev)
+    return h, ph, int(nco.freq_to_delta(6000.0, 48000.0))
+
+
+@pytest.mark.parametrize("C,B,taps,use_nco,conj", [
+    (13, 1600, 201, True, False), (3, 4096, 201, True, True),
+    (5, 100, 201, False, False),        # blocks shorter than the history
+    (7, 999, 201, False, True),
+    (1, 16384, 201, True, False),       # one channel, eight whole tiles
+    (4, 1, 201, True, True),            # one sample a block
+    (6, 31, 31, False, False), (5, 33, 2, True, False),
+    (3, 1023, 400, True, True),
+    (2, 300, 400, False, True),         # shorter than the history
+    (9, 2049, 201, False, False),       # a whole tile and one sample
+    (3, 4101, 31, True, False)])        # rows not 16-byte aligned
+def test_fir_real_kernel_matches_plain(dev, C, B, taps, use_nco, conj):
+    """K8 against its plain version over three streamed blocks, the new
+    history bit-equal."""
+    rng = np.random.default_rng(12)
+    h, ph, delta = _fir_real_case(rng, dev, C, taps)
+    ck = cp = torch.zeros((C, taps - 1), device=dev)
     for _ in range(3):
         x = torch.from_numpy(rng.standard_normal((C, B))
                              .astype(np.float32)).to(dev)
@@ -744,6 +756,44 @@ def test_fir_real_kernel_matches_plain(dev, C, B, use_nco, conj):
         assert yk.dtype == torch.complex64 and yk.shape == (C, B)
         assert snr_db(yp, yk) >= FIR_DB and torch.equal(cp, ck)
         ph = nco.advance(ph, delta, B)
+
+
+@pytest.mark.parametrize("B,use_nco,conj", [(2049, True, False),
+                                            (100, True, True),
+                                            (1, False, False)])
+def test_fir_real_batching_changes_no_bit(dev, B, use_nco, conj):
+    """Channel c of a C-channel K8 launch equals the same channel launched
+    alone, bit for bit (one tile and more; the taps split over groups at
+    B = 100 and 1)."""
+    C, taps = 5, 201
+    rng = np.random.default_rng(15)
+    h, ph, delta = _fir_real_case(rng, dev, C, taps)
+    carry = torch.from_numpy(rng.standard_normal((C, taps - 1))
+                             .astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((C, B))
+                         .astype(np.float32)).to(dev)
+    kw = dict(conj=conj)
+    y, c_new = fir_k.fir_real(h, carry, x, nco=(ph, delta) if use_nco
+                              else None, **kw)
+    for c in range(C):
+        yc, cc = fir_k.fir_real(h, carry[c:c + 1].contiguous(),
+                                x[c:c + 1].contiguous(),
+                                nco=(ph[c:c + 1], delta) if use_nco
+                                else None, **kw)
+        assert torch.equal(yc[0], y[c]) and torch.equal(cc[0], c_new[c])
+
+
+def test_fir_real_geometry_matches_library(dev):
+    """The library's K8 shared memory is `fir_real_geometry`'s, and both
+    refuse the same shapes."""
+    lib = fir_k.FIR_REAL.lib()
+    for taps in (2, 31, 201, 400, 2000, 20000):
+        for B in (0, 1, 31, 100, 1023, 2049, 4096, 16384):
+            try:
+                want = fir_k.fir_real_geometry(taps, B).smem
+            except ValueError:
+                want = -1
+            assert lib.uhsdr_fir_real_smem(taps, B) == want, (taps, B)
 
 
 @pytest.mark.parametrize("C,T,decay", [(40, 1000, 3.1622776e-05),
@@ -781,9 +831,9 @@ def test_slice4_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):                 # complex carry
         fir_k.fir_real(h, torch.zeros((C, 200), dtype=torch.complex64,
                                       device=dev), x)
-    with pytest.raises(ValueError):                 # taps beyond the ring
-        fir_k.fir_real(torch.zeros(400, dtype=torch.complex64, device=dev),
-                       torch.zeros((C, 399), device=dev), x)
+    with pytest.raises(ValueError, match="shared memory"):  # too many taps
+        fir_k.fir_real(torch.zeros(20000, dtype=torch.complex64, device=dev),
+                       torch.zeros((C, 19999), device=dev), x)
     with pytest.raises(ValueError):                 # alc_val of C + 1
         alc_k.alc_gains(0.02, torch.ones(C + 1, device=dev), x)
     cfg = rx.RxConfig(**{**FLAGSHIP, "mode": "ssbstereo"})

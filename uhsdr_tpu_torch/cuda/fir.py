@@ -80,8 +80,11 @@ INTERP = CudaKernel("interp", "interp.cu", {
 FIR_REAL = CudaKernel("fir_real", "fir_real.cu", {
     "uhsdr_fir_real_launch": ([_P, _I, _I, _P, _P, _I, _I, _I, _P,
                                ctypes.c_uint32, _P, _P, _P], _I),
-    "uhsdr_fir_real_tile": ([], _I),
-    "uhsdr_fir_real_ring": ([], _I),
+    "uhsdr_fir_real_threads": ([], _I),
+    "uhsdr_fir_real_outputs_per_thread": ([], _I),
+    "uhsdr_fir_real_tile_bytes": ([], _I),
+    "uhsdr_fir_real_smem_max": ([], _I),
+    "uhsdr_fir_real_smem": ([_I, _I], _I),
 })
 
 INT16_SCALE = 1.0 / 32768.0
@@ -555,6 +558,74 @@ def interpolate(h, carry, x, interp: int):
 # K8: the TX analytic FIR
 # ---------------------------------------------------------------------------
 
+# K8's geometry constants, as `kernels/fir_real.cu` defines them (the
+# wrapper checks them against the library's getters when it first loads
+# it): threads a block, outputs a thread holds in registers, bytes of audio
+# a tile aims at, the dynamic shared memory a block may take (bytes).
+FIR_REAL_THREADS = 128
+FIR_REAL_R = 8
+FIR_REAL_TILE_BYTES = 8192
+FIR_REAL_SMEM_MAX = 225 * 1024
+
+
+class FirRealGeometry(NamedTuple):
+    """K8's tiles for one shape (`kernels/fir_real.cu::geometry`)."""
+    e: int           # column of a tile's sample 0: the halo (R | e)
+    ap: int          # taps zero-padded to whole chunks of R (R | ap)
+    t_tile: int      # outputs a tile (R | t_tile)
+    p: int           # tap groups (each a whole number of chunks)
+    smem: int        # dynamic shared memory, bytes
+
+
+def fir_real_geometry(taps: int, B: int) -> FirRealGeometry:
+    """K8's tile geometry for `taps` complex taps and blocks of `B`
+    samples.  A tile holds t_tile outputs: FIR_REAL_TILE_BYTES of audio
+    and no fewer than the halo of e >= taps - 1 columns, so the halo's
+    copy to the next tile never overlaps its source; a block shorter than
+    that is one tile of B rounded up to R.  Where a tile has fewer than
+    one item of R outputs a thread, the taps' chunks are split over p
+    groups.  Raises ValueError for a shape the kernel does not take:
+    buffers past FIR_REAL_SMEM_MAX."""
+    _need(taps >= 1 and B >= 0, f"fir_real: {taps} taps, block {B}")
+    R = FIR_REAL_R
+
+    def pad(i):
+        return i + i // R
+
+    ap = _round_up(taps, R)
+    e = ap
+    t = max(FIR_REAL_TILE_BYTES // 4, e)
+    if B < t:
+        t = _round_up(B, R) if B > R else R
+    share = max(FIR_REAL_THREADS // (t // R), 1)
+    p = min(share, ap // R)
+    xs = pad(e + t - 1) + 1
+    pt = pad(t - 1) + 1
+    floats = (t + _round_up(xs, 4) + 2 * ap + 2 * R
+              + (2 * p * pt if p > 1 else 0))
+    _need(4 * floats <= FIR_REAL_SMEM_MAX,
+          f"fir_real: {taps} taps need {4 * floats} bytes of shared "
+          f"memory, past {FIR_REAL_SMEM_MAX}")
+    return FirRealGeometry(e, ap, t, p, 4 * floats)
+
+
+def _fir_real_lib():
+    """K8's library, its geometry constants checked against this module's
+    when it is first used (the mark lives on the library)."""
+    lib = FIR_REAL.lib()
+    if not getattr(lib, "geometry_checked", False):
+        got = (lib.uhsdr_fir_real_threads(),
+               lib.uhsdr_fir_real_outputs_per_thread(),
+               lib.uhsdr_fir_real_tile_bytes(), lib.uhsdr_fir_real_smem_max())
+        want = (FIR_REAL_THREADS, FIR_REAL_R, FIR_REAL_TILE_BYTES,
+                FIR_REAL_SMEM_MAX)
+        if got != want:
+            raise RuntimeError(f"fir_real.cu's geometry {got} differs from "
+                               f"cuda/fir.py's {want}")
+        lib.geometry_checked = True
+    return lib
+
+
 def fir_real_plain(h, carry, x, nco=None, conj: bool = False):
     """Plain torch version of K8: y = x (*) h for real x and complex h at
     decimation 1 over the carried real history, conjugated with `conj`,
@@ -574,7 +645,8 @@ def fir_real(h, carry, x, nco=None, conj: bool = False):
     taps-1) f32 real history; x: (C, B) f32 audio; nco: None, or (phase
     (C,) int64 in [0, 2^32), the uint32 phase increment) to rotate the
     output; conj: conjugate before the rotation (LSB).  Returns (y (C, B)
-    complex64, new_carry)."""
+    complex64, new_carry).  The taps are limited only by the kernel's
+    shared memory (`fir_real_geometry`)."""
     if x.device.type == "cpu":
         return fir_real_plain(h, carry, x, nco, conj)
     dev = x.device
@@ -594,9 +666,8 @@ def fir_real(h, carry, x, nco=None, conj: bool = False):
         ts.append(phase)
     _need(all(t.device == dev for t in ts), "fir_real: tensors on one device")
     _need(all(t.is_contiguous() for t in ts), "fir_real: contiguous tensors")
-    lib = FIR_REAL.lib()
-    _need(taps - 1 + lib.uhsdr_fir_real_tile() <= lib.uhsdr_fir_real_ring(),
-          f"fir_real: {taps} taps exceed the history ring")
+    fir_real_geometry(taps, B)
+    lib = _fir_real_lib()
     y = torch.empty((C, B), dtype=torch.complex64, device=dev)
     new_carry = torch.empty_like(carry)
     err = lib.uhsdr_fir_real_launch(

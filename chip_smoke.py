@@ -20,8 +20,10 @@ first phase that fails:
    decimation 2 and 64 channels of the fleet's f32 FM front @ 48 kHz at
    decimation 1), K10 and K9 (the SAM PLL), K11 (the biquad
    cascade), K7 and K6 (the complex-tap wide-SSB front with and without
-   the NCO), K12 (the FM discriminator), K13 (the linked stereo AGC's
-   machine), K1 with the two-channel modes' two stage-B filters
+   the NCO, its output at 100 dB, its history and peaks bit-equal, its
+   shared memory held to `fir_cx_geometry`'s; K7 also at 192 kHz, 491
+   taps at decimation 8), K12 (the FM discriminator), K13 (the linked
+   stereo AGC's machine), K1 with the two-channel modes' two stage-B filters
    (`front_pair`), K8 (the TX analytic FIR, NCO and conjugation on and
    off, its output at 100 dB and its history bit-equal, its shared
    memory held to `fir_real_geometry`'s), the TX ALC recurrence, K2 (the
@@ -577,11 +579,79 @@ def fm_front_case(P, dev, gen) -> tuple:
                  decim=decim), worst, err)
 
 
+def k67_shapes() -> set:
+    """{(taps, decim)} of every wide-SSB row at 48, 96 and 192 kHz that
+    `make_params` takes: the shapes the port sends K6/K7."""
+    shapes = set()
+    for rate in (48000.0, 96000.0, 192000.0):
+        for mode in ("usb", "lsb"):
+            for fp in filterpaths.paths_for_mode(mode):
+                cfg = rx.RxConfig(mode=mode, bw_key=fp.bw_key,
+                                  path_name=fp.name, iq_rate=rate)
+                try:
+                    rx.check_slice(cfg)
+                    p = rx.make_params(cfg, "cpu")
+                except (NotImplementedError, KeyError, ValueError):
+                    continue
+                if p.front_fir.is_complex():
+                    shapes.add((p.front_fir.shape[-1], cfg.decim))
+    return shapes
+
+
+def fir_cx_stream(h, delta, decim, C, lengths, use_nco, dev, gen, label):
+    """K7 (use_nco) or K6 against its plain version, real output as the
+    chain takes it, over streamed blocks of `lengths` int16 samples from a
+    zero carry and seeded NCO phases: the output at >= FIR_TOL_DB, the raw
+    history and the peaks bit-equal.  Returns (min SNR, max abs err, the
+    first block's inputs, the last block's carry, phase and inputs)."""
+    taps = h.shape[-1]
+    ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
+    phase = torch.randint(0, 2**32, (C,), generator=gen, device=dev)
+    worst, err, first = math.inf, 0.0, None
+    for blk, Bk in enumerate(lengths):
+        xi, xq = iq_block(gen, dev, C, Bk)
+        nco_arg = (phase, delta) if use_nco else None
+        if first is None:
+            first = (ck, xi, xq, nco_arg)
+        c_in = ck
+        yk, ck, pk_k = fir_k.fir_cx(h, ck, xi, xq, decim, nco=nco_arg,
+                                    real_out=True)
+        yp, cp, pk_p = fir_k.fir_cx_plain(h, cp, xi, xq, decim, nco=nco_arg,
+                                          real_out=True)
+        torch.cuda.synchronize()
+        check(tuple(yk.shape) == (C, Bk // decim) and not yk.is_complex(),
+              f"{label} output {tuple(yk.shape)} {yk.dtype}")
+        s, e = held(f"{label} block {blk} ({Bk} samples)", {
+            "audio": (yp, yk)})
+        check(s >= FIR_TOL_DB, f"{label} audio: {s:.1f} dB < {FIR_TOL_DB}")
+        check(torch.equal(cp, ck) and torch.equal(pk_p, pk_k),
+              f"{label} block {blk}: raw history or peaks not bit-equal")
+        worst, err = min(worst, s), max(err, e)
+        last = (c_in, phase, xi, xq)
+        if use_nco:
+            phase = nco.advance(phase, delta, Bk)
+    return worst, err, first, last
+
+
 def phase_fir_cx(P, dev, gen):
     """K7 (NCO fused, the wide-SSB flagship's front) and K6 (no NCO, the
-    untranslated front): 245 complex taps, decimation 4, real output as
-    the chain takes it, three streamed blocks (the middle one shorter than
-    the history); the complex and two-plane outputs at 1024 channels."""
+    untranslated front), `front.cu`'s complex-tap stage A: 245 complex
+    taps, decimation 4, real output as the chain takes it, three streamed
+    blocks (the middle one shorter than the history), the output at 100
+    dB and the raw history and the peaks bit-equal; channels 0-7 of the
+    first block launched alone bit-equal to their place in the 8192; the
+    complex and two-plane outputs at 1024 channels.  Then K7 at 192 kHz
+    (491 taps, decimation 8, 8192 channels) streamed and timed.  The
+    library's shared memory must be `fir_cx_geometry`'s at every wide-SSB
+    shape."""
+    lib = fir_k.FRONT.lib()
+    for taps, decim in sorted(k67_shapes()):
+        for size in (2, 4):
+            want = fir_k.fir_cx_geometry(taps, decim, size).smem
+            got = lib.uhsdr_fir_cx_smem(taps, decim, size)
+            check(got == want, f"K6/K7 shared memory at {taps} taps, decim "
+                               f"{decim}, {size}-byte samples: library "
+                               f"{got}, cuda/fir.py {want}")
     params = P["wide"]
     C, B, decim = CHANNELS, WIDE.block_len, WIDE.decim
     h, delta = params.front_fir, params.nco_delta
@@ -590,33 +660,26 @@ def phase_fir_cx(P, dev, gen):
     rows = []
     for K, name, use_nco, line in (("K7", "fir_cx_nco", True, 370),
                                    ("K6", "fir_cx", False, 47)):
-        ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64,
-                              device=dev)
-        phase = torch.zeros((C,), dtype=torch.int64, device=dev)
-        worst, err = math.inf, 0.0
-        first = None
-        for blk, Bk in enumerate((B, short, B)):
-            xi, xq = iq_block(gen, dev, C, Bk)
-            nco_arg = (phase, delta) if use_nco else None
-            if first is None:
-                first = (ck, xi, xq, nco_arg)
-            yk, ck, pk_k = fir_k.fir_cx(h, ck, xi, xq, decim, nco=nco_arg,
-                                        real_out=True)
-            yp, cp, pk_p = fir_k.fir_cx_plain(h, cp, xi, xq, decim,
-                                              nco=nco_arg, real_out=True)
-            torch.cuda.synchronize()
-            check(tuple(yk.shape) == (C, Bk // decim) and not yk.is_complex(),
-                  f"{K} output {tuple(yk.shape)} {yk.dtype}")
-            s, e = held(f"{K} block {blk} ({Bk} samples)", {
-                "audio": (yp, yk), "raw carry": (cp, ck),
-                "peaks": (pk_p, pk_k)})
-            worst, err = min(worst, s), max(err, e)
-            if use_nco:
-                phase = nco.advance(phase, delta, Bk)
+        worst, err, first, last = fir_cx_stream(
+            h, delta, decim, C, (B, short, B), use_nco, dev, gen, K)
+        # batching changes no bit: channels 0-7 alone
+        c0, xi, xq, nco0 = first
+        y_all, c_all, p_all = fir_k.fir_cx(h, c0, xi, xq, decim, nco=nco0,
+                                           real_out=True)
+        nco8 = (nco0[0][:8].contiguous(), delta) if use_nco else None
+        y8, c8, p8 = fir_k.fir_cx(h, c0[:8].contiguous(),
+                                  xi[:8].contiguous(), xq[:8].contiguous(),
+                                  decim, nco=nco8, real_out=True)
+        torch.cuda.synchronize()
+        check(torch.equal(y_all[:8], y8) and torch.equal(c_all[:8], c8)
+              and torch.equal(p_all[:8], p8),
+              f"{K}: channels 0-7 alone differ from the 8192-channel launch")
+        del y_all, c_all
         # the outputs off the chain's path: complex and two planes
         n = 1024
-        c1, x1i, x1q = ck[:n].contiguous(), xi[:n], xq[:n]
-        nco1 = (phase[:n].contiguous(), delta) if use_nco else None
+        c_in, ph_l, xi_l, xq_l = last
+        c1, x1i, x1q = c_in[:n].contiguous(), xi_l[:n], xq_l[:n]
+        nco1 = (ph_l[:n].contiguous(), delta) if use_nco else None
         yc, cn, _ = fir_k.fir_cx(h, c1, x1i, x1q, decim, nco=nco1)
         (ar, ai), _, _ = fir_k.fir_cx(h, c1, x1i, x1q, decim, nco=nco1,
                                       planes_out=True)
@@ -624,10 +687,12 @@ def phase_fir_cx(P, dev, gen):
         torch.cuda.synchronize()
         s, e = held(f"{K} complex and planes out, {n} channels", {
             "complex": (yp, yc), "real plane": (yp.real, ar),
-            "imag plane": (yp.imag, ai), "raw carry": (cp1, cn)})
+            "imag plane": (yp.imag, ai)})
+        check(s >= FIR_TOL_DB and torch.equal(cp1, cn),
+              f"{K} complex and planes out: {s:.1f} dB < {FIR_TOL_DB}, or "
+              f"the raw history not bit-equal")
         worst, err = min(worst, s), max(err, e)
 
-        c0, xi, xq, nco0 = first
         ms = cuda_ms(lambda: fir_k.fir_cx(h, c0, xi, xq, decim, nco=nco0,
                                           real_out=True), 10)
         plain_ms = cuda_ms(lambda: fir_k.fir_cx_plain(
@@ -649,21 +714,62 @@ def phase_fir_cx(P, dev, gen):
         del stack, y_pl
         T_out = B // decim
         fma = C * T_out * 2 * taps          # real output: 2 FMA a tap
+        ap = fir_k.fir_cx_geometry(taps, decim).ap
+        padded = C * T_out * 2 * decim * ap
         # bytes: int16 planes in, real audio out, carry in and out, phase
         # in (K7), peaks out, complex taps in
         nbytes = (2 * C * B * 2 + C * T_out * 4 + 2 * C * (taps - 1) * 8
                   + (C * 8 if use_nco else 0) + C * 4 + 8 * taps)
-        r = row(name, "fir_cx.cu", f"uhsdr_tpu/pallas/fir.py:{line}",
+        extra = {}
+        if use_nco:
+            extra["at_192k"] = k7_192k_case(dev, gen)
+            s, e = extra["at_192k"].pop("snr"), extra["at_192k"].pop("err")
+            worst, err = min(worst, s), max(err, e)
+        r = row(name, "front.cu", f"uhsdr_tpu/pallas/fir.py:{line}",
                 err=err, snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
                 flops=2.0 * fma, library_ms=lib_ms,
                 library_note="conv1d with stride, two input channels, on "
-                             "planes mixed beforehand (the FIR alone)")
+                             "planes mixed beforehand (the FIR alone)",
+                padded_fma=padded, **extra)
         print(f"  {K} {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
               f"{lib_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}: {fma / 1e9:.2f} G FMA, "
-              f"{nbytes / 2**20:.0f} MiB)")
+              f"{r['bound_by']}: {fma / 1e9:.2f} G FMA, {padded / 1e9:.2f} "
+              f"G padded, {nbytes / 2**20:.0f} MiB)")
         rows.append(r)
     return rows
+
+
+def k7_192k_case(dev, gen) -> dict:
+    """K7 at the 192 kHz wide row (usb 5P0KHZ: 491 taps, decimation 8) at
+    8192 channels: three streamed blocks, the middle one shorter than the
+    history, against the plain version, then timed.  Returns its timing
+    and its worst SNR and error."""
+    cfg = dataclasses.replace(WIDE, iq_rate=192000.0)
+    p = rx.make_params(cfg, dev)
+    h, delta, decim = p.front_fir, p.nco_delta, cfg.decim
+    taps = h.shape[-1]
+    C, B = CHANNELS, cfg.block_len
+    short = decim * ((taps - 1) // (2 * decim))
+    worst, err, first, _ = fir_cx_stream(
+        h, delta, decim, C, (B, short, B), True, dev, gen,
+        f"K7 192 kHz ({taps} taps, decim {decim})")
+    c0, xi, xq, nco0 = first
+    ms = cuda_ms(lambda: fir_k.fir_cx(h, c0, xi, xq, decim, nco=nco0,
+                                      real_out=True), 10)
+    plain_ms = cuda_ms(lambda: fir_k.fir_cx_plain(
+        h, c0, xi, xq, decim, nco=nco0, real_out=True), 2)
+    T_out = B // decim
+    fma = C * T_out * 2 * taps
+    padded = C * T_out * 2 * decim * fir_k.fir_cx_geometry(taps, decim).ap
+    nbytes = (2 * C * B * 2 + C * T_out * 4 + 2 * C * (taps - 1) * 8
+              + C * 8 + C * 4 + 8 * taps)
+    b_ms, b_by = bound(nbytes, 2.0 * fma)
+    print(f"  K7 at 192 kHz, {taps} taps, decim {decim}: {ms:.4f} ms (plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: "
+          f"{fma / 1e9:.2f} G FMA, {padded / 1e9:.2f} G padded)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                taps=taps, decim=decim, padded_fma=padded, snr=worst,
+                err=err)
 
 
 def wrapped_max(ref: torch.Tensor, got: torch.Tensor) -> float:

@@ -508,10 +508,16 @@ def test_cascade_refuses_tf32(dev):
     (5, 40, 4, 245, "int16", True),        # block shorter than the history
     (7, 1000, 2, 92, "int16", False),      # 10P0KHZ @ 48 kHz
     (4, 999, 1, 89, "float32", True),
-    (6, 1536, 8, 131, "int16", True)])
+    (6, 1536, 8, 131, "int16", True),
+    (3, 4104, 8, 491, "int16", True),      # 192 kHz: two row groups, ragged
+    (5, 200, 8, 491, "float32", True),     # 192 kHz, shorter than history
+    (2, 2400, 2, 1200, "int16", False),    # taps - 1 > 128 x decim
+    (4, 4128, 16, 647, "int16", True),     # decimation 16, four groups
+    (1, 16384, 4, 245, "int16", True)])    # one channel, four whole tiles
 def test_fir_cx_kernels_match_plain(dev, C, B, decim, taps, dtype, use_nco):
     """K6 (no NCO) and K7 (NCO fused) against their plain version, every
-    output form, streamed over three blocks."""
+    output form, streamed over three blocks; the raw history and the
+    peaks bit-equal."""
     rng = np.random.default_rng(8)
     h = torch.from_numpy(((rng.standard_normal(taps)
                            + 1j * rng.standard_normal(taps)) * 0.05)
@@ -535,13 +541,69 @@ def test_fir_cx_kernels_match_plain(dev, C, B, decim, taps, dtype, use_nco):
                                        **kw)
         torch.cuda.synchronize()
         assert yk.dtype == torch.complex64 and yk.shape == (C, B // decim)
-        for a, b in ((yp.real, yr), (cp, ck_new), (pp, pk), (yp, yk),
-                     (yp.real, ar), (yp.imag, ai)):
+        for a, b in ((yp.real, yr), (yp, yk), (yp.real, ar), (yp.imag, ai)):
             assert snr_db(a, b) >= FIR_DB
+        assert torch.equal(cp, ck_new) and torch.equal(pp, pk)
         assert torch.equal(c2, ck_new) and torch.equal(c3, ck_new)
         ck = ck_new
         if use_nco:
             ph = nco.advance(ph, delta, B)
+
+
+@pytest.mark.parametrize("B,decim,taps,dtype,use_nco,out", [
+    (16400, 4, 245, "int16", True, "real"),      # the flagship's, 5 tiles
+    (4104, 8, 491, "int16", False, "planes"),    # two row groups
+    (200, 8, 491, "float32", True, "complex"),   # shorter than history
+    (4128, 16, 647, "int16", True, "real")])     # four row groups
+def test_fir_cx_batching_changes_no_bit(dev, B, decim, taps, dtype, use_nco,
+                                        out):
+    """Channel c of a C-channel K6/K7 launch equals the same channel
+    launched alone, bit for bit: no sum's order depends on the channel
+    count or a channel's place in the launch."""
+    C = 5
+    rng = np.random.default_rng(21)
+    h = torch.from_numpy(((rng.standard_normal(taps)
+                           + 1j * rng.standard_normal(taps)) * 0.05)
+                         .astype(np.complex64)).to(dev)
+    delta = int(nco.freq_to_delta(12000.0, 96000.0))
+    carry = torch.from_numpy((0.1 * (rng.standard_normal((C, taps - 1))
+                                     + 1j * rng.standard_normal(
+                                         (C, taps - 1))))
+                             .astype(np.complex64)).to(dev)
+    ph = torch.from_numpy(rng.integers(0, 2**32, C)).to(dev)
+    x = [torch.from_numpy(_int16(rng, (C, B))).to(dev) for _ in "iq"]
+    if dtype == "float32":
+        x = [v.to(torch.float32) / 32768.0 for v in x]
+    kw = dict(real_out=out == "real", planes_out=out == "planes")
+
+    def run(sl):
+        y, c_new, pk = fir_k.fir_cx(
+            h, carry[sl].contiguous(), *(v[sl].contiguous() for v in x),
+            decim, nco=(ph[sl].contiguous(), delta) if use_nco else None,
+            **kw)
+        return (*(y if isinstance(y, tuple) else (y,)), c_new, pk)
+    full = run(slice(None))
+    for c in range(C):
+        for a, b in zip(full, run(slice(c, c + 1))):
+            assert torch.equal(a[c], b[0]), c
+
+
+def test_fir_cx_geometry_matches_library(dev):
+    """The library's K6/K7 shared memory is `fir_cx_geometry`'s at every
+    shape the wide rows send (48, 96 and 192 kHz) and past them, and both
+    refuse the same shapes."""
+    lib = fir_k.FRONT.lib()
+    shapes = [(92, 2), (131, 4), (245, 4), (491, 8), (323, 8), (647, 16),
+              (1200, 2), (89, 1), (245, 16), (5000, 4), (20000, 2),
+              (60000, 16)]
+    for taps, decim in shapes:
+        for size in (2, 4):
+            try:
+                want = fir_k.fir_cx_geometry(taps, decim, size).smem
+            except ValueError:
+                want = -1
+            assert lib.uhsdr_fir_cx_smem(taps, decim, size) == want, (
+                taps, decim, size)
 
 
 def _wrapped_err(ref, got) -> float:
@@ -579,9 +641,9 @@ def test_slice3_wrappers_refuse_what_the_kernels_do_not_take(dev):
     carry = torch.zeros((C, 88), dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError):                 # real taps
         fir_k.fir_cx(h.real.contiguous(), carry, x, x, 4)
-    with pytest.raises(ValueError):                 # taps beyond the ring
-        fir_k.fir_cx(torch.zeros(400, dtype=torch.complex64, device=dev),
-                     torch.zeros((C, 399), dtype=torch.complex64,
+    with pytest.raises(ValueError, match="shared memory"):
+        fir_k.fir_cx(torch.zeros(20000, dtype=torch.complex64, device=dev),
+                     torch.zeros((C, 19999), dtype=torch.complex64,
                                  device=dev), x, x, 2)
     with pytest.raises(ValueError):                 # carry on the CPU
         fir_k.fir_cx(h, carry.cpu(), x, x, 4)
@@ -596,6 +658,7 @@ def test_slice3_wrappers_refuse_what_the_kernels_do_not_take(dev):
     ("fm", "3P6KHZ", 48000.0, 12000.0, 0, 0.0),
     ("fm", "5P0KHZ", 96000.0, 12000.0, 10, 88.5),
     ("usb", "5P0KHZ", 96000.0, 12000.0, 0, 0.0),      # K7
+    ("usb", "5P0KHZ", 192000.0, 12000.0, 0, 0.0),     # K7, decim 8
     ("usb", "4P0KHZ", 48000.0, 0.0, 0, 0.0),          # K6, both lattices
     ("lsb", "10P0KHZ", 48000.0, 12000.0, 0, 0.0)])
 def test_fm_wide_chain_on_card_matches_cpu(dev, mode, bw, iq_rate, translate,

@@ -11,8 +11,9 @@ JAX package:
   two-plane output, at SNR >= 90 dB on output and raw carry (`-s`
   prints the values) and peaks equal to the input's;
 * `RxChain` wide SSB at 48 kHz (4P0KHZ LPF with its PreFilter and
-  anti-alias lattices; 10P0KHZ; 7P5KHZ as lsb) and 96 kHz (5P0KHZ, with
-  and without the translation, i.e. K7 and K6) against the JAX chain
+  anti-alias lattices; 10P0KHZ; 7P5KHZ as lsb), 96 kHz (5P0KHZ, with
+  and without the translation, i.e. K7 and K6) and 192 kHz (5P0KHZ: 491
+  taps at decimation 8) against the JAX chain
   over four streamed int16 blocks from zero state and through the
   hand-over in both directions, at 80 dB on audio and every state leaf
   (tests/test_torch_rx.py::run_streamed_both_ways);
@@ -183,9 +184,11 @@ def ssb_capture(n_blocks, iq_rate, seed=41, translate=12000.0, sign=1.0):
     dict(mode="usb", bw_key="4P0KHZ", iq_rate=48000.0),
     dict(mode="usb", bw_key="10P0KHZ", iq_rate=48000.0),
     dict(mode="lsb", bw_key="7P5KHZ", iq_rate=48000.0),
-    WIDE96, dict(WIDE96, translate_hz=0.0)],
+    WIDE96, dict(WIDE96, translate_hz=0.0),
+    dict(WIDE96, iq_rate=192000.0)],
     ids=["usb-4P0KHZ-48k", "usb-10P0KHZ-48k", "lsb-7P5KHZ-48k",
-         "usb-5P0KHZ-96k", "usb-5P0KHZ-96k-untranslated"])
+         "usb-5P0KHZ-96k", "usb-5P0KHZ-96k-untranslated",
+         "usb-5P0KHZ-192k"])
 def test_wide_chain_matches_jax_streamed(kw):
     translate = kw.get("translate_hz", 12000.0)
     sign = -1.0 if kw["mode"] == "lsb" else 1.0

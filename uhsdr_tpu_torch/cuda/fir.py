@@ -1,11 +1,11 @@
 """K1 (the fused RX front, with one stage-B filter or the two-channel
 modes' two), K15 (K1 with the translation in modulated stage-A taps), K5
 (the real-tap decimating front, K1's stage A alone), K6/K7 (the
-complex-tap decimating front, without and with the NCO), K4 (the
-polyphase interpolator) and K8 (the TX analytic FIR): wrappers around the
-hand-written kernels `kernels/front.cu` (K1, K15, K5),
-`kernels/fir_cx.cu`, `kernels/interp.cu` and `kernels/fir_real.cu`, each
-beside its plain torch version.
+complex-tap decimating front, without and with the NCO: K5 with complex
+taps), K4 (the polyphase interpolator) and K8 (the TX analytic FIR):
+wrappers around the hand-written kernels `kernels/front.cu` (K1, K15, K5,
+K6, K7), `kernels/interp.cu` and `kernels/fir_real.cu`, each beside its
+plain torch version.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
@@ -54,24 +54,22 @@ FRONT = CudaKernel("front", "front.cu", {
                              ctypes.c_uint32, _P, _I, _I, _I, _P, _P, _P, _P,
                              _P], _I),
     "uhsdr_front_smem_aim": ([], _I),
+    "uhsdr_fir_cx_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
+                             ctypes.c_uint32, _P, _I, _I, _I, _P, _P, _P, _P,
+                             _P], _I),
+    "uhsdr_fir_cx_smem": ([_I, _I, _I], _I),
 })
 # one source and library, counted apart: K1 with the two-channel modes'
 # two stage-B filters
 FRONT_PAIR = CudaKernel("front_pair", "front.cu", lib_of=FRONT)
 # K15, the modulated-taps front
 FRONT_MT = CudaKernel("front_mt", "front.cu", lib_of=FRONT)
-# and K5, the real-tap decimating front (K1 with no stage B)
+# K5, the real-tap decimating front (K1 with no stage B)
 FIR_RT = CudaKernel("fir_rt", "front.cu", lib_of=FRONT)
-
-# one source and library, two kernels: K6 (no NCO) and K7 (NCO fused)
-FIR_CX = CudaKernel("fir_cx", "fir_cx.cu", {
-    "uhsdr_fir_cx_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
-                             ctypes.c_uint32, _P, _I, _I, _I, _P, _P, _P, _P,
-                             _P], _I),
-    "uhsdr_fir_cx_tile": ([], _I),
-    "uhsdr_fir_cx_ring_rows": ([], _I),
-})
-FIR_CX_NCO = CudaKernel("fir_cx_nco", "fir_cx.cu", lib_of=FIR_CX)
+# and K6 (no NCO) and K7 (NCO fused), the complex-tap decimating front
+# (K5 with complex taps)
+FIR_CX = CudaKernel("fir_cx", "front.cu", lib_of=FRONT)
+FIR_CX_NCO = CudaKernel("fir_cx_nco", "front.cu", lib_of=FRONT)
 
 INTERP = CudaKernel("interp", "interp.cu", {
     "uhsdr_interp_launch": ([_P, _P, _I, _I, _P, _I, _I, _P, _P, _P], _I),
@@ -139,28 +137,12 @@ def fir_cx_plain(h, carry, xi, xq, decim: int, nco=None,
     return fir_rt_plain(h, carry, xi, xq, decim, nco, real_out, planes_out)
 
 
-def _fir_rt_lib(taps: int, decim: int, in_bytes: int):
-    """K5's library, once its tile rule takes the shape."""
-    fir_rt_geometry(taps, decim, in_bytes)
-    return _front_lib()
-
-
-def _fir_cx_lib(taps: int, decim: int, in_bytes: int):
-    """K6/K7's library, once their input ring takes the shape."""
-    _need(decim <= 8, f"fir_cx: decimation {decim} outside 1..8")
-    lib = FIR_CX.lib()
-    _need(lib.uhsdr_fir_cx_tile() + -(-(taps - 1) // decim)
-          <= lib.uhsdr_fir_cx_ring_rows(),
-          f"fir_cx: {taps} taps at decim {decim} exceed the input ring")
-    return lib
-
-
-def _decimate(name: str, kernel: CudaKernel, fits, h_dtype, h, carry, xi,
-              xq, decim: int, nco, real_out: bool, planes_out: bool):
+def _decimate(name: str, kernel: CudaKernel, geometry, h_dtype, h, carry,
+              xi, xq, decim: int, nco, real_out: bool, planes_out: bool):
     """Check the arguments of a decimating-front kernel (K5, K6, K7: one
-    C interface), launch it and count the launch on `kernel`.
-    `fits(taps, decim, in_bytes)` raises where the kernel's buffers do not
-    take the shape, else returns its library."""
+    C interface in front.cu), launch it and count the launch on `kernel`.
+    `geometry(taps, decim, in_bytes)` is its tile rule, which raises where
+    the kernel's buffers do not take the shape."""
     dev = xi.device
     _need(xi.ndim == 2, f"{name}: xi/xq must be (C, B)")
     C, B = xi.shape
@@ -183,7 +165,8 @@ def _decimate(name: str, kernel: CudaKernel, fits, h_dtype, h, carry, xi,
         ts.append(phase)
     _need(all(t.device == dev for t in ts), f"{name}: tensors on one device")
     _need(all(t.is_contiguous() for t in ts), f"{name}: contiguous tensors")
-    lib = fits(taps, decim, xi.element_size())
+    geometry(taps, decim, xi.element_size())
+    lib = _front_lib()
     T_out = B // decim
     f32 = dict(dtype=torch.float32, device=dev)
     if real_out or planes_out:
@@ -223,7 +206,7 @@ def fir_rt(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
     if xi.device.type == "cpu":
         return fir_rt_plain(h, carry, xi, xq, decim, nco, real_out,
                             planes_out)
-    return _decimate("fir_rt", FIR_RT, _fir_rt_lib, torch.float32, h,
+    return _decimate("fir_rt", FIR_RT, fir_rt_geometry, torch.float32, h,
                      carry, xi, xq, decim, nco, real_out, planes_out)
 
 
@@ -231,12 +214,14 @@ def fir_cx(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
            planes_out: bool = False):
     """The complex-tap decimating front: K6 without `nco`, K7 with it
     (each counts its own launches).  h: (taps,) complex64 taps; the other
-    arguments and the result as `fir_rt`'s."""
+    arguments and the result as `fir_rt`'s.  The taps and the decimation
+    are limited only by the kernel's shared memory
+    (`fir_cx_geometry`)."""
     if xi.device.type == "cpu":
         return fir_cx_plain(h, carry, xi, xq, decim, nco, real_out,
                             planes_out)
     return _decimate("fir_cx", FIR_CX if nco is None else FIR_CX_NCO,
-                     _fir_cx_lib, torch.complex64, h, carry, xi, xq, decim,
+                     fir_cx_geometry, torch.complex64, h, carry, xi, xq, decim,
                      nco, real_out, planes_out)
 
 
@@ -264,7 +249,8 @@ FRONT_MT_RING2 = 512
 
 
 class FrontGeometry(NamedTuple):
-    """K1's or K5's tiles for one shape (`kernels/front.cu::geometry`)."""
+    """K1's, K5's or K6/K7's tiles for one shape
+    (`kernels/front.cu::geometry`)."""
     e: int           # column of a polyphase row's sample 0 (R | e)
     ze: int          # index of stage-A output 0 in its buffer (R | ze; K5 0)
     ap: int          # polyphase tap row length (R | ap)
@@ -283,22 +269,24 @@ def _round_up(n: int, m: int) -> int:
 
 
 def front_geometry(taps: int, taps2: int, decim: int, nb: int,
-                   in_bytes: int = 2,
-                   n_keep: int | None = None) -> FrontGeometry:
+                   in_bytes: int = 2, n_keep: int | None = None,
+                   cx: bool = False) -> FrontGeometry:
     """K1's tile geometry for stage-A `taps` at `decim`, `nb` stage-B
     filters of `taps2`, planes of `in_bytes` a sample (2: int16, 4: f32)
     and a raw carry of `n_keep` (default taps - 1); nb = 0 is K5's
-    (`fir_rt_geometry`).  A tile holds t_tile outputs, about
+    (`fir_rt_geometry`), and with complex stage-A taps (`cx`, two floats a
+    tap) K6/K7's (`fir_cx_geometry`).  A tile holds t_tile outputs, about
     FRONT_TILE_BYTES of each plane and more than either halo, so a halo
     copy never overlaps its source; K5 halves it (down to its halo) until
     the buffers are within FIR_RT_SMEM_AIM.  Raises ValueError for a shape
-    the kernel does not take: nb outside 0..2, n_keep < taps - 1, or
-    buffers past FRONT_SMEM_MAX."""
+    the kernel does not take: nb outside 0..2 (0 with cx), n_keep <
+    taps - 1, or buffers past FRONT_SMEM_MAX."""
     n_keep = taps - 1 if n_keep is None else n_keep
     _need(taps >= 1 and decim >= 1 and nb in (0, 1, 2)
-          and (nb == 0 or taps2 >= 1) and in_bytes in (2, 4),
+          and (nb == 0 or taps2 >= 1) and in_bytes in (2, 4)
+          and not (cx and nb),
           f"front: taps {taps}, taps2 {taps2}, decim {decim}, nb {nb}, "
-          f"{in_bytes}-byte samples")
+          f"{in_bytes}-byte samples{', complex taps' if cx else ''}")
     _need(n_keep >= taps - 1,
           f"front: raw carry of {n_keep} < taps - 1 = {taps - 1}")
     R = FRONT_R
@@ -318,14 +306,15 @@ def front_geometry(taps: int, taps2: int, decim: int, nb: int,
         part = (pt * max(2 * p, nb * pb) if nb
                 else pt * 2 * p if p > 1 else 0)
         floats = (2 * st + _round_up(2 * decim * rs, 4) + _round_up(2 * zs, 4)
-                  + _round_up(decim * ap, 4) + 2 * nb * ze
+                  + _round_up((2 if cx else 1) * decim * ap, 4) + 2 * nb * ze
                   + _round_up(part, 4) + 2 * FRONT_ROTOR_GROUP)
         if nb or 4 * floats <= FIR_RT_SMEM_AIM or nob == lo:
             break
         nob = max(nob // 2, lo)
     _need(4 * floats <= FRONT_SMEM_MAX,
-          f"front: {taps} + {taps2 if nb else 0} taps at decim {decim} need "
-          f"{4 * floats} bytes of shared memory, past {FRONT_SMEM_MAX}")
+          f"front: {taps}{' complex' if cx else ''} + {taps2 if nb else 0} "
+          f"taps at decim {decim} need {4 * floats} bytes of shared "
+          f"memory, past {FRONT_SMEM_MAX}")
     return FrontGeometry(e, ze, ap, t_tile, p, pb, 4 * floats)
 
 
@@ -335,6 +324,14 @@ def fir_rt_geometry(taps: int, decim: int, in_bytes: int = 2
     buffers; with one row group no partial-sum buffer: the outputs go
     straight out).  Raises ValueError where it does not fit."""
     return front_geometry(taps, 1, decim, 0, in_bytes)
+
+
+def fir_cx_geometry(taps: int, decim: int, in_bytes: int = 2
+                    ) -> FrontGeometry:
+    """K6/K7's tile geometry: `fir_rt_geometry` with the stage-A tap
+    buffer doubled ((hr, -hi) pairs).  Raises ValueError where it does
+    not fit shared memory."""
+    return front_geometry(taps, 1, decim, 0, in_bytes, cx=True)
 
 
 def front_mt_fits(taps: int, taps2: int, decim: int):

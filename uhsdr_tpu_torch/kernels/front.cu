@@ -85,6 +85,31 @@
 // decim 4, 239 taps) it is 16.0 G FMA of FP32 against 0.77 GiB of memory
 // traffic.
 //
+// K7 and K6, the complex-tap wide-SSB front, are K5 with complex stage-A
+// taps (front_kernel<Tin, 0, NCO, A_CX_RE> for the chain's real output,
+// A_CX for the complex one).  They replace
+// uhsdr_tpu/pallas/fir.py::_fir_nco_kernel (:370, K7, the NCO fused) and
+// ::_fir_kernel (:47, K6, no NCO), fir_decimate_pallas's complex-taps
+// branch (-> :863), entered from chain/rx.py:857 for the wide-SSB fronts
+// (one complex FIR g_h (*) dec whose real part is the SSB audio):
+//   y[m] = sum_k h[k] z[m*decim - k], h = hr + j hi,
+//   Re y = sum hr zr - hi zi,  Im y = sum hr zi + hi zr.
+// Bound on this card: operations.  At the wide-SSB flagship (8192 ch x
+// 16384 int16 @ 96 kHz, decim 4, 245 taps, real output) it is 16.44 G FMA
+// of FP32, 0.4908 ms at 33.5 T FMA/s, against 0.63 GiB of memory traffic;
+// the rows padded to whole chunks (4 x 64 taps) make it 17.18 G FMA.  The
+// real output is K5's work on a second tap plane: the taps are stored
+// polyphase as (hr, -hi) pairs, zero-padded to whole chunks of R, so one
+// float4 broadcast serves two taps (K8's form), and K5's two accumulator
+// arrays take ar += hr zr and ai += (-hi) zi, one FMA each a tap and an
+// output (K5's register count and dependency chains); the output is
+// ar + ai, after the P groups' ordered sum where P > 1.  The complex
+// output takes four FMAs a tap into the two arrays.  Everything else is
+// K5's: the tiles, cp.async staging, the rotation, the polyphase store,
+// the raw history, the peaks and the three output kinds; the tap buffer is
+// twice K5's (cuda/fir.py::fir_cx_geometry), and shared memory is the one
+// limit on the taps and the decimation.
+//
 // K15, the modulated-taps front, replaces
 // uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2_mt, which the reference
 // selects for a static NCO delta under UHSDR_FRONT_MT=1 (fir.py:589-593):
@@ -116,6 +141,9 @@ constexpr int G = 8;             // samples a thread rotates at once
 constexpr int SMEM_AIM = 72 * 1024;
 
 enum OutKind { OUT_PLANES = 0, OUT_INTERLEAVED = 1, OUT_REAL = 2 };
+// stage A's taps: real (K1, K5), or complex (K6, K7) kept as (hr, -hi)
+// with the real part of the output alone (A_CX_RE) or all of it (A_CX)
+enum TapsA { A_REAL = 0, A_CX_RE = 1, A_CX = 2 };
 
 // ---- K15 geometry (PR 5's) ----
 constexpr int TT = 128;         // outputs per time tile = threads per block
@@ -167,11 +195,12 @@ __host__ __device__ __forceinline__ int part_floats(const Geom& g, int nb) {
 // The tile geometry for (taps, taps2, decim, nb) on planes of in_bytes a
 // sample; false if it does not fit.  nb = 0 is K5 (taps2 unused): no
 // stage-B buffers, and the tile halved (down to the halo) until the
-// buffers are within SMEM_AIM.  cuda/fir.py::front_geometry is the same
-// rule.
+// buffers are within SMEM_AIM; cx (nb = 0 only) is K6/K7, whose stage-A
+// taps take two floats.  cuda/fir.py::front_geometry is the same rule.
 bool geometry(int taps, int taps2, int decim, int nb, int in_bytes,
-              Geom* g) {
-  if (taps < 1 || decim < 1 || nb < 0 || nb > 2 || (nb > 0 && taps2 < 1))
+              Geom* g, bool cx = false) {
+  if (taps < 1 || decim < 1 || nb < 0 || nb > 2 || (nb > 0 && taps2 < 1) ||
+      (cx && nb > 0))
     return false;
   const int a0 = (taps + decim - 1) / decim;    // taps of polyphase row 0
   g->ap = round_up(a0, R);
@@ -192,8 +221,9 @@ bool geometry(int taps, int taps2, int decim, int nb, int in_bytes,
     g->pt = pad(g->t_tile - 1) + 1;
     g->st = round_up(g->t_tile * decim * in_bytes, 16) / 4;
     floats = 2L * g->st + round_up(2 * decim * g->rs, 4) +
-             round_up(2 * g->zs, 4) + round_up(decim * g->ap, 4) +
-             2 * nb * g->ze + round_up(part_floats(*g, nb), 4) + 2 * G;
+             round_up(2 * g->zs, 4) +
+             round_up((cx ? 2 : 1) * decim * g->ap, 4) + 2 * nb * g->ze +
+             round_up(part_floats(*g, nb), 4) + 2 * G;
     if (nb > 0 || floats * 4 <= SMEM_AIM || nob == lo) break;
     nob = nob / 2 > lo ? nob / 2 : lo;
   }
@@ -278,11 +308,14 @@ __device__ __forceinline__ void acc_b(float* y, float4 g, float2 z) {
 }
 
 // Stage A, one chunk of R taps a0 .. a0+R-1 of polyphase row b for R
-// outputs: hb = the row's taps from a0 (zero past the row's end), xr =
-// the row at column R*(E/R + ob - a0/R).  Output r takes u_b[ob*R + r -
-// a] from w[(r - a) % R]; step i brings u_b[ob*R - a - 1] into the slot
-// the last output has used (at the chunk's last step only if `more`
-// chunks follow).
+// outputs: hb = the row's taps from a0 (zero past the row's end; AK !=
+// A_REAL: (hr, -hi) pairs, two to a float4), xr = the row at column
+// R*(E/R + ob - a0/R).  Output r takes u_b[ob*R + r - a] from w[(r - a) %
+// R]; step i brings u_b[ob*R - a - 1] into the slot the last output has
+// used (at the chunk's last step only if `more` chunks follow).  A_REAL:
+// ar, ai += h z; A_CX_RE: ar += hr zr, ai += -hi zi (Re y = ar + ai);
+// A_CX: ar += hr zr - hi zi, ai += hr zi + hi zr.
+template <int AK>
 __device__ __forceinline__ void chunk_a(float (&ar)[R], float (&ai)[R],
                                         float2 (&w)[R],
                                         const float* __restrict__ hb,
@@ -290,14 +323,31 @@ __device__ __forceinline__ void chunk_a(float (&ar)[R], float (&ai)[R],
   float4 h4;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    if (i % 4 == 0) h4 = *reinterpret_cast<const float4*>(hb + i);
-    const float hk = i % 4 == 0 ? h4.x : i % 4 == 1 ? h4.y
-                   : i % 4 == 2 ? h4.z : h4.w;
+    float hk, hn;   // the real tap, or hr and -hi
+    if constexpr (AK == A_REAL) {
+      if (i % 4 == 0) h4 = *reinterpret_cast<const float4*>(hb + i);
+      hk = i % 4 == 0 ? h4.x : i % 4 == 1 ? h4.y : i % 4 == 2 ? h4.z : h4.w;
+      hn = 0.f;
+    } else {
+      if (i % 2 == 0) h4 = *reinterpret_cast<const float4*>(hb + 2 * i);
+      hk = i % 2 == 0 ? h4.x : h4.z;
+      hn = i % 2 == 0 ? h4.y : h4.w;
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float2 v = w[(r - i + R) % R];
-      ar[r] = fmaf(hk, v.x, ar[r]);
-      ai[r] = fmaf(hk, v.y, ai[r]);
+      if constexpr (AK == A_REAL) {
+        ar[r] = fmaf(hk, v.x, ar[r]);
+        ai[r] = fmaf(hk, v.y, ai[r]);
+      } else if constexpr (AK == A_CX_RE) {
+        ar[r] = fmaf(hk, v.x, ar[r]);
+        ai[r] = fmaf(hn, v.y, ai[r]);
+      } else {
+        ar[r] = fmaf(hk, v.x, ar[r]);
+        ar[r] = fmaf(hn, v.y, ar[r]);
+        ai[r] = fmaf(hk, v.y, ai[r]);
+        ai[r] = fmaf(-hn, v.x, ai[r]);
+      }
     }
     if (i < R - 1 || more) w[(R - 1 - i) % R] = xr[-i - 2];
   }
@@ -339,14 +389,15 @@ __device__ __forceinline__ void chunk_b(float (&y)[R][NB], float2 (&w)[R],
 //     (D - b) % D holds u_b[j] = x[jD - b] at column E + j for every b;
 //   zbuf: stage-A output m (m < 0: the halo) at index ZE + m;
 //   hp (float): D rows of AP polyphase taps, row b = h[D a + b], zero
-//     beyond; gt: ZE stage-B taps, zero past taps2; part: partial sums;
-//     tab: rotors.
+//     beyond (AK != A_REAL: (hr, -hi) pairs, rows of 2 AP floats); gt: ZE
+//     stage-B taps, zero past taps2; part: partial sums; tab: rotors.
 // Every index goes through pad().  E and ZE are multiples of R, so inside
 // an R-step chunk every load sits at a compile-time offset from one base.
-// NB = 0 is K5: no zbuf, gt or stage B; the stage-A outputs go to out
-// (and out_b) as out_kind asks.  NCO = false (K5 only) skips the
+// NB = 0 is K5 (and with complex taps, AK != A_REAL, K6/K7): no zbuf, gt
+// or stage B; the stage-A outputs go to out (and out_b) as out_kind asks
+// (A_CX_RE: OUT_REAL alone).  NCO = false (NB = 0 only) skips the
 // rotation and never reads phase.
-template <typename Tin, int NB, bool NCO>
+template <typename Tin, int NB, bool NCO, int AK = A_REAL>
 __global__ void __launch_bounds__(NT, 3) front_kernel(
     const Tin* __restrict__ xi, const Tin* __restrict__ xq, float in_scale,
     int B, int n_keep, const float2* __restrict__ carry_in,
@@ -357,6 +408,8 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
     float2* __restrict__ carry_out, float2* __restrict__ carry2_out,
     float* __restrict__ peaks, float* __restrict__ out_b, int out_kind) {
   using GT = typename Taps2<NB>::T;
+  static_assert(NB == 0 || AK == A_REAL, "complex stage-A taps: K6/K7");
+  constexpr int TW = AK == A_REAL ? 1 : 2;   // floats a stage-A tap
   extern __shared__ float4 smem4[];
   const int D = decim, E = geo.e, ZE = geo.ze, AP = geo.ap;
   const int T_TILE = geo.t_tile, RS = geo.rs, PT = geo.pt;
@@ -370,7 +423,7 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
   float2* zbuf = reinterpret_cast<float2*>(sp);
   sp += round_up(2 * geo.zs, 4);
   float* hp = sp;
-  sp += round_up(D * AP, 4);
+  sp += round_up(TW * D * AP, 4);
   GT* gt = reinterpret_cast<GT*>(sp);
   sp += 2 * NB * ZE;
   float* part = sp;
@@ -392,7 +445,14 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
 
   for (int k = tid; k < D * AP; k += NT) {
     const int b = k / AP, src = D * (k - b * AP) + b;
-    hp[k] = src < taps ? h[src] : 0.f;
+    if constexpr (AK == A_REAL) {
+      hp[k] = src < taps ? h[src] : 0.f;
+    } else {
+      const float2 v = src < taps ? reinterpret_cast<const float2*>(h)[src]
+                                  : make_float2(0.f, 0.f);
+      reinterpret_cast<float2*>(hp)[k] = make_float2(v.x, src < taps ? -v.y
+                                                                     : 0.f);
+    }
   }
   if constexpr (NB > 0) {
     for (int k = tid; k < ZE; k += NT) {      // zero taps up to ZE
@@ -513,21 +573,23 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
         // u_b[ob*R + s] at column R*(E/R + ob) + s
         const float2* xr = xbuf + (b == 0 ? 0 : D - b) * RS +
                            (R + 1) * (E / R + ob);
-        const float* hb = hp + b * AP;
+        const float* hb = hp + TW * b * AP;
         float2 w[R];
 #pragma unroll
         for (int s = 0; s < R; ++s) w[s] = xr[s];
         for (int a0 = 0; a0 < AP; a0 += R, xr -= R + 1)
-          chunk_a(ar, ai, w, hb + a0, xr, a0 + R < AP);
+          chunk_a<AK>(ar, ai, w, hb + TW * a0, xr, a0 + R < AP);
       }
       if constexpr (NB == 0) {
         if (geo.p == 1) {
-          // K5, one group: these R sums are the outputs
+          // K5, one group: these R sums are the outputs (A_CX_RE: their
+          // two parts' sum)
           const size_t o = (size_t)c * T_out + t0 + ob * R;
 #pragma unroll
           for (int r = 0; r < R; ++r)
             if (ob * R + r < tv)
-              put_out(out, out_b, out_kind, o + r, ar[r], ai[r]);
+              put_out(out, out_b, out_kind, o + r,
+                      AK == A_CX_RE ? ar[r] + ai[r] : ar[r], ai[r]);
           continue;
         }
       }
@@ -537,7 +599,8 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
     }
     __syncthreads();
     if constexpr (NB == 0) {
-      // K5: the P partial sums, in group order, are the outputs
+      // K5: the P partial sums, in group order, are the outputs (A_CX_RE:
+      // their two parts' sum)
       if (geo.p > 1) {
         for (int m = tid; m < tv; m += NT) {
           const float2* pp = reinterpret_cast<const float2*>(part) + pad(m);
@@ -547,8 +610,8 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
             z.x += v.x;
             z.y += v.y;
           }
-          put_out(out, out_b, out_kind, (size_t)c * T_out + t0 + m, z.x,
-                  z.y);
+          put_out(out, out_b, out_kind, (size_t)c * T_out + t0 + m,
+                  AK == A_CX_RE ? z.x + z.y : z.x, z.y);
         }
       }
     } else {
@@ -818,13 +881,14 @@ struct Args {
   int out_kind;       // K5: OutKind
 };
 
-// K1 (NB = 1, 2; NCO) and K5 (NB = 0)
-template <typename Tin, int NB, bool NCO>
+// K1 (NB = 1, 2; NCO), K5 (NB = 0) and K6/K7 (NB = 0, AK != A_REAL)
+template <typename Tin, int NB, bool NCO, int AK = A_REAL>
 int launch_front(const Args& a) {
   Geom geo;
-  if (!geometry(a.taps, a.taps2, a.decim, NB, (int)sizeof(Tin), &geo))
+  if (!geometry(a.taps, a.taps2, a.decim, NB, (int)sizeof(Tin), &geo,
+                AK != A_REAL))
     return (int)cudaErrorInvalidValue;
-  auto kern = front_kernel<Tin, NB, NCO>;
+  auto kern = front_kernel<Tin, NB, NCO, AK>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
   if (e != cudaSuccess) return (int)e;
@@ -876,6 +940,11 @@ int uhsdr_front_smem_aim() { return SMEM_AIM; }
 int uhsdr_front_smem(int taps, int taps2, int decim, int nb, int in_bytes) {
   Geom g;
   return geometry(taps, taps2, decim, nb, in_bytes, &g) ? g.smem : -1;
+}
+// K6/K7's dynamic shared memory for a shape, or -1 where it does not fit.
+int uhsdr_fir_cx_smem(int taps, int decim, int in_bytes) {
+  Geom g;
+  return geometry(taps, 1, decim, 0, in_bytes, &g, true) ? g.smem : -1;
 }
 // K15's tile geometry.
 int uhsdr_front_tile() { return TT; }
@@ -937,6 +1006,37 @@ int uhsdr_fir_rt_launch(int in_kind, const void* xi, const void* xq,
                carry_out, nullptr, peaks, (cudaStream_t)stream, out_b,
                out_kind};
   return table[in_kind != 0][use_nco != 0](a);
+}
+
+// K6 (use_nco 0) and K7 (use_nco 1): K5's interface with h (taps,)
+// complex64.  out_kind 2 (the real plane alone) runs A_CX_RE, the others
+// A_CX.  Returns a cudaError_t.
+int uhsdr_fir_cx_launch(int in_kind, const void* xi, const void* xq,
+                        float in_scale, int C, int B, const void* carry_in,
+                        int use_nco, const void* phase, unsigned int delta,
+                        const void* h, int taps, int decim, int out_kind,
+                        void* out_a, void* out_b, void* carry_out,
+                        void* peaks, void* stream) {
+  using Launch = int (*)(const Args&);
+  // [in_kind][use_nco][out_kind == OUT_REAL]
+  static const Launch table[2][2][2] = {
+      {{launch_front<int16_t, 0, false, A_CX>,
+        launch_front<int16_t, 0, false, A_CX_RE>},
+       {launch_front<int16_t, 0, true, A_CX>,
+        launch_front<int16_t, 0, true, A_CX_RE>}},
+      {{launch_front<float, 0, false, A_CX>,
+        launch_front<float, 0, false, A_CX_RE>},
+       {launch_front<float, 0, true, A_CX>,
+        launch_front<float, 0, true, A_CX_RE>}}};
+  if (out_kind < OUT_PLANES || out_kind > OUT_REAL ||
+      (out_kind == OUT_PLANES && out_b == nullptr) ||
+      (use_nco != 0 && phase == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{xi, xq, in_scale, C, B, taps - 1, carry_in, nullptr, phase,
+               delta, h, taps, decim, nullptr, nullptr, nullptr, 0, out_a,
+               carry_out, nullptr, peaks, (cudaStream_t)stream, out_b,
+               out_kind};
+  return table[in_kind != 0][use_nco != 0][out_kind == OUT_REAL](a);
 }
 
 const char* uhsdr_error_string(int e) {

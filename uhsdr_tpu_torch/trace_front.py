@@ -1,24 +1,31 @@
-"""Where K1's and K5's time goes on the card, phase by phase.
+"""Where K1's, K5's, K7's and K6's time goes on the card, phase by phase.
 
     python -m uhsdr_tpu_torch.trace_front [--seed 7]
 
 Builds `kernels/front.cu` as it is and three variants of it, each with one
 phase of the tile loop left out: the load (staged planes to rotated
-polyphase samples), stage A, stage B (K1's; K5, the same kernel with no
-stage B, has none).  Times the four through `cuda.fir.front` (K1) or
-`cuda.fir.fir_rt` (K5), each library in turn in the kernel's place, on
-the same inputs (CUDA events, 10 launches after one) at the shapes the
-port sends them: K1 at the SSB flagship (8192 ch x 16384 int16 @ 96 kHz,
-decim 8), the two-channel flagship's two stage-B filters, the fleet's
-f32 planes at 48 kHz (1024 ch, decim 4) and int16 at 192 kHz (8192 ch,
-decim 16); K5 at the AM/SAM flagship (8192 ch x 16384 int16 @ 96 kHz,
-decim 4, 239 taps) and the FM flagship (decim 2).  Prints, per shape,
-each variant's ms and what the left-out phase costs while the others
-still run (the whole kernel's time less the variant's), the rest (the
-whole less every phase's cost), beside the FMA bound at the card's
-published FP32 peak, then one JSON line.  The variants' outputs are
-wrong: they only time.  The variants build into `_build/` beside the
-kernels.  Exits 2 where CUDA is absent.
+polyphase samples), stage A, stage B (K1's; K5, K6 and K7, the same
+kernel with no stage B, have none).  Times the four through
+`cuda.fir.front` (K1), `cuda.fir.fir_rt` (K5) or `cuda.fir.fir_cx` (K7
+with the NCO, K6 without; real output, as the chain takes it), each
+library in turn in the kernel's place, on the same inputs (CUDA events,
+10 launches after one) at the shapes the port sends them: K1 at the SSB
+flagship (8192 ch x 16384 int16 @ 96 kHz, decim 8), the two-channel
+flagship's two stage-B filters, the fleet's f32 planes at 48 kHz (1024
+ch, decim 4) and int16 at 192 kHz (8192 ch, decim 16); K5 at the AM/SAM
+flagship (8192 ch x 16384 int16 @ 96 kHz, decim 4, 239 taps) and the FM
+flagship (decim 2); K7 and K6 at the wide-SSB flagship (8192 ch x 16384
+int16 @ 96 kHz, decim 4, 245 complex taps), K7 at 192 kHz (491 taps,
+decim 8) and on the 48 kHz wide rows (131 taps at decim 4, 92 at decim
+2).  Prints, per shape, each variant's ms and what the left-out phase
+costs while the others still run (the whole kernel's time less the
+variant's), the rest (the whole less every phase's cost), beside the FMA
+bound at the card's published FP32 peak; stage A's share of the whole
+and its rate against that peak at the padded taps (the polyphase rows
+zero-padded to whole chunks of 8, as the kernel runs them); then one
+JSON line.  The variants' outputs are wrong: they only time.  The
+variants build into `_build/` beside the kernels.  Exits 2 where CUDA is
+absent.
 """
 from __future__ import annotations
 
@@ -45,7 +52,8 @@ PHASES = {
     "stage_b": ("for (int it = tid; it < nob * geo.pb; it += NT) {",
                 "for (int it = tid; it < 0; it += NT) {"),
 }
-# (label, config, channels, plane dtype, the kernel: K1 or K5)
+WIDE = dict(mode="usb", bw_key="5P0KHZ", iq_rate=96000.0)
+# (label, config, channels, plane dtype, the kernel: K1, K5, K7 or K6)
 SHAPES = (("ssb", dict(mode="usb", iq_rate=96000.0), 8192, torch.int16,
            "K1"),
           ("ssbstereo", dict(mode="ssbstereo", iq_rate=96000.0), 8192,
@@ -57,7 +65,15 @@ SHAPES = (("ssb", dict(mode="usb", iq_rate=96000.0), 8192, torch.int16,
           ("sam_k5", dict(mode="sam", bw_key="5P0KHZ", path_name="AM/SAM",
                           iq_rate=96000.0), 8192, torch.int16, "K5"),
           ("fm_k5", dict(mode="fm", bw_key="5P0KHZ", path_name="FM",
-                         iq_rate=96000.0), 8192, torch.int16, "K5"))
+                         iq_rate=96000.0), 8192, torch.int16, "K5"),
+          ("wide_k7", WIDE, 8192, torch.int16, "K7"),
+          ("wide_k6", dict(WIDE, translate_hz=0.0), 8192, torch.int16, "K6"),
+          ("wide_192k_k7", dict(WIDE, iq_rate=192000.0), 8192, torch.int16,
+           "K7"),
+          ("wide_48k_131_k7", dict(WIDE, bw_key="4P0KHZ", iq_rate=48000.0),
+           8192, torch.int16, "K7"),
+          ("wide_48k_92_k7", dict(WIDE, bw_key="10P0KHZ", iq_rate=48000.0),
+           8192, torch.int16, "K7"))
 BLOCK = 16384
 
 
@@ -119,9 +135,11 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return a.elapsed_time(b) / reps
 
 
-def shape_inputs(kw: dict, C: int, dtype, dev, gen):
-    """(the launch's callable, its FMAs) at one shape: K1's `front`, or
-    K5's `fir_rt` (NCO on, complex out) where the row has no stage B."""
+def shape_inputs(kw: dict, C: int, dtype, dev, gen, kernel: str):
+    """(the launch's callable, its FMAs, stage A's FMAs at the padded
+    taps) at one shape: K1's `front`; K5's `fir_rt` (NCO on, complex out)
+    where the row has real taps and no stage B; K7's or K6's `fir_cx`
+    (with the NCO or without it, real out) where its taps are complex."""
     cfg = rx.RxConfig(**{"bw_key": "2P3KHZ", "path_name": "LPF",
                          "translate_hz": 12000.0, **kw})
     p = rx.make_params(cfg, dev)
@@ -133,18 +151,28 @@ def shape_inputs(kw: dict, C: int, dtype, dev, gen):
     carry = (torch.randn((C, n_keep), generator=gen, device=dev) * 0.1
              ).to(torch.complex64)
     phase = torch.randint(0, 2**32, (C,), generator=gen, device=dev)
+    taps, T_out = p.front_fir.shape[-1], BLOCK // cfg.decim
+    size = 2 if dtype == torch.int16 else 4
     if p.front2 is None:
-        fma = C * (BLOCK // cfg.decim) * 2 * p.front_fir.shape[-1]
+        fma = C * T_out * 2 * taps
         args = (p.front_fir, carry, *x, cfg.decim)
-        return (lambda: fir_k.fir_rt(*args, nco=(phase, p.nco_delta))), fma
+        if p.front_fir.is_complex():
+            ap = fir_k.fir_cx_geometry(taps, cfg.decim, size).ap
+            nco = (phase, p.nco_delta) if kernel == "K7" else None
+            return ((lambda: fir_k.fir_cx(*args, nco=nco, real_out=True)),
+                    fma, C * T_out * 2 * cfg.decim * ap)
+        ap = fir_k.fir_rt_geometry(taps, cfg.decim, size).ap
+        return ((lambda: fir_k.fir_rt(*args, nco=(phase, p.nco_delta))), fma,
+                C * T_out * 2 * cfg.decim * ap)
     carry2 = (torch.randn((C, p.front2.shape[-1] - 1), generator=gen,
                           device=dev) * 0.1).to(torch.complex64)
     nb = 1 if p.front2.ndim == 1 else 2
-    fma = C * (BLOCK // cfg.decim) * (2 * p.front_fir.shape[-1]
-                                      + 2 * nb * p.front2.shape[-1])
+    taps2 = p.front2.shape[-1]
+    fma = C * T_out * (2 * taps + 2 * nb * taps2)
+    ap = fir_k.front_geometry(taps, taps2, cfg.decim, nb, size, n_keep).ap
     args = (p.front_fir, p.front2, carry, carry2, *x, phase, p.nco_delta,
             cfg.decim)
-    return (lambda: fir_k.front(*args)), fma
+    return (lambda: fir_k.front(*args)), fma, C * T_out * 2 * cfg.decim * ap
 
 
 def main() -> int:
@@ -165,15 +193,15 @@ def main() -> int:
     gen.manual_seed(args.seed)
     result = {}
     for label, kw, C, dtype, kernel in SHAPES:
-        launch, fma = shape_inputs(kw, C, dtype, dev, gen)
+        launch, fma, fma_a = shape_inputs(kw, C, dtype, dev, gen, kernel)
         phases = [ph for ph in PHASES if kernel == "K1" or ph != "stage_b"]
         names = ["whole"] + [f"no_{ph}" for ph in phases]
         # whole, variants, variants reversed, whole: two readings each
         ms = {name: [] for name in names}
         try:
             for name in names + names[::-1]:
-                # fir.front and fir.fir_rt launch through the library
-                # they find here
+                # fir.front, fir.fir_rt and fir.fir_cx launch through
+                # the library they find here
                 fir_k.FRONT._lib = libs[name]
                 ms[name].append(cuda_ms(launch))
         finally:
@@ -182,17 +210,27 @@ def main() -> int:
         bound = fma / PEAK_FMA_S * 1e3
         cost = {ph: mean["whole"] - mean[f"no_{ph}"] for ph in phases}
         rest = mean["whole"] - sum(cost.values())
+        # stage A at the padded taps: its share of the whole, and its rate
+        # against the FP32 peak
+        bound_a = fma_a / PEAK_FMA_S * 1e3
+        share_a = cost["stage_a"] / mean["whole"]
+        peak_a = bound_a / cost["stage_a"]
         print(f"{label} ({kernel}): {C} ch, whole {mean['whole']:.4f} ms "
               f"({', '.join(f'{v:.4f}' for v in ms['whole'])}), FMA bound "
               f"{bound:.4f} ms; left out: "
               + ", ".join(f"{ph} {mean[f'no_{ph}']:.4f} "
                           f"(costs {cost[ph]:.4f})" for ph in phases)
-              + f"; the rest {rest:.4f}")
+              + f"; the rest {rest:.4f}; stage A {100 * share_a:.1f}% of "
+              f"the whole, {100 * peak_a:.1f}% of the FP32 peak at "
+              f"{fma_a / 1e9:.2f} G padded FMA ({bound_a:.4f} ms)")
         result[label] = dict(kernel=kernel, channels=C,
                              whole_ms=mean["whole"], fma_bound_ms=bound,
                              without_ms={ph: mean[f"no_{ph}"]
                                          for ph in phases},
-                             phase_cost_ms=cost, rest_ms=rest)
+                             phase_cost_ms=cost, rest_ms=rest,
+                             stage_a_padded_bound_ms=bound_a,
+                             stage_a_share=share_a,
+                             stage_a_peak_share=peak_a)
     print(json.dumps({"card": card, "phases": result}))
     return 0
 

@@ -27,8 +27,10 @@ first phase that fails:
    (`front_pair`), K8 (the TX analytic FIR, NCO and conjugation on and
    off, its output at 100 dB and its history bit-equal, its shared
    memory held to `fir_real_geometry`'s), the TX ALC recurrence, K2 (the
-   fused blocked SOS cascade, at the SSB PreFilter's shape and timed at
-   every path's cascade shape), K14
+   fused blocked SOS cascade, at the SSB PreFilter's shape, channels 0-7
+   alone bit-equal to the batch, its shared memory held to
+   `blocked_geometry`'s; two streamed blocks and the times at every
+   other path's cascade shape and the fleet's two), K14
    (the grouped biquad scan, at SAM's stacked allpass shape, also held
    against K11), K15 (the modulated-taps SSB front), and the row variants
    of K3 (per-channel [min_volts, slope, hang_level], at the fleet's
@@ -113,7 +115,7 @@ import time
 import numpy as np
 import torch
 
-from uhsdr_tpu_torch import trace_rx, trace_tx
+from uhsdr_tpu_torch import trace_blocked, trace_rx, trace_tx
 from uhsdr_tpu_torch.chain import filterpaths, rx, tx
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import alc as alc_k
@@ -1478,79 +1480,98 @@ def phase_alc(P, dev, gen):
     return r
 
 
-def blocked_work(S: int, C: int, T: int, R: int = 128) -> tuple[float, float]:
-    """(bytes, FP32 operations) of one K2 call: x in and y out, the states
-    in and out, the tables; per chunk and channel the Toeplitz triangle
-    R(R+1)/2, the state terms HS (2S R), G (R 2S) and F^T (4 S^2) FMAs."""
-    nbytes = 2 * C * T * 4 + 2 * S * C * 2 * 4 + (R * R + 4 * S * R
-                                                   + 4 * S * S) * 4
-    fma = C * (T // R) * (R * (R + 1) / 2 + 4 * S * R + 4 * S * S)
-    return nbytes, 2.0 * fma
-
-
 def phase_blocked(P, dev, gen):
     """K2 at the SSB flagship's PreFilter (8192 ch x 2048 samples, 5
     sections): three streamed blocks of 1920, 2176 and 2048 samples (no
     multiple of 8 chunks, the first two) against its plain version (the
     cuBLAS matmuls and the 16-step carry loop the chains ran before K2);
-    then one block and the times at every other path's cascade shape: the
-    AM/SAM PreFilter (8192 x 4096), ssbstereo's (8192 x 2 x 2048), FM's
-    2-section squelch HPF (8192 x 8192) and the TX SOPRANO voice bandpass
-    (8192 x 16384)."""
+    channels 0-7 run alone bit-equal to their place in the batch; the
+    library's shared memory `blocked_geometry`'s for 1-8 sections.  Then
+    two streamed blocks and the times at every other path's cascade
+    shape: the AM/SAM PreFilter (8192 x 4096), ssbstereo's (8192 x 2 x
+    2048), FM's 2-section squelch HPF (8192 x 8192), the TX SOPRANO voice
+    bandpass (8192 x 16384) and the fleet's PreFilter (1024 x 4096) and
+    squelch HPF (1024 x 16384)."""
     C = CHANNELS
     c = P["ssb"].audio_sos
     S = c.sections
+    lib = iir_k._blocked_lib()
+    for sec in range(1, iir_k.BLOCKED_MAX_SECTIONS + 1):
+        check(lib.uhsdr_blocked_smem(sec) == iir_k.blocked_smem(sec),
+              f"K2 shared memory for {sec} sections: library "
+              f"{lib.uhsdr_blocked_smem(sec)}, rule "
+              f"{iir_k.blocked_smem(sec)}")
     sk = sp = torch.zeros((S, C, 2), device=dev)
     worst, err, first = math.inf, 0.0, None
     for blk, T in enumerate((1920, 2176, 2048)):
         x = torch.randn((C, T), generator=gen, device=dev) * 0.1
         if first is None or T == 2048:
             first = (sk, x)
+        s_in = sk
         yk, sk = iir_k.blocked_cascade(c, sk, x)
         yp, sp = iir_k.blocked_cascade_plain(c, sp, x)
+        ya, sa = iir_k.blocked_cascade(c, s_in[:, :8].contiguous(),
+                                       x[:8].contiguous())
         torch.cuda.synchronize()
         s, e = held(f"K2 PreFilter block {blk} ({T} samples)",
                     {"audio": (yp, yk), "state": (sp, sk)})
+        check(torch.equal(ya, yk[:8]) and torch.equal(sa, sk[:, :8]),
+              f"K2 block {blk}: channels 0-7 alone differ from the batch")
         worst, err = min(worst, s), max(err, e)
+    print("  K2 channels 0-7 alone bit-equal to the batch in every block; "
+          "shared memory as blocked_geometry for 1-8 sections")
     s0, x0 = first
     T = x0.shape[-1]
     ms = cuda_ms(lambda: iir_k.blocked_cascade(c, s0, x0), 20)
     plain_ms = cuda_ms(lambda: iir_k.blocked_cascade_plain(c, s0, x0), 5)
-    nbytes, flops = blocked_work(S, C, T)
+    nbytes, flops = trace_blocked.blocked_work(S, C, T)
     shapes = {}
+    fleet = pfleet.FLEET_GROUP_CHANNELS
+    usb48, fm48 = (rx.make_params(pfleet.FLEET_MIX[k], dev) for k in (0, -1))
     others = (("am", P["sam"].audio_sos, (C, SAM.block_len // SAM.decim)),
               ("ssbstereo", P["stereo"].audio_sos,
                (C, 2, STEREO.block_len // STEREO.decim)),
               ("fm_squelch", P["fm"].fm.squelch_sos,
                (C, FM.block_len // FM.decim)),
-              ("tx_voice", P["tx"].voice_sos, (C, TXF.block_len)))
+              ("tx_voice", P["tx"].voice_sos, (C, TXF.block_len)),
+              ("fleet", usb48.audio_sos,
+               (fleet, FLEET_BLOCK // pfleet.FLEET_MIX[0].decim)),
+              ("fleet_squelch", fm48.fm.squelch_sos,
+               (fleet, FLEET_BLOCK // pfleet.FLEET_MIX[-1].decim)))
     for label, cs, shape in others:
         Sk = cs.sections
-        x = torch.randn(shape, generator=gen, device=dev) * 0.1
-        st = torch.zeros((Sk,) + shape[:-1] + (2,), device=dev)
-        yk, sko = iir_k.blocked_cascade(cs, st, x)
-        yp, spo = iir_k.blocked_cascade_plain(cs, st, x)
-        torch.cuda.synchronize()
-        s, e = held(f"K2 {label} {tuple(shape)} {Sk} sections",
-                    {"audio": (yp, yk), "state": (spo, sko)})
-        worst, err = min(worst, s), max(err, e)
-        del yk, yp
+        sko = spo = st = torch.zeros((Sk,) + shape[:-1] + (2,), device=dev)
+        for blk in range(2):
+            x = torch.randn(shape, generator=gen, device=dev) * 0.1
+            yk, sko = iir_k.blocked_cascade(cs, sko, x)
+            yp, spo = iir_k.blocked_cascade_plain(cs, spo, x)
+            torch.cuda.synchronize()
+            s, e = held(f"K2 {label} {tuple(shape)} {Sk} sections block "
+                        f"{blk}", {"audio": (yp, yk), "state": (spo, sko)})
+            worst, err = min(worst, s), max(err, e)
+            del yk, yp
         k_ms = cuda_ms(lambda: iir_k.blocked_cascade(cs, st, x), 10)
         p_ms = cuda_ms(lambda: iir_k.blocked_cascade_plain(cs, st, x), 3)
-        nb, fl = blocked_work(Sk, x.numel() // shape[-1], shape[-1])
+        Ck = x.numel() // shape[-1]
+        nb, fl = trace_blocked.blocked_work(Sk, Ck, shape[-1])
         b_ms, b_by = bound(nb, fl)
+        geo = iir_k.blocked_geometry(Ck, shape[-1], Sk)
         shapes[label] = dict(shape=list(shape), sections=Sk, ms=k_ms,
-                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"  K2 {label} {tuple(shape)}: {k_ms:.4f} ms (plain {p_ms:.3f}"
-              f" ms, bound {b_ms:.4f} ms by {b_by}: {fl / 2e9:.2f} G FMA, "
-              f"{nb / 2**20:.0f} MiB)")
-        del x, st
+                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                             cpw=geo.cpw, tr=geo.tr, blocks=geo.blocks)
+        print(f"  K2 {label} {tuple(shape)} {Sk} sections, {geo.cpw} ch x "
+              f"{geo.tr} chunks a round, {geo.blocks} blocks: {k_ms:.4f} "
+              f"ms (plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: "
+              f"{fl / 2e9:.2f} G FMA, {nb / 2**20:.0f} MiB)")
+        del x, st, sko, spo
     r = row("blocked", "blocked.cu", "uhsdr_tpu/pallas/iir.py:224", err=err,
             snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes, flops=flops,
             library_note="no one PyTorch call runs an SOS cascade (the "
                          "plain version is the cuBLAS matmul form)",
             shapes=shapes)
-    print(f"  K2 blocked PreFilter ({C} x {T}, {S} sections): {ms:.4f} ms "
+    geo = iir_k.blocked_geometry(C, T, S)
+    print(f"  K2 blocked PreFilter ({C} x {T}, {S} sections), {geo.cpw} ch "
+          f"x {geo.tr} chunks a round, {geo.blocks} blocks: {ms:.4f} ms "
           f"(plain {plain_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by "
           f"{r['bound_by']}: {flops / 2e9:.2f} G FMA, "
           f"{nbytes / 2**20:.0f} MiB)")

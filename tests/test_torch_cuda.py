@@ -1010,6 +1010,10 @@ def _sos5(name):
     if name == "squelch":
         return rx.make_params(rx.FM_FLAGSHIP, "cpu").fm.squelch_sos.sos \
             .numpy()
+    if name.startswith("butter"):     # butter1 / butter8: 1 or 8 sections
+        from scipy import signal
+        sos = signal.butter(2 * int(name[6:]), 0.05, output="sos")
+        return np.concatenate([sos[:, :3], sos[:, 4:]], axis=1)
     return tx._lattice_sos5("IIR_TX_SOPRANO")
 
 
@@ -1017,7 +1021,14 @@ def _sos5(name):
     ("prefilter", (40,), (1024, 1920, 2176)),
     ("prefilter", (9, 2), (384, 256, 512)),         # the stereo layout
     ("soprano", (13,), (2048, 640, 128 * 17)),
-    ("squelch", (8,), (1024, 384, 1024))])
+    ("squelch", (8,), (1024, 384, 1024)),
+    ("prefilter", (1024,), (4096, 4096, 256)),      # the fleet's shape
+    ("squelch", (1024,), (16384, 256)),             # the fleet's squelch
+    ("prefilter", (1,), (256, 384, 2048)),          # one channel
+    ("soprano", (3,), (256, 16384, 640)),
+    ("prefilter", (1000,), (256, 2048, 4096)),      # no whole block
+    ("butter1", (37,), (256, 1280, 512)),           # 1 section
+    ("butter8", (70,), (512, 256, 2048))])          # 8 sections
 def test_blocked_kernel_matches_plain(dev, name, lead, lengths):
     c = iir.cascade(_sos5(name), dev)
     S = c.sections
@@ -1033,6 +1044,41 @@ def test_blocked_kernel_matches_plain(dev, name, lead, lengths):
         torch.cuda.synchronize()
         assert yk.shape == x.shape and sk.shape == sp.shape
         assert snr_db(yp, yk) >= K2_DB and snr_db(sp, sk) >= K2_DB
+
+
+@pytest.mark.parametrize("name,C,T", [("prefilter", 8192, 2048),
+                                      ("prefilter", 1024, 4096),
+                                      ("squelch", 300, 1024)])
+def test_blocked_channels_alone_are_bit_equal(dev, name, C, T):
+    """Channels 0-7 run alone give the bits they give in the full batch
+    (another launch geometry: `blocked_geometry` picks 4 channels a block
+    for 8 and 8 or 4 for the batch): no sum's order depends on the
+    channel count or a channel's place in the launch."""
+    c = iir.cascade(_sos5(name), dev)
+    S = c.sections
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy((rng.standard_normal((C, T)) * 0.1)
+                         .astype(np.float32)).to(dev)
+    s0 = torch.from_numpy((rng.standard_normal((S, C, 2)) * 1e-3)
+                          .astype(np.float32)).to(dev)
+    y, st = iir_k.blocked_cascade(c, s0, x)
+    ya, sa = iir_k.blocked_cascade(c, s0[:, :8].contiguous(),
+                                   x[:8].contiguous())
+    torch.cuda.synchronize()
+    assert iir_k.blocked_geometry(C, T, S) != iir_k.blocked_geometry(8, T, S)
+    assert torch.equal(y[:8], ya) and torch.equal(st[:, :8], sa)
+
+
+def test_blocked_geometry_matches_library(dev):
+    """The library's K2 shared memory is `blocked_geometry`'s for every
+    section count, and both refuse 0 and 9 sections."""
+    lib = iir_k._blocked_lib()
+    for S in range(0, 10):
+        try:
+            want = iir_k.blocked_geometry(1024, 4096, S).smem
+        except ValueError:
+            want = -1
+        assert lib.uhsdr_blocked_smem(S) == want, S
 
 
 def test_dispatch_takes_k11_where_blocks_do_not_chunk(dev):

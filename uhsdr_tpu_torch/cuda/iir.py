@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,10 +47,15 @@ BIQUAD = CudaKernel("biquad", "biquad.cu", {
 BIQUAD_GROUPED = CudaKernel("biquad_grouped", "biquad.cu", lib_of=BIQUAD)
 
 BLOCKED = CudaKernel("blocked", "blocked.cu", {
-    "uhsdr_blocked_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-                             _I),
+    "uhsdr_blocked_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                              _P], _I),
     "uhsdr_blocked_chunk": ([], _I),
     "uhsdr_blocked_max_sections": ([], _I),
+    "uhsdr_blocked_outputs_per_lane": ([], _I),
+    "uhsdr_blocked_warps": ([], _I),
+    "uhsdr_blocked_slots": ([], _I),
+    "uhsdr_blocked_row_stride": ([], _I),
+    "uhsdr_blocked_smem": ([_I], _I),
 })
 
 GROUP_LENS = (16, 32, 64)     # the group lengths K14 is built for
@@ -231,6 +237,119 @@ def biquad_cascade(sos, state, x, impl: str = "sequential",
 # K2: the fused blocked cascade
 # ---------------------------------------------------------------------------
 
+# K2's geometry constants, as `kernels/blocked.cu` defines them (the
+# wrapper checks them against the library's getters when it first loads
+# it): the chunk, the most sections, outputs a lane holds, warps a block,
+# rows a round (one a lane), tiles in the ring and the tile row stride
+# (floats).
+BLOCKED_R = 128
+BLOCKED_MAX_SECTIONS = 8
+BLOCKED_RO = 16
+BLOCKED_WARPS = 4
+BLOCKED_LANES = 32
+BLOCKED_SLOTS = 3
+BLOCKED_ROW_STRIDE = BLOCKED_R + 4
+# the card the rule fills: an H100 SXM's SMs, an SM's shared memory (228
+# KB) and what each resident block reserves besides its own (1 KB); the
+# most chunks of one channel a round holds (the in-order carry runs them
+# one after another)
+BLOCKED_SMS = 132
+SM_SMEM = 228 * 1024
+BLOCK_RESERVED = 1024
+BLOCKED_MAX_TR = 8
+
+
+class BlockedGeometry(NamedTuple):
+    """K2's launch for one shape (`kernels/blocked.cu`)."""
+    cpw: int          # channels a block (a power of two up to 32)
+    tr: int           # chunks of a channel a round (32 / cpw)
+    rounds: int       # rounds a block walks
+    blocks: int       # thread blocks
+    smem: int         # dynamic shared memory a block, bytes
+    resident: int     # blocks an SM can hold (by shared memory)
+
+
+def _round_up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def blocked_smem(S: int) -> int:
+    """K2's dynamic shared memory for S sections, bytes
+    (`kernels/blocked.cu::layout`): h, HS and G^T (R floats each a state
+    row), F^T, the x G partial sums of two rounds and u_{c-1} of two
+    rounds (rows of 2S + 1 floats), and the ring of tiles."""
+    R, U, L = BLOCKED_R, 2 * S, BLOCKED_LANES
+    floats = (R + 2 * U * R + _round_up4(U * U)
+              + _round_up4(2 * BLOCKED_WARPS * L * (U + 1))
+              + _round_up4(2 * L * (U + 1))
+              + BLOCKED_SLOTS * L * BLOCKED_ROW_STRIDE)
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=256)
+def blocked_geometry(C: int, T: int, S: int,
+                     sms: int = BLOCKED_SMS) -> BlockedGeometry:
+    """K2's launch for C channels of T samples through S sections on a
+    card of `sms` SMs.  A block of BLOCKED_WARPS warps walks all the
+    rounds of its cpw channels, a round 32 rows: cpw channels x tr = 32 /
+    cpw consecutive chunks.  Every block does the same work and an SM
+    holds `resident`, so the hardware deals the blocks out in waves and a
+    block slot walks ceil(blocks / slots) x cpw rows: of cpw = 32 down to
+    32 / BLOCKED_MAX_TR (and no more chunks a round than a channel has),
+    the rule takes the largest cpw within a tenth of the fewest rows (a
+    chain of 8 chunks a round measured about a tenth slower than one of
+    4, trace_blocked.py).  Raises ValueError for a shape the kernel does
+    not take: S outside 1..BLOCKED_MAX_SECTIONS (the states live in
+    registers and the tables in shared memory), T not a positive multiple
+    of 128, or buffers past an SM's shared memory."""
+    R = BLOCKED_R
+    _need(1 <= S <= BLOCKED_MAX_SECTIONS,
+          f"blocked_cascade: {S} sections outside 1..{BLOCKED_MAX_SECTIONS}"
+          f" (the kernel's state registers and shared tables)")
+    _need(T >= R and T % R == 0,
+          f"blocked_cascade: T={T} is not a positive multiple of {R}")
+    _need(C >= 0 and sms >= 1, f"blocked_cascade: {C} channels, {sms} SMs")
+    smem = blocked_smem(S)
+    _need(smem + BLOCK_RESERVED <= SM_SMEM,
+          f"blocked_cascade: {S} sections need {smem} bytes of shared "
+          f"memory, past {SM_SMEM - BLOCK_RESERVED}")
+    n = T // R
+    resident = SM_SMEM // (smem + BLOCK_RESERVED)
+    tr_max = min(BLOCKED_MAX_TR, 1 << (n.bit_length() - 1))
+
+    def rows(c):                       # waves of blocks x a block's rows
+        return -(-(-(-C // c)) // (resident * sms)) * c
+    allowed = [c for c in (32, 16, 8, 4, 2, 1) if c * tr_max >= BLOCKED_LANES]
+    fewest = min(rows(c) for c in allowed)
+    cpw = max(c for c in allowed if 10 * rows(c) <= 11 * fewest)
+    tr = BLOCKED_LANES // cpw
+    return BlockedGeometry(cpw, tr, -(-n // tr), -(-C // cpw), smem,
+                           resident)
+
+
+def _blocked_lib():
+    """K2's library, its geometry constants checked against this module's
+    when it is first used (the mark lives on the library)."""
+    lib = BLOCKED.lib()
+    if not getattr(lib, "geometry_checked", False):
+        got = (lib.uhsdr_blocked_chunk(), lib.uhsdr_blocked_max_sections(),
+               lib.uhsdr_blocked_outputs_per_lane(),
+               lib.uhsdr_blocked_warps(), lib.uhsdr_blocked_slots(),
+               lib.uhsdr_blocked_row_stride())
+        want = (BLOCKED_R, BLOCKED_MAX_SECTIONS, BLOCKED_RO, BLOCKED_WARPS,
+                BLOCKED_SLOTS, BLOCKED_ROW_STRIDE)
+        if got != want:
+            raise RuntimeError(f"blocked.cu's geometry {got} differs from "
+                               f"cuda/iir.py's {want}")
+        lib.geometry_checked = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def blocked_cascade_plain(c: iir_ops.Cascade, state, x):
     """Plain torch version of K2: the blocked matmuls with the exact
     sequential chunk carry (`ops.iir.biquad_cascade_blocked`), the form
@@ -242,34 +361,34 @@ def blocked_cascade(c: iir_ops.Cascade, state, x):
     """The whole SOS cascade `c` in 128-sample chunks with the exact chunk
     carry (K2).  state: (S, ..., 2) f32 DF2T states; x: (..., T) f32, T a
     multiple of 128; the batch dims flatten to one channel axis (the
-    stereo PreFilter's (C, 2, T) runs as 2C rows).  Returns (y (..., T),
+    stereo PreFilter's (C, 2, T) runs as 2C rows).  The launch is
+    `blocked_geometry`'s for the card's SMs; it raises ValueError before
+    any launch for a shape the rule refuses.  Returns (y (..., T),
     new_state (S, ..., 2))."""
     if x.device.type == "cpu":
         return blocked_cascade_plain(c, state, x)
     dev = x.device
     S = c.sections
+    _need(x.ndim >= 1, "blocked_cascade: x must be (..., T)")
     T = x.shape[-1]
-    lib = BLOCKED.lib()
-    R = lib.uhsdr_blocked_chunk()
+    R = BLOCKED_R
     _need(tuple(c.M.shape) == (R, R),
           f"blocked_cascade: tables for {R}-sample chunks, got "
           f"{tuple(c.M.shape)}")
-    _need(1 <= S <= lib.uhsdr_blocked_max_sections(),
-          f"blocked_cascade: {S} sections outside 1.."
-          f"{lib.uhsdr_blocked_max_sections()}")
-    _need(x.ndim >= 1 and T >= R and T % R == 0,
-          f"blocked_cascade: T={T} is not a positive multiple of {R}")
     _need(tuple(state.shape) == (S,) + tuple(x.shape[:-1]) + (2,),
           "blocked_cascade: state must be (S, ..., 2) for x (..., T)")
     _f32_on((x, state, c.M, c.HS, c.G, c.Ft), dev, "blocked_cascade")
     _need(x.data_ptr() % 16 == 0, "blocked_cascade: x must be 16-byte "
           "aligned")
     C = x.numel() // T
+    sms = _sm_count(dev.index) if dev.type == "cuda" else BLOCKED_SMS
+    geo = blocked_geometry(C, T, S, sms)
+    lib = _blocked_lib()
     y = torch.empty_like(x)
     new_state = torch.empty_like(state)
     err = lib.uhsdr_blocked_launch(
         x.data_ptr(), state.data_ptr(), c.M.data_ptr(), c.HS.data_ptr(),
-        c.G.data_ptr(), c.Ft.data_ptr(), S, C, T, y.data_ptr(),
+        c.G.data_ptr(), c.Ft.data_ptr(), S, C, T, geo.cpw, y.data_ptr(),
         new_state.data_ptr(), stream_ptr(dev))
     BLOCKED.check(err)
     BLOCKED.launches += 1

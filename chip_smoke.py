@@ -15,7 +15,9 @@ first phase that fails:
    SSB look-ahead of 48, the AM/SAM look-ahead of 96 and FM's 192, and at
    the fleet's FM group, 1024 x 16384 at w 192; its shared memory held to
    `agc_geometry`'s), K4
-   (the interpolator, x8 and x4), K5 (the real-tap AM/SAM front; also 64
+   (the interpolator: x8, x4, ssbstereo's 2C rows and the 48 kHz x2,
+   channels 0-7 alone bit-equal to the batch), K5 (the real-tap AM/SAM
+   front; also 64
    channels of int16 @ 192 kHz at decimation 16, the FM front at
    decimation 2 and 64 channels of the fleet's f32 FM front @ 48 kHz at
    decimation 1), K10 and K9 (the SAM PLL), K11 (the biquad
@@ -26,7 +28,11 @@ first phase that fails:
    stereo AGC's machine), K1 with the two-channel modes' two stage-B filters
    (`front_pair`), K8 (the TX analytic FIR, NCO and conjugation on and
    off, its output at 100 dB and its history bit-equal, its shared
-   memory held to `fir_real_geometry`'s), the TX ALC recurrence, K2 (the
+   memory held to `fir_real_geometry`'s), the fused TX ALC stage (its
+   fast division first held to div.rn over every non-negative f32 it is
+   used on, one launch; then y, alc_val and the new delay line at D = 288
+   and at AM's gain scaling with D > T, channels 0-7 alone bit-equal to
+   the batch; timed beside PR 13's four torch passes), K2 (the
    fused blocked SOS cascade, at the SSB PreFilter's shape, channels 0-7
    alone bit-equal to the batch, its shared memory held to
    `blocked_geometry`'s; two streamed blocks and the times at every
@@ -181,11 +187,9 @@ PLL_STEP_OPS = 24
 # K11 (kernels/biquad.cu): a section's state to its next state: the output
 # add, a1*y, the subtraction, the s2 add; sections overlap across samples.
 BIQUAD_STEP_OPS = 4
-# the ALC (kernels/alc.cu), alc_val to the next: the product with x, its
-# magnitude, the division by the knee (IEEE, counted as 4), the
-# subtraction, the compare's select, the two products and the
-# difference, the clamps: 12
-ALC_STEP_OPS = 12
+# the ALC (kernels/alc.cu), alc_val to the next: the walker's SASS chain,
+# cuda/alc.py::ALC_STEP_CHAIN
+ALC_STEP_OPS = alc_k.ALC_STEP_CHAIN
 FP32_LATENCY = 4
 
 KERNEL_TOL_DB = 90.0
@@ -956,55 +960,88 @@ def interp_library(h, carry, x, interp):
     return call, result
 
 
-def interp_case(h, T, L, dev, gen, n_blocks=3):
-    """K4 against its plain version at x L over streamed blocks; returns
-    (min SNR, max |err|, the first block's (carry, x))."""
-    C = CHANNELS
+def interp_case(h, C, lengths, L, dev, gen, label):
+    """K4 against its plain version at x L over streamed blocks of the
+    given lengths (the middle one ragged), channels 0-7 alone bit-equal
+    to the batch; returns (min SNR, max |err|, the first block's (carry,
+    x))."""
     sub_len = -(-h.shape[-1] // L)
     ck = cp = torch.zeros((C, sub_len - 1), device=dev)
     worst, err = math.inf, 0.0
     first = None
-    for blk in range(n_blocks):
-        x = torch.randn((C, T), generator=gen, device=dev) * 0.1
+    for blk, B in enumerate(lengths):
+        x = torch.randn((C, B), generator=gen, device=dev) * 0.1
         if first is None:
             first = (ck, x)
-        yk, ck = fir_k.interpolate(h, ck, x, L)
+        yk, ck_next = fir_k.interpolate(h, ck, x, L)
+        y8, c8 = fir_k.interpolate(h, ck[:8].contiguous(),
+                                   x[:8].contiguous(), L)
         yp, cp = fir_k.interp_plain(h, cp, x, L)
         torch.cuda.synchronize()
-        s, e = held(f"K4 x{L} block {blk}", {"audio": (yp, yk),
-                                             "carry": (cp, ck)})
+        s, e = held(f"K4 {label} block {blk} ({B} samples)",
+                    {"audio": (yp, yk), "carry": (cp, ck_next)})
+        check(torch.equal(y8, yk[:8]) and torch.equal(c8, ck_next[:8]),
+              f"K4 {label}: channels 0-7 alone differ from the batch")
         worst, err = min(worst, s), max(err, e)
+        ck = ck_next
+        del yk, yp, y8
     return worst, err, first
 
 
+def interp_bytes(C, B, L, taps) -> float:
+    """K4's bytes: x in, y out, the carry in and out, the taps."""
+    return (C * B + C * B * L + 2 * C * (-(-taps // L) - 1) + taps) * 4.0
+
+
 def phase_interp(P, dev, gen):
+    """K4 at the SSB flagship's x8 (8192 x 2048, 93 taps), the AM/SAM x4
+    (8192 x 4096), ssbstereo's 16384 rows at x8 and the 48 kHz x2 (8192 x
+    8192, the decimation-2 rows' 16 taps), each over three streamed blocks
+    with a ragged middle one; timed at each shape."""
     C, T, L = CHANNELS, CFG.block_len // CFG.decim, CFG.decim
     h = P["ssb"].interp_fir
     taps = h.shape[-1]
     sub_len = -(-taps // L)
-    worst, err, (c0, x0) = interp_case(h, T, L, dev, gen)
+    worst, err, (c0, x0) = interp_case(h, C, (T, T - 548, T), L, dev, gen,
+                                       f"x{L}")
     ms = cuda_ms(lambda: fir_k.interpolate(h, c0, x0, L), 10)
     plain_ms = cuda_ms(lambda: fir_k.interp_plain(h, c0, x0, L), 3)
     call, result = interp_library(h, c0, x0, L)
     lib_ms = cuda_ms(call, 10)
     s_lib = snr_db(fir_k.interp_plain(h, c0, x0, L)[0], result())
     print(f"  K4 library call (conv_transpose1d) vs plain: SNR {s_lib:.1f} dB")
-    # the AM/SAM path's shape: x4 from 24 kHz
-    L4, T4 = SAM.decim, SAM.block_len // SAM.decim
-    h4 = P["sam"].interp_fir
-    w4, e4, (c4, x4) = interp_case(h4, T4, L4, dev, gen, n_blocks=2)
-    ms4 = cuda_ms(lambda: fir_k.interpolate(h4, c4, x4, L4), 10)
-    b4, by4 = bound(C * T4 * 4 + C * T4 * L4 * 4, 0.0)
-    nbytes = C * T * 4 + C * T * L * 4 + 2 * C * (sub_len - 1) * 4 + taps * 4
+    del c0, x0
+    x48 = rx.RxConfig(mode="am", bw_key="5P0KHZ", iq_rate=48000.0,
+                      block_len=16384)
+    others = {}
+    # (label, taps, channels, low-rate samples, factor)
+    for label, hh, Ck, Tk, Lk in (
+            ("x4", P["sam"].interp_fir, C, SAM.block_len // SAM.decim,
+             SAM.decim),
+            ("ssbstereo_x8", h, 2 * C, T, L),
+            ("x2_48k", rx.make_params(x48, dev).interp_fir, C,
+             x48.block_len // x48.decim, x48.decim)):
+        w, e, (ck, xk) = interp_case(hh, Ck, (Tk, Tk - 301, Tk), Lk, dev,
+                                     gen, label)
+        worst, err = min(worst, w), max(err, e)
+        mk = cuda_ms(lambda: fir_k.interpolate(hh, ck, xk, Lk), 10)
+        bk, byk = bound(interp_bytes(Ck, Tk, Lk, hh.shape[-1]), 0.0)
+        others[label] = dict(ms=mk, bound_ms=bk, bound_by=byk,
+                             shape=[Ck, Tk], interp=Lk, taps=hh.shape[-1])
+        print(f"  K4 {label} ({Ck} x {Tk}, {hh.shape[-1]} taps): {mk:.4f} "
+              f"ms, bound {bk:.4f} ms by {byk} ({100 * bk / mk:.1f}%)")
+        del ck, xk
+        torch.cuda.empty_cache()
+    nbytes = interp_bytes(C, T, L, taps)
     r = row("interp", "interp.cu", "uhsdr_tpu/pallas/fir.py:1003",
-            err=max(err, e4), snr=min(worst, w4), ms=ms, plain_ms=plain_ms,
+            err=err, snr=worst, ms=ms, plain_ms=plain_ms,
             nbytes=nbytes, flops=2.0 * C * T * L * sub_len,
             library_ms=lib_ms, library_note="conv_transpose1d with stride",
-            x4=dict(ms=ms4, bound_ms=b4, bound_by=by4))
+            **others)
     print(f"  K4 interp x{L}: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
           f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-          f"{r['bound_by']}: {nbytes / 2**20:.0f} MiB); x{L4} "
-          f"({h4.shape[-1]} taps): {ms4:.4f} ms, bound {b4:.4f} ms")
+          f"{r['bound_by']}: {nbytes / 2**20:.0f} MiB, "
+          f"{100 * r['bound_ms'] / ms:.1f}%)")
     return r
 
 
@@ -1436,47 +1473,172 @@ def tx_level_block(gen, dev, C, T, t0):
     return (level * tone * on + noise).contiguous()
 
 
+def alc_edge_block(gen, dev, C, T, t0, pg):
+    """ALC input where the walker's fast division is not div.rn's or is
+    not taken, by channel class c % 9: 0, 7, 8 the audio of
+    tx_level_block; 1 that audio with every 11th sample one of +-0,
+    subnormals, |xp| just below, at and just above 2^-80, just below and
+    past 2^100, 3e38 and +-inf (pg: the post-filter gain); 2 subnormal
+    audio; 3 exact zeros (-0 at odd samples); 4 audio around |xp| =
+    2^-80; 5 audio past 2^100; 6 one NaN at sample 1500 of the stream."""
+    x = tx_level_block(gen, dev, C, T, t0)
+    n = torch.arange(t0, t0 + T, device=dev)
+    lo, hi = 2.0 ** -80 / pg, 2.0 ** 100 / pg
+    special = torch.tensor(
+        [0.0, -0.0, 1e-45, -3e-42, 1e-39, -1.1e-38, lo * (1 - 2 ** -12), lo,
+         -lo * (1 + 2 ** -12), hi * (1 - 2 ** -12), -hi * (1 + 2 ** -12),
+         3e38, -math.inf, math.inf], device=dev)
+    cls = torch.arange(C, device=dev) % 9
+    pick = n % 11 == 3
+    x[(cls == 1)[:, None] & pick[None, :]] = special[
+        (n // 11) % special.numel()].expand(C, T)[
+        (cls == 1)[:, None] & pick[None, :]]
+    x[cls == 2] *= 1e-43
+    x[cls == 3] = torch.where(n % 2 == 1, -0.0, 0.0)
+    x[cls == 4] = torch.randn((int((cls == 4).sum()), T), generator=gen,
+                              device=dev) * (2.0 * lo)
+    x[cls == 5] *= 2.0 ** 90
+    if t0 <= 1500 < t0 + T:
+        x[cls == 6, 1500 - t0] = math.nan
+    return x.contiguous()
+
+
+def alc_edge_val(C, dev):
+    """Initial alc_val for alc_edge_block's stream: 1, but on channel
+    classes 7 and 8 values outside [VAL_MIN, 1] (2, 5e-4, 0, a subnormal,
+    -0.5, just below VAL_MIN), where the walker keeps div.rn."""
+    v = torch.ones((C,), device=dev)
+    c78 = torch.nonzero(torch.arange(C, device=dev) % 9 >= 7).flatten()
+    outside = torch.tensor([2.0, 5e-4, 0.0, 1e-40, -0.5, 0.0009], device=dev)
+    v[c78] = outside[torch.arange(c78.numel(), device=dev) % 6]
+    return v
+
+
+def alc_differ(ref, got) -> tuple[int, float]:
+    """(elements whose bits differ, a NaN matching a NaN; max |err| over
+    the elements finite in both)."""
+    same = ((ref.view(torch.int32) == got.view(torch.int32))
+            | (ref.isnan() & got.isnan()))
+    fin = torch.isfinite(ref) & torch.isfinite(got)
+    err = (ref[fin] - got[fin]).abs().max() if bool(fin.any()) else 0.0
+    return int((~same).sum()), float(err)
+
+
+def alc_stream(params, C, lengths, dev, gen, label, edge=False):
+    """The fused ALC stage against its plain version over streamed blocks
+    of the given lengths from a fresh state, bit for bit on y, alc_val
+    and the new delay line (a fresh (C, D) tensor); with `edge`, on
+    alc_edge_block's input from alc_edge_val's state.  Returns (the last
+    alc_val, the first block's input, max |err|)."""
+    D = params.delay
+    vk = vp = alc_edge_val(C, dev) if edge else torch.ones((C,), device=dev)
+    dk = dp = torch.zeros((C, D), device=dev)
+    err, t0, first = 0.0, 0, None
+    for blk, T in enumerate(lengths):
+        x = (alc_edge_block(gen, dev, C, T, t0, params.postfilt_gain) if edge
+             else tx_level_block(gen, dev, C, T, t0))
+        t0 += T
+        if first is None:
+            first = x
+        yk, vk, dk = alc_k.alc_run(params, vk, dk, x)
+        yp, vp, dp = alc_k.alc_run_plain(params, vp, dp, x)
+        torch.cuda.synchronize()
+        diffs = {k: alc_differ(a, b) for k, (a, b) in
+                 {"y": (yp, yk), "alc_val": (vp, vk),
+                  "delay_buf": (dp, dk)}.items()}
+        print(f"  ALC {label} block {blk} ({T} samples): "
+              + ", ".join(f"{k} {n} differ (max|err| {e:.3e})"
+                          for k, (n, e) in diffs.items()))
+        err = max([err] + [e for _, e in diffs.values()])
+        check(all(n == 0 for n, _ in diffs.values()),
+              f"ALC {label} block {blk}: not bit-exact against its plain "
+              "version")
+        check(dk.shape == (C, D)
+              and dk.untyped_storage().nbytes() == 4 * C * D,
+              f"ALC {label}: the new delay line is not a fresh (C, D)")
+    check(err == 0.0, f"ALC {label}: not bit-exact against its plain "
+                      f"version (max|err| {err:.3e})")
+    return vk, first, err
+
+
+def alc_passes(params, v, delay_buf, x, gains):
+    """PR 13's ALC stage without its kernel: the four torch passes that
+    `mod/alc.py::run` ran around the gains-only launch (the post-filter
+    gain, the gain scaling, the concatenation with the delay line, the
+    delayed product), here on stand-in gains."""
+    xp = x * params.postfilt_gain
+    g = gains * params.gain_scaling
+    xfull = torch.cat([delay_buf, xp], dim=-1)
+    return xfull[..., :x.shape[-1]] * g, v, xfull[..., -params.delay:]
+
+
 def phase_alc(P, dev, gen):
-    """The ALC recurrence at 8192 channels, bit for bit against its plain
-    loop over 4096 + 1000 samples; timed at 4096 and at the TX flagship's
-    16384."""
+    """The fused ALC stage at 8192 channels, bit for bit against its plain
+    version: the TX flagship's D = 288 over 4096 + 1000 + 4096 samples, AM's
+    gain scaling 0.23 with D > T (100 + 37 + 100), inputs and states where
+    the walker takes div.rn (alc_edge_block, 1000 + 777 + 1000; and with a
+    negative decay, 300 + 77 + 300), and channels 0-7 alone against the
+    batch; timed at the TX flagship's 16384 samples beside PR 13's torch
+    passes around its gains-only kernel."""
     params = P["tx"].alc
     C, T = CHANNELS, 4096
-    vk = vp = torch.ones((C,), device=dev)
-    err, t0, first = 0.0, 0, None
-    for blk, Tk in enumerate((T, 1000)):
-        x = tx_level_block(gen, dev, C, Tk, t0) * params.postfilt_gain
-        t0 += Tk
-        if first is None:
-            first = (vk, x)
-        gk, vk = alc_k.alc_gains(params.decay, vk, x)
-        gp, vp = alc_k.alc_gains_plain(params.decay, vp, x)
-        torch.cuda.synchronize()
-        _, e = held(f"ALC block {blk} ({Tk} samples)",
-                    {"gains": (gp, gk), "alc_val": (vp, vk)})
-        err = max(err, e)
-    check(err == 0.0, f"ALC: not bit-exact against its plain version "
-                      f"(max|err| {err:.3e})")
+    n_in, n_out, n_all = alc_k.alc_division_check(dev)
+    print(f"  ALC division: the fast path against div.rn over {n_all} "
+          f"inputs: {n_in} differ where the walker takes it, {n_out} "
+          f"elsewhere")
+    check(n_in == 0 and n_all == 0x7F800001,
+          "ALC: the fast division is not div.rn's where it is used")
+    vk, x0, err = alc_stream(params, C, (T, 1000, T), dev, gen, "D 288")
     check(float(vk.min()) < 0.9, "ALC: the gain never moved")
-    v0, x0 = first
-    ms4k = cuda_ms(lambda: alc_k.alc_gains(params.decay, v0, x0), 10)
-    plain_ms = cuda_ms(lambda: alc_k.alc_gains_plain(params.decay, v0, x0),
-                       1)
+    am = tx.make_params(dataclasses.replace(TXF, mode="am"), dev).alc
+    check(am.gain_scaling != 1.0 and am.delay > 100, "ALC: AM's params")
+    err = max(err, alc_stream(am, C, (100, 37, 100), dev, gen,
+                              "AM, D > T")[2])
+    # where the walker takes div.rn: zeros, subnormals, the fast range's
+    # edges, infinities, a NaN, alc_val outside [VAL_MIN, 1]; and a
+    # negative decay, where it never takes the fast path
+    vk, _, e = alc_stream(params, C, (1000, 777, 1000), dev, gen,
+                          "edge inputs", edge=True)
+    check(bool(vk[6::9].isnan().all()), "ALC: a NaN did not stay")
+    neg = params._replace(decay=float(np.float32(-0.02)))
+    err = max(err, e, alc_stream(neg, C, (300, 77, 300), dev, gen,
+                                 "edge inputs, decay < 0", edge=True)[2])
+    v1 = torch.ones((C,), device=dev)
+    d1 = torch.zeros((C, params.delay), device=dev)
+    y, v, d = alc_k.alc_run(params, v1, d1, x0)
+    y8, v8, d8 = alc_k.alc_run(params, v1[:8], d1[:8], x0[:8].contiguous())
+    torch.cuda.synchronize()
+    check(torch.equal(y[:8], y8) and torch.equal(v[:8], v8)
+          and torch.equal(d[:8], d8), "ALC: channels 0-7 alone differ "
+                                      "from the batch")
+    del y, v, d
+    ms4k = cuda_ms(lambda: alc_k.alc_run(params, v1, d1, x0), 10)
+    plain_ms = cuda_ms(lambda: alc_k.alc_run_plain(params, v1, d1, x0), 1)
     TB = TXF.block_len
-    xb = tx_level_block(gen, dev, C, TB, 0) * params.postfilt_gain
-    ms = cuda_ms(lambda: alc_k.alc_gains(params.decay, v0, xb), 10)
-    # bytes: x in, gains out, the gain in and out; about 12 f32
-    # operations a step
-    nbytes = 2 * C * TB * 4 + 2 * C * 4
+    xb = tx_level_block(gen, dev, C, TB, 0)
+    ms = cuda_ms(lambda: alc_k.alc_run(params, v1, d1, xb), 10)
+    passes_ms = cuda_ms(lambda: alc_passes(params, v1, d1, xb, xb), 10)
+    # bytes: x in, y out, the delay line in and out, the gain in and out;
+    # f32 operations a step: the step's 15 (x pg, xp v, the division's
+    # three FFMAs, q - 1, v decay, v ATTACK, the two products and
+    # differences, the select, the two clamps) and the output's 3
+    D = params.delay
+    nbytes = 2 * C * TB * 4 + 2 * C * D * 4 + 2 * C * 4
     rec_ms = recurrence_ms(TB, ALC_STEP_OPS)
+    geo = alc_k.alc_geometry(
+        C, TB, torch.cuda.get_device_properties(dev).multi_processor_count)
     r = row("alc", "alc.cu", "uhsdr_tpu/mod/alc.py:72", err=err,
             snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
-            flops=12.0 * C * TB, recurrence_ms=rec_ms,
+            flops=18.0 * C * TB, recurrence_ms=rec_ms,
             library_note="no PyTorch call computes the ALC recurrence",
-            tpu_kernel=False, plain_steps=T, ms_4096=ms4k)
-    print(f"  ALC: {ms:.4f} ms at {TB} steps, {ms4k:.4f} ms at {T} (plain "
-          f"{plain_ms:.1f} ms at {T}; recurrence bound {rec_ms:.4f} ms; "
-          f"{r['bound_by']} bound {r['bound_ms']:.4f} ms)")
+            tpu_kernel=False, plain_steps=T, ms_4096=ms4k,
+            pr13_torch_passes_ms=passes_ms, lanes=geo.lanes,
+            blocks=geo.blocks, division_differs_outside=n_out)
+    print(f"  ALC (fused): {ms:.4f} ms at {TB} steps, {ms4k:.4f} ms at {T} "
+          f"(plain {plain_ms:.1f} ms at {T}; PR 13's four torch passes "
+          f"{passes_ms:.4f} ms; recurrence bound {rec_ms:.4f} ms; "
+          f"{r['bound_by']} bound {r['bound_ms']:.4f} ms; {geo.lanes} "
+          f"lanes a walker, {geo.blocks} blocks)")
     return r
 
 

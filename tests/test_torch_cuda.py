@@ -224,6 +224,64 @@ def test_interp_kernel_matches_plain(dev, C, B, L):
         assert torch.equal(cp, ck)
 
 
+# (L, taps) the chains send K4: x2 and x4 at 48 kHz (the firmware's 4- and
+# 16-tap interpolators), x4 and x8 at 96 kHz (93 taps), x8 and x16 at
+# 192 kHz (187 taps); and four the generic instance takes, the last two
+# past its parameters' tap table (the taps read from the card)
+@pytest.mark.parametrize("L,taps", [(2, 4), (2, 16), (4, 4), (4, 16),
+                                    (4, 93), (8, 93), (8, 187), (16, 187),
+                                    (3, 40), (5, 93), (3, 2000), (7, 1500)])
+def test_interp_kernel_at_the_chains_factors(dev, L, taps):
+    """K4 at every factor the chains reach, over three streamed blocks
+    (the middle one ragged: no multiple of a tile, odd at x2), held to its
+    plain version on output and carry; channels 0-7 alone give the bits
+    they give in the batch."""
+    rng = np.random.default_rng(L * 1000 + taps)
+    h = torch.from_numpy(rng.standard_normal(taps).astype(np.float32)).to(dev)
+    sub = -(-taps // L)
+    C = 70
+    ck = cp = torch.zeros((C, sub - 1), device=dev)
+    for B in (1024, 777, 2048):
+        x = torch.from_numpy(rng.standard_normal((C, B))
+                             .astype(np.float32)).to(dev)
+        yk, ck_next = fir_k.interpolate(h, ck, x, L)
+        y8, c8 = fir_k.interpolate(h, ck[:8].contiguous(),
+                                   x[:8].contiguous(), L)
+        yp, cp = fir_k.interp_plain(h, cp, x, L)
+        torch.cuda.synchronize()
+        assert snr_db(yp, yk) >= FIR_DB
+        assert torch.equal(cp, ck_next)
+        assert torch.equal(y8, yk[:8]) and torch.equal(c8, ck_next[:8])
+        ck = ck_next
+
+
+def test_interp_geometry_matches_the_library(dev):
+    """The library's K4 launch (instance, samples a thread, halo, tile,
+    shared memory, where the taps travel) is `interp_geometry`'s, both
+    refuse the same shapes, and its table of fixed instances is
+    INTERP_FIXED."""
+    import ctypes
+    lib = fir_k._interp_lib()
+    out = (ctypes.c_int * 6)()
+    pair = (ctypes.c_int * 2)()
+    n = lib.uhsdr_interp_n_fixed()
+    assert lib.uhsdr_interp_fixed(n, pair) == -1
+    assert {tuple(pair) for i in range(n)
+            if lib.uhsdr_interp_fixed(i, pair) == 0} == set(fir_k.INTERP_FIXED)
+    for L in (-1, 0, 1, 2, 3, 4, 5, 8, 16, 32):
+        for taps in (0, 1, 4, 16, 93, 187, 960, 961, 2000, 12000, 60000):
+            try:
+                g = fir_k.interp_geometry(L, taps, 4096)
+                want = (0, (int(g.fixed), g.R, g.H, g.tile, g.smem,
+                            int(g.param_taps)))
+            except ValueError:
+                want = (-1, None)
+            rc = lib.uhsdr_interp_geometry(L, taps, out)
+            assert (rc, tuple(out) if rc == 0 else None) == want, (L, taps)
+            if rc == 0:
+                assert want[1][4] <= build.SMEM_OPT_IN
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((4, 64), device=dev)
     h = torch.zeros(93, device=dev)
@@ -859,26 +917,169 @@ def test_fir_real_geometry_matches_library(dev):
             assert lib.uhsdr_fir_real_smem(taps, B) == want, (taps, B)
 
 
-@pytest.mark.parametrize("C,T,decay", [(40, 1000, 3.1622776e-05),
-                                       (64, 2048, 0.02), (5, 130, 0.02)])
-def test_alc_kernel_matches_plain(dev, C, T, decay):
-    """The ALC recurrence against its plain version, bit for bit, on audio
-    that crosses the knee in both directions."""
+def _alc_audio(rng, C, n0, T):
+    """Audio in the count domain across the knee (3e4): 700 Hz bursts at
+    1e3 ... 1e5 counts, gated on and off, plus noise."""
+    n = np.arange(n0, n0 + T)
+    x = (np.logspace(3, 5, C)[:, None] * np.sin(2 * np.pi * 700 * n / 48000.0)
+         * (n % 700 < 400) + rng.standard_normal((C, T)))
+    return x.astype(np.float32)
+
+
+# (C, block lengths, delay, decay, gain_scaling): the middle block ragged
+# (no multiple of the 32-step tile); the TX flagship's D = 288 and the
+# legacy front's 64; D > T; D = 0; rows not 16-byte aligned (T or D no
+# multiple of 4: the 4-byte copies); channel counts past 4 x 132 (more
+# than one channel lane a walker); AM's gain scaling 0.23
+@pytest.mark.parametrize("C,lengths,D,decay,gs", [
+    (40, (1000, 1000, 1000), 288, 3.1622776e-05, 1.0),
+    (64, (2048, 2048, 2048), 64, 0.02, 1.0),
+    (5, (130, 130, 130), 288, 0.02, 1.0),
+    (37, (4096, 1000, 4096), 288, 3.1622776e-05, 0.23),
+    (9, (100, 37, 100), 288, 0.02, 0.23),
+    (600, (256, 70, 256), 288, 3.1622776e-05, 1.0),
+    (1100, (96, 33, 96), 0, 0.02, 1.0),
+    (70, (512, 201, 512), 290, 0.02, 0.23),
+])
+def test_alc_kernel_matches_plain(dev, C, lengths, D, decay, gs):
+    """The fused ALC stage against its plain version, bit for bit, on y,
+    alc_val and the new delay line, over three streamed blocks of audio
+    that crosses the knee in both directions; the new delay line is a
+    fresh (C, D) tensor."""
     from uhsdr_tpu_torch.cuda import alc as alc_k
+    from uhsdr_tpu_torch.mod import alc as alc_mod
+    params = alc_mod.make_params(decay, D, 4.0, gs)
     rng = np.random.default_rng(13)
     vk = vp = torch.ones(C, device=dev)
-    level = np.logspace(3, 5, C)[:, None]
-    for blk in range(3):
-        n = np.arange(blk * T, (blk + 1) * T)
-        x = level * np.sin(2 * np.pi * 700 * n / 48000.0) * (n % 700 < 400)
-        x = torch.from_numpy((x + rng.standard_normal((C, T)))
-                             .astype(np.float32)).to(dev)
-        n0 = alc_k.ALC.launches
-        gk, vk = alc_k.alc_gains(decay, vk, x)
-        assert alc_k.ALC.launches == n0 + 1
-        gp, vp = alc_k.alc_gains_plain(decay, vp, x)
+    dk = dp = torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32)
+                               * 1e3).to(dev)
+    n0 = 0
+    for T in lengths:
+        x = torch.from_numpy(_alc_audio(rng, C, n0, T)).to(dev)
+        n0 += T
+        launches = alc_k.ALC.launches
+        yk, vk, dk = alc_k.alc_run(params, vk, dk, x)
+        assert alc_k.ALC.launches == launches + 1
+        yp, vp, dp = alc_k.alc_run_plain(params, vp, dp, x)
         torch.cuda.synchronize()
-        assert torch.equal(gp, gk) and torch.equal(vp, vk)
+        assert torch.equal(yp, yk) and torch.equal(vp, vk)
+        assert torch.equal(dp, dk) and dk.shape == (C, D)
+        assert dk.untyped_storage().nbytes() == 4 * C * D
+    if decay < 1e-3:                      # a slow recovery: the gain moved
+        assert float(vk.min()) < 0.9
+
+
+def _alc_edge_audio(rng, C, n0, T, pg):
+    """ALC input where the walker's fast division is not div.rn's or is
+    not taken, by channel class c % 9: 0, 7, 8 the audio of _alc_audio; 1
+    that audio with every 11th sample one of +-0, subnormals, |xp| just
+    below, at and just above 2^-80, just below and past 2^100, 3e38 and
+    +-inf (pg: the post-filter gain); 2 subnormal audio; 3 exact zeros
+    (-0 at odd samples); 4 audio around |xp| = 2^-80; 5 audio past 2^100;
+    6 one NaN at sample 1500 of the stream."""
+    x = _alc_audio(rng, C, n0, T)
+    n = np.arange(n0, n0 + T)
+    lo, hi = 2.0 ** -80 / pg, 2.0 ** 100 / pg
+    special = np.array(
+        [0.0, -0.0, 1e-45, -3e-42, 1e-39, -1.1e-38, lo * (1 - 2 ** -12), lo,
+         -lo * (1 + 2 ** -12), hi * (1 - 2 ** -12), -hi * (1 + 2 ** -12),
+         3e38, -np.inf, np.inf], np.float32)
+    cls = np.arange(C) % 9
+    pick = (n % 11 == 3)
+    x[np.ix_(cls == 1, pick)] = special[(n[pick] // 11) % special.size]
+    x[cls == 2] *= np.float32(1e-43)
+    x[cls == 3] = np.where(n % 2 == 1, -0.0, 0.0).astype(np.float32)
+    x[cls == 4] = (rng.standard_normal(((cls == 4).sum(), T)) * 2.0
+                   * lo).astype(np.float32)
+    x[cls == 5] *= np.float32(2.0 ** 90)
+    if n0 <= 1500 < n0 + T:
+        x[cls == 6, 1500 - n0] = np.nan
+    return x
+
+
+def _alc_bits_equal(a, b):
+    """Bit for bit, a NaN matching a NaN."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
+# (C, block lengths, delay, decay, gain_scaling): the middle block ragged;
+# D > T; more than one channel lane a walker; a negative decay (the walker
+# never takes the fast division then)
+@pytest.mark.parametrize("C,lengths,D,decay,gs", [
+    (45, (1000, 777, 1000), 288, 3.1622776e-05, 1.0),
+    (45, (100, 37, 100), 288, 0.02, 0.23),
+    (1100, (512, 201, 1024), 64, 0.02, 1.0),
+    (45, (1000, 777, 1000), 288, -0.02, 1.0),
+])
+def test_alc_kernel_outside_the_fast_division(dev, C, lengths, D, decay, gs):
+    """The fused ALC stage against its plain version, bit for bit on y,
+    alc_val and the delay line, where the walker takes div.rn: tiles and
+    ragged tails holding zeros, subnormals, values either side of the fast
+    division's range, infinities and a NaN (_alc_edge_audio); channels
+    whose alc_val starts outside [VAL_MIN, 1] (2, 5e-4, 0, a subnormal,
+    -0.5, just below VAL_MIN); a negative decay."""
+    from uhsdr_tpu_torch.cuda import alc as alc_k
+    from uhsdr_tpu_torch.mod import alc as alc_mod
+    params = alc_mod.make_params(decay, D, 4.0, gs)
+    rng = np.random.default_rng(15)
+    v0 = np.ones(C, np.float32)
+    outside = np.array([2.0, 5e-4, 0.0, 1e-40, -0.5, 0.0009], np.float32)
+    c7 = np.flatnonzero(np.arange(C) % 9 >= 7)
+    v0[c7] = outside[np.arange(c7.size) % outside.size]
+    vk = vp = torch.from_numpy(v0).to(dev)
+    dk = dp = torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32)
+                               * 1e3).to(dev)
+    n0 = 0
+    for T in lengths:
+        x = torch.from_numpy(_alc_edge_audio(rng, C, n0, T,
+                                             params.postfilt_gain)).to(dev)
+        n0 += T
+        yk, vk, dk = alc_k.alc_run(params, vk, dk, x)
+        yp, vp, dp = alc_k.alc_run_plain(params, vp, dp, x)
+        torch.cuda.synchronize()
+        assert _alc_bits_equal(yp, yk) and _alc_bits_equal(vp, vk)
+        assert _alc_bits_equal(dp, dk)
+    assert n0 < 1500 or bool(vk[6::9].isnan().all())
+
+
+def test_alc_first_channels_alone_match_the_batch(dev):
+    """Channels 0-7 alone (one channel lane a walker) give the bits they
+    give in a batch of 8192 (sixteen lanes)."""
+    from uhsdr_tpu_torch.cuda import alc as alc_k
+    from uhsdr_tpu_torch.mod import alc as alc_mod
+    params = alc_mod.make_params(3.1622776e-05, 288, 4.0, 1.0)
+    rng = np.random.default_rng(14)
+    C, T = 8192, 256
+    x = torch.from_numpy(_alc_audio(rng, C, 0, T)).to(dev)
+    v = torch.ones(C, device=dev)
+    d = torch.zeros((C, 288), device=dev)
+    assert alc_k.alc_geometry(C, T).lanes == 16
+    y, v1, d1 = alc_k.alc_run(params, v, d, x)
+    y8, v8, d8 = alc_k.alc_run(params, v[:8], d[:8], x[:8].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(y[:8], y8) and torch.equal(v1[:8], v8)
+    assert torch.equal(d1[:8], d8)
+
+
+def test_alc_fast_division_is_div_rn_where_used(dev):
+    """The walker's three-FFMA division is div.rn's, bit for bit, on every
+    non-negative f32 where it is used (one launch over all 2^31 - 2^23 + 1
+    bit patterns from +0 to +inf)."""
+    from uhsdr_tpu_torch.cuda import alc as alc_k
+    n_in, n_out, n_all = alc_k.alc_division_check(dev)
+    assert n_all == 0x7F800001 and n_in == 0
+
+
+def test_alc_smem_matches_the_rule(dev):
+    """The library's block layout and shared memory are `alc_geometry`'s,
+    within the card's opt-in limit."""
+    from uhsdr_tpu_torch.cuda import alc as alc_k
+    lib = alc_k._lib()
+    for C in (1, 8, 528, 529, 1024, 4096, 8192, 16384, 16896, 40000):
+        geo = alc_k.alc_geometry(C, 100)
+        assert lib.uhsdr_alc_smem(geo.lanes) == geo.smem <= build.SMEM_OPT_IN
+    assert lib.uhsdr_alc_smem(0) == lib.uhsdr_alc_smem(33) == -1
 
 
 def test_slice4_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -897,8 +1098,14 @@ def test_slice4_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shared memory"):  # too many taps
         fir_k.fir_real(torch.zeros(20000, dtype=torch.complex64, device=dev),
                        torch.zeros((C, 19999), device=dev), x)
+    from uhsdr_tpu_torch.mod import alc as alc_mod
+    ap = alc_mod.make_params(0.02, 64, 4.0, 1.0)
     with pytest.raises(ValueError):                 # alc_val of C + 1
-        alc_k.alc_gains(0.02, torch.ones(C + 1, device=dev), x)
+        alc_k.alc_run(ap, torch.ones(C + 1, device=dev),
+                      torch.zeros((C, 64), device=dev), x)
+    with pytest.raises(ValueError):                 # a delay line of 63
+        alc_k.alc_run(ap, torch.ones(C, device=dev),
+                      torch.zeros((C, 63), device=dev), x)
     cfg = rx.RxConfig(**{**FLAGSHIP, "mode": "ssbstereo"})
     pp = rx.make_params(cfg, dev)
     xi = torch.zeros((C, 256), dtype=torch.int16, device=dev)

@@ -7,7 +7,8 @@ the equivalent of the firmware's `TxProcessor_Run`,
        cascade)                             [K2: cuda.iir.blocked_cascade]
        + voice compressor/ALC
        (`TxProcessor_PrepareVoice` :440, `TxProcessor_VoiceCompressor` :173)
-                                            [the ALC kernel: cuda.alc]
+                                            [the fused ALC stage:
+                                             cuda.alc.alc_run]
     -> per-mode modulator: SSB / AM / CW    (mod.modulators)
                                             [K8: cuda.fir.fir_real]
     -> final IQ gain + phase calibration    (`TxProcessor_IqFinalProcessing`

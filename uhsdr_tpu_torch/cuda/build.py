@@ -29,6 +29,9 @@ ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
+# the most dynamic shared memory a block may ask for on an H100
+SMEM_OPT_IN = 227 * 1024
+
 _ALL: list["CudaKernel"] = []
 
 

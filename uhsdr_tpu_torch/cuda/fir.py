@@ -32,7 +32,7 @@ import torch
 
 from ..ops import fir as fir_ops
 from ..ops import nco as nco_ops
-from .build import CudaKernel, derived, stream_ptr
+from .build import SMEM_OPT_IN, CudaKernel, derived, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,7 +72,13 @@ FIR_CX = CudaKernel("fir_cx", "front.cu", lib_of=FRONT)
 FIR_CX_NCO = CudaKernel("fir_cx_nco", "front.cu", lib_of=FRONT)
 
 INTERP = CudaKernel("interp", "interp.cu", {
-    "uhsdr_interp_launch": ([_P, _P, _I, _I, _P, _I, _I, _P, _P, _P], _I),
+    "uhsdr_interp_launch": ([_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+                            _I),
+    "uhsdr_interp_geometry": ([_I, _I, _P], _I),
+    "uhsdr_interp_threads": ([], _I),
+    "uhsdr_interp_max_taps": ([], _I),
+    "uhsdr_interp_n_fixed": ([], _I),
+    "uhsdr_interp_fixed": ([_I, _P], _I),
 })
 
 FIR_REAL = CudaKernel("fir_real", "fir_real.cu", {
@@ -514,19 +520,94 @@ def _launch_front(counter: CudaKernel, h, h_sin, g, carry, carry2, xi, xq,
 # K4: the polyphase interpolator
 # ---------------------------------------------------------------------------
 
+# K4's launch constants, as `kernels/interp.cu` defines them (the wrapper
+# checks them against the library's getters, its table FIXED among them,
+# when it first loads it): threads a block; the (L, S) pairs with an
+# instance of their own (the chains' factors: x2 and x4 at 48 kHz, x4 and
+# x8 at 96, x8 and x16 at 192); the largest padded tap table the generic
+# instance takes in its launch parameters (past it, it reads the taps
+# from the card).
+INTERP_THREADS = 128
+INTERP_FIXED = frozenset({(2, 2), (2, 8), (4, 1), (4, 4), (4, 24), (8, 12),
+                          (8, 24), (16, 12)})
+INTERP_MAX_TAPS = 960
+
+
+class InterpGeometry(NamedTuple):
+    """K4's launch for one shape (`kernels/interp.cu::geometry`)."""
+    fixed: bool      # an instance of its own (else the generic one)
+    sub_len: int     # S = ceil(taps / L)
+    R: int           # low-rate samples a thread (R*L outputs)
+    H: int           # the window's halo: S - 1 rounded up to 4
+    tile: int        # low-rate samples a block: INTERP_THREADS * R
+    tiles: int       # blocks a channel
+    blocks: int      # the grid: C * tiles
+    smem: int        # dynamic shared memory, bytes
+    param_taps: bool  # taps in the launch's parameters (else on the card)
+
+
+def interp_geometry(L: int, taps: int, B: int, C: int = 1) -> InterpGeometry:
+    """K4's launch for C channels of B low-rate samples, interpolated by L
+    with `taps` taps.  A thread owns R consecutive samples (32 / L for
+    the chains' factors below 8, else 4; 4 on the generic instance) and
+    slides a window of H + R of them; a block stages one tile of
+    INTERP_THREADS * R samples with its halo and, on the fixed instances,
+    its warps' outputs (rows of R*L + 4 floats).  The taps travel in the
+    launch's parameters, but for a generic instance past INTERP_MAX_TAPS
+    padded taps, which reads them from the card.  Raises ValueError for a
+    shape the kernel does not take: L < 1, taps < 1, B < 1, or a halo of
+    S - 1 samples past the card's shared memory (some 57k taps a
+    phase)."""
+    _need(L >= 1 and taps >= 1 and B >= 1 and C >= 1,
+          f"interpolate: x{L}, {taps} taps, {C} x {B} samples")
+    S = -(-taps // L)
+    fixed = (L, S) in INTERP_FIXED
+    R = (4 if L >= 8 else 32 // L) if fixed else 4
+    H = _round_up(S - 1, 4)
+    tile = INTERP_THREADS * R
+    smem = 4 * (H + tile)
+    if fixed:
+        smem += 4 * INTERP_THREADS * (R * L + 4)
+    _need(smem <= SMEM_OPT_IN, f"interpolate: x{L} with {taps} taps stages "
+          f"{smem} bytes, past the card's {SMEM_OPT_IN}")
+    tiles = -(-B // tile)
+    return InterpGeometry(fixed, S, R, H, tile, tiles, C * tiles, smem,
+                          fixed or L * S <= INTERP_MAX_TAPS)
+
+
 def interp_plain(h, carry, x, interp: int):
     """Plain torch version of K4 (`ops.fir.fir_interpolate_block`)."""
     return fir_ops.fir_interpolate_block(h, carry, x, interp)
 
 
+def _interp_lib():
+    """K4's library, its constants checked against this module's when it
+    is first used (the mark lives on the library)."""
+    lib = INTERP.lib()
+    if not getattr(lib, "geometry_checked", False):
+        pair = (ctypes.c_int * 2)()
+        fixed = {tuple(pair) for i in range(lib.uhsdr_interp_n_fixed())
+                 if lib.uhsdr_interp_fixed(i, pair) == 0}
+        got = (lib.uhsdr_interp_threads(), lib.uhsdr_interp_max_taps(),
+               fixed)
+        want = (INTERP_THREADS, INTERP_MAX_TAPS, set(INTERP_FIXED))
+        if got != want:
+            raise RuntimeError(f"interp.cu's constants {got} differ from "
+                               f"cuda/fir.py's {want}")
+        lib.geometry_checked = True
+    return lib
+
+
 def interpolate(h, carry, x, interp: int):
     """Polyphase interpolation by `interp` (K4).  h: (taps,) f32; carry:
     (C, sub_len-1) f32; x: (C, B) f32.  Returns (y (C, B*interp),
-    new_carry)."""
+    new_carry).  The taps go to the kernel in its launch parameters: the
+    wrapper keeps a host copy of them (`build.derived`)."""
     if x.device.type == "cpu":
         return interp_plain(h, carry, x, interp)
     dev = x.device
-    _need(x.ndim == 2, "interpolate: x must be (C, B)")
+    _need(x.ndim == 2 and h.ndim == 1, "interpolate: x must be (C, B) and "
+          "h (taps,)")
     C, B = x.shape
     taps = h.shape[-1]
     sub_len = -(-taps // interp)
@@ -540,12 +621,15 @@ def interpolate(h, carry, x, interp: int):
           "interpolate: tensors on one device")
     _need(all(t.is_contiguous() for t in (h, carry, x)),
           "interpolate: contiguous tensors")
+    interp_geometry(interp, taps, B, C)
+    h_host = derived(h, "interp",
+                     lambda v: np.ascontiguousarray(v, dtype=np.float32))
     y = torch.empty((C, B * interp), dtype=torch.float32, device=dev)
     new_carry = torch.empty_like(carry)
-    lib = INTERP.lib()
-    err = lib.uhsdr_interp_launch(x.data_ptr(), carry.data_ptr(), C, B,
-                                  h.data_ptr(), taps, interp, y.data_ptr(),
-                                  new_carry.data_ptr(), stream_ptr(dev))
+    err = _interp_lib().uhsdr_interp_launch(
+        x.data_ptr(), carry.data_ptr(), C, B, h_host.ctypes.data,
+        h.data_ptr(), taps, interp, y.data_ptr(), new_carry.data_ptr(),
+        stream_ptr(dev))
     INTERP.check(err)
     INTERP.launches += 1
     return y, new_carry

@@ -11,9 +11,10 @@ ALC_ATTACK=0.1, ALC_KNEE=30000.  Per sample:
     clip alc_val to [MIN, MAX]
 
 The gain is applied to audio *delayed* by a fixed number of samples so
-the attack leads the audio (click-free).  The recurrence runs in the ALC
-kernel (`uhsdr_tpu_torch.cuda.alc`, its plain version on the CPU); the
-post-filter gain, the delay and the gain scaling stay in torch.
+the attack leads the audio (click-free).  The whole stage (the post-filter
+gain, the recurrence, the gain scaling, the delayed product and the new
+delay line) is the fused ALC kernel, `uhsdr_tpu_torch.cuda.alc.alc_run`
+(its plain version on the CPU).
 """
 from __future__ import annotations
 
@@ -63,13 +64,8 @@ def init_state(batch_shape, params: AlcParams, device=None) -> AlcState:
 
 
 def run(params: AlcParams, state: AlcState, x: torch.Tensor):
-    """x: (C, T) audio.  Returns (y, new_state)."""
-    x = x * params.postfilt_gain
-    gains, alc_f = alc_kernel.alc_gains(params.decay, state.alc_val,
-                                        x.contiguous())
-    gains = gains * params.gain_scaling
-    # delayed audio, immediate gain (look-ahead)
-    xfull = torch.cat([state.delay_buf, x], dim=-1)
-    y = xfull[..., :x.shape[-1]] * gains
-    return y, AlcState(alc_val=alc_f,
-                       delay_buf=xfull[..., xfull.shape[-1] - params.delay:])
+    """x: (C, T) audio.  Returns (y, new_state); the new delay line holds
+    its own (C, delay) storage."""
+    y, alc_val, delay_buf = alc_kernel.alc_run(
+        params, state.alc_val, state.delay_buf.contiguous(), x.contiguous())
+    return y, AlcState(alc_val=alc_val, delay_buf=delay_buf)

@@ -20,11 +20,18 @@ first phase that fails:
    front; also 64
    channels of int16 @ 192 kHz at decimation 16, the FM front at
    decimation 2 and 64 channels of the fleet's f32 FM front @ 48 kHz at
-   decimation 1), K10 and K9 (the SAM PLL), K11 (the biquad
-   cascade), K7 and K6 (the complex-tap wide-SSB front with and without
-   the NCO, its output at 100 dB, its history and peaks bit-equal, its
-   shared memory held to `fir_cx_geometry`'s; K7 also at 192 kHz, 491
-   taps at decimation 8), K12 (the FM discriminator), K13 (the linked
+   decimation 1), K10 and K9 (the SAM PLL: first its fast forms
+   against the exact functions over their ranges, one launch; then
+   also edge streams: carries outside [0, 2 pi], zeros, +-inf and a NaN
+   in iq, timed too; the recurrence bound from the walker's critical
+   cycle in `cuobjdump -sass` of this run's build), K11 (the biquad
+   cascade, bit for bit), SAM's fused sideband stage (usb and lsb at
+   8192 channels, stereo at 1024, fade on and off, bit for bit;
+   channels 0-7 alone bit-equal to the batch), K7 and K6 (the
+   complex-tap wide-SSB front with and without the NCO, its output at
+   100 dB, its history and peaks bit-equal, its shared memory held to
+   `fir_cx_geometry`'s; K7 also at 192 kHz, 491 taps at decimation 8),
+   K12 (the FM discriminator), K13 (the linked
    stereo AGC's machine), K1 with the two-channel modes' two stage-B filters
    (`front_pair`), K8 (the TX analytic FIR, NCO and conjugation on and
    off, its output at 100 dB and its history bit-equal, its shared
@@ -65,9 +72,11 @@ first phase that fails:
    detection, iq on the flagship's row and SAM stereo.  Then `TxChain` at
    the TX flagship (usb, 8192 ch x 16384 f32 audio @ 48 kHz, 8 timed
    blocks) and at 1024 channels lsb, am, cw and the legacy-front lsb.
-   Then the entry path `biquad_grouped`: SAM usb's stacked allpass inputs
-   (16384 x 4096, both coefficient sets) through `biquad_cascade(impl=
-   "grouped")`, 4 timed blocks, state carried.  Then the mixed-mode fleet
+   Then the entry paths `biquad_grouped` and `biquad`: SAM usb's stacked
+   allpass inputs as the reference stacks them (16384 x 4096, both
+   coefficient sets) through `biquad_cascade(impl="grouped")` (K14) and
+   `biquad_cascade` (K11), 4 timed blocks each, state carried, each held
+   against the other.  Then the mixed-mode fleet
    (`parallel.fleet.ChannelFleet`, six groups of 1024 channels: usb, lsb,
    cw, am, sam, fm at 48 kHz, 16384-sample f32 blocks, AGC thresholds
    60/50/70/60/55/60 dB) twice over the same blocks: `fleet`, the
@@ -121,7 +130,7 @@ import time
 import numpy as np
 import torch
 
-from uhsdr_tpu_torch import trace_blocked, trace_rx, trace_tx
+from uhsdr_tpu_torch import trace_blocked, trace_rx, trace_sam, trace_tx
 from uhsdr_tpu_torch.chain import filterpaths, rx, tx
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import alc as alc_k
@@ -130,6 +139,7 @@ from uhsdr_tpu_torch.cuda import elemwise as ew_k
 from uhsdr_tpu_torch.cuda import fir as fir_k
 from uhsdr_tpu_torch.cuda import iir as iir_k
 from uhsdr_tpu_torch.cuda import pll as pll_k
+from uhsdr_tpu_torch.cuda import sam as sam_k
 from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.ops import agc as agc_ops
 from uhsdr_tpu_torch.ops import channelizer as chz
@@ -178,12 +188,12 @@ AGC_STEP_OPS = 7
 # the compare, its select, 1 - att, nine mask products and differences,
 # three sums into keff, the update multiply and add, the min-volts max
 AGC_STEP_OPS_BLENDED = 18
-# K9/K10 (kernels/pll.cu): the loop phs -> sincosf (range reduction and
-# polynomial, ~11 deep) -> mix (2) -> atan2f (division, polynomial and
-# quadrant fix-up, ~22) -> loop filter (5) -> phase add and mod (8) is 48
-# operations long and spans two steps (fil_out is applied one sample
-# late), so 24 a step.
-PLL_STEP_OPS = 24
+# K9/K10 (kernels/pll.cu): the loop's critical cycle phs[n+1] -> sincos ->
+# mix -> atan2 -> loop filter -> phs[n+3] spans two steps (fil_out is
+# applied one sample late); phase_pll reads its length in dependent SASS
+# instructions of the walker's pair of steps from `cuobjdump -sass` of the
+# library this run built (trace_sam.pll_cycle_chain) and holds it to
+# cuda/pll.py::PLL_CYCLE_CHAIN, the count the source's notes give.
 # K11 (kernels/biquad.cu): a section's state to its next state: the output
 # add, a1*y, the subtraction, the s2 add; sections overlap across samples.
 BIQUAD_STEP_OPS = 4
@@ -1061,12 +1071,74 @@ def pll_block(gen, dev, C, T, t0, fs):
     return (z + torch.view_as_complex(noise)).contiguous()
 
 
+def pll_edge_block(gen, dev, C, T, t0, fs):
+    """pll_block's input with edges: channel classes (c % 16) 8-11 silent,
+    12 a +inf sample, 13 a -inf one, 14 a NaN, 15 silent for half the
+    block."""
+    z = pll_block(gen, dev, C, T, t0, fs)
+    cls = torch.arange(C, device=dev) % 16
+    z[(cls >= 8) & (cls < 12)] = 0
+    z[cls == 12, T // 2] = complex(math.inf, 0.0)
+    z[cls == 13, T // 3] = complex(0.0, -math.inf)
+    z[cls == 14, T // 4] = complex(math.nan, 0.0)
+    z[cls == 15, :T // 2] = 0
+    return z.contiguous()
+
+
+def pll_edge_carry(C, n_carry, dev):
+    """Carries with the phase outside [0, 2 pi] on classes 0-7 (the fmodf
+    wrap): 10, -3, 1e6, -1e6, 4 pi, -2 pi, 2 pi, -0; fil_out 0.3."""
+    carry = torch.zeros((n_carry, C), device=dev)
+    carry[0] = 1.0
+    edge = torch.tensor([10.0, -3.0, 1e6, -1e6, 4 * math.pi, -2 * math.pi,
+                         2 * math.pi, -0.0], device=dev)
+    cls = torch.arange(C, device=dev) % 16
+    carry[0, cls < 8] = edge[cls[cls < 8]]
+    carry[1] = 0.3
+    return carry
+
+
+def pll_differ(ref, got) -> tuple[bool, float]:
+    """(NaNs and infinities where the reference has them, max |err| over
+    the values finite in both)."""
+    same = (torch.equal(ref.isnan(), got.isnan())
+            and torch.equal(ref.isinf(), got.isinf())
+            and torch.equal(ref[ref.isinf()], got[got.isinf()]))
+    fin = torch.isfinite(ref) & torch.isfinite(got)
+    err = float((ref[fin].double() - got[fin]).abs().max()) \
+        if bool(fin.any()) else 0.0
+    return same, err
+
+
 def phase_pll(P, dev, gen, audio: bool):
-    """K10 (cos/sin out), or with `audio` K9 (audio and fade leveler)."""
+    """K10 (cos/sin out), or with `audio` K9 (audio and fade leveler):
+    first (K10's phase) the walker's fast forms against the exact
+    functions over their ranges in one launch; then three streamed blocks
+    of pll_block's input and three of pll_edge_block's from
+    pll_edge_carry, each output and carry held to PLL_TOL_ABS (NaNs and
+    infinities where the plain version has them)."""
     sp = P["sam"].sam
     C, T, fs = CHANNELS, SAM.block_len // SAM.decim, SAM.fs_dec
     scal = pll_k.PllScalars(sp.g1, sp.g2, sp.omega_min, sp.omega_max)
     K = "K9" if audio else "K10"
+    extra = {}
+    if not audio:
+        ck_ = pll_k.pll_fast_check(dev)
+        print(f"  K10 fast forms: the wrap select differs from fmodf's on "
+              f"{ck_.wrap_differ} of {ck_.wrap_checked} f32 in (-2 pi, 4 pi) "
+              f"({ck_.wrap_outside} sent to fmodf); sincos on "
+              f"{ck_.sincos_differ} of {ck_.sincos_checked} below 105615; "
+              f"atan2 on {ck_.atan2_differ} of the {ck_.atan2_taken} seeded "
+              f"pairs it takes (of {ck_.atan2_checked})")
+        two_pi = np.float32(pll_k.TWO_PI)
+        check(ck_.wrap_differ == 0 and ck_.wrap_outside == 0
+              and ck_.wrap_checked == int(np.float32(2 * two_pi).view(
+                  np.uint32)) + int(two_pi.view(np.uint32)),
+              "K10: the wrap select is not fmodf's on its range")
+        check(ck_.sincos_differ == 0 and ck_.atan2_differ == 0
+              and ck_.atan2_taken > 0, "K10: a fast form is not the "
+                                       "library's where it is used")
+        extra["fast_check"] = ck_._asdict()
     if audio:
         def kernel(carry, z):
             a, co = pll_k.pll_audio(scal, sp.fade.mtauR, sp.fade.mtauI,
@@ -1088,44 +1160,89 @@ def phase_pll(P, dev, gen, audio: bool):
             return {"cos": c, "sin": s}, co
         n_carry = pll_k.N_CARRY
     names = ("phs", "fil_out", "omega2", "dc", "dc_insert")[:n_carry]
-    ck = cp = torch.zeros((n_carry, C), device=dev)
-    worst, err, t0 = math.inf, 0.0, 0
-    first = None
-    for blk, Tk in enumerate((T, 1000, T)):     # 1000: no whole time tile
-        z = pll_block(gen, dev, C, Tk, t0, fs)
-        t0 += Tk
-        if first is None:
-            first = (ck, z)
-        out_k, ck = kernel(ck, z)
-        out_p, cp = plain(cp, z)
-        torch.cuda.synchronize()
-        pairs = {k: (out_p[k], out_k[k]) for k in out_k}
-        # the phase through its cosine and sine: a wrap at 2 pi is no error
-        pairs["phs (cos, sin)"] = (
-            torch.stack([cp[0].cos(), cp[0].sin()]),
-            torch.stack([ck[0].cos(), ck[0].sin()]))
-        for i in range(1, n_carry):
-            pairs[names[i]] = (cp[i], ck[i])
-        s, e = held(f"{K} block {blk} ({Tk} samples)", pairs,
-                    tol_abs=PLL_TOL_ABS)
-        worst, err = min(worst, s), max(err, e)
+    worst, err = math.inf, 0.0
+    first = first_edge = None
+    for edge in (False, True):
+        ck = cp = (pll_edge_carry(C, n_carry, dev) if edge
+                   else torch.zeros((n_carry, C), device=dev))
+        t0 = 0
+        for blk, Tk in enumerate((T, 1000, T)):   # 1000: no whole tile
+            z = (pll_edge_block if edge else pll_block)(gen, dev, C, Tk, t0,
+                                                        fs)
+            t0 += Tk
+            if edge and first_edge is None:
+                first_edge = (ck, z)
+            elif not edge and first is None:
+                first = (ck, z)
+            out_k, ck = kernel(ck, z)
+            out_p, cp = plain(cp, z)
+            torch.cuda.synchronize()
+            pairs = {k: (out_p[k], out_k[k]) for k in out_k}
+            # the phase through its cosine and sine: a wrap at 2 pi is no
+            # error
+            pairs["phs (cos, sin)"] = (
+                torch.stack([cp[0].cos(), cp[0].sin()]),
+                torch.stack([ck[0].cos(), ck[0].sin()]))
+            for i in range(1, n_carry):
+                pairs[names[i]] = (cp[i], ck[i])
+            label = f"{K} {'edge ' if edge else ''}block {blk} ({Tk} samples)"
+            if not edge:
+                s, e = held(label, pairs, tol_abs=PLL_TOL_ABS)
+                worst = min(worst, s)
+            else:
+                e = 0.0
+                for what, (ref, got) in pairs.items():
+                    same, e1 = pll_differ(ref, got)
+                    e = max(e, e1)
+                    check(same and e1 <= PLL_TOL_ABS,
+                          f"{label} {what}: non-finite values elsewhere than "
+                          f"the plain version's, or max|err| {e1:.3e}")
+                print(f"  {label}: NaNs and infinities where the plain "
+                      f"version has them, max|err| {e:.3e} elsewhere")
+            err = max(err, e)
+        if edge:
+            check(bool(ck[0][torch.arange(C, device=dev) % 16 == 14]
+                       .isnan().all()), f"{K}: a NaN did not stay")
     c0, z0 = first
     ms = cuda_ms(lambda: kernel(c0, z0), 10)
     plain_ms = cuda_ms(lambda: plain(c0, z0), 1)
+    # on the edge stream's first block (a quarter of the channels silent,
+    # which the fast forms take; an infinity or a NaN on three classes of
+    # 16 and carries outside [0, 2 pi], whose pairs take the library's
+    # walk too)
+    ce, ze = first_edge
+    edge_ms = cuda_ms(lambda: kernel(ce, ze), 10)
     # bytes: complex IQ in, one (K9) or two (K10) f32 planes out, carries;
-    # about 70 f32 operations a step (sincosf ~25, atan2f ~30, the rest 15)
+    # about 70 f32 operations a step (sincos ~20, atan2 ~30, the rest 20)
     n_out = 1 if audio else 2
     nbytes = C * T * 8 + n_out * C * T * 4 + 2 * n_carry * C * 4
-    rec_ms = recurrence_ms(T, PLL_STEP_OPS)
+    # the recurrence bound from the walker's critical cycle in this run's
+    # build (K10's pair of steps; K9's is the same template)
+    sass = trace_sam.pll_cycle_chain(pll_k.PLL._lib_path())
+    chain = sass["chain"]
+    check(chain == pll_k.PLL_CYCLE_CHAIN,
+          f"{K}: the built walker's critical cycle is {chain} dependent "
+          f"instructions, cuda/pll.py::PLL_CYCLE_CHAIN says "
+          f"{pll_k.PLL_CYCLE_CHAIN}")
+    step_ops = chain / pll_k.PLL_CYCLE_STEPS
+    rec_ms = recurrence_ms(T, step_ops)
+    geo = pll_k.pll_geometry(
+        C, T, torch.cuda.get_device_properties(dev).multi_processor_count)
     r = row("pll_audio" if audio else "pll", "pll.cu",
             f"uhsdr_tpu/pallas/pll.py:{97 if audio else 54}", err=err,
             snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
             flops=70.0 * C * T, recurrence_ms=rec_ms,
-            library_note="no PyTorch call computes a phase-locked loop")
-    print(f"  {K} {r['name']}: {ms:.4f} ms (plain {plain_ms:.1f} ms; "
-          f"recurrence bound {rec_ms:.4f} ms = {T} steps x {PLL_STEP_OPS} "
-          f"dependent ops x {FP32_LATENCY} cycles; {r['bound_by']} bound "
-          f"{r['bound_ms']:.4f} ms, {nbytes / 2**20:.0f} MiB)")
+            cycle_chain=chain, edge_input_ms=edge_ms, lanes=geo.lanes,
+            blocks=geo.blocks,
+            library_note="no PyTorch call computes a phase-locked loop",
+            **extra)
+    print(f"  {K} {r['name']}: {ms:.4f} ms, {edge_ms:.4f} ms on the edge "
+          f"input (plain {plain_ms:.1f} ms; recurrence bound {rec_ms:.4f} "
+          f"ms = {T} steps x {step_ops} dependent ops x {FP32_LATENCY} "
+          f"cycles, the critical cycle {chain} of the pair's "
+          f"{sass['instructions']} SASS instructions; {r['bound_by']} bound "
+          f"{r['bound_ms']:.4f} ms, {nbytes / 2**20:.0f} MiB; {geo.lanes} "
+          f"lanes a walker, {geo.blocks} blocks)")
     return r
 
 
@@ -1138,8 +1255,10 @@ def phase_pll_audio(P, dev, gen):
 
 
 def phase_biquad(P, dev, gen):
-    """K11 at the shape SAM's sideband route gives it: the 7-section
-    allpass chain over two paths stacked along channels."""
+    """K11 at the shape SAM's sideband route gave it before the fused
+    stage took the route (the entry path `biquad` runs it there): the
+    7-section allpass chain over two paths stacked along channels, and
+    the PreFilter's sections; bit for bit against its plain version."""
     sos = P["sam"].sam.ap_sos[0]
     S = sos.shape[0]
     C, T = 2 * CHANNELS, SAM.block_len // SAM.decim
@@ -1155,6 +1274,8 @@ def phase_biquad(P, dev, gen):
         torch.cuda.synchronize()
         s, e = held(f"K11 block {blk} ({Tk} samples)",
                     {"audio": (yp, yk), "state": (sp_, sk)})
+        check(torch.equal(yp, yk) and torch.equal(sp_, sk),
+              f"K11 block {blk}: not bit-exact against its plain version")
         worst, err = min(worst, s), max(err, e)
     # general coefficients: the PreFilter's high-Q sections, 1000 channels
     sos_g = P["sam"].audio_sos.sos
@@ -1165,6 +1286,8 @@ def phase_biquad(P, dev, gen):
     torch.cuda.synchronize()
     s, e = held(f"K11 PreFilter SOS ({sos_g.shape[0]} sections)",
                 {"audio": (yp, yk), "state": (sgp, sgk)})
+    check(torch.equal(yp, yk) and torch.equal(sgp, sgk),
+          "K11 PreFilter SOS: not bit-exact against its plain version")
     worst, err = min(worst, s), max(err, e)
     s0, x0 = first
     ms = cuda_ms(lambda: iir_k.biquad_cascade(sos, s0, x0), 10)
@@ -1172,14 +1295,113 @@ def phase_biquad(P, dev, gen):
     # bytes: x in, y out, states in and out; 9 f32 operations a section
     nbytes = 2 * C * T * 4 + 2 * S * C * 2 * 4 + S * 5 * 4
     rec_ms = recurrence_ms(T, BIQUAD_STEP_OPS)
+    geo = iir_k.biquad_geometry(
+        C, T, torch.cuda.get_device_properties(dev).multi_processor_count)
     r = row("biquad", "biquad.cu", "uhsdr_tpu/pallas/iir.py:44", err=err,
             snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
-            flops=9.0 * S * C * T, recurrence_ms=rec_ms,
+            flops=9.0 * S * C * T, recurrence_ms=rec_ms, lanes=geo.lanes,
+            blocks=geo.blocks,
             library_note="torch has no IIR filter call")
     print(f"  K11 biquad ({S} sections, {C} stacked channels): {ms:.4f} ms "
           f"(plain {plain_ms:.1f} ms, bound {r['bound_ms']:.4f} ms by "
           f"{r['bound_by']}: {nbytes / 2**20:.0f} MiB; recurrence "
-          f"{rec_ms:.4f} ms)")
+          f"{rec_ms:.4f} ms; {geo.lanes} lanes a walker, {geo.blocks} "
+          "blocks)")
+    return r
+
+
+def sam_stage_block(gen, dev, C, T, t0, fs):
+    """The fused stage's inputs: pll_block's iq and the cos and sin of a
+    seeded phase (a locked loop's output is no different to the stage)."""
+    z = pll_block(gen, dev, C, T, t0, fs)
+    ph = torch.rand((C, T), generator=gen, device=dev) * (2 * math.pi)
+    return z, ph.cos().contiguous(), ph.sin().contiguous()
+
+
+def sam_stage_state(gen, dev, C, na):
+    """A seeded state: allpass states, delays and fade states ~1e-2."""
+    def f(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * 0.01
+    fshape = (C, na) if na == 2 else (C,)
+    return f(4, 7, C, 2), f(C, 2), (f(*fshape), f(*fshape))
+
+
+def phase_sam_sideband(P, dev, gen):
+    """SAM's fused sideband stage against its plain version, bit for bit
+    on the audio, the allpass states, the delays and the fade states, over
+    three streamed blocks from a seeded state (4096, 1000 and 4099
+    samples: a ragged tile, rows not 16-byte aligned): usb and lsb at 8192
+    channels, stereo at 1024, each with the fade leveler on, and usb with
+    it off; channels 0-7 alone bit-equal to the batch.  Timed at the SAM
+    flagship's usb (8192 x 4096) beside its plain version (the route it
+    replaced is timed by `python -m uhsdr_tpu_torch.trace_sam
+    --baseline`)."""
+    sp = P["sam"].sam
+    T, fs = SAM.block_len // SAM.decim, SAM.fs_dec
+    err = 0.0
+    for sideband, C, fade in (("usb", CHANNELS, True), ("lsb", CHANNELS, True),
+                              ("usb", CHANNELS, False),
+                              ("stereo", DEPTH, True)):
+        na = 2 if sideband == "stereo" else 1
+        k = p = sam_stage_state(gen, dev, C, na)
+        t0 = 0
+        for blk, Tk in enumerate((T, 1000, T + 3)):
+            z, cs, sn = sam_stage_block(gen, dev, C, Tk, t0, fs)
+            t0 += Tk
+            ak, *k = sam_k.sam_sideband(sp.ap_sos, sp.fade, *k, z, cs, sn,
+                                        sideband, fade)
+            apl, *p = sam_k.sam_sideband_plain(sp.ap_sos, sp.fade, *p, z, cs,
+                                               sn, sideband, fade)
+            torch.cuda.synchronize()
+            diffs = {w: alc_differ(a, b) for w, (a, b) in {
+                "audio": (apl, ak), "ap_state": (p[0], k[0]),
+                "ds": (p[1], k[1]), "dc": (p[2][0], k[2][0]),
+                "dc_insert": (p[2][1], k[2][1])}.items()}
+            print(f"  sam_sideband {sideband} fade={fade} {C} ch block {blk} "
+                  f"({Tk} samples): " + ", ".join(
+                      f"{w} {n} differ" for w, (n, _) in diffs.items()))
+            err = max([err] + [e for _, e in diffs.values()])
+            check(ak.shape == ((C, 2, Tk) if na == 2 else (C, Tk))
+                  and all(n == 0 for n, _ in diffs.values()),
+                  f"sam_sideband {sideband} block {blk}: not bit-exact "
+                  "against its plain version")
+    C = CHANNELS
+    st = sam_stage_state(gen, dev, C, 1)
+    z, cs, sn = sam_stage_block(gen, dev, C, T, 0, fs)
+    full = sam_k.sam_sideband(sp.ap_sos, sp.fade, *st, z, cs, sn, "usb",
+                              True)
+    part = sam_k.sam_sideband(
+        sp.ap_sos, sp.fade, st[0][:, :, :8].contiguous(),
+        st[1][:8].contiguous(), tuple(f[:8].contiguous() for f in st[2]),
+        z[:8].contiguous(), cs[:8].contiguous(), sn[:8].contiguous(), "usb",
+        True)
+    torch.cuda.synchronize()
+    check(torch.equal(full[0][:8], part[0])
+          and torch.equal(full[1][:, :, :8], part[1])
+          and torch.equal(full[2][:8], part[2])
+          and all(torch.equal(a[:8], b) for a, b in zip(full[3], part[3])),
+          "sam_sideband: channels 0-7 alone differ from the batch")
+    del full, part
+    ms = cuda_ms(lambda: sam_k.sam_sideband(sp.ap_sos, sp.fade, *st, z, cs,
+                                            sn, "usb", True), 10)
+    plain_ms = cuda_ms(lambda: sam_k.sam_sideband_plain(
+        sp.ap_sos, sp.fade, *st, z, cs, sn, "usb", True), 1)
+    # bytes: iq, cos, sin in, audio out, the states in and out; f32
+    # operations a channel and sample: four products, 28 sections of 4,
+    # the combine's 3, corr's 3, the fade leveler's 8
+    nbytes = C * T * (8 + 4 + 4 + 4) + 2 * C * (4 * 7 * 2 + 2 + 2) * 4
+    geo = sam_k.sam_geometry(
+        C, T, 1, torch.cuda.get_device_properties(dev).multi_processor_count)
+    r = row("sam_sideband", "sam.cu", "uhsdr_tpu/pallas/iir.py:44",
+            err=err, snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=130.0 * C * T, tpu_kernel=False, lanes=geo.lanes,
+            blocks=geo.blocks,
+            library_note="torch has no IIR filter call")
+    print(f"  sam_sideband (fused, usb, {C} x {T}): {ms:.4f} ms (plain "
+          f"{plain_ms:.1f} ms; "
+          f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}: "
+          f"{nbytes / 2**20:.0f} MiB; {geo.lanes} channels a walker, "
+          f"{geo.blocks} blocks)")
     return r
 
 
@@ -1981,16 +2203,20 @@ def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     return launches, ms_block, msps, worst, n_warm + n_timed
 
 
-def grouped_path(P, dev, seed, n_timed=4, n_warm=2):
-    """The entry path of K14: SAM usb's stacked allpass inputs (16384 x
-    4096: its four paths, two per coefficient set) through
-    `biquad_cascade(impl="grouped")`, one call per coefficient set a
-    block, state carried; the last block's outputs and the final states
-    held against K11 over the same blocks.  No block's output outlives
-    the next block, so the timed blocks allocate no new device memory.
-    Returns (launches, ms/block, worst SNR against K11, blocks run)."""
+def biquad_path(P, dev, seed, impl, n_timed=4, n_warm=2):
+    """The entry paths of K14 (impl "grouped") and K11 ("sequential"):
+    SAM usb's stacked allpass inputs as the reference stacks them (16384
+    x 4096: its four paths, two per coefficient set) through
+    `biquad_cascade(impl=...)`, one call per coefficient set a block,
+    state carried; the last block's outputs and the final states held
+    against the other implementation over the same blocks.  No block's
+    output outlives the next block, so the timed blocks allocate no new
+    device memory.  Returns (launches, ms/block, worst SNR against the
+    other, blocks run)."""
     sos = P["sam"].sam.ap_sos
     C, T = 2 * CHANNELS, SAM.block_len // SAM.decim
+    other = "sequential" if impl == "grouped" else "grouped"
+    label = "biquad_grouped" if impl == "grouped" else "biquad"
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     blocks = [[torch.randn((C, T), generator=gen, device=dev) * 0.1
@@ -2000,28 +2226,28 @@ def grouped_path(P, dev, seed, n_timed=4, n_warm=2):
     def step(blk):
         ys = []
         for k, (s, x) in enumerate(zip(sos, blk)):
-            y, states[k] = iir_k.biquad_cascade(s, states[k], x,
-                                                impl="grouped")
+            y, states[k] = iir_k.biquad_cascade(s, states[k], x, impl=impl)
             ys.append(y)
         return ys
 
-    launches, ms_block, ys = timed_run(step, blocks, "biquad_grouped",
-                                       ("biquad_grouped",), n_warm, n_timed)
+    launches, ms_block, ys = timed_run(step, blocks, label, (label,),
+                                       n_warm, n_timed)
     check(all(bool(torch.isfinite(y).all()) for y in ys + states),
-          "biquad_grouped: output or state not finite")
-    # the same blocks through K11, outside the counted window
+          f"{label}: output or state not finite")
+    # the same blocks through the other implementation, outside the
+    # counted window
     ref = [torch.zeros((s.shape[0], C, 2), device=dev) for s in sos]
     for blk in blocks:
         y_ref = []
         for k, (s, x) in enumerate(zip(sos, blk)):
-            y, ref[k] = iir_k.biquad_cascade(s, ref[k], x)
+            y, ref[k] = iir_k.biquad_cascade(s, ref[k], x, impl=other)
             y_ref.append(y)
     worst = min(*(snr_db(a, b) for a, b in zip(y_ref, ys)),
                 *(snr_db(r, st) for r, st in zip(ref, states)))
-    print(f"  biquad_grouped vs K11: worst SNR {worst:.1f} dB (the last "
-          f"block and the final states)")
+    print(f"  {label} vs {other}: worst SNR {worst:.1f} dB (the last block "
+          "and the final states)")
     check(worst >= KERNEL_TOL_DB,
-          f"biquad_grouped vs K11: {worst:.1f} dB < {KERNEL_TOL_DB} dB")
+          f"{label} vs {other}: {worst:.1f} dB < {KERNEL_TOL_DB} dB")
     return launches, ms_block, worst, n_warm + n_timed
 
 
@@ -2436,7 +2662,7 @@ MAIN_PATHS = (
     ("sam_both", dataclasses.replace(SAM, sam_sideband="both"),
      ("fir_rt", "pll_audio") + SHARED, 8, CHANNELS),
     ("sam_usb", dataclasses.replace(SAM, sam_sideband="usb"),
-     ("fir_rt", "pll", "biquad") + SHARED, 8, CHANNELS),
+     ("fir_rt", "pll", "sam_sideband") + SHARED, 8, CHANNELS),
     ("fm", FM, FM_KERNELS, 8, CHANNELS),
     ("wide", WIDE, ("fir_cx_nco", "agc", "interp"), 8, CHANNELS),
     ("ssbstereo", STEREO, ("front_pair",) + TWO_CH, 8, CHANNELS),
@@ -2451,7 +2677,7 @@ MAIN_PATHS = (
     ("iq", dataclasses.replace(STEREO, mode="iq"), ("front_pair",) + TWO_CH,
      4, DEPTH),
     ("sam_stereo", dataclasses.replace(SAM, sam_sideband="stereo"),
-     ("fir_rt", "pll", "biquad") + TWO_CH, 4, DEPTH),
+     ("fir_rt", "pll", "sam_sideband") + TWO_CH, 4, DEPTH),
 )
 PATH_ENV = {"ssb_mt": {"UHSDR_FRONT_MT": "1"}}
 TX_VOICE = ("fir_real", "alc", "blocked")
@@ -2524,7 +2750,7 @@ def main() -> int:
     rows = []
     for phase in (phase_front, phase_agc, phase_interp, phase_fir_rt,
                   phase_pll_cos_sin, phase_pll_audio, phase_biquad,
-                  phase_fir_cx, phase_fm_disc, phase_agc_scan,
+                  phase_sam_sideband, phase_fir_cx, phase_fm_disc, phase_agc_scan,
                   phase_front_pair, phase_fir_real, phase_alc,
                   phase_blocked, phase_biquad_grouped, phase_front_mt,
                   phase_agc_rows, phase_agc_scan_rows):
@@ -2575,17 +2801,20 @@ def main() -> int:
               f"{ms_block:.3f} ms/block over {n_timed} blocks, {msps:.1f} "
               f"Ms/s, CPU-chain SNR {worst:.1f} dB "
               f"({time.time() - t1:.1f} s) on {card}")
-    t1 = time.time()
-    print("phase entry path biquad_grouped:")
-    launches, ms_block, worst, n_blocks = grouped_path(P, dev, args.seed)
-    by_path["biquad_grouped"] = launches
-    per_block["biquad_grouped"] = {k: n / n_blocks
-                                   for k, n in launches.items()}
-    torch.cuda.empty_cache()
-    print(f"entry path biquad_grouped: {2 * CHANNELS} ch x "
-          f"{SAM.block_len // SAM.decim} f32, both allpass sets: "
-          f"{ms_block:.3f} ms/block over 4 blocks, K11 SNR {worst:.1f} dB "
-          f"({time.time() - t1:.1f} s) on {card}")
+    for label, impl in (("biquad_grouped", "grouped"),
+                        ("biquad", "sequential")):
+        t1 = time.time()
+        print(f"phase entry path {label}:")
+        launches, ms_block, worst, n_blocks = biquad_path(P, dev, args.seed,
+                                                          impl)
+        by_path[label] = launches
+        per_block[label] = {k: n / n_blocks for k, n in launches.items()}
+        torch.cuda.empty_cache()
+        print(f"entry path {label}: {2 * CHANNELS} ch x "
+              f"{SAM.block_len // SAM.decim} f32, both allpass sets: "
+              f"{ms_block:.3f} ms/block over 4 blocks, SNR against "
+              f"{'K11' if impl == 'grouped' else 'K14'} {worst:.1f} dB "
+              f"({time.time() - t1:.1f} s) on {card}")
     # the fleet, twice over the same blocks: stage-batched and per group;
     # the CPU check of the stage-batched run after both timed runs
     cfgs = fleet_configs()

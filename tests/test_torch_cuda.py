@@ -11,12 +11,16 @@ thread block or time tile.  Inputs come from a numpy seed.  Kernels and
 plain versions share f32 arithmetic but not the order of their sums, so
 FIR outputs are held to SNR >= 100 dB; the biquad-cascade kernels
 repeat their plain versions' operations in order and are held to 120 dB
-(`AGC_DB`); the AGC kernels K3 and K13, which repeat them too and are
+(`AGC_DB`), K11 and SAM's fused sideband stage also bit for bit (every
+output and state); the AGC kernels K3 and K13, which repeat them too and are
 built with -fmad=false, must be bit-exact (K3 at w from 48 to 256, over
 one step, a tile less and more one and one tile; its shared memory is
 `agc_geometry`'s); the PLL kernels' cos/sin/audio to max |err| <= 2e-5 (they repeat
 the plain loop's operations too; tests/test_demod.py holds the TPU
-kernels to 3e-4); the FM discriminator to max |err| <= 2e-6 modulo 2 pi
+kernels to 3e-4), also on edge inputs, with NaNs and infinities where the
+plain loop has them, and their walker's fast sincos, atan2 and phase
+wrap bit-equal to the exact functions over their ranges; the FM
+discriminator to max |err| <= 2e-6 modulo 2 pi
 (an angle at the branch cut may come out as +pi or -pi); the chain on
 the card against the chain on the CPU to 80 dB.  K3 and K13 with
 per-channel rows must be bit-exact with their plain versions, and a
@@ -530,7 +534,8 @@ def test_am_sam_chain_on_card_matches_cpu(dev, mode, sideband, fade, iq_rate,
                                      and fade),
                    "pll": 3 * (mode == "sam" and not (sideband == "both"
                                                       and fade)),
-                   "biquad": 6 * (mode == "sam" and sideband != "both"),
+                   "sam_sideband": 3 * (mode == "sam"
+                                        and sideband != "both"),
                    "blocked": 3 * _k2_per_block(cfg, gpu.params)})
     before = {k.name: k.launches for k in build.kernels()}
     for i, q in trace_rx.capture(3, C, "cpu", 4, cfg):
@@ -1142,7 +1147,7 @@ def test_two_channel_chain_on_card_matches_cpu(dev, mode, sideband, iq_rate,
     sam = mode == "sam"
     expect = {k.name: 0 for k in build.kernels()}
     expect.update({"agc_scan": 3, "interp": 3})
-    expect.update({"fir_rt": 3, "pll": 3, "biquad": 6} if sam
+    expect.update({"fir_rt": 3, "pll": 3, "sam_sideband": 3} if sam
                   else {"front_pair": 3})
     expect["blocked"] = 3 * _k2_per_block(cfg, gpu.params)
     before = {k.name: k.launches for k in build.kernels()}
@@ -1539,3 +1544,263 @@ def test_fleet_fused_bit_equal_to_separate_chains(dev):
             assert sa.keys() == sb.keys()
             for f in sa:
                 np.testing.assert_array_equal(sa[f], sb[f], err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# The SAM demodulator's redesigned kernels: K9/K10 (the walker pipelined
+# over two steps, the phase wrap by a select), K11 (the ring pipeline) and
+# the fused sideband stage (cuda/sam.py)
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b) -> bool:
+    """Every element's bits equal, a NaN matching a NaN."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
+def _held_abs(ref, got, tol) -> bool:
+    """NaNs and infinities where the reference has them, the finite
+    values within tol."""
+    if not (torch.equal(ref.isnan(), got.isnan())
+            and torch.equal(ref.isinf(), got.isinf())
+            and torch.equal(ref[ref.isinf()], got[got.isinf()])):
+        return False
+    fin = torch.isfinite(ref)
+    return not bool(fin.any()) or float((ref[fin] - got[fin]).abs().max()) <= tol
+
+
+def test_pll_fast_forms_are_the_exact_functions(dev):
+    """The walker's select wrap equals its fmodf form bit for bit on every
+    f32 in (-2 pi, 4 pi) (none sent to fmodf), its branch-free sincos is
+    sincosf's on every f32 below 105615 in magnitude, and its branch-free
+    atan2 is atan2f's on every seeded pair it takes (one launch)."""
+    ck = pll_k.pll_fast_check(dev)
+    two_pi = np.float32(pll_k.TWO_PI)
+    want = (int(np.float32(2 * two_pi).view(np.uint32))
+            + int(two_pi.view(np.uint32)))
+    assert (ck.wrap_differ, ck.wrap_outside, ck.wrap_checked) == (0, 0, want)
+    assert ck.sincos_differ == 0
+    assert ck.sincos_checked == 2 * int(np.float32(105615).view(np.uint32))
+    assert ck.atan2_differ == 0 and ck.atan2_checked == 2**31
+    assert ck.atan2_taken > 0.7 * ck.atan2_checked
+
+
+@pytest.mark.parametrize("C,lengths", [(40, (1000, 33, 512)),
+                                       (300, (64, 1001, 96))])
+def test_pll_kernels_hold_edge_streams(dev, C, lengths):
+    """K10 and K9 from carries outside [0, 2 pi] (the fmodf wrap), with
+    zeros, infinities and a NaN in iq: NaNs and infinities where the plain
+    version has them, the rest within PLL_ABS, over streamed blocks."""
+    sp = sam_mod.make_params(24000.0)
+    p = pll_k.PllScalars(sp.g1, sp.g2, sp.omega_min, sp.omega_max)
+    mR, mI = sp.fade.mtauR, sp.fade.mtauI
+    rng = np.random.default_rng(16)
+    phs0 = torch.from_numpy(rng.uniform(0, 6.28, C).astype(np.float32))
+    phs0[:8] = torch.tensor([10.0, -3.0, 1e6, -1e6, 4 * np.pi, -2 * np.pi,
+                             2 * np.pi, -0.0])
+    ck = cp = torch.stack([phs0, torch.full((C,), 0.3), torch.zeros(C)]
+                          ).to(dev)
+    ak = apl = torch.cat([ck, torch.zeros((2, C), device=dev)])
+    t0 = 0
+    for T in lengths:
+        z = _pll_input(rng, C, T, t0).to(dev)
+        t0 += T
+        z[8:12] = 0                                  # silent channels
+        z[12, T // 2] = complex(np.inf, 0.0)
+        z[13, T // 3] = complex(0.0, -np.inf)
+        z[14, T // 4] = complex(np.nan, 0.0)
+        z[15, :T // 2] = 0
+        cos_k, sin_k, ck = pll_k.pll(p, ck, z)
+        aud_k, ak = pll_k.pll_audio(p, mR, mI, ak, z)
+        cos_p, sin_p, cp = pll_k.pll_plain(p, cp, z)
+        aud_p, apl = pll_k.pll_audio_plain(p, mR, mI, apl, z)
+        torch.cuda.synchronize()
+        # the phase through its cosine and sine: a wrap at 2 pi is no error
+        for a, b in ((cos_p, cos_k), (sin_p, sin_k), (aud_p, aud_k),
+                     (cp[1:], ck[1:]), (apl[1:], ak[1:]),
+                     (cp[0].cos(), ck[0].cos()), (cp[0].sin(), ck[0].sin()),
+                     (apl[0].cos(), ak[0].cos())):
+            assert _held_abs(a, b, PLL_ABS)
+    assert bool(ck[0, 14].isnan() and ak[0, 14].isnan())   # the NaN stays
+
+
+def test_pll_smem_matches_the_rule(dev):
+    """The library's block layout and shared memory are `pll_geometry`'s,
+    within the card's opt-in limit."""
+    lib = pll_k._lib()
+    for C in (1, 8, 528, 529, 1024, 4096, 8192, 16384, 16896, 40000):
+        geo = pll_k.pll_geometry(C, 100)
+        assert lib.uhsdr_pll_smem(geo.lanes) == geo.smem <= build.SMEM_OPT_IN
+    assert lib.uhsdr_pll_smem(0) == lib.uhsdr_pll_smem(33) == -1
+
+
+@pytest.mark.parametrize("C,lengths,S,offset", [
+    (40, (1000, 64, 130), 7, 0), (600, (4096, 1001), 7, 0),
+    (9, (130, 31), 1, 0), (33, (300, 32), 5, 1), (3000, (256, 96), 8, 0)])
+def test_biquad_kernel_bit_exact(dev, C, lengths, S, offset):
+    """K11 bit for bit against its plain version over streamed blocks:
+    ragged tiles, rows that are not 16-byte aligned (T % 4, or x at an
+    offset), a launch of several blocks an SM."""
+    rng = np.random.default_rng(17)
+    if S == 7:
+        sos = torch.from_numpy(sam_mod.allpass_sos(sam_mod.C0)).to(dev)
+    else:
+        r = rng.uniform(0.5, 0.999, S)
+        th = rng.uniform(0.1, 3.0, S)
+        sos = torch.from_numpy(np.stack(
+            [rng.standard_normal(S), rng.standard_normal(S),
+             rng.standard_normal(S), -2 * r * np.cos(th), r * r],
+            axis=-1).astype(np.float32)).to(dev)
+    sk = sp = torch.zeros((S, C, 2), device=dev)
+    for T in lengths:
+        buf = torch.from_numpy(rng.standard_normal(C * T + offset)
+                               .astype(np.float32)).to(dev)
+        x = buf[offset:].view(C, T)
+        yk, sk = iir_k.biquad_cascade(sos, sk, x)
+        yp, sp = iir_k.biquad_cascade_plain(sos, sp, x)
+        torch.cuda.synchronize()
+        assert torch.equal(yp, yk) and torch.equal(sp, sk)
+
+
+def test_biquad_smem_matches_the_rule(dev):
+    lib = iir_k._biquad_lib()
+    for C in (1, 8, 528, 529, 1024, 16384, 16896, 40000):
+        geo = iir_k.biquad_geometry(C, 100)
+        assert lib.uhsdr_biquad_smem(geo.lanes) == geo.smem
+        assert geo.smem <= build.SMEM_OPT_IN
+    assert lib.uhsdr_biquad_smem(0) == lib.uhsdr_biquad_smem(33) == -1
+
+
+def _sam_stage_inputs(rng, C, T, t0, dev):
+    z = _pll_input(rng, C, T, t0).to(dev)
+    ph = torch.from_numpy(rng.uniform(0, 2 * np.pi, (C, T))
+                          .astype(np.float32)).to(dev)
+    return z, ph.cos(), ph.sin()
+
+
+def _sam_stage_state(rng, C, na, dev):
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32) * 0.01).to(dev)
+    fshape = (C, na) if na == 2 else (C,)
+    return f(4, 7, C, 2), f(C, 2), (f(*fshape), f(*fshape))
+
+
+@pytest.mark.parametrize("sideband", ["usb", "lsb", "stereo"])
+@pytest.mark.parametrize("fade", [True, False], ids=["fade", "nofade"])
+@pytest.mark.parametrize("C,lengths", [(40, (512, 1000, 64)),
+                                       (300, (96, 33))])
+def test_sam_sideband_kernel_bit_exact(dev, sideband, fade, C, lengths):
+    """The fused sideband stage against its plain version, bit for bit on
+    the audio and every state, over streamed blocks from a random state
+    (ragged tiles, T % 4 != 0)."""
+    from uhsdr_tpu_torch.cuda import sam as sam_k
+    sp = sam_mod.make_params(24000.0, device=dev)
+    na = 2 if sideband == "stereo" else 1
+    rng = np.random.default_rng(18)
+    ap, ds, fs = _sam_stage_state(rng, C, na, dev)
+    k = p = (ap, ds, fs)
+    t0 = 0
+    for T in lengths:
+        z, cs, sn = _sam_stage_inputs(rng, C, T, t0, dev)
+        t0 += T
+        n0 = sam_k.SAM_SIDEBAND.launches
+        ak, *k = sam_k.sam_sideband(sp.ap_sos, sp.fade, *k, z, cs, sn,
+                                    sideband, fade)
+        assert sam_k.SAM_SIDEBAND.launches == n0 + 1
+        apl, *p = sam_k.sam_sideband_plain(sp.ap_sos, sp.fade, *p, z, cs, sn,
+                                           sideband, fade)
+        torch.cuda.synchronize()
+        assert ak.shape == ((C, 2, T) if na == 2 else (C, T))
+        for a, b in ((apl, ak), (p[0], k[0]), (p[1], k[1]), (p[2][0], k[2][0]),
+                     (p[2][1], k[2][1])):
+            assert a.shape == b.shape and _bits_equal(a, b)
+
+
+@pytest.mark.parametrize("sideband", ["usb", "stereo"])
+def test_sam_sideband_channels_alone_match_the_batch(dev, sideband):
+    from uhsdr_tpu_torch.cuda import sam as sam_k
+    sp = sam_mod.make_params(24000.0, device=dev)
+    na = 2 if sideband == "stereo" else 1
+    rng = np.random.default_rng(19)
+    C, T = 8192, 1024
+    st = _sam_stage_state(rng, C, na, dev)
+    z, cs, sn = _sam_stage_inputs(rng, C, T, 0, dev)
+    full = sam_k.sam_sideband(sp.ap_sos, sp.fade, *st, z, cs, sn, sideband,
+                              True)
+    part = sam_k.sam_sideband(
+        sp.ap_sos, sp.fade, st[0][:, :, :8].contiguous(),
+        st[1][:8].contiguous(), tuple(f[:8].contiguous() for f in st[2]),
+        z[:8].contiguous(), cs[:8].contiguous(), sn[:8].contiguous(),
+        sideband, True)
+    torch.cuda.synchronize()
+    assert torch.equal(full[0][:8], part[0])
+    assert torch.equal(full[1][:, :, :8], part[1])
+    assert torch.equal(full[2][:8], part[2])
+    for a, b in zip(full[3], part[3]):
+        assert torch.equal(a[:8], b)
+
+
+def test_sam_smem_matches_the_rule(dev):
+    from uhsdr_tpu_torch.cuda import sam as sam_k
+    lib = sam_k._lib()
+    for na in (1, 2):
+        for C in (1, 8, 528, 1024, 4224, 4225, 8192, 40000):
+            geo = sam_k.sam_geometry(C, 100, na)
+            assert lib.uhsdr_sam_sideband_smem(geo.lanes, na) == geo.smem
+            # two blocks an SM past 32 channels a scheduler
+            assert 2 * (geo.smem + 1024) <= 228 * 1024
+    assert lib.uhsdr_sam_sideband_smem(9, 1) == -1
+    assert lib.uhsdr_sam_sideband_smem(1, 3) == -1
+
+
+def test_sam_sideband_refuses_what_the_kernel_does_not_take(dev):
+    from uhsdr_tpu_torch.cuda import sam as sam_k
+    sp = sam_mod.make_params(24000.0, device=dev)
+    rng = np.random.default_rng(20)
+    C, T = 4, 64
+    st = _sam_stage_state(rng, C, 1, dev)
+    z, cs, sn = _sam_stage_inputs(rng, C, T, 0, dev)
+    with pytest.raises(ValueError):                 # not an allpass row
+        bad = sp.ap_sos[0].clone()
+        bad[0, 1] = 0.5
+        sam_k.sam_sideband((bad, sp.ap_sos[1]), sp.fade, *st, z, cs, sn,
+                           "usb", True)
+    with pytest.raises(ValueError):                 # stereo's fade states
+        sam_k.sam_sideband(sp.ap_sos, sp.fade, *st, z, cs, sn, "stereo",
+                           True)
+    with pytest.raises(ValueError):                 # 'both' is not its route
+        sam_k.sam_sideband(sp.ap_sos, sp.fade, *st, z, cs, sn, "both", True)
+    with pytest.raises(ValueError):                 # cos of another length
+        sam_k.sam_sideband(sp.ap_sos, sp.fade, *st, z, cs[:, :32], sn,
+                           "usb", True)
+
+
+@pytest.mark.parametrize("which", ["sam_sideband", "pll", "pll_audio"])
+def test_failed_builds_of_the_sam_kernels_raise(dev, monkeypatch, which):
+    """The fused stage, K10 and K9 raise on a CUDA tensor when their build
+    fails: no wrapper gives way to its plain version."""
+    from uhsdr_tpu_torch.cuda import sam as sam_k
+    owner = sam_k.SAM_SIDEBAND if which == "sam_sideband" else pll_k.PLL
+    counter = {"sam_sideband": sam_k.SAM_SIDEBAND, "pll": pll_k.PLL,
+               "pll_audio": pll_k.PLL_AUDIO}[which]
+    monkeypatch.setattr(owner, "_lib", None)
+    monkeypatch.setattr(owner, "flags", owner.flags +
+                        ("-DFORCED_BUILD_FAILURE",))
+    monkeypatch.setattr(build, "nvcc_path", lambda: "false")
+    sp = sam_mod.make_params(24000.0, device=dev)
+    p = pll_k.PllScalars(sp.g1, sp.g2, sp.omega_min, sp.omega_max)
+    C, T = 4, 64
+    z = torch.zeros((C, T), dtype=torch.complex64, device=dev)
+    n0 = counter.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        if which == "sam_sideband":
+            st = _sam_stage_state(np.random.default_rng(21), C, 1, dev)
+            cs = torch.ones((C, T), device=dev)
+            sam_k.sam_sideband(sp.ap_sos, sp.fade, *st, z, cs, cs, "usb",
+                               True)
+        elif which == "pll":
+            pll_k.pll(p, torch.zeros((3, C), device=dev), z)
+        else:
+            pll_k.pll_audio(p, 0.9, 0.99, torch.zeros((5, C), device=dev), z)
+    assert counter.launches == n0

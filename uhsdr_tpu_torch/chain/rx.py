@@ -21,7 +21,8 @@ Stage order of the reference-table chains:
        as the decimator, complex IQ out     [K5: cuda.fir.fir_rt]
     -> demod: SSB (the real part, already taken by K1/K7); AM envelope
        and fade leveler; SAM PLL            [K9/K10: cuda.pll] with the
-       sideband allpass chains              [K11: cuda.iir.biquad_cascade];
+       sideband stage (products, allpass chains, combine, fade leveler;
+       K11's chains on the TPU)             [cuda.sam.sam_sideband];
        FM discriminator                     [K12: cuda.elemwise.fm_disc],
        de-emphasis, squelch, subtone gate, FM_RX_SCALING; the FM chain
        then runs the AGC and biquad2 alone at 48 kHz

@@ -7,14 +7,17 @@ Each source under `uhsdr_tpu_torch/kernels/` is compiled by `nvcc` for
 carries a hash of the source and flags, so an edited source never loads a
 stale build.  Nothing is built at import: the first launch builds its own
 library, and `build_all` builds every kernel at once, one `nvcc` process
-per source, all started together.
+per source, all started together.  A source may include headers of its
+own directory (`#include "ring.cuh"`); they count in its hash.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -33,6 +36,7 @@ BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 SMEM_OPT_IN = 227 * 1024
 
 _ALL: list["CudaKernel"] = []
+_LOCAL_INCLUDE = re.compile(r'^#include "([^"]+)"[^\n]*$', re.M)
 
 
 def nvcc_path() -> str:
@@ -70,8 +74,23 @@ class CudaKernel:
         self._lock = threading.Lock()
         _ALL.append(self)
 
+    def source_text(self) -> str:
+        """The source with the headers it includes from its own directory
+        written in place (each once), as one translation unit."""
+        seen = set()
+
+        def expand(path: pathlib.Path) -> str:
+            def sub(m):
+                inc = path.parent / m.group(1)
+                if inc in seen:
+                    return ""
+                seen.add(inc)
+                return expand(inc)
+            return _LOCAL_INCLUDE.sub(sub, path.read_text())
+        return expand(self.source)
+
     def _lib_path(self) -> pathlib.Path:
-        h = hashlib.sha1(self.source.read_bytes())
+        h = hashlib.sha1(self.source_text().encode())
         h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 
@@ -127,7 +146,7 @@ def build_all():
     """Build every registered kernel, one nvcc per source in parallel.
     Returns {name: nvcc log} (the -Xptxas -v register/smem report)."""
     # importing the wrapper modules registers their kernels
-    from . import agc, alc, elemwise, fir, iir, pll  # noqa: F401
+    from . import agc, alc, elemwise, fir, iir, pll, sam  # noqa: F401
     procs = [(k, k.start_build()) for k in _ALL]
     errors = []
     for k, p in procs:
@@ -143,7 +162,7 @@ def build_all():
 
 
 def kernels() -> list[CudaKernel]:
-    from . import agc, alc, elemwise, fir, iir, pll  # noqa: F401
+    from . import agc, alc, elemwise, fir, iir, pll, sam  # noqa: F401
     return list(_ALL)
 
 
@@ -164,6 +183,12 @@ def derived(t: torch.Tensor, key, make):
     _DERIVED[slot] = (weakref.ref(t, lambda _: _DERIVED.pop(slot, None)),
                       t._version, out)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`, the launch rules' `sms`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(device) -> int:

@@ -10,9 +10,12 @@ launch failed, and adds one to the kernel's ``launches`` count.  There is
 no fallback.
 
 K11 replaces uhsdr_tpu/pallas/iir.py::_make_kernel (:44), entered from
-`biquad_cascade_pallas` (:336); on the slice's path it runs SAM's two
-stacked 7-section z^-2 allpass chains (demod/sam.py:213-216) and the
-cascade blocks the blocked form cannot chunk (`cascade_dispatch`).  K14
+`biquad_cascade_pallas` (:336), which the reference runs on SAM's two
+stacked 7-section z^-2 allpass chains (demod/sam.py:213-216); the port
+runs SAM's whole sideband stage as one launch of its own kernel on K11's
+tile ring (`cuda/sam.py`, `kernels/sam.cu`), and K11 runs the cascade
+blocks the blocked form cannot chunk (`cascade_dispatch`) and the
+`biquad_cascade` entry.  Its launch rule is `biquad_geometry`.  K14
 replaces ::_make_kernel_grouped (:112), `biquad_cascade_pallas(impl=
 "grouped")`: the same function by a two-level scan.  K2 replaces
 ::_make_blocked_kernel (:224), `biquad_cascade_blocked_pallas` (:263):
@@ -30,14 +33,21 @@ import numpy as np
 import torch
 
 from ..ops import iir as iir_ops
-from .build import CudaKernel, derived, stream_ptr
+from . import ring
+from .build import CudaKernel, derived, sm_count, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 BIQUAD = CudaKernel("biquad", "biquad.cu", {
-    "uhsdr_biquad_launch": ([_P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
+    "uhsdr_biquad_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+                            _I),
     "uhsdr_biquad_max_sections": ([], _I),
+    "uhsdr_biquad_threads": ([], _I),
+    "uhsdr_biquad_walkers": ([], _I),
+    "uhsdr_biquad_tile": ([], _I),
+    "uhsdr_biquad_stages": ([], _I),
+    "uhsdr_biquad_smem": ([_I], _I),
     "uhsdr_biquad_grouped_launch": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
                                     _I),
     "uhsdr_biquad_grouped_max_groups": ([], _I),
@@ -76,6 +86,43 @@ def _f32_on(ts, dev, name: str):
 # ---------------------------------------------------------------------------
 # K11 and K14: the biquad cascade
 # ---------------------------------------------------------------------------
+
+# the most row lanes of a K11 walker warp (the rest of the layout is
+# `kernels/ring.cuh`'s, `cuda/ring.py`)
+BIQUAD_MAX_LANES = 32
+
+
+class BiquadGeometry(NamedTuple):
+    """K11's launch (`kernels/biquad.cu::biquad_kernel`)."""
+    lanes: int      # row lanes of each walker warp
+    walkers: int    # walker warps a block
+    rows: int       # rows a block: walkers * lanes
+    stages: int     # tiles in the ring
+    blocks: int     # the grid
+    smem: int       # dynamic shared memory, bytes
+
+
+def biquad_geometry(C: int, T: int, sms: int = ring.SMS) -> BiquadGeometry:
+    """K11's launch rule for C rows of T samples: the fewest row lanes a
+    walker warp that puts the rows in at most `sms` blocks, so that every
+    SM runs a block and each of its four schedulers one walker (a warp's
+    time a sample is its S sections' issue, whatever its lanes); past 32
+    lanes (C > 128 sms) the blocks run several an SM.  The ring holds
+    ring.STAGES tiles of (TA + 4)-float rows.  Raises ValueError for an
+    empty launch."""
+    _need(C >= 1 and T >= 1 and sms >= 1,
+          f"biquad_cascade: {C} rows of {T} samples on {sms} SMs")
+    lanes = min(BIQUAD_MAX_LANES, -(-C // (ring.WALKERS * sms)))
+    rows = ring.WALKERS * lanes
+    smem = ring.STAGES * rows * (ring.TILE + 4) * 4
+    return BiquadGeometry(lanes, ring.WALKERS, rows, ring.STAGES,
+                          -(-C // rows), smem)
+
+
+def _biquad_lib():
+    """K11's library, its layout checked against `cuda/ring.py`'s."""
+    return ring.checked_lib(BIQUAD, "biquad")
+
 
 def biquad_cascade_plain(sos, state, x):
     """Plain torch version of K11: the sequential DF2T recurrence
@@ -186,7 +233,8 @@ def biquad_cascade(sos, state, x, impl: str = "sequential",
                    group_len: int = 32):
     """S-section biquad cascade.  sos: (S, 5) f32 rows [b0, b1, b2, a1,
     a2]; state: (S, C, 2) f32 DF2T states; x: (C, T) f32.  impl
-    "sequential" is K11 (the recurrence, one thread a channel); "grouped"
+    "sequential" is K11 (the recurrence, one lane a channel, launched by
+    `biquad_geometry`); "grouped"
     is K14 (the two-level scan in groups of `group_len` samples, the
     counterpart of `biquad_cascade_pallas(impl="grouped")`).  Returns
     (y (C, T), new_state (S, C, 2))."""
@@ -200,7 +248,7 @@ def biquad_cascade(sos, state, x, impl: str = "sequential",
     _need(x.ndim == 2 and x.shape[-1] >= 1,
           "biquad_cascade: x must be (C, T), T >= 1")
     C, T = x.shape
-    lib = BIQUAD.lib()
+    lib = _biquad_lib()
     S = sos.shape[0]
     _need(sos.shape == (S, 5)
           and 1 <= S <= lib.uhsdr_biquad_max_sections(),
@@ -224,9 +272,13 @@ def biquad_cascade(sos, state, x, impl: str = "sequential",
             group_len, y.data_ptr(), new_state.data_ptr(), stream_ptr(dev))
         counter = BIQUAD_GROUPED
     else:
+        geo = biquad_geometry(C, T, sm_count(dev.index))
+        vec = int(T % 4 == 0 and x.data_ptr() % 16 == 0
+                  and y.data_ptr() % 16 == 0)
         err = lib.uhsdr_biquad_launch(
             x.data_ptr(), state.data_ptr(), sos.data_ptr(), S, C, T,
-            y.data_ptr(), new_state.data_ptr(), stream_ptr(dev))
+            geo.lanes, vec, y.data_ptr(), new_state.data_ptr(),
+            stream_ptr(dev))
         counter = BIQUAD
     counter.check(err)
     counter.launches += 1
@@ -345,11 +397,6 @@ def _blocked_lib():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def blocked_cascade_plain(c: iir_ops.Cascade, state, x):
     """Plain torch version of K2: the blocked matmuls with the exact
     sequential chunk carry (`ops.iir.biquad_cascade_blocked`), the form
@@ -381,7 +428,7 @@ def blocked_cascade(c: iir_ops.Cascade, state, x):
     _need(x.data_ptr() % 16 == 0, "blocked_cascade: x must be 16-byte "
           "aligned")
     C = x.numel() // T
-    sms = _sm_count(dev.index) if dev.type == "cuda" else BLOCKED_SMS
+    sms = sm_count(dev.index) if dev.type == "cuda" else BLOCKED_SMS
     geo = blocked_geometry(C, T, S, sms)
     lib = _blocked_lib()
     y = torch.empty_like(x)

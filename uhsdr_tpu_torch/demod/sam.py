@@ -18,12 +18,15 @@ Per sample:
 
 Three routes, as the reference's (demod/sam.py:154-236): sideband 'both'
 with the fade leveler runs the fused K9 kernel (`cuda.pll.pll_audio`);
-everything else runs K10 (`cuda.pll.pll`, cos/sin of the loop phase) and
-plain torch mixing; a single sideband then runs the two C0 paths and the
-two C1 paths stacked along channels through K11 (`cuda.iir.
-biquad_cascade`), one launch per coefficient set; 'stereo' runs the
-same route and keeps both sidebands, (C, 2, T), with the fade leveler per
-audio channel against the one carrier estimate.
+everything else runs K10 (`cuda.pll.pll`, cos/sin of the loop phase);
+'both' without the fade leveler then mixes in plain torch, and a single
+sideband or 'stereo' runs the whole sideband stage (the products and
+delays, the four allpass chains the reference runs through K11, the
+combine and the fade leveler) as one fused launch
+(`cuda.sam.sam_sideband`); 'stereo' keeps both sidebands, (C, 2, T),
+with the fade leveler per audio channel against the one carrier
+estimate.  On CPU tensors the stage runs its plain version, whose fade
+leveler is the sequential one-pole K9 runs.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..cuda import iir as iir_kernel
 from ..cuda import pll as pll_kernel
+from ..cuda import sam as sam_kernel
 from . import am
 
 # sideband-separation allpass coefficients (values from the public
@@ -141,45 +144,15 @@ def demod(params: SamParams, state: SamState, iq: torch.Tensor,
 
     carry = torch.stack([state.phs, state.fil_out, state.omega2], dim=0)
     cos_p, sin_p, co = pll_kernel.pll(scalars, carry, iq)
-    i_t, q_t = iq.real, iq.imag
-    corr_re = i_t * cos_p + q_t * sin_p
-
-    if sideband == "both":
-        audio, ap_state, ds_new = corr_re, state.ap_state, state.ds
-    else:
-        C = iq.shape[0]
-        ai, bi = cos_p * i_t, sin_p * i_t
-        aq, bq = cos_p * q_t, sin_p * q_t
-        # path inputs: a = ai delayed 1, b = bi, c = bq delayed 1, d = aq;
-        # a and c share C0, b and d share C1: each pair is one K11 launch
-        x0 = torch.cat([torch.cat([state.ds[:, 0:1], ai[:, :-1]], dim=-1),
-                        torch.cat([state.ds[:, 1:2], bq[:, :-1]], dim=-1)],
-                       dim=0)
-        x1 = torch.cat([bi, aq], dim=0)
-        st0 = torch.cat([state.ap_state[0], state.ap_state[2]], dim=1)
-        st1 = torch.cat([state.ap_state[1], state.ap_state[3]], dim=1)
-        y0, st0o = iir_kernel.biquad_cascade(params.ap_sos[0], st0, x0)
-        y1, st1o = iir_kernel.biquad_cascade(params.ap_sos[1], st1, x1)
-        ai_ps, bq_ps = y0[:C], y0[C:]
-        bi_ps, aq_ps = y1[:C], y1[C:]
-        ap_state = torch.stack([st0o[:, :C], st1o[:, :C],
-                                st0o[:, C:], st1o[:, C:]], dim=0)
-        ds_new = torch.stack([ai[:, -1], bq[:, -1]], dim=-1)
-        side = {}
-        if sideband != "lsb":
-            side["usb"] = (ai_ps - bi_ps) + (aq_ps + bq_ps)
-        if sideband != "usb":
-            side["lsb"] = (ai_ps + bi_ps) - (aq_ps - bq_ps)
-        # stereo: LSB left, USB right (audio_driver.c:2092-2095)
-        audio = (torch.stack([side["lsb"], side["usb"]], dim=-2)
-                 if sideband == "stereo" else side[sideband])
-
-    fade_state = state.fade
-    if fade_leveler_on:
-        if audio.ndim == corr_re.ndim + 1:      # stereo: one carrier
-            corr_re = corr_re[..., None, :].expand(audio.shape)
-        audio, fade_state = am.fade_leveler(params.fade, fade_state, audio,
-                                            corr_re)
+    if sideband == "both":              # the product detector, no leveler
+        audio = iq.real * cos_p + iq.imag * sin_p
+        return audio, co[2], state._replace(phs=co[0], fil_out=co[1],
+                                            omega2=co[2])
+    audio, ap_state, ds_new, fade = sam_kernel.sam_sideband(
+        params.ap_sos, params.fade, state.ap_state.contiguous(),
+        state.ds.contiguous(), tuple(f.contiguous() for f in state.fade),
+        iq, cos_p, sin_p, sideband, fade_leveler_on)
     new_state = SamState(phs=co[0], fil_out=co[1], omega2=co[2],
-                         ap_state=ap_state, ds=ds_new, fade=fade_state)
+                         ap_state=ap_state, ds=ds_new,
+                         fade=am.FadeLevelerState(*fade))
     return audio, co[2], new_state

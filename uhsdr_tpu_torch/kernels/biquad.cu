@@ -1,9 +1,9 @@
 // K11, the biquad cascade, hand-written for Hopper (sm_90a).
 //
-// Replaces the TPU kernel uhsdr_tpu/pallas/iir.py::_make_kernel
+// K11 replaces the TPU kernel uhsdr_tpu/pallas/iir.py::_make_kernel
 // (biquad_cascade_pallas, demod/sam.py:213-216 for SAM's 7-stage z^-2
 // allpass chains, and the dispatch fallback ops/iir.py:244-251).  Per
-// channel, S sections in order per sample, direct form II transposed:
+// row, S sections in order per sample, direct form II transposed:
 //   y = b0*x + s1;  s1 = b1*x - a1*y + s2;  s2 = b2*x - a2*y;  x = y.
 // The TPU kernel runs a dilated scan per 128-sample tile because a TPU
 // has no cheap per-lane sequential walk; on the card the same function is
@@ -11,105 +11,164 @@
 // reference does.
 //
 // Bound on this card: bytes (x in, y out: 512 MiB per call at 16384
-// stacked channels x 4096), as long as enough channels are in flight to
-// hide the latency of the S dependent steps per sample.  Design as K3
-// (kernels/agc.cu): a block owns CB = 32 channels, one warp walks them
-// (one thread per channel, the 2*S state words and 5*S coefficients in
-// registers, S a template parameter) and all 256 threads stage
-// (channel x time) tiles through shared memory so global loads and
-// stores stay coalesced.  Compiled with -fmad=false: the products and
-// sums stay the separate f32 operations of the plain torch version
-// (`ops.iir.biquad_cascade_block`), so the two agree bit for bit.
+// stacked rows x 4096), as long as enough rows are in flight to hide the
+// latency of the S dependent sections a sample.  Design: the tile ring of
+// ring.cuh (as kernels/alc.cu and kernels/pll.cu), a block owning NWALK *
+// lw rows (lw lanes of each walker warp; the rule is
+// cuda/iir.py::biquad_geometry: at most a block an SM, its four walkers
+// on its four schedulers):
+//   - the front warp copies tiles k+1 .. k+3 into the ring;
+//   - four walker warps (lane = row, the 2S states and 5S coefficients in
+//     registers, S a template parameter) walk a tile four samples a
+//     float4 out of shared memory and write y over x;
+//   - four output warps (lanes along time, each a walker's rows) store y
+//     coalesced and free the stage.
+// Compiled with -fmad=false: the products and sums stay the separate f32
+// operations of the plain torch version (`ops.iir.biquad_cascade_block`),
+// so the two agree bit for bit.
 //
 // K14, the same cascade by a two-level scan, is the second kernel of this
-// source (`biquad_grouped_kernel` below).
-#include <cuda_runtime.h>
+// source (`biquad_grouped_kernel` below).  SAM's sideband stage walks its
+// allpass chains on the same ring in kernels/sam.cu.
+#include "ring.cuh"
 
 namespace {
 
-constexpr int CB = 32;          // channels per block
-constexpr int TA = 128;         // time tile
-constexpr int THREADS = 256;
-constexpr int ST = TA + 1;      // odd row stride: conflict-free walk
-constexpr int MAXS = 8;         // most sections in one cascade
+constexpr int MAXLW = 32;           // row lanes of a K11 walker warp
+constexpr int MAXS = 8;             // most sections in one cascade
+
+// A block's dynamic shared memory: a stage is one plane of cb rows (y
+// over x).
+__host__ __device__ inline int bq_smem_bytes(int lw) {
+  return STAGES * NWALK * lw * SS * (int)sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
+// K11
+// ---------------------------------------------------------------------------
 
 template <int S>
-__global__ void __launch_bounds__(THREADS) biquad_kernel(
-    const float* __restrict__ x, const float* __restrict__ state,
-    const float* __restrict__ sos, int C, int T, float* __restrict__ y,
-    float* __restrict__ state_out) {
-  __shared__ float tile[CB][ST];
-  const int c0 = blockIdx.x * CB;
-  const int tid = threadIdx.x;
-  const int nc = min(CB, C - c0);
-  const bool walker = tid < nc;
-
+struct Cascade {
   float b0[S], b1[S], b2[S], a1[S], a2[S], s1[S], s2[S];
+
+  __device__ __forceinline__ float step(float v) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const float out = b0[k] * v + s1[k];
+      s1[k] = b1[k] * v - a1[k] * out + s2[k];
+      s2[k] = b2[k] * v - a2[k] * out;
+      v = out;
+    }
+    return v;
+  }
+};
+
+// Walker warp wk: lane l < lw walks row wk * lw + l (the lanes past lw
+// repeat the last row's walk and store nothing): y over x in its stage
+// row, four samples a float4 in a whole tile, one at a time in a short
+// (last) one.
+template <int S>
+__device__ void bq_walker(const float* __restrict__ state,
+                          const float* __restrict__ sos,
+                          float* __restrict__ state_out, const Geo& g,
+                          int c0, int nc, int cb, int ntiles, float* stage,
+                          int wk, int lane) {
+  const int r = wk * g.lw + min(lane, g.lw - 1);
+  const bool own = lane < g.lw && r < nc;
+  const size_t c = (size_t)c0 + min(r, nc - 1);
+  Cascade<S> f;
 #pragma unroll
   for (int k = 0; k < S; ++k) {
-    b0[k] = sos[5 * k + 0];
-    b1[k] = sos[5 * k + 1];
-    b2[k] = sos[5 * k + 2];
-    a1[k] = sos[5 * k + 3];
-    a2[k] = sos[5 * k + 4];
-    s1[k] = s2[k] = 0.f;
-    if (walker) {       // state is (S, C, 2)
-      const float2 s = reinterpret_cast<const float2*>(
-          state)[(size_t)k * C + c0 + tid];
-      s1[k] = s.x;
-      s2[k] = s.y;
-    }
+    f.b0[k] = sos[5 * k + 0];
+    f.b1[k] = sos[5 * k + 1];
+    f.b2[k] = sos[5 * k + 2];
+    f.a1[k] = sos[5 * k + 3];
+    f.a2[k] = sos[5 * k + 4];
+    // state is (S, C, 2)
+    const float2 s = reinterpret_cast<const float2*>(state)[k * g.C + c];
+    f.s1[k] = s.x;
+    f.s2[k] = s.y;
   }
-
-  for (int t0 = 0; t0 < T; t0 += TA) {
-    const int cnt = min(TA, T - t0);
-    for (int i = tid; i < CB * TA; i += THREADS) {
-      const int c = i / TA, j = i % TA;
-      if (c < nc && j < cnt) tile[c][j] = x[(size_t)(c0 + c) * T + t0 + j];
-    }
-    __syncthreads();
-    if (walker) {
-      // the next sample is read before this one's result is stored to
-      // the same tile (at j + 1 = TA the read lands on the pad column)
-      float v_next = tile[tid][0];
-      for (int j = 0; j < cnt; ++j) {
-        float v = v_next;
-        v_next = tile[tid][j + 1];
-#pragma unroll
-        for (int k = 0; k < S; ++k) {
-          const float out = b0[k] * v + s1[k];
-          s1[k] = b1[k] * v - a1[k] * out + s2[k];
-          s2[k] = b2[k] * v - a2[k] * out;
-          v = out;
-        }
-        tile[tid][j] = v;
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % STAGES;
+    const int cnt = min(TA, g.T - j * TA);
+    float* row = stage + ((size_t)s * cb + r) * SS;
+    bar_sync(BAR_FULL + s, 32 + WALK_T);
+    if (cnt == TA) {
+      float4* r4 = reinterpret_cast<float4*>(row);
+#pragma unroll 2
+      for (int q = 0; q < TA / 4; ++q) {
+        const float4 x = r4[q];
+        float4 y;             // four steps, in order
+        y.x = f.step(x.x);
+        y.y = f.step(x.y);
+        y.z = f.step(x.z);
+        y.w = f.step(x.w);
+        if (own) r4[q] = y;
+      }
+    } else {
+      for (int i = 0; i < cnt; ++i) {
+        const float y = f.step(row[i]);
+        if (own) row[i] = y;
       }
     }
-    __syncthreads();
-    for (int i = tid; i < CB * TA; i += THREADS) {
-      const int c = i / TA, j = i % TA;
-      if (c < nc && j < cnt) y[(size_t)(c0 + c) * T + t0 + j] = tile[c][j];
-    }
-    __syncthreads();
+    __syncwarp();
+    bar_arrive(BAR_DONE + s, WALK_T + OUT_T);
   }
-
-  if (walker) {
+  if (own) {
 #pragma unroll
     for (int k = 0; k < S; ++k)
-      reinterpret_cast<float2*>(state_out)[(size_t)k * C + c0 + tid] =
-          make_float2(s1[k], s2[k]);
+      reinterpret_cast<float2*>(state_out)[k * g.C + c] =
+          make_float2(f.s1[k], f.s2[k]);
+  }
+}
+
+// Warps 0 .. NWALK-1 walk (one per scheduler), warp NWALK is the front,
+// the rest form the output.
+template <int S>
+__global__ void __launch_bounds__(THREADS, 2) biquad_kernel(
+    const float* __restrict__ x, const float* __restrict__ state,
+    const float* __restrict__ sos, Geo g, float* __restrict__ y,
+    float* __restrict__ state_out) {
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);   // [STAGES][cb][SS]
+  const int cb = NWALK * g.lw;
+  const int c0 = blockIdx.x * cb;
+  const int nc = min(cb, g.C - c0);
+  const int ntiles = (g.T + TA - 1) / TA;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < NWALK) {
+    bq_walker<S>(state, sos, state_out, g, c0, nc, cb, ntiles, stage, warp,
+                 lane);
+  } else if (warp == NWALK) {
+    front(ntiles, [&](int m) {
+      const int t0 = m * TA;
+      copy_rows(stage + (size_t)(m % STAGES) * cb * SS, SS, nc,
+                min(TA, g.T - t0), TA, g.vec,
+                [&](int r) { return x + (size_t)(c0 + r) * g.T + t0; },
+                lane);
+    });
+  } else {
+    const int ow = warp - NWALK - 1;
+    const int r0 = ow * g.lw;
+    output(y, g.T, c0, r0, max(0, min(g.lw, nc - r0)), ntiles, stage,
+           cb * SS, 0, lane);
   }
 }
 
 template <int S>
-int launch(const void* x, const void* state, const void* sos, int C, int T,
+int launch(const void* x, const void* state, const void* sos, const Geo& g,
            void* y, void* state_out, cudaStream_t stream) {
-  biquad_kernel<S><<<(C + CB - 1) / CB, THREADS, 0, stream>>>(
-      (const float*)x, (const float*)state, (const float*)sos, C, T,
-      (float*)y, (float*)state_out);
+  const int smem = bq_smem_bytes(g.lw);
+  cudaError_t e = cudaFuncSetAttribute(
+      biquad_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int cb = NWALK * g.lw;
+  biquad_kernel<S><<<(g.C + cb - 1) / cb, THREADS, smem, stream>>>(
+      (const float*)x, (const float*)state, (const float*)sos, g, (float*)y,
+      (float*)state_out);
   return (int)cudaGetLastError();
 }
-
 
 // K14: replaces uhsdr_tpu/pallas/iir.py::_make_kernel_grouped
 // (biquad_cascade_pallas(impl="grouped")).  The same cascade as K11 by a
@@ -266,21 +325,34 @@ int launch_grouped(const void* x, const void* state, const void* tab, int S,
 extern "C" {
 
 int uhsdr_biquad_max_sections() { return MAXS; }
+int uhsdr_biquad_threads() { return THREADS; }
+int uhsdr_biquad_walkers() { return NWALK; }
+int uhsdr_biquad_tile() { return TA; }
+int uhsdr_biquad_stages() { return STAGES; }
 
-// x, y: (C, T) f32; state, state_out: (S, C, 2) f32; sos: (S, 5) f32 rows
-// [b0 b1 b2 a1 a2] on the device.  Requires 1 <= S <= MAXS and T >= 1.
-// Returns a cudaError_t.
+// K11's dynamic shared memory a block at lw row lanes a walker, or -1
+// outside 1..32.
+int uhsdr_biquad_smem(int lw) {
+  return lw >= 1 && lw <= MAXLW ? bq_smem_bytes(lw) : -1;
+}
+
+// K11.  x, y: (C, T) f32; state, state_out: (S, C, 2) f32; sos: (S, 5) f32
+// rows [b0 b1 b2 a1 a2] on the device.  lw: the row lanes of a walker
+// (cuda/iir.py::biquad_geometry); vec: x and y 16-byte aligned and T % 4
+// == 0.  Requires 1 <= S <= MAXS, T >= 1 and 1 <= lw <= 32.  Returns a
+// cudaError_t.
 int uhsdr_biquad_launch(const void* x, const void* state, const void* sos,
-                        int S, int C, int T, void* y, void* state_out,
-                        void* stream) {
-  using Launch = int (*)(const void*, const void*, const void*, int, int,
+                        int S, int C, int T, int lw, int vec, void* y,
+                        void* state_out, void* stream) {
+  using Launch = int (*)(const void*, const void*, const void*, const Geo&,
                          void*, void*, cudaStream_t);
   static const Launch table[MAXS] = {launch<1>, launch<2>, launch<3>,
                                      launch<4>, launch<5>, launch<6>,
                                      launch<7>, launch<8>};
-  if (S < 1 || S > MAXS) return (int)cudaErrorInvalidValue;
-  return table[S - 1](x, state, sos, C, T, y, state_out,
-                      (cudaStream_t)stream);
+  if (S < 1 || S > MAXS || T < 1 || C < 1 || lw < 1 || lw > MAXLW)
+    return (int)cudaErrorInvalidValue;
+  const Geo g{C, T, lw, vec};
+  return table[S - 1](x, state, sos, g, y, state_out, (cudaStream_t)stream);
 }
 
 int uhsdr_biquad_grouped_max_groups() { return GMAX; }

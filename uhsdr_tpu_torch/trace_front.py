@@ -83,11 +83,13 @@ def build_variants(kernel: build.CudaKernel = fir_k.FRONT,
     one build of its source for each variant, {name: ((text, replacement),
     ...)} (by default K1's: "no_<phase>" for each of `PHASES`, the phase's
     loop header replaced by one that runs 0 times), with the kernel's
-    flags, nvcc processes started together, into `_build/trace_<source>/`."""
+    flags, nvcc processes started together, into `_build/trace_<source>/`
+    (the source with its own headers written in, so a variant may patch
+    them too)."""
     if variants is None:
         variants = {f"no_{ph}": (pair,) for ph, pair in PHASES.items()}
     stem = kernel.source.stem
-    src = kernel.source.read_text()
+    src = kernel.source_text()
     out = build.BUILD_DIR / f"trace_{stem}"
     out.mkdir(parents=True, exist_ok=True)
     procs, paths = {}, {}

@@ -14,7 +14,8 @@ first phase that fails:
    f32 @ 48 kHz and of int16 @ 192 kHz), K3 (the AGC, at the
    SSB look-ahead of 48, the AM/SAM look-ahead of 96 and FM's 192, and at
    the fleet's FM group, 1024 x 16384 at w 192; its shared memory held to
-   `agc_geometry`'s), K4
+   `agc_geometry`'s; an edge stream of +-0, +-inf, a NaN and subnormals
+   at w 48 and 96, the NaNs where the plain version has them), K4
    (the interpolator: x8, x4, ssbstereo's 2C rows and the 48 kHz x2,
    channels 0-7 alone bit-equal to the batch), K5 (the real-tap AM/SAM
    front; also 64
@@ -32,7 +33,9 @@ first phase that fails:
    100 dB, its history and peaks bit-equal, its shared memory held to
    `fir_cx_geometry`'s; K7 also at 192 kHz, 491 taps at decimation 8),
    K12 (the FM discriminator), K13 (the linked
-   stereo AGC's machine), K1 with the two-channel modes' two stage-B filters
+   stereo AGC's machine on K3's warps, its last block an edge stream, its
+   shared memory held to `agc_scan_geometry`'s), K1 with the two-channel
+   modes' two stage-B filters
    (`front_pair`), K8 (the TX analytic FIR, NCO and conjugation on and
    off, its output at 100 dB and its history bit-equal, its shared
    memory held to `fir_real_geometry`'s), the fused TX ALC stage (its
@@ -45,10 +48,16 @@ first phase that fails:
    `blocked_geometry`'s; two streamed blocks and the times at every
    other path's cascade shape and the fleet's two), K14
    (the grouped biquad scan, at SAM's stacked allpass shape, also held
-   against K11), K15 (the modulated-taps SSB front), and the row variants
-   of K3 (per-channel [min_volts, slope, hang_level], at the fleet's
-   merged AGC shape 5120 x 4096) and K13 (per-channel [min_volts,
-   hang_level], at 8192 x 2048).  Each streams 2-3
+   against K11), K15 (the modulated-taps SSB front, K1's kernel with
+   complex stage-A taps: at the SSB flagship and on 64 channels at 48 and
+   192 kHz int16 and f32 and 96 kHz f32, its raw carry bit-equal, its
+   shared memory held to `front_mt_geometry`'s; timed beside K1), the row
+   variants of K3 (per-channel [min_volts, slope, hang_level], at the
+   fleet's merged AGC shape 5120 x 4096) and K13 (per-channel [min_volts,
+   hang_level], at 8192 x 2048), and the linked stereo AGC stage, scalar
+   and with rows (8192 x 2 x 2048 at w 48, scalar also 1024 x 2 x 4096 at
+   w 96; the last block an edge stream; bit for bit; timed beside the
+   route it replaced, torch around K13, and K13 alone).  Each streams 2-4
    blocks at its main path's shapes (8192 channels; K11 and K14 at the
    16384 stacked channels SAM gives them; the ALC's plain loop at 4096
    samples), the middle block ragged where the kernel has a tile or a
@@ -57,7 +66,9 @@ first phase that fails:
    from the same seeded inputs with carries handed on.  FIR and cascade
    outputs and carries are held to SNR >= 90 dB, the PLL's cos/sin/audio
    and carries to max |err| <= 2e-5, the discriminator's angles to max
-   |err| <= 2e-6 modulo 2 pi; K3, K13 and the ALC must be bit-exact.  It
+   |err| <= 2e-6 modulo 2 pi; K15's output to FIR_TOL_DB (100 dB); K3,
+   K13, the linked stage and the ALC must be bit-exact (a NaN matching a
+   NaN).  It
    then times the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (`library_ms`, never used by the
    port);
@@ -97,8 +108,11 @@ first phase that fails:
    CPU `TxChain` over the first 2 blocks at 80 dB; channels 0 and 4095
    must land at their centre plus translate and tone) and the
    entry path `agc_stereo_rows` (`ops.agc.run_stereo` at 12 kHz on
-   8192 x 2 x 2048 with a threshold per channel: K13's rows; channels
-   0-7 against the CPU at 90 dB).  Every kernel's launch
+   8192 x 2 x 2048 with a threshold per channel: the linked stage's rows;
+   channels 0-7 against the CPU at 90 dB) and the entry paths of K13,
+   `agc_machine` and `agc_machine_rows` (`cuda.agc.agc_scan` on the
+   linked detector's look-ahead max of such audio, scalar and with
+   rows; channels 0-7 against the CPU at 90 dB).  Every kernel's launch
    count is set to 0 just before each path and read just after, each
    kernel of that path must have been launched and no other, and every
    built kernel must have been launched by a chain path or the entry
@@ -130,7 +144,8 @@ import time
 import numpy as np
 import torch
 
-from uhsdr_tpu_torch import trace_blocked, trace_rx, trace_sam, trace_tx
+from uhsdr_tpu_torch import (trace_agc, trace_blocked, trace_rx, trace_sam,
+                             trace_tx)
 from uhsdr_tpu_torch.chain import filterpaths, rx, tx
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import alc as alc_k
@@ -289,6 +304,27 @@ def held(name: str, pairs: dict,
             check(e <= tol_abs, f"{name} {what}: max|err| {e:.3e} > "
                                 f"{tol_abs:.1e}")
     return worst, err
+
+
+def bits_held(name: str, pairs: dict) -> float:
+    """Print and check each (ref, got) pair bit for bit, a NaN matching a
+    NaN.  Returns the max |err| over the elements finite in both (0)."""
+    err = 0.0
+    for what, (ref, got) in pairs.items():
+        check(ref.shape == got.shape, f"{name} {what}: shape "
+                                      f"{tuple(got.shape)}")
+        same = ((ref.view(torch.int32) == got.view(torch.int32))
+                | (ref.isnan() & got.isnan()))
+        n_diff = int((~same).sum())
+        fin = torch.isfinite(ref) & torch.isfinite(got)
+        e = float((ref[fin] - got[fin]).abs().max()) if bool(
+            fin.any()) else 0.0
+        n_nan = int(ref.isnan().sum())
+        print(f"  {name} {what}: {n_diff} of {ref.numel()} differ "
+              f"({n_nan} NaN), max|err| {e:.3e}")
+        check(n_diff == 0, f"{name} {what}: {n_diff} elements differ")
+        err = max(err, e)
+    return err
 
 
 def row(name, source, replaces, *, err, snr, ms, plain_ms, nbytes, flops,
@@ -854,6 +890,52 @@ def agc_block(gen, dev, C, T, t0, fs):
     return (level * tone * on + noise).contiguous()
 
 
+def agc_edges(x: torch.Tensor) -> torch.Tensor:
+    """x ((C, T) or (C, 2, T)) with edges on channel classes c % 16: 1 a
+    run of +-0 (the first half), 2 +inf in the last plane at T/2, 3 -inf
+    in the first plane at T/2, 4 a NaN in the first plane at T/3, 5
+    subnormals throughout, 6 negative subnormals in the last plane."""
+    x = x.clone()
+    v = x if x.ndim == 3 else x[:, None]
+    T = v.shape[-1]
+    c = torch.arange(v.shape[0], device=x.device) % 16
+    v[c == 1, :, :T // 2] = 0.0
+    v[c == 1, -1, :T // 2] = -0.0
+    v[c == 2, -1, T // 2] = math.inf
+    v[c == 3, 0, T // 2] = -math.inf
+    v[c == 4, 0, T // 3] = math.nan
+    v[c == 5] = 1e-42
+    v[c == 6, -1] = -3e-45
+    return x
+
+
+def agc_edge_stream(C, w, fs, dev, gen, label, kernel, plain, planes):
+    """`kernel` against `plain` (K3's `agc`/`agc_plain` or the stage's)
+    over three streamed blocks of `agc_edges` input (the middle one of 33
+    steps) from zero state, bit for bit, a NaN matching a NaN."""
+    p = agc_ops.kernel_params(agc_ops.make_params(fs)).scalars
+    shape = (C, 2, w) if planes == 2 else (C, w)
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    dk = dp = torch.zeros(shape, device=dev)
+    t0, err = 0, 0.0
+    for blk, T in enumerate((2048, 33, 2048)):
+        x = agc_block(gen, dev, C, T, t0, fs)
+        if planes == 2:
+            x = torch.stack([x, 0.5 * agc_block(gen, dev, C, T, t0, fs)], 1)
+        x = agc_edges(x)
+        t0 += T
+        yk, ck, dk = kernel(p, ck, dk, x)
+        yp, cp, dp = plain(p, cp, dp, x)
+        torch.cuda.synchronize()
+        err = max(err, bits_held(f"{label} edges block {blk} ({T} steps)", {
+            "audio": (yp, yk), "carry": (cp, ck), "delay": (dp, dk)}))
+    nan = yk.reshape(C, -1).isnan().all(-1)
+    c = torch.arange(C, device=dev) % 16
+    check(bool(nan[(c >= 2) & (c <= 4)].all()) and not bool(nan[c == 0].any()),
+          f"{label} edges: NaN channels not the edge classes")
+    return err
+
+
 def agc_case(agc_params, fs, lengths, dev, gen, time_len=None, C=CHANNELS,
              name="K3"):
     """K3 against its plain version over streamed blocks of `lengths`
@@ -934,6 +1016,12 @@ def phase_agc(P, dev, gen):
         (FLEET_BLOCK, 1000, FLEET_BLOCK), dev, gen,
         C=FLEET_GROUP_CHANNELS, name="K3 fleet FM")
     bfm, byfm = bound(nbfm, flfm)
+    # +-0, +-inf, a NaN and subnormals: the NaNs where the plain version
+    # has them (its look-ahead max and its blended step keep them)
+    for fs in (CFG.fs_dec, SAM.fs_dec):
+        w = agc_ops.make_params(fs).attack_buffsize
+        agc_edge_stream(1024, w, fs, dev, gen, f"K3 w={w}", agc_k.agc,
+                        agc_k.agc_plain, 1)
     return row("agc", "agc.cu", "uhsdr_tpu/pallas/agc.py:159",
                err=max(err, e96, e192, efm), snr=math.inf, ms=ms,
                plain_ms=plain_ms, nbytes=nbytes, flops=flops,
@@ -1409,18 +1497,25 @@ def phase_agc_scan(P, dev, gen):
     """K13 at the two-channel flagship's shape (8192 channels x 2048
     steps at 12 kHz): two channels of AGC input through the linked
     detector and its look-ahead max, then the machine on the kernel and on
-    its plain version, bit for bit, over three streamed blocks (the
-    middle one ragged)."""
+    its plain version, bit for bit, over four streamed blocks (the second
+    ragged, the last an edge stream: NaNs where the plain walk has them);
+    the library's shared memory held to `agc_scan_geometry`'s."""
     params = P["stereo"].agc
     p = agc_ops.kernel_params(params).scalars
     C, w = CHANNELS, params.attack_buffsize
     T, fs = STEREO.block_len // STEREO.decim, STEREO.fs_dec
+    smem = agc_k.AGC.lib().uhsdr_agc_scan_smem()
+    geo = agc_k.agc_scan_geometry(C, T)
+    check(smem == geo.smem, f"K13: the library's shared memory {smem} != "
+                            f"agc_scan_geometry's {geo.smem}")
     ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
     delay = torch.zeros((C, 2, w), device=dev)
     err, t0, first = 0.0, 0, None
-    for blk, Tk in enumerate((T, 1000, T)):
+    for blk, Tk in enumerate((T, 1000, T, T)):
         x = torch.stack([agc_block(gen, dev, C, Tk, t0, fs),
                          0.5 * agc_block(gen, dev, C, Tk, t0, fs)], dim=1)
+        if blk == 3:          # the last block an edge stream
+            x = agc_edges(x)
         t0 += Tk
         xfull = torch.cat([delay, x], dim=-1)
         delay = xfull[..., xfull.shape[-1] - w:]
@@ -1432,13 +1527,8 @@ def phase_agc_scan(P, dev, gen):
         vk, ck = agc_k.agc_scan(p, ck, rm, ax)
         vp, cp = agc_k.agc_scan_plain(p, cp, rm, ax)
         torch.cuda.synchronize()
-        pairs = {"volts": (vp, vk)}
-        for i, f in enumerate(agc_ops.CARRY_FIELDS):
-            pairs[f] = (cp[i], ck[i])
-        _, e = held(f"K13 block {blk} ({Tk} steps)", pairs)
-        err = max(err, e)
-    check(err == 0.0, f"K13: not bit-exact against its plain version "
-                      f"(max|err| {err:.3e})")
+        err = max(err, bits_held(f"K13 block {blk} ({Tk} steps)", {
+            "volts": (vp, vk), "carry": (cp, ck)}))
     c0, rm0, ax0 = first
     ms = cuda_ms(lambda: agc_k.agc_scan(p, c0, rm0, ax0), 10)
     plain_ms = cuda_ms(lambda: agc_k.agc_scan_plain(p, c0, rm0, ax0), 1)
@@ -1450,7 +1540,7 @@ def phase_agc_scan(P, dev, gen):
     r = row("agc_scan", "agc.cu", "uhsdr_tpu/pallas/agc.py:126", err=err,
             snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
             flops=50.0 * C * T, recurrence_ms=rec_ms,
-            recurrence_blended_ms=rec18,
+            recurrence_blended_ms=rec18, smem=geo.smem,
             library_note="no PyTorch call computes the AGC's 5-state "
                          "machine")
     print(f"  K13 agc_scan, T={T}: {ms:.4f} ms (plain {plain_ms:.1f} ms; "
@@ -1515,13 +1605,8 @@ def phase_agc_scan_rows(P, dev, gen):
         vk, ck = agc_k.agc_scan(p, ck, rm, ax, rows)
         vp, cp = agc_k.agc_scan_plain(p, cp, rm, ax, rows)
         torch.cuda.synchronize()
-        pairs = {"volts": (vp, vk)}
-        for i, f in enumerate(agc_ops.CARRY_FIELDS):
-            pairs[f] = (cp[i], ck[i])
-        _, e = held(f"K13 rows block {blk} ({Tk} steps)", pairs)
-        err = max(err, e)
-    check(err == 0.0, f"K13 rows: not bit-exact against its plain version "
-                      f"(max|err| {err:.3e})")
+        err = max(err, bits_held(f"K13 rows block {blk} ({Tk} steps)", {
+            "volts": (vp, vk), "carry": (cp, ck)}))
     c0, rm0, ax0 = first
     ms = cuda_ms(lambda: agc_k.agc_scan(p, c0, rm0, ax0, rows), 10)
     # the scalar K13 on the same inputs, for the cost of the rows
@@ -1545,6 +1630,111 @@ def phase_agc_scan_rows(P, dev, gen):
           f"{AGC_STEP_OPS} ops, {rec18:.4f} at {AGC_STEP_OPS_BLENDED}; "
           f"{r['bound_by']} bound {r['bound_ms']:.4f} ms)")
     return r
+
+
+def stereo_case(params, C, T, fs, dev, gen, label, thresh=None):
+    """The linked stage against its plain version at C x 2 x T, bit for
+    bit over four streamed blocks (the second ragged, the last an edge
+    stream), the library's shared memory held to `agc_stereo_geometry`;
+    then timed beside the route it replaces and K13 alone on the same
+    inputs.  Returns (max |err|, ms, plain ms, route ms, K13 ms, bytes,
+    geometry)."""
+    kp = agc_ops.kernel_params(params, C)
+    p = kp.scalars
+    rows = None if kp.rows is None else torch.as_tensor(kp.rows, device=dev)
+    srows = (None if kp.scan_rows is None
+             else torch.as_tensor(kp.scan_rows, device=dev))
+    w = params.attack_buffsize
+    geo = agc_k.agc_stereo_geometry(C, T, w, rows is not None)
+    smem = agc_k.AGC.lib().uhsdr_agc_stereo_smem(w)
+    check(smem == geo.smem, f"{label} w={w}: the library's shared memory "
+                            f"{smem} != agc_stereo_geometry's {geo.smem}")
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    dk = dp = torch.zeros((C, 2, w), device=dev)
+    err, t0, first = 0.0, 0, None
+    for blk, Tk in enumerate((T, 1000, T, T)):
+        x = torch.stack([agc_block(gen, dev, C, Tk, t0, fs),
+                         0.5 * agc_block(gen, dev, C, Tk, t0, fs)], dim=1)
+        if blk == 3:
+            x = agc_edges(x)
+        t0 += Tk
+        if first is None:
+            first = (ck, dk, x)
+        yk, ck, dk = agc_k.agc_stereo(p, ck, dk, x, rows)
+        yp, cp, dp = agc_k.agc_stereo_plain(p, cp, dp, x, rows)
+        torch.cuda.synchronize()
+        check(dk.untyped_storage().nbytes() == 4 * dk.numel(),
+              f"{label}: the new delay line is a view")
+        err = max(err, bits_held(f"{label} block {blk} ({Tk} steps)", {
+            "audio": (yp, yk), "carry": (cp, ck), "delay": (dp, dk)}))
+    c0, d0, x0 = first
+    ms = cuda_ms(lambda: agc_k.agc_stereo(p, c0, d0, x0, rows), 10)
+    route_ms = cuda_ms(lambda: trace_agc.replaced_route(p, c0, d0, x0, rows,
+                                                        srows), 10)
+    xf = torch.cat([d0, x0], dim=-1).abs().amax(dim=-2)
+    rm0 = agc_k.look_ahead_max(xf, w, T).contiguous()
+    ax0 = xf[:, :T].contiguous()
+    k13_ms = cuda_ms(lambda: agc_k.agc_scan(p, c0, rm0, ax0, srows), 10)
+    plain_ms = cuda_ms(lambda: agc_k.agc_stereo_plain(p, c0, d0, x0, rows),
+                       1)
+    # bytes: x in, y out, the delay line in and out, the carries in and
+    # out (and the rows in)
+    nbytes = (2 * C * 2 * T * 4 + 2 * C * 2 * w * 4
+              + 2 * agc_k.N_CARRY * C * 4
+              + (0 if rows is None else rows.numel() * 4))
+    return err, ms, plain_ms, route_ms, k13_ms, nbytes, geo
+
+
+def stereo_row(name, label, params, C, T, fs, dev, gen):
+    err, ms, plain_ms, route_ms, k13_ms, nbytes, geo = stereo_case(
+        params, C, T, fs, dev, gen, label)
+    rec_ms = recurrence_ms(T, AGC_STEP_OPS)
+    r = row(name, "agc.cu", "uhsdr_tpu/pallas/agc.py:126", err=err,
+            snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=60.0 * C * T, recurrence_ms=rec_ms,
+            recurrence_blended_ms=recurrence_ms(T, AGC_STEP_OPS_BLENDED),
+            route_ms=route_ms, k13_ms=k13_ms, tpu_kernel=False,
+            channels=C, steps=T, w=params.attack_buffsize, smem=geo.smem,
+            sm_blocks=geo.sm_blocks,
+            library_note="no PyTorch call computes a look-ahead AGC")
+    print(f"  {label} {C} x 2 x {T}, w {params.attack_buffsize}: {ms:.4f} "
+          f"ms (the route it replaces {route_ms:.4f} ms, K13 in it "
+          f"{k13_ms:.4f}; plain {plain_ms:.1f} ms; recurrence bound "
+          f"{rec_ms:.4f} ms; {r['bound_by']} bound {r['bound_ms']:.4f} ms; "
+          f"{geo.smem} B shared, {geo.sm_blocks} blocks an SM)")
+    return r
+
+
+def phase_agc_stereo(P, dev, gen):
+    """The linked stereo AGC stage at the two-channel flagship's shape
+    (8192 x 2 x 2048 at 12 kHz, w 48), bit for bit against its plain
+    version, edge stream included; also SAM stereo's look-ahead (w 96 at
+    24 kHz) at 1024 x 2 x 4096, the SAM stereo path's shape."""
+    params = P["stereo"].agc
+    T = STEREO.block_len // STEREO.decim
+    r = stereo_row("agc_stereo", "stage", params, CHANNELS, T,
+                   STEREO.fs_dec, dev, gen)
+    sam = P["sam"].agc
+    err96, ms96, plain96, route96, k13_96, nb96, geo96 = stereo_case(
+        sam, DEPTH, SAM.block_len // SAM.decim, SAM.fs_dec, dev, gen,
+        "stage w 96")
+    r["max_abs_err"] = max(r["max_abs_err"], err96)
+    r["w96"] = dict(channels=DEPTH, steps=SAM.block_len // SAM.decim,
+                    ms=ms96, route_ms=route96, k13_ms=k13_96,
+                    plain_ms=plain96, bound_ms=bound(nb96, 0)[0],
+                    sm_blocks=geo96.sm_blocks)
+    print(f"  stage w 96, {DEPTH} x 2 x {SAM.block_len // SAM.decim}: "
+          f"{ms96:.4f} ms (route {route96:.4f}, K13 {k13_96:.4f})")
+    return r
+
+
+def phase_agc_stereo_rows(P, dev, gen):
+    """The linked stage with per-channel rows at the `agc_stereo_rows`
+    entry path's shape (8192 x 2 x 2048, 12 kHz, thresholds 40 ... 80
+    dB), bit for bit against its plain version, edge stream included."""
+    params = agc_ops.make_params(12000.0, thresh_db=STEREO_ROWS_THRESH)
+    return stereo_row("agc_stereo_rows", "stage rows", params, CHANNELS,
+                      STEREO_ROWS_T, 12000.0, dev, gen)
 
 
 def phase_front_pair(P, dev, gen):
@@ -2008,22 +2198,21 @@ def phase_biquad_grouped(P, dev, gen):
     return r
 
 
-def phase_front_mt(P, dev, gen):
-    """K15 at the SSB flagship's front (8192 ch x 16384 int16, 227 + 199
-    taps, decimation 8): three streamed blocks, the middle one of 800
-    samples (shorter than the stage-A history's span at the decimated
-    rate), against its plain version."""
-    params = P["ssb"]
-    C, B, decim = CHANNELS, CFG.block_len, CFG.decim
-    h, g, delta = params.front_fir, params.front2, params.nco_delta
-    taps, taps2 = h.shape[-1], g.shape[-1]
+def mt_stream(h, g, delta, decim, C, lengths, dtype, dev, gen, label):
+    """K15 against its plain version over streamed blocks of `lengths`
+    samples from zero carries and seeded NCO phases: audio, the stage-B
+    carry and the peaks at >= FIR_TOL_DB, the raw carry bit-equal.
+    Returns (min SNR, max abs err, the first block's inputs)."""
+    taps = h.shape[-1]
     ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
-    c2k = c2p = torch.zeros((C, taps2 - 1), dtype=torch.complex64,
+    c2k = c2p = torch.zeros((C, g.shape[-1] - 1), dtype=torch.complex64,
                             device=dev)
-    phase = torch.zeros((C,), dtype=torch.int64, device=dev)
+    phase = torch.randint(0, 2**32, (C,), generator=gen, device=dev)
     worst, err, first = math.inf, 0.0, None
-    for blk, Bk in enumerate((B, 800, B)):
+    for blk, Bk in enumerate(lengths):
         xi, xq = iq_block(gen, dev, C, Bk)
+        if dtype == torch.float32:
+            xi, xq = xi.to(dtype) / 32768.0, xq.to(dtype) / 32768.0
         if first is None:
             first = (ck, c2k, xi, xq, phase)
         yk, ck, c2k, pk_k = fir_k.front_mt(h, g, ck, c2k, xi, xq, phase,
@@ -2032,12 +2221,59 @@ def phase_front_mt(P, dev, gen):
                                                  phase, delta, decim)
         torch.cuda.synchronize()
         check(tuple(yk.shape) == (C, Bk // decim),
-              f"K15 output {tuple(yk.shape)}")
-        s, e = held(f"K15 block {blk} ({Bk} samples)", {
-            "audio": (yp, yk), "raw carry": (cp, ck),
-            "front2 carry": (c2p, c2k), "peaks": (pk_p, pk_k)})
+              f"{label} output {tuple(yk.shape)}")
+        check(torch.equal(cp, ck), f"{label} block {blk}: raw carry not "
+                                   "bit-equal")
+        s, e = held(f"{label} block {blk} ({Bk} samples)", {
+            "audio": (yp, yk), "front2 carry": (c2p, c2k),
+            "peaks": (pk_p, pk_k)})
+        check(s >= FIR_TOL_DB, f"{label} block {blk}: {s:.1f} dB < "
+                               f"{FIR_TOL_DB} dB")
         worst, err = min(worst, s), max(err, e)
         phase = nco.advance(phase, delta, Bk)
+    return worst, err, first
+
+
+def phase_front_mt(P, dev, gen):
+    """K15, K1's register-blocked kernel with complex stage-A taps, at the
+    SSB flagship's front (8192 ch x 16384 int16, 227 + 199 taps,
+    decimation 8): three streamed blocks, the middle one of 800 samples
+    (shorter than the stage-A history's span at the decimated rate); then
+    64 channels at every other rate and plane type the mono rows send it
+    (int16 and f32 at 48 and 192 kHz, f32 at 96 kHz), each with a ragged
+    middle block; its output at FIR_TOL_DB, its raw carry bit-equal.  Its
+    shared-memory rule in the library and in cuda/fir.py must agree at
+    every mono shape.  Timed beside K1 on the same inputs."""
+    lib = fir_k.FRONT.lib()
+    for rate in (48000.0, 96000.0, 192000.0):
+        cfg = dataclasses.replace(CFG, iq_rate=rate)
+        p = rx.make_params(cfg, "cpu")
+        taps, taps2, decim = (p.front_fir.shape[-1], p.front2.shape[-1],
+                              cfg.decim)
+        for size in (2, 4):
+            want = fir_k.front_mt_geometry(taps, taps2, decim, size).smem
+            got = lib.uhsdr_front_mt_smem(taps, taps2, decim, size)
+            check(got == want, f"K15 shared memory at {rate:.0f} Hz, "
+                               f"{size}-byte samples: library {got}, "
+                               f"cuda/fir.py {want}")
+    params = P["ssb"]
+    C, B, decim = CHANNELS, CFG.block_len, CFG.decim
+    h, g, delta = params.front_fir, params.front2, params.nco_delta
+    taps, taps2 = h.shape[-1], g.shape[-1]
+    worst, err, first = mt_stream(h, g, delta, decim, C, (B, 800, B),
+                                  torch.int16, dev, gen, "K15")
+    for rate, dtype, mid in ((48000.0, torch.int16, 2000),
+                             (48000.0, torch.float32, 6000),
+                             (96000.0, torch.float32, 9000),
+                             (192000.0, torch.int16, 5008),
+                             (192000.0, torch.float32, 1600)):
+        cfg = dataclasses.replace(CFG, iq_rate=rate)
+        p = rx.make_params(cfg, dev)
+        s, e, _ = mt_stream(
+            p.front_fir, p.front2, p.nco_delta, cfg.decim, 64, (B, mid, B),
+            dtype, dev, gen,
+            f"K15 {rate / 1000:.0f} kHz {str(dtype)[6:]} decim {cfg.decim}")
+        worst, err = min(worst, s), max(err, e)
     ck0, c2k0, xi, xq, ph0 = first
     ms = cuda_ms(lambda: fir_k.front_mt(h, g, ck0, c2k0, xi, xq, ph0, delta,
                                         decim), 10)
@@ -2046,21 +2282,23 @@ def phase_front_mt(P, dev, gen):
     k1_ms = cuda_ms(lambda: fir_k.front(h, g, ck0, c2k0, xi, xq, ph0, delta,
                                         decim), 10)
     # work: stage A with complex taps, 4 FMAs a tap per output; stage B as
-    # K1's; bytes as K1's plus the sine taps
+    # K1's; bytes as K1's, the stage-A taps complex
     T_out = B // decim
     fma = C * T_out * (4 * taps + 2 * taps2)
     nbytes = (2 * C * B * 2 + C * T_out * 4 + 2 * C * (taps - 1) * 8
               + 2 * C * (taps2 - 1) * 8 + C * 8 + C * 4
               + 4 * (2 * taps + 2 * taps2))
+    geo = fir_k.front_mt_geometry(taps, taps2, decim)
     r = row("front_mt", "front.cu", "uhsdr_tpu/pallas/fir.py:287", err=err,
             snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
-            flops=2.0 * fma, k1_ms=k1_ms,
+            flops=2.0 * fma, k1_ms=k1_ms, smem=geo.smem, t_tile=geo.t_tile,
             library_note="no one PyTorch call mixes, decimates and runs "
                          "both FIR stages")
     print(f"  K15 front_mt: {ms:.4f} ms (K1 {k1_ms:.4f} ms in this call; "
           f"plain {plain_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by "
           f"{r['bound_by']}: {fma / 1e9:.2f} G FMA, "
-          f"{nbytes / 2**20:.0f} MiB)")
+          f"{nbytes / 2**20:.0f} MiB; {r['bound_ms'] / ms:.1%} of it; "
+          f"tiles of {geo.t_tile} outputs, {geo.smem} B shared)")
     return r
 
 
@@ -2606,10 +2844,10 @@ def wideband_tx_path(dev, seed, n_timed, n_warm=2, n_ref=2, ref_ch=8):
 
 def agc_stereo_rows_path(dev, seed, n_timed=4, n_warm=2, n_ref=2,
                          ref_ch=8):
-    """The entry path of K13's rows: `ops.agc.run_stereo` at 12 kHz on
-    (8192, 2, 2048) audio with a threshold per channel (40 ... 80 dB),
-    state carried; channels 0-7 against the same call on the CPU (plain
-    versions) over the first blocks, >= KERNEL_TOL_DB.  Returns
+    """The entry path of the linked stage's rows: `ops.agc.run_stereo` at
+    12 kHz on (8192, 2, 2048) audio with a threshold per channel (40 ...
+    80 dB), state carried; channels 0-7 against the same call on the CPU
+    (plain versions) over the first blocks, >= KERNEL_TOL_DB.  Returns
     (launches, ms/block, Ms/s of input samples, worst SNR)."""
     C, T = CHANNELS, STEREO_ROWS_T
     params = agc_ops.make_params(12000.0, thresh_db=STEREO_ROWS_THRESH)
@@ -2630,7 +2868,7 @@ def agc_stereo_rows_path(dev, seed, n_timed=4, n_warm=2, n_ref=2,
         return y
 
     launches, ms_block, y = timed_run(step, blocks, "agc_stereo_rows",
-                                      ("agc_scan_rows",), n_warm, n_timed)
+                                      ("agc_stereo_rows",), n_warm, n_timed)
     check(tuple(y.shape) == (C, 2, T) and bool(torch.isfinite(y).all()),
           "agc_stereo_rows output")
     p8 = agc_ops.make_params(12000.0, thresh_db=STEREO_ROWS_THRESH[:ref_ch])
@@ -2648,11 +2886,72 @@ def agc_stereo_rows_path(dev, seed, n_timed=4, n_warm=2, n_ref=2,
     return launches, ms_block, msps, worst
 
 
+def agc_machine_path(dev, seed, rows: bool, n_timed=4, n_warm=2,
+                     ref_ch=8):
+    """The entry path of K13 (the reference's `_run_machine` on
+    `agc_scan_pallas`): `cuda.agc.agc_scan` on the linked detector's
+    look-ahead max and delayed |x| of (8192, 2, 2048) audio at 12 kHz,
+    with scalar settings or a threshold per channel (`rows`), carries
+    handed on; channels 0-7 against the same calls on the CPU over the
+    first blocks, >= KERNEL_TOL_DB.  Returns (launches, ms/block, Ms/s of
+    steps, worst SNR)."""
+    C, T, w = CHANNELS, STEREO_ROWS_T, 48
+    th = STEREO_ROWS_THRESH if rows else 60.0
+    kp = agc_ops.kernel_params(agc_ops.make_params(12000.0, thresh_db=th),
+                               C)
+    srows = (None if kp.scan_rows is None
+             else torch.as_tensor(kp.scan_rows, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    blocks = []
+    tail = torch.zeros((C, w), device=dev)
+    for k in range(n_warm + n_timed):
+        a = torch.cat([tail, torch.stack(
+            [agc_block(gen, dev, C, T, k * T, 12000.0),
+             0.5 * agc_block(gen, dev, C, T, k * T, 12000.0)],
+            dim=1).abs().amax(dim=1)], dim=-1)
+        tail = a[:, T:].clone()
+        blocks.append((agc_k.look_ahead_max(a, w, T).contiguous(),
+                       a[:, :T].contiguous()))
+    carry = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    kept = []
+
+    def step(blk):
+        nonlocal carry
+        v, carry = agc_k.agc_scan(kp.scalars, carry, *blk, srows)
+        if len(kept) < 2:
+            kept.append(v[:ref_ch].clone())
+        return v
+
+    label = "agc_machine_rows" if rows else "agc_machine"
+    name = "agc_scan_rows" if rows else "agc_scan"
+    launches, ms_block, v = timed_run(step, blocks, label, (name,), n_warm,
+                                      n_timed)
+    check(tuple(v.shape) == (C, T) and bool(torch.isfinite(v).all()),
+          f"{label} output")
+    k8 = agc_ops.kernel_params(agc_ops.make_params(
+        12000.0, thresh_db=STEREO_ROWS_THRESH[:ref_ch] if rows else 60.0),
+        ref_ch)
+    r8 = None if k8.scan_rows is None else torch.as_tensor(k8.scan_rows)
+    c8 = torch.zeros((agc_k.N_CARRY, ref_ch))
+    worst = math.inf
+    for k in range(2):
+        rm, ax = (t[:ref_ch].cpu() for t in blocks[k])
+        v8, c8 = agc_k.agc_scan(k8.scalars, c8, rm, ax, r8)
+        s = snr_db(v8, kept[k].cpu())
+        worst = min(worst, s)
+        print(f"  {label} vs CPU, block {k}, ch 0-{ref_ch - 1}: SNR "
+              f"{s:.1f} dB")
+    check(worst >= KERNEL_TOL_DB,
+          f"{label} vs CPU: {worst:.1f} dB < {KERNEL_TOL_DB} dB")
+    return launches, ms_block, C * T / (ms_block * 1e-3) / 1e6, worst
+
+
 # "blocked" (K2): every path whose cascade stage is non-empty (the
 # PreFilter; FM's squelch HPF; the TX voice bandpass), all but wide SSB
 SHARED = ("agc", "interp", "blocked")
 FM_KERNELS = ("fir_rt", "fm_disc", "agc", "blocked")
-TWO_CH = ("agc_scan", "interp", "blocked")
+TWO_CH = ("agc_stereo", "interp", "blocked")
 DEPTH = 1024          # channels of the paths run at a smaller depth
 # (label, config, kernels it must launch, timed blocks, channels)
 MAIN_PATHS = (
@@ -2753,7 +3052,8 @@ def main() -> int:
                   phase_sam_sideband, phase_fir_cx, phase_fm_disc, phase_agc_scan,
                   phase_front_pair, phase_fir_real, phase_alc,
                   phase_blocked, phase_biquad_grouped, phase_front_mt,
-                  phase_agc_rows, phase_agc_scan_rows):
+                  phase_agc_rows, phase_agc_scan_rows, phase_agc_stereo,
+                  phase_agc_stereo_rows):
         t1 = time.time()
         print(f"phase {phase.__name__}:")
         r = phase(P, dev, gen)
@@ -2890,6 +3190,19 @@ def main() -> int:
           f"{STEREO_ROWS_T} @ 12 kHz, thresholds 40-80 dB: {ms_block:.3f} "
           f"ms/block over 4 blocks, {msps:.1f} Ms/s, CPU SNR {worst:.1f} dB "
           f"({time.time() - t1:.1f} s) on {card}")
+    for label, rows_on in (("agc_machine", False),
+                           ("agc_machine_rows", True)):
+        t1 = time.time()
+        print(f"phase entry path {label}:")
+        launches, ms_block, msps, worst = agc_machine_path(dev, args.seed,
+                                                           rows_on)
+        by_path[label] = launches
+        per_block[label] = {k: n / 6 for k, n in launches.items()}
+        torch.cuda.empty_cache()
+        print(f"entry path {label}: K13 on {CHANNELS} ch x {STEREO_ROWS_T} "
+              f"steps @ 12 kHz{', thresholds 40-80 dB' if rows_on else ''}: "
+              f"{ms_block:.3f} ms/block over 4 blocks, {msps:.1f} Ms/s, CPU "
+              f"SNR {worst:.1f} dB ({time.time() - t1:.1f} s) on {card}")
     # a kernel counts as launched by a chain path or by an entry path
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()

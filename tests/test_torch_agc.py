@@ -77,6 +77,9 @@ def test_agc_plain_matches_jax(hang):
         x = _block(blk, rng)
         yj, js = jagc.run(jp, js, jnp.asarray(x))
         yt, ts = tagc.run(tp, ts, torch.from_numpy(x))
+        # the delay line holds storage of its own size, not a view of the
+        # block's concatenation
+        assert ts.delay.untyped_storage().nbytes() == 4 * C * 48
         leaves = {f: snr_db(np.asarray(getattr(js, f)), getattr(ts, f))
                   for f in tagc.AgcState._fields}
         leaves["output"] = snr_db(np.asarray(yj), yt)
@@ -318,7 +321,6 @@ def test_setup_made_once_streams_the_same_bits(mode):
         np.testing.assert_array_equal(setup.gain.numpy(), tp.fixed_gain)
     else:
         np.testing.assert_array_equal(setup.rows.numpy(), kp.rows)
-        np.testing.assert_array_equal(setup.scan_rows.numpy(), kp.scan_rows)
     rng = np.random.default_rng(16)
     s_a = s_b = tagc.init_state((3,), tp)
     s2_a = s2_b = tagc.init_state_stereo((3,), tp)

@@ -12,10 +12,16 @@ T < w, T = the tile, the tile +- 1 and a ragged three-block stream.
 compares: rm == volts, volts == pop_ratio * fba, volts == save,
 hba == hang_level, the hang counter at 0, 0.5, 1, 1.5 and 2, every state
 0-4 with decay 0 and 1, hang on and off, scalars and rows.
+Walked from finite carries into non-finite inputs (rm +-inf or NaN, a
+NaN or infinite back-average) it gives the blended step's values, a NaN
+where that has one (the blended form's products by 0 turn an infinite
+candidate into NaN, and a NaN volts into a NaN save).
 (c) `agc_geometry` keeps K3's shared memory within an H100's 227 KB a
 block and two blocks an SM, for every w in 1..256.
 (d) `agc_design`, the three with the gain law, gives `agc_plain`'s bits
-over streamed blocks, with scalars and with rows.
+over streamed blocks, with scalars and with rows, and on an edge stream
+(+-0, +-inf, a NaN, subnormals) with the NaNs where the plain version
+has them.
 The card holds the kernel itself to the plain version
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -45,6 +51,13 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 def _assert_bits(a: torch.Tensor, b: torch.Tensor, what: str):
     assert a.shape == b.shape, what
     assert torch.equal(_bits(a), _bits(b)), what
+
+
+def _assert_same(a: torch.Tensor, b: torch.Tensor, what: str):
+    """Equal bits, a NaN matching a NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    assert a.shape == b.shape and torch.equal(na, nb), what
+    assert torch.equal(_bits(a[~na]), _bits(b[~nb])), what
 
 
 def _signal(rng, C: int, T: int) -> torch.Tensor:
@@ -141,6 +154,38 @@ def test_select_step_is_blended_step(hang_enable, rows):
         t["rm"] = t["rm"] * 0.75 if step % 2 else t["rm"] * 1.5
 
 
+@pytest.mark.parametrize("rows", [False, True])
+def test_select_step_off_the_finite_is_blended(rows):
+    p = _params(True)
+    rng = np.random.default_rng(12 + rows)
+    n = 4096
+    t, fb = _carries(p, rng, n)
+    nan, inf = float("nan"), float("inf")
+    edge = np.array([inf, -inf, nan], np.float32)
+    rm0 = t["rm"].clone()
+    chan = None
+    if rows:
+        chan = (torch.full((n,), float(p.min_volts)),
+                torch.full((n,), float(p.hang_level)))
+    carry = (t["volts"], t["save"], t["hang"], t["decay"], t["st"])
+    for step in range(6):
+        # rm off the finite on a lane in seven, other lanes each step; a
+        # back-average NaN or infinite on a few
+        rm = rm0 * (0.75 if step % 2 else 1.5)
+        pick = torch.arange(n) % 7 == step
+        rm[pick] = torch.from_numpy(edge[rng.integers(0, 3, int(pick.sum()))])
+        fbs = fb.clone()
+        fbs[step::13] = nan if step % 2 else inf
+        want = agc_k.machine_step(p, carry, rm, fbs, t["hb"], chan)
+        got = agc_k.machine_step_select(p, carry, rm, fbs, t["hb"], chan)
+        for i, name in enumerate(("volts", "save", "hang", "decay",
+                                  "state")):
+            _assert_same(want[i], got[i], f"step {step} {name}")
+        assert torch.isnan(want[0][pick]).all()
+        carry = want
+    assert torch.isnan(carry[1]).sum() > n // 4      # NaN volts saved
+
+
 @pytest.mark.parametrize("C", [1, 31, 33, 1024, 8192])
 def test_geometry_keeps_two_blocks_an_sm(C):
     for w in range(1, agc_k.AGC_MAXW + 1):
@@ -188,3 +233,31 @@ def test_design_is_plain(fs, rows):
         _assert_bits(yp, yd, f"block {blk} audio")
         _assert_bits(cp, cd, f"block {blk} carry")
         _assert_bits(dp, dd, f"block {blk} delay")
+
+
+@pytest.mark.parametrize("fs", [12000.0, 24000.0])
+def test_design_is_plain_on_edges(fs):
+    """+-0 runs, +-inf, a NaN, subnormals: the NaNs the plain version
+    spreads (through its look-ahead max and its blended step), the same
+    bits elsewhere."""
+    C = 6
+    params = agc_ops.make_params(fs, mode="med", hang_enable=True)
+    p = agc_ops.kernel_params(params).scalars
+    w = params.attack_buffsize
+    rng = np.random.default_rng(int(fs) + 5)
+    cd = cp = torch.zeros((agc_k.N_CARRY, C))
+    dd = dp = torch.zeros((C, w))
+    for blk, T in enumerate((150, 41, 97)):
+        x = rng.standard_normal((C, T)).astype(np.float32) * 300.0
+        x[1, 10:30] = -0.0
+        x[2, 20] = np.inf if blk else -np.inf
+        x[3, 5] = np.nan if blk == 1 else x[3, 5]
+        x[4, :] = np.float32(1e-42) * rng.standard_normal(T)
+        x = torch.from_numpy(x)
+        yd, cd, dd = agc_k.agc_design(p, cd, dd, x, None)
+        yp, cp, dp = agc_k.agc_plain(p, cp, dp, x, None)
+        _assert_same(yp, yd, f"block {blk} audio")
+        _assert_same(cp, cd, f"block {blk} carry")
+        _assert_same(dp, dd, f"block {blk} delay")
+    assert torch.isnan(yp[2]).all() and torch.isnan(yp[3]).all()
+    assert torch.isfinite(yp[0]).all() and torch.isfinite(yp[4]).all()

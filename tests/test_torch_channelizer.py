@@ -83,6 +83,8 @@ def test_bank_matches_jax_streamed(M, impl, kind):
         yj, js = jb(js, jnp.asarray(x))
         yt, ts = tb(ts, torch.from_numpy(x))
         assert tuple(yt.shape) == yj.shape
+        # the carry holds storage of its own size, not a view of the block
+        assert ts.untyped_storage().nbytes() == 8 * ts.numel()
         out, carry = snr_db(np.asarray(yj), yt), snr_db(np.asarray(js), ts)
         print(f"\n{kind} M={M} {impl} block {blk}: output {out:.1f} dB, "
               f"carry {carry:.1f} dB")

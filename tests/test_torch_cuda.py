@@ -26,7 +26,11 @@ the card against the chain on the CPU to 80 dB.  K3 and K13 with
 per-channel rows must be bit-exact with their plain versions, and a
 channel with rows must give the bits it gives alone with scalars; the
 mixed-mode fleet's stage-batched step must be bit-equal to its groups
-run as separate chains.
+run as separate chains.  The linked stereo AGC stage (`agc_stereo`, with
+and without rows), K3 and K13 hold their plain versions bit for bit on
+edge streams too (+-0, +-inf, a NaN in one plane of a channel,
+subnormals), a NaN matching a NaN; every carried state the port hands
+from block to block holds storage of its own size.
 """
 from __future__ import annotations
 
@@ -79,6 +83,14 @@ def _k2_per_block(cfg, params) -> int:
         cs = (params.audio_sos, params.eq1_sos, params.aa_sos,
               params.eq2_sos)
     return sum(c.sections > 0 for c in cs)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bits, a NaN matching a NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and torch.equal(a[~na].view(torch.int32),
+                            b[~nb].view(torch.int32)))
 
 
 def _int16(rng, shape, std=3277.0):
@@ -780,8 +792,179 @@ def test_retuned_chain_on_card_matches_cpu(dev, kw):
 # ALC recurrence)
 # ---------------------------------------------------------------------------
 
+def _stereo_block(rng, C, T, t0, fs, edges):
+    """(C, 2, T) gated bursts at -20 ... +80 dB over noise; with `edges`,
+    +-0 runs, +-inf, a NaN in one plane of a channel and subnormals on
+    some channels (one a block)."""
+    c = np.arange(C)[:, None]
+    n = np.arange(t0, t0 + T)
+    gate = (n[None, :] // (64 + 48 * (c % 16))) % 3 == 0
+    lv = np.logspace(-1, 4, C)[:, None]
+    x = np.stack([lv * np.sin(2 * np.pi * 700 * n / fs) * gate,
+                  0.5 * lv * np.cos(2 * np.pi * 1100 * n / fs) * gate],
+                 axis=1)
+    x = (x + rng.standard_normal(x.shape) * 0.5).astype(np.float32)
+    if edges:
+        k = T // 2
+        x[1 % C, :, :k] = 0.0
+        x[1 % C, 1, :k] = -0.0
+        x[2 % C, 1, k] = np.inf
+        x[3 % C, 0, k] = -np.inf
+        x[4 % C, 0, k] = np.nan
+        x[5 % C, :, :] = np.float32(1e-42)
+        x[6 % C, 1, :k] = np.float32(-3e-45)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("C,lengths,fs,rows,edges", [
+    (40, (1000, 33, 1000), 12000.0, False, False),
+    (64, (2048, 1, 2048), 12000.0, True, False),
+    (33, (1500, 95, 100), 24000.0, False, True),
+    (5, (300, 31, 64), 48000.0, True, True),     # w = 192
+    (70, (40, 20, 200), 12000.0, False, True),   # blocks shorter than w
+    (1, (1, 32, 33), 24000.0, True, False)])
+def test_agc_stereo_kernel_bit_exact(dev, C, lengths, fs, rows, edges):
+    """The linked stereo AGC stage against its plain version (the torch
+    route around K13), bit for bit over three streamed blocks, edges
+    included; its new delay line a tensor of its own."""
+    th = np.linspace(40.0, 80.0, C) if rows else 60.0
+    params = agc_ops.make_params(fs, mode="med", hang_enable=True,
+                                 thresh_db=th)
+    kp = agc_ops.kernel_params(params, C)
+    rt = None if kp.rows is None else torch.as_tensor(kp.rows, device=dev)
+    w = params.attack_buffsize
+    rng = np.random.default_rng(C + w)
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    dk = dp = torch.zeros((C, 2, w), device=dev)
+    t0 = 0
+    counter = agc_k.AGC_STEREO_ROWS if rows else agc_k.AGC_STEREO
+    for T in lengths:
+        x = _stereo_block(rng, C, T, t0, fs, edges).to(dev)
+        t0 += T
+        n0 = counter.launches
+        yk, ck, dk = agc_k.agc_stereo(kp.scalars, ck, dk, x, rt)
+        assert counter.launches == n0 + 1
+        yp, cp, dp = agc_k.agc_stereo_plain(kp.scalars, cp, dp, x, rt)
+        torch.cuda.synchronize()
+        for a, b in ((yp, yk), (cp, ck), (dp, dk)):
+            assert _same(a, b)
+        assert dk.untyped_storage().nbytes() == 4 * C * 2 * w
+    if edges and C > 4:
+        assert torch.isnan(yk[4]).all()
+
+
+def test_agc_stereo_channels_alone_match_the_batch(dev):
+    """A channel with rows gives what it gives alone with its settings as
+    scalars, bit for bit."""
+    C, T = 37, 700
+    th = np.linspace(40.0, 80.0, C)
+    params = agc_ops.make_params(12000.0, mode="med", hang_enable=True,
+                                 thresh_db=th)
+    kp = agc_ops.kernel_params(params, C)
+    rt = torch.as_tensor(kp.rows, device=dev)
+    rng = np.random.default_rng(43)
+    x = _stereo_block(rng, C, T, 0, 12000.0, False).to(dev)
+    carry = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    delay = torch.zeros((C, 2, 48), device=dev)
+    y, c_out, d_out = agc_k.agc_stereo(kp.scalars, carry, delay, x, rt)
+    for c in (0, 31, 32, C - 1):
+        p1 = agc_ops.kernel_params(agc_ops.make_params(
+            12000.0, mode="med", hang_enable=True, thresh_db=float(th[c])))
+        y1, c1, d1 = agc_k.agc_stereo(p1.scalars, carry[:, c:c + 1].clone(),
+                                      delay[c:c + 1].clone(),
+                                      x[c:c + 1].contiguous())
+        assert torch.equal(y1[0], y[c]) and torch.equal(c1[:, 0], c_out[:, c])
+        assert torch.equal(d1[0], d_out[c])
+
+
+def test_agc_stereo_and_scan_smem_match_the_rules(dev):
+    lib = agc_k.AGC.lib()
+    for w in (1, 31, 32, 33, 48, 96, 192, 256):
+        assert lib.uhsdr_agc_stereo_smem(w) == agc_k.agc_stereo_geometry(
+            8192, 2048, w).smem
+    assert lib.uhsdr_agc_stereo_smem(agc_k.AGC_MAXW + 1) == -1
+    assert lib.uhsdr_agc_scan_smem() == agc_k.agc_scan_geometry(8192,
+                                                                2048).smem
+
+
+@pytest.mark.parametrize("fs", [12000.0, 24000.0, 48000.0])
+def test_agc_kernel_holds_edge_streams(dev, fs):
+    """K3 on +-0, +-inf, a NaN and subnormals: its look-ahead max and its
+    step keep the NaNs the plain version has (a max that drops a NaN, as
+    fmaxf does, parts from it), bit for bit elsewhere."""
+    params = agc_ops.make_params(fs, mode="med", hang_enable=True)
+    p = agc_ops.kernel_params(params).scalars
+    w = params.attack_buffsize
+    C = 12
+    rng = np.random.default_rng(int(fs) + 1)
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    dk = dp = torch.zeros((C, w), device=dev)
+    t0 = 0
+    for T in (600, 33, 600):
+        x = _stereo_block(rng, C, T, t0, fs, True)[:, 0].contiguous().to(dev)
+        t0 += T
+        yk, ck, dk = agc_k.agc(p, ck, dk, x)
+        yp, cp, dp = agc_k.agc_plain(p, cp, dp, x)
+        torch.cuda.synchronize()
+        for a, b in ((yp, yk), (cp, ck), (dp, dk)):
+            assert _same(a, b)
+    assert torch.isnan(yk[4]).all() and torch.isnan(yk[3]).all()
+    assert torch.isfinite(yk[0]).all()
+
+
+def test_agc_scan_kernel_holds_edge_streams(dev):
+    """K13 on detector series with +-inf and NaN in rm and in ax, bit for
+    bit with its plain (blended) walk, a NaN matching a NaN."""
+    params = agc_ops.make_params(12000.0, mode="med", hang_enable=True)
+    p = agc_ops.kernel_params(params).scalars
+    C, T = 40, 500
+    rng = np.random.default_rng(44)
+    ck = cp = torch.zeros((agc_k.N_CARRY, C), device=dev)
+    for blk in range(3):
+        a = np.abs(rng.standard_normal((C, T + 48)) * np.logspace(
+            -1, 4, C)[:, None]).astype(np.float32)
+        a[3, 100 + blk] = np.inf
+        a[5, 200] = np.nan
+        a[7, 100:] = 0.0
+        a = torch.from_numpy(a).to(dev)
+        rm = agc_k.look_ahead_max(a, 48, T).contiguous()
+        ax = a[:, :T].contiguous()
+        ax[9, 50] = float("nan")
+        rm[11, 60] = float("-inf")
+        vk, ck = agc_k.agc_scan(p, ck, rm, ax)
+        vp, cp = agc_k.agc_scan_plain(p, cp, rm, ax)
+        torch.cuda.synchronize()
+        assert _same(vp, vk) and _same(cp, ck)
+    assert torch.isnan(vk[3]).all() and torch.isfinite(vk[0]).all()
+
+
+def test_carried_states_own_their_storage(dev):
+    """Every state handed from block to block holds storage of its own
+    size on the card: the linked AGC's delay line (run_stereo, the
+    stage), K3's plain version's, the analysis and synthesis banks'."""
+    from uhsdr_tpu_torch.ops import channelizer as chz
+    params = agc_ops.make_params(12000.0)
+    st = agc_ops.init_state_stereo((8,), params, device=dev)
+    x = torch.randn((8, 2, 512), device=dev)
+    _, st = agc_ops.run_stereo(params, st, x)
+    assert st.delay.untyped_storage().nbytes() == 4 * 8 * 2 * 48
+    p = agc_ops.kernel_params(params).scalars
+    _, _, d = agc_k.agc_plain(p, torch.zeros((agc_k.N_CARRY, 8), device=dev),
+                              torch.zeros((8, 48), device=dev), x[:, 0])
+    assert d.untyped_storage().nbytes() == 4 * 8 * 48
+    M, K = 16, 6
+    ana = chz.AnalysisPfb(M, taps_per_branch=K, device=dev)
+    syn = chz.SynthesisPfb(M, taps_per_branch=K, device=dev)
+    z = torch.randn((3, M * 40), dtype=torch.complex64, device=dev)
+    y, sa = ana(ana.init_state((3,)), z)
+    _, ss = syn(syn.init_state((3,)), y)
+    assert sa.untyped_storage().nbytes() == 8 * 3 * K * M
+    assert ss.untyped_storage().nbytes() == 8 * 3 * (K - 1) * M
+
 @pytest.mark.parametrize("C,T,fs", [(40, 1000, 12000.0), (64, 2048, 12000.0),
-                                    (33, 130, 24000.0), (5, 300, 48000.0)])
+                                    (33, 130, 24000.0), (5, 300, 48000.0),
+                                    (1, 1, 12000.0), (31, 33, 24000.0),
+                                    (97, 96, 12000.0)])
 def test_agc_scan_kernel_matches_plain(dev, C, T, fs):
     """K13 against its plain version, bit for bit (both repeat the machine
     step's operations in order; the kernel is built with -fmad=false)."""
@@ -1146,7 +1329,7 @@ def test_two_channel_chain_on_card_matches_cpu(dev, mode, sideband, iq_rate,
     sg, sc = gpu.init_state((C,)), cpu.init_state((C,))
     sam = mode == "sam"
     expect = {k.name: 0 for k in build.kernels()}
-    expect.update({"agc_scan": 3, "interp": 3})
+    expect.update({"agc_stereo": 3, "interp": 3})
     expect.update({"fir_rt": 3, "pll": 3, "sam_sideband": 3} if sam
                   else {"front_pair": 3})
     expect["blocked"] = 3 * _k2_per_block(cfg, gpu.params)
@@ -1340,10 +1523,16 @@ def test_grouped_kernel_matches_plain_and_k11(dev, C, T, L):
 
 @pytest.mark.parametrize("iq_rate,C,B,dtype", [
     (96000.0, 13, 1600, "int16"), (96000.0, 3, 4096, "float32"),
-    (48000.0, 5, 2000, "int16"), (96000.0, 6, 200, "int16")])
+    (48000.0, 5, 2000, "int16"), (96000.0, 6, 200, "int16"),
+    (192000.0, 4, 5008, "int16"),     # decim 16: a tile and a ragged one
+    (192000.0, 3, 1600, "float32"),
+    (48000.0, 3, 6000, "float32"),    # the fleet's planes, ragged
+    (48000.0, 3, 1004, "int16"),      # less than a tile, rows unaligned
+    (96000.0, 7, 9000, "int16")])     # two tiles and a ragged one
 def test_front_mt_kernel_matches_plain(dev, iq_rate, C, B, dtype):
     """K15 against its plain version from a random NCO phase, three
-    streamed blocks (B = 200: shorter than the raw history)."""
+    streamed blocks (B = 200: shorter than the raw history), the raw
+    carry bit-equal."""
     cfg = rx.RxConfig(**{**FLAGSHIP, "iq_rate": iq_rate})
     p = rx.make_params(cfg, dev)
     h, g, delta = p.front_fir, p.front2, p.nco_delta
@@ -1370,6 +1559,22 @@ def test_front_mt_kernel_matches_plain(dev, iq_rate, C, B, dtype):
             assert snr_db(a, b) >= FIR_DB
         assert torch.equal(cp, ck)
         ph = nco.advance(ph, delta, B)
+
+
+def test_front_mt_geometry_matches_library(dev):
+    """K15's shared memory as the library computes it equals
+    `front_mt_geometry` at every rate and sample size of the mono rows."""
+    lib = fir_k.FRONT.lib()
+    for rate in (48000.0, 96000.0, 192000.0):
+        for bw in ("2P3KHZ", "1P8KHZ"):
+            cfg = rx.RxConfig(**{**FLAGSHIP, "iq_rate": rate,
+                                 "bw_key": bw})
+            p = rx.make_params(cfg, "cpu")
+            taps, taps2 = p.front_fir.shape[-1], p.front2.shape[-1]
+            for size in (2, 4):
+                assert lib.uhsdr_front_mt_smem(
+                    taps, taps2, cfg.decim, size) == fir_k.front_mt_geometry(
+                    taps, taps2, cfg.decim, size).smem
 
 
 def test_mt_chain_on_card_matches_cpu(dev, monkeypatch):

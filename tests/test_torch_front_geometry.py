@@ -1,12 +1,14 @@
 """K1's tile geometry (`cuda/fir.py::front_geometry`, the rule the
-`kernels/front.cu` launcher applies) over every shape the port sends K1.
+`kernels/front.cu` launcher applies) over every shape the port sends K1,
+and K15's (`front_mt_geometry`: K1's with complex stage-A taps) over
+every mono one.
 
 The rule is pure Python, so it is checked here on the CPU: every narrow
 SSB/CW row (usb, lsb, cw) and the two-channel modes (iq, ssbstereo) at 48,
 96 and 192 kHz, on int16 and f32 planes, fits the shared memory, and a
 shape past the buffers is refused with a ValueError before any launch.
 The card checks that the library computes the same shared memory
-(chip_smoke.py's K1 phase).
+(chip_smoke.py's K1 and K15 phases, tests/test_torch_cuda.py).
 """
 from __future__ import annotations
 
@@ -61,7 +63,15 @@ def test_every_k1_shape_fits(rate):
             items = geo.t_tile // R
             assert geo.p == 1 or geo.p * items <= fir_k.FRONT_THREADS
             assert geo.pb == 1 or geo.pb * items <= fir_k.FRONT_THREADS
-        fir_k.front_mt_fits(taps, taps2, decim)
+            if nb == 1:
+                # K15: K1's tiles, the stage-A taps two floats each
+                mt = fir_k.front_mt_geometry(taps, taps2, decim, size,
+                                             n_keep)
+                assert mt.smem <= fir_k.FRONT_SMEM_MAX
+                assert mt._replace(smem=geo.smem) == geo
+                rows = decim * geo.ap
+                assert mt.smem - geo.smem == 4 * (-(-2 * rows // 4) * 4
+                                                  - -(-rows // 4) * 4)
 
 
 def test_flagship_geometry():
@@ -85,10 +95,15 @@ def test_shapes_past_the_buffers_are_refused(taps, taps2, decim, nb, size,
 
 
 def test_k15_ring_refuses_long_histories():
+    """K15's rule (`front_mt_geometry`, K1's tiles: K15 has no rings
+    now) refuses a stage-A history past the shared memory as K1's does,
+    and two stage-B filters; a stage B of 400 taps, past the old
+    512-sample stage-B ring, fits."""
     with pytest.raises(ValueError):
-        fir_k.front_mt_fits(4000, 199, 8)
+        fir_k.front_mt_geometry(20001, 199, 8)
     with pytest.raises(ValueError):
-        fir_k.front_mt_fits(227, 400, 8)
+        fir_k.front_geometry(227, 199, 8, 2, 2, cx=True)
+    assert fir_k.front_mt_geometry(227, 400, 8).smem <= fir_k.FRONT_SMEM_MAX
 
 
 def test_library_geometry_mismatch_raises(monkeypatch):

@@ -156,6 +156,10 @@ def test_run_stereo_matches_jax(fs, remove_dc):
         yj, js = run(js, jnp.asarray(x))
         yt, ts = tagc.run_stereo(tp, ts, torch.from_numpy(x))
         assert tuple(yt.shape) == (C, 2, T)
+        # the delay line holds storage of its own size, not a view of the
+        # block's concatenation
+        assert (ts.delay.untyped_storage().nbytes()
+                == 4 * C * 2 * tp.attack_buffsize)
         leaves = {f: snr_db(np.asarray(getattr(js, f)), getattr(ts, f))
                   for f in tagc.AgcState._fields}
         leaves["audio"] = snr_db(np.asarray(yj), yt)

@@ -30,7 +30,9 @@ Stage order of the reference-table chains:
        blocked_cascade; blocks that do not chunk K11]
     -> WDSP look-ahead AGC                  [K3: cuda.agc.agc], for AM/SAM
        followed by its DC blocker; two-channel audio: the linked stereo
-       AGC, one machine on max(|L|, |R|)    [K13: cuda.agc.agc_scan]
+       AGC, one machine on max(|L|, |R|), the whole stage one launch
+                                            [cuda.agc.agc_stereo; the
+                                             reference's K13 inside]
     -> post-AGC scale, EQ biquad1 (pruned empty at neutral settings)
     -> polyphase interpolation to the IQ rate [K4: cuda.fir.interpolate;
                                                two channels as 2C rows]

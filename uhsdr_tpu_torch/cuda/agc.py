@@ -1,18 +1,22 @@
-"""K3 (the WDSP look-ahead AGC) and K13 (its 5-state machine alone):
-wrappers around the hand-written kernels of `kernels/agc.cu`, each beside
-its plain torch version.
+"""K3 (the WDSP look-ahead AGC), K13 (its 5-state machine alone) and the
+linked stereo AGC stage (K13 with the linked detector, the look-ahead
+max, the gain law and the delay line in one launch): wrappers around the
+hand-written kernels of `kernels/agc.cu`, each beside its plain torch
+version.
 
 The wrapper takes the plain version only for tensors on the CPU.  For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
 kernel on the current stream (building it on first use), raises if the
-launch failed, and adds one to ``AGC.launches``.  There is no fallback.
+launch failed, and adds one to its kernel's ``launches``.  There is no
+fallback.
 
 Replaces uhsdr_tpu/pallas/agc.py::_make_fused_kernel (:159) with
 _make_machine_step (:36), entered from ops/agc.py:481; K13 replaces
 ::_make_kernel (:126), entered through agc_scan_pallas (:376) from
-ops/agc.py::_run_machine (the linked stereo AGC).  On this card both
-are bound by their recurrence (T dependent steps per channel), not by
-their bytes; see the note in the source.
+ops/agc.py::_run_machine (the linked stereo AGC), whose whole stage the
+port runs as `agc_stereo`.  On this card all three are bound by their
+recurrence (T dependent steps per channel), not by their bytes; see the
+note in the source.
 
 K3's design has a torch mirror here, run by the CPU tests against the
 plain versions: `agc_geometry` (the launcher's tile rule),
@@ -48,12 +52,19 @@ AGC = CudaKernel("agc", "agc.cu", {
     "uhsdr_agc_smem": ([_I], _I),
     "uhsdr_agc_scan_launch": ([_P, _P, _P, _P, _I, _I] + [_F] * 11
                               + [_P, _P, _P], _I),
+    "uhsdr_agc_scan_smem": ([], _I),
+    "uhsdr_agc_stereo_launch": ([_P, _P, _P, _P, _I, _I, _I] + [_F] * 14
+                                + [_P, _P, _P, _P], _I),
+    "uhsdr_agc_stereo_smem": ([_I], _I),
 }, extra_flags=("-fmad=false",))
-# one source and library, four kernels: K3 (the whole AGC) and K13 (the
-# machine alone), each with scalar settings and with per-channel rows
+# one source and library, six kernels: K3 (the whole AGC), K13 (the
+# machine alone) and the linked stereo stage, each with scalar settings
+# and with per-channel rows
 AGC_SCAN = CudaKernel("agc_scan", "agc.cu", lib_of=AGC)
 AGC_ROWS = CudaKernel("agc_rows", "agc.cu", lib_of=AGC)
 AGC_SCAN_ROWS = CudaKernel("agc_scan_rows", "agc.cu", lib_of=AGC)
+AGC_STEREO = CudaKernel("agc_stereo", "agc.cu", lib_of=AGC)
+AGC_STEREO_ROWS = CudaKernel("agc_stereo_rows", "agc.cu", lib_of=AGC)
 
 N_CARRY = 7   # volts, save_volts, hang_counter, decay_type, state, fba, hba
 
@@ -66,6 +77,14 @@ AGC_TILE = 32
 AGC_STAGES = 4
 AGC_THREADS = 64 + 32 * 4
 AGC_BARRIERS = 3 * AGC_STAGES
+# K13's and the linked stage's stage planes (K13: rm -> volts, ax; the
+# stage: rm -> volts, the delayed L and R), each AGC_CB rows of
+# AGC_TILE + 1 floats
+AGC_SCAN_PLANES = 2
+AGC_STEREO_PLANES = 3
+# an SM's shared memory, and what the card reserves of it for each block
+SM_SMEM = 228 * 1024
+BLOCK_RESERVED = 1024
 
 
 class AgcScalars(NamedTuple):
@@ -195,6 +214,26 @@ def gain_law(p: AgcScalars, v: torch.Tensor, slope=None) -> torch.Tensor:
     return (p.out_target - slope * vo) / v
 
 
+def agc_stereo_plain(p: AgcScalars, carry, delay, x, rows=None):
+    """Plain torch version of the linked stereo AGC stage: the route the
+    reference runs around K13 (ops/agc.py::run_stereo): the delay line,
+    the linked detector max(|L|, |R|), its look-ahead max, the machine
+    walk of `agc_scan_plain`, the gain law on both delayed planes.  carry
+    (7, C); delay (C, 2, w); x (C, 2, T); rows None or (3, C) [min_volts,
+    slope_constant, hang_level].  Returns (y (C, 2, T), new_carry (7, C),
+    new_delay (C, 2, w), a tensor of its own)."""
+    T = x.shape[-1]
+    w = delay.shape[-1]
+    xfull = torch.cat([delay, x], dim=-1)               # (C, 2, w+T)
+    a = xfull.abs().amax(dim=-2)                        # linked detector
+    v, new_carry = agc_scan_plain(
+        p, carry, look_ahead_max(a, w, T).contiguous(),
+        a[:, :T].contiguous(), None if rows is None else rows[0::2])
+    gain = gain_law(p, v, None if rows is None else rows[1])
+    y = xfull[..., :T] * gain[:, None, :]
+    return y, new_carry, xfull[..., xfull.shape[-1] - w:].clone()
+
+
 def agc_plain(p: AgcScalars, carry, delay, x, rows=None):
     """Plain torch version of K3: the delay line, the look-ahead max, the
     machine walk of `agc_scan_plain`, then the gain law.  carry (7, C);
@@ -209,11 +248,12 @@ def agc_plain(p: AgcScalars, carry, delay, x, rows=None):
         p, carry, look_ahead_max(a, w, T), a[:, :T],
         None if rows is None else rows[0::2])
     y = xfull[:, :T] * gain_law(p, v, None if rows is None else rows[1])
-    return y, new_carry, xfull[:, xfull.shape[-1] - w:]
+    return y, new_carry, xfull[:, xfull.shape[-1] - w:].clone()
 
 
 class AgcGeometry(NamedTuple):
-    """K3's tiles for one launch (`kernels/agc.cu::geometry`)."""
+    """K3's, K13's or the linked stage's tiles for one launch
+    (`kernels/agc.cu::geometry`, `scan_smem`, `stereo_geometry`)."""
     tile: int         # time steps a stage buffer holds
     stages: int       # stage buffers in the ring
     threads: int      # a block's: walker, front and gain-law warps
@@ -224,6 +264,8 @@ class AgcGeometry(NamedTuple):
     smem: int         # dynamic shared memory, bytes
     grid: int         # blocks of AGC_CB channels
     tiles: int        # time tiles a block walks
+    sm_blocks: int    # blocks an SM's shared memory holds (the kernels'
+                      # launch bound asks the registers for two)
 
 
 def agc_geometry(C: int, T: int, w: int, rows: bool = False) -> AgcGeometry:
@@ -237,8 +279,36 @@ def agc_geometry(C: int, T: int, w: int, rows: bool = False) -> AgcGeometry:
     rs, hs = ring | 1, w | 1
     smem = 4 * (AGC_STAGES * AGC_CB * (AGC_TILE + 1) * 2 + AGC_CB * rs
                 + AGC_CB * hs)
+    return _geometry(C, T, ring, rs, hs, smem)
+
+
+def _geometry(C, T, ring, rs, hs, smem) -> AgcGeometry:
     return AgcGeometry(AGC_TILE, AGC_STAGES, AGC_THREADS, ring, rs, hs, smem,
-                       -(-C // AGC_CB), -(-T // AGC_TILE))
+                       -(-C // AGC_CB), -(-T // AGC_TILE),
+                       SM_SMEM // (smem + BLOCK_RESERVED))
+
+
+def agc_scan_geometry(C: int, T: int) -> AgcGeometry:
+    """K13's geometry for C channels of T steps: K3's warps and stage
+    ring, the stage two planes (rm, then the volts over it, and ax) and
+    no sample ring.  Raises ValueError for an empty block."""
+    if not (T >= 1 and C >= 1):
+        raise ValueError(f"agc_scan: {C} x {T}, an empty block")
+    smem = 4 * AGC_STAGES * AGC_SCAN_PLANES * AGC_CB * (AGC_TILE + 1)
+    return _geometry(C, T, 0, 0, 0, smem)
+
+
+def agc_stereo_geometry(C: int, T: int, w: int,
+                        rows: bool = False) -> AgcGeometry:
+    """The linked stage's geometry for C channels of T steps at look-ahead
+    w: K3's, with the stage three planes (rm then volts, the delayed L and
+    R) and the sample ring two (L and R); two blocks an SM up to w = 96
+    (98,176 B at 48, 112,512 B at 96), one at 192.  Rows change nothing.
+    Raises ValueError outside 1 <= w <= 256."""
+    g = agc_geometry(C, T, w, rows)
+    smem = 4 * (AGC_STAGES * AGC_STEREO_PLANES * AGC_CB * (AGC_TILE + 1)
+                + 2 * AGC_CB * g.ring_stride + AGC_CB * g.h_stride)
+    return _geometry(C, T, g.ring, g.ring_stride, g.h_stride, smem)
 
 
 def look_ahead_ring(delay: torch.Tensor, x: torch.Tensor,
@@ -316,7 +386,10 @@ def machine_step_select(p: AgcScalars, carry, rm, fb, hb, chan=None):
     results: three compares of volts pick the new volts among the
     candidates volts + (rm - volts) * k for the attack, fast-decay and the
     state's own multiplier (0 holds), and the state, save, hang and decay
-    are chosen by the same predicates.
+    are chosen by the same predicates.  A non-finite rm enters the
+    candidates as NaN, as the blended form's products by 0 make its volts
+    NaN there, and a NaN volts is saved (the blended save's 0 x NaN): the
+    blended step's bits on every state reached from finite carries.
     State and decay_type are whole numbers in the carry."""
     volts, save, hang, decay, st = carry
     min_volts, hang_level = ((p.min_volts, p.hang_level) if chan is None
@@ -336,7 +409,7 @@ def machine_step_select(p: AgcScalars, carry, rm, fb, hb, chan=None):
     k_slow = torch.where(hold, k(0.0), torch.where(
         hangd, k(p.hang_decay_mult), k(p.decay_mult)))
 
-    d = rm - volts
+    d = torch.where(torch.isfinite(rm), rm, k(float("nan"))) - volts
     v_slow = volts + d * k_slow
     v_fast = volts + d * p.fast_decay_mult
     v_att = volts + d * p.attack_mult
@@ -348,7 +421,8 @@ def machine_step_select(p: AgcScalars, carry, rm, fb, hb, chan=None):
     new_volts = (torch.clamp_min(new_volts, min_volts) if chan is None
                  else torch.maximum(new_volts, min_volts))
     new_state = torch.where(att, 0, torch.where(fast, 1, st_slow)).to(f)
-    new_save = torch.where(att & (s >= 2), volts, save)
+    new_save = torch.where((att & (s >= 2)) | torch.isnan(volts), volts,
+                           save)
     s0_slow = ~att & (s == 0) & ~f0
     new_hang = torch.where(s0_slow & ht, k(p.hang_time), hc)
     new_decay = torch.where(s0_slow, ht, decay > 0.5).to(f)
@@ -424,6 +498,46 @@ def agc(p: AgcScalars, carry, delay, x, rows=None):
     return y, new_carry, new_delay
 
 
+def agc_stereo(p: AgcScalars, carry, delay, x, rows=None):
+    """The linked stereo AGC stage in one launch (the port's route for
+    the iq, ssbstereo and SAM stereo modes).  carry: (7, C) f32 in the
+    order [volts, save, hang, decay, state, fba, hba]; delay: (C, 2, w)
+    f32; x: (C, 2, T) f32; rows: None or (3, C) f32 [min_volts,
+    slope_constant, hang_level].  Returns (y (C, 2, T), new_carry,
+    new_delay) as `agc_stereo_plain`."""
+    if x.device.type == "cpu":
+        return agc_stereo_plain(p, carry, delay, x, rows)
+    dev = x.device
+    if x.ndim != 3 or x.shape[1] != 2:
+        raise ValueError("agc_stereo: x must be (C, 2, T)")
+    C, _, T = x.shape
+    w = delay.shape[-1]
+    agc_stereo_geometry(C, T, w, rows is not None)   # raises outside it
+    if carry.shape != (N_CARRY, C) or delay.shape != (C, 2, w):
+        raise ValueError("agc_stereo: carry must be (7, C) and delay "
+                         "(C, 2, w)")
+    ts = (carry, delay, x)
+    if any(t.dtype != torch.float32 or t.device != dev
+           or not t.is_contiguous() for t in ts):
+        raise ValueError("agc_stereo: contiguous f32 tensors on one device")
+    _check_rows(rows, N_ROWS_AGC, C, dev, "agc_stereo")
+    y = torch.empty_like(x)
+    new_carry = torch.empty_like(carry)
+    new_delay = torch.empty_like(delay)
+    err = AGC_STEREO.lib().uhsdr_agc_stereo_launch(
+        x.data_ptr(), delay.data_ptr(), carry.data_ptr(),
+        None if rows is None else rows.data_ptr(), C, T, w,
+        p.attack_mult, p.fast_decay_mult, p.decay_mult, p.hang_decay_mult,
+        p.fast_backmult, p.hang_backmult, p.pop_ratio, p.hang_level,
+        p.hang_time, 1.0 if p.hang_enable else 0.0, p.min_volts,
+        p.out_target, p.slope_constant, p.inv_max_input,
+        y.data_ptr(), new_carry.data_ptr(), new_delay.data_ptr(),
+        stream_ptr(dev))
+    AGC_STEREO.check(err)
+    (AGC_STEREO if rows is None else AGC_STEREO_ROWS).launches += 1
+    return y, new_carry, new_delay
+
+
 def agc_scan(p: AgcScalars, carry, rm, ax, rows=None):
     """The AGC machine alone (K13).  carry: (7, C) f32 in the order
     [volts, save, hang, decay, state, fba, hba]; rm (the look-ahead max)
@@ -432,9 +546,10 @@ def agc_scan(p: AgcScalars, carry, rm, ax, rows=None):
     if rm.device.type == "cpu":
         return agc_scan_plain(p, carry, rm, ax, rows)
     dev = rm.device
-    if rm.ndim != 2 or ax.shape != rm.shape or rm.shape[-1] < 1:
+    if rm.ndim != 2 or ax.shape != rm.shape:
         raise ValueError("agc_scan: rm and ax must be (C, T) of one shape")
     C, T = rm.shape
+    agc_scan_geometry(C, T)                 # raises for an empty block
     if carry.shape != (N_CARRY, C):
         raise ValueError("agc_scan: carry must be (7, C)")
     ts = (carry, rm, ax)

@@ -16,7 +16,8 @@ no fallback.
 K1 replaces uhsdr_tpu/pallas/fir.py::_fir_kernel_rt_s2 (:179); K15
 ::_fir_kernel_rt_s2_mt (:287), which the reference selects for a static
 NCO delta under UHSDR_FRONT_MT=1 and runs in one bf16 pass on the TPU
-(the port computes it in FP32 like every kernel); K5
+(the port computes it in FP32 like every kernel, as K1's kernel with
+K6's complex stage-A taps and the rotor on the stage-A outputs); K5
 replaces ::_fir_kernel_rt_s (:82); K6 ::_fir_kernel (:47); K7
 ::_fir_nco_kernel (:370); K4 ::_interp_kernel (:1003); K8
 ::_fir_real_kernel (:911).
@@ -40,16 +41,17 @@ _F = ctypes.c_float
 
 FRONT = CudaKernel("front", "front.cu", {
     "uhsdr_front_launch": ([_I, _P, _P, _F, _I, _I, _I, _P, _P, _P,
-                            ctypes.c_uint32, _P, _I, _I, _P, _P, _P, _I, _I,
+                            ctypes.c_uint32, _P, _I, _I, _P, _P, _I, _I,
                             _P, _P, _P, _P, _P], _I),
+    "uhsdr_front_mt_launch": ([_I, _P, _P, _F, _I, _I, _I, _P, _P, _P,
+                               ctypes.c_uint32, _P, _I, _I, _P, _P, _I,
+                               _P, _P, _P, _P, _P], _I),
+    "uhsdr_front_mt_smem": ([_I, _I, _I, _I], _I),
     "uhsdr_front_threads": ([], _I),
     "uhsdr_front_outputs_per_thread": ([], _I),
     "uhsdr_front_tile_bytes": ([], _I),
     "uhsdr_front_smem_max": ([], _I),
     "uhsdr_front_smem": ([_I, _I, _I, _I, _I], _I),
-    "uhsdr_front_tile": ([], _I),
-    "uhsdr_front_ring_rows": ([], _I),
-    "uhsdr_front_ring2": ([], _I),
     "uhsdr_fir_rt_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
                              ctypes.c_uint32, _P, _I, _I, _I, _P, _P, _P, _P,
                              _P], _I),
@@ -247,15 +249,10 @@ FRONT_ROTOR_GROUP = 8          # samples a thread rotates from one sincospif
 # K5's shared memory aim, bytes: three blocks of FRONT_THREADS an SM
 # (3 x (72 KB + the 1 KB a block reserves) within the SM's 228 KB)
 FIR_RT_SMEM_AIM = 72 * 1024
-# K15's (PR 5's body): outputs a tile, stage-A ring rows a phase, stage-B
-# ring length
-FRONT_MT_TILE = 128
-FRONT_MT_RING_ROWS = 256
-FRONT_MT_RING2 = 512
 
 
 class FrontGeometry(NamedTuple):
-    """K1's, K5's or K6/K7's tiles for one shape
+    """K1's, K15's, K5's or K6/K7's tiles for one shape
     (`kernels/front.cu::geometry`)."""
     e: int           # column of a polyphase row's sample 0 (R | e)
     ze: int          # index of stage-A output 0 in its buffer (R | ze; K5 0)
@@ -281,16 +278,17 @@ def front_geometry(taps: int, taps2: int, decim: int, nb: int,
     filters of `taps2`, planes of `in_bytes` a sample (2: int16, 4: f32)
     and a raw carry of `n_keep` (default taps - 1); nb = 0 is K5's
     (`fir_rt_geometry`), and with complex stage-A taps (`cx`, two floats a
-    tap) K6/K7's (`fir_cx_geometry`).  A tile holds t_tile outputs, about
+    tap) K6/K7's (`fir_cx_geometry`) or, with nb = 1, K15's
+    (`front_mt_geometry`).  A tile holds t_tile outputs, about
     FRONT_TILE_BYTES of each plane and more than either halo, so a halo
     copy never overlaps its source; K5 halves it (down to its halo) until
     the buffers are within FIR_RT_SMEM_AIM.  Raises ValueError for a shape
-    the kernel does not take: nb outside 0..2 (0 with cx), n_keep <
+    the kernel does not take: nb outside 0..2 (2 with cx), n_keep <
     taps - 1, or buffers past FRONT_SMEM_MAX."""
     n_keep = taps - 1 if n_keep is None else n_keep
     _need(taps >= 1 and decim >= 1 and nb in (0, 1, 2)
           and (nb == 0 or taps2 >= 1) and in_bytes in (2, 4)
-          and not (cx and nb),
+          and not (cx and nb > 1),
           f"front: taps {taps}, taps2 {taps2}, decim {decim}, nb {nb}, "
           f"{in_bytes}-byte samples{', complex taps' if cx else ''}")
     _need(n_keep >= taps - 1,
@@ -340,13 +338,13 @@ def fir_cx_geometry(taps: int, decim: int, in_bytes: int = 2
     return front_geometry(taps, 1, decim, 0, in_bytes, cx=True)
 
 
-def front_mt_fits(taps: int, taps2: int, decim: int):
-    """K15's ring rule (PR 5's): raises ValueError where the stage-A or
-    the stage-B history does not fit its ring."""
-    _need(FRONT_MT_TILE + -(-(taps - 1) // decim) <= FRONT_MT_RING_ROWS,
-          f"front: {taps} taps at decim {decim} exceed the stage-A ring")
-    _need(FRONT_MT_TILE + taps2 - 1 <= FRONT_MT_RING2,
-          f"front: {taps2} stage-B taps exceed the stage-B ring")
+def front_mt_geometry(taps: int, taps2: int, decim: int,
+                      in_bytes: int = 2, n_keep: int | None = None
+                      ) -> FrontGeometry:
+    """K15's tile geometry: K1's (`front_geometry`, one stage-B filter)
+    with the stage-A tap buffer doubled ((hr, -hi) pairs of the modulated
+    taps).  Raises ValueError where it does not fit shared memory."""
+    return front_geometry(taps, taps2, decim, 1, in_bytes, n_keep, cx=True)
 
 
 def _front_lib():
@@ -356,10 +354,8 @@ def _front_lib():
     if not getattr(lib, "geometry_checked", False):
         got = (lib.uhsdr_front_threads(), lib.uhsdr_front_outputs_per_thread(),
                lib.uhsdr_front_tile_bytes(), lib.uhsdr_front_smem_max(),
-               lib.uhsdr_front_tile(), lib.uhsdr_front_ring_rows(),
-               lib.uhsdr_front_ring2(), lib.uhsdr_front_smem_aim())
+               lib.uhsdr_front_smem_aim())
         want = (FRONT_THREADS, FRONT_R, FRONT_TILE_BYTES, FRONT_SMEM_MAX,
-                FRONT_MT_TILE, FRONT_MT_RING_ROWS, FRONT_MT_RING2,
                 FIR_RT_SMEM_AIM)
         if got != want:
             raise RuntimeError(f"front.cu's geometry {got} differs from "
@@ -402,25 +398,26 @@ def front(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
     as `front_plain`."""
     if xi.device.type == "cpu":
         return front_plain(h, g, carry, carry2, xi, xq, phase, delta, decim)
-    return _launch_front(FRONT_PAIR if g.ndim == 2 else FRONT, h, None, g,
+    return _launch_front(FRONT_PAIR if g.ndim == 2 else FRONT, h, g,
                          carry, carry2, xi, xq, phase, delta, decim)
 
 
-def modulated_taps(h: torch.Tensor, delta: int):
-    """K15's stage-A taps h[k] e^{-j delta k} as (hc, hs) f32 on h's
-    device: hc = h cos(delta k), hs = -h sin(delta k), from the exact
-    uint32 phase delta k mod 2^32 in float64 (the reference's,
-    pallas/fir.py:603-612), rounded once; built once per (h, delta)."""
+def modulated_taps(h: torch.Tensor, delta: int) -> torch.Tensor:
+    """K15's stage-A taps h[k] e^{-j delta k}, complex64 on h's device:
+    real part hc = h cos(delta k), imaginary part hs = -h sin(delta k),
+    from the exact uint32 phase delta k mod 2^32 in float64 (the
+    reference's, pallas/fir.py:603-612), each rounded once to f32; built
+    once per (h, delta)."""
     d = int(delta) & nco_ops.MASK32
 
     def make(v):
         h64 = np.asarray(v, np.float64)
         ang = np.array([(d * k) % nco_ops.TWO32 for k in range(h64.size)],
                        np.float64) * (2.0 * np.pi / nco_ops.TWO32)
-        return (torch.as_tensor((h64 * np.cos(ang)).astype(np.float32),
-                                device=h.device),
-                torch.as_tensor((-h64 * np.sin(ang)).astype(np.float32),
-                                device=h.device))
+        hm = np.empty(h64.size, np.complex64)
+        hm.real = h64 * np.cos(ang)
+        hm.imag = -h64 * np.sin(ang)
+        return torch.as_tensor(hm, device=h.device)
     return derived(h, ("modulated", d), make)
 
 
@@ -432,13 +429,12 @@ def front_mt_plain(h, g, carry, carry2, xi, xq, phase, delta: int,
     decimated output, then K1's stage B (one filter).  Returns (audio
     (C, B//decim), the new raw carry, the new stage-B carry, peaks (C,))
     as `front_plain`."""
-    hc, hs = modulated_taps(h, delta)
     n_hist = h.shape[-1] - 1
     a, b = scale_planes(xi, xq)
     peaks = torch.maximum(a.abs().amax(-1), b.abs().amax(-1))
     z = torch.complex(a, b)
     w, _ = fir_ops.fir_decimate_block(
-        torch.complex(hc, hs), carry[..., carry.shape[-1] - n_hist:], z,
+        modulated_taps(h, delta), carry[..., carry.shape[-1] - n_hist:], z,
         decim)
     za = w * nco_ops.rotor(nco_ops.phase_ramp(
         phase, (int(delta) * decim) & nco_ops.MASK32, w.shape[-1]))
@@ -456,26 +452,28 @@ def front_mt(h, g, carry, carry2, xi, xq, phase, delta: int, decim: int):
         return front_mt_plain(h, g, carry, carry2, xi, xq, phase, delta,
                               decim)
     _need(g.ndim == 1, "front_mt: one stage-B filter, g (taps2,)")
-    hc, hs = modulated_taps(h, delta)
-    return _launch_front(FRONT_MT, hc, hs, g, carry, carry2, xi, xq, phase,
-                         delta, decim)
+    _need(h.dtype == torch.float32, "front_mt: h f32")
+    return _launch_front(FRONT_MT, modulated_taps(h, delta), g, carry,
+                         carry2, xi, xq, phase, delta, decim)
 
 
-def _launch_front(counter: CudaKernel, h, h_sin, g, carry, carry2, xi, xq,
-                  phase, delta: int, decim: int):
-    """Check a front's arguments, launch K1 (h_sin None) or K15 and count
-    the launch on `counter`."""
+def _launch_front(counter: CudaKernel, h, g, carry, carry2, xi, xq, phase,
+                  delta: int, decim: int):
+    """Check a front's arguments, launch K1 (h f32) or K15 (h complex64,
+    the modulated taps) and count the launch on `counter`."""
     dev = xi.device
     C, B = xi.shape
     taps, taps2 = h.shape[-1], g.shape[-1]
     nb = 1 if g.ndim == 1 else g.shape[0]
     n_keep = carry.shape[-1]
+    mt = h.is_complex()
     _need(xi.dtype in (torch.int16, torch.float32) and xq.dtype == xi.dtype
           and xq.shape == xi.shape, "front: xi/xq must be int16 or f32 "
           "planes of one shape")
     _need(B % decim == 0, f"front: block {B} not a multiple of {decim}")
-    _need(h.dtype == torch.float32 and g.dtype == torch.complex64,
-          "front: h f32, g complex64")
+    _need(h.dtype in (torch.float32, torch.complex64)
+          and g.dtype == torch.complex64, "front: h f32 (K15: complex64), "
+          "g complex64")
     _need(g.ndim in (1, 2) and nb in (1, 2),
           "front: g must be (taps2,) or (2, taps2)")
     _need(carry.ndim == 2 and carry.shape[0] == C and n_keep >= taps - 1
@@ -485,14 +483,10 @@ def _launch_front(counter: CudaKernel, h, h_sin, g, carry, carry2, xi, xq,
           "front: carry2 must be (C, taps2-1) complex64")
     _need(phase.shape == (C,) and phase.dtype == torch.int64,
           "front: phase must be (C,) int64")
-    ts = (h, g, carry, carry2, xi, xq, phase) + (
-        () if h_sin is None else (h_sin,))
+    ts = (h, g, carry, carry2, xi, xq, phase)
     _need(all(t.device == dev for t in ts), "front: tensors on one device")
     _need(all(t.is_contiguous() for t in ts), "front: contiguous tensors")
-    if h_sin is None:
-        front_geometry(taps, taps2, decim, nb, xi.element_size(), n_keep)
-    else:
-        front_mt_fits(taps, taps2, decim)
+    front_geometry(taps, taps2, decim, nb, xi.element_size(), n_keep, cx=mt)
     lib = _front_lib()
     g_re = g.real.contiguous()
     g_im = g.imag.contiguous()
@@ -504,13 +498,14 @@ def _launch_front(counter: CudaKernel, h, h_sin, g, carry, carry2, xi, xq,
     peaks = torch.empty((C,), dtype=torch.float32, device=dev)
     in_kind = 0 if xi.dtype == torch.int16 else 1
     scale = INT16_SCALE if in_kind == 0 else 1.0
-    err = lib.uhsdr_front_launch(
-        in_kind, xi.data_ptr(), xq.data_ptr(), scale, C, B, n_keep,
-        carry.data_ptr(), carry2.data_ptr(), phase.data_ptr(),
-        int(delta) & nco_ops.MASK32, h.data_ptr(), taps, decim,
-        None if h_sin is None else h_sin.data_ptr(), g_re.data_ptr(),
-        g_im.data_ptr(), taps2, nb, out.data_ptr(), new_carry.data_ptr(),
-        new_carry2.data_ptr(), peaks.data_ptr(), stream_ptr(dev))
+    args = (in_kind, xi.data_ptr(), xq.data_ptr(), scale, C, B, n_keep,
+            carry.data_ptr(), carry2.data_ptr(), phase.data_ptr(),
+            int(delta) & nco_ops.MASK32, h.data_ptr(), taps, decim,
+            g_re.data_ptr(), g_im.data_ptr(), taps2)
+    tail = (out.data_ptr(), new_carry.data_ptr(), new_carry2.data_ptr(),
+            peaks.data_ptr(), stream_ptr(dev))
+    err = (lib.uhsdr_front_mt_launch(*args, *tail) if mt
+           else lib.uhsdr_front_launch(*args, nb, *tail))
     counter.check(err)
     counter.launches += 1
     return out, new_carry, new_carry2, peaks

@@ -48,15 +48,30 @@
 // ops/agc.py::_run_machine for the linked stereo AGC of the two-channel
 // modes).  Per channel it takes the look-ahead max rm and the delayed
 // |x| ax, both (C, T), runs the back-averages and the machine step, and
-// emits the volts series and the carries; the delay line, the linked
-// detector and the gain law stay in torch around it.  Bound: the same
-// recurrence as K3 (its bytes, rm and ax in and volts out, take ~0.06 ms
-// at 8192 x 2048).  Design: a block owns CB = 32 channels, 128 threads
-// stage each (channel x time) tile of rm and ax through shared memory
-// coalesced, one warp walks them (one thread a channel, each step's
-// inputs read one step ahead) and writes the volts back over the rm
-// tile, which all threads then store coalesced.  K3 and K13 share
-// `machine_step`.
+// emits the volts series and the carries.  Bound: the same recurrence as
+// K3 (its bytes, rm and ax in and volts out, take ~0.06 ms at 8192 x
+// 2048).  Design: K3's roles and ring (scan_kernel): the front warp
+// copies 32-step tiles of rm and ax into stage planes by cp.async, lanes
+// along time, three tiles in flight; the walker warp walks them (lane =
+// channel, each step's inputs read one step ahead) and writes the volts
+// over rm; four output warps store the volts coalesced.
+//
+// The linked stereo AGC stage, the port's route for the two-channel
+// modes (iq, ssbstereo, SAM stereo; ops/agc.py::run_stereo), is the same
+// kernel with the whole stage around the machine (stereo_kernel): per
+// channel xfull = delay ++ x on two planes (C, 2, w) and (C, 2, T); K3's
+// front warp on both planes forms the linked detector a[n] = max(|L|,
+// |R|) as it reads them and its look-ahead max rm by K3's van Herk pass;
+// the walker runs the machine on (rm, a of the delayed pair); four
+// gain-law warps apply K3's law to both delayed planes and store y (C, 2,
+// T); the front writes the new (C, 2, w) delay line.  It replaces the
+// torch route around K13 (the concatenation, abs().amax(), unfold().amax(),
+// K13, the gain law and the product) and runs where the reference runs
+// _run_machine's agc_scan_pallas.  Its shared memory is
+// `stereo_geometry(w)` (cuda/agc.py::agc_stereo_geometry): two blocks an
+// SM up to w = 96 (98 KB at w 48, 112 KB at 96), one at 192.
+// Every max of the look-ahead and of the linked detector keeps a NaN
+// (max_nan), as torch.amax, unfold().amax() and jnp.max do.
 // Per-channel gain-law rows (the TPU kernels' `chan` operand,
 // pallas/agc.py:126-133 and :176-190): both kernels are templates on
 // ROWS.  Without rows every channel takes the scalar settings.  With
@@ -93,10 +108,12 @@ constexpr int BAR_FREE = BAR_VOLTS + STAGES;
 static_assert(BAR_FREE + STAGES <= 16, "16 named barriers a block");
 static_assert(CB % GAIN_WARPS == 0, "gain-law channels");
 
-// K13
-constexpr int TS = 128;         // time tile
-constexpr int SR = TS + 1;
-constexpr int SCAN_THREADS = 128;   // staging threads per block
+// K13 and the linked stage: the stage holds planes of CB rows of SS
+// floats, K13's two (rm -> volts, ax), the stage's three (rm -> volts,
+// the delayed L and R); the front keeps AHEAD tiles in flight
+constexpr int SCAN_PLANES = 2;
+constexpr int STEREO_PLANES = 3;
+constexpr int AHEAD = STAGES - 1;
 
 // K3's shared memory for look-ahead w: the stage ring, then the
 // segment-suffix maxima (w slots a channel), then the sample ring (w
@@ -116,6 +133,21 @@ __host__ __device__ inline Geometry geometry(int w) {
   g.as = g.ring | 1;
   g.hs = w | 1;
   g.smem = (STAGES * CB * SS * 2 + CB * g.as + CB * g.hs) * (int)sizeof(float);
+  return g;
+}
+
+// K13's dynamic shared memory: the stage planes
+constexpr int scan_smem() {
+  return STAGES * SCAN_PLANES * CB * SS * (int)sizeof(float);
+}
+
+// The linked stage's at look-ahead w: its stage planes, the suffix
+// maxima, the sample ring of two planes (rows of g.as floats, plane 1
+// CB rows after plane 0)
+__host__ __device__ inline Geometry stereo_geometry(int w) {
+  Geometry g = geometry(w);
+  g.smem = (STAGES * STEREO_PLANES * CB * SS + 2 * CB * g.as + CB * g.hs) *
+           (int)sizeof(float);
   return g;
 }
 
@@ -157,6 +189,14 @@ __device__ __forceinline__ void store_machine(const Machine& m, float* carry,
   carry[6 * (size_t)C + c] = m.hba;
 }
 
+// max(a, b), NaN if either is (torch.maximum's, clamp_min's and amax's
+// rule; fmaxf drops a NaN)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // One step of the 5-state machine, shared by K3 and K13, in select form:
 // the back-averages of |x| update first; then three compares of volts
 // (rm >= volts, volts > pop_ratio * fba, volts > save) pick the step's
@@ -173,8 +213,16 @@ __device__ __forceinline__ void store_machine(const Machine& m, float* carry,
 // exactly one branch mask is 1, a product with a 0/1 mask is exact under
 // -fmad=false, adding +-0 leaves a nonzero value as it was, the held
 // branch's volts + (rm - volts) * 0 is volts, and a zero volts ends at
-// min_volts > 0 either way.  a_f, a_h: 1 - fast_bm, 1 - hang_bm;
-// hang_level and min_volts are the channel's (its row, or the scalars).
+// min_volts > 0 either way.  Where rm or volts is not finite, the blended
+// form's products by 0 make its volts NaN (0 x inf), and a NaN volts its
+// save (0 x NaN): here a non-finite rm enters the candidates as NaN (the
+// compare keeps it, so the state is the blended form's), every max keeps
+// a NaN as torch.clamp_min and torch.maximum do, and a NaN volts is
+// saved.  From finite carries a volts is finite or NaN (then for good),
+// a save NaN only after its volts, a hang finite: on every state so
+// reached the selects give the blended sums' bits.  a_f, a_h: 1 -
+// fast_bm, 1 - hang_bm; hang_level and min_volts are the channel's (its
+// row, or the scalars).
 __device__ __forceinline__ void machine_step(Machine& m, const Params& p,
                                              float a_f, float a_h,
                                              float hang_level,
@@ -182,7 +230,8 @@ __device__ __forceinline__ void machine_step(Machine& m, const Params& p,
                                              float ax) {
   m.fba = a_f * m.fba + p.fast_bm * ax;
   m.hba = a_h * m.hba + p.hang_bm * ax;
-  const float hc = fmaxf(m.hang - 1.f, 0.f);
+  const float hc = max_nan(m.hang - 1.f, 0.f);
+  const float rmc = isfinite(rm) ? rm : __int_as_float(0x7fffffff);
 
   // off the volts chain: what a state does when it neither attacks nor
   // decays fast (new state 2 holds, 3 decays long, 4 decays by hang)
@@ -197,7 +246,7 @@ __device__ __forceinline__ void machine_step(Machine& m, const Params& p,
 
   // the volts chain
   const float volts = m.volts;
-  const float d = rm - volts;
+  const float d = rmc - volts;
   const float v_slow = volts + d * k_slow;
   const float v_fast = volts + d * p.fast_d;
   const float v_att = volts + d * p.attack;
@@ -205,10 +254,10 @@ __device__ __forceinline__ void machine_step(Machine& m, const Params& p,
   const bool f0 = volts > p.pop_ratio * m.fba;
   const bool f1 = volts > m.save;
   const bool fast = (s0 & f0) | (s1 & f1);
-  m.volts = fmaxf(att ? v_att : fast ? v_fast : v_slow, min_volts);
+  m.volts = max_nan(att ? v_att : fast ? v_fast : v_slow, min_volts);
 
   m.st = att ? 0 : fast ? 1 : st_slow;
-  m.save = (att & (st >= 2)) ? volts : m.save;
+  m.save = ((att & (st >= 2)) | (volts != volts)) ? volts : m.save;
   const bool s0_slow = !att & s0 & !f0;   // state 0's hang or long decay
   m.hang = (s0_slow & ht) ? p.hang_time : hc;
   m.decay = s0_slow ? (int)ht : m.decay;
@@ -222,7 +271,7 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
-// --- K3's three roles ------------------------------------------------------
+// --- K3's three roles (the front warp also the linked stage's) ---------------
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -231,26 +280,43 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 }
 
 // The front warp's copy of x tile t (steps t*TA ..) into the sample ring,
-// lanes along time, one cp.async group a tile (empty past the block).
+// lanes along time, one cp.async group a tile (empty past the block).  NP
+// planes: x is (C, NP, T) and plane p's rows sit p*pl floats on.
+template <int NP>
 __device__ __forceinline__ void load_tile(const float* __restrict__ x, int T,
                                           int c0, int nc, int t,
                                           const Geometry& g, float* ring,
-                                          int lane) {
+                                          int pl, int lane) {
   const int n = t * TA + lane;
   if (n < T) {
     const int slot = n % g.ring;     // xfull[w + n]: see agc_front
     for (int c = 0; c < nc; ++c) {  // load
-      cp_async4(ring + c * g.as + slot, x + (size_t)(c0 + c) * T + n);
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        cp_async4(ring + q * pl + c * g.as + slot,
+                  x + ((size_t)(c0 + c) * NP + q) * T + n);
     }
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
+// The detector of ring slot s: |x| (K3), or max(|L|, |R|) keeping a NaN
+// (the linked stage, plane 1 pl floats on)
+template <int NP>
+__device__ __forceinline__ float detector(const float* rrow, int s, int pl) {
+  if constexpr (NP == 1) {
+    return fabsf(rrow[s]);
+  } else {
+    return max_nan(fabsf(rrow[s]), fabsf(rrow[s + pl]));
+  }
+}
+
 // The suffix maxima of the segment that ends at ring slot `last`:
-// hrow[k] = max |xfull| over the segment's samples k .. w-1, TA samples at
-// a time: their loads first, then the chain of maxima (past the segment's
-// first sample the chain runs on, and is not stored).
-__device__ __forceinline__ void segment_suffix(const float* rrow,
+// hrow[k] = max detector over the segment's samples k .. w-1, TA samples
+// at a time: their loads first, then the chain of maxima (past the
+// segment's first sample the chain runs on, and is not stored).
+template <int NP>
+__device__ __forceinline__ void segment_suffix(const float* rrow, int pl,
                                                float* hrow, int w, int ring,
                                                int last) {
   float h = 0.f;
@@ -261,11 +327,11 @@ __device__ __forceinline__ void segment_suffix(const float* rrow,
     for (int q = 0; q < TA; ++q) {
       int s = sl - q;
       if (s < 0) s += ring;
-      v[q] = fabsf(rrow[s]);
+      v[q] = detector<NP>(rrow, s, pl);
     }
 #pragma unroll
     for (int q = 0; q < TA; ++q) {
-      h = fmaxf(h, v[q]);
+      h = max_nan(h, v[q]);
       if (q <= k0) hrow[k0 - q] = h;
     }
     sl -= TA;
@@ -280,19 +346,45 @@ struct FrontPos {
   float gm;          // G[m - 1], the max from its segment's start
 };
 
+// Where the front warp writes tile j's outputs n = j*TA + i into stage
+// s: K3's float2 row (rm, xfull[n]); the linked stage's three plane rows
+// (rm, the delayed L, the delayed R), CB rows apart.
+template <int NP> struct Stage;
+template <> struct Stage<1> {
+  float2* st;
+  __device__ __forceinline__ Stage(float* stage, int s, int lane)
+      : st(reinterpret_cast<float2*>(stage) + (s * CB + lane) * SS) {}
+  __device__ __forceinline__ void put(int i, float rm, float x0,
+                                      float) const {
+    st[i] = make_float2(rm, x0);
+  }
+};
+template <> struct Stage<2> {
+  float* st;
+  __device__ __forceinline__ Stage(float* stage, int s, int lane)
+      : st(stage + (s * STEREO_PLANES * CB + lane) * SS) {}
+  __device__ __forceinline__ void put(int i, float rm, float x0,
+                                      float x1) const {
+    st[i] = rm;
+    st[CB * SS + i] = x0;
+    st[2 * CB * SS + i] = x1;
+  }
+};
+
 // Tile j's rm and xfull of the outputs n = j*TA + i, i < cnt, into the
-// stage row `st`, one output at a time (for w < TA: several segment ends
-// a tile).
-__device__ __forceinline__ void front_tile_any_w(const float* rrow,
+// stage, one output at a time (for w < TA: several segment ends a tile).
+template <int NP, typename Out>
+__device__ __forceinline__ void front_tile_any_w(const float* rrow, int pl,
                                                  float* hrow, int w, int R,
                                                  int cnt, FrontPos& f,
-                                                 float2* st) {
+                                                 Out out) {
   for (int i = 0; i < cnt; ++i) {
-    const float a = fabsf(rrow[f.ia]);
-    f.gm = f.ph == 0 ? a : fmaxf(f.gm, a);
-    if (f.ph == w - 1) segment_suffix(rrow, hrow, w, R, f.ia);
+    const float a = detector<NP>(rrow, f.ia, pl);
+    f.gm = f.ph == 0 ? a : max_nan(f.gm, a);
+    if (f.ph == w - 1) segment_suffix<NP>(rrow, pl, hrow, w, R, f.ia);
     const float hn = hrow[f.ph == w - 1 ? 0 : f.ph + 1];
-    st[i] = make_float2(fmaxf(hn, f.gm), rrow[f.ib]);
+    out.put(i, max_nan(hn, f.gm), rrow[f.ib],
+            NP == 2 ? rrow[f.ib + pl] : 0.f);
     f.ph = f.ph == w - 1 ? 0 : f.ph + 1;
     f.ia = f.ia == R - 1 ? 0 : f.ia + 1;
     f.ib = f.ib == R - 1 ? 0 : f.ib + 1;
@@ -304,42 +396,47 @@ __device__ __forceinline__ void front_tile_any_w(const float* rrow,
 // outputs read and their delayed samples are loaded first; G runs along;
 // if a segment ends in the tile, its backward pass runs and the outputs
 // from its end on read the new suffix maxima.  The stage row takes all TA
-// pairs (those past cnt are not read).
-__device__ __forceinline__ void front_tile(const float* rrow, float* hrow,
-                                           int w, int R, int cnt,
-                                           FrontPos& f, float2* st) {
+// outputs (those past cnt are not read).
+template <int NP, typename Out>
+__device__ __forceinline__ void front_tile(const float* rrow, int pl,
+                                           float* hrow, int w, int R,
+                                           int cnt, FrontPos& f, Out out) {
   if (w < TA) {
-    front_tile_any_w(rrow, hrow, w, R, cnt, f, st);
+    front_tile_any_w<NP>(rrow, pl, hrow, w, R, cnt, f, out);
     return;
   }
   const float* ga = rrow + f.ia;
   const int xsplit = R - f.ib;      // the delayed samples wrap here
-  float gv[TA], hn[TA], xv[TA];
+  float gv[TA], hn[TA], xv[TA], xw[TA];   // xw: plane 1 (NP = 2)
 #pragma unroll
   for (int i = 0; i < TA; ++i) {
-    gv[i] = fabsf(ga[i]);
+    gv[i] = detector<NP>(ga, i, pl);
     // past the segment's end (ph + 1 + i >= w) this reads a later slot, or
     // the next row, and is replaced below or not used
     hn[i] = hrow[f.ph + 1 + i];
-    xv[i] = rrow[i < xsplit ? f.ib + i : f.ib + i - R];
+    const int sx = i < xsplit ? f.ib + i : f.ib + i - R;
+    xv[i] = rrow[sx];
+    if constexpr (NP == 2) xw[i] = rrow[sx + pl];
   }
-  // G restarts (from 0: every |x| >= +0) where ph + i = 0 or w
+  // G restarts (from 0: every detector value is >= +0 or NaN) where ph +
+  // i = 0 or w
   const int rs = f.ph == 0 ? 0 : w - f.ph;
   float gm = f.gm;
 #pragma unroll
   for (int i = 0; i < TA; ++i) {
-    gm = fmaxf(i == rs ? 0.f : gm, gv[i]);
+    gm = max_nan(i == rs ? 0.f : gm, gv[i]);
     gv[i] = gm;
   }
   const int ie = w - 1 - f.ph;    // the segment's end, if in the tile
   if (ie < cnt) {
-    segment_suffix(rrow, hrow, w, R, f.ia + ie);
+    segment_suffix<NP>(rrow, pl, hrow, w, R, f.ia + ie);
 #pragma unroll
     for (int i = 0; i < TA; ++i)
       if (i >= ie) hn[i] = hrow[i - ie];
   }
 #pragma unroll
-  for (int i = 0; i < TA; ++i) st[i] = make_float2(fmaxf(hn[i], gv[i]), xv[i]);
+  for (int i = 0; i < TA; ++i)
+    out.put(i, max_nan(hn[i], gv[i]), xv[i], NP == 2 ? xw[i] : 0.f);
   // (only the last tile is short, and nothing follows it)
   f.gm = gv[TA - 1];
   f.ph += cnt;
@@ -354,20 +451,27 @@ __device__ __forceinline__ void front_tile(const float* rrow, float* hrow,
 // for the copies.  xfull[m] sits in ring slot (m - w) mod R: tile j's
 // samples xfull[w + j*TA ..] start at a multiple of TA.  The ring holds at
 // least w + 3 TA samples: tile j's outputs read xfull[j*TA .. w +
-// (j+1)*TA) while tiles j+1 and j+2 are in flight.
+// (j+1)*TA) while tiles j+1 and j+2 are in flight.  NP = 1: K3 (x (C, T),
+// delay (C, w), the float2 stage); NP = 2: the linked stage (x (C, 2, T),
+// delay (C, 2, w), two ring planes, the three-plane stage).
+template <int NP>
 __device__ void agc_front(const float* __restrict__ x,
                           const float* __restrict__ delay,
                           float* __restrict__ delay_out, int c0, int nc,
                           int T, int w, int ntiles, const Geometry& g,
-                          float2* stage, float* ring, float* hmax,
+                          float* stage, float* ring, float* hmax,
                           int lane) {
+  const int pl = CB * g.as;        // a ring plane's floats
   // xfull[0 .. w) (the delay line) into slots R - w .. R, tiles 0 and 1
   // from slot 0
   for (int c = 0; c < nc; ++c)
-    for (int d = lane; d < w; d += 32)
-      ring[c * g.as + g.ring - w + d] = delay[(size_t)(c0 + c) * w + d];
-  load_tile(x, T, c0, nc, 0, g, ring, lane);
-  load_tile(x, T, c0, nc, 1, g, ring, lane);
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      for (int d = lane; d < w; d += 32)
+        ring[q * pl + c * g.as + g.ring - w + d] =
+            delay[((size_t)(c0 + c) * NP + q) * w + d];
+  load_tile<NP>(x, T, c0, nc, 0, g, ring, pl, lane);
+  load_tile<NP>(x, T, c0, nc, 1, g, ring, pl, lane);
   asm volatile("cp.async.wait_group 1;" ::: "memory");
   __syncwarp();
 
@@ -375,17 +479,17 @@ __device__ void agc_front(const float* __restrict__ x,
   // xfull[w], the next segment's first sample)
   const float* rrow = ring + lane * g.as;
   float* hrow = hmax + lane * g.hs;
-  segment_suffix(rrow, hrow, w, g.ring, g.ring - 1);
+  segment_suffix<NP>(rrow, pl, hrow, w, g.ring, g.ring - 1);
   FrontPos f{0, 0, g.ring - w, 0.f};
   for (int j = 0; j < ntiles; ++j) {
     // tile j+2 takes the slots of samples at least R earlier, none read
     // after tile j-1
-    load_tile(x, T, c0, nc, j + 2, g, ring, lane);
+    load_tile<NP>(x, T, c0, nc, j + 2, g, ring, pl, lane);
     const int cnt = min(TA, T - j * TA);
     const int s = j % STAGES;
     if (j >= STAGES) bar_sync(BAR_FREE + s, 32 + GAIN_THREADS);
-    float2* st = stage + (s * CB + lane) * SS;
-    front_tile(rrow, hrow, w, g.ring, cnt, f, st);
+    const Stage<NP> out(stage, s, lane);
+    front_tile<NP>(rrow, pl, hrow, w, g.ring, cnt, f, out);
     bar_arrive(BAR_FULL + s, 64);
     asm volatile("cp.async.wait_group 1;" ::: "memory");   // tile j+1
     __syncwarp();
@@ -393,9 +497,11 @@ __device__ void agc_front(const float* __restrict__ x,
 
   // the new delay line: xfull[T .. T+w), still in the ring
   for (int c = 0; c < nc; ++c)
-    for (int d = lane; d < w; d += 32)
-      delay_out[(size_t)(c0 + c) * w + d] =
-          ring[c * g.as + (T + d - w + g.ring) % g.ring];
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      for (int d = lane; d < w; d += 32)
+        delay_out[((size_t)(c0 + c) * NP + q) * w + d] =
+            ring[q * pl + c * g.as + (T + d - w + g.ring) % g.ring];
 }
 
 template <bool ROWS>
@@ -500,75 +606,242 @@ __global__ void __launch_bounds__(THREADS, 2) agc_kernel(
     agc_walker<ROWS>(carry, rows, C, c0, nc, T, ntiles, p, stage, carry_out,
                      lane);
   else if (warp == 1)
-    agc_front(x, delay, delay_out, c0, nc, T, w, ntiles, g, stage, ring, hmax,
-              lane);
+    agc_front<1>(x, delay, delay_out, c0, nc, T, w, ntiles, g,
+                 reinterpret_cast<float*>(stage), ring, hmax, lane);
   else
     agc_gain<ROWS>(rows, C, c0, nc, T, ntiles, p, stage, y,
                    threadIdx.x - 64);
 }
 
-// rows: (2, C) [min_volts, hang_level] when ROWS, else not read.
-template <bool ROWS>
-__global__ void __launch_bounds__(SCAN_THREADS) agc_scan_kernel(
-    const float* __restrict__ rm, const float* __restrict__ ax,
-    const float* __restrict__ carry, const float* __restrict__ rows, int C,
-    int T, Params p, float* __restrict__ volts_out,
-    float* __restrict__ carry_out) {
-  // rms[c][j] = rm[t0 + j], then the volts of that step; axs = ax
-  __shared__ float rms[CB][SR];
-  __shared__ float axs[CB][SR];
-  const int c0 = blockIdx.x * CB;
-  const int tid = threadIdx.x;
-  const int nc = min(CB, C - c0);
+// --- K13's and the linked stage's roles ----------------------------------
+
+// K13's front warp: tiles of rm and ax into stage planes 0 and 1 (lanes
+// along time, 4-byte cp.async), AHEAD tiles in flight; tile j is handed
+// to the walker once it has landed, and tile j + AHEAD copied into the
+// stage the output warps freed.
+__device__ void scan_front(const float* __restrict__ rm,
+                           const float* __restrict__ ax, int T, int c0,
+                           int nc, int ntiles, float* stage, int lane) {
+  auto load = [&](int j) {
+    const int n = j * TA + lane;
+    if (n < T) {
+      float* st = stage + (j % STAGES) * SCAN_PLANES * CB * SS + lane;
+      for (int c = 0; c < nc; ++c) {
+        const size_t o = (size_t)(c0 + c) * T + n;
+        cp_async4(st + c * SS, rm + o);  // K13 load
+        cp_async4(st + (CB + c) * SS, ax + o);
+      }
+    }
+  };
+  for (int m = 0; m < AHEAD; ++m) {
+    if (m < ntiles) load(m);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  for (int j = 0; j < ntiles; ++j) {
+    // tiles 0 .. j + AHEAD - 1 are committed: tile j has landed when at
+    // most AHEAD - 1 groups are pending
+    asm volatile("cp.async.wait_group %0;" ::"n"(AHEAD - 1) : "memory");
+    __syncwarp();
+    bar_arrive(BAR_FULL + j % STAGES, 64);
+    const int m = j + AHEAD;
+    if (m < ntiles) {
+      // its stage held tile m - STAGES: wait until the output warps are
+      // done with it
+      if (m >= STAGES) bar_sync(BAR_FREE + m % STAGES, 32 + GAIN_THREADS);
+      load(m);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+}
+
+// The walker of K13 (LINKED = false: the detector is ax, plane 1) and of
+// the linked stage (the detector max(|L|, |R|) of the delayed pair,
+// planes 1 and 2, keeping a NaN): lane = channel, carries in registers,
+// each step's inputs read one step ahead (the read at i + 1 = TA lands
+// on the rows' pad); volts written over rm.  Rows: K13's (2, C)
+// [min_volts, hang_level], the stage's (3, C) [min_volts, slope,
+// hang_level].
+template <bool ROWS, bool LINKED>
+__device__ void plane_walker(const float* __restrict__ carry,
+                             const float* __restrict__ rows, int C, int c0,
+                             int nc, int T, int ntiles, const Params& p,
+                             float* stage, float* __restrict__ carry_out,
+                             int lane) {
+  constexpr int NPL = LINKED ? STEREO_PLANES : SCAN_PLANES;
   Machine m{};
-  const bool walker = tid < nc;
   float hang_level = p.hang_level, min_volts = p.min_volts;
-  if (walker) {
-    m = load_machine(carry, C, c0 + tid);
+  if (lane < nc) {
+    m = load_machine(carry, C, c0 + lane);
     if constexpr (ROWS) {
-      min_volts = rows[0 * (size_t)C + c0 + tid];
-      hang_level = rows[1 * (size_t)C + c0 + tid];
+      min_volts = rows[0 * (size_t)C + c0 + lane];
+      hang_level = rows[(LINKED ? 2 : 1) * (size_t)C + c0 + lane];
     }
   }
   const float a_f = 1.f - p.fast_bm;
   const float a_h = 1.f - p.hang_bm;
-
-  for (int t0 = 0; t0 < T; t0 += TS) {
-    const int cnt = min(TS, T - t0);
-    for (int i = tid; i < CB * TS; i += SCAN_THREADS) {
-      const int c = i / TS, j = i % TS;
-      if (c < nc && j < cnt) {
-        const size_t o = (size_t)(c0 + c) * T + t0 + j;
-        rms[c][j] = rm[o];
-        axs[c][j] = ax[o];
+  for (int j = 0; j < ntiles; ++j) {
+    const int cnt = min(TA, T - j * TA);
+    const int s = j % STAGES;
+    bar_sync(BAR_FULL + s, 64);
+    float* rp = stage + (s * NPL * CB + lane) * SS;
+    const float* p1 = rp + CB * SS;
+    auto det = [&](int i) {
+      if constexpr (LINKED) {
+        return max_nan(fabsf(p1[i]), fabsf(p1[CB * SS + i]));
+      } else {
+        return p1[i];
       }
+    };
+    float r_next = rp[0], a_next = det(0);
+    for (int i = 0; i < cnt; ++i) {  // plane walk
+      const float r = r_next, a = a_next;
+      r_next = rp[i + 1];
+      a_next = det(i + 1);
+      machine_step(m, p, a_f, a_h, hang_level, min_volts, r, a);
+      rp[i] = m.volts;
     }
-    __syncthreads();
-    if (walker) {
-      // Each step's inputs are read one step ahead: both tiles lie in
-      // shared memory, so the compiler cannot itself move the next loads
-      // above this step's store of volts, and the walk would wait on
-      // them.  (The read at j + 1 = TS lands on the rows' pad column.)
-      float rm_next = rms[tid][0];
-      float ax_next = axs[tid][0];
-      for (int j = 0; j < cnt; ++j) {
-        const float r = rm_next;
-        const float a = ax_next;
-        rm_next = rms[tid][j + 1];
-        ax_next = axs[tid][j + 1];
-        machine_step(m, p, a_f, a_h, hang_level, min_volts, r, a);
-        rms[tid][j] = m.volts;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < CB * TS; i += SCAN_THREADS) {
-      const int c = i / TS, j = i % TS;
-      if (c < nc && j < cnt)
-        volts_out[(size_t)(c0 + c) * T + t0 + j] = rms[c][j];
-    }
-    __syncthreads();
+    bar_arrive(BAR_VOLTS + s, 32 + GAIN_THREADS);
   }
-  if (walker) store_machine(m, carry_out, C, c0 + tid);
+  if (lane < nc) store_machine(m, carry_out, C, c0 + lane);
+}
+
+// K13's output warps: the volts of the stage the walker finished, lanes
+// along time, stored coalesced; then the stage is free.
+__device__ void scan_out(int T, int c0, int nc, int ntiles,
+                         const float* stage, float* __restrict__ volts_out,
+                         int gt) {
+  const int lane = gt & 31, gw = gt >> 5;
+  for (int j = 0; j < ntiles; ++j) {
+    const int cnt = min(TA, T - j * TA);
+    const int s = j % STAGES;
+    bar_sync(BAR_VOLTS + s, 32 + GAIN_THREADS);
+    float v[GAIN_CH];
+#pragma unroll
+    for (int k = 0; k < GAIN_CH; ++k)
+      v[k] = stage[(s * SCAN_PLANES * CB + gw + k * GAIN_WARPS) * SS + lane];
+    if (j + STAGES < ntiles) bar_arrive(BAR_FREE + s, 32 + GAIN_THREADS);
+    float* vt = volts_out + (size_t)c0 * T + j * TA + lane;
+#pragma unroll
+    for (int k = 0; k < GAIN_CH; ++k) {  // volts stores
+      const int c = gw + k * GAIN_WARPS;
+      if (lane < cnt && c < nc) vt[(size_t)c * T] = v[k];
+    }
+  }
+}
+
+// The linked stage's gain-law warps: K3's law on the volts of the stage
+// the walker finished, times both delayed planes, y (C, 2, T) stored
+// coalesced (lanes along time).
+template <bool ROWS>
+__device__ void stereo_gain(const float* __restrict__ rows, int C, int c0,
+                            int nc, int T, int ntiles, const Params& p,
+                            const float* stage, float* __restrict__ y,
+                            int gt) {
+  const int lane = gt & 31, gw = gt >> 5;
+  float slope[GAIN_CH];
+#pragma unroll
+  for (int k = 0; k < GAIN_CH; ++k) {
+    const int c = gw + k * GAIN_WARPS;
+    slope[k] = p.slope;
+    if constexpr (ROWS) {
+      if (c < nc) slope[k] = rows[1 * (size_t)C + c0 + c];
+    }
+  }
+  for (int j = 0; j < ntiles; ++j) {
+    const int cnt = min(TA, T - j * TA);
+    const int s = j % STAGES;
+    bar_sync(BAR_VOLTS + s, 32 + GAIN_THREADS);
+    float v[GAIN_CH], xl[GAIN_CH], xr[GAIN_CH], num[GAIN_CH];
+#pragma unroll
+    for (int k = 0; k < GAIN_CH; ++k) {  // stage gain law
+      const float* rp =
+          stage + (s * STEREO_PLANES * CB + gw + k * GAIN_WARPS) * SS + lane;
+      v[k] = rp[0];
+      xl[k] = rp[CB * SS];
+      xr[k] = rp[2 * CB * SS];
+      const float vo = fminf(log10f(p.inv_max_input * v[k]), 0.f);
+      num[k] = p.out_target - slope[k] * vo;
+    }
+    if (j + STAGES < ntiles) bar_arrive(BAR_FREE + s, 32 + GAIN_THREADS);
+    float* yt = y + (size_t)c0 * 2 * T + j * TA + lane;
+#pragma unroll
+    for (int k = 0; k < GAIN_CH; ++k) {  // stage gain law stores
+      const int c = gw + k * GAIN_WARPS;
+      const float g = num[k] / v[k];
+      if (lane < cnt && c < nc) {
+        yt[(size_t)c * 2 * T] = xl[k] * g;
+        yt[((size_t)c * 2 + 1) * T] = xr[k] * g;
+      }
+    }
+  }
+}
+
+// K13.  rows: (2, C) [min_volts, hang_level] when ROWS, else not read.
+// Warp 0 walks, warp 1 is the front, warps 2-5 store.
+template <bool ROWS>
+__global__ void __launch_bounds__(THREADS, 2) scan_kernel(
+    const float* __restrict__ rm, const float* __restrict__ ax,
+    const float* __restrict__ carry, const float* __restrict__ rows, int C,
+    int T, Params p, float* __restrict__ volts_out,
+    float* __restrict__ carry_out) {
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);  // [STAGES][2][CB][SS]
+  const int c0 = blockIdx.x * CB;
+  const int nc = min(CB, C - c0);
+  const int ntiles = (T + TA - 1) / TA;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 0)
+    plane_walker<ROWS, false>(carry, rows, C, c0, nc, T, ntiles, p, stage,
+                              carry_out, lane);
+  else if (warp == 1)
+    scan_front(rm, ax, T, c0, nc, ntiles, stage, lane);
+  else
+    scan_out(T, c0, nc, ntiles, stage, volts_out, threadIdx.x - 64);
+}
+
+// The linked stage.  x, y: (C, 2, T); delay, delay_out: (C, 2, w); rows:
+// (3, C) [min_volts, slope_constant, hang_level] when ROWS, else not read.
+// Warp 0 walks, warp 1 is the front, warps 2-5 the gain law.
+template <bool ROWS>
+__global__ void __launch_bounds__(THREADS, 2) stereo_kernel(
+    const float* __restrict__ x, const float* __restrict__ delay,
+    const float* __restrict__ carry, const float* __restrict__ rows, int C,
+    int T, int w, Params p, float* __restrict__ y,
+    float* __restrict__ carry_out, float* __restrict__ delay_out) {
+  extern __shared__ float4 smem4[];
+  const Geometry g = stereo_geometry(w);
+  float* stage = reinterpret_cast<float*>(smem4);  // [STAGES][3][CB][SS]
+  float* hmax = stage + STAGES * STEREO_PLANES * CB * SS;
+  float* ring = hmax + CB * g.hs;                  // [2][CB][g.as]
+  const int c0 = blockIdx.x * CB;
+  const int nc = min(CB, C - c0);
+  const int ntiles = (T + TA - 1) / TA;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 0)
+    plane_walker<ROWS, true>(carry, rows, C, c0, nc, T, ntiles, p, stage,
+                             carry_out, lane);
+  else if (warp == 1)
+    agc_front<2>(x, delay, delay_out, c0, nc, T, w, ntiles, g, stage, ring,
+                 hmax, lane);
+  else
+    stereo_gain<ROWS>(rows, C, c0, nc, T, ntiles, p, stage, y,
+                      threadIdx.x - 64);
+}
+
+// One launch of a role-split kernel with `smem` bytes of dynamic shared
+// memory, all of the SM's 228 KB set aside as shared memory.
+template <typename Kernel, typename... Args>
+cudaError_t launch_roles(Kernel kern, int C, int smem, cudaStream_t stream,
+                         Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kern,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  kern<<<(C + CB - 1) / CB, THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 template <bool ROWS>
@@ -640,16 +913,52 @@ int uhsdr_agc_scan_launch(const void* rm, const void* ax, const void* carry,
                           void* volts_out, void* carry_out, void* stream) {
   Params p{attack, fast_d, long_d, hang_d, fast_bm, hang_bm, pop_ratio,
            hang_level, hang_time, hang_en, min_volts, 0.f, 0.f, 0.f};
-  const int grid = (C + CB - 1) / CB;
-  if (rows == nullptr)
-    agc_scan_kernel<false><<<grid, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)rm, (const float*)ax, (const float*)carry, nullptr, C,
-        T, p, (float*)volts_out, (float*)carry_out);
-  else
-    agc_scan_kernel<true><<<grid, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)rm, (const float*)ax, (const float*)carry,
-        (const float*)rows, C, T, p, (float*)volts_out, (float*)carry_out);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float *r = (const float*)rm, *a = (const float*)ax,
+              *c = (const float*)carry, *rw = (const float*)rows;
+  float *v = (float*)volts_out, *co = (float*)carry_out;
+  return (int)(rows == nullptr
+                   ? launch_roles(scan_kernel<false>, C, scan_smem(), st, r,
+                                  a, c, rw, C, T, p, v, co)
+                   : launch_roles(scan_kernel<true>, C, scan_smem(), st, r,
+                                  a, c, rw, C, T, p, v, co));
+}
+
+// K13's dynamic shared memory.
+int uhsdr_agc_scan_smem() { return scan_smem(); }
+
+// The linked stage's dynamic shared memory at look-ahead w, or -1 outside
+// 1..MAXW.
+int uhsdr_agc_stereo_smem(int w) {
+  return w >= 1 && w <= MAXW ? stereo_geometry(w).smem : -1;
+}
+
+// The linked stereo AGC stage: uhsdr_agc_launch's interface with x, y
+// (C, 2, T) and delay, delay_out (C, 2, w).  Returns a cudaError_t.
+// Requires 1 <= w <= MAXW and T >= 1.
+int uhsdr_agc_stereo_launch(const void* x, const void* delay,
+                            const void* carry, const void* rows, int C, int T,
+                            int w, float attack, float fast_d, float long_d,
+                            float hang_d, float fast_bm, float hang_bm,
+                            float pop_ratio, float hang_level,
+                            float hang_time, float hang_en, float min_volts,
+                            float out_target, float slope,
+                            float inv_max_input, void* y, void* carry_out,
+                            void* delay_out, void* stream) {
+  Params p{attack, fast_d, long_d, hang_d, fast_bm, hang_bm, pop_ratio,
+           hang_level, hang_time, hang_en, min_volts, out_target, slope,
+           inv_max_input};
+  if (w < 1 || w > MAXW) return (int)cudaErrorInvalidValue;
+  const int smem = stereo_geometry(w).smem;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float *xs = (const float*)x, *d = (const float*)delay,
+              *c = (const float*)carry, *rw = (const float*)rows;
+  float *ys = (float*)y, *co = (float*)carry_out, *dout = (float*)delay_out;
+  return (int)(rows == nullptr
+                   ? launch_roles(stereo_kernel<false>, C, smem, st, xs, d, c,
+                                  rw, C, T, w, p, ys, co, dout)
+                   : launch_roles(stereo_kernel<true>, C, smem, st, xs, d, c,
+                                  rw, C, T, w, p, ys, co, dout));
 }
 
 const char* uhsdr_error_string(int e) {

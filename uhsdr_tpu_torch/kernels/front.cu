@@ -122,9 +122,18 @@
 //   y[m] = e^{j(phase0 + delta m decim)} sum_k h'[k] x[m decim - k].
 // Stage B, the peaks and both carries are K1's.  The TPU kernel runs its
 // dots in one bf16 pass; this one in FP32 FMAs, as every kernel here.
-// Complex taps double stage A's FMAs (21.9 G at the SSB flagship).  Its
-// body is PR 5's, one output a thread (front_mt_kernel): the halos live
-// in shared-memory rings, stage A's stored polyphase.
+// Complex taps double stage A's FMAs (21.9 G at the SSB flagship: bound
+// by operations, 0.654 ms at 33.5 T FMA/s, against 0.58 GB of memory).
+// It is K1's register-blocked kernel with K6's complex stage A
+// (front_kernel<Tin, 1, true, A_CX>, MT below): the block and the raw
+// history are loaded unrotated, as K6 loads them; stage A runs
+// chunk_a<A_CX>, four FMAs a tap and an output, the taps (hr, -hi) pairs
+// two to a float4 broadcast; the rotor moves from the input to the
+// stage-A outputs, one sincospif an output on the exact uint32 phase
+// phase0 + (delta decim mod 2^32) m, where K1 spends one on 8 input
+// samples (the same count: decim 8); only the rotated outputs go on to
+// stage B and its carry.  The tiles are K1's rule with the stage-A tap
+// buffer doubled (cuda/fir.py::front_mt_geometry).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -144,12 +153,6 @@ enum OutKind { OUT_PLANES = 0, OUT_INTERLEAVED = 1, OUT_REAL = 2 };
 // stage A's taps: real (K1, K5), or complex (K6, K7) kept as (hr, -hi)
 // with the real part of the output alone (A_CX_RE) or all of it (A_CX)
 enum TapsA { A_REAL = 0, A_CX_RE = 1, A_CX = 2 };
-
-// ---- K15 geometry (PR 5's) ----
-constexpr int TT = 128;         // outputs per time tile = threads per block
-constexpr int QA = 256;         // ring rows per phase (power of two)
-constexpr int QS = QA + 1;      // padded row stride: conflict-free writes
-constexpr int RB = 512;         // stage-B ring length (power of two)
 
 __device__ __forceinline__ float as_f32(int16_t v) { return (float)v; }
 __device__ __forceinline__ float as_f32(float v) { return v; }
@@ -195,12 +198,13 @@ __host__ __device__ __forceinline__ int part_floats(const Geom& g, int nb) {
 // The tile geometry for (taps, taps2, decim, nb) on planes of in_bytes a
 // sample; false if it does not fit.  nb = 0 is K5 (taps2 unused): no
 // stage-B buffers, and the tile halved (down to the halo) until the
-// buffers are within SMEM_AIM; cx (nb = 0 only) is K6/K7, whose stage-A
-// taps take two floats.  cuda/fir.py::front_geometry is the same rule.
+// buffers are within SMEM_AIM; cx is K6/K7 (nb = 0) or K15 (nb = 1),
+// whose stage-A taps take two floats.  cuda/fir.py::front_geometry is
+// the same rule.
 bool geometry(int taps, int taps2, int decim, int nb, int in_bytes,
               Geom* g, bool cx = false) {
   if (taps < 1 || decim < 1 || nb < 0 || nb > 2 || (nb > 0 && taps2 < 1) ||
-      (cx && nb > 0))
+      (cx && nb > 1))
     return false;
   const int a0 = (taps + decim - 1) / decim;    // taps of polyphase row 0
   g->ap = round_up(a0, R);
@@ -396,7 +400,8 @@ __device__ __forceinline__ void chunk_b(float (&y)[R][NB], float2 (&w)[R],
 // NB = 0 is K5 (and with complex taps, AK != A_REAL, K6/K7): no zbuf, gt
 // or stage B; the stage-A outputs go to out (and out_b) as out_kind asks
 // (A_CX_RE: OUT_REAL alone).  NCO = false (NB = 0 only) skips the
-// rotation and never reads phase.
+// rotation and never reads phase.  NB = 1 with AK = A_CX is K15 (MT):
+// the input unrotated, the rotor on the stage-A outputs.
 template <typename Tin, int NB, bool NCO, int AK = A_REAL>
 __global__ void __launch_bounds__(NT, 3) front_kernel(
     const Tin* __restrict__ xi, const Tin* __restrict__ xq, float in_scale,
@@ -408,7 +413,13 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
     float2* __restrict__ carry_out, float2* __restrict__ carry2_out,
     float* __restrict__ peaks, float* __restrict__ out_b, int out_kind) {
   using GT = typename Taps2<NB>::T;
-  static_assert(NB == 0 || AK == A_REAL, "complex stage-A taps: K6/K7");
+  // K15: complex stage-A taps ahead of one stage-B filter
+  constexpr bool MT = NB > 0 && AK == A_CX;
+  static_assert(NB == 0 || AK == A_REAL || (MT && NB == 1 && NCO),
+                "complex stage-A taps: K6/K7, or K15 with one stage B");
+  // the input rotated (K1, K5 and K7 with the NCO); K15 rotates stage A's
+  // outputs instead
+  constexpr bool ROT_IN = NCO && !MT;
   constexpr int TW = AK == A_REAL ? 1 : 2;   // floats a stage-A tap
   extern __shared__ float4 smem4[];
   const int D = decim, E = geo.e, ZE = geo.ze, AP = geo.ap;
@@ -466,13 +477,13 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
       }
     }
   }
-  if (NCO && tid < G) {
+  if (ROT_IN && tid < G) {
     float s, co;
     rotor(delta * (uint32_t)tid, &s, &co);
     tab[tid] = make_float2(co, s);
   }
-  // the halo columns 0..E: the rotated raw history where a column holds a
-  // sample n in [-(taps-1), 0), zero elsewhere
+  // the halo columns 0..E: the raw history (rotated where ROT_IN) where a
+  // column holds a sample n in [-(taps-1), 0), zero elsewhere
   const float2* hist = carry_in + (size_t)c * n_keep + (n_keep - n_hist);
   for (int idx = tid; idx < D * (E + 1); idx += NT) {
     const int r = idx / (E + 1), col = idx - r * (E + 1);
@@ -480,7 +491,7 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
     float2 z = make_float2(0.f, 0.f);
     if (n < 0 && n >= -n_hist) {
       const float2 v = hist[n + n_hist];
-      if constexpr (NCO) {
+      if constexpr (ROT_IN) {
         float s, co;
         rotor(ph0 + delta * (uint32_t)n, &s, &co);
         z = make_float2(v.x * co - v.y * s, v.x * s + v.y * co);
@@ -518,7 +529,7 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
       unpack8(sq + l0, b);
       // the scale folded into the rotor; the peak taken on raw values
       float s0 = 0.f, c0 = in_scale;
-      if constexpr (NCO) {
+      if constexpr (ROT_IN) {
         rotor(ph0 + delta * (uint32_t)(n0 + l0), &s0, &c0);
         s0 *= in_scale;
         c0 *= in_scale;
@@ -530,7 +541,7 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
         if (r < valid) {
           pk = fmaxf(pk, fmaxf(fabsf(a[r]), fabsf(b[r])));
           float2 z;
-          if constexpr (NCO) {
+          if constexpr (ROT_IN) {
             const float2 t = tab[r];
             const float co = c0 * t.x - s0 * t.y;
             const float sn = s0 * t.x + c0 * t.y;
@@ -615,7 +626,9 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
         }
       }
     } else {
-      // the P partial sums, in group order, are the stage-A outputs
+      // the P partial sums, in group order, are the stage-A outputs (K15:
+      // rotated by e^{j 2pi (phase0 + delta decim m) / 2^32}, the phase's
+      // uint32 product exact)
       for (int m = tid; m < tv; m += NT) {
         const float2* pp = reinterpret_cast<const float2*>(part) + pad(m);
         float2 z = pp[0];
@@ -623,6 +636,11 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
           const float2 v = pp[pg * PT];
           z.x += v.x;
           z.y += v.y;
+        }
+        if constexpr (MT) {
+          float s, co;
+          rotor(ph0 + delta * (uint32_t)((t0 + m) * D), &s, &co);
+          z = make_float2(z.x * co - z.y * s, z.x * s + z.y * co);
         }
         zbuf[pad(ZE + m)] = z;
       }
@@ -713,158 +731,6 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
   }
 }
 
-// K15 (PR 5's body): one output a thread, halos in shared-memory rings
-template <typename Tin>
-__global__ void __launch_bounds__(TT) front_mt_kernel(
-    const Tin* __restrict__ xi, const Tin* __restrict__ xq, float in_scale,
-    int B, int n_keep, const float2* __restrict__ carry_in,
-    const float2* __restrict__ carry2_in, const int64_t* __restrict__ phase,
-    uint32_t delta, const float* __restrict__ h, int taps, int decim,
-    const float* __restrict__ h_sin, const float* __restrict__ g_re,
-    const float* __restrict__ g_im, int taps2, float* __restrict__ out,
-    float2* __restrict__ carry_out, float2* __restrict__ carry2_out,
-    float* __restrict__ peaks) {
-  extern __shared__ float smem[];
-  float* ring_r = smem;                     // decim * QS
-  float* ring_i = ring_r + decim * QS;
-  float* zr = ring_i + decim * QS;          // RB
-  float* zi = zr + RB;
-  float* hs = zi + RB;                      // taps
-  float* hsn = hs + taps;                   // taps (the sine taps)
-  float* gr = hsn + taps;                   // taps2
-  float* gi = gr + taps2;
-  __shared__ float warp_pk[TT / 32];
-
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int n_hist = taps - 1;
-  const int n_hist2 = taps2 - 1;
-  const int T_out = B / decim;
-  const uint32_t ph0 = (uint32_t)phase[c];
-  const size_t row = (size_t)c * B;
-  const int OFF = decim * QA;   // bias keeps ring indices non-negative
-
-  for (int k = tid; k < taps; k += TT) {
-    hs[k] = h[k];
-    hsn[k] = h_sin[k];
-  }
-  for (int k = tid; k < taps2; k += TT) {
-    gr[k] = g_re[k];
-    gi[k] = g_im[k];
-  }
-  // raw history sample j sits at absolute index n = j - n_hist; it is
-  // column n_keep - n_hist + j of the carried row; the taps carry the
-  // relative phase, so it is stored unrotated
-  const float2* hist = carry_in + (size_t)c * n_keep + (n_keep - n_hist);
-  for (int j = tid; j < n_hist; j += TT) {
-    const int n = j - n_hist;
-    const float2 v = hist[j];
-    const int no = n + OFF;
-    const int idx = (no % decim) * QS + ((no / decim) & (QA - 1));
-    ring_r[idx] = v.x;
-    ring_i[idx] = v.y;
-  }
-  // stage-B history: output index m = j - n_hist2
-  for (int j = tid; j < n_hist2; j += TT) {
-    const float2 v = carry2_in[(size_t)c * n_hist2 + j];
-    const int p = (j - n_hist2) & (RB - 1);
-    zr[p] = v.x;
-    zi[p] = v.y;
-  }
-  float pk = 0.f;
-  __syncthreads();
-
-  const int W = TT * decim;
-  for (int t0 = 0; t0 < T_out; t0 += TT) {
-    const int n0 = t0 * decim;
-    for (int j = tid; j < W; j += TT) {
-      const int n = n0 + j;
-      if (n >= B) break;
-      const float a = as_f32(xi[row + n]) * in_scale;
-      const float b = as_f32(xq[row + n]) * in_scale;
-      pk = fmaxf(pk, fmaxf(fabsf(a), fabsf(b)));
-      const int no = n + OFF;
-      const int idx = (no % decim) * QS + ((no / decim) & (QA - 1));
-      ring_r[idx] = a;
-      ring_i[idx] = b;
-    }
-    __syncthreads();
-
-    // stage A: sample decim*M - k with k = decim*a + b lives in phase
-    // row (decim - b) % decim at ring row M - a - (b > 0); complex taps
-    // hc + j hs on raw samples
-    const int M = t0 + tid;
-    if (M < T_out) {
-      float ar = 0.f, ai = 0.f;
-      for (int b = 0; b < decim; ++b) {
-        const int r = (decim - b) % decim;
-        const float* rr = ring_r + r * QS;
-        const float* ri = ring_i + r * QS;
-        const int qb = M + QA - (b > 0 ? 1 : 0);
-        int a = 0;
-        for (int k = b; k < taps; k += decim, ++a) {
-          const int q = (qb - a) & (QA - 1);
-          const float hk = hs[k];
-          const float sk = hsn[k], vr = rr[q], vi = ri[q];
-          ar = fmaf(hk, vr, ar);
-          ar = fmaf(-sk, vi, ar);
-          ai = fmaf(sk, vr, ai);
-          ai = fmaf(hk, vi, ai);
-        }
-      }
-      // the absolute rotor at the decimated rate
-      float s, co;
-      rotor(ph0 + delta * (uint32_t)(M * decim), &s, &co);
-      const float wr = ar, wi = ai;
-      ar = wr * co - wi * s;
-      ai = wr * s + wi * co;
-      zr[M & (RB - 1)] = ar;
-      zi[M & (RB - 1)] = ai;
-    }
-    __syncthreads();
-
-    // stage B: y[M] = Re(sum_k g[k] z[M-k])
-    if (M < T_out) {
-      float y = 0.f;
-      for (int k = 0; k < taps2; ++k) {
-        const int p = (M - k) & (RB - 1);
-        y = fmaf(gr[k], zr[p], y);
-        y = fmaf(-gi[k], zi[p], y);
-      }
-      out[(size_t)c * T_out + M] = y;
-    }
-    __syncthreads();
-  }
-
-  // new raw history: the last n_keep samples of (history ++ block),
-  // scaled, before rotation
-  for (int j = tid; j < n_keep; j += TT) {
-    const int n = B - n_keep + j;
-    float2 v;
-    if (n >= 0) {
-      v = make_float2(as_f32(xi[row + n]) * in_scale,
-                      as_f32(xq[row + n]) * in_scale);
-    } else {
-      v = carry_in[(size_t)c * n_keep + (j + B)];
-    }
-    carry_out[(size_t)c * n_keep + j] = v;
-  }
-  // new stage-B history: the last n_hist2 stage-A outputs
-  for (int j = tid; j < n_hist2; j += TT) {
-    const int p = (T_out - n_hist2 + j) & (RB - 1);
-    carry2_out[(size_t)c * n_hist2 + j] = make_float2(zr[p], zi[p]);
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    pk = fmaxf(pk, __shfl_xor_sync(0xffffffffu, pk, o));
-  if ((tid & 31) == 0) warp_pk[tid >> 5] = pk;
-  __syncthreads();
-  if (tid == 0) {
-    float m = warp_pk[0];
-    for (int w = 1; w < TT / 32; ++w) m = fmaxf(m, warp_pk[w]);
-    peaks[c] = m;
-  }
-}
-
 struct Args {
   const void *xi, *xq;
   float in_scale;
@@ -873,7 +739,7 @@ struct Args {
   uint32_t delta;
   const void* h;
   int taps, decim;
-  const void *h_sin, *g_re, *g_im;
+  const void *g_re, *g_im;
   int taps2;
   void *out, *carry_out, *carry2_out, *peaks;
   cudaStream_t stream;
@@ -881,7 +747,8 @@ struct Args {
   int out_kind;       // K5: OutKind
 };
 
-// K1 (NB = 1, 2; NCO), K5 (NB = 0) and K6/K7 (NB = 0, AK != A_REAL)
+// K1 (NB = 1, 2; NCO), K5 (NB = 0), K6/K7 (NB = 0, AK != A_REAL) and K15
+// (NB = 1, NCO, A_CX)
 template <typename Tin, int NB, bool NCO, int AK = A_REAL>
 int launch_front(const Args& a) {
   Geom geo;
@@ -906,25 +773,6 @@ int launch_front(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename Tin>
-int launch_mt(const Args& a) {
-  const size_t smem =
-      (size_t)(2 * a.decim * QS + 2 * RB + 2 * a.taps + 2 * a.taps2) *
-      sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      front_mt_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  front_mt_kernel<Tin><<<a.C, TT, smem, a.stream>>>(
-      (const Tin*)a.xi, (const Tin*)a.xq, a.in_scale, a.B, a.n_keep,
-      (const float2*)a.carry_in, (const float2*)a.carry2_in,
-      (const int64_t*)a.phase, a.delta, (const float*)a.h, a.taps, a.decim,
-      (const float*)a.h_sin, (const float*)a.g_re, (const float*)a.g_im,
-      a.taps2, (float*)a.out, (float2*)a.carry_out, (float2*)a.carry2_out,
-      (float*)a.peaks);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -946,39 +794,52 @@ int uhsdr_fir_cx_smem(int taps, int decim, int in_bytes) {
   Geom g;
   return geometry(taps, 1, decim, 0, in_bytes, &g, true) ? g.smem : -1;
 }
-// K15's tile geometry.
-int uhsdr_front_tile() { return TT; }
-int uhsdr_front_ring_rows() { return QA; }
-int uhsdr_front_ring2() { return RB; }
+// K15's dynamic shared memory for a shape (K1's with the stage-A tap
+// buffer doubled), or -1 where it does not fit.
+int uhsdr_front_mt_smem(int taps, int taps2, int decim, int in_bytes) {
+  Geom g;
+  return geometry(taps, taps2, decim, 1, in_bytes, &g, true) ? g.smem : -1;
+}
 
 // in_kind: 0 = int16 planes, 1 = float32 planes.  nb: 1 or 2 stage-B
 // filters (g_re, g_im: nb rows of taps2; out: (C, nb, B/decim)).  The raw
-// carry rows hold n_keep >= taps-1 samples.  h_sin: NULL for K1; for K15
-// (nb 1 only) the modulated taps' sine part, h then their cosine part.
-// Returns a cudaError_t.
+// carry rows hold n_keep >= taps-1 samples.  Returns a cudaError_t.
 int uhsdr_front_launch(int in_kind, const void* xi, const void* xq,
                        float in_scale, int C, int B, int n_keep,
                        const void* carry_in, const void* carry2_in,
                        const void* phase, unsigned int delta, const void* h,
-                       int taps, int decim, const void* h_sin,
-                       const void* g_re, const void* g_im, int taps2,
-                       int nb, void* out,
+                       int taps, int decim, const void* g_re,
+                       const void* g_im, int taps2, int nb, void* out,
                        void* carry_out, void* carry2_out, void* peaks,
                        void* stream) {
   using Launch = int (*)(const Args&);
-  // [in_kind][NB = 1, NB = 2, K15]
-  static const Launch table[2][3] = {
-      {launch_front<int16_t, 1, true>, launch_front<int16_t, 2, true>,
-       launch_mt<int16_t>},
-      {launch_front<float, 1, true>, launch_front<float, 2, true>,
-       launch_mt<float>}};
-  if (nb < 1 || nb > 2 || (h_sin != nullptr && nb != 1))
-    return (int)cudaErrorInvalidValue;
+  // [in_kind][NB - 1]
+  static const Launch table[2][2] = {
+      {launch_front<int16_t, 1, true>, launch_front<int16_t, 2, true>},
+      {launch_front<float, 1, true>, launch_front<float, 2, true>}};
+  if (nb < 1 || nb > 2) return (int)cudaErrorInvalidValue;
   const Args a{xi, xq, in_scale, C, B, n_keep, carry_in, carry2_in, phase,
-               delta, h, taps, decim, h_sin, g_re, g_im, taps2, out,
-               carry_out, carry2_out, peaks, (cudaStream_t)stream,
-               nullptr, 0};
-  return table[in_kind != 0][h_sin != nullptr ? 2 : nb - 1](a);
+               delta, h, taps, decim, g_re, g_im, taps2, out, carry_out,
+               carry2_out, peaks, (cudaStream_t)stream, nullptr, 0};
+  return table[in_kind != 0][nb - 1](a);
+}
+
+// K15: K1's interface with one stage-B filter and h (taps,) complex64,
+// the modulated stage-A taps h[k] e^{-j delta k}; the rotor runs on the
+// stage-A outputs at delta * decim.  Returns a cudaError_t.
+int uhsdr_front_mt_launch(int in_kind, const void* xi, const void* xq,
+                          float in_scale, int C, int B, int n_keep,
+                          const void* carry_in, const void* carry2_in,
+                          const void* phase, unsigned int delta,
+                          const void* h, int taps, int decim,
+                          const void* g_re, const void* g_im, int taps2,
+                          void* out, void* carry_out, void* carry2_out,
+                          void* peaks, void* stream) {
+  const Args a{xi, xq, in_scale, C, B, n_keep, carry_in, carry2_in, phase,
+               delta, h, taps, decim, g_re, g_im, taps2, out, carry_out,
+               carry2_out, peaks, (cudaStream_t)stream, nullptr, 0};
+  return in_kind == 0 ? launch_front<int16_t, 1, true, A_CX>(a)
+                      : launch_front<float, 1, true, A_CX>(a);
 }
 
 // K5.  in_kind: 0 = int16 planes, 1 = float32 planes.  use_nco: 0 leaves
@@ -1002,9 +863,8 @@ int uhsdr_fir_rt_launch(int in_kind, const void* xi, const void* xq,
       (use_nco != 0 && phase == nullptr))
     return (int)cudaErrorInvalidValue;
   const Args a{xi, xq, in_scale, C, B, taps - 1, carry_in, nullptr, phase,
-               delta, h, taps, decim, nullptr, nullptr, nullptr, 0, out_a,
-               carry_out, nullptr, peaks, (cudaStream_t)stream, out_b,
-               out_kind};
+               delta, h, taps, decim, nullptr, nullptr, 0, out_a, carry_out,
+               nullptr, peaks, (cudaStream_t)stream, out_b, out_kind};
   return table[in_kind != 0][use_nco != 0](a);
 }
 
@@ -1033,9 +893,8 @@ int uhsdr_fir_cx_launch(int in_kind, const void* xi, const void* xq,
       (use_nco != 0 && phase == nullptr))
     return (int)cudaErrorInvalidValue;
   const Args a{xi, xq, in_scale, C, B, taps - 1, carry_in, nullptr, phase,
-               delta, h, taps, decim, nullptr, nullptr, nullptr, 0, out_a,
-               carry_out, nullptr, peaks, (cudaStream_t)stream, out_b,
-               out_kind};
+               delta, h, taps, decim, nullptr, nullptr, 0, out_a, carry_out,
+               nullptr, peaks, (cudaStream_t)stream, out_b, out_kind};
   return table[in_kind != 0][use_nco != 0][out_kind == OUT_REAL](a);
 }
 

@@ -16,10 +16,11 @@ stage to the K3 kernel wrapper (`uhsdr_tpu_torch.cuda.agc`), which runs
 the plain torch version for CPU tensors; with ``remove_dc`` (AM/SAM) the
 DC blocker `ops.iir.dc_blocker_block` follows the gain.  `run_stereo` is
 the linked two-channel AGC of the iq, ssbstereo and SAM stereo modes: the
-delay line, the linked detector, its look-ahead max and the gain law in
-torch around the machine, which runs on K13 (`_run_machine`).  The
-reference's pad to 1024 channels (ops/agc.py:452-466) is a TPU tiling
-rule and is not ported.
+delay line, the linked detector, its look-ahead max, the machine and the
+gain law in one launch (`cuda.agc.agc_stereo`; its plain version is the
+reference's torch route around the machine, which the reference runs on
+the TPU kernel K13).  The reference's pad to 1024 channels
+(ops/agc.py:452-466) is a TPU tiling rule and is not ported.
 
 Per-channel settings: `make_params` takes (C,) ``thresh_db``,
 ``slope_db`` or ``hang_thresh_db``, and the gain-law fields it derives
@@ -241,12 +242,11 @@ def kernel_params(params: AgcParams, C: int | None = None) -> KernelParams:
 
 class AgcSetup(NamedTuple):
     """The operands of one AgcParams at C channels on one device, as every
-    block's `run` or `run_stereo` hands them to K3, K13 and the gain law:
-    made once by `make_setup` and passed in, so that a stream's blocks
-    pay no host-to-device copy of the per-channel tables."""
+    block's `run` or `run_stereo` hands them to K3 or the linked stereo
+    stage: made once by `make_setup` and passed in, so that a stream's
+    blocks pay no host-to-device copy of the per-channel tables."""
     scalars: agc_kernel.AgcScalars
-    rows: torch.Tensor | None         # (3, C) K3's rows, or None
-    scan_rows: torch.Tensor | None    # (2, C) K13's rows, or None
+    rows: torch.Tensor | None         # (3, C) K3's and the stage's rows
     gain: torch.Tensor | float        # the AGC-off gain: (C,) or a scalar
 
 
@@ -261,7 +261,7 @@ def make_setup(params: AgcParams, C: int, device=None) -> AgcSetup:
     g = params.fixed_gain
     gain = (float(g) if np.ndim(g) == 0 else
             on(np.broadcast_to(np.asarray(g, np.float32), (C,)).copy()))
-    return AgcSetup(kp.scalars, on(kp.rows), on(kp.scan_rows), gain)
+    return AgcSetup(kp.scalars, on(kp.rows), gain)
 
 
 def _fixed_gain(setup: AgcSetup, x: torch.Tensor):
@@ -316,17 +316,6 @@ def init_state_stereo(batch_shape, params: AgcParams,
         dc=torch.zeros(bs + (2, 2), dtype=torch.float32, device=device))
 
 
-def _run_machine(setup: AgcSetup, state: AgcState, ring_max, abs_out):
-    """The machine on the precomputed look-ahead max and delayed |x|
-    ((C, T) each), on K13.  Returns (volts (C, T), the new machine
-    carries in CARRY_FIELDS order)."""
-    carry = torch.stack([getattr(state, f) for f in CARRY_FIELDS], dim=0)
-    volts, carry_out = agc_kernel.agc_scan(
-        setup.scalars, carry, ring_max.contiguous(), abs_out.contiguous(),
-        setup.scan_rows)
-    return volts, carry_out.unbind(0)
-
-
 def run_stereo(params: AgcParams, state: AgcState, x: torch.Tensor,
                setup: AgcSetup | None = None):
     """Linked stereo AGC: x (C, 2, T) -> (y (C, 2, T), new_state), the
@@ -340,19 +329,13 @@ def run_stereo(params: AgcParams, state: AgcState, x: torch.Tensor,
         return _fixed_gain(setup, x), state
     if x.ndim != 3 or x.shape[-2] != 2:
         raise ValueError("run_stereo: x must be (C, 2, T)")
-    T = x.shape[-1]
-    w = params.attack_buffsize
-    xfull = torch.cat([state.delay, x], dim=-1)          # (C, 2, w+T)
-    a = xfull.abs().amax(dim=-2)                         # linked detector
-    volts, mach = _run_machine(setup, state,
-                               agc_kernel.look_ahead_max(a, w, T), a[:, :T])
-    gain = agc_kernel.gain_law(
-        setup.scalars, volts, None if setup.rows is None else setup.rows[1])
-    y = xfull[..., :T] * gain[:, None, :]
+    carry = torch.stack([getattr(state, f) for f in CARRY_FIELDS], dim=0)
+    y, carry_out, new_delay = agc_kernel.agc_stereo(
+        setup.scalars, carry, state.delay, x.contiguous(), setup.rows)
     dc_state = state.dc
     if params.remove_dc:        # SAM stereo: per channel, after the gain
         y, dc_state = iir.dc_blocker_block(DC_BLOCKER_R, dc_state, y)
     new_state = state._replace(
-        delay=xfull[..., xfull.shape[-1] - w:], dc=dc_state,
-        **dict(zip(CARRY_FIELDS, mach)))
+        delay=new_delay, dc=dc_state,
+        **{f: carry_out[i] for i, f in enumerate(CARRY_FIELDS)})
     return y, new_state

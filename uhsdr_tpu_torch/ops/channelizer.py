@@ -129,7 +129,10 @@ class AnalysisPfb:
         for k in range(K):
             u = u + self.hpoly[k] * V[..., K - 1 - k:K - 1 - k + T, :]
         y = _ifft_m(u, M, self.dft_impl, self._W)              # (..., T, M)
-        return y.transpose(-1, -2), xfull[..., xfull.shape[-1] - K * M:]
+        # the carry gets storage of its own: a view would hold the whole
+        # wideband block until the next one
+        return (y.transpose(-1, -2),
+                xfull[..., xfull.shape[-1] - K * M:].clone())
 
 
 class SynthesisPfb:
@@ -176,8 +179,8 @@ class SynthesisPfb:
                          device=t.device)
         for k in range(K):
             xf = xf + self.gpoly[k] * tfull[..., K - 1 - k:K - 1 - k + T, :]
-        new_state = (tfull[..., tfull.shape[-2] - (K - 1):, :] if K > 1
-                     else state)
+        new_state = (tfull[..., tfull.shape[-2] - (K - 1):, :].clone()
+                     if K > 1 else state)
         return xf.reshape(y.shape[:-2] + (T * M,)), new_state
 
 

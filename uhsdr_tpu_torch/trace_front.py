@@ -1,16 +1,18 @@
-"""Where K1's, K5's, K7's and K6's time goes on the card, phase by phase.
+"""Where K1's, K15's, K5's, K7's and K6's time goes on the card, phase by
+phase, and an earlier front.cu beside them.
 
-    python -m uhsdr_tpu_torch.trace_front [--seed 7]
+    python -m uhsdr_tpu_torch.trace_front [--seed 7] [--baseline FILE]
 
 Builds `kernels/front.cu` as it is and three variants of it, each with one
 phase of the tile loop left out: the load (staged planes to rotated
-polyphase samples), stage A, stage B (K1's; K5, K6 and K7, the same
-kernel with no stage B, have none).  Times the four through
-`cuda.fir.front` (K1), `cuda.fir.fir_rt` (K5) or `cuda.fir.fir_cx` (K7
-with the NCO, K6 without; real output, as the chain takes it), each
-library in turn in the kernel's place, on the same inputs (CUDA events,
-10 launches after one) at the shapes the port sends them: K1 at the SSB
-flagship (8192 ch x 16384 int16 @ 96 kHz, decim 8), the two-channel
+polyphase samples), stage A, stage B (K1's and K15's; K5, K6 and K7,
+the same kernel with no stage B, have none).  Times the four through
+`cuda.fir.front` (K1), `cuda.fir.front_mt` (K15), `cuda.fir.fir_rt` (K5)
+or `cuda.fir.fir_cx` (K7 with the NCO, K6 without; real output, as the
+chain takes it), each library in turn in the kernel's place, on the same
+inputs (CUDA events, 10 launches after one) at the shapes the port sends
+them: K1 and K15 at the SSB flagship (8192 ch x 16384 int16 @ 96 kHz,
+decim 8), K15 also at 48 and 192 kHz, K1 at the two-channel
 flagship's two stage-B filters, the fleet's f32 planes at 48 kHz (1024
 ch, decim 4) and int16 at 192 kHz (8192 ch, decim 16); K5 at the AM/SAM
 flagship (8192 ch x 16384 int16 @ 96 kHz, decim 4, 239 taps) and the FM
@@ -24,8 +26,12 @@ bound at the card's published FP32 peak; stage A's share of the whole
 and its rate against that peak at the padded taps (the polyphase rows
 zero-padded to whole chunks of 8, as the kernel runs them); then one
 JSON line.  The variants' outputs are wrong: they only time.  The
-variants build into `_build/` beside the kernels.  Exits 2 where CUDA is
-absent.
+variants build into `_build/` beside the kernels.  With --baseline FILE,
+an earlier front.cu (`git show b54d623:uhsdr_tpu_torch/kernels/front.cu >
+_commit_check/front_parent.cu`: K15 as the one-output-a-thread body,
+reached through `uhsdr_front_launch` with the modulated taps' sine part)
+is built beside and, at the K1 and K15 shapes, timed in the same turns.
+Exits 2 where CUDA is absent.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import pathlib
 import subprocess
 import sys
 
@@ -62,6 +69,12 @@ SHAPES = (("ssb", dict(mode="usb", iq_rate=96000.0), 8192, torch.int16,
            torch.float32, "K1"),
           ("usb_192k", dict(mode="usb", iq_rate=192000.0), 8192,
            torch.int16, "K1"),
+          ("ssb_k15", dict(mode="usb", iq_rate=96000.0), 8192, torch.int16,
+           "K15"),
+          ("usb_48k_k15", dict(mode="usb", iq_rate=48000.0), 8192,
+           torch.int16, "K15"),
+          ("usb_192k_k15", dict(mode="usb", iq_rate=192000.0), 8192,
+           torch.int16, "K15"),
           ("sam_k5", dict(mode="sam", bw_key="5P0KHZ", path_name="AM/SAM",
                           iq_rate=96000.0), 8192, torch.int16, "K5"),
           ("fm_k5", dict(mode="fm", bw_key="5P0KHZ", path_name="FM",
@@ -137,11 +150,14 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return a.elapsed_time(b) / reps
 
 
-def shape_inputs(kw: dict, C: int, dtype, dev, gen, kernel: str):
+def shape_inputs(kw: dict, C: int, dtype, dev, gen, kernel: str,
+                 base=None):
     """(the launch's callable, its FMAs, stage A's FMAs at the padded
-    taps) at one shape: K1's `front`; K5's `fir_rt` (NCO on, complex out)
-    where the row has real taps and no stage B; K7's or K6's `fir_cx`
-    (with the NCO or without it, real out) where its taps are complex."""
+    taps, the earlier library's launch or None) at one shape: K1's
+    `front` (K15's `front_mt`); K5's `fir_rt` (NCO on, complex out) where
+    the row has real taps and no stage B; K7's or K6's `fir_cx` (with the
+    NCO or without it, real out) where its taps are complex.  `base`: an
+    earlier front.cu's library, launched for K1 and K15."""
     cfg = rx.RxConfig(**{"bw_key": "2P3KHZ", "path_name": "LPF",
                          "translate_hz": 12000.0, **kw})
     p = rx.make_params(cfg, dev)
@@ -162,24 +178,82 @@ def shape_inputs(kw: dict, C: int, dtype, dev, gen, kernel: str):
             ap = fir_k.fir_cx_geometry(taps, cfg.decim, size).ap
             nco = (phase, p.nco_delta) if kernel == "K7" else None
             return ((lambda: fir_k.fir_cx(*args, nco=nco, real_out=True)),
-                    fma, C * T_out * 2 * cfg.decim * ap)
+                    fma, C * T_out * 2 * cfg.decim * ap, None)
         ap = fir_k.fir_rt_geometry(taps, cfg.decim, size).ap
         return ((lambda: fir_k.fir_rt(*args, nco=(phase, p.nco_delta))), fma,
-                C * T_out * 2 * cfg.decim * ap)
+                C * T_out * 2 * cfg.decim * ap, None)
     carry2 = (torch.randn((C, p.front2.shape[-1] - 1), generator=gen,
                           device=dev) * 0.1).to(torch.complex64)
     nb = 1 if p.front2.ndim == 1 else 2
     taps2 = p.front2.shape[-1]
-    fma = C * T_out * (2 * taps + 2 * nb * taps2)
-    ap = fir_k.front_geometry(taps, taps2, cfg.decim, nb, size, n_keep).ap
+    mt = kernel == "K15"
+    # K15's stage A: complex taps, 4 FMAs a tap and an output
+    fma = C * T_out * ((4 if mt else 2) * taps + 2 * nb * taps2)
+    ap = fir_k.front_geometry(taps, taps2, cfg.decim, nb, size, n_keep,
+                              cx=mt).ap
     args = (p.front_fir, p.front2, carry, carry2, *x, phase, p.nco_delta,
             cfg.decim)
-    return (lambda: fir_k.front(*args)), fma, C * T_out * 2 * cfg.decim * ap
+    old = None
+    if base is not None and nb == 1:
+        old = baseline_launch(base, mt, *args)
+    return ((lambda: (fir_k.front_mt if mt else fir_k.front)(*args)), fma,
+            C * T_out * (4 if mt else 2) * cfg.decim * ap, old)
+
+
+def baseline_launch(lib, mt: bool, h, g, carry, carry2, xi, xq, phase,
+                    delta, decim):
+    """One launch of an earlier front.cu's K15 (mt, its modulated taps'
+    cosine and sine parts as two f32 planes) or K1 through its
+    `uhsdr_front_launch` (with the sine-taps argument), with the host
+    work of the current wrapper (the stage-B taps split into two planes
+    and the outputs allocated each call)."""
+    C, B = xi.shape
+    hm = fir_k.modulated_taps(h, delta) if mt else None
+    ha = hm.real.contiguous() if mt else h
+    hs = hm.imag.contiguous() if mt else None
+
+    def launch():
+        g_re, g_im = g.real.contiguous(), g.imag.contiguous()
+        out = torch.empty((C, B // decim), device=xi.device)
+        nc, nc2 = torch.empty_like(carry), torch.empty_like(carry2)
+        pk = torch.empty((C,), device=xi.device)
+        err = lib.uhsdr_front_launch(
+            0 if xi.dtype == torch.int16 else 1, xi.data_ptr(),
+            xq.data_ptr(), fir_k.INT16_SCALE if xi.dtype == torch.int16
+            else 1.0, C, B, carry.shape[-1], carry.data_ptr(),
+            carry2.data_ptr(), phase.data_ptr(),
+            int(delta) & 0xffffffff, ha.data_ptr(), h.shape[-1], decim,
+            None if hs is None else hs.data_ptr(), g_re.data_ptr(),
+            g_im.data_ptr(), g.shape[-1], 1, out.data_ptr(), nc.data_ptr(),
+            nc2.data_ptr(), pk.data_ptr(), build.stream_ptr(xi.device))
+        if err:
+            raise RuntimeError(f"baseline front launch failed: cudaError "
+                               f"{err}")
+    return launch
+
+
+def build_baseline(path: pathlib.Path):
+    """An earlier front.cu built with the kernel's flags, its
+    `uhsdr_front_launch` bound with the sine-taps argument it took."""
+    so = build.BUILD_DIR / "trace_front" / f"{path.stem}.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    p = subprocess.run([build.nvcc_path(), *fir_k.FRONT.flags, "-o", str(so),
+                        str(path)], capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {path}:\n{p.stdout}{p.stderr}")
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.uhsdr_front_launch.argtypes = [
+        I, P, P, ctypes.c_float, I, I, I, P, P, P, ctypes.c_uint32, P, I, I,
+        P, P, P, I, I, P, P, P, P, P]
+    lib.uhsdr_front_launch.restype = I
+    return lib
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--baseline", type=pathlib.Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_front: no CUDA device", file=sys.stderr)
@@ -191,19 +265,25 @@ def main() -> int:
         timeout=60).stdout.strip()
     print(f"card: {card}")
     libs = build_variants()
+    base = None if args.baseline is None else build_baseline(args.baseline)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     result = {}
     for label, kw, C, dtype, kernel in SHAPES:
-        launch, fma, fma_a = shape_inputs(kw, C, dtype, dev, gen, kernel)
-        phases = [ph for ph in PHASES if kernel == "K1" or ph != "stage_b"]
+        launch, fma, fma_a, old = shape_inputs(kw, C, dtype, dev, gen,
+                                               kernel, base)
+        phases = [ph for ph in PHASES
+                  if kernel in ("K1", "K15") or ph != "stage_b"]
         names = ["whole"] + [f"no_{ph}" for ph in phases]
-        # whole, variants, variants reversed, whole: two readings each
-        ms = {name: [] for name in names}
+        # whole, variants, variants reversed, whole: two readings each;
+        # the earlier library's beside the whole's
+        ms = {name: [] for name in names + (["baseline"] if old else [])}
         try:
             for name in names + names[::-1]:
-                # fir.front, fir.fir_rt and fir.fir_cx launch through
-                # the library they find here
+                if name == "whole" and old is not None:
+                    ms["baseline"].append(cuda_ms(old))
+                # fir.front, fir.front_mt, fir.fir_rt and fir.fir_cx
+                # launch through the library they find here
                 fir_k.FRONT._lib = libs[name]
                 ms[name].append(cuda_ms(launch))
         finally:
@@ -224,7 +304,10 @@ def main() -> int:
                           f"(costs {cost[ph]:.4f})" for ph in phases)
               + f"; the rest {rest:.4f}; stage A {100 * share_a:.1f}% of "
               f"the whole, {100 * peak_a:.1f}% of the FP32 peak at "
-              f"{fma_a / 1e9:.2f} G padded FMA ({bound_a:.4f} ms)")
+              f"{fma_a / 1e9:.2f} G padded FMA ({bound_a:.4f} ms)"
+              + (f"; the earlier front.cu {mean['baseline']:.4f} ms ("
+                 + ", ".join(f"{v:.4f}" for v in ms["baseline"]) + ")"
+                 if "baseline" in ms else ""))
         result[label] = dict(kernel=kernel, channels=C,
                              whole_ms=mean["whole"], fma_bound_ms=bound,
                              without_ms={ph: mean[f"no_{ph}"]
@@ -232,7 +315,8 @@ def main() -> int:
                              phase_cost_ms=cost, rest_ms=rest,
                              stage_a_padded_bound_ms=bound_a,
                              stage_a_share=share_a,
-                             stage_a_peak_share=peak_a)
+                             stage_a_peak_share=peak_a,
+                             baseline_ms=mean.get("baseline"))
     print(json.dumps({"card": card, "phases": result}))
     return 0
 

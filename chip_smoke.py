@@ -47,10 +47,14 @@ first phase that fails:
    alone bit-equal to the batch, its shared memory held to
    `blocked_geometry`'s; two streamed blocks and the times at every
    other path's cascade shape and the fleet's two), K14
-   (the grouped biquad scan, at SAM's stacked allpass shape, also held
-   against K11), K15 (the modulated-taps SSB front, K1's kernel with
-   complex stage-A taps: at the SSB flagship and on 64 channels at 48 and
-   192 kHz int16 and f32 and 96 kHz f32, its raw carry bit-equal, its
+   (the grouped biquad scan, a warp a row and a lane a group, at SAM's
+   stacked allpass shape bit for bit against its plain version and at
+   90 dB against K11; at each group length 16, 32 and 64 a block past
+   PR 5's 512 groups and an edge stream from a NaN state, bit for bit;
+   its launch, registers and spills printed), K15 (the modulated-taps
+   SSB front, K1's kernel with complex stage-A taps: at the SSB flagship
+   and on 64 channels at 48 and 192 kHz int16 and f32 and 96 kHz f32,
+   its raw carry bit-equal, its
    shared memory held to `front_mt_geometry`'s; timed beside K1), the row
    variants of K3 (per-channel [min_volts, slope, hang_level], at the
    fleet's merged AGC shape 5120 x 4096) and K13 (per-channel [min_volts,
@@ -87,7 +91,8 @@ first phase that fails:
    allpass inputs as the reference stacks them (16384 x 4096, both
    coefficient sets) through `biquad_cascade(impl="grouped")` (K14) and
    `biquad_cascade` (K11), 4 timed blocks each, state carried, each held
-   against the other.  Then the mixed-mode fleet
+   against the other, and their ms/block printed side by side.  Then the
+   mixed-mode fleet
    (`parallel.fleet.ChannelFleet`, six groups of 1024 channels: usb, lsb,
    cw, am, sam, fm at 48 kHz, 16384-sample f32 blocks, AGC thresholds
    60/50/70/60/55/60 dB) twice over the same blocks: `fleet`, the
@@ -218,6 +223,8 @@ ALC_STEP_OPS = alc_k.ALC_STEP_CHAIN
 FP32_LATENCY = 4
 
 KERNEL_TOL_DB = 90.0
+# K14's blocks past PR 5's 512 groups and its edge streams: rows a block
+GROUPED_LONG_ROWS = 1024
 # K8 against its plain version (tests/test_torch_cuda.py's FIR_DB): both
 # sum the same f32 products, in another order
 FIR_TOL_DB = 100.0
@@ -2152,11 +2159,42 @@ def phase_blocked(P, dev, gen):
     return r
 
 
+def grouped_edges(x: torch.Tensor) -> torch.Tensor:
+    """An edge stream for K14 in place on rows 0-9 of x: zeros, -0, +inf,
+    -inf, a NaN, -0 rows, subnormals in two rows, -0 every 7th sample."""
+    T = x.shape[-1]
+    x[0] = 0.0
+    x[1] = -0.0
+    x[2, T // 3] = math.inf
+    x[3, T // 2] = -math.inf
+    x[4, T // 5] = math.nan
+    x[6] = -0.0
+    x[7, ::3] = 1e-40
+    x[8] = x[8] * 1e-39
+    x[9, 5::7] = -0.0
+    return x
+
+
 def phase_biquad_grouped(P, dev, gen):
     """K14 at SAM's stacked allpass shape (16384 x 4096, both coefficient
-    sets), three streamed blocks (the middle one of 1000 samples ends
-    inside a group) against its plain version and against K11."""
+    sets, groups of 32), three streamed blocks (the middle one of 1000
+    samples ends inside a group and a tile), bit for bit against its plain
+    version and at 90 dB against K11; then at each group length a block
+    past the 512 groups PR 5's kernel took (1024 rows: 513 x 16, 20000
+    at 32, 33000 at 64) and an edge stream from a NaN state, bit for
+    bit.  Prints each instance's launch and its registers and spills
+    (`cuobjdump --dump-resource-usage` of the library this run built)."""
     C, T = 2 * CHANNELS, SAM.block_len // SAM.decim
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    usage = iir_k.grouped_resources(iir_k.BIQUAD._lib_path())
+    geos = {}
+    for L in iir_k.GROUP_LENS:
+        geo = iir_k.grouped_geometry(C, T, L, 7, sms)
+        geos[L] = dict(geo._asdict(), resources=usage[L])
+        print(f"  K14 L = {L}: {geo.warps} warps (rows) a block, "
+              f"{geo.resident} blocks an SM, {geo.blocks} blocks, tiles of "
+              f"{geo.tile} ({geo.tiles} a row), {geo.smem} B shared; "
+              f"registers, stack and local (spill) bytes {usage[L]}")
     worst, err, times = math.inf, 0.0, {}
     for cset, sos in enumerate(P["sam"].sam.ap_sos):
         S = sos.shape[0]
@@ -2170,9 +2208,10 @@ def phase_biquad_grouped(P, dev, gen):
             yp, sp = iir_k.biquad_grouped_plain(sos, sp, x)
             yq, sq = iir_k.biquad_cascade(sos, sq, x)
             torch.cuda.synchronize()
-            s, e = held(f"K14 set {cset} block {blk} ({Tk} samples)",
-                        {"audio": (yp, yk), "state": (sp, sk),
-                         "audio vs K11": (yq, yk), "state vs K11": (sq, sk)})
+            label = f"K14 set {cset} block {blk} ({Tk} samples)"
+            s, e = held(label, {"audio vs K11": (yq, yk),
+                                "state vs K11": (sq, sk)})
+            bits_held(label, {"audio": (yp, yk), "state": (sp, sk)})
             worst, err = min(worst, s), max(err, e)
             del yk, yp, yq
         s0, x0 = first
@@ -2180,6 +2219,38 @@ def phase_biquad_grouped(P, dev, gen):
             sos, s0, x0, impl="grouped"), 10),
             cuda_ms(lambda: iir_k.biquad_grouped_plain(sos, s0, x0), 2),
             cuda_ms(lambda: iir_k.biquad_cascade(sos, s0, x0), 10))
+        del first, s0, x0
+    sos = P["sam"].sam.ap_sos[1]
+    S = sos.shape[0]
+    R = GROUPED_LONG_ROWS
+    for L, Tl in ((16, 513 * 16), (32, 20000), (64, 33000)):
+        s0 = torch.randn((S, R, 2), generator=gen, device=dev) * 1e-2
+        x = torch.randn((R, Tl), generator=gen, device=dev) * 0.1
+        yk, sk = iir_k.biquad_cascade(sos, s0, x, impl="grouped",
+                                      group_len=L)
+        yp, sp = iir_k.biquad_grouped_plain(sos, s0, x, L)
+        yq, sq = iir_k.biquad_cascade(sos, s0, x)
+        torch.cuda.synchronize()
+        label = f"K14 L = {L}, {R} x {Tl} ({-(-Tl // L)} groups)"
+        held(label, {"audio vs K11": (yq, yk), "state vs K11": (sq, sk)})
+        bits_held(label, {"audio": (yp, yk), "state": (sp, sk)})
+        # the edge stream from a NaN state in row 5, -0 states in row 6
+        s0[3, 5, 0] = math.nan
+        s0[:, 6] = -0.0
+        sk = sp = s0
+        for Te in (64 * L, 40 * L + 7):
+            x = grouped_edges(torch.randn((R, Te), generator=gen,
+                                          device=dev) * 0.1)
+            yk, sk = iir_k.biquad_cascade(sos, sk, x, impl="grouped",
+                                          group_len=L)
+            yp, sp = iir_k.biquad_grouped_plain(sos, sp, x, L)
+            torch.cuda.synchronize()
+            bits_held(f"K14 L = {L} edge stream ({Te} samples)",
+                      {"audio": (yp, yk), "state": (sp, sk)})
+            check(bool(yk[5].isnan().all()) and bool(
+                torch.isfinite(yk[10:]).all()),
+                  f"K14 L = {L} edge stream: NaNs where they do not belong")
+        del x, yk, yp, yq, sk, sp, sq
     ms, plain_ms, k11_ms = times[0]
     S = P["sam"].sam.ap_sos[0].shape[0]
     nbytes = 2 * C * T * 4 + 2 * S * C * 2 * 4
@@ -2190,7 +2261,7 @@ def phase_biquad_grouped(P, dev, gen):
             flops=13.0 * S * C * T, library_note="torch has no IIR filter "
                                                  "call", k11_ms=k11_ms,
             set1=dict(ms=times[1][0], plain_ms=times[1][1],
-                      k11_ms=times[1][2]))
+                      k11_ms=times[1][2]), geometry=geos)
     print(f"  K14 biquad_grouped ({S} sections, {C} x {T}, groups of 32): "
           f"{ms:.4f} ms, set 1 {times[1][0]:.4f} ms (K11 {k11_ms:.4f} / "
           f"{times[1][2]:.4f} ms; plain {plain_ms:.1f} ms; bound "
@@ -3101,12 +3172,14 @@ def main() -> int:
               f"{ms_block:.3f} ms/block over {n_timed} blocks, {msps:.1f} "
               f"Ms/s, CPU-chain SNR {worst:.1f} dB "
               f"({time.time() - t1:.1f} s) on {card}")
+    bq_ms = {}
     for label, impl in (("biquad_grouped", "grouped"),
                         ("biquad", "sequential")):
         t1 = time.time()
         print(f"phase entry path {label}:")
         launches, ms_block, worst, n_blocks = biquad_path(P, dev, args.seed,
                                                           impl)
+        bq_ms[label] = ms_block
         by_path[label] = launches
         per_block[label] = {k: n / n_blocks for k, n in launches.items()}
         torch.cuda.empty_cache()
@@ -3115,6 +3188,9 @@ def main() -> int:
               f"{ms_block:.3f} ms/block over 4 blocks, SNR against "
               f"{'K11' if impl == 'grouped' else 'K14'} {worst:.1f} dB "
               f"({time.time() - t1:.1f} s) on {card}")
+    print(f"entry paths: biquad_grouped (K14) {bq_ms['biquad_grouped']:.3f} "
+          f"ms/block beside biquad (K11) {bq_ms['biquad']:.3f} ms/block on "
+          f"{card}")
     # the fleet, twice over the same blocks: stage-batched and per group;
     # the CPU check of the stage-batched run after both timed runs
     cfgs = fleet_configs()

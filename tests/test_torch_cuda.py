@@ -11,8 +11,9 @@ thread block or time tile.  Inputs come from a numpy seed.  Kernels and
 plain versions share f32 arithmetic but not the order of their sums, so
 FIR outputs are held to SNR >= 100 dB; the biquad-cascade kernels
 repeat their plain versions' operations in order and are held to 120 dB
-(`AGC_DB`), K11 and SAM's fused sideband stage also bit for bit (every
-output and state); the AGC kernels K3 and K13, which repeat them too and are
+(`AGC_DB`), K11, K14 and SAM's fused sideband stage also bit for bit
+(every output and state; K14 also on edge streams and past 512 groups a
+block); the AGC kernels K3 and K13, which repeat them too and are
 built with -fmad=false, must be bit-exact (K3 at w from 48 to 256, over
 one step, a tile less and more one and one tile; its shared memory is
 `agc_geometry`'s); the PLL kernels' cos/sin/audio to max |err| <= 2e-5 (they repeat
@@ -1497,10 +1498,13 @@ def test_dispatch_takes_k11_where_blocks_do_not_chunk(dev):
 
 
 @pytest.mark.parametrize("C,T,L", [(40, 4096, 32), (9, 1000, 32),
-                                   (16, 512, 16), (5, 4000, 64)])
+                                   (16, 512, 16), (5, 4000, 64),
+                                   (7, 2051, 32)])
 def test_grouped_kernel_matches_plain_and_k11(dev, C, T, L):
-    """K14 repeats its plain version's operations in order (120 dB) and
-    gives K11's result (90 dB); T = 1000 and 4000 end inside a group."""
+    """K14 repeats its plain version's operations in order, bit for bit on
+    the output and the state over two streamed blocks, and gives K11's
+    result (90 dB); T = 1000 and 4000 end inside a group, 2051 (rows not
+    16-byte aligned, 4-byte copies) inside a group of its third tile."""
     rng = np.random.default_rng(23)
     for cset in (sam_mod.C0, sam_mod.C1):
         sos = torch.from_numpy(sam_mod.allpass_sos(cset)).to(dev)
@@ -1517,8 +1521,85 @@ def test_grouped_kernel_matches_plain_and_k11(dev, C, T, L):
             yp, sp = iir_k.biquad_grouped_plain(sos, sp, x, L)
             yq, sq = iir_k.biquad_cascade(sos, sq, x)
             torch.cuda.synchronize()
-            assert snr_db(yp, yk) >= AGC_DB and snr_db(sp, sk) >= AGC_DB
+            assert torch.equal(yp, yk) and torch.equal(sp, sk)
             assert snr_db(yq, yk) >= K2_DB and snr_db(sq, sk) >= K2_DB
+
+
+@pytest.mark.parametrize("L,C,lengths,offset", [
+    (32, 40, (1000, 3100, 64), 0), (16, 33, (513 * 16, 700), 1),
+    (64, 70, (2048, 1), 0), (32, 600, (4096, 96), 3)])
+def test_grouped_kernel_bit_exact_streams(dev, L, C, lengths, offset):
+    """K14 bit for bit against its plain version from a random state over
+    streamed blocks: blocks that end inside a group and a tile, a block
+    past PR 5's 512 groups (513 x 16), one sample, rows not 16-byte
+    aligned (x at an offset), a launch of four warps a block."""
+    rng = np.random.default_rng(26)
+    sos = torch.from_numpy(sam_mod.allpass_sos(sam_mod.C1)).to(dev)
+    S = sos.shape[0]
+    sk = sp = torch.from_numpy((rng.standard_normal((S, C, 2)) * 1e-2)
+                               .astype(np.float32)).to(dev)
+    for T in lengths:
+        buf = torch.from_numpy(rng.standard_normal(C * T + offset)
+                               .astype(np.float32)).to(dev)
+        x = buf[offset:].view(C, T)
+        yk, sk = iir_k.biquad_cascade(sos, sk, x, impl="grouped",
+                                      group_len=L)
+        yp, sp = iir_k.biquad_grouped_plain(sos, sp, x, L)
+        torch.cuda.synchronize()
+        assert torch.equal(yp, yk) and torch.equal(sp, sk)
+
+
+@pytest.mark.parametrize("L", [16, 32, 64])
+def test_grouped_kernel_holds_edge_streams(dev, L):
+    """K14 on +-0, +-inf, a NaN and subnormals in x and from a NaN carried
+    state: bit-equal to its plain version on output and state, a NaN
+    matching a NaN, over two blocks (the second ragged)."""
+    C = 24
+    rng = np.random.default_rng(27)
+    sos = torch.from_numpy(sam_mod.allpass_sos(sam_mod.C0)).to(dev)
+    S = sos.shape[0]
+    s0 = torch.from_numpy((rng.standard_normal((S, C, 2)) * 1e-2)
+                          .astype(np.float32))
+    s0[3, 5, 0] = float("nan")                  # channel 5: a NaN state
+    s0[:, 6] = -0.0                             # channel 6: -0 states
+    sk = sp = s0.to(dev)
+    tiny = np.float32(1e-40)                    # subnormal
+    for T in (64 * L, 40 * L + 7):
+        x = (rng.standard_normal((C, T)) * 0.1).astype(np.float32)
+        x[0] = 0.0
+        x[1] = -0.0
+        x[2, T // 3] = np.inf
+        x[3, T // 2] = -np.inf
+        x[4, T // 5] = np.nan
+        x[6] = -0.0
+        x[7, ::3] = tiny
+        x[8] = tiny * rng.standard_normal(T).astype(np.float32)
+        x[9, 5::7] = -0.0
+        xt = torch.from_numpy(x).to(dev)
+        yk, sk = iir_k.biquad_cascade(sos, sk, xt, impl="grouped",
+                                      group_len=L)
+        yp, sp = iir_k.biquad_grouped_plain(sos, sp, xt, L)
+        torch.cuda.synchronize()
+        assert _same(yp, yk) and _same(sp, sk)
+        assert bool(yk[4, T // 5:].isnan().all()) and bool(
+            yk[5].isnan().all())
+        assert torch.isfinite(yk[10:]).all()
+
+
+def test_grouped_smem_matches_the_rule(dev):
+    """The library's K14 layout and shared memory are `grouped_geometry`'s
+    at every group length, section count and block width, within the
+    card's opt-in limit; it refuses L = 48, 9 sections and 5 warps."""
+    lib = iir_k._grouped_lib()
+    for L in iir_k.GROUP_LENS:
+        for S in range(1, 9):
+            for C in (1, 40, 300, 16384):
+                geo = iir_k.grouped_geometry(C, 4096, L, S)
+                assert lib.uhsdr_biquad_grouped_smem(L, S, geo.warps) == \
+                    geo.smem <= build.SMEM_OPT_IN
+    assert lib.uhsdr_biquad_grouped_smem(48, 7, 4) == -1
+    assert lib.uhsdr_biquad_grouped_smem(32, 9, 4) == -1
+    assert lib.uhsdr_biquad_grouped_smem(32, 7, 5) == -1
 
 
 @pytest.mark.parametrize("iq_rate,C,B,dtype", [
@@ -1618,10 +1699,13 @@ def test_slice5_wrappers_refuse_what_the_kernels_do_not_take(dev):
     s7 = torch.zeros((7, 4, 2), device=dev)
     with pytest.raises(ValueError):                 # group length 48
         iir_k.biquad_cascade(sos, s7, x, impl="grouped", group_len=48)
-    with pytest.raises(ValueError):                 # more than 512 groups
-        iir_k.biquad_cascade(sos, s7, torch.zeros((4, 513 * 16),
-                                                  device=dev),
-                             impl="grouped", group_len=16)
+    # more than 512 groups (PR 5's kernel refused them): runs, and holds
+    x513 = torch.randn((4, 513 * 16), device=dev) * 0.1
+    yk, sk = iir_k.biquad_cascade(sos, s7, x513, impl="grouped",
+                                  group_len=16)
+    yp, sp = iir_k.biquad_grouped_plain(sos, s7, x513, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(yp, yk) and torch.equal(sp, sk)
     cfg = rx.RxConfig(**{**FLAGSHIP, "mode": "ssbstereo"})
     pp = rx.make_params(cfg, dev)
     xi = torch.zeros((4, 256), dtype=torch.int16, device=dev)

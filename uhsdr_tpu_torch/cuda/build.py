@@ -161,6 +161,23 @@ def build_all():
     return {k.name: k.build_log for k in _ALL}
 
 
+def resource_usage(lib: pathlib.Path) -> dict:
+    """{entry function (mangled): {"registers", "stack", "local"}} of a
+    built library, from `cuobjdump --dump-resource-usage` (local memory
+    past the stack is where registers spill)."""
+    cuobjdump = pathlib.Path(nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "--dump-resource-usage",
+                           str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for m in re.finditer(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) "
+                         r"SHARED:\d+ LOCAL:(\d+)", text):
+        out[m.group(1)] = {"registers": int(m.group(2)),
+                           "stack": int(m.group(3)),
+                           "local": int(m.group(4))}
+    return out
+
+
 def kernels() -> list[CudaKernel]:
     from . import agc, alc, elemwise, fir, iir, pll, sam  # noqa: F401
     return list(_ALL)

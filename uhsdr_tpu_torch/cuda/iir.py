@@ -17,7 +17,9 @@ tile ring (`cuda/sam.py`, `kernels/sam.cu`), and K11 runs the cascade
 blocks the blocked form cannot chunk (`cascade_dispatch`) and the
 `biquad_cascade` entry.  Its launch rule is `biquad_geometry`.  K14
 replaces ::_make_kernel_grouped (:112), `biquad_cascade_pallas(impl=
-"grouped")`: the same function by a two-level scan.  K2 replaces
+"grouped")`: the same function by a two-level scan, tiled as the TPU
+kernel is at t_tile = 32 L (a warp a row, a lane a group); its launch
+rule is `grouped_geometry`.  K2 replaces
 ::_make_blocked_kernel (:224), `biquad_cascade_blocked_pallas` (:263):
 the whole cascade in 128-sample chunks with the exact chunk carry, the
 chains' PreFilter, FM squelch HPF and TX voice bandpass.  What bounds
@@ -34,7 +36,8 @@ import torch
 
 from ..ops import iir as iir_ops
 from . import ring
-from .build import CudaKernel, derived, sm_count, stream_ptr
+from .build import (CudaKernel, derived, resource_usage, sm_count,
+                    stream_ptr)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,10 +51,14 @@ BIQUAD = CudaKernel("biquad", "biquad.cu", {
     "uhsdr_biquad_tile": ([], _I),
     "uhsdr_biquad_stages": ([], _I),
     "uhsdr_biquad_smem": ([_I], _I),
-    "uhsdr_biquad_grouped_launch": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-                                    _I),
-    "uhsdr_biquad_grouped_max_groups": ([], _I),
+    "uhsdr_biquad_grouped_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                                     _P, _P], _I),
     "uhsdr_biquad_grouped_levels": ([], _I),
+    "uhsdr_biquad_grouped_head": ([], _I),
+    "uhsdr_biquad_grouped_warps": ([], _I),
+    "uhsdr_biquad_grouped_stages": ([], _I),
+    "uhsdr_biquad_grouped_blocks_per_sm": ([_I], _I),
+    "uhsdr_biquad_grouped_smem": ([_I, _I, _I], _I),
 }, extra_flags=("-fmad=false",))
 # one source and library, counted apart: K14, the grouped scan
 BIQUAD_GROUPED = CudaKernel("biquad_grouped", "biquad.cu", lib_of=BIQUAD)
@@ -68,8 +75,20 @@ BLOCKED = CudaKernel("blocked", "blocked.cu", {
     "uhsdr_blocked_smem": ([_I], _I),
 })
 
-GROUP_LENS = (16, 32, 64)     # the group lengths K14 is built for
-GROUPED_LEVELS = 9            # (A^L)^(2^j), j < 9: up to 512 groups
+# K14's layout, as `kernels/biquad.cu` defines it (checked against the
+# library's getters when it is first loaded): the group lengths it is
+# built for, groups a tile (a lane each), levels of (A^L)^(2^j) (log2 of
+# the groups), a section record's head (5 coefficients, 3 pad floats),
+# most warps (rows) a block, tiles in a warp's ring, blocks an SM by
+# group length (its __launch_bounds__), the most sections
+GROUP_LENS = (16, 32, 64)
+GROUPED_TILE_GROUPS = 32
+GROUPED_LEVELS = 5
+GROUPED_HEAD = 8
+GROUPED_WARPS = 4
+GROUPED_STAGES = 2
+GROUPED_BLOCKS_PER_SM = {16: 8, 32: 5, 64: 2}
+GROUPED_MAX_SECTIONS = 8
 
 
 def _need(cond: bool, msg: str):
@@ -130,26 +149,107 @@ def biquad_cascade_plain(sos, state, x):
     return iir_ops.biquad_cascade_block(sos, state, x)
 
 
-@functools.lru_cache(maxsize=64)
-def _grouped_table_np(sos_key: tuple, L: int) -> np.ndarray:
-    """K14's per-section records, from float64 as the TPU kernel builds
-    them (pallas/iir.py:133-144): [b0, b1 - a1 b0, b2 - a2 b0, -a1, -a2],
-    then A^1 .. A^L and (A^L)^(2^j) for j < GROUPED_LEVELS, each 2 x 2
-    row-major, A = [[-a1, 1], [-a2, 0]]; rounded to f32 once."""
+class GroupedGeometry(NamedTuple):
+    """K14's launch (`kernels/biquad.cu::biquad_grouped_kernel`)."""
+    warps: int      # warps a block: one row each
+    resident: int   # blocks an SM holds (the kernel's launch bounds)
+    tile: int       # samples a tile: 32 groups of L
+    tiles: int      # tiles a row, the last ragged where T % tile
+    blocks: int     # the grid
+    smem: int       # dynamic shared memory a block, bytes
+
+
+def grouped_smem(L: int, S: int, warps: int) -> int:
+    """K14's dynamic shared memory a block: S section records (the head,
+    A^1..A^L, the levels) and each warp's ring of GROUPED_STAGES tiles of
+    32 rows of L + 4 floats and its two carry buffers of 2 x 8 floats."""
+    rec = GROUPED_HEAD + 4 * L + 4 * GROUPED_LEVELS
+    per_warp = (GROUPED_STAGES * GROUPED_TILE_GROUPS * (L + 4)
+                + 4 * GROUPED_MAX_SECTIONS)
+    return 4 * (S * rec + warps * per_warp)
+
+
+def grouped_geometry(C: int, T: int, L: int, S: int,
+                     sms: int = ring.SMS) -> GroupedGeometry:
+    """K14's launch rule for C rows of T samples through S sections in
+    groups of L: one warp a row, as many warps a block (up to
+    GROUPED_WARPS, one per scheduler) as spread the rows over at most
+    `sms` blocks, so a narrow launch still reaches every SM; at 16384
+    rows 4096 blocks of four warps, GROUPED_BLOCKS_PER_SM[L] of them an
+    SM (by registers: 2 L floats a lane; and by shared memory).  Raises
+    ValueError for a launch the kernel does not take."""
+    _need(L in GROUP_LENS, f"biquad_cascade: group_len {L} not in "
+                           f"{GROUP_LENS}")
+    _need(1 <= S <= GROUPED_MAX_SECTIONS and C >= 1 and T >= 1 and sms >= 1,
+          f"biquad_cascade: {S} sections, {C} rows of {T} samples, "
+          f"{sms} SMs")
+    warps = min(GROUPED_WARPS, -(-C // sms))
+    tile = GROUPED_TILE_GROUPS * L
+    return GroupedGeometry(warps, GROUPED_BLOCKS_PER_SM[L], tile,
+                           -(-T // tile), -(-C // warps),
+                           grouped_smem(L, S, warps))
+
+
+def grouped_resources(lib) -> dict:
+    """{L: registers, stack and local (spill) bytes of K14's instance} in
+    a built biquad.cu library (`build.resource_usage`); None for an
+    instance it lacks."""
+    use = resource_usage(lib)
+    return {L: next((u for f, u in use.items()
+                     if f"biquad_grouped_kernelILi{L}E" in f), None)
+            for L in GROUP_LENS}
+
+
+def _grouped_lib():
+    """K14's library (K11's), its layout checked against this module's
+    when it is first used (the mark lives on the library)."""
+    lib = _biquad_lib()
+    if not getattr(lib, "grouped_checked", False):
+        got = (lib.uhsdr_biquad_grouped_levels(),
+               lib.uhsdr_biquad_grouped_head(),
+               lib.uhsdr_biquad_grouped_warps(),
+               lib.uhsdr_biquad_grouped_stages(),
+               lib.uhsdr_biquad_max_sections(),
+               {L: lib.uhsdr_biquad_grouped_blocks_per_sm(L)
+                for L in GROUP_LENS})
+        want = (GROUPED_LEVELS, GROUPED_HEAD, GROUPED_WARPS, GROUPED_STAGES,
+                GROUPED_MAX_SECTIONS, GROUPED_BLOCKS_PER_SM)
+        if got != want:
+            raise RuntimeError(f"biquad.cu's K14 layout {got} differs from "
+                               f"cuda/iir.py's {want}")
+        lib.grouped_checked = True
+    return lib
+
+
+def grouped_powers(sos_key: tuple, L: int, levels: int):
+    """Per section of the flat (S x 5) `sos_key`, from float64 as the TPU
+    kernel builds them (pallas/iir.py:133-144): the head [b0, b1 - a1 b0,
+    b2 - a2 b0, -a1, -a2], A^1 .. A^L and (A^L)^(2^j) for j < `levels`,
+    A = [[-a1, 1], [-a2, 0]]."""
     sos = np.asarray(sos_key, np.float64).reshape(-1, 5)
-    recs = []
+    out = []
     for b0, b1, b2, a1, a2 in sos:
         A = np.array([[-a1, 1.0], [-a2, 0.0]])
         powers = [A]
         for _ in range(L - 1):
             powers.append(powers[-1] @ A)
-        levels, M = [], powers[-1]
-        for _ in range(GROUPED_LEVELS):
-            levels.append(M)
+        lv, M = [], powers[-1]
+        for _ in range(levels):
+            lv.append(M)
             M = M @ M
-        recs.append(np.concatenate(
-            [[b0, b1 - a1 * b0, b2 - a2 * b0, -a1, -a2]]
-            + [P.reshape(-1) for P in powers + levels]))
+        out.append(([b0, b1 - a1 * b0, b2 - a2 * b0, -a1, -a2], powers, lv))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _grouped_table_np(sos_key: tuple, L: int) -> np.ndarray:
+    """K14's per-section records (`grouped_powers`), rounded to f32 once:
+    the head padded with zeros to GROUPED_HEAD floats, then A^1 .. A^L
+    and the GROUPED_LEVELS levels, 2 x 2 row-major each."""
+    recs = [np.concatenate([head, np.zeros(GROUPED_HEAD - 5)]
+                           + [M.reshape(-1) for M in powers + lv])
+            for head, powers, lv in grouped_powers(sos_key, L,
+                                                   GROUPED_LEVELS)]
     return np.concatenate(recs).astype(np.float32)
 
 
@@ -161,72 +261,89 @@ def grouped_table(sos: torch.Tensor, L: int) -> torch.Tensor:
                                 .tolist()), L), device=sos.device))
 
 
+def _grouped_tile_section(rec, s1, s2, xg, t_last: int, g_last: int):
+    """One section of K14's plain version on one tile: xg (C, G, L) in,
+    y (C, G, L) out; (s1, s2) (C,) the carried state, folded into the
+    tile's sample 0.  Returns (y, (C, 2) end state at group g_last,
+    sample t_last)."""
+    h = GROUPED_HEAD
+    L = xg.shape[-1]
+    f32 = functools.partial(torch.tensor, dtype=torch.float32)
+    b0, g1, g2, a11, a21 = (f32(float(v)) for v in rec[:5])
+    P = rec[h:h + 4 * L].reshape(L, 4).tolist()    # A^(l+1), row-major
+    Q = rec[h + 4 * L:].reshape(-1, 4)
+    C, G = xg.shape[:2]
+    # phase 1: the local scans of all groups at once
+    c1 = g1 * xg
+    c2 = g2 * xg
+    c1[:, 0, 0] = c1[:, 0, 0] + (a11 * s1 + s2)
+    c2[:, 0, 0] = c2[:, 0, 0] + a21 * s1
+    v1p = torch.zeros((C, G), dtype=xg.dtype, device=xg.device)
+    v2p = torch.zeros_like(v1p)
+    v1 = []
+    for l in range(L):
+        n1 = c1[..., l] + a11 * v1p + v2p
+        n2 = c2[..., l] + a21 * v1p
+        v1.append(n1)
+        v1p, v2p = n1, n2
+        if l == t_last:
+            v2end = n2[:, g_last]
+    # phase 2: the scan over the group ends
+    e1, e2 = v1p.clone(), v2p.clone()
+    for j, q in enumerate(Q):
+        d = 1 << j
+        p1, p2 = e1[:, :-d], e2[:, :-d]
+        e1[:, d:], e2[:, d:] = (e1[:, d:] + float(q[0]) * p1
+                                + float(q[1]) * p2,
+                                e2[:, d:] + float(q[2]) * p1
+                                + float(q[3]) * p2)
+    # phase 3: the correction and the output
+    zero = torch.zeros((C, 1), dtype=xg.dtype, device=xg.device)
+    q1 = torch.cat([zero, e1[:, :-1]], dim=-1)
+    q2 = torch.cat([zero, e2[:, :-1]], dim=-1)
+    prev = torch.cat([s1[:, None], q1[:, 1:]], dim=-1)
+    ys = []
+    for l in range(L):
+        u1 = v1[l] + P[l][0] * q1 + P[l][1] * q2
+        ys.append(b0 * xg[..., l] + prev)
+        prev = u1
+        if l == t_last:
+            s1_end = u1[:, g_last]
+    s2_end = (v2end + P[t_last][2] * q1[:, g_last]
+              + P[t_last][3] * q2[:, g_last])
+    return torch.stack(ys, dim=-1), torch.stack([s1_end, s2_end], dim=-1)
+
+
 def biquad_grouped_plain(sos, state, x, group_len: int = 32):
-    """Plain torch version of K14: per section, the local scans of all
-    groups of `group_len` samples at once (a loop over the group's
-    samples), the scan over the group ends with (A^L)^(2^j) (a loop over
-    the levels), the correction by A^(l+1) and the output; the operations
-    and their order are the kernel's.  A ragged last group is padded with
-    zeros and the end state read at T-1.  sos (S, 5); state (S, C, 2); x
-    (C, T).  Returns (y (C, T), new_state (S, C, 2))."""
+    """Plain torch version of K14, the TPU kernel's tiling at t_tile = 32
+    group_len: tile by tile, the state carried between tiles, each
+    section's local scans of the tile's 32 groups at once (a loop over a
+    group's samples), the scan over the group ends with (A^L)^(2^j) (a
+    loop over the five levels), the correction by A^(l+1) and the output;
+    the operations and their order are the kernel's.  A ragged last tile
+    is padded with zeros and its end state read at T-1.  sos (S, 5);
+    state (S, C, 2); x (C, T).  Returns (y (C, T), new_state (S, C,
+    2))."""
     L = group_len
     S = sos.shape[0]
     C, T = x.shape
-    G = -(-T // L)
-    tab = grouped_table(sos, L).reshape(S, -1).cpu()
-    t_last, g_last = (T - 1) % L, G - 1
-    xg = torch.nn.functional.pad(x, (0, G * L - T)).reshape(C, G, L)
-    new_state = []
-    for k in range(S):
-        rec = [float(v) for v in tab[k]]
-        b0, g1, g2, a11, a21 = rec[:5]
-        P = np.asarray(rec[5:5 + 4 * L], np.float32).reshape(L, 4)
-        Q = np.asarray(rec[5 + 4 * L:], np.float32).reshape(-1, 4)
-        f32 = functools.partial(torch.tensor, dtype=torch.float32)
-        b0, g1, g2, a11, a21 = (f32(v) for v in (b0, g1, g2, a11, a21))
-        s10, s20 = state[k, :, 0], state[k, :, 1]
-        c1 = g1 * xg
-        c2 = g2 * xg
-        c1[:, 0, 0] = c1[:, 0, 0] + (a11 * s10 + s20)
-        c2[:, 0, 0] = c2[:, 0, 0] + a21 * s10
-        v1p = torch.zeros((C, G), dtype=x.dtype, device=x.device)
-        v2p = torch.zeros_like(v1p)
-        v1 = []
-        for l in range(L):
-            n1 = c1[..., l] + a11 * v1p + v2p
-            n2 = c2[..., l] + a21 * v1p
-            v1.append(n1)
-            v1p, v2p = n1, n2
-            if l == t_last:
-                v2end = n2[:, g_last]
-        e1, e2 = v1p.clone(), v2p.clone()
-        d = 1
-        for q in Q:
-            if d >= G:
-                break
-            p1, p2 = e1[:, :-d], e2[:, :-d]
-            e1[:, d:], e2[:, d:] = (e1[:, d:] + float(q[0]) * p1
-                                    + float(q[1]) * p2,
-                                    e2[:, d:] + float(q[2]) * p1
-                                    + float(q[3]) * p2)
-            d *= 2
-        zero = torch.zeros((C, 1), dtype=x.dtype, device=x.device)
-        q1 = torch.cat([zero, e1[:, :-1]], dim=-1)
-        q2 = torch.cat([zero, e2[:, :-1]], dim=-1)
-        prev = torch.cat([s10[:, None], q1[:, 1:]], dim=-1)
-        ys = []
-        for l in range(L):
-            u1 = v1[l] + float(P[l, 0]) * q1 + float(P[l, 1]) * q2
-            ys.append(b0 * xg[..., l] + prev)
-            prev = u1
-            if l == t_last:
-                s1_end = u1[:, g_last]
-        s2_end = (v2end + float(P[t_last, 2]) * q1[:, g_last]
-                  + float(P[t_last, 3]) * q2[:, g_last])
-        xg = torch.stack(ys, dim=-1)
-        new_state.append(torch.stack([s1_end, s2_end], dim=-1))
-    y = xg.reshape(C, G * L)[:, :T].contiguous()
-    return y, torch.stack(new_state, dim=0)
+    TL = GROUPED_TILE_GROUPS * L
+    n_tiles = -(-T // TL)
+    tab = grouped_table(sos, L).reshape(S, -1).cpu().numpy()
+    xt = torch.nn.functional.pad(x, (0, n_tiles * TL - T)).reshape(
+        C, n_tiles, GROUPED_TILE_GROUPS, L)
+    carry = [(state[k, :, 0], state[k, :, 1]) for k in range(S)]
+    ys = []
+    for j in range(n_tiles):
+        n = min(TL, T - j * TL)
+        xg = xt[:, j]
+        for k in range(S):
+            xg, end = _grouped_tile_section(tab[k], *carry[k], xg,
+                                            (n - 1) % L, (n - 1) // L)
+            carry[k] = (end[:, 0], end[:, 1])
+        ys.append(xg.reshape(C, TL))
+    y = torch.cat(ys, dim=-1)[:, :T].contiguous()
+    return y, torch.stack([torch.stack(c, dim=-1) for c in carry], dim=0)
 
 
 def biquad_cascade(sos, state, x, impl: str = "sequential",
@@ -234,10 +351,11 @@ def biquad_cascade(sos, state, x, impl: str = "sequential",
     """S-section biquad cascade.  sos: (S, 5) f32 rows [b0, b1, b2, a1,
     a2]; state: (S, C, 2) f32 DF2T states; x: (C, T) f32.  impl
     "sequential" is K11 (the recurrence, one lane a channel, launched by
-    `biquad_geometry`); "grouped"
-    is K14 (the two-level scan in groups of `group_len` samples, the
-    counterpart of `biquad_cascade_pallas(impl="grouped")`).  Returns
-    (y (C, T), new_state (S, C, 2))."""
+    `biquad_geometry`); "grouped" is K14 (the two-level scan in groups
+    of `group_len` samples, tiles of 32 groups, any T, launched by
+    `grouped_geometry`: the counterpart of `biquad_cascade_pallas(impl=
+    "grouped", t_tile=32 * group_len)`).  Returns (y (C, T), new_state
+    (S, C, 2))."""
     _need(impl in ("sequential", "grouped"),
           f"biquad_cascade: impl {impl!r} is not sequential or grouped")
     grouped = impl == "grouped"
@@ -258,23 +376,18 @@ def biquad_cascade(sos, state, x, impl: str = "sequential",
     _f32_on((sos, state, x), dev, "biquad_cascade")
     y = torch.empty_like(x)
     new_state = torch.empty_like(state)
+    vec = int(T % 4 == 0 and x.data_ptr() % 16 == 0
+              and y.data_ptr() % 16 == 0)
     if grouped:
-        _need(group_len in GROUP_LENS
-              and lib.uhsdr_biquad_grouped_levels() == GROUPED_LEVELS,
-              f"biquad_cascade: group_len {group_len} not in {GROUP_LENS}")
-        G = -(-T // group_len)
-        _need(G <= lib.uhsdr_biquad_grouped_max_groups(),
-              f"biquad_cascade: {G} groups of {group_len} exceed "
-              f"{lib.uhsdr_biquad_grouped_max_groups()}")
+        geo = grouped_geometry(C, T, group_len, S, sm_count(dev.index))
         tab = grouped_table(sos, group_len)
-        err = lib.uhsdr_biquad_grouped_launch(
+        err = _grouped_lib().uhsdr_biquad_grouped_launch(
             x.data_ptr(), state.data_ptr(), tab.data_ptr(), S, C, T,
-            group_len, y.data_ptr(), new_state.data_ptr(), stream_ptr(dev))
+            group_len, geo.warps, vec, y.data_ptr(), new_state.data_ptr(),
+            stream_ptr(dev))
         counter = BIQUAD_GROUPED
     else:
         geo = biquad_geometry(C, T, sm_count(dev.index))
-        vec = int(T % 4 == 0 and x.data_ptr() % 16 == 0
-                  and y.data_ptr() % 16 == 0)
         err = lib.uhsdr_biquad_launch(
             x.data_ptr(), state.data_ptr(), sos.data_ptr(), S, C, T,
             geo.lanes, vec, y.data_ptr(), new_state.data_ptr(),

@@ -61,7 +61,17 @@ first phase that fails:
    hang_level], at 8192 x 2048), and the linked stereo AGC stage, scalar
    and with rows (8192 x 2 x 2048 at w 48, scalar also 1024 x 2 x 4096 at
    w 96; the last block an edge stream; bit for bit; timed beside the
-   route it replaced, torch around K13, and K13 alone).  Each streams 2-4
+   route it replaced, torch around K13, and K13 alone); then the RX
+   options' four helper kernels, which have no TPU counterpart, bit for
+   bit with edge streams (+-0, +-inf, a NaN, subnormals, 1e30, a NaN
+   state) and channels 0-7 alone against the batch: the IQ correction
+   (iqcorr.cu, 8192 x 16384 int16 imbalanced planes, then f32 edge
+   planes), both instances of lms.cu (the 96-tap NLMS notch and the
+   64-tap NLMS NR; the leaky NR and the leaky notch; both output modes;
+   8192 x 2048 @ 12 kHz), the noise blanker (blanker.cu, impulsive audio,
+   repairs across frames and blocks) and the spectral NR's gain machine
+   (nr.cu, 8192 x 16 frames of 129 bins, through the 20-frame bootstrap
+   and past it).  Each streams 2-4
    blocks at its main path's shapes (8192 channels; K11 and K14 at the
    16384 stacked channels SAM gives them; the ALC's plain loop at 4096
    samples), the middle block ragged where the kernel has a tile or a
@@ -84,7 +94,13 @@ first phase that fails:
    flagship with UHSDR_FRONT_MT=1 set around it alone (`ssb_mt`: K15 in
    place of K1); then, at 1024 channels and 4 timed blocks, the wide-SSB
    flagship untranslated (K6), the FM flagship with squelch and subtone
-   detection, iq on the flagship's row and SAM stereo.  Then `TxChain` at
+   detection, iq on the flagship's row and SAM stereo; then the RX
+   options: `ssb_opts` (the SSB flagship with the IQ correction, the
+   notch, the blanker and the NR) and `ssb_leaky` (with the leaky LMS)
+   at 8192 channels and 8 timed blocks, `am_nb` (AM on the AM/SAM
+   flagship with the blanker) and `ssbstereo_nr` (the two-channel
+   flagship with the NR) at 1024 channels and 4 (where the notch runs,
+   channel 0's steady tone must be gone instead of found).  Then `TxChain` at
    the TX flagship (usb, 8192 ch x 16384 f32 audio @ 48 kHz, 8 timed
    blocks) and at 1024 channels lsb, am, cw and the legacy-front lsb.
    Then the entry paths `biquad_grouped` and `biquad`: SAM usb's stacked
@@ -124,10 +140,13 @@ first phase that fails:
    path.  Output and state must be
    finite, channels 0-7 must match the port's CPU chain (plain versions)
    over the first 3 blocks at SNR >= 80 dB on the output and on every
-   state leaf (boolean and integer leaves equal), and channel 0's test
+   state leaf (boolean and integer leaves equal; the NR's per-bin leaves
+   over the bins of its band; where the notch runs, in two halves: the
+   front's output, and the rest of the chain on the CPU from the card's
+   front output, see main_path), and channel 0's test
    tone must come out of the last block where it belongs (RX: 700 Hz,
    FM 1 kHz; TX: above or below the translate frequency, the AM and CW
-   carriers);
+   carriers; where the notch runs, the tone must be gone);
 5. prints one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
    device line.
 
@@ -154,16 +173,24 @@ from uhsdr_tpu_torch import (trace_agc, trace_blocked, trace_rx, trace_sam,
 from uhsdr_tpu_torch.chain import filterpaths, rx, tx
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import alc as alc_k
+from uhsdr_tpu_torch.cuda import blanker as nb_k
 from uhsdr_tpu_torch.cuda import build
 from uhsdr_tpu_torch.cuda import elemwise as ew_k
 from uhsdr_tpu_torch.cuda import fir as fir_k
 from uhsdr_tpu_torch.cuda import iir as iir_k
+from uhsdr_tpu_torch.cuda import iqcorr as iq_k
+from uhsdr_tpu_torch.cuda import lms as lms_k
+from uhsdr_tpu_torch.cuda import nr as nr_k
 from uhsdr_tpu_torch.cuda import pll as pll_k
 from uhsdr_tpu_torch.cuda import sam as sam_k
 from uhsdr_tpu_torch.metrics import snr_db
+from uhsdr_tpu_torch.nr import blanker as nb_mod
+from uhsdr_tpu_torch.nr import spectral as nr_mod
 from uhsdr_tpu_torch.ops import agc as agc_ops
 from uhsdr_tpu_torch.ops import channelizer as chz
+from uhsdr_tpu_torch.ops import fftutil
 from uhsdr_tpu_torch.ops import fir as fir_ops
+from uhsdr_tpu_torch.ops import lms as lms_ops
 from uhsdr_tpu_torch.ops import nco
 from uhsdr_tpu_torch.parallel import fleet as pfleet
 
@@ -2377,14 +2404,368 @@ def phase_front_mt(P, dev, gen):
 # the main paths
 # ---------------------------------------------------------------------------
 
-def state_snrs(ref: dict, got: dict) -> dict:
+# ---------------------------------------------------------------------------
+# the RX options' helper kernels (no TPU counterpart: the JAX package runs
+# each as a lax.scan): IQ correction, NLMS / leaky LMS, the noise blanker,
+# the spectral NR's gain machine
+# ---------------------------------------------------------------------------
+
+def opt_edges(x: torch.Tensor, n0: int) -> torch.Tensor:
+    """x (C, T) f32 with edge samples by channel class c % 6: 1 every 11th
+    sample one of +-0, subnormals, 3e38, +-inf; 2 exact zeros (-0 at odd
+    samples); 3 subnormal; 4 one NaN at stream sample 300; 5 scaled to
+    1e30; 0 as given."""
+    x = x.clone()
+    C, T = x.shape
+    dev = x.device
+    n = torch.arange(n0, n0 + T, device=dev)
+    special = torch.tensor([0.0, -0.0, 1e-45, -3e-42, 1e-39, 3e38,
+                            -math.inf, math.inf], device=dev)
+    cls = torch.arange(C, device=dev) % 6
+    pick = n % 11 == 3
+    ri, ci = (cls == 1).nonzero()[:, 0], pick.nonzero()[:, 0]
+    x[ri[:, None], ci[None, :]] = special[(n[pick] // 11) % special.numel()]
+    x[cls == 2] = torch.where(n % 2 == 1, -0.0, 0.0)
+    x[cls == 3] *= 1e-41
+    if n0 <= 300 < n0 + T:
+        x[cls == 4, 300 - n0] = math.nan
+    x[cls == 5] *= 1e30
+    return x
+
+
+def same_bits(name: str, pairs: dict) -> float:
+    """`bits_held` over float pairs (complex as their planes), equality
+    over bool and integer ones."""
+    flt = {}
+    for what, (a, b) in pairs.items():
+        if a.dtype in (torch.bool, torch.int32, torch.int64):
+            n = int((a != b).sum())
+            print(f"  {name} {what}: {n} of {a.numel()} differ")
+            check(n == 0, f"{name} {what}: {n} elements differ")
+        elif a.is_complex():
+            flt[what] = (torch.view_as_real(a), torch.view_as_real(b))
+        else:
+            flt[what] = (a, b)
+    return bits_held(name, flt)
+
+
+def opt_audio(gen, dev, C, T, t0, fs=12000.0, impulses=False):
+    """Decimated-rate audio: a tone gated at 0.35 Hz plus noise, per
+    channel its own level; with `impulses`, impulses of 4000-9000 times
+    the noise every 97 samples and at the edges of frames and blocks."""
+    n = torch.arange(t0, t0 + T, device=dev, dtype=torch.float64)
+    c = torch.arange(C, device=dev, dtype=torch.float64)[:, None]
+    gate = (torch.sin(2 * math.pi * 0.35 / fs * n) > 0).double()
+    x = (0.3 * torch.sin(2 * math.pi * (700.0 + 3.0 * (c % 50)) / fs * n)
+         * (0.2 + gate) * (1.0 + (c % 7)))
+    x = x + 0.05 * torch.randn((C, T), generator=gen, device=dev,
+                               dtype=torch.float64)
+    if impulses:
+        hit = ((n.long() % 97) == 5) | ((n.long() % 128) == 126) | (
+            (n.long() % 128) == 2)
+        k = int(hit.sum())
+        sign = torch.randint(0, 2, (C, k), generator=gen, device=dev) * 2 - 1
+        x[:, hit] += sign * (4.0 + 5.0 * torch.rand(
+            (C, k), generator=gen, device=dev, dtype=torch.float64))
+    return x.float().contiguous()
+
+
+def phase_iqcorr(P, dev, gen):
+    """The IQ correction at the SSB flagship (8192 ch x 16384 int16),
+    three streamed blocks (16384, 4096, 16384) with an imbalance of gain
+    1.07 and phase 0.06 on the planes, then an edge stream of f32 planes
+    (8192 x 4096, a NaN state channel), bit for bit against its plain
+    version on every output and state leaf; channels 0-7 alone bit-equal
+    to the batch."""
+    C = CHANNELS
+    T = CFG.block_len
+    z = torch.zeros((C,), device=dev)
+    tk = tp = (z, z, z)
+    err, first = 0.0, None
+    for blk, B in enumerate((T, 4096, T)):
+        i, q = iq_block(gen, dev, C, B)
+        i = (i.float() * 1.07).round().clamp(-32768, 32767).to(torch.int16)
+        q = (q.float() + 0.06 * i.float()).round().clamp(
+            -32768, 32767).to(torch.int16)
+        if first is None:
+            first = (i, q)
+        got = iq_k.iqcorr(*tk, i, q)
+        ref = iq_k.iqcorr_plain(*tp, i, q)
+        torch.cuda.synchronize()
+        err = max(err, same_bits(f"iqcorr block {blk} ({B} int16)", dict(
+            zip(("i", "q", "t1", "t2", "t3", "c1", "c2", "twin"),
+                zip(ref, got)))))
+        tk, tp = got[2:5], ref[2:5]
+    check(bool((got[6] != 1.0).all()), "iqcorr: c2 never moved")
+    ts = [z.clone(), z.clone(), z.clone()]
+    ts[1][C // 2] = math.nan
+    for blk in range(2):
+        i = opt_edges(torch.randn((C, 4096), generator=gen, device=dev)
+                      * 0.1, 4096 * blk)
+        q = opt_edges(torch.randn((C, 4096), generator=gen, device=dev)
+                      * 0.1, 4096 * blk + 5)
+        got = iq_k.iqcorr(*ts, i, q)
+        ref = iq_k.iqcorr_plain(*ts, i, q)
+        torch.cuda.synchronize()
+        err = max(err, same_bits(f"iqcorr edge block {blk}", dict(
+            zip(("i", "q", "t1", "t2", "t3", "c1", "c2", "twin"),
+                zip(ref, got)))))
+        ts = list(got[2:5])
+    i, q = first
+    full = iq_k.iqcorr(z, z, z, i, q)
+    one = iq_k.iqcorr(z[:8], z[:8], z[:8], i[:8].contiguous(),
+                      q[:8].contiguous())
+    torch.cuda.synchronize()
+    check(all(torch.equal(a[:8], b) for a, b in zip(full, one)),
+          "iqcorr: channels 0-7 alone differ from the batch")
+    del full
+    ms = cuda_ms(lambda: iq_k.iqcorr(z, z, z, i, q), 10)
+    plain_ms = cuda_ms(lambda: iq_k.iqcorr_plain(z, z, z, i, q), 1)
+    # int16 planes in, f32 planes out, the state; about 10 f32 operations
+    # a sample (sign q, |i|, |q|, three tree adds, q + c1 i, i c2)
+    nbytes = 2 * C * T * 2 + 2 * C * T * 4 + 5 * C * 4 * 2
+    r = row("iqcorr", "iqcorr.cu", "uhsdr_tpu/ops/iqcorr.py:56", err=err,
+            snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=10.0 * C * T, tpu_kernel=False,
+            library_note="no PyTorch call computes the IQ correction")
+    print(f"  iqcorr at {C} x {T} int16: {ms:.4f} ms (plain {plain_ms:.1f} "
+          f"ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']}); bit for "
+          f"bit, edge streams too; channels 0-7 alone bit-equal")
+    return r
+
+
+def lms_stream(kind, params, C, lengths, dev, gen, edge=False):
+    """One LMS instance against its plain version over streamed blocks
+    from a fresh state (with `edge`, a NaN weight in one channel and the
+    edge samples), bit for bit on the output and every state leaf.
+    Returns max |err|."""
+    leaky = kind.startswith("leaky")
+    L, D = params.num_taps, params.delay
+    st = [torch.zeros((C, L), device=dev), torch.zeros((C, L + D),
+                                                       device=dev)]
+    if leaky:
+        st += [torch.full((C,), 120.0, device=dev),
+               torch.full((C,), 0.001, device=dev)]
+    if edge:
+        st[0][C // 2, 3] = math.nan
+    sp, err, t0 = list(st), 0.0, 0
+    for blk, T in enumerate(lengths):
+        x = opt_audio(gen, dev, C, T, t0)
+        if edge:
+            x = opt_edges(x, t0)
+        t0 += T
+        if leaky:
+            got = lms_k.leaky(params, *st, x)
+            ref = lms_k.leaky_plain(params, *sp, x)
+        else:
+            got = lms_k.nlms(params, *st, x)
+            ref = lms_k.nlms_plain(params, *sp, x)
+        torch.cuda.synchronize()
+        err = max(err, same_bits(
+            f"{kind}{' edge' if edge else ''} block {blk} ({T} samples)",
+            dict(zip(("y", "w", "hist", "lidx", "ngamma"), zip(ref, got)))))
+        st, sp = list(got[1:]), list(ref[1:])
+    return err
+
+
+def phase_lms(P, dev, gen):
+    """Both instances of lms.cu at the SSB flagship's decimated rate (8192
+    ch x 2048 @ 12 kHz), bit for bit against their plain versions: the
+    96-tap notch (error out) over 2048 + 777 + 2048 samples, the 64-tap
+    NLMS NR (prediction out) over 1024 + 1024, the leaky NR (prediction)
+    over 2048 + 777 + 2048 and the leaky notch (error) over 1024 + 1024;
+    edge streams (a NaN weight, 512 + 512) for the notch and the leaky NR;
+    channels 0-7 alone bit-equal to the batch.  Timed at 8192 x 2048."""
+    C, T = CHANNELS, CFG.block_len // CFG.decim
+    kinds = {"notch": lms_ops.notch_params(), "nlms_nr": lms_ops.nr_params(),
+             "leaky": lms_ops.leaky_lms_params(),
+             "leaky_notch": lms_ops.leaky_lms_params(notch=True)}
+    err = {"lms": 0.0, "lms_leaky": 0.0}
+    for kind, lengths in (("notch", (T, 777, T)), ("nlms_nr", (1024, 1024)),
+                          ("leaky", (T, 777, T)),
+                          ("leaky_notch", (1024, 1024))):
+        name = "lms_leaky" if kind.startswith("leaky") else "lms"
+        err[name] = max(err[name], lms_stream(kind, kinds[kind], C, lengths,
+                                              dev, gen))
+    for kind in ("notch", "leaky"):
+        name = "lms_leaky" if kind.startswith("leaky") else "lms"
+        err[name] = max(err[name], lms_stream(kind, kinds[kind], C,
+                                              (512, 512), dev, gen,
+                                              edge=True))
+    x = opt_audio(gen, dev, C, T, 0)
+    rows_out = []
+    for name, kind in (("lms", "notch"), ("lms_leaky", "leaky")):
+        p = kinds[kind]
+        L, D = p.num_taps, p.delay
+        st = [torch.zeros((C, L), device=dev),
+              torch.zeros((C, L + D), device=dev)]
+        if name == "lms_leaky":
+            st += [torch.full((C,), 120.0, device=dev),
+                   torch.full((C,), 0.001, device=dev)]
+            run = lms_k.leaky
+            plain = lms_k.leaky_plain
+        else:
+            run, plain = lms_k.nlms, lms_k.nlms_plain
+        full = run(p, *st, x)
+        one = run(p, *(t[:8].contiguous() for t in st), x[:8].contiguous())
+        torch.cuda.synchronize()
+        check(all(torch.equal(a[:8], b) for a, b in zip(full, one)),
+              f"{name}: channels 0-7 alone differ from the batch")
+        ms = cuda_ms(lambda: run(p, *st, x), 10)
+        plain_ms = cuda_ms(lambda: plain(p, *st, x), 1)
+        # a tap and sample: the dot's and the norm's product and sum, the
+        # update's two products and sum; ~10 (NLMS) or ~30 (leaky) more a
+        # sample; x in, y out, the weights and history in and out
+        flops = C * T * (7.0 * L + (30.0 if name == "lms_leaky" else 10.0))
+        nbytes = 2 * C * T * 4 + 2 * C * (2 * L + D) * 4
+        r = row(name, "lms.cu", "uhsdr_tpu/ops/lms.py:"
+                + ("96" if name == "lms_leaky" else "133"), err=err[name],
+                snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+                flops=flops, tpu_kernel=False, taps=L, delay=D,
+                library_note="no PyTorch call computes an adaptive filter")
+        print(f"  {name} ({kind}, {L} taps, delay {D}) at {C} x {T}: "
+              f"{ms:.4f} ms (plain {plain_ms:.1f} ms; bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}); bit for bit, "
+              f"edge streams too; channels 0-7 alone bit-equal")
+        rows_out.append(r)
+    return rows_out
+
+
+def phase_blanker(P, dev, gen):
+    """The noise blanker at the SSB flagship's decimated rate (8192 ch x
+    2048 @ 12 kHz), impulsive audio over 2048 + 256 + 2048 samples (repairs
+    across frames and blocks), then an edge stream (a NaN in a carried
+    context, 1024 + 1024), bit for bit against its plain version on the
+    output and the context; channels 0-7 alone bit-equal to the batch."""
+    C, T = CHANNELS, CFG.block_len // CFG.decim
+    mult = nb_mod.make_params(8).threshold_mult
+    err = 0.0
+    for edge, lengths in ((False, (T, 256, T)), (True, (1024, 1024))):
+        ck = torch.zeros((C, nb_k.CONTEXT), device=dev)
+        if edge:
+            ck[C // 2, 20] = math.nan
+        cp, t0 = ck, 0
+        for blk, B in enumerate(lengths):
+            x = opt_audio(gen, dev, C, B, t0, impulses=True)
+            if edge:
+                x = opt_edges(x, t0)
+            t0 += B
+            yk, ck = nb_k.blanker(mult, ck, x)
+            yp, cp = nb_k.blanker_plain(mult, cp, x)
+            torch.cuda.synchronize()
+            err = max(err, same_bits(
+                f"blanker{' edge' if edge else ''} block {blk} ({B})",
+                {"y": (yp, yk), "context": (cp, ck)}))
+    x = opt_audio(gen, dev, C, T, 0, impulses=True)
+    c0 = torch.zeros((C, nb_k.CONTEXT), device=dev)
+    y, c = nb_k.blanker(mult, c0, x)
+    y8, c8 = nb_k.blanker(mult, c0[:8], x[:8].contiguous())
+    torch.cuda.synchronize()
+    delayed = torch.cat([c0[:, nb_k.DELAY:], x], dim=-1)[:, :T]
+    n_rep = int((y != delayed).sum())
+    print(f"  blanker: {n_rep} of {y.numel()} samples repaired at {C} x {T}")
+    check(n_rep > 0, "blanker: nothing repaired")
+    check(torch.equal(y[:8], y8) and torch.equal(c[:8], c8),
+          "blanker: channels 0-7 alone differ from the batch")
+    ms = cuda_ms(lambda: nb_k.blanker(mult, c0, x), 10)
+    plain_ms = cuda_ms(lambda: nb_k.blanker_plain(mult, c0, x), 1)
+    # x in, y out, the context in and out; ~100 f32 operations a sample
+    # (R, the two filters, the variance, the repairs' predictions and
+    # blends, Levinson spread over the frame)
+    nbytes = 2 * C * T * 4 + 2 * C * nb_k.CONTEXT * 4
+    r = row("blanker", "blanker.cu", "uhsdr_tpu/nr/blanker.py:236", err=err,
+            snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=100.0 * C * T, tpu_kernel=False, repaired=n_rep,
+            library_note="no PyTorch call computes the LPC blanker")
+    print(f"  blanker at {C} x {T}: {ms:.4f} ms (plain {plain_ms:.1f} ms; "
+          f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}); bit for bit, "
+          f"edge streams too; channels 0-7 alone bit-equal")
+    return r
+
+
+def nr_spectra(gen, dev, C, nF, f0, edge=False):
+    x = opt_audio(gen, dev, C, (nF + 1) * 128, f0 * 128)
+    if edge:
+        x = opt_edges(x, f0 * 128)
+    win = torch.as_tensor(fftutil.sqrt_hann_sym(256), device=dev)
+    return torch.fft.rfft(fftutil.frame_overlap(x, 256, 128) * win, dim=-1)
+
+
+def phase_nr(P, dev, gen):
+    """The spectral NR's gain machine at the SSB flagship's decimated rate
+    (8192 ch x 16 frames of 129 bins: 2048 samples @ 12 kHz), three
+    streamed blocks through the 20-frame bootstrap and past it, then an
+    edge stream (a NaN in xt, 8 + 8 frames), bit for bit against its
+    plain version on the weighted spectra and every state leaf; channels
+    0-7 alone bit-equal to the batch."""
+    C, nF = CHANNELS, CFG.block_len // CFG.decim // 128
+    nrp = rx.make_params(dataclasses.replace(CFG, nr_enable=True), dev).nr
+    g = nr_k.gain_params(nrp)
+    err = 0.0
+    for edge, frames in ((False, (nF, nF, nF)), (True, (8, 8))):
+        s = nr_mod.init_state((C,), device=dev)
+        st = [s.xt, s.pslp, s.hk_old, s.init_count, s.nest_acc]
+        if edge:
+            st[0] = st[0].clone()
+            st[0][C // 2, 40] = math.nan
+        sp, f0 = list(st), 0
+        for blk, n in enumerate(frames):
+            F = nr_spectra(gen, dev, C, n, f0, edge)
+            f0 += n
+            got = nr_k.nr_gains(g, F.clone(), *st)
+            ref = nr_k.nr_gains_plain(g, F, *sp)
+            torch.cuda.synchronize()
+            err = max(err, same_bits(
+                f"nr{' edge' if edge else ''} block {blk} ({n} frames)",
+                dict(zip(("F", "xt", "pslp", "hk_old", "init_count",
+                          "nest_acc"), zip(ref, got)))))
+            st, sp = list(got[1:]), list(ref[1:])
+    F = nr_spectra(gen, dev, C, nF, 0)
+    s = nr_mod.init_state((C,), device=dev)
+    st = [s.xt, s.pslp, s.hk_old, s.init_count, s.nest_acc]
+    full = nr_k.nr_gains(g, F.clone(), *st)
+    one = nr_k.nr_gains(g, F[:8].clone(), *(t[:8].contiguous() for t in st))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a[:8], b) for a, b in zip(full, one)),
+          "nr: channels 0-7 alone differ from the batch")
+    del full
+    Fk = F.clone()
+    ms = cuda_ms(lambda: nr_k.nr_gains(g, Fk, *st), 10)
+    plain_ms = cuda_ms(lambda: nr_k.nr_gains_plain(g, F, *st), 1)
+    # the spectra in and out (complex64), four (C, 128) state planes and
+    # the counter in and out; ~70 f32 operations a bin and frame
+    nbytes = 2 * C * nF * 129 * 8 + 2 * (4 * C * 128 * 4 + C * 4)
+    r = row("nr", "nr.cu", "uhsdr_tpu/nr/spectral.py:213", err=err,
+            snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=70.0 * C * nF * 128, tpu_kernel=False,
+            library_note="no PyTorch call computes the NR's gain machine "
+                         "(its FFTs are cuFFT, outside the kernel)")
+    print(f"  nr at {C} x {nF} frames: {ms:.4f} ms (plain {plain_ms:.1f} "
+          f"ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']}); bit for "
+          f"bit, edge streams too; channels 0-7 alone bit-equal")
+    return r
+
+
+# the spectral NR's per-bin state leaves
+NR_BIN_LEAVES = ("nr.xt", "nr.pslp", "nr.hk_old", "nr.nest_acc")
+
+
+def state_snrs(ref: dict, got: dict, nr_band=None) -> dict:
     """{leaf: SNR dB} of two `rx.state_to_numpy` dicts; the PLL phase
     through its cosine and sine; integer leaves (the NCO phases, FM's
-    counters) and boolean ones (FM's squelch and tone decisions) by
-    equality."""
+    counters, the NR's frame counter) and boolean ones (FM's squelch and
+    tone decisions, the twin-peaks flag) by equality.  With nr_band = (lo,
+    hi), the NR's per-bin leaves over the bins of its band: outside it
+    the gain is 1 and those bins never reach the audio, and their X is
+    the front's and cascade's rounding floor, which the card and the CPU
+    round apart (pslp there read 55.9 dB card against CPU on an H100,
+    62.7 dB port against the JAX package on the CPU,
+    tests/test_torch_nr.py)."""
     out = {}
     for f, a in ref.items():
         b = got[f]
+        if nr_band is not None and f in NR_BIN_LEAVES:
+            a, b = a[..., nr_band[0]:nr_band[1]], b[..., nr_band[0]:nr_band[1]]
         if a.dtype == bool or a.dtype.kind in "iu":
             out[f] = math.inf if np.array_equal(a, b) else -math.inf
         elif f == "sam.phs":
@@ -2447,11 +2828,27 @@ def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     blocks = trace_rx.capture(n_warm + n_timed, C, dev, seed, cfg)
     chain = rx.RxChain(cfg, device=dev)
     state = chain.init_state((C,))
-    kept, kept_state = [], None
+    kept, kept_state, kept_front = [], None, []
+    # The notch outputs its error, x minus a prediction of x: on a steady
+    # tone the two cancel by 40-50 dB, and the rounding of the front's
+    # output (K1 against the CPU's FIR products, ~130 dB apart) comes out
+    # of the notch that much larger.  Where it runs, the CPU chain is held
+    # to the card's in two halves, each at CHAIN_TOL_DB: the front's
+    # output (the pre-LMS audio), and the rest of the chain run on the
+    # CPU from the card's pre-LMS audio.
+    split = cfg.notch_enable and not fm
 
     def step(blk):
         nonlocal state, kept_state
-        audio, state, taps = chain(state, i=blk[0], q=blk[1])
+        if split:
+            zf, state, taps = rx.process_front(cfg, chain.params, state,
+                                               blk)
+            if len(kept_front) < n_ref:
+                kept_front.append(zf[:ref_ch].clone())
+            audio, state, taps = rx.demod_and_post(cfg, chain.params, state,
+                                                   zf, taps)
+        else:
+            audio, state, taps = chain(state, i=blk[0], q=blk[1])
         if len(kept) < n_ref:
             kept.append(audio[:ref_ch].clone())
             if len(kept) == n_ref:
@@ -2480,21 +2877,35 @@ def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     worst = math.inf
     for blk in range(n_ref):
         i, q = blocks[blk]
-        y_cpu, s_cpu, _ = cpu(s_cpu, i=i[:ref_ch].cpu(), q=q[:ref_ch].cpu())
+        if split:
+            zf, s_cpu, taps_c = rx.process_front(
+                cfg, cpu.params, s_cpu, (i[:ref_ch].cpu(), q[:ref_ch].cpu()))
+            s = snr_db(zf, kept_front[blk].cpu())
+            worst = min(worst, s)
+            print(f"  {label} pre-LMS audio vs CPU chain, block {blk}, ch "
+                  f"0-{ref_ch - 1}: SNR {s:.1f} dB")
+            y_cpu, s_cpu, _ = rx.demod_and_post(
+                cfg, cpu.params, s_cpu, kept_front[blk].cpu(), taps_c)
+        else:
+            y_cpu, s_cpu, _ = cpu(s_cpu, i=i[:ref_ch].cpu(),
+                                  q=q[:ref_ch].cpu())
         s = snr_db(y_cpu, kept[blk].cpu())
         worst = min(worst, s)
-        print(f"  {label} vs CPU chain, block {blk}, ch 0-{ref_ch - 1}: "
-              f"SNR {s:.1f} dB")
+        print(f"  {label} vs CPU chain{' from the pre-LMS audio' if split else ''}"
+              f", block {blk}, ch 0-{ref_ch - 1}: SNR {s:.1f} dB")
 
     def ref_channels(v):
         return np.take(v, range(ref_ch), axis=v.shape.index(C))
 
+    nrp = chain.params.nr
     leaves = state_snrs(rx.state_to_numpy(s_cpu),
                         {f: ref_channels(v) for f, v in
-                         rx.state_to_numpy(kept_state).items()})
+                         rx.state_to_numpy(kept_state).items()},
+                        None if nrp is None else (nrp.vad_low, nrp.vad_high))
     low = min(leaves, key=leaves.get)
     print(f"  {label} state after block {n_ref - 1} vs CPU chain: worst "
-          f"leaf {low} {leaves[low]:.1f} dB of {len(leaves)}")
+          f"leaf {low} {leaves[low]:.1f} dB of {len(leaves)}; under 100 dB: "
+          + ", ".join(f"{f} {v:.1f}" for f, v in leaves.items() if v < 100))
     worst = min(worst, leaves[low])
     check(worst >= CHAIN_TOL_DB,
           f"{label} vs CPU chain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
@@ -2508,7 +2919,18 @@ def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     f_pk = float(freqs[spec.argmax()])
     tone = trace_rx.tone_hz(cfg)
     print(f"  {label} channel 0 audio peak {f_pk:.1f} Hz (tone {tone} Hz)")
-    check(abs(f_pk - tone) < 20.0, f"{label} tone at {f_pk} Hz, not {tone}")
+    if cfg.notch_enable and not fm:
+        # the auto-notch takes the steady tone out: within 20 Hz of it
+        # lies under a tenth of channel 0's audio power
+        share = float((spec[np.abs(freqs - tone) < 20.0] ** 2).sum()
+                      / (spec ** 2).sum())
+        print(f"  {label} channel 0: the notched tone holds {share:.4f} of "
+              f"the audio power")
+        check(share < 0.1, f"{label}: the notch left the tone ({share:.3f} "
+                           f"of the power)")
+    else:
+        check(abs(f_pk - tone) < 20.0,
+              f"{label} tone at {f_pk} Hz, not {tone}")
     return launches, ms_block, msps, worst, n_warm + n_timed
 
 
@@ -3048,6 +3470,17 @@ MAIN_PATHS = (
      4, DEPTH),
     ("sam_stereo", dataclasses.replace(SAM, sam_sideband="stereo"),
      ("fir_rt", "pll", "sam_sideband") + TWO_CH, 4, DEPTH),
+    # the RX options: the SSB flagship with the IQ correction, the notch,
+    # the blanker and the NR; with the leaky LMS; AM with the blanker; the
+    # two-channel flagship with the NR
+    ("ssb_opts", trace_rx.config("ssb_opts"),
+     ("iqcorr", "front", "lms", "blanker", "nr") + SHARED, 8, CHANNELS),
+    ("ssb_leaky", trace_rx.config("ssb_leaky"),
+     ("front", "lms_leaky") + SHARED, 8, CHANNELS),
+    ("am_nb", dataclasses.replace(SAM, mode="am", nb_enable=True),
+     ("fir_rt", "blanker") + SHARED, 4, DEPTH),
+    ("ssbstereo_nr", dataclasses.replace(STEREO, nr_enable=True),
+     ("front_pair", "nr") + TWO_CH, 4, DEPTH),
 )
 PATH_ENV = {"ssb_mt": {"UHSDR_FRONT_MT": "1"}}
 TX_VOICE = ("fir_real", "alc", "blocked")
@@ -3124,7 +3557,8 @@ def main() -> int:
                   phase_front_pair, phase_fir_real, phase_alc,
                   phase_blocked, phase_biquad_grouped, phase_front_mt,
                   phase_agc_rows, phase_agc_scan_rows, phase_agc_stereo,
-                  phase_agc_stereo_rows):
+                  phase_agc_stereo_rows, phase_iqcorr, phase_lms,
+                  phase_blanker, phase_nr):
         t1 = time.time()
         print(f"phase {phase.__name__}:")
         r = phase(P, dev, gen)

@@ -2093,3 +2093,344 @@ def test_failed_builds_of_the_sam_kernels_raise(dev, monkeypatch, which):
         else:
             pll_k.pll_audio(p, 0.9, 0.99, torch.zeros((5, C), device=dev), z)
     assert counter.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# the RX options' helper kernels: IQ correction, NLMS and leaky LMS, the
+# noise blanker, the spectral NR's gain machine (bit for bit against their
+# plain versions, streamed blocks and edge streams)
+# ---------------------------------------------------------------------------
+
+def _edges(rng, x: np.ndarray, n0: int) -> np.ndarray:
+    """x (C, T) f32 with edge samples by channel class c % 6: 0 as given;
+    1 every 11th sample one of +-0, subnormals, 3e38, +-inf; 2 exact zeros
+    (-0 at odd samples); 3 subnormal; 4 one NaN at stream sample 300; 5
+    scaled to 1e30."""
+    x = x.copy()
+    C, T = x.shape
+    n = np.arange(n0, n0 + T)
+    special = np.array([0.0, -0.0, 1e-45, -3e-42, 1e-39, 3e38, -np.inf,
+                        np.inf], np.float32)
+    cls = np.arange(C) % 6
+    pick = n % 11 == 3
+    x[np.ix_(cls == 1, pick)] = special[(n[pick] // 11) % special.size]
+    x[cls == 2] = np.where(n % 2 == 1, -0.0, 0.0).astype(np.float32)
+    x[cls == 3] *= np.float32(1e-41)
+    if n0 <= 300 < n0 + T:
+        x[cls == 4, 300 - n0] = np.nan
+    x[cls == 5] *= np.float32(1e30)
+    return x
+
+
+def _all_same(pairs) -> None:
+    for what, (a, b) in pairs.items():
+        if a.dtype in (torch.bool, torch.int32, torch.int64):
+            assert torch.equal(a.cpu(), b.cpu()), what
+        elif a.is_complex():
+            assert _same(torch.view_as_real(a), torch.view_as_real(b)), what
+        else:
+            assert _same(a, b), what
+
+
+@pytest.mark.parametrize("C,T,dtype,edge", [(37, 4096, "int16", False),
+                                            (5, 1024, "f32", False),
+                                            (31, 2048, "f32", True)])
+def test_iqcorr_kernel_matches_plain(dev, C, T, dtype, edge):
+    from uhsdr_tpu_torch.cuda import iqcorr as iq_k
+    rng = np.random.default_rng(71)
+    ts = [torch.zeros(C, device=dev) for _ in range(3)]
+    if edge:
+        ts[1][C // 2] = float("nan")
+    tp = [t.clone() for t in ts]
+    for b in range(3):
+        n = np.arange(b * T, (b + 1) * T)
+        z = (0.3 * np.exp(2j * np.pi * 0.011 * n)
+             * np.linspace(0.2, 1.0, C)[:, None]
+             + 0.01 * (rng.standard_normal((C, T))
+                       + 1j * rng.standard_normal((C, T))))
+        i_, q_ = z.real * 1.07, z.imag + 0.06 * z.real
+        if dtype == "int16":
+            i = torch.from_numpy(np.round(i_ * 32767).astype(np.int16))
+            q = torch.from_numpy(np.round(q_ * 32767).astype(np.int16))
+        else:
+            i = torch.from_numpy(i_.astype(np.float32))
+            q = torch.from_numpy(q_.astype(np.float32))
+            if edge:
+                i = torch.from_numpy(_edges(rng, i.numpy(), b * T))
+                q = torch.from_numpy(_edges(rng, q.numpy(), b * T + 5))
+        i, q = i.to(dev), q.to(dev)
+        n0 = iq_k.IQCORR.launches
+        got = iq_k.iqcorr(*ts, i, q)
+        assert iq_k.IQCORR.launches == n0 + 1
+        ref = iq_k.iqcorr_plain(*tp, i, q)
+        _all_same({k: (r, g) for k, r, g in zip(
+            ("i", "q", "t1", "t2", "t3", "c1", "c2", "twin"), ref, got)})
+        ts, tp = list(got[2:5]), list(ref[2:5])
+
+
+def _lms_params(kind):
+    from uhsdr_tpu_torch.ops import lms as lms_ops
+    return {"notch": lms_ops.notch_params(), "nr": lms_ops.nr_params(),
+            "leaky": lms_ops.leaky_lms_params(),
+            "leaky_notch": lms_ops.leaky_lms_params(notch=True)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["notch", "nr", "leaky", "leaky_notch"])
+@pytest.mark.parametrize("C,lengths,edge", [(37, (300, 129, 300), False),
+                                            (13, (257, 400), True)])
+def test_lms_kernels_match_plain(dev, kind, C, lengths, edge):
+    from uhsdr_tpu_torch.cuda import lms as lms_k
+    p = _lms_params(kind)
+    leaky = kind.startswith("leaky")
+    L, D = p.num_taps, p.delay
+    rng = np.random.default_rng(72)
+    st = [torch.zeros((C, L), device=dev), torch.zeros((C, L + D),
+                                                       device=dev)]
+    if leaky:
+        st += [torch.full((C,), 120.0, device=dev),
+               torch.full((C,), 0.001, device=dev)]
+    if edge:
+        st[0][C // 2, 3] = float("nan")
+    sp = [t.clone() for t in st]
+    n0 = 0
+    for T in lengths:
+        n = np.arange(n0, n0 + T)
+        x = (0.5 * np.sin(2 * np.pi * 0.067 * n)
+             + 0.1 * rng.standard_normal((C, T))).astype(np.float32)
+        if edge:
+            x = _edges(rng, x, n0)
+        x = torch.from_numpy(x).to(dev)
+        counter = lms_k.LMS_LEAKY if leaky else lms_k.LMS
+        c0 = counter.launches
+        if leaky:
+            got = lms_k.leaky(p, st[0], st[1], st[2], st[3], x)
+            ref = lms_k.leaky_plain(p, sp[0], sp[1], sp[2], sp[3], x)
+        else:
+            got = lms_k.nlms(p, st[0], st[1], x)
+            ref = lms_k.nlms_plain(p, sp[0], sp[1], x)
+        assert counter.launches == c0 + 1
+        _all_same({k: (r, g) for k, r, g in zip(
+            ("y", "w", "hist", "lidx", "ngamma"), ref, got)})
+        st, sp = list(got[1:]), list(ref[1:])
+        n0 += T
+
+
+def _impulsive(rng, C, n0, T, fs=12000.0):
+    """Two tones and noise with impulses every ~97 samples, some within 7
+    samples of a frame's or a block's edge."""
+    n = np.arange(n0, n0 + T)
+    x = (800.0 * np.sin(2 * np.pi * 550 / fs * n)
+         + 300.0 * np.sin(2 * np.pi * 1230 / fs * n + 0.7)
+         + 60.0 * rng.standard_normal((C, T)))
+    hit = (n % 97 == 5) | (n % 128 == 126) | (n % 128 == 2)
+    x[:, hit] += rng.choice([-1.0, 1.0], (C, hit.sum())) * rng.uniform(
+        4000, 9000, (C, hit.sum()))
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("C,lengths,edge,setting", [
+    (37, (1024, 256, 1024), False, 8), (13, (512, 512), True, 8),
+    (9, (384,), False, 15)])
+def test_blanker_kernel_matches_plain(dev, C, lengths, edge, setting):
+    from uhsdr_tpu_torch.cuda import blanker as nb_k
+    from uhsdr_tpu_torch.nr import blanker as nb_mod
+    mult = nb_mod.make_params(setting).threshold_mult
+    rng = np.random.default_rng(73)
+    ctx = torch.zeros((C, nb_k.CONTEXT), device=dev)
+    if edge:
+        ctx[C // 2, 20] = float("nan")
+    cp = ctx.clone()
+    n0 = 0
+    for T in lengths:
+        x = _impulsive(rng, C, n0, T)
+        if edge:
+            x = _edges(rng, x, n0)
+        x = torch.from_numpy(x).to(dev)
+        c0 = nb_k.BLANKER.launches
+        y, ctx = nb_k.blanker(mult, ctx, x)
+        assert nb_k.BLANKER.launches == c0 + 1
+        yp, cp = nb_k.blanker_plain(mult, cp, x)
+        _all_same({"y": (yp, y), "context": (cp, ctx)})
+        if not edge:
+            assert bool((y != x).any())       # something was repaired
+        n0 += T
+
+
+def _nr_spectra(rng, C, nF, f0):
+    n = np.arange(f0 * 128, (f0 + nF + 1) * 128)
+    x = (0.3 * np.sin(2 * np.pi * 700 / 12000 * n)
+         * (np.sin(2 * np.pi * 0.5 / 12000 * n) > 0)
+         + 0.05 * rng.standard_normal((C, n.size))).astype(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("C,frames,edge", [(37, (8, 16, 8), False),
+                                           (13, (16, 8), True)])
+def test_nr_kernel_matches_plain(dev, C, frames, edge):
+    """The gain machine through the 20-frame bootstrap and past it."""
+    from uhsdr_tpu_torch.cuda import nr as nr_k
+    from uhsdr_tpu_torch.nr import spectral as nr_mod
+    from uhsdr_tpu_torch.ops import fftutil
+    g = nr_k.gain_params(nr_mod.make_params(12000.0, 300.0, 2600.0,
+                                            alpha=0.94))
+    rng = np.random.default_rng(74)
+    s = nr_mod.init_state((C,), device=dev)
+    st = [s.xt, s.pslp, s.hk_old, s.init_count, s.nest_acc]
+    if edge:
+        st[0][C // 2, 40] = float("nan")
+    sp = [t.clone() for t in st]
+    win = torch.as_tensor(fftutil.sqrt_hann_sym(256), device=dev)
+    f0 = 0
+    for nF in frames:
+        x = _nr_spectra(rng, C, nF, f0)
+        if edge:
+            x = _edges(rng, x, f0 * 128)
+        frames_ = fftutil.frame_overlap(torch.from_numpy(x).to(dev), 256, 128)
+        F = torch.fft.rfft(frames_ * win, dim=-1)
+        c0 = nr_k.NR.launches
+        got = nr_k.nr_gains(g, F.clone(), *st)
+        assert nr_k.NR.launches == c0 + 1
+        ref = nr_k.nr_gains_plain(g, F, *sp)
+        _all_same({k: (r, v) for k, r, v in zip(
+            ("F", "xt", "pslp", "hk_old", "init_count", "nest_acc"), ref,
+            got)})
+        st, sp = list(got[1:]), list(ref[1:])
+        f0 += nF
+
+
+def test_option_kernels_first_channels_alone_match_the_batch(dev):
+    """Channels 0-7 alone give the bits they give in a batch of 45."""
+    from uhsdr_tpu_torch.cuda import blanker as nb_k
+    from uhsdr_tpu_torch.cuda import iqcorr as iq_k
+    from uhsdr_tpu_torch.cuda import lms as lms_k
+    from uhsdr_tpu_torch.cuda import nr as nr_k
+    from uhsdr_tpu_torch.nr import spectral as nr_mod
+    rng = np.random.default_rng(75)
+    C, T = 45, 1024
+    x = torch.from_numpy(_impulsive(rng, C, 0, T) / 9000.0).to(dev)
+    z = torch.zeros(C, device=dev)
+    got = iq_k.iqcorr(z, z, z, x, x.flip(-1).contiguous())
+    one = iq_k.iqcorr(z[:8], z[:8], z[:8], x[:8], x.flip(-1)[:8].contiguous())
+    _all_same({f"iqcorr {k}": (a[:8], b) for k, (a, b) in enumerate(
+        zip(got, one))})
+    for kind in ("notch", "leaky"):
+        p = _lms_params(kind)
+        w = torch.zeros((C, p.num_taps), device=dev)
+        h = torch.zeros((C, p.num_taps + p.delay), device=dev)
+        if kind == "notch":
+            got = lms_k.nlms(p, w, h, x)
+            one = lms_k.nlms(p, w[:8], h[:8], x[:8].contiguous())
+        else:
+            lv = torch.full((C,), 120.0, device=dev)
+            gm = torch.full((C,), 0.001, device=dev)
+            got = lms_k.leaky(p, w, h, lv, gm, x)
+            one = lms_k.leaky(p, w[:8], h[:8], lv[:8], gm[:8],
+                              x[:8].contiguous())
+        _all_same({f"{kind} {k}": (a[:8], b) for k, (a, b) in enumerate(
+            zip(got, one))})
+    ctx = torch.zeros((C, nb_k.CONTEXT), device=dev)
+    got = nb_k.blanker(4.0, ctx, x * 9000.0)
+    one = nb_k.blanker(4.0, ctx[:8], (x * 9000.0)[:8].contiguous())
+    _all_same({f"blanker {k}": (a[:8], b) for k, (a, b) in enumerate(
+        zip(got, one))})
+    g = nr_k.gain_params(nr_mod.make_params(12000.0, 300.0, 2600.0))
+    s = nr_mod.init_state((C,), device=dev)
+    F = torch.fft.rfft(torch.from_numpy(
+        _nr_spectra(rng, C, 24, 0)).to(dev).reshape(C, 25, 128)[:, :24]
+        .repeat(1, 1, 2), dim=-1).contiguous()
+    st = [s.xt, s.pslp, s.hk_old, s.init_count, s.nest_acc]
+    got = nr_k.nr_gains(g, F.clone(), *st)
+    one = nr_k.nr_gains(g, F[:8].clone(), *(t[:8].contiguous() for t in st))
+    _all_same({f"nr {k}": (a[:8], b) for k, (a, b) in enumerate(
+        zip(got, one))})
+
+
+def test_option_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from uhsdr_tpu_torch.cuda import blanker as nb_k
+    from uhsdr_tpu_torch.cuda import iqcorr as iq_k
+    from uhsdr_tpu_torch.cuda import lms as lms_k
+    from uhsdr_tpu_torch.cuda import nr as nr_k
+    from uhsdr_tpu_torch.nr import spectral as nr_mod
+    C = 4
+    z = torch.zeros(C, device=dev)
+    with pytest.raises(ValueError):                 # T % 32 != 0
+        iq_k.iqcorr(z, z, z, torch.zeros((C, 100), device=dev),
+                    torch.zeros((C, 100), device=dev))
+    with pytest.raises(ValueError):                 # int16 with f32
+        iq_k.iqcorr(z, z, z, torch.zeros((C, 64), dtype=torch.int16,
+                                         device=dev),
+                    torch.zeros((C, 64), device=dev))
+    with pytest.raises(ValueError):                 # f64 planes
+        iq_k.iqcorr(z, z, z, torch.zeros((C, 64), dtype=torch.float64,
+                                         device=dev),
+                    torch.zeros((C, 64), dtype=torch.float64, device=dev))
+    p = _lms_params("notch")
+    x = torch.zeros((C, 64), device=dev)
+    with pytest.raises(ValueError):                 # 80 taps
+        lms_k.nlms(p._replace(num_taps=80), torch.zeros((C, 80), device=dev),
+                   torch.zeros((C, 88), device=dev), x)
+    with pytest.raises(ValueError):                 # history one short
+        lms_k.nlms(p, torch.zeros((C, 96), device=dev),
+                   torch.zeros((C, 103), device=dev), x)
+    with pytest.raises(ValueError):                 # f64 input
+        lms_k.nlms(p, torch.zeros((C, 96), device=dev),
+                   torch.zeros((C, 104), device=dev), x.double())
+    with pytest.raises(ValueError):                 # T % 128 != 0
+        nb_k.blanker(4.0, torch.zeros((C, 26), device=dev),
+                     torch.zeros((C, 200), device=dev))
+    with pytest.raises(ValueError):                 # f64 context
+        nb_k.blanker(4.0, torch.zeros((C, 26), dtype=torch.float64,
+                                      device=dev),
+                     torch.zeros((C, 256), device=dev))
+    g = nr_k.gain_params(nr_mod.make_params(12000.0, 300.0, 2600.0))
+    s = nr_mod.init_state((C,), device=dev)
+    st = (s.xt, s.pslp, s.hk_old, s.init_count, s.nest_acc)
+    with pytest.raises(ValueError):                 # 128 bins, not 129
+        nr_k.nr_gains(g, torch.zeros((C, 2, 128), dtype=torch.complex64,
+                                     device=dev), *st)
+    with pytest.raises(ValueError):                 # a float counter
+        nr_k.nr_gains(g, torch.zeros((C, 2, 129), dtype=torch.complex64,
+                                     device=dev),
+                      *st[:3], st[3].float(), st[4])
+    with pytest.raises(ValueError):                 # NR block of 200
+        nr_mod.process_block(nr_mod.make_params(12000.0, 300.0, 2600.0),
+                             s, torch.zeros((C, 200), device=dev))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="usb", iq_auto_correction=True, notch_enable=True,
+         nb_enable=True, nr_enable=True),
+    dict(mode="usb", leaky_nr_enable=True),
+    dict(mode="usb", notch_enable=True, leaky_notch=True, nb_setting=12),
+    dict(mode="am", bw_key="5P0KHZ", path_name="AM/SAM", nb_enable=True),
+    dict(mode="ssbstereo", nr_enable=True, nr_strength=60),
+    dict(mode="fm", bw_key="5P0KHZ", path_name="FM", iq_auto_correction=True,
+         nr_enable=True, notch_enable=True)])
+def test_option_chain_on_card_matches_cpu(dev, kw):
+    from uhsdr_tpu_torch import trace_rx
+    cfg = rx.RxConfig(**{**FLAGSHIP, "block_len": 4096, **kw})
+    gpu, cpu = rx.RxChain(cfg, device=dev), rx.RxChain(cfg, device="cpu")
+    C = 8
+    sg, sc = gpu.init_state((C,)), cpu.init_state((C,))
+    before = {k.name: k.launches for k in build.kernels()}
+    for i, q in trace_rx.capture(3, C, dev, 5, cfg):
+        yg, sg, _ = gpu(sg, i=i, q=q)
+        yc, sc, _ = cpu(sc, i=i.cpu(), q=q.cpu())
+        assert snr_db(yc, yg) >= CHAIN_DB
+    for f, v in rx.state_to_numpy(sc).items():
+        w = rx.state_to_numpy(sg)[f]
+        if v.dtype == bool or v.dtype.kind in "iu":
+            assert np.array_equal(v, w), f
+        else:
+            assert snr_db(v, w) >= CHAIN_DB, f
+    ran = _launch_deltas(before)
+    fm = cfg.mode == "fm"
+    for name, on in (("iqcorr", cfg.iq_auto_correction),
+                     ("lms", cfg.notch_enable and not cfg.leaky_notch
+                      and not fm),
+                     ("lms_leaky", (cfg.leaky_nr_enable or cfg.leaky_notch)
+                      and not fm),
+                     ("blanker", cfg.nb_enable and not fm),
+                     ("nr", cfg.nr_enable and not fm)):
+        assert (ran[name] == 3) == on and (ran[name] == 0) == (not on), \
+            (name, ran[name])

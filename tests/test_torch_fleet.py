@@ -225,3 +225,46 @@ def test_fused_step_equals_separate_chains(monkeypatch):
             print(f"\nblock {k}: {what} not bit-equal, {db:.1f} dB")
             assert db >= 130.0, (k, what, db)
     print(f"\n{n_equal} of {n_all} outputs and leaves bit-equal")
+
+
+def test_iq_corrected_groups_run_their_own_fronts(monkeypatch):
+    """A usb group with IQ auto-correction and the NR, another with IQ
+    auto-correction alone and a plain usb group, all three on the same
+    front: each IQ-corrected group carries its own correction state, so
+    the fused step runs three fronts (the reference's fleet never merges
+    such a group, uhsdr_tpu/parallel/fleet.py:134-136), and every group
+    matches the JAX chain run on its own over three blocks from zero
+    state (audio >= 90 dB, every leaf >= 85 dB)."""
+    fronts = []
+    real = trx.process_front
+
+    def spy(cfg, params, state, iq, tune_offset_hz=None):
+        fronts.append((cfg.iq_auto_correction, iq[0].shape[0]))
+        return real(cfg, params, state, iq, tune_offset_hz)
+
+    monkeypatch.setattr(trx, "process_front", spy)
+    kws = [_kw(dict(GROUPS[0], iq_auto_correction=True, nr_enable=True)),
+           _kw(GROUPS[0]), _kw(dict(GROUPS[0], iq_auto_correction=True))]
+    tf = tfleet.ChannelFleet([trx.RxConfig(**kw) for kw in kws],
+                             [0, 1, 2, 0, 1, 2], device="cpu")
+    jchains = [jrx.RxChain(jrx.RxConfig(**kw)) for kw in kws]
+    jstates = [c.init_state((2,)) for c in jchains]
+    for k, planes in enumerate(_blocks(tf.groups, 3, seed=9)):
+        # an imbalance for the correction to take out
+        planes = [(i * np.float32(1.1), q + np.float32(0.05) * i)
+                  for i, q in planes]
+        outs_j = []
+        for j, (i, q) in enumerate(planes):
+            y, jstates[j], _ = jchains[j](jstates[j], i=jnp.asarray(i),
+                                          q=jnp.asarray(q))
+            outs_j.append(y)
+        del fronts[:]
+        outs_t = tf.step_fused([(torch.from_numpy(i), torch.from_numpy(q))
+                                for i, q in planes])
+        assert sorted(fronts) == [(False, 2), (True, 2), (True, 2)], fronts
+        for g, js in zip(tf.groups, jstates):
+            g_j = type("G", (), {"state": js})
+            _hold([g_j], [g], [outs_j[tf.groups.index(g)]],
+                  [outs_t[tf.groups.index(g)]], k)
+    assert tf.groups[0].state.nr is not None
+    assert bool((tf.groups[0].state.iqcorr.c2 != 1.0).all())

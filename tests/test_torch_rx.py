@@ -377,18 +377,25 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     dict(tx_mode="fm"),
-    dict(mode="fm", notch_enable=True), dict(mode="ssbstereo", front="scipy"),
-    dict(mode="ssbstereo", bw_key="5P0KHZ"), dict(nr_enable=True),
-    dict(nb_enable=True), dict(notch_enable=True),
-    dict(leaky_nr_enable=True), dict(iq_auto_correction=True),
+    dict(mode="fm", notch_enable=True, front="scipy"),
+    dict(mode="ssbstereo", front="scipy"),
+    dict(mode="ssbstereo", bw_key="5P0KHZ"),
+    dict(nr_enable=True, front="scipy"),
+    dict(nb_enable=True, front="scipy"),
+    dict(notch_enable=True, mode="iq", bw_key="10P0KHZ"),
+    dict(leaky_nr_enable=True, mode="iq", bw_key="10P0KHZ"),
+    dict(iq_auto_correction=True, front="scipy"),
     dict(mode="iq", bw_key="10P0KHZ"), dict(front="scipy"),
-    dict(nr_enable=True, nr_strength=100), dict(nb_enable=True, nb_setting=3),
-    dict(notch_enable=True, leaky_notch=True),
-    dict(nr_enable=True, nr_prec_escalate=False),
+    dict(nr_enable=True, nr_strength=100, front="scipy"),
+    dict(nb_enable=True, nb_setting=3, mode="ssbstereo", bw_key="5P0KHZ"),
+    dict(notch_enable=True, leaky_notch=True, front="scipy"),
+    dict(nr_enable=True, nr_prec_escalate=False, mode="iq",
+         bw_key="10P0KHZ"),
     dict(front="scipy", high_taps=False)])
 def test_outside_the_slice_raises(kw):
-    """RX options still outside the port (the two-channel modes on the wide
-    rows run the reference's legacy front) and FM TX."""
+    """What is still outside the port: the legacy front, with or without
+    an RX option, the two-channel modes on the wide rows (the reference
+    runs them on that front) and FM TX."""
     if "tx_mode" in kw:
         from uhsdr_tpu_torch.chain import tx as ttx
         with pytest.raises(NotImplementedError, match="ROADMAP"):

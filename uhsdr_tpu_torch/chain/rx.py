@@ -7,6 +7,8 @@ decimated-domain post-processing, :2436-2592).
 Stage order of the reference-table chains:
 
   int16 (or f32) IQ planes, batched over channels
+    -> with iq_auto_correction: the Moseley-Slump IQ correction, f32
+       planes at full scale 1 out         [cuda.iqcorr.iqcorr]
     -> SSB/CW: ADC peak taps, NCO translation, stage-A decimator, stage-B
        Hilbert-combine FIR, real audio out  [K1: cuda.fir.front; under
        UHSDR_FRONT_MT=1 and a static delta K15: cuda.fir.front_mt, the
@@ -26,6 +28,8 @@ Stage order of the reference-table chains:
        FM discriminator                     [K12: cuda.elemwise.fm_disc],
        de-emphasis, squelch, subtone gate, FM_RX_SCALING; the FM chain
        then runs the AGC and biquad2 alone at 48 kHz
+    -> the NLMS auto-notch, then the leaky LMS (options; leaky_notch puts
+       the leaky LMS in the notch's place)  [cuda.lms.nlms, cuda.lms.leaky]
     -> PreFilter lattice as an exact SOS cascade [K2: cuda.iir.
        blocked_cascade; blocks that do not chunk K11]
     -> WDSP look-ahead AGC                  [K3: cuda.agc.agc], for AM/SAM
@@ -33,6 +37,10 @@ Stage order of the reference-table chains:
        AGC, one machine on max(|L|, |R|), the whole stage one launch
                                             [cuda.agc.agc_stereo; the
                                              reference's K13 inside]
+    -> the LPC noise blanker, then the spectral NR (options)
+                                            [cuda.blanker.blanker;
+                                             cuda.nr.nr_gains between
+                                             torch.fft's rfft and irfft]
     -> post-AGC scale, EQ biquad1 (pruned empty at neutral settings)
     -> polyphase interpolation to the IQ rate [K4: cuda.fir.interpolate;
                                                two channels as 2C rows]
@@ -47,11 +55,12 @@ Modes and options outside the slice raise NotImplementedError naming the
 ROADMAP item that brings them.  `RxConfig` has every field of the JAX
 package's, under its names and defaults.  ``cw_offset_hz`` (read by no
 chain code in either package), the backend selectors ``front_impl`` and
-``iir_impl``, and ``front_prec`` are accepted for configuration parity:
-the port computes the same thing for every value.  ``high_taps``,
-``nr_strength``, ``nb_setting``, ``leaky_notch`` and
-``nr_prec_escalate`` are the settings of options the port does not run
-yet and are accepted at their defaults.  The port always computes in
+``iir_impl``, ``front_prec``, ``nr_prec_escalate`` and ``high_taps``
+(read by the legacy front alone, which the port does not run yet) are
+accepted for configuration parity: the port computes the same thing for
+every value.  FM runs the IQ correction but none of
+the decimated-rate options (the reference's FM branches skip them; their
+states pass through).  The port always computes in
 full FP32 (the kernels use FP32 FMAs, never TF32 or bf16, K15
 included, whose TPU counterpart runs one bf16 pass; the smoothers'
 matmuls and the cascade's plain form refuse to run on the card with
@@ -59,7 +68,6 @@ TF32 on, which callers that compare numbers pin off).
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Any, NamedTuple
@@ -74,8 +82,10 @@ from ..demod import am as am_mod
 from ..demod import fm as fm_mod
 from ..demod import sam as sam_mod
 from ..demod import ssb as ssb_mod
+from ..nr import blanker as nb_mod
+from ..nr import spectral as nr_mod
 from ..ops import agc as agc_mod
-from ..ops import design, iir, latconv, nco
+from ..ops import design, iir, iqcorr, latconv, lms, nco
 from ..ops import fir as fir_ops
 from . import eq as eq_mod
 from . import filterpaths
@@ -91,9 +101,8 @@ POST_AGC_GAIN_SCALING_DECIMATE_2 = 3.46 * 0.6
 FM_RX_SCALING_2K5 = 10000.0
 FM_RX_SCALING_5K = FM_RX_SCALING_2K5 / 2.0
 
-_ROADMAP_MODES = ("ROADMAP.md queue A item 7 (other RX modes and options: "
-                  "the legacy scipy front, NR, blanker, LMS, IQ "
-                  "auto-correction)")
+_ROADMAP_MODES = ("ROADMAP.md queue A item 7 (the rest of the RX chain: "
+                  "the legacy scipy front)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -191,8 +200,6 @@ class RxConfig:
         return self.iq_rate / self.decim
 
 
-_DEFAULTS = {f.name: f.default for f in dataclasses.fields(RxConfig)}
-
 # The flagship deployment, the chain bench.py times (bench.py:89-113): the
 # BASELINE's "10k simultaneous SSB channels @96 kHz", run at 8192
 # channels of int16 IQ planes.
@@ -233,17 +240,6 @@ WIDE_FLAGSHIP = RxConfig(mode="usb", bw_key="5P0KHZ", path_name="LPF",
 
 def check_slice(cfg: RxConfig):
     """Raise NotImplementedError for what the port does not run yet."""
-    # the settings of options the port does not run yet: accepted at their
-    # defaults, refused where their option is on and they differ
-    for field, on in (("high_taps", cfg.front != "ref"),
-                      ("nr_strength", cfg.nr_enable),
-                      ("nr_prec_escalate", cfg.nr_enable),
-                      ("nb_setting", cfg.nb_enable),
-                      ("leaky_notch", cfg.notch_enable)):
-        if on and getattr(cfg, field) != _DEFAULTS[field]:
-            raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r}: ROADMAP.md queue A "
-                f"item 7")
     if cfg.mode not in ("usb", "lsb", "cw", "am", "sam", "fm", "iq",
                         "ssbstereo"):
         raise NotImplementedError(f"mode {cfg.mode!r}: {_ROADMAP_MODES}")
@@ -264,15 +260,6 @@ def check_slice(cfg: RxConfig):
             raise NotImplementedError(
                 f"mode {cfg.mode!r} on the {cfg.bw_key} row (the legacy "
                 f"redesigned front): {_ROADMAP_MODES}")
-    for flag, what in (("nr_enable", "spectral NR (nr/spectral.py)"),
-                       ("nb_enable", "noise blanker (nr/blanker.py)"),
-                       ("notch_enable", "LMS notch (ops/lms.py)"),
-                       ("leaky_nr_enable", "leaky LMS (ops/lms.py)"),
-                       ("iq_auto_correction", "IQ auto-correction "
-                                              "(ops/iqcorr.py)")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{what}: ROADMAP.md queue A item 7")
 
 
 class RxParams(NamedTuple):
@@ -295,6 +282,10 @@ class RxParams(NamedTuple):
     eq1_sos: iir.Cascade          # decimated-rate EQ (biquad1)
     eq2_sos: iir.Cascade          # IQ-rate treble shelf (biquad2)
     aa_sos: iir.Cascade           # post-interp anti-alias lattice
+    nr: nr_mod.NrParams | None = None          # spectral NR (nr_enable)
+    nb: nb_mod.NbParams | None = None          # noise blanker (nb_enable)
+    notch: lms.LmsParams | None = None         # NLMS auto-notch
+    leaky: lms.LeakyLmsParams | None = None    # leaky LMS (NR or notch)
 
 
 class RxState(NamedTuple):
@@ -316,6 +307,14 @@ class RxState(NamedTuple):
     eq1: torch.Tensor
     eq2: torch.Tensor
     aa: torch.Tensor
+    # the options' states (None where the option is off), named and nested
+    # as the reference's: iqcorr per RF channel (C,), the others on the
+    # post chain's rows (C,) or (C, 2)
+    iqcorr: iqcorr.IqCorrState | None = None
+    nr: nr_mod.NrState | None = None
+    nb: nb_mod.NbState | None = None
+    notch: lms.LmsState | None = None
+    leaky: lms.LeakyLmsState | None = None
 
 
 def _upsample(h: np.ndarray, k: int) -> np.ndarray:
@@ -364,7 +363,8 @@ def _post_scale(cfg: RxConfig) -> float:
 
 def _on_device(device, *, nco_delta, front_fir_re, front_fir_im, front2_re,
                front2_im, audio_sos, interp_fir, agc, fade, sam, fm, iq_gain,
-               iq_phase, post_scale, eq1_sos, eq2_sos, aa_sos) -> RxParams:
+               iq_phase, post_scale, eq1_sos, eq2_sos, aa_sos, nr=None,
+               nb=None, notch=None, leaky=None) -> RxParams:
     """NumPy design products (the JAX package's RxParams fields) ->
     the port's RxParams on `device`.  The front stays real f32 unless its
     imaginary taps are non-zero (wide SSB: complex64)."""
@@ -396,7 +396,30 @@ def _on_device(device, *, nco_delta, front_fir_re, front_fir_im, front2_re,
         post_scale=float(post_scale),
         eq1_sos=iir.cascade(eq1_sos, dev),
         eq2_sos=iir.cascade(eq2_sos, dev),
-        aa_sos=iir.cascade(aa_sos, dev))
+        aa_sos=iir.cascade(aa_sos, dev),
+        nr=nr, nb=nb, notch=notch, leaky=leaky)
+
+
+def _option_params(cfg: RxConfig, fs_dec: float) -> dict:
+    """The options' parameters, as the reference makes them
+    (chain/rx.py:424-438): the NR on the path's audio band at the
+    decimated rate, its alpha 0.799 + strength/1000; the leaky LMS in the
+    notch's place under leaky_notch."""
+    nr = None
+    if cfg.nr_enable:
+        lo, hi = cfg.path.audio_band
+        nr = nr_mod.make_params(fs_dec, lo, hi,
+                                alpha=0.799 + cfg.nr_strength / 1000.0)
+    leaky = None
+    if cfg.leaky_nr_enable or (cfg.notch_enable and cfg.leaky_notch):
+        leaky = lms.leaky_lms_params(
+            notch=cfg.notch_enable and cfg.leaky_notch)
+    return dict(
+        nr=nr, nb=nb_mod.make_params(cfg.nb_setting) if cfg.nb_enable
+        else None,
+        notch=(lms.notch_params() if cfg.notch_enable and not cfg.leaky_notch
+               else None),
+        leaky=leaky)
 
 
 def _front_design(cfg: RxConfig):
@@ -487,7 +510,7 @@ def make_params(cfg: RxConfig, device=None) -> RxParams:
         # the reference designs biquad2 at the IQ rate even where the FM
         # chain runs it on 48 kHz audio (chain/rx.py:460, :1050-1052)
         eq2_sos=eq_mod.rx_biquad2_sos(cfg.eq, cfg.iq_rate),
-        aa_sos=aa_sos)
+        aa_sos=aa_sos, **_option_params(cfg, fs_dec))
 
 
 def params_from_numpy(p: Any, device=None,
@@ -513,7 +536,11 @@ def params_from_numpy(p: Any, device=None,
         fade=p.fade, sam=p.sam, fm=p.fm, iq_gain=p.iq_gain,
         iq_phase=p.iq_phase,
         post_scale=p.post_scale,
-        eq1_sos=p.eq1_sos, eq2_sos=p.eq2_sos, aa_sos=p.aa_sos)
+        eq1_sos=p.eq1_sos, eq2_sos=p.eq2_sos, aa_sos=p.aa_sos,
+        nr=None if p.nr is None else nr_mod.params_from_numpy(p.nr),
+        nb=None if p.nb is None else nb_mod.params_from_numpy(p.nb),
+        notch=None if p.notch is None else lms.params_from_numpy(p.notch),
+        leaky=None if p.leaky is None else lms.params_from_numpy(p.leaky))
 
 
 def _raw_history_len(cfg: RxConfig, params: RxParams) -> int:
@@ -554,7 +581,17 @@ def init_state(cfg: RxConfig, params: RxParams, batch_shape) -> RxState:
         interp_carry=zeros(bs_post + (sub_len - 1,)),
         eq1=zeros((params.eq1_sos.sections,) + bs_post + (2,)),
         eq2=zeros((params.eq2_sos.sections,) + bs_post + (2,)),
-        aa=zeros((params.aa_sos.sections,) + bs_post + (2,)))
+        aa=zeros((params.aa_sos.sections,) + bs_post + (2,)),
+        iqcorr=(iqcorr.init_state(bs, device=dev)
+                if cfg.iq_auto_correction else None),
+        nr=(None if params.nr is None
+            else nr_mod.init_state(bs_post, device=dev)),
+        nb=(None if params.nb is None
+            else nb_mod.init_state(bs_post, device=dev)),
+        notch=(None if params.notch is None
+               else lms.init_state(bs_post, params.notch, device=dev)),
+        leaky=(None if params.leaky is None
+               else lms.leaky_lms_init(bs_post, params.leaky, device=dev)))
 
 
 def _map_state(state, fn):
@@ -576,6 +613,13 @@ def _map_state(state, fn):
     fm = None if state.fm is None else fm_mod.FmState(
         **{f: leaf(getattr(state.fm, f)) for f in fm_mod.FmState._fields})
     nested = dict(agc=agc, fade=fade, sam=sam, fm=fm)
+    for name, typ in (("iqcorr", iqcorr.IqCorrState),
+                      ("nr", nr_mod.NrState), ("nb", nb_mod.NbState),
+                      ("notch", lms.LmsState),
+                      ("leaky", lms.LeakyLmsState)):
+        v = getattr(state, name, None)
+        nested[name] = None if v is None else typ(
+            **{f: leaf(getattr(v, f)) for f in typ._fields})
     return RxState(**{f: nested[f] if f in nested
                       else leaf(getattr(state, f))
                       for f in RxState._fields})
@@ -600,8 +644,7 @@ def state_from_numpy(s: Any, device=None,
                      cfg: RxConfig | None = None) -> RxState:
     """The JAX package's RxState (leaves given as NumPy arrays, e.g. via
     ``np.asarray``) -> the port's RxState: a stream can move from one
-    chain to the other mid-sequence.  Fields the slices do not carry
-    (nr, notch, ...) are dropped; uint32 leaves become int64.  The
+    chain to the other mid-sequence; uint32 leaves become int64.  The
     two-channel modes need `cfg`: the reference carries its pair's raw
     history on both planes (C, 2, n) and no stage-B history, the port
     the raw history once and the stage-A history, rebuilt here."""
@@ -687,7 +730,12 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
     retune, the reference's LO step) adds its delta to the translation.
     Returns (zf, new_state, taps)."""
     xi, xq = _planes(iq)
-    if not (params.iq_gain == 1.0 and params.iq_phase == 0.0):
+    iqc_state = state.iqcorr
+    if cfg.iq_auto_correction:
+        # the Moseley-Slump correction in place of the static calibration
+        # (chain/rx.py:649-660 of the reference): f32 planes at full scale
+        xi, xq, iqc_state = iqcorr.correct(state.iqcorr, xi, xq)
+    elif not (params.iq_gain == 1.0 and params.iq_phase == 0.0):
         # non-identity calibration (audio_driver.c:2254-2316); identity
         # skips the arithmetic so int16 planes reach the kernel as they
         # are (chain/rx.py:654-660 of the reference)
@@ -733,8 +781,8 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
     taps_out = {} if cfg.mode == "fm" else {
         "adc_peak": peak, "adc_clip": peak > 0.985,
         "adc_half_clip": peak > 0.5, "adc_quarter_clip": peak > 0.25}
-    state = state._replace(nco_phase=nco_phase, front_carry=front_carry,
-                           front2_carry=front2_carry)
+    state = state._replace(iqcorr=iqc_state, nco_phase=nco_phase,
+                           front_carry=front_carry, front2_carry=front2_carry)
     return zf, state, taps_out
 
 
@@ -768,10 +816,20 @@ def _demod_sos_pre_agc(cfg: RxConfig, params: RxParams, state: RxState,
             fade_leveler_on=cfg.fade_leveler)
     else:
         audio = ssb_mod.demod(zf)
+    # the decimated-rate LMS stages (chain/rx.py:1019-1030 of the
+    # reference): the NLMS auto-notch, then the leaky LMS (the NR
+    # instance, or the notch under leaky_notch)
+    notch_state, leaky_state = state.notch, state.leaky
+    if params.notch is not None:
+        audio, notch_state = lms.run(params.notch, state.notch, audio)
+    if params.leaky is not None:
+        audio, leaky_state = lms.leaky_lms_run(params.leaky, state.leaky,
+                                               audio)
     audio, sos_state = iir_k.cascade_dispatch(
         params.audio_sos, state.audio_sos_state, audio)
     state = state._replace(audio_sos_state=sos_state, fade=fade_state,
-                           sam=sam_state)
+                           sam=sam_state, notch=notch_state,
+                           leaky=leaky_state)
     return audio, state, taps_out
 
 
@@ -791,8 +849,15 @@ def demod_pre_agc(cfg: RxConfig, params: RxParams, state: RxState, zf,
 
 def post_to_dec(cfg: RxConfig, params: RxParams, state: RxState, audio,
                 taps_out: dict):
-    """Decimated-rate post-AGC stages: the firmware's post-AGC scaling
-    and EQ biquad1."""
+    """Decimated-rate post-AGC stages: the noise blanker and the spectral
+    NR (on the NR input, as the reference's audio_nr.c:357-366), the
+    firmware's post-AGC scaling and EQ biquad1."""
+    nb_state, nr_state = state.nb, state.nr
+    if params.nb is not None:
+        audio, nb_state = nb_mod.process_block(params.nb, state.nb, audio)
+    if params.nr is not None:
+        audio, nr_state = nr_mod.process_block(params.nr, state.nr, audio)
+    state = state._replace(nb=nb_state, nr=nr_state)
     audio = audio * params.post_scale
     audio, eq1_state = iir_k.cascade_dispatch(params.eq1_sos, state.eq1,
                                               audio)

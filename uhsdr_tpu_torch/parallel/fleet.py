@@ -178,12 +178,16 @@ def _make_stage_batched_step(chains: list):
     cfgs = [c.cfg for c in chains]
     prms = [c.params for c in chains]
     front_key = []
-    for c, p in zip(cfgs, prms):
+    for k, (c, p) in enumerate(zip(cfgs, prms)):
         front_key.append((
             _host(p.front_fir), str(p.front_fir.dtype), _host(p.front2),
             None if p.front2 is None else tuple(p.front2.shape),
             p.nco_delta, c.decim, c.mode == "fm", c.translate_hz != 0.0,
-            c.front_pair, p.iq_gain, p.iq_phase))
+            c.front_pair, p.iq_gain, p.iq_phase,
+            # an IQ-corrected group carries its own correction state and
+            # runs its own front, as the reference never merges one
+            # (uhsdr_tpu/parallel/fleet.py:134-136)
+            k if c.iq_auto_correction else None))
     # each rate class's merged AgcParams and its device rows, made on the
     # class's first block: the parameters never change
     agc_merged: dict = {}

@@ -1,7 +1,8 @@
 """Where the time of the port's main path goes on the card.
 
     python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam|fm|wide|ssbstereo
-                                               |fleet|fleet_separate|wideband]
+                                               |ssb_opts|ssb_leaky|fleet
+                                               |fleet_separate|wideband]
                                        [--sideband both|usb|lsb|stereo]
                                        [--group-channels 1024] [--warm 2]
                                        [--seed 7]
@@ -13,7 +14,9 @@ AM/SAM flagship (5P0KHZ AM/SAM path, same channel count, rate and
 block), ``--mode fm`` at the FM flagship (5P0KHZ FM path), ``--mode
 wide`` at the wide-SSB flagship (usb 5P0KHZ, one complex-tap front) and
 ``--mode ssbstereo`` at the two-channel flagship (the SSB flagship's row,
-both sidebands, the linked stereo AGC); ``--mode fleet`` drives
+both sidebands, the linked stereo AGC), ``--mode ssb_opts`` at the SSB
+flagship with the RX options IQ correction, notch, blanker and NR on,
+``--mode ssb_leaky`` with the leaky LMS; ``--mode fleet`` drives
 `parallel.fleet.ChannelFleet` at its mixed-mode deployment (FLEET_MIX:
 six groups of 1024 channels of f32 planes @ 48 kHz) through its
 stage-batched step, ``--mode fleet_separate`` the same through each
@@ -60,9 +63,9 @@ BLOCKS = 4           # untraced blocks, then as many traced
 
 
 def config(mode: str = "usb", sideband: str = "both") -> rx.RxConfig:
-    """The full-width config of a mode: the SSB flagship, the FM or the
-    wide-SSB flagship, or the AM/SAM flagship in that mode and
-    sideband."""
+    """The full-width config of a mode: the SSB flagship (with the RX
+    options, "ssb_opts" and "ssb_leaky"), the FM or the wide-SSB flagship,
+    or the AM/SAM flagship in that mode and sideband."""
     if mode == "usb":
         return rx.FLAGSHIP
     if mode == "fm":
@@ -71,6 +74,12 @@ def config(mode: str = "usb", sideband: str = "both") -> rx.RxConfig:
         return rx.WIDE_FLAGSHIP
     if mode == "ssbstereo":
         return rx.STEREO_FLAGSHIP
+    if mode == "ssb_opts":
+        return dataclasses.replace(rx.FLAGSHIP, iq_auto_correction=True,
+                                   notch_enable=True, nb_enable=True,
+                                   nr_enable=True)
+    if mode == "ssb_leaky":
+        return dataclasses.replace(rx.FLAGSHIP, leaky_nr_enable=True)
     return dataclasses.replace(rx.SAM_FLAGSHIP, mode=mode,
                                sam_sideband=sideband)
 
@@ -265,8 +274,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--mode", choices=("usb", "am", "sam", "fm", "wide",
-                                       "ssbstereo", "fleet",
-                                       "fleet_separate", "wideband"),
+                                       "ssbstereo", "ssb_opts", "ssb_leaky",
+                                       "fleet", "fleet_separate",
+                                       "wideband"),
                     default="usb")
     ap.add_argument("--sideband", choices=("both", "usb", "lsb", "stereo"),
                     default="both", help="sam_sideband for --mode sam")

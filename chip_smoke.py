@@ -13,7 +13,8 @@ first phase that fails:
 3. one phase per kernel: K1 (the fused SSB front; also 64 channels of
    f32 @ 48 kHz and of int16 @ 192 kHz), K3 (the AGC, at the
    SSB look-ahead of 48, the AM/SAM look-ahead of 96 and FM's 192, and at
-   the fleet's FM group, 1024 x 16384 at w 192; its shared memory held to
+   the fleet's FM group, 1024 channels at w 192, checked over 4096-step
+   blocks and timed at 16384; its shared memory held to
    `agc_geometry`'s; an edge stream of +-0, +-inf, a NaN and subnormals
    at w 48 and 96, the NaNs where the plain version has them), K4
    (the interpolator: x8, x4, ssbstereo's 2C rows and the 48 kHz x2,
@@ -71,7 +72,13 @@ first phase that fails:
    8192 x 2048 @ 12 kHz), the noise blanker (blanker.cu, impulsive audio,
    repairs across frames and blocks) and the spectral NR's gain machine
    (nr.cu, 8192 x 16 frames of 129 bins, through the 20-frame bootstrap
-   and past it).  Each streams 2-4
+   and past it); and the two helper kernels of slice 19, also bit for
+   bit with edge streams and channels 0-7 alone: the CMSIS IIR lattice
+   (lattice.cu, at the reference chain's PreFilter 8192 x 4096 with 10
+   stages, then at 6, 8, 10, 11 and 12 stages; timed there and at FM
+   TX's voice shape 8192 x 16384) and the table-mode FM modulator
+   (fm_mod.cu, at the TX flagship's 8192 x 16384, with a subtone plane
+   and the negative translate's I/Q swap).  Each streams 2-4
    blocks at its main path's shapes (8192 channels; K11 and K14 at the
    16384 stacked channels SAM gives them; the ALC's plain loop at 4096
    samples), the middle block ragged where the kernel has a tile or a
@@ -100,9 +107,23 @@ first phase that fails:
    at 8192 channels and 8 timed blocks, `am_nb` (AM on the AM/SAM
    flagship with the blanker) and `ssbstereo_nr` (the two-channel
    flagship with the NR) at 1024 channels and 4 (where the notch runs,
-   channel 0's steady tone must be gone instead of found).  Then `TxChain` at
-   the TX flagship (usb, 8192 ch x 16384 f32 audio @ 48 kHz, 8 timed
-   blocks) and at 1024 channels lsb, am, cw and the legacy-front lsb.
+   channel 0's steady tone must be gone instead of found); then the
+   legacy redesigned front: `ssb_scipy` (the SSB flagship on it, K7) at
+   8192 channels and 8 timed blocks, `am_scipy`, `fm_scipy` (K5; FM at
+   decimation 1 and 96 kHz), `iq_wide` (10P0KHZ) and `ssbstereo_wide`
+   (5P0KHZ, two K7 launches) on the default front at 1024 channels and
+   4, and `chain/output.py`'s `output_block` on `ssb_scipy`'s last block
+   against the CPU.  Then the reference chain `RefRxChain` (f32 planes
+   in the count domain @ 48 kHz): `refchain` (usb 2P3KHZ select 2: the
+   torch mix, K5, K6, the lattice, K3, K4) at 8192 channels and 8 timed
+   blocks, `refchain_sam` and `refchain_fm` at 1024 and 4.  Then
+   `TxChain` at the TX flagship (usb, 8192 ch x 16384 f32 audio @ 48
+   kHz, 8 timed blocks) and at 1024 channels lsb, am, cw and the
+   legacy-front lsb; FM at the TX flagship (`tx_fm`: the lattice, the
+   ALC, fm_mod) and on the legacy front at 1024 (`tx_fm_scipy`, held to
+   the CPU at 60 dB: its accumulator rounds K2's last bits into phase
+   steps), whose channel 0 must sit on the carrier (the spectrum's mean
+   frequency) with its modulation around it.
    Then the entry paths `biquad_grouped` and `biquad`: SAM usb's stacked
    allpass inputs as the reference stacks them (16384 x 4096, both
    coefficient sets) through `biquad_cascade(impl="grouped")` (K14) and
@@ -170,20 +191,24 @@ import torch
 
 from uhsdr_tpu_torch import (trace_agc, trace_blocked, trace_rx, trace_sam,
                              trace_tx)
-from uhsdr_tpu_torch.chain import filterpaths, rx, tx
+from uhsdr_tpu_torch import data as refdata
+from uhsdr_tpu_torch.chain import filterpaths, output, refchain, rx, tx
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import alc as alc_k
 from uhsdr_tpu_torch.cuda import blanker as nb_k
 from uhsdr_tpu_torch.cuda import build
 from uhsdr_tpu_torch.cuda import elemwise as ew_k
 from uhsdr_tpu_torch.cuda import fir as fir_k
+from uhsdr_tpu_torch.cuda import fm_mod as fm_k
 from uhsdr_tpu_torch.cuda import iir as iir_k
 from uhsdr_tpu_torch.cuda import iqcorr as iq_k
+from uhsdr_tpu_torch.cuda import lattice as lat_k
 from uhsdr_tpu_torch.cuda import lms as lms_k
 from uhsdr_tpu_torch.cuda import nr as nr_k
 from uhsdr_tpu_torch.cuda import pll as pll_k
 from uhsdr_tpu_torch.cuda import sam as sam_k
 from uhsdr_tpu_torch.metrics import snr_db
+from uhsdr_tpu_torch.mod import modulators as mods
 from uhsdr_tpu_torch.nr import blanker as nb_mod
 from uhsdr_tpu_torch.nr import spectral as nr_mod
 from uhsdr_tpu_torch.ops import agc as agc_ops
@@ -200,7 +225,13 @@ FM = rx.FM_FLAGSHIP          # the FM flagship
 WIDE = rx.WIDE_FLAGSHIP      # the wide-SSB flagship
 STEREO = rx.STEREO_FLAGSHIP  # the two-channel flagship
 TXF = tx.TX_FLAGSHIP         # the TX flagship
+SCIPY = rx.SCIPY_FLAGSHIP    # the SSB flagship on the legacy front
+REF = refchain.REF_FLAGSHIP  # the reference chain (usb 2P3KHZ select 2)
+TX_FM = dataclasses.replace(TXF, mode="fm")   # FM TX at the TX flagship
 CHANNELS = rx.FLAGSHIP_CHANNELS
+# the FM modulator's constants, as mod/modulators.py passes them
+FM_ALPHA = mods.FM_TX_HPF_ALPHA
+FM_AMP = mods.FM_MOD_AMPLITUDE_SCALING
 
 # The mixed-mode fleet (BASELINE config 5, `pfleet.FLEET_MIX`): six groups
 # of 1024 channels at 48 kHz, 16384-sample f32 blocks.  The five 12 kHz
@@ -1042,13 +1073,15 @@ def phase_agc(P, dev, gen):
         P["fm"].agc, rx.IQ_RATE, (2048, 1000, 2048), dev, gen,
         time_len=T192)
     b192, by192 = bound(nb192, fl192)
-    # the fleet's FM group: 1024 channels x 16384 steps at 48 kHz, w 192
+    # the fleet's FM group: 1024 channels at 48 kHz, w 192; the plain loop
+    # checks 4096-step blocks (its 16384-step blocks took ~25 s each), the
+    # kernel is timed at the fleet block's 16384 steps
     fm48 = pfleet.FLEET_MIX[-1]
     check(fm48.mode == "fm", "the fleet's last group is FM")
     efm, msfm, plainfm, nbfm, flfm, recfm, _ = agc_case(
-        rx.make_params(fm48, dev).agc, fm48.fs_dec,
-        (FLEET_BLOCK, 1000, FLEET_BLOCK), dev, gen,
-        C=FLEET_GROUP_CHANNELS, name="K3 fleet FM")
+        rx.make_params(fm48, dev).agc, fm48.fs_dec, (4096, 1000, 4096), dev,
+        gen, time_len=FLEET_BLOCK, C=FLEET_GROUP_CHANNELS,
+        name="K3 fleet FM")
     bfm, byfm = bound(nbfm, flfm)
     # +-0, +-inf, a NaN and subnormals: the NaNs where the plain version
     # has them (its look-ahead max and its blended step keep them)
@@ -1067,8 +1100,8 @@ def phase_agc(P, dev, gen):
                w192=dict(ms=ms192, plain_ms=plain192, plain_steps=2048,
                          bound_ms=b192, bound_by=by192,
                          recurrence_ms=rec192, steps=T192),
-               fleet_fm=dict(ms=msfm, plain_ms=plainfm, bound_ms=bfm,
-                             bound_by=byfm, recurrence_ms=recfm,
+               fleet_fm=dict(ms=msfm, plain_ms=plainfm, plain_steps=4096,
+                             bound_ms=bfm, bound_by=byfm, recurrence_ms=recfm,
                              channels=FLEET_GROUP_CHANNELS,
                              steps=FLEET_BLOCK))
 
@@ -2746,6 +2779,175 @@ def phase_nr(P, dev, gen):
     return r
 
 
+def lattice_stream(pk, pv, C, lengths, dev, gen, label, edge=False,
+                   scale=1000.0):
+    """The lattice kernel against its plain version over streamed blocks
+    from a zero state (with `edge`, a NaN state channel and the edge
+    samples), bit for bit on y and the state.  Returns (max |err|, the
+    first block's input)."""
+    N = len(pk)
+    sk = torch.zeros((C, N), device=dev)
+    if edge:
+        sk[C // 2, N // 2] = math.nan
+    sp, err, t0, first = sk, 0.0, 0, None
+    for blk, T in enumerate(lengths):
+        x = torch.randn((C, T), generator=gen, device=dev) * scale
+        if edge:
+            x = opt_edges(x, t0)
+        t0 += T
+        first = x if first is None else first
+        yk, sk = lat_k.lattice(pk, pv, sk, x)
+        yp, sp = lat_k.lattice_plain(pk, pv, sp, x)
+        torch.cuda.synchronize()
+        err = max(err, bits_held(f"{label} block {blk} ({T} samples)",
+                                 {"y": (yp, yk), "state": (sp, sk)}))
+    return err, first
+
+
+def phase_lattice(P, dev, gen):
+    """The IIR lattice (lattice.cu) at the reference chain's PreFilter
+    shape (8192 ch x 4096 @ 12 kHz, IIR_2k3_1k412's 10 stages) over 4096 +
+    1000 + 4096 samples, then at each stage count the tables have (6, 8,
+    10) and a made-up 11 and 12 (1024 x 600 + 77), an edge stream (a NaN
+    state channel; +-0, +-inf, a NaN, subnormals, 1e30), bit for bit
+    against its plain version on y and the state; channels 0-7 alone
+    against the batch.  Timed at the PreFilter's shape and the FM TX
+    voice lattice's (8192 x 16384); the plain loop at 256 samples."""
+    C = CHANNELS
+    T = REF.block_len // REF.decim
+    pk, pv = refdata.lattice(REF.path["pre"])
+    check(len(pk) == 10, f"PreFilter lattice {len(pk)} stages")
+    err, x0 = lattice_stream(pk, pv, C, (T, 1000, T), dev, gen,
+                             "lattice N=10")
+    rng = np.random.default_rng(11)
+    for name in ("IIR_aa_10k", "IIR_8k_LPF", "IIR_TX_2k7_FM", 11, 12):
+        if isinstance(name, int):
+            k = rng.uniform(-0.8, 0.8, name).astype(np.float32)
+            v = rng.uniform(-1.0, 1.0, name + 1).astype(np.float32)
+        else:
+            k, v = refdata.lattice(name)
+        err = max(err, lattice_stream(k, v, 1024, (600, 77), dev, gen,
+                                      f"lattice {name} N={len(k)}")[0])
+    err = max(err, lattice_stream(pk, pv, C, (1000, 777), dev, gen,
+                                  "lattice edge", edge=True)[0])
+    s0 = torch.zeros((C, 10), device=dev)
+    full = lat_k.lattice(pk, pv, s0, x0)
+    one = lat_k.lattice(pk, pv, s0[:8].contiguous(), x0[:8].contiguous())
+    torch.cuda.synchronize()
+    check(all(torch.equal(a[:8], b) for a, b in zip(full, one)),
+          "lattice: channels 0-7 alone differ from the batch")
+    del full
+    ms = cuda_ms(lambda: lat_k.lattice(pk, pv, s0, x0), 10)
+    TP = 256
+    xp = x0[:, :TP].contiguous()
+    plain_ms = cuda_ms(lambda: lat_k.lattice_plain(pk, pv, s0, xp), 1)
+    kv, vv = refdata.lattice("IIR_TX_2k7_FM")
+    TT = TXF.block_len
+    xt = torch.randn((C, TT), generator=gen, device=dev) * 1000.0
+    ms_tx = cuda_ms(lambda: lat_k.lattice(kv, vv, s0, xt), 10)
+    # x in, y out, the state in and out; a stage's three products and
+    # three sums, and the output's product and sum
+    N = 10
+    nbytes = 2 * C * T * 4 + 2 * C * N * 4
+    rec_ms = recurrence_ms(T, lat_k.LATTICE_STEP_CHAIN)
+    r = row("lattice", "lattice.cu", "uhsdr_tpu/ops/lattice.py:33",
+            err=err, snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=(6.0 * N + 2.0) * C * T, recurrence_ms=rec_ms,
+            tpu_kernel=False, plain_steps=TP, ms_tx_voice=ms_tx,
+            bound_tx_voice_ms=bound(2 * C * TT * 4 + 2 * C * N * 4,
+                                    (6.0 * N + 2.0) * C * TT)[0],
+            library_note="no PyTorch call computes a lattice filter")
+    print(f"  lattice at {C} x {T}, 10 stages: {ms:.4f} ms (plain "
+          f"{plain_ms:.1f} ms at {TP} samples; recurrence bound "
+          f"{rec_ms:.4f} ms; {r['bound_by']} bound {r['bound_ms']:.4f} ms); "
+          f"at {C} x {TT} (FM TX voice): {ms_tx:.4f} ms; bit for bit, edge "
+          f"streams too; channels 0-7 alone bit-equal")
+    return r
+
+
+def fm_mod_stream(p, C, lengths, dev, gen, label, sub=False, edge=False):
+    """fm_mod.cu against its plain version over streamed blocks of
+    count-domain audio from a zero state (with `sub` a subtone plane; with
+    `edge`, a NaN pre-emphasis state channel and the edge samples), bit
+    for bit on the IQ and every state leaf.  Returns (max |err|, the
+    first block's input)."""
+    z = torch.zeros((C,), device=dev)
+    st = [z.clone(), z.clone(), torch.zeros((C,), dtype=torch.int32,
+                                            device=dev)]
+    if edge:
+        st[1][C // 2] = math.nan
+    sp, err, t0, first = list(st), 0.0, 0, None
+    for blk, T in enumerate(lengths):
+        x = tx_level_block(gen, dev, C, T, t0)
+        if edge:
+            x = opt_edges(x, t0)
+        add = (torch.randn((C, T), generator=gen, device=dev) * 0.01
+               if sub else None)
+        t0 += T
+        first = x if first is None else first
+        args = (FM_ALPHA, float(p.freq_word), p.mod_scale,
+                FM_AMP, p.swap_iq)
+        got = fm_k.fm_mod(x, add, *st, *args)
+        ref = fm_k.fm_mod_plain(x, add, *sp, *args)
+        torch.cuda.synchronize()
+        err = max(err, same_bits(f"{label} block {blk} ({T} samples)", dict(
+            zip(("i", "q", "hpf_a", "hpf_b", "accum"), zip(ref, got)))))
+        st, sp = list(got[2:]), list(ref[2:])
+    return err, first
+
+
+def phase_fm_mod(P, dev, gen):
+    """The table-mode FM modulator (fm_mod.cu) at the TX flagship's shape
+    (8192 ch x 16384 count-domain audio @ 48 kHz) over 16384 + 3000 +
+    16384 samples, then with a subtone plane and a negative translate
+    (the I/Q swap, 4096 + 1000), an edge stream (a NaN state channel;
+    +-0, +-inf, a NaN, subnormals, 1e30; 1000 + 777), bit for bit against
+    its plain version on i, q and every state leaf; channels 0-7 alone
+    against the batch.  Timed at 8192 x 16384; the plain loop at 1024
+    samples."""
+    C, T = CHANNELS, TXF.block_len
+    p = P["tx_fm"].fm
+    check(p.table_quant, "FM TX ref front: not the table mode")
+    err, x0 = fm_mod_stream(p, C, (T, 3000, T), dev, gen, "fm_mod")
+    neg = mods.fm_mod_params(-6000.0, False, 88.5, count_domain=True)
+    err = max(err, fm_mod_stream(neg, C, (4096, 1000), dev, gen,
+                                 "fm_mod subtone, swap", sub=True)[0])
+    err = max(err, fm_mod_stream(p, C, (1000, 777), dev, gen, "fm_mod edge",
+                                 edge=True)[0])
+    z = torch.zeros((C,), device=dev)
+    acc = torch.zeros((C,), dtype=torch.int32, device=dev)
+    args = (FM_ALPHA, float(p.freq_word), p.mod_scale, FM_AMP, p.swap_iq)
+    full = fm_k.fm_mod(x0, None, z, z, acc, *args)
+    one = fm_k.fm_mod(x0[:8].contiguous(), None, z[:8], z[:8], acc[:8],
+                      *args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a[:8], b) for a, b in zip(full, one)),
+          "fm_mod: channels 0-7 alone differ from the batch")
+    check(float(full[0].abs().max()) > 0.8 and bool(
+        (full[4] != 0).any()), "fm_mod: no carrier or a still accumulator")
+    del full
+    ms = cuda_ms(lambda: fm_k.fm_mod(x0, None, z, z, acc, *args), 10)
+    TP = 1024
+    xp = x0[:, :TP].contiguous()
+    plain_ms = cuda_ms(lambda: fm_k.fm_mod_plain(xp, None, z, z, acc, *args),
+                       1)
+    # audio in, i and q out, the state in and out; a sample's
+    # pre-emphasis (3), the step (2), the accumulator (5), the index (2),
+    # the amplitude (2)
+    nbytes = 3 * C * T * 4 + 2 * 3 * C * 4
+    rec_ms = recurrence_ms(T, fm_k.FM_MOD_STEP_CHAIN)
+    r = row("fm_mod", "fm_mod.cu", "uhsdr_tpu/mod/modulators.py:244",
+            err=err, snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            flops=14.0 * C * T, recurrence_ms=rec_ms, tpu_kernel=False,
+            plain_steps=TP,
+            library_note="no PyTorch call computes the FM modulator")
+    print(f"  fm_mod at {C} x {T}: {ms:.4f} ms (plain {plain_ms:.1f} ms at "
+          f"{TP} samples; recurrence bound {rec_ms:.4f} ms; {r['bound_by']} "
+          f"bound {r['bound_ms']:.4f} ms); bit for bit, edge streams too; "
+          f"channels 0-7 alone bit-equal")
+    return r
+
+
 # the spectral NR's per-bin state leaves
 NR_BIN_LEAVES = ("nr.xt", "nr.pslp", "nr.hk_old", "nr.nest_acc")
 
@@ -2816,14 +3018,15 @@ def timed_run(step, blocks, label, expect, n_warm, n_timed):
 
 
 def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
-              ref_ch=8):
+              ref_ch=8, keep=None):
     """Drive `RxChain(cfg)` on the card at C channels; returns (launches
     of every kernel on this path, ms/block, Ms/s, worst SNR against the
-    port's CPU chain)."""
+    port's CPU chain).  With a dict `keep`, the last block's audio goes to
+    keep["audio"]."""
     B = cfg.block_len
     fm = cfg.mode == "fm"
-    out_len, fs_out = ((B // cfg.decim, cfg.fs_dec) if fm
-                       else (B, cfg.iq_rate))
+    out_len, fs_out = ((B // cfg.front_decim, cfg.iq_rate / cfg.front_decim)
+                       if fm else (B, cfg.iq_rate))
     out_shape = (C,) + ((2,) if cfg.n_audio > 1 else ()) + (out_len,)
     blocks = trace_rx.capture(n_warm + n_timed, C, dev, seed, cfg)
     chain = rx.RxChain(cfg, device=dev)
@@ -2860,6 +3063,8 @@ def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     launches, ms_block, (audio, taps) = timed_run(step, blocks, label, expect,
                                                   n_warm, n_timed)
     msps = C * B / (ms_block * 1e-3) / 1e6
+    if keep is not None:
+        keep["audio"] = audio
 
     check(tuple(audio.shape) == out_shape,
           f"audio shape {tuple(audio.shape)}")
@@ -2982,12 +3187,14 @@ def biquad_path(P, dev, seed, impl, n_timed=4, n_warm=2):
     return launches, ms_block, worst, n_warm + n_timed
 
 
-def tx_vs_cpu(cfg, label, blocks, kept, kept_state, C):
+def tx_vs_cpu(cfg, label, blocks, kept, kept_state, C, tol_db=CHAIN_TOL_DB):
     """The first channels of `blocks` (each (C, T) audio) through a CPU
     `TxChain(cfg)`: its (i + j q) against `kept` (the card's, one (ref_ch,
     T) tensor a block) and its state after them against `kept_state`
-    (the card's, all C channels), every leaf; held >= CHAIN_TOL_DB.
-    Returns the worst SNR."""
+    (the card's, all C channels), every leaf; held >= tol_db.  FM's
+    accumulator is compared by the phase its steps apart make: d steps
+    read as -20 log10(d 2 pi / 65536) dB (one step 80.4 dB).  Returns the
+    worst SNR."""
     ref_ch = kept[0].shape[0]
     cpu = tx.TxChain(cfg, device="cpu")
     s_cpu = cpu.init_state((ref_ch,))
@@ -2998,21 +3205,29 @@ def tx_vs_cpu(cfg, label, blocks, kept, kept_state, C):
         worst = min(worst, s)
         print(f"  {label} vs CPU chain, block {blk}, ch 0-{ref_ch - 1}: "
               f"SNR {s:.1f} dB")
-    leaves = state_snrs(tx.state_to_numpy(s_cpu),
-                        {f: v[:ref_ch] if v.shape[0] == C else
-                         np.take(v, range(ref_ch), axis=1)
-                         for f, v in tx.state_to_numpy(kept_state).items()})
+    ref = tx.state_to_numpy(s_cpu)
+    got = {f: v[:ref_ch] if v.shape[0] == C else
+           np.take(v, range(ref_ch), axis=1)
+           for f, v in tx.state_to_numpy(kept_state).items()}
+    acc = (ref.pop("mod.accum", None), got.pop("mod.accum", None))
+    leaves = state_snrs(ref, got)
+    if acc[0] is not None:
+        d = np.abs(acc[0].astype(np.int64) - acc[1].astype(np.int64))
+        d = int(np.minimum(d, 65536 - d).max())
+        leaves["mod.accum"] = (math.inf if d == 0 else
+                               -20.0 * math.log10(d * 2 * math.pi / 65536))
+        print(f"  {label} FM accumulators at most {d} steps apart")
     low = min(leaves, key=leaves.get)
     print(f"  {label} state after block {len(kept) - 1} vs CPU chain: worst "
           f"leaf {low} {leaves[low]:.1f} dB of {len(leaves)}")
     worst = min(worst, leaves[low])
-    check(worst >= CHAIN_TOL_DB,
-          f"{label} vs CPU chain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
+    check(worst >= tol_db, f"{label} vs CPU chain: {worst:.1f} dB < "
+                           f"{tol_db} dB")
     return worst
 
 
 def tx_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
-            ref_ch=8):
+            ref_ch=8, tol_db=CHAIN_TOL_DB):
     """Drive `TxChain(cfg)` on the card at C channels; returns (launches
     of every kernel on this path, ms/block, Ms/s of audio in, worst SNR
     against the port's CPU chain), as `main_path` does for RX."""
@@ -3041,14 +3256,145 @@ def tx_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
     for f, v in tx.state_to_numpy(state).items():
         check(bool(np.isfinite(v).all()), f"{label} state {f} not finite")
 
-    worst = tx_vs_cpu(cfg, label, blocks, kept, kept_state, C)
+    worst = tx_vs_cpu(cfg, label, blocks, kept, kept_state, C, tol_db)
     z = (i[0] + 1j * q[0]).cpu().to(torch.complex128).numpy()
     spec = np.abs(np.fft.fft(z * np.hanning(len(z))))
-    f_pk = float(np.fft.fftfreq(len(z), 1.0 / tx.IQ_RATE)[spec.argmax()])
-    want = trace_tx.expected_peak_hz(cfg)
-    print(f"  {label} channel 0 IQ peak {f_pk:.1f} Hz (expected {want} Hz)")
-    check(abs(f_pk - want) < 20.0, f"{label} peak at {f_pk} Hz, not {want}")
+    freqs = np.fft.fftfreq(len(z), 1.0 / tx.IQ_RATE)
+    f_pk = float(freqs[spec.argmax()])
+    if cfg.mode == "fm":
+        # the carrier at the translate frequency: the spectrum's centroid
+        # (an FM signal's mean frequency is its carrier's), with the
+        # modulation spread around it (its rms deviation)
+        pw = spec ** 2 / (spec ** 2).sum()
+        f_mean = float((pw * freqs).sum())
+        dev_rms = float(np.sqrt((pw * (freqs - f_mean) ** 2).sum()))
+        print(f"  {label} channel 0 IQ: mean frequency {f_mean:.1f} Hz "
+              f"(carrier {cfg.translate_hz} Hz), rms deviation "
+              f"{dev_rms:.1f} Hz, peak {f_pk:.1f} Hz")
+        check(abs(f_mean - cfg.translate_hz) < 50.0,
+              f"{label} carrier at {f_mean} Hz, not {cfg.translate_hz}")
+        check(300.0 < dev_rms < 5000.0,
+              f"{label} rms deviation {dev_rms} Hz: no modulation")
+        check(abs(f_pk - cfg.translate_hz) < 3000.0,
+              f"{label} peak at {f_pk} Hz, off the carrier")
+    else:
+        want = trace_tx.expected_peak_hz(cfg)
+        print(f"  {label} channel 0 IQ peak {f_pk:.1f} Hz (expected {want} "
+              f"Hz)")
+        check(abs(f_pk - want) < 20.0,
+              f"{label} peak at {f_pk} Hz, not {want}")
     return launches, ms_block, msps, worst, n_warm + n_timed
+
+
+def ref_capture(cfg, n_blocks, C, dev, seed):
+    """f32 planes in the int16 count domain (the reference chain's input
+    scale) of `trace_rx.capture`'s tones for cfg's mode at 48 kHz."""
+    proxy = rx.RxConfig(mode=cfg.mode, translate_hz=cfg.translate_hz,
+                        iq_rate=refchain.IQ_RATE, block_len=cfg.block_len)
+    return [(i.float(), q.float()) for i, q in
+            trace_rx.capture(n_blocks, C, dev, seed, proxy)]
+
+
+def ref_leaves_snrs(ref: dict, got: dict, omega_max: float) -> dict:
+    """`state_snrs` for two `refchain.state_to_numpy` dicts; SAM's PLL
+    frequency estimate, which sits near zero on a carrier at the translate
+    frequency, by its error against its range (1e-6 of omega_max reads
+    as 120 dB)."""
+    out = state_snrs({f: v for f, v in ref.items() if f != "sam.omega2"},
+                     {f: v for f, v in got.items() if f != "sam.omega2"})
+    if "sam.omega2" in ref:
+        err = float(np.abs(ref["sam.omega2"] - got["sam.omega2"]).max())
+        out["sam.omega2"] = (math.inf if err == 0.0 else
+                             -20.0 * math.log10(err / omega_max))
+    return out
+
+
+def refchain_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2,
+                  n_ref=3, ref_ch=8):
+    """Drive `RefRxChain(cfg)` on the card at C channels of f32 planes @
+    48 kHz, as `main_path` drives RxChain: timed blocks, launch counts,
+    finite output and state, channels 0-7 against the port's CPU chain
+    over the first blocks (output and every state leaf), channel 0's
+    tone.  Returns (launches, ms/block, Ms/s, worst SNR, blocks run)."""
+    B = cfg.block_len
+    blocks = ref_capture(cfg, n_warm + n_timed, C, dev, seed)
+    chain = refchain.RefRxChain(cfg, device=dev)
+    state = chain.init_state((C,))
+    kept, kept_state = [], None
+
+    def step(blk):
+        nonlocal state, kept_state
+        audio, state = chain(state, i=blk[0], q=blk[1])
+        if len(kept) < n_ref:
+            kept.append(audio[:ref_ch].clone())
+            if len(kept) == n_ref:
+                kept_state = state
+        return audio
+
+    launches, ms_block, audio = timed_run(step, blocks, label, expect,
+                                          n_warm, n_timed)
+    msps = C * B / (ms_block * 1e-3) / 1e6
+    check(tuple(audio.shape) == (C, B), f"audio shape {tuple(audio.shape)}")
+    check(bool(torch.isfinite(audio).all()), f"{label} audio not finite")
+    for f, v in refchain.state_to_numpy(state, cfg).items():
+        check(bool(np.isfinite(v).all()), f"{label} state {f} not finite")
+    cpu = refchain.RefRxChain(cfg, device="cpu")
+    s_cpu = cpu.init_state((ref_ch,))
+    worst = math.inf
+    for blk in range(n_ref):
+        i, q = blocks[blk]
+        y_cpu, s_cpu = cpu(s_cpu, i=i[:ref_ch].cpu(), q=q[:ref_ch].cpu())
+        s = snr_db(y_cpu, kept[blk].cpu())
+        worst = min(worst, s)
+        print(f"  {label} vs CPU chain, block {blk}, ch 0-{ref_ch - 1}: SNR "
+              f"{s:.1f} dB")
+    leaves = ref_leaves_snrs(
+        refchain.state_to_numpy(s_cpu, cfg),
+        {f: np.take(v, range(ref_ch), axis=v.shape.index(C)) for f, v in
+         refchain.state_to_numpy(kept_state, cfg).items()},
+        chain.params.sam.omega_max)
+    low = min(leaves, key=leaves.get)
+    print(f"  {label} state after block {n_ref - 1} vs CPU chain: worst "
+          f"leaf {low} {leaves[low]:.1f} dB of {len(leaves)}")
+    worst = min(worst, leaves[low])
+    check(worst >= CHAIN_TOL_DB,
+          f"{label} vs CPU chain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
+    y0 = audio[0].cpu().double().numpy()
+    spec = np.abs(np.fft.rfft((y0 - y0.mean()) * np.hanning(len(y0))))
+    freqs = np.fft.rfftfreq(len(y0), 1.0 / refchain.IQ_RATE)
+    spec[freqs < 100.0] = 0.0
+    f_pk = float(freqs[spec.argmax()])
+    tone = trace_rx.FM_TONE_HZ if cfg.mode == "fm" else trace_rx.TONE_HZ
+    print(f"  {label} channel 0 audio peak {f_pk:.1f} Hz (tone {tone} Hz)")
+    check(abs(f_pk - tone) < 20.0, f"{label} tone at {f_pk} Hz, not {tone}")
+    return launches, ms_block, msps, worst, n_warm + n_timed
+
+
+def output_stage(audio: torch.Tensor) -> float:
+    """`chain.output.output_block` on the card on a main path's last audio
+    block (chain scale), two blocks with per-channel mute and beep gates,
+    against the same on the CPU.  Returns max |err|."""
+    C, T = audio.shape
+    p = output.make_params(af_gain=20, beep_freq_hz=880.0)
+    gates = [(torch.arange(C) % 3 == 0, torch.arange(C) % 2 == 0),
+             (False, True)]
+    sk = output.init_state((C,), device=audio.device)
+    sc = output.init_state((C,))
+    err = 0.0
+    for mute, beep in gates:
+        def on(v, d):
+            return v.to(d) if isinstance(v, torch.Tensor) else v
+        yk, sk = output.output_block(p, sk, audio, on(mute, audio.device),
+                                     on(beep, audio.device))
+        yc, sc = output.output_block(p, sc, audio.cpu(), mute, beep)
+        err = max(err, float((yk.cpu() - yc).abs().max()))
+        check(bool(torch.equal(sk.beep_phase.cpu(), sc.beep_phase)),
+              "output stage: the beep phases differ")
+        check(float(yk.abs().max()) <= 1.0, "output stage: past full scale")
+    print(f"  output stage on {C} x {T}: max |err| against the CPU "
+          f"{err:.2e}")
+    check(err <= 1e-6, f"output stage: {err:.2e} from the CPU")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -3481,6 +3827,32 @@ MAIN_PATHS = (
      ("fir_rt", "blanker") + SHARED, 4, DEPTH),
     ("ssbstereo_nr", dataclasses.replace(STEREO, nr_enable=True),
      ("front_pair", "nr") + TWO_CH, 4, DEPTH),
+    # the legacy redesigned front: the SSB flagship on it (K7), AM and FM
+    # (K5; FM at decimation 1 and 96 kHz), and the wide rows' iq (K5) and
+    # ssbstereo (two K7 launches), which run it on the default front
+    ("ssb_scipy", SCIPY, ("fir_cx_nco", "blocked", "agc", "interp"), 8,
+     CHANNELS),
+    ("am_scipy", dataclasses.replace(SCIPY, mode="am", bw_key="5P0KHZ",
+                                     path_name=None),
+     ("fir_rt",) + SHARED, 4, DEPTH),
+    ("fm_scipy", dataclasses.replace(SCIPY, mode="fm", bw_key="5P0KHZ",
+                                     path_name=None), FM_KERNELS, 4, DEPTH),
+    ("iq_wide", dataclasses.replace(STEREO, mode="iq", bw_key="10P0KHZ",
+                                    path_name=None),
+     ("fir_rt",) + TWO_CH, 4, DEPTH),
+    ("ssbstereo_wide", dataclasses.replace(STEREO, bw_key="5P0KHZ"),
+     ("fir_cx_nco",) + TWO_CH, 4, DEPTH),
+)
+# the reference chain (RefRxChain, f32 planes @ 48 kHz): (label, config,
+# kernels it must launch, timed blocks, channels)
+REF_PATHS = (
+    ("refchain", REF, ("fir_rt", "fir_cx", "lattice", "agc", "interp"), 8,
+     CHANNELS),
+    ("refchain_sam", dataclasses.replace(REF, mode="sam", select_id=None),
+     ("fir_rt", "pll_audio", "lattice", "agc", "interp"), 4, DEPTH),
+    ("refchain_fm", dataclasses.replace(REF, mode="fm", bw_key="3P6KHZ",
+                                        select_id=None),
+     ("fir_rt", "fm_disc", "blocked", "agc"), 4, DEPTH),
 )
 PATH_ENV = {"ssb_mt": {"UHSDR_FRONT_MT": "1"}}
 TX_VOICE = ("fir_real", "alc", "blocked")
@@ -3501,7 +3873,19 @@ TX_PATHS = (
     ("tx_cw", dataclasses.replace(TXF, mode="cw"), (), 4, DEPTH),
     ("tx_lsb_scipy", dataclasses.replace(TXF, mode="lsb", front="scipy"),
      TX_VOICE, 4, DEPTH),
+    # FM: the ref front's serial voice lattice, the ALC and the table-mode
+    # modulator; the legacy front's voice SOS (K2), the ALC and the torch
+    # modulator
+    ("tx_fm", TX_FM, ("lattice", "alc", "fm_mod"), 8, CHANNELS),
+    ("tx_fm_scipy", dataclasses.replace(TX_FM, front="scipy"),
+     ("blocked", "alc"), 4, DEPTH),
 )
+# The legacy FM modulator rounds each step of its accumulator from the
+# voice SOS's output, which K2 and its plain version sum in other orders
+# (~100 dB apart): a rounding now and then lands a step apart, and the
+# phase walks.  Its paths hold card against CPU at this bound, the steps
+# apart counted as phase (ROADMAP queue C).
+TX_TOL_DB = {"tx_fm_scipy": 60.0}
 
 
 def main() -> int:
@@ -3543,6 +3927,7 @@ def main() -> int:
               f"PreFilter {p.audio_sos.sections} sections, interp "
               f"{p.interp_fir.shape[-1]} taps, AGC w {p.agc.attack_buffsize}")
     P["tx"] = tx.make_params(TXF, dev)
+    P["tx_fm"] = tx.make_params(TX_FM, dev)
     print(f"config tx: {CHANNELS} ch x {TXF.block_len} @ "
           f"{tx.IQ_RATE:.0f} Hz, mode {TXF.mode}, front {TXF.front}, "
           f"analytic FIR {P['tx'].ssb.fir.shape[-1]} taps, voice SOS "
@@ -3558,7 +3943,7 @@ def main() -> int:
                   phase_blocked, phase_biquad_grouped, phase_front_mt,
                   phase_agc_rows, phase_agc_scan_rows, phase_agc_stereo,
                   phase_agc_stereo_rows, phase_iqcorr, phase_lms,
-                  phase_blanker, phase_nr):
+                  phase_blanker, phase_nr, phase_lattice, phase_fm_mod):
         t1 = time.time()
         print(f"phase {phase.__name__}:")
         r = phase(P, dev, gen)
@@ -3575,12 +3960,16 @@ def main() -> int:
         print(f"phase main_path {label}:")
         env = PATH_ENV.get(label, {})
         os.environ.update(env)
+        keep = {} if label == "ssb_scipy" else None
         try:
             launches, ms_block, msps, worst, n_blocks = main_path(
-                cfg, label, expect, dev, args.seed, n_timed, C)
+                cfg, label, expect, dev, args.seed, n_timed, C, keep=keep)
         finally:
             for k in env:
                 os.environ.pop(k)
+        if keep:
+            print(f"phase output stage on {label}'s last block:")
+            output_stage(keep.pop("audio"))
         by_path[label] = launches
         per_block[label] = {k: n / n_blocks for k, n in launches.items()}
         torch.cuda.empty_cache()
@@ -3592,11 +3981,25 @@ def main() -> int:
               f"{ms_block:.3f} ms/block over {n_timed} blocks, {msps:.1f} "
               f"Ms/s, CPU-chain SNR {worst:.1f} dB "
               f"({time.time() - t1:.1f} s) on {card}")
+    for label, cfg, expect, n_timed, C in REF_PATHS:
+        t1 = time.time()
+        print(f"phase refchain_path {label}:")
+        launches, ms_block, msps, worst, n_blocks = refchain_path(
+            cfg, label, expect, dev, args.seed, n_timed, C)
+        by_path[label] = launches
+        per_block[label] = {k: n / n_blocks for k, n in launches.items()}
+        torch.cuda.empty_cache()
+        print(f"refchain path {label}: mode {cfg.mode}, bw {cfg.bw_key}, "
+              f"select {cfg.select_id}, translate {cfg.translate_hz:.0f} Hz, "
+              f"{C} ch x {cfg.block_len} f32 @ 48 kHz: {ms_block:.3f} "
+              f"ms/block over {n_timed} blocks, {msps:.1f} Ms/s, CPU-chain "
+              f"SNR {worst:.1f} dB ({time.time() - t1:.1f} s) on {card}")
     for label, cfg, expect, n_timed, C in TX_PATHS:
         t1 = time.time()
         print(f"phase tx_path {label}:")
         launches, ms_block, msps, worst, n_blocks = tx_path(
-            cfg, label, expect, dev, args.seed, n_timed, C)
+            cfg, label, expect, dev, args.seed, n_timed, C,
+            tol_db=TX_TOL_DB.get(label, CHAIN_TOL_DB))
         by_path[label] = launches
         per_block[label] = {k: n / n_blocks for k, n in launches.items()}
         torch.cuda.empty_cache()

@@ -2434,3 +2434,174 @@ def test_option_chain_on_card_matches_cpu(dev, kw):
                      ("nr", cfg.nr_enable and not fm)):
         assert (ran[name] == 3) == on and (ran[name] == 0) == (not on), \
             (name, ran[name])
+
+
+# ---------------------------------------------------------------------------
+# the IIR lattice (lattice.cu) and the table-mode FM modulator (fm_mod.cu):
+# bit for bit with their plain versions, edge streams included
+# ---------------------------------------------------------------------------
+
+def _recurrence_edges(x: torch.Tensor, t0: int) -> torch.Tensor:
+    """Edge samples by channel c % 6: 1 every 7th sample one of +-0,
+    subnormals, 1e30, +-inf; 2 zeros; 3 subnormal; 4 one NaN at stream
+    sample 40; 5 scaled to 1e30."""
+    x = x.clone()
+    C, T = x.shape
+    n = torch.arange(t0, t0 + T, device=x.device)
+    special = torch.tensor([0.0, -0.0, 1e-45, -3e-42, 1e30, float("inf"),
+                            -float("inf")], device=x.device)
+    cls = torch.arange(C, device=x.device) % 6
+    pick = (n % 7 == 3).nonzero()[:, 0]
+    rows = (cls == 1).nonzero()[:, 0]
+    x[rows[:, None], pick[None, :]] = special[(n[pick] // 7) % 7]
+    x[cls == 2] = 0.0
+    x[cls == 3] *= 1e-41
+    if t0 <= 40 < t0 + T:
+        x[cls == 4, 40 - t0] = float("nan")
+    x[cls == 5] *= 1e30
+    return x
+
+
+def _lattice_tables():
+    from uhsdr_tpu_torch import data
+    rng = np.random.default_rng(3)
+    out = [data.lattice(n) for n in ("IIR_aa_10k", "IIR_8k_LPF",
+                                     "IIR_2k3_1k412", "IIR_TX_2k7_FM")]
+    for n in (1, 11, 12):
+        out.append((rng.uniform(-0.8, 0.8, n).astype(np.float32),
+                    rng.uniform(-1.0, 1.0, n + 1).astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("C,lengths", [(40, (100, 33, 100)),
+                                       (33, (31, 1, 64)), (7, (500,))])
+@pytest.mark.parametrize("edge", [False, True])
+def test_lattice_kernel_bit_exact(dev, C, lengths, edge):
+    from uhsdr_tpu_torch.cuda import lattice as lat_k
+    rng = np.random.default_rng(C)
+    for pk, pv in _lattice_tables():
+        sk = torch.zeros((C, len(pk)), device=dev)
+        if edge:
+            sk[C // 2, 0] = float("nan")
+        sp, t0 = sk, 0
+        for T in lengths:
+            x = torch.as_tensor(rng.standard_normal((C, T)) * 1000.0,
+                                dtype=torch.float32, device=dev)
+            if edge:
+                x = _recurrence_edges(x, t0)
+            t0 += T
+            yk, sk = lat_k.lattice(pk, pv, sk, x)
+            yp, sp = lat_k.lattice_plain(pk, pv, sp, x)
+            torch.cuda.synchronize()
+            assert _bits_equal(yp, yk) and _bits_equal(sp, sk), (len(pk), T)
+
+
+def test_lattice_kernel_refuses_and_counts(dev):
+    from uhsdr_tpu_torch.cuda import lattice as lat_k
+    lib = lat_k.LATTICE.lib()
+    assert lib.uhsdr_lattice_max_stages() == lat_k.MAX_STAGES
+    assert lib.uhsdr_lattice_tile() == lat_k.TILE
+    pk, pv = np.zeros(13, np.float32), np.zeros(14, np.float32)
+    x = torch.zeros((4, 10), device=dev)
+    with pytest.raises(ValueError, match="lattice"):
+        lat_k.lattice(pk, pv, torch.zeros((4, 13), device=dev), x)
+    with pytest.raises(ValueError, match="lattice"):
+        lat_k.lattice(pk[:6], pv[:7], torch.zeros((4, 5), device=dev), x)
+    n0 = lat_k.LATTICE.launches
+    lat_k.lattice(pk[:6], pv[:7], torch.zeros((4, 6), device=dev), x)
+    assert lat_k.LATTICE.launches == n0 + 1
+
+
+@pytest.mark.parametrize("count_domain,translate,subtone", [
+    (True, 6000.0, 0.0), (True, -9000.0, 88.5), (False, 12000.0, 0.0)])
+@pytest.mark.parametrize("edge", [False, True])
+def test_fm_mod_kernel_bit_exact(dev, count_domain, translate, subtone, edge):
+    """The kernel at the modulator's parameters (the legacy mode's too,
+    which the chain runs in torch), a subtone plane, ragged channels and
+    blocks, edge streams with a NaN state."""
+    from uhsdr_tpu_torch.cuda import fm_mod as fm_k
+    from uhsdr_tpu_torch.mod import modulators as mods
+    p = mods.fm_mod_params(translate, False, subtone,
+                           count_domain=count_domain)
+    rng = np.random.default_rng(9)
+    C = 37
+    z = torch.zeros((C,), device=dev)
+    st = [z.clone(), z.clone(),
+          torch.full((C,), 65000, dtype=torch.int32, device=dev)]
+    if edge:
+        st[0][3] = float("nan")
+    sp, t0 = list(st), 0
+    for T in (100, 31, 257):
+        scale = 9000.0 if count_domain else 0.3
+        x = torch.as_tensor(rng.standard_normal((C, T)) * scale,
+                            dtype=torch.float32, device=dev)
+        if edge:
+            x = _recurrence_edges(x, t0)
+        t0 += T
+        add = (torch.as_tensor(rng.standard_normal((C, T)) * 0.01,
+                               dtype=torch.float32, device=dev)
+               if subtone else None)
+        args = (mods.FM_TX_HPF_ALPHA, float(p.freq_word), p.mod_scale,
+                mods.FM_MOD_AMPLITUDE_SCALING, p.swap_iq)
+        got = fm_k.fm_mod(x, add, *st, *args)
+        ref = fm_k.fm_mod_plain(x, add, *sp, *args)
+        torch.cuda.synchronize()
+        assert all(_bits_equal(a, b) for a, b in zip(ref, got)), T
+        st, sp = list(got[2:]), list(ref[2:])
+
+
+def test_fm_mod_kernel_refuses_and_counts(dev):
+    from uhsdr_tpu_torch.cuda import fm_mod as fm_k
+    lib = fm_k.FM_MOD.lib()
+    assert lib.uhsdr_fm_mod_tile() == fm_k.TILE
+    assert lib.uhsdr_fm_mod_table() == fm_k.TABLE
+    z = torch.zeros((4,), device=dev)
+    acc = torch.zeros((4,), dtype=torch.int32, device=dev)
+    x = torch.zeros((4, 10), device=dev)
+    args = (0.05, 8192.0, 16.0, 0.875, False)
+    with pytest.raises(ValueError, match="fm_mod"):
+        fm_k.fm_mod(x, None, z, z, acc.to(torch.int64), *args)
+    with pytest.raises(ValueError, match="fm_mod"):
+        fm_k.fm_mod(x, torch.zeros((4, 9), device=dev), z, z, acc, *args)
+    n0 = fm_k.FM_MOD.launches
+    fm_k.fm_mod(x, None, z, z, acc, *args)
+    assert fm_k.FM_MOD.launches == n0 + 1
+
+
+@pytest.mark.parametrize("which", ["refchain", "legacy", "tx_fm"])
+def test_slice19_chains_on_card_match_cpu(dev, which):
+    """The reference chain (usb 2P3KHZ select 2), the legacy front's SSB
+    flagship and FM TX on the card against the CPU at 80 dB, 3 blocks of
+    8 channels."""
+    from uhsdr_tpu_torch import trace_rx, trace_tx
+    from uhsdr_tpu_torch.chain import refchain, tx
+    C = 8
+    if which == "refchain":
+        cfg = refchain.RefRxConfig(mode="usb", select_id=2, block_len=4096)
+        gpu = refchain.RefRxChain(cfg, device=dev)
+        cpu = refchain.RefRxChain(cfg, device="cpu")
+        proxy = rx.RxConfig(mode="usb", translate_hz=6000.0, iq_rate=48000.0,
+                            block_len=4096)
+        blocks = [(i.float(), q.float())
+                  for i, q in trace_rx.capture(3, C, dev, 3, proxy)]
+    elif which == "legacy":
+        cfg = rx.RxConfig(**{**FLAGSHIP, "block_len": 4096, "front": "scipy"})
+        gpu, cpu = rx.RxChain(cfg, device=dev), rx.RxChain(cfg, device="cpu")
+        blocks = trace_rx.capture(3, C, dev, 3, cfg)
+    else:
+        cfg = tx.TxConfig(mode="fm", block_len=4096)
+        gpu, cpu = tx.TxChain(cfg, device=dev), tx.TxChain(cfg, device="cpu")
+        blocks = trace_tx.capture(3, C, dev, 3, cfg)
+    sg, sc = gpu.init_state((C,)), cpu.init_state((C,))
+    for blk in blocks:
+        if which == "tx_fm":
+            ig, qg, sg = gpu(sg, blk)
+            ic, qc, sc = cpu(sc, blk.cpu())
+            yg, yc = torch.complex(ig, qg), torch.complex(ic, qc)
+        else:
+            out_g = gpu(sg, i=blk[0], q=blk[1])
+            out_c = cpu(sc, i=blk[0].cpu(), q=blk[1].cpu())
+            (yg, sg), (yc, sc) = out_g[:2], out_c[:2]
+        assert bool(torch.isfinite(torch.view_as_real(yg) if yg.is_complex()
+                                   else yg).all())
+        assert snr_db(yc, yg) >= CHAIN_DB, which

@@ -3,8 +3,9 @@
 and a NumPy walk of the kernel's schedule.
 
 The rule is pure Python, so it is checked here on the CPU: every (L,
-taps) the chains reach at 48, 96 and 192 kHz has an instance of its own
-(x2 and x4 at 48 kHz, x4 and x8 at 96, x8 and x16 at 192), at their block
+taps) the reference-table chains reach at 48, 96 and 192 kHz has an
+instance of its own (x2 and x4 at 48 kHz, x4 and x8 at 96, x8 and x16 at
+192; the legacy front's 16 taps a phase take the generic one), at their block
 lengths and at ragged ones, the fleet's 5120 rows and the wideband
 groups; each fits the card's opt-in shared memory, and the tiles cover
 every output once.  Other factors take the generic instance, its taps in
@@ -59,6 +60,10 @@ def chain_interpolators() -> dict:
                         cfg = rx.RxConfig(mode=mode,
                                           bw_key=bw.replace("AUDIO_", ""),
                                           iq_rate=rate)
+                        if not cfg.use_ref_front:
+                            # iq/ssbstereo on a wide row run the legacy
+                            # front (test_interp_geometry_legacy_front)
+                            continue
                         taps = rx.make_params(cfg, "cpu").interp_fir.shape[-1]
                 except (KeyError, ValueError, NotImplementedError):
                     continue
@@ -116,6 +121,24 @@ def test_interp_geometry_at_the_chains_shapes(L, taps, block):
 def test_interp_geometry_fleet_rows(rows, B, L, taps):
     g = fir_k.interp_geometry(L, taps, B, rows)
     assert g.fixed and g.blocks == rows * g.tiles
+    assert g.smem <= build.SMEM_OPT_IN
+    assert (coverage(g, L, B) == 1).all()
+
+
+@pytest.mark.parametrize("L", [2, 4, 8, 16])
+@pytest.mark.parametrize("block", [16384, 4100])
+def test_interp_geometry_legacy_front(L, block):
+    """The legacy front's scipy interpolator, 16 taps a phase at every
+    factor (`design.interpolation_fir(16 L)`): the generic instance, its
+    taps in the launch's parameters, every output once."""
+    bw, rate = {2: ("10P0KHZ", 48000.0), 4: ("2P3KHZ", 48000.0),
+                8: ("2P3KHZ", 96000.0), 16: ("2P3KHZ", 192000.0)}[L]
+    cfg = rx.RxConfig(mode="usb", bw_key=bw, front="scipy", iq_rate=rate)
+    assert cfg.decim == L
+    assert rx.make_params(cfg, "cpu").interp_fir.shape[-1] == 16 * L
+    B = max(1, block // L)
+    g = fir_k.interp_geometry(L, 16 * L, B, 8192)
+    assert not g.fixed and g.param_taps and g.sub_len == 16
     assert g.smem <= build.SMEM_OPT_IN
     assert (coverage(g, L, B) == 1).all()
 

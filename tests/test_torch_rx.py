@@ -18,9 +18,10 @@ wrappers run the kernels' plain torch versions:
   (the am and sam rows are in tests/test_torch_conformance.py);
 * import hygiene: the port and chip_smoke.py import neither jax nor the
   JAX package;
-* entry points default to CUDA and raise where it is absent; modes and
-  options outside the slices, the settings of those options away from
-  their defaults, and an unfused stage B, raise NotImplementedError;
+* entry points default to CUDA and raise where it is absent; an unfused
+  stage B raises NotImplementedError; the configurations that were
+  outside the port before the legacy front and FM TX were ported run
+  and match the JAX chain from its state;
 * `RxConfig` has the JAX package's fields with its defaults, and the
   backend selectors and ``cw_offset_hz`` change nothing.
 """
@@ -268,7 +269,7 @@ def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB, capture=None,
                           trx.params_from_numpy(jp, device="cpu", cfg=tcfg)):
         assert _same(a, b), name
     blocks = (capture or am_capture)(N_BLOCKS, jcfg.iq_rate)
-    out_len = AM_B // tcfg.decim if tcfg.mode == "fm" else AM_B
+    out_len = AM_B // tcfg.front_decim if tcfg.mode == "fm" else AM_B
     out_shape = (C,) + ((2,) if tcfg.n_audio > 1 else ()) + (out_len,)
     js = jrx.init_state(jcfg, jp, (C,))
     ts = trx.init_state(tcfg, tp, (C,))
@@ -356,7 +357,12 @@ def test_imports_neither_jax_nor_the_jax_package():
         "       'uhsdr_tpu_torch.cuda.agc', 'uhsdr_tpu_torch.trace_tx',\n"
         "       'uhsdr_tpu_torch.parallel.fleet',\n"
         "       'uhsdr_tpu_torch.ops.channelizer',\n"
-        "       'uhsdr_tpu_torch.ops.fftutil'}\n"
+        "       'uhsdr_tpu_torch.ops.fftutil',\n"
+        "       'uhsdr_tpu_torch.chain.refchain',\n"
+        "       'uhsdr_tpu_torch.chain.output',\n"
+        "       'uhsdr_tpu_torch.cuda.lattice',\n"
+        "       'uhsdr_tpu_torch.cuda.fm_mod',\n"
+        "       'uhsdr_tpu_torch.ops.lattice'}\n"
         "print(n, bad, sorted(new - set(sys.modules)))\n"
         "sys.exit(1 if bad or n < 30 or new - set(sys.modules) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -392,18 +398,78 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
     dict(nr_enable=True, nr_prec_escalate=False, mode="iq",
          bw_key="10P0KHZ"),
     dict(front="scipy", high_taps=False)])
-def test_outside_the_slice_raises(kw):
-    """What is still outside the port: the legacy front, with or without
-    an RX option, the two-channel modes on the wide rows (the reference
-    runs them on that front) and FM TX."""
+def test_former_roadmap_configs_run(kw):
+    """What was outside the port until the legacy front and FM TX were
+    ported: the legacy front with or without an RX option, the
+    two-channel modes on the wide rows (which the reference runs on that
+    front) and FM TX.  Each builds on the CPU and runs a block from zero
+    state (finite), and a block from the JAX chain's state after that
+    one, held to the JAX chain at 80 dB on the output and every state
+    leaf (on the flagship's capture and row, but FM on its own capture
+    (tests/test_torch_fm.py) and 5P0KHZ row and iq on the row's first
+    path: the row has no FM path and no iq "LPF" sub-path, in either
+    package).  The hand-over start: the legacy FM front at 96
+    kHz parts from
+    the JAX CPU chain's FFT front at zero state (ROADMAP queue C).  FM
+    TX: its modulator input and state leaves at 80 dB; its IQ at queue
+    C's 50 dB (its accumulator integrates the last bits of its input,
+    tests/test_torch_fm_tx.py)."""
     if "tx_mode" in kw:
+        from tests import test_torch_tx as ttt
+        from uhsdr_tpu.chain import tx as jtx
         from uhsdr_tpu_torch.chain import tx as ttx
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttx.TxChain(ttx.TxConfig(mode=kw["tx_mode"]), device="cpu")
+        jcfg = jtx.TxConfig(mode=kw["tx_mode"], block_len=B)
+        tcfg = ttx.TxConfig(mode=kw["tx_mode"], block_len=B)
+        jp = jtx.make_params(jcfg)
+        tp = ttx.params_from_numpy(jp, device="cpu")
+        blk = np.concatenate(ttt._blocks("fm"), axis=-1)[:, :B]
+        iqj, js, tj = jtx.process_block(jcfg, jp, jtx.init_state(
+            jcfg, jp, blk.shape[:1]), jnp.asarray(blk))
+        iqt, ts, tt = ttx.process_block(
+            tcfg, tp, ttx.init_state(tcfg, tp, blk.shape[:1]),
+            torch.from_numpy(blk))
+        assert bool(torch.isfinite(torch.view_as_real(iqt)).all())
+        assert snr_db(np.asarray(tj["processed"]), tt["processed"]) >= \
+            CHAIN_DB
+        assert snr_db(np.asarray(iqj), iqt) >= 50.0
+        for f in ("alc.alc_val", "alc.delay_buf", "mod.hpf_a"):
+            assert snr_db(np.asarray(_leaf(js, f)),
+                          ttx.state_to_numpy(ts)[f]) >= CHAIN_DB, f
         return
-    cfg = trx.RxConfig(**{**FLAGSHIP, **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trx.RxChain(cfg, device="cpu")
+    kw = {**FLAGSHIP, **kw}
+    # the flagship's row has no FM path and no iq "LPF" sub-path: FM takes
+    # its 5P0KHZ row, iq the row's first path (in both packages)
+    if kw["mode"] == "fm":
+        kw.update(bw_key="5P0KHZ", path_name=None)
+    elif kw["mode"] == "iq":
+        kw.update(path_name=None)
+    tcfg, jcfg = trx.RxConfig(**kw), jrx.RxConfig(**kw)
+    assert not tcfg.use_ref_front and not jcfg.use_ref_front
+    chain = trx.RxChain(tcfg, device="cpu")
+    jp = jrx.make_params(jcfg)
+    step = jax.jit(lambda s, i, q: jrx.process_block(jcfg, jp, s, (i, q)))
+    if kw["mode"] == "fm":
+        from tests.test_torch_fm import fm_capture
+        blocks = fm_capture(2, kw["iq_rate"])
+    else:
+        blocks = _capture(2)
+    y0, _, _ = chain(chain.init_state((C,)), i=blocks[0][0],
+                     q=blocks[0][1])
+    assert bool(torch.isfinite(y0).all())
+    _, js, _ = _run_jax(step, jrx.init_state(jcfg, jp, (C,)), blocks[0])
+    ts = trx.state_from_numpy(jax.tree_util.tree_map(np.asarray, js),
+                              device="cpu", cfg=tcfg)
+    yj, js, _ = _run_jax(step, js, blocks[1])
+    yt, ts, _ = chain(ts, i=blocks[1][0], q=blocks[1][1])
+    n = blocks[1][0].shape[-1]
+    out_len = n // tcfg.front_decim if tcfg.mode == "fm" else n
+    assert tuple(yt.shape) == (C,) + ((2,) if tcfg.n_audio > 1 else ()) + (
+        out_len,)
+    s = snr_db(yj, yt)
+    leaves = state_snrs(js, ts, tcfg)
+    low = min(leaves, key=leaves.get)
+    print(f"\n{kw}: audio {s:.1f} dB, worst leaf {low} {leaves[low]:.1f} dB")
+    assert s >= CHAIN_DB and leaves[low] >= CHAIN_DB, (s, low, leaves[low])
 
 
 def test_unfused_stage_b_raises():

@@ -10,7 +10,7 @@ wrappers run the kernels' plain torch versions, against the JAX package:
 * the TX chains usb, lsb, am, cw (reference front) and usb, lsb (legacy
   front) against the JAX `TxChain` over four streamed blocks, with the
   hand-over after block 2 in both directions;
-* FM TX raising NotImplementedError that names the ROADMAP item.
+* FM TX building on both fronts (its numbers: tests/test_torch_fm_tx.py).
 
 Tolerances.  K8 against the TPU kernel: 100 dB (measured 131 dB: the two
 sum 201 products in other orders).  The ALC: 120 dB on audio and gain
@@ -273,14 +273,23 @@ def test_tx_chain_matches_jax_streamed(mode, front, monkeypatch):
 
 
 def test_fm_tx_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttx.TxChain(ttx.TxConfig(mode="fm"), device="cpu")
-    for fn in (tmods.fm_mod_params, tmods.fm_modulate, tmods.fm_tone_burst):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    """FM TX was outside the port until it was ported (ROADMAP queue A
+    item 8): it now builds on both fronts, its modulator functions run,
+    and the JAX package's FM params carry over.  Its numbers are
+    tests/test_torch_fm_tx.py's."""
+    for front in ("ref", "scipy"):
+        ch = ttx.TxChain(ttx.TxConfig(mode="fm", front=front), device="cpu")
+        i, q, _ = ch(ch.init_state((2,)), np.zeros((2, 256), np.float32))
+        assert i.shape == q.shape == (2, 256)
+        assert bool(torch.isfinite(i).all() and torch.isfinite(q).all())
+    p = tmods.fm_mod_params(count_domain=True)
+    iq, _ = tmods.fm_modulate(p, tmods.fm_mod_init((2,)), torch.zeros(2, 64))
+    assert iq.shape == (2, 64)
+    burst, _ = tmods.fm_tone_burst(torch.zeros(2, dtype=torch.int64), 1, 64)
+    assert burst.shape == (2, 64)
     jch = jtx.TxChain(jtx.TxConfig(mode="fm"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttx.params_from_numpy(jch.params, device="cpu")
+    tp = ttx.params_from_numpy(jch.params, device="cpu")
+    assert tp.fm.table_quant and tp.voice_lat is not None
 
 
 def test_tx_entry_points_need_cuda_unless_told(monkeypatch):

@@ -9,7 +9,8 @@ Stage order of the reference-table chains:
   int16 (or f32) IQ planes, batched over channels
     -> with iq_auto_correction: the Moseley-Slump IQ correction, f32
        planes at full scale 1 out         [cuda.iqcorr.iqcorr]
-    -> SSB/CW: ADC peak taps, NCO translation, stage-A decimator, stage-B
+    -> the reference-table front (front="ref"):
+       SSB/CW: ADC peak taps, NCO translation, stage-A decimator, stage-B
        Hilbert-combine FIR, real audio out  [K1: cuda.fir.front; under
        UHSDR_FRONT_MT=1 and a static delta K15: cuda.fir.front_mt, the
        translation in modulated stage-A taps]
@@ -21,6 +22,18 @@ Stage order of the reference-table chains:
                                              cuda.fir.fir_cx]
        AM/SAM/FM: ADC peak taps, NCO translation, the per-path AM lowpass
        as the decimator, complex IQ out     [K5: cuda.fir.fir_rt]
+    -> or the legacy redesigned front (front="scipy", and iq/ssbstereo on
+       the wide rows, where the reference has no table pair): one scipy
+       filter of 199 (high_taps) or 89 taps at the capture rate.
+       usb/lsb/cw: a complex analytic bandpass, real audio out
+                                            [K7, K6 untranslated:
+                                             cuda.fir.fir_cx]
+       ssbstereo: a USB and an LSB bandpass on the same planes, real
+       (C, 2, T) audio out                  [K7/K6, two launches]
+       am/sam/iq/fm: a symmetric lowpass (real taps; the TPU's real-tap
+       kernel too, pallas/fir.py:513), complex IQ out, FM at decimation 1
+       and the capture rate, iq split into its Re/Im channels
+                                            [K5: cuda.fir.fir_rt]
     -> demod: SSB (the real part, already taken by K1/K7); AM envelope
        and fade leveler; SAM PLL            [K9/K10: cuda.pll] with the
        sideband stage (products, allpass chains, combine, fade leveler;
@@ -30,7 +43,8 @@ Stage order of the reference-table chains:
        then runs the AGC and biquad2 alone at 48 kHz
     -> the NLMS auto-notch, then the leaky LMS (options; leaky_notch puts
        the leaky LMS in the notch's place)  [cuda.lms.nlms, cuda.lms.leaky]
-    -> PreFilter lattice as an exact SOS cascade [K2: cuda.iir.
+    -> PreFilter lattice as an exact SOS cascade (the legacy front: a
+       scipy audio bandpass)                [K2: cuda.iir.
        blocked_cascade; blocks that do not chunk K11]
     -> WDSP look-ahead AGC                  [K3: cuda.agc.agc], for AM/SAM
        followed by its DC blocker; two-channel audio: the linked stereo
@@ -51,14 +65,12 @@ Everything is a function of (params, state, block).  Params and state
 hold torch tensors on one device; entry points default to
 ``device="cuda"`` and raise where CUDA is absent, and run the kernels'
 plain torch versions only when the caller asks for ``device="cpu"``.
-Modes and options outside the slice raise NotImplementedError naming the
-ROADMAP item that brings them.  `RxConfig` has every field of the JAX
-package's, under its names and defaults.  ``cw_offset_hz`` (read by no
-chain code in either package), the backend selectors ``front_impl`` and
-``iir_impl``, ``front_prec``, ``nr_prec_escalate`` and ``high_taps``
-(read by the legacy front alone, which the port does not run yet) are
-accepted for configuration parity: the port computes the same thing for
-every value.  FM runs the IQ correction but none of
+`RxConfig` has every field of the JAX package's, under its names and
+defaults.  ``cw_offset_hz`` (read by no chain code in either package),
+the backend selectors ``front_impl`` and ``iir_impl``, ``front_prec`` and
+``nr_prec_escalate`` are accepted for configuration parity: the port
+computes the same thing for every value; ``high_taps`` is read by the
+legacy front alone.  FM runs the IQ correction but none of
 the decimated-rate options (the reference's FM branches skip them; their
 states pass through).  The port always computes in
 full FP32 (the kernels use FP32 FMAs, never TF32 or bf16, K15
@@ -101,8 +113,9 @@ POST_AGC_GAIN_SCALING_DECIMATE_2 = 3.46 * 0.6
 FM_RX_SCALING_2K5 = 10000.0
 FM_RX_SCALING_5K = FM_RX_SCALING_2K5 / 2.0
 
-_ROADMAP_MODES = ("ROADMAP.md queue A item 7 (the rest of the RX chain: "
-                  "the legacy scipy front)")
+# the legacy front's filter lengths (filters.h: 199 / 89 RX taps)
+RX_TAPS_HI = 199
+RX_TAPS_LO = 89
 
 
 def resolve_device(device=None) -> torch.device:
@@ -124,7 +137,8 @@ class RxConfig:
     #                                ssbstereo
     bw_key: str = "2P3KHZ"
     path_name: str | None = None   # sub-path of the filter registry
-    front: str = "ref"             # "ref": the firmware's imported tables
+    front: str = "ref"             # "ref": the firmware's imported tables;
+    #                                "scipy": the legacy redesigned front
     ref_select_id: int | None = None  # FilterPathInfo row selector
     translate_hz: float = 6000.0   # reference: ±6k/±12k (audio_driver.c:445)
     block_len: int = 4096          # IQ-rate samples per block
@@ -157,6 +171,21 @@ class RxConfig:
         return filterpaths.find_path(self.mode, self.bw_key, self.path_name)
 
     @property
+    def use_ref_front(self) -> bool:
+        """The reference-table front runs: front="ref", and for the
+        two-channel modes a narrow (decimated-IQ) SSB row; the wide rows
+        have no table pair and run the legacy front, as the reference's
+        (chain/rx.py:174-193)."""
+        if self.front != "ref":
+            return False
+        if self.mode in ("iq", "ssbstereo"):
+            try:
+                return refdata.uses_decimated_iq(self.ref_path, "usb")
+            except KeyError:
+                return False
+        return True
+
+    @property
     def ref_path(self) -> dict:
         """The firmware FilterPathInfo row (audio_filter.c:147-928).  The
         two-channel modes run the firmware's SSB rows (the demod-mode
@@ -175,10 +204,19 @@ class RxConfig:
 
     @property
     def front_pair(self) -> bool:
-        """The front feeds the two audio channels through a filter pair:
-        iq and ssbstereo (on the reference-table front, the only one the
-        port runs)."""
-        return self.mode in ("iq", "ssbstereo")
+        """The front feeds the two audio channels through a filter pair
+        (the state carries its raw history on both planes, (C, 2, n), in
+        the reference's layout): ssbstereo always, iq on the
+        reference-table front (the legacy iq runs one symmetric lowpass
+        and splits Re/Im)."""
+        return self.mode == "ssbstereo" or (self.mode == "iq"
+                                            and self.use_ref_front)
+
+    @property
+    def stage_b_pair(self) -> bool:
+        """The pair is stage A and two stage-B filters (K1, counted as
+        front_pair): the two-channel modes on the reference-table front."""
+        return self.front_pair and self.use_ref_front
 
     @property
     def rate_mult(self) -> int:
@@ -193,7 +231,17 @@ class RxConfig:
 
     @property
     def decim(self) -> int:
-        return int(self.ref_path["decim"] * self.iq_rate / IQ_RATE)
+        base = (self.ref_path["decim"] if self.use_ref_front
+                else self.path.decim)
+        return int(base * self.iq_rate / IQ_RATE)
+
+    @property
+    def front_decim(self) -> int:
+        """The front's decimation: the legacy FM front runs at decimation 1
+        and its chain at the capture rate (chain/rx.py:678-679 of the
+        reference)."""
+        return 1 if self.mode == "fm" and not self.use_ref_front \
+            else self.decim
 
     @property
     def fs_dec(self) -> float:
@@ -237,36 +285,31 @@ WIDE_FLAGSHIP = RxConfig(mode="usb", bw_key="5P0KHZ", path_name="LPF",
                          translate_hz=12000.0, iq_rate=96000.0,
                          block_len=16384)
 
+# The SSB flagship on the legacy redesigned front: one 199-tap complex
+# analytic bandpass decimating by 8, the scipy audio bandpass and
+# interpolator.
+SCIPY_FLAGSHIP = RxConfig(mode="usb", bw_key="2P3KHZ", path_name="LPF",
+                          front="scipy", translate_hz=12000.0,
+                          iq_rate=96000.0, block_len=16384)
+
 
 def check_slice(cfg: RxConfig):
-    """Raise NotImplementedError for what the port does not run yet."""
+    """Raise ValueError for a mode or sideband no chain has."""
     if cfg.mode not in ("usb", "lsb", "cw", "am", "sam", "fm", "iq",
                         "ssbstereo"):
-        raise NotImplementedError(f"mode {cfg.mode!r}: {_ROADMAP_MODES}")
+        raise ValueError(f"mode {cfg.mode!r}")
     if cfg.mode == "sam" and cfg.sam_sideband not in ("both", "usb", "lsb",
                                                       "stereo"):
         raise ValueError(f"sam_sideband {cfg.sam_sideband!r}")
-    if cfg.front != "ref":
-        raise NotImplementedError(
-            f"front {cfg.front!r}: the legacy redesigned front, "
-            f"{_ROADMAP_MODES}")
-    if cfg.front_pair:
-        try:
-            narrow = refdata.uses_decimated_iq(cfg.ref_path, "usb")
-        except KeyError:
-            narrow = False
-        if not narrow:
-            # the reference runs these rows on its legacy scipy front
-            raise NotImplementedError(
-                f"mode {cfg.mode!r} on the {cfg.bw_key} row (the legacy "
-                f"redesigned front): {_ROADMAP_MODES}")
 
 
 class RxParams(NamedTuple):
     """Design products for one chain config, resident on one device."""
     nco_delta: int                # uint32 phase increment
     front_fir: torch.Tensor       # (taps,) the decimating front: f32 real
-    #                               taps, or complex64 for wide SSB
+    #                               taps, or complex64 for wide SSB and
+    #                               the legacy SSB front; (2, taps)
+    #                               complex64 for legacy ssbstereo
     front2: torch.Tensor | None   # (taps2,) complex64 stage-B Hilbert FIR,
     #                               (2, taps2) for the two-channel modes;
     #                               None without a second stage
@@ -353,12 +396,29 @@ def _lattice_sos5(name: str | None) -> np.ndarray:
 
 def _post_scale(cfg: RxConfig) -> float:
     """Firmware post-AGC scaling, exact (audio_driver.c:2517-2527); FM's
-    scaling ahead of its AGC (:1494-1495)."""
+    scaling ahead of its AGC (:1494-1495).  The legacy front multiplies
+    it by the reference interpolator's net passband gain over the
+    decimation, where the row has a reference analog (its tables do not
+    compensate the zero-stuffing, the scipy interpolator does; the
+    reference's `_reference_post_scale`, chain/rx.py:61-83)."""
     if cfg.mode == "fm":
         return FM_RX_SCALING_5K if cfg.fm_dev5 else FM_RX_SCALING_2K5
-    base = (POST_AGC_GAIN_SCALING_DECIMATE_4 if cfg.ref_path["decim"] == 4
+    ref_decim = (cfg.ref_path["decim"] if cfg.use_ref_front
+                 else cfg.path.decim)
+    base = (POST_AGC_GAIN_SCALING_DECIMATE_4 if ref_decim == 4
             else POST_AGC_GAIN_SCALING_DECIMATE_2)
-    return base * (0.5 if cfg.mode in ("am", "sam") else 0.333)
+    base *= 0.5 if cfg.mode in ("am", "sam") else 0.333
+    if cfg.use_ref_front:
+        return base
+    try:
+        row = refdata.find_path(cfg.mode, cfg.bw_key)
+        if row["interpolate"] is not None:
+            g_ref = refdata.interp_passband_gain(row["interpolate"],
+                                                 ref_decim)
+            base *= g_ref / ref_decim
+    except KeyError:
+        pass                        # no reference analog for this path
+    return base
 
 
 def _on_device(device, *, nco_delta, front_fir_re, front_fir_im, front2_re,
@@ -452,9 +512,59 @@ def _front_design(cfg: RxConfig):
     return np.convolve(g, dec), None                  # wide SSB
 
 
+def _make_params_legacy(cfg: RxConfig, dev) -> RxParams:
+    """The legacy redesigned front and post products (chain/rx.py:477-552
+    of the reference): one scipy filter at the capture rate — a complex
+    analytic bandpass for usb/lsb/cw (cw on the USB band), a symmetric
+    lowpass at the row's AM cutoff class for am/sam/iq, a USB and an LSB
+    bandpass for ssbstereo, a lowpass of half the row's width (at least
+    5 kHz) for FM; the scipy audio bandpass at fs_dec, the scipy
+    interpolator of 16 taps a phase, no anti-alias lattice."""
+    path = cfg.path
+    taps = RX_TAPS_HI if cfg.high_taps else RX_TAPS_LO
+    lo, hi = path.audio_band
+    fs = cfg.iq_rate
+    usb, lsb = (max(lo, 50.0), hi), (-hi, -max(lo, 50.0))
+    if cfg.mode in ("usb", "cw"):
+        h = design.complex_bandpass_fir(taps, *usb, fs)
+    elif cfg.mode == "lsb":
+        h = design.complex_bandpass_fir(taps, *lsb, fs)
+    elif cfg.mode in ("am", "sam", "iq"):
+        cut = min(max(hi, 2300.0), 10000.0)
+        h = design.complex_bandpass_fir(taps, -cut, cut, fs)
+    elif cfg.mode == "ssbstereo":
+        h = np.stack([design.complex_bandpass_fir(taps, *usb, fs),
+                      design.complex_bandpass_fir(taps, *lsb, fs)])
+    else:                                               # fm
+        cut = path.width / 2 if path.width >= 5000 else 5000.0
+        h = design.complex_bandpass_fir(taps, -cut, cut, fs)
+    fs_dec = cfg.fs_dec
+    return _on_device(
+        dev,
+        nco_delta=nco.freq_to_delta(-cfg.translate_hz, fs),
+        front_fir_re=h.real, front_fir_im=h.imag,
+        front2_re=None, front2_im=None,
+        audio_sos=design.audio_bandpass_sos(lo if lo > 60 else 0.0,
+                                            min(hi, 0.45 * fs_dec), fs_dec),
+        interp_fir=design.interpolation_fir(16 * cfg.decim, cfg.decim, fs),
+        agc=agc_mod.make_params(fs_dec, mode=cfg.agc_mode,
+                                thresh_db=cfg.agc_thresh_db,
+                                remove_dc=cfg.mode in ("am", "sam")),
+        fade=am_mod.fade_leveler_params(fs_dec),
+        sam=sam_mod.make_params(fs_dec),
+        fm=(fm_mod.numpy_params(fs, cfg.sql_threshold, cfg.subtone_hz)
+            if cfg.mode == "fm" else None),
+        iq_gain=1.0, iq_phase=0.0,
+        post_scale=_post_scale(cfg),
+        eq1_sos=eq_mod.rx_biquad1_sos(cfg.eq, fs_dec),
+        eq2_sos=eq_mod.rx_biquad2_sos(cfg.eq, fs),
+        aa_sos=_EMPTY_SOS, **_option_params(cfg, fs_dec))
+
+
 def make_params(cfg: RxConfig, device=None) -> RxParams:
     """The reference-table front and post products (chain/rx.py:336-464
-    of the reference).  Narrow SSB/CW: stage A is the firmware's real
+    of the reference), or the legacy front's (`_make_params_legacy`).
+    Narrow SSB/CW: stage A is the firmware's real
     decimator lifted to the capture rate, stage B its Hilbert pair fused
     into one complex FIR g = h_i ∓ j·h_q whose real response is I±Q.
     Wide SSB: the Hilbert pair runs before the (real) decimator, which
@@ -466,6 +576,8 @@ def make_params(cfg: RxConfig, device=None) -> RxParams:
     taps."""
     check_slice(cfg)
     dev = resolve_device(device)
+    if not cfg.use_ref_front:
+        return _make_params_legacy(cfg, dev)
     rp = cfg.ref_path
     k = cfg.rate_mult
     am_sam = cfg.mode in ("am", "sam")
@@ -517,15 +629,17 @@ def params_from_numpy(p: Any, device=None,
                       cfg: RxConfig | None = None) -> RxParams:
     """The JAX package's RxParams (NumPy leaves) -> the port's RxParams,
     so both chains run off one set of design products.  The two-channel
-    modes' (2, taps) input-rate front pair is kept factored in the port
-    (stage A, then two stage-B filters; see `_front_design`): its factors
-    come from `cfg` through the port's own design copy."""
+    modes' (2, taps) input-rate front pair of the reference-table front is
+    kept factored in the port (stage A, then two stage-B filters; see
+    `_front_design`): its factors come from `cfg` through the port's own
+    design copy.  The legacy ssbstereo pair stays as it is."""
     front = dict(front_fir_re=p.front_fir_re, front_fir_im=p.front_fir_im,
                  front2_re=p.front2_re, front2_im=p.front2_im)
     if np.ndim(p.front_fir_re) == 2:
         if cfg is None or not cfg.front_pair:
             raise ValueError("a (2, taps) front pair: pass the two-channel "
                              "mode's cfg")
+    if np.ndim(p.front_fir_re) == 2 and cfg.stage_b_pair:
         stage_a, pair = _front_design(cfg)
         stage_a = _rate_adapt_front(stage_a, cfg.rate_mult, cfg.iq_rate)
         front = dict(front_fir_re=stage_a, front_fir_im=np.zeros(1),
@@ -545,10 +659,11 @@ def params_from_numpy(p: Any, device=None,
 
 def _raw_history_len(cfg: RxConfig, params: RxParams) -> int:
     """Samples of raw IQ the front carries: its taps - 1, or for the
-    two-channel modes the reference's input-rate pair's (stage A's taps
-    - 1 + decim * (taps2 - 1), whose last stage-A taps - 1 feed K1)."""
+    two-channel modes on the reference-table front the reference's
+    input-rate pair's (stage A's taps - 1 + decim * (taps2 - 1), whose
+    last stage-A taps - 1 feed K1)."""
     n = params.front_fir.shape[-1] - 1
-    if cfg.front_pair:
+    if cfg.stage_b_pair:
         n += cfg.decim * (params.front2.shape[-1] - 1)
     return n
 
@@ -659,13 +774,37 @@ def state_from_numpy(s: Any, device=None,
     state = _map_state(s, t)
     if cfg is not None and cfg.front_pair:
         raw = state.front_carry[..., 0, :].contiguous()
-        params = make_params(cfg, dev)
-        state = state._replace(front_carry=raw, front2_carry=_stage_a_history(
-            cfg, params, raw, state.nco_phase, params.nco_delta))
+        state = state._replace(front_carry=raw)
+        if cfg.stage_b_pair:
+            params = make_params(cfg, dev)
+            state = state._replace(front2_carry=_stage_a_history(
+                cfg, params, raw, state.nco_phase, params.nco_delta))
     return state
 
 
 _UINT32_LEAVES = ("nco_phase", "fm.tone_phase")
+
+
+def leaves_to_numpy(state, uint32_leaves=()) -> dict:
+    """{dotted field: NumPy array} of a state's tensor leaves, nested
+    NamedTuples under dotted names (``agc.volts``); the leaves named in
+    `uint32_leaves` (phases carried as int64) as uint32, the JAX
+    package's dtype.  Leaves that are None are left out."""
+    out = {}
+
+    def walk(prefix, v):
+        if v is None:
+            return
+        if isinstance(v, torch.Tensor):
+            a = v.cpu().numpy()
+            out[prefix] = (a.astype(np.uint32) if prefix in uint32_leaves
+                           else a)
+            return
+        for f in v._fields:
+            walk(f"{prefix}.{f}" if prefix else f, getattr(v, f))
+
+    walk("", state)
+    return out
 
 
 def state_to_numpy(state: RxState, cfg: RxConfig | None = None) -> dict:
@@ -676,20 +815,7 @@ def state_to_numpy(state: RxState, cfg: RxConfig | None = None) -> dict:
     left out.  With the cfg of a two-channel mode the leaves are the
     reference's: the raw history on both planes (C, 2, n), no stage-B
     history."""
-    out = {}
-
-    def walk(prefix, v):
-        if v is None:
-            return
-        if isinstance(v, torch.Tensor):
-            a = v.cpu().numpy()
-            out[prefix] = (a.astype(np.uint32) if prefix in _UINT32_LEAVES
-                           else a)
-            return
-        for f in v._fields:
-            walk(f"{prefix}.{f}" if prefix else f, getattr(v, f))
-
-    walk("", state)
+    out = leaves_to_numpy(state, _UINT32_LEAVES)
     if cfg is not None and cfg.front_pair:
         fc = out["front_carry"]
         out["front_carry"] = np.repeat(fc[..., None, :], 2, axis=-2)
@@ -723,11 +849,14 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
     """IQ correction, ADC peak taps, NCO translation and the front FIR.
     Narrow SSB/CW: both stages fused in the K1 kernel, real audio at
     fs_dec out; iq/ssbstereo: K1 with two stage-B filters, (C, 2, T)
-    audio out.  Wide SSB: the complex-tap front, K7 when translating and
-    K6 when not, real audio out.  AM/SAM/FM: the one real-tap decimating
-    stage in the K5 kernel, complex decimated IQ out (FM reports no ADC
-    peaks, as the reference's FM branch).  `tune_offset_hz` (the live
-    retune, the reference's LO step) adds its delta to the translation.
+    audio out.  Wide SSB and the legacy SSB front: the complex-tap front,
+    K7 when translating and K6 when not, real audio out; legacy
+    ssbstereo: two such launches, (C, 2, T) audio out.  AM/SAM/FM and
+    the legacy iq: the one real-tap decimating stage in the K5 kernel,
+    complex decimated IQ out (FM reports no ADC peaks, as the reference's
+    FM branch; the legacy FM front does not decimate).  `tune_offset_hz`
+    (the live retune, the reference's LO step) adds its delta to the
+    translation.
     Returns (zf, new_state, taps)."""
     xi, xq = _planes(iq)
     iqc_state = state.iqcorr
@@ -751,7 +880,7 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
     nco_phase = state.nco_phase
     front2_carry = state.front2_carry
     nco_arg = (nco_phase, delta) if translating else None
-    if cfg.front_pair and tune_offset_hz is not None:
+    if cfg.stage_b_pair and tune_offset_hz is not None:
         # the reference mixes its pair's whole raw history with this
         # block's delta (chain/rx.py:742-755): the stage-A outputs made
         # with an earlier delta are rebuilt from the raw history
@@ -767,13 +896,21 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
             params.front_fir, params.front2, state.front_carry,
             front2_carry, xi, xq, nco_phase, delta, cfg.decim)
         translating = True
+    elif params.front_fir.ndim == 2:
+        # the legacy ssbstereo pair: the USB and the LSB filter on the
+        # same planes, one launch each; both keep the same raw history
+        out = [fir_kernels.fir_cx(h, state.front_carry, xi, xq, cfg.decim,
+                                  nco=nco_arg, real_out=True)
+               for h in params.front_fir]
+        zf = torch.stack([o[0] for o in out], dim=-2)
+        front_carry, peak = out[0][1], out[0][2]
     elif params.front_fir.is_complex():
         zf, front_carry, peak = fir_kernels.fir_cx(
             params.front_fir, state.front_carry, xi, xq, cfg.decim,
             nco=nco_arg, real_out=True)
     else:
         zf, front_carry, peak = fir_kernels.fir_rt(
-            params.front_fir, state.front_carry, xi, xq, cfg.decim,
+            params.front_fir, state.front_carry, xi, xq, cfg.front_decim,
             nco=nco_arg)
     if translating:
         nco_phase = nco.advance(nco_phase, delta, xi.shape[-1])
@@ -814,6 +951,9 @@ def _demod_sos_pre_agc(cfg: RxConfig, params: RxParams, state: RxState,
         audio, _, sam_state = sam_mod.demod(
             params.sam, state.sam, zf, sideband=cfg.sam_sideband,
             fade_leveler_on=cfg.fade_leveler)
+    elif cfg.mode == "iq" and not cfg.front_pair:
+        # the legacy iq: one symmetric lowpass, the planes split to L/R
+        audio = torch.stack([zf.real, zf.imag], dim=-2)
     else:
         audio = ssb_mod.demod(zf)
     # the decimated-rate LMS stages (chain/rx.py:1019-1030 of the
@@ -911,7 +1051,8 @@ def process_block(cfg: RxConfig, params: RxParams, state: RxState, iq,
     """iq: an (i, q) tuple of (C, block) int16 or f32 planes, or a complex
     (C, block) tensor.  Returns (audio, new_state, taps): audio is (C,
     block) at the IQ rate, (C, 2, block) in the two-channel modes, or
-    (C, block // decim) at 48 kHz for FM."""
+    (C, block // front_decim) for FM (at 48 kHz on the reference-table
+    front, at the capture rate on the legacy one)."""
     zf, state, taps_out = process_front(cfg, params, state, iq,
                                         tune_offset_hz)
     return demod_and_post(cfg, params, state, zf, taps_out)

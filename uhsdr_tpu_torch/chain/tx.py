@@ -4,21 +4,25 @@ the equivalent of the firmware's `TxProcessor_Run`,
 
   audio in (48 kHz, batched over channels)
     -> voice conditioning: TX bandpass (the SOPRANO lattice as an exact SOS
-       cascade)                             [K2: cuda.iir.blocked_cascade]
+       cascade; the legacy front's redesigned bandpass)
+                                            [K2: cuda.iir.blocked_cascade]
+       FM on the ref front: the IIR_TX_2k7_FM lattice as the exact serial
+       recurrence                           [cuda.lattice.lattice]
        + voice compressor/ALC
        (`TxProcessor_PrepareVoice` :440, `TxProcessor_VoiceCompressor` :173)
                                             [the fused ALC stage:
                                              cuda.alc.alc_run]
-    -> per-mode modulator: SSB / AM / CW    (mod.modulators)
-                                            [K8: cuda.fir.fir_real]
+    -> per-mode modulator: SSB / AM / FM / CW (mod.modulators)
+                                            [K8: cuda.fir.fir_real; FM's
+                                             table-mode accumulator
+                                             cuda.fm_mod.fm_mod]
     -> final IQ gain + phase calibration    (`TxProcessor_IqFinalProcessing`
                                             :282)
   IQ out (48 kHz complex)
 
 Everything is a function of (params, state, block), as the RX chain.
 Entry points default to ``device="cuda"`` and raise where CUDA is absent;
-``device="cpu"`` runs the kernels' plain torch versions.  FM raises
-NotImplementedError naming the ROADMAP item.
+``device="cpu"`` runs the kernels' plain torch versions.
 """
 from __future__ import annotations
 
@@ -32,8 +36,8 @@ from .. import data as refdata
 from ..cuda import iir as iir_k
 from ..mod import alc as alc_mod
 from ..mod import modulators as mods
-from ..ops import design, iir, latconv, nco
-from .rx import resolve_device
+from ..ops import design, iir, latconv, lattice, nco
+from .rx import leaves_to_numpy, resolve_device
 
 IQ_RATE = 48000.0
 
@@ -52,7 +56,7 @@ def _lattice_sos5(name: str) -> np.ndarray:
 class TxConfig:
     """Static per-chain configuration; the JAX package's fields and
     defaults."""
-    mode: str = "usb"               # usb | lsb | am | cw (fm: not yet)
+    mode: str = "usb"               # usb | lsb | am | fm | cw
     front: str = "ref"              # "ref": the firmware's imported tables
     #                                 (iq_tx_wide Hilbert pair, TX IIR
     #                                 lattice, ALC/carrier constants, audio
@@ -82,6 +86,7 @@ class TxParams(NamedTuple):
     alc: alc_mod.AlcParams | None
     ssb: mods.SsbModParams | None
     am: mods.AmModParams | None
+    fm: mods.FmModParams | None
     cw_delta: int | None
     iq_gain: float
     iq_phase: float
@@ -91,20 +96,22 @@ class TxParams(NamedTuple):
     # (SSB/AM_GAIN_COMP=1.133, audio_driver.h:419-421)
     in_scale: float = 1.0
     out_scale: float = 1.0
+    # (pk, pv) f32: the ref front's FM voice bandpass as the exact serial
+    # lattice (its accumulator floors the audio every sample, so it
+    # integrates any arithmetic difference of an SOS twin)
+    voice_lat: tuple | None = None
     device: Any = None            # where the chain's tensors live
 
 
 class TxState(NamedTuple):
-    voice_sos_state: torch.Tensor | None   # (S, C, 2)
+    voice_sos_state: torch.Tensor | None   # (S, C, 2); (C, N) for a lattice
     alc: alc_mod.AlcState | None
-    mod: mods.SsbModState | None
+    mod: mods.SsbModState | mods.FmModState | None
     cw_phase: torch.Tensor | None          # (C,) int64 in [0, 2^32)
 
 
 def check_slice(cfg: TxConfig):
-    if cfg.mode == "fm":
-        raise NotImplementedError(mods._ROADMAP_FM)
-    if cfg.mode not in ("usb", "lsb", "am", "cw"):
+    if cfg.mode not in ("usb", "lsb", "am", "fm", "cw"):
         raise ValueError(f"TX mode {cfg.mode!r}")
     if cfg.front not in ("ref", "scipy"):
         raise ValueError(f"TX front {cfg.front!r}")
@@ -112,19 +119,28 @@ def check_slice(cfg: TxConfig):
 
 def make_params(cfg: TxConfig, device=None) -> TxParams:
     """The reference-table products (chain/tx.py:92-138 of the
-    reference: the SOPRANO voice lattice as its exact SOS, compression
-    level 2 ALC with the 288-sample look-ahead, the iq_tx_wide pair, the
-    AM carrier) for usb/lsb/am on the ref front; the legacy designs
+    reference: the SOPRANO voice lattice as its exact SOS, FM's
+    IIR_TX_2k7_FM as the serial lattice, compression level 2 ALC with the
+    288-sample look-ahead, the iq_tx_wide pair, the AM carrier, FM's DDS
+    constants) for usb/lsb/am/fm on the ref front; the legacy designs
     (:141-161) otherwise, CW included."""
     check_slice(cfg)
     dev = resolve_device(device)
     mode = cfg.mode
-    voice = mode in ("usb", "lsb", "am")
+    voice = mode in ("usb", "lsb", "am", "fm")
+    fm = (mods.fm_mod_params(cfg.translate_hz, cfg.fm_dev_5khz,
+                             cfg.fm_subtone_hz,
+                             count_domain=cfg.front == "ref")
+          if mode == "fm" else None)
     if cfg.front == "ref" and voice:
-        gain_comp = 1.133
+        voice_lat = None
+        if cfg.tx_bandpass and mode == "fm":
+            pk, pv = refdata.lattice("IIR_TX_2k7_FM")
+            voice_lat = (np.asarray(pk, np.float32),
+                         np.asarray(pv, np.float32))
         return TxParams(
             voice_sos=(iir.cascade(_lattice_sos5("IIR_TX_SOPRANO"), dev)
-                       if cfg.tx_bandpass else None),
+                       if cfg.tx_bandpass and mode != "fm" else None),
             alc=(alc_mod.make_params(
                 decay=10.0 ** (-((10.0 + 35.0) / 10.0)),  # alc_decay_var=10
                 delay=288,           # AUDIO_DELAY_BUFSIZE ring at block 32
@@ -136,11 +152,15 @@ def make_params(cfg: TxConfig, device=None) -> TxParams:
                  if mode in ("usb", "lsb") else None),
             am=mods.am_params_ref(cfg.translate_hz, dev) if mode == "am"
             else None,
-            cw_delta=None,
+            fm=fm, cw_delta=None,
             iq_gain=1.0 + cfg.iq_gain_balance,
             iq_phase=cfg.iq_phase_balance,
             in_scale=_INT16_FS,
-            out_scale=gain_comp / _INT16_FS, device=dev)
+            # FM's DDS output is already unit-scale; the linear voice modes
+            # normalize the count-domain IQ back down
+            out_scale=1.0 if mode == "fm" else 1.133 / _INT16_FS,
+            voice_lat=voice_lat,
+            device=dev)
     voice_sos = None
     if cfg.tx_bandpass and voice:
         voice_sos = iir.cascade(design.audio_bandpass_sos(
@@ -154,6 +174,7 @@ def make_params(cfg: TxConfig, device=None) -> TxParams:
              if mode in ("usb", "lsb") else None),
         am=mods.am_params(cfg.translate_hz, device=dev) if mode == "am"
         else None,
+        fm=fm,
         cw_delta=(int(nco.freq_to_delta(cfg.translate_hz
                                         + cfg.cw_sidetone_hz, IQ_RATE))
                   if mode == "cw" else None),
@@ -164,8 +185,6 @@ def make_params(cfg: TxConfig, device=None) -> TxParams:
 def params_from_numpy(p: Any, device=None) -> TxParams:
     """The JAX package's TxParams (NumPy leaves) -> the port's TxParams,
     so both chains run off one set of design products."""
-    if p.fm is not None or p.voice_lat is not None:
-        raise NotImplementedError(mods._ROADMAP_FM)
     dev = resolve_device(device)
     return TxParams(
         voice_sos=(None if p.voice_sos is None
@@ -173,23 +192,35 @@ def params_from_numpy(p: Any, device=None) -> TxParams:
         alc=None if p.alc is None else alc_mod.params_from_numpy(p.alc),
         ssb=None if p.ssb is None else mods.params_from_numpy(p.ssb, dev),
         am=None if p.am is None else mods.params_from_numpy(p.am, dev),
+        fm=None if p.fm is None else mods.fm_params_from_numpy(p.fm),
         cw_delta=None if p.cw_delta is None else int(p.cw_delta),
         iq_gain=float(p.iq_gain), iq_phase=float(p.iq_phase),
         in_scale=float(p.in_scale), out_scale=float(p.out_scale),
+        voice_lat=(None if p.voice_lat is None else tuple(
+            np.asarray(v, np.float32) for v in p.voice_lat)),
         device=dev)
 
 
 def init_state(cfg: TxConfig, params: TxParams, batch_shape) -> TxState:
     bs = tuple(batch_shape)
     dev = params.device
+    if params.voice_lat is not None:
+        voice = lattice.init_state(bs, params.voice_lat[0].shape[0], dev)
+    elif params.voice_sos is not None:
+        voice = torch.zeros((params.voice_sos.sections,) + bs + (2,),
+                            dtype=torch.float32, device=dev)
+    else:
+        voice = None
+    mod = None
+    if cfg.mode in ("usb", "lsb", "am"):
+        mod = mods.ssb_init(bs, dev)
+    elif cfg.mode == "fm":
+        mod = mods.fm_mod_init(bs, dev)
     return TxState(
-        voice_sos_state=(None if params.voice_sos is None else torch.zeros(
-            (params.voice_sos.sections,) + bs + (2,), dtype=torch.float32,
-            device=dev)),
+        voice_sos_state=voice,
         alc=(None if params.alc is None
              else alc_mod.init_state(bs, params.alc, device=dev)),
-        mod=mods.ssb_init(bs, dev) if cfg.mode in ("usb", "lsb", "am")
-        else None,
+        mod=mod,
         cw_phase=(torch.zeros(bs, dtype=torch.int64, device=dev)
                   if cfg.mode == "cw" else None))
 
@@ -206,7 +237,10 @@ def process_block(cfg: TxConfig, params: TxParams, state: TxState,
     if cfg.mode != "cw":
         if params.in_scale != 1.0:
             audio = audio * params.in_scale
-        if params.voice_sos is not None:
+        if params.voice_lat is not None:
+            audio, sos_state = lattice.iir_lattice_block(
+                *params.voice_lat, sos_state, audio)
+        elif params.voice_sos is not None:
             audio, sos_state = iir_k.cascade_dispatch(
                 params.voice_sos, sos_state, audio)
         if params.alc is not None:
@@ -218,6 +252,8 @@ def process_block(cfg: TxConfig, params: TxParams, state: TxState,
         iq, mod_state = mods.ssb_modulate(params.ssb, state.mod, audio)
     elif cfg.mode == "am":
         iq, mod_state = mods.am_modulate(params.am, state.mod, audio)
+    elif cfg.mode == "fm":
+        iq, mod_state = mods.fm_modulate(params.fm, state.mod, audio)
     else:
         iq, cw_phase = mods.cw_carrier(audio, state.cw_phase,
                                        params.cw_delta)
@@ -233,7 +269,7 @@ def process_block(cfg: TxConfig, params: TxParams, state: TxState,
         cw_phase=cw_phase), taps
 
 
-_UINT32_LEAVES = ("mod.phase", "cw_phase")
+_UINT32_LEAVES = ("mod.phase", "mod.sub_phase", "cw_phase")
 
 
 def state_from_numpy(s: Any, device=None) -> TxState:
@@ -249,33 +285,22 @@ def state_from_numpy(s: Any, device=None) -> TxState:
             a = a.astype(np.int64)
         return torch.as_tensor(a, device=dev).contiguous()
 
+    mod = None
+    if s.mod is not None:
+        kind = (mods.FmModState if hasattr(s.mod, "accum")
+                else mods.SsbModState)
+        mod = kind(*(t(v) for v in s.mod))
     return TxState(
         voice_sos_state=t(s.voice_sos_state),
         alc=None if s.alc is None else alc_mod.AlcState(
             t(s.alc.alc_val), t(s.alc.delay_buf)),
-        mod=None if s.mod is None else mods.SsbModState(
-            t(s.mod.carry), t(s.mod.phase)),
-        cw_phase=t(s.cw_phase))
+        mod=mod, cw_phase=t(s.cw_phase))
 
 
 def state_to_numpy(state: TxState) -> dict:
     """The port's TxState -> {dotted field: NumPy array}, the phases as
     uint32 (the JAX package's dtype); leaves that are None are left out."""
-    out = {}
-
-    def walk(prefix, v):
-        if v is None:
-            return
-        if isinstance(v, torch.Tensor):
-            a = v.cpu().numpy()
-            out[prefix] = (a.astype(np.uint32) if prefix in _UINT32_LEAVES
-                           else a)
-            return
-        for f in v._fields:
-            walk(f"{prefix}.{f}" if prefix else f, getattr(v, f))
-
-    walk("", state)
-    return out
+    return leaves_to_numpy(state, _UINT32_LEAVES)
 
 
 class TxChain:

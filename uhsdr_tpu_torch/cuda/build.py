@@ -146,8 +146,8 @@ def build_all():
     """Build every registered kernel, one nvcc per source in parallel.
     Returns {name: nvcc log} (the -Xptxas -v register/smem report)."""
     # importing the wrapper modules registers their kernels
-    from . import (agc, alc, blanker, elemwise, fir, iir,  # noqa: F401
-                   iqcorr, lms, nr, pll, sam)
+    from . import (agc, alc, blanker, elemwise, fir, fm_mod,  # noqa: F401
+                   iir, iqcorr, lattice, lms, nr, pll, sam)
     procs = [(k, k.start_build()) for k in _ALL]
     errors = []
     for k, p in procs:
@@ -180,8 +180,8 @@ def resource_usage(lib: pathlib.Path) -> dict:
 
 
 def kernels() -> list[CudaKernel]:
-    from . import (agc, alc, blanker, elemwise, fir, iir,  # noqa: F401
-                   iqcorr, lms, nr, pll, sam)
+    from . import (agc, alc, blanker, elemwise, fir, fm_mod,  # noqa: F401
+                   iir, iqcorr, lattice, lms, nr, pll, sam)
     return list(_ALL)
 
 

@@ -1,0 +1,149 @@
+"""The reference-table FM modulator: wrapper around the hand-written kernel
+`kernels/fm_mod.cu`, beside its plain torch version.
+
+A helper kernel with no TPU counterpart: the JAX package runs the
+firmware's sequential pre-emphasis and its truncating 16-bit phase
+accumulator as two `lax.scan`s (uhsdr_tpu/mod/modulators.py:244-340),
+then indexes the 10-bit DDS grid.  On the card a torch loop over a
+block's samples would cost some ten launches a sample, so the whole of
+the table-mode modulator is one kernel, a lane a channel.  The wrapper
+takes the plain version only for tensors on the CPU; for CUDA tensors it
+checks its arguments, launches the kernel on the current stream (building
+it on first use), raises if the launch failed and adds one to
+``FM_MOD.launches``.  There is no fallback.  The kernel is built with
+-fmad=false and repeats the plain version's operations in its order, and
+both read the one DDS table `fm_table` makes: bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from .build import CudaKernel, stream_ptr
+from .lattice import host_arrays
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+FM_MOD = CudaKernel("fm_mod", "fm_mod.cu", {
+    "uhsdr_fm_mod_launch": ([_P] * 6 + [_I, _I] + [_F] * 4 + [_I]
+                            + [_P] * 6, _I),
+    "uhsdr_fm_mod_tile": ([], _I),
+    "uhsdr_fm_mod_table": ([], _I),
+}, extra_flags=("-fmad=false",))
+
+# as `kernels/fm_mod.cu` defines them: channels a block (one a lane) and
+# samples a staged tile; the DDS table's entries (acc >> 6 of a 16-bit
+# accumulator)
+TILE = 32
+TABLE = 1024
+# the accumulator's loop-carried chain a sample, in dependent FP32
+# operations: acc + r, floor, s / 65536, floor, 65536 x, s - 65536 x
+FM_MOD_STEP_CHAIN = 6
+
+_PH_STEP = np.float32(2.0 * np.pi / 65536.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _table(device: str) -> torch.Tensor:
+    k64 = torch.arange(TABLE, dtype=torch.float32, device=device) * 64.0
+    ph = k64 * float(_PH_STEP)
+    return torch.stack([torch.sin(ph), -torch.cos(ph)]).contiguous()
+
+
+def fm_table(device) -> torch.Tensor:
+    """(2, 1024) f32 [sin; -cos] of the 10-bit grid, made on `device` from
+    the JAX package's f32 expressions (ph = (k 64) f32(2 pi / 65536)):
+    the firmware's DDS table, i = DDS[idx], q = DDS[idx + 3N/4]."""
+    return _table(str(torch.device(device)))
+
+
+def fm_mod_plain(x, add, a, b, acc, alpha: float, word: float, scale: float,
+                 amp: float, swap: bool):
+    """Plain torch version of the kernel.  x: (C, T) f32 audio; add: (C,
+    T) f32 added to the pre-emphasized audio, or None; a, b: (C,) f32 the
+    pre-emphasis state; acc: (C,) int32 the accumulator.  Returns (i, q,
+    a, b, acc), i and q (C, T) f32."""
+    C, T = x.shape
+    table = fm_table(x.device)
+    f32 = np.float32
+    (xa, aa, ba, acca), to_torch = host_arrays(
+        x, a, b, acc.to(torch.float32))
+    cpu = isinstance(xa, np.ndarray)
+    num = f32 if cpu else float
+    floor = np.floor if cpu else torch.floor
+    alpha, word, scale = num(alpha), num(word), num(scale)
+    xt = xa.T
+    pre = []
+    bv, av = ba, aa
+    with np.errstate(all="ignore"):
+        for n in range(T):
+            bv = alpha * ((bv + xt[n]) - av)
+            av = xt[n]
+            pre.append(bv)
+        pre = to_torch(np.stack(pre, 1) if cpu else torch.stack(pre, 1))
+        if add is not None:
+            pre = pre + add
+        rt = (word + pre * scale)
+        rt = rt.numpy().T if cpu else rt.t()
+        inv, two16 = num(1.0 / 65536.0), num(65536.0)
+        accs = []
+        av_acc = acca
+        for n in range(T):
+            s = floor(av_acc + rt[n])
+            av_acc = s - two16 * floor(s * inv)
+            accs.append(av_acc)
+    accs = to_torch(np.stack(accs, 1) if cpu else torch.stack(accs, 1))
+    nan = torch.isnan(accs)
+    k = torch.floor(torch.where(nan, 0.0, accs) * (1.0 / 64.0)).long()
+    i_s = torch.where(nan, math.nan, table[0][k])
+    q_s = torch.where(nan, math.nan, table[1][k])
+    if swap:
+        i_s, q_s = q_s, i_s
+    last = accs[:, -1]
+    acc_out = torch.where(torch.isnan(last), 0.0, last).to(torch.int32)
+    return (i_s * amp, q_s * amp, x[:, -1].clone(), to_torch(bv), acc_out)
+
+
+def fm_mod(x, add, a, b, acc, alpha: float, word: float, scale: float,
+           amp: float, swap: bool):
+    """The table-mode modulator over one block (the kernel on CUDA tensors,
+    the plain version on CPU ones); arguments and results as
+    `fm_mod_plain`'s."""
+    if x.device.type == "cpu":
+        return fm_mod_plain(x, add, a, b, acc, alpha, word, scale, amp, swap)
+    dev = x.device
+    if x.ndim != 2 or x.shape[-1] < 1:
+        raise ValueError("fm_mod: x must be (C, T), T >= 1")
+    C, T = x.shape
+    if add is not None and (add.shape != x.shape
+                            or add.dtype != torch.float32):
+        raise ValueError("fm_mod: add must be (C, T) f32 like x")
+    if (x.dtype != torch.float32 or a.dtype != torch.float32
+            or b.dtype != torch.float32 or acc.dtype != torch.int32):
+        raise ValueError("fm_mod: f32 audio and state, an int32 "
+                         "accumulator")
+    if any(t.shape != (C,) for t in (a, b, acc)):
+        raise ValueError("fm_mod: state leaves (C,)")
+    ts = [x, a, b, acc] + ([] if add is None else [add])
+    if any(t.device != dev or not t.is_contiguous() for t in ts):
+        raise ValueError("fm_mod: contiguous tensors on one device")
+    table = fm_table(dev)
+    i = torch.empty_like(x)
+    q = torch.empty_like(x)
+    a_out, b_out = torch.empty_like(a), torch.empty_like(b)
+    acc_out = torch.empty_like(acc)
+    err = FM_MOD.lib().uhsdr_fm_mod_launch(
+        x.data_ptr(), None if add is None else add.data_ptr(), a.data_ptr(),
+        b.data_ptr(), acc.data_ptr(), table.data_ptr(), C, T, alpha, word,
+        scale, amp, 1 if swap else 0, i.data_ptr(), q.data_ptr(),
+        a_out.data_ptr(), b_out.data_ptr(), acc_out.data_ptr(),
+        stream_ptr(dev))
+    FM_MOD.check(err)
+    FM_MOD.launches += 1
+    return i, q, a_out, b_out, acc_out

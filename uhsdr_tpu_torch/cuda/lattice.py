@@ -1,0 +1,145 @@
+"""IIR lattice ARMA filter: wrapper around the hand-written kernel
+`kernels/lattice.cu`, beside its plain torch version.
+
+A helper kernel with no TPU counterpart: the JAX package runs the CMSIS
+`arm_iir_lattice_f32` recurrence as a `lax.scan` over time
+(uhsdr_tpu/ops/lattice.py:33-72), and on the card a torch loop over a
+block's samples would cost some sixty launches a sample.  The kernel
+walks a row a lane with the N-stage state in registers.  The wrapper
+takes the plain version only for tensors on the CPU; for CUDA tensors it
+checks its arguments, launches the kernel on the current stream (building
+it on first use), raises if the launch failed and adds one to
+``LATTICE.launches``.  There is no fallback.  The kernel is built with
+-fmad=false and repeats the plain version's operations in its order: bit
+for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .build import CudaKernel, stream_ptr
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+LATTICE = CudaKernel("lattice", "lattice.cu", {
+    "uhsdr_lattice_launch": ([_P, _P, _I, _I, _P, _P, _I, _P, _P, _P], _I),
+    "uhsdr_lattice_max_stages": ([], _I),
+    "uhsdr_lattice_tile": ([], _I),
+}, extra_flags=("-fmad=false",))
+
+# as `kernels/lattice.cu` defines them: the most stages a launch takes
+# (the imported tables have 6, 8, 10 or 11), and the rows a block (one a
+# lane) and the samples of a staged tile
+MAX_STAGES = 12
+TILE = 32
+# the loop-carried chain of a sample, in dependent FP32 operations: stage
+# m's f -> gn[m] (a multiply, an add) -> the next sample's pk[m-1] * g
+# (a multiply) -> its f of stage m-1 (an add) -> its f of stage m (an add)
+LATTICE_STEP_CHAIN = 5
+
+
+class LatticeGeometry(NamedTuple):
+    """The kernel's launch (`kernels/lattice.cu`)."""
+    rows: int        # rows a block: one a lane of its one warp
+    blocks: int      # the grid
+    tiles: int       # tiles of TILE samples a block walks
+    smem: int        # static shared memory, bytes
+
+
+def lattice_geometry(C: int, T: int, N: int) -> LatticeGeometry:
+    """The launch for C rows of T samples through N stages: a warp a
+    block, a row a lane, TILE-sample tiles staged through a (TILE, TILE +
+    1) f32 array.  Raises ValueError for what the kernel does not take."""
+    if not (1 <= N <= MAX_STAGES):
+        raise ValueError(f"lattice: {N} stages, the kernel takes 1 to "
+                         f"{MAX_STAGES}")
+    if C < 1 or T < 1:
+        raise ValueError(f"lattice: {C} rows of {T} samples")
+    return LatticeGeometry(TILE, -(-C // TILE), -(-T // TILE),
+                           4 * TILE * (TILE + 1))
+
+
+def coefs(pk, pv) -> tuple[np.ndarray, np.ndarray]:
+    """pk (N,) and pv (N+1,) as contiguous f32 arrays."""
+    pk = np.ascontiguousarray(np.asarray(pk, np.float32).reshape(-1))
+    pv = np.ascontiguousarray(np.asarray(pv, np.float32).reshape(-1))
+    if pv.shape[0] != pk.shape[0] + 1:
+        raise ValueError(f"lattice: pk {pk.shape}, pv {pv.shape}")
+    return pk, pv
+
+
+def host_arrays(*ts: torch.Tensor):
+    """Time loops step on (C,) vectors: on the CPU as NumPy views of the
+    tensors (the same f32 operations, each correctly rounded, so the same
+    bits, at a fifth of torch's cost a call), on the card as the tensors.
+    Returns (arrays, to_torch)."""
+    if ts[0].device.type != "cpu":
+        return ts, lambda a: a
+    return (tuple(t.detach().numpy() for t in ts),
+            lambda a: torch.from_numpy(np.ascontiguousarray(a)))
+
+
+def lattice_plain(pk, pv, state: torch.Tensor, x: torch.Tensor):
+    """Plain torch version of the kernel: x (C, T) f32, state (C, N) f32
+    -> (y (C, T), new state (C, N)), stepping over time on (C,) vectors
+    with the stages unrolled in the reference's order."""
+    pk, pv = coefs(pk, pv)
+    N = pk.shape[0]
+    (xa, sa), to_torch = host_arrays(x, state)
+    cpu = isinstance(xa, np.ndarray)
+    k = [np.float32(v) if cpu else float(v) for v in pk]
+    v = [np.float32(u) if cpu else float(u) for u in pv]
+    zero = np.float32(0.0) if cpu else 0.0
+    stack = np.stack if cpu else torch.stack
+    xt = xa.T
+    g = [sa[:, m] for m in range(N)]
+    ys = []
+    with np.errstate(all="ignore"):       # NaN and inf propagate
+        for n in range(xa.shape[1]):
+            xn = xt[n]
+            f = xn
+            acc = xn * v[N] * zero
+            new = []
+            for m in range(N):
+                f = f - k[m] * g[m]
+                gn = f * k[m] + g[m]
+                acc = acc + gn * v[m]
+                new.append(gn)
+            ys.append(acc + f * v[N])
+            g = new[1:] + [f]
+    return to_torch(stack(ys, 1)), to_torch(stack(g, 1))
+
+
+def lattice(pk, pv, state: torch.Tensor, x: torch.Tensor):
+    """The lattice over one block (the kernel on CUDA tensors, the plain
+    version on CPU ones).  x: (C, T) f32; state: (C, N) f32; pk (N,) and
+    pv (N+1,) (NumPy or sequences).  Returns (y, new_state)."""
+    if x.device.type == "cpu":
+        return lattice_plain(pk, pv, state, x)
+    pk, pv = coefs(pk, pv)
+    N = pk.shape[0]
+    if x.ndim != 2:
+        raise ValueError("lattice: x must be (C, T)")
+    C, T = x.shape
+    lattice_geometry(C, T, N)
+    if x.dtype != torch.float32 or state.dtype != torch.float32:
+        raise ValueError("lattice: f32 tensors")
+    if state.shape != (C, N):
+        raise ValueError(f"lattice: state {tuple(state.shape)}, not "
+                         f"{(C, N)}")
+    if state.device != x.device or not (x.is_contiguous()
+                                        and state.is_contiguous()):
+        raise ValueError("lattice: contiguous tensors on one device")
+    y = torch.empty_like(x)
+    new_state = torch.empty_like(state)
+    err = LATTICE.lib().uhsdr_lattice_launch(
+        x.data_ptr(), state.data_ptr(), C, T, pk.ctypes.data, pv.ctypes.data,
+        N, y.data_ptr(), new_state.data_ptr(), stream_ptr(x.device))
+    LATTICE.check(err)
+    LATTICE.launches += 1
+    return y, new_state

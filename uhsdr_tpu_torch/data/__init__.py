@@ -68,6 +68,20 @@ def interpolator(name: str, rate: int) -> tuple[np.ndarray, int]:
     return c[::-1].copy(), num_taps
 
 
+def interp_passband_gain(name: str, rate: int,
+                         fs: float = 48000.0) -> float:
+    """Mean passband magnitude response of a reference interpolation
+    filter (evaluated at the interpolated rate over 300-2000 Hz).  Its
+    tables do not embed the x`rate` gain that compensates zero-stuffing,
+    unlike `ops.design.interpolation_fir`: the legacy front folds the
+    ratio into its post-AGC scale to land at the firmware's level."""
+    h, _ = interpolator(name, rate)
+    n = np.arange(len(h))
+    f = np.linspace(300.0, 2000.0, 18)
+    H = np.abs(np.exp(-2j * np.pi * np.outer(f, n) / fs) @ h)
+    return float(H.mean())
+
+
 def lattice(name: str) -> tuple[np.ndarray, np.ndarray]:
     """(pkCoeffs, pvCoeffs) for an `arm_iir_lattice_instance_f32`, in the
     CMSIS storage order the recurrence consumes directly."""

@@ -73,3 +73,12 @@ def tone_iq(phase0: torch.Tensor, delta, n: int):
     `tone_iq`, softdds_genIQSingleTone).  Returns (osc (..., n) complex64,
     new_phase0)."""
     return rotor(phase_ramp(phase0, delta, n)), advance(phase0, delta, n)
+
+
+def tone(phase0: torch.Tensor, delta, n: int):
+    """Real sine block sin(phase[n]) (the reference's `tone`,
+    softdds_runIQ single-tone), the angle taken in float64 as `rotor`'s.
+    Returns (sin_block (..., n) f32, new_phase0)."""
+    ang = phase_ramp(phase0, delta, n).to(torch.float64) * (
+        2.0 * math.pi / TWO32)
+    return torch.sin(ang).to(torch.float32), advance(phase0, delta, n)

@@ -1,7 +1,8 @@
 """Where the time of the port's main path goes on the card.
 
     python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam|fm|wide|ssbstereo
-                                               |ssb_opts|ssb_leaky|fleet
+                                               |ssb_opts|ssb_leaky|ssb_scipy
+                                               |refchain|fleet
                                                |fleet_separate|wideband]
                                        [--sideband both|usb|lsb|stereo]
                                        [--group-channels 1024] [--warm 2]
@@ -16,7 +17,11 @@ wide`` at the wide-SSB flagship (usb 5P0KHZ, one complex-tap front) and
 ``--mode ssbstereo`` at the two-channel flagship (the SSB flagship's row,
 both sidebands, the linked stereo AGC), ``--mode ssb_opts`` at the SSB
 flagship with the RX options IQ correction, notch, blanker and NR on,
-``--mode ssb_leaky`` with the leaky LMS; ``--mode fleet`` drives
+``--mode ssb_leaky`` with the leaky LMS, ``--mode ssb_scipy`` on the
+legacy redesigned front (`rx.SCIPY_FLAGSHIP`), ``--mode refchain`` the
+reference chain `chain.refchain.RefRxChain` at `REF_FLAGSHIP` (usb 2P3KHZ
+select 2, the same channels and block of f32 planes @ 48 kHz); ``--mode
+fleet`` drives
 `parallel.fleet.ChannelFleet` at its mixed-mode deployment (FLEET_MIX:
 six groups of 1024 channels of f32 planes @ 48 kHz) through its
 stage-batched step, ``--mode fleet_separate`` the same through each
@@ -52,7 +57,7 @@ from collections import defaultdict
 
 import torch
 
-from .chain import rx
+from .chain import refchain, rx
 from .parallel import fleet
 
 TONE_HZ = 700.0      # channel 0's audio tone
@@ -64,7 +69,8 @@ BLOCKS = 4           # untraced blocks, then as many traced
 
 def config(mode: str = "usb", sideband: str = "both") -> rx.RxConfig:
     """The full-width config of a mode: the SSB flagship (with the RX
-    options, "ssb_opts" and "ssb_leaky"), the FM or the wide-SSB flagship,
+    options, "ssb_opts" and "ssb_leaky"; on the legacy front,
+    "ssb_scipy"), the FM or the wide-SSB flagship,
     or the AM/SAM flagship in that mode and sideband."""
     if mode == "usb":
         return rx.FLAGSHIP
@@ -80,6 +86,8 @@ def config(mode: str = "usb", sideband: str = "both") -> rx.RxConfig:
                                    nr_enable=True)
     if mode == "ssb_leaky":
         return dataclasses.replace(rx.FLAGSHIP, leaky_nr_enable=True)
+    if mode == "ssb_scipy":
+        return rx.SCIPY_FLAGSHIP
     return dataclasses.replace(rx.SAM_FLAGSHIP, mode=mode,
                                sam_sideband=sideband)
 
@@ -275,6 +283,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--mode", choices=("usb", "am", "sam", "fm", "wide",
                                        "ssbstereo", "ssb_opts", "ssb_leaky",
+                                       "ssb_scipy", "refchain",
                                        "fleet", "fleet_separate",
                                        "wideband"),
                     default="usb")
@@ -319,6 +328,21 @@ def main() -> int:
             lambda s, blk: wf.process_block_device(*blk), None,
             wideband_capture(n, wf.wideband_block, dev, args.seed),
             wf.wideband_block, args.warm)
+    if args.mode == "refchain":
+        cfg = refchain.REF_FLAGSHIP
+        C, B = rx.FLAGSHIP_CHANNELS, cfg.block_len
+        chain = refchain.RefRxChain(cfg, device=dev)
+        print(f"config: RefRxChain mode {cfg.mode}, bw {cfg.bw_key}, select "
+              f"{cfg.select_id}, {C} ch x {B} f32 @ {refchain.IQ_RATE:.0f} "
+              f"Hz")
+        # the SSB capture at 48 kHz, as f32 planes in the count domain
+        proxy = rx.RxConfig(mode=cfg.mode, translate_hz=cfg.translate_hz,
+                            iq_rate=refchain.IQ_RATE, block_len=B)
+        blocks = [(i.float(), q.float())
+                  for i, q in capture(n, C, dev, args.seed, proxy)]
+        return profile_blocks(
+            lambda s, blk: chain(s, i=blk[0], q=blk[1])[1],
+            chain.init_state((C,)), blocks, C * B, args.warm)
     cfg = config(args.mode, args.sideband)
     C, B = rx.FLAGSHIP_CHANNELS, cfg.block_len
     print(f"config: mode {cfg.mode}, bw {cfg.bw_key}, sam_sideband "

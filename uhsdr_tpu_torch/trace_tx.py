@@ -83,7 +83,7 @@ def capture(n_blocks: int, C: int, dev, seed: int, cfg: tx.TxConfig):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--mode", choices=("usb", "lsb", "am", "cw",
+    ap.add_argument("--mode", choices=("usb", "lsb", "am", "fm", "cw",
                                        "wideband"), default="usb")
     ap.add_argument("--front", choices=("ref", "scipy"), default="ref")
     args = ap.parse_args()

@@ -78,7 +78,16 @@ first phase that fails:
    stages, then at 6, 8, 10, 11 and 12 stages; timed there and at FM
    TX's voice shape 8192 x 16384) and the table-mode FM modulator
    (fm_mod.cu, at the TX flagship's 8192 x 16384, with a subtone plane
-   and the negative translate's I/Q swap).  Each streams 2-4
+   and the negative translate's I/Q swap); then the scope's zoom (K5's
+   127-tap decimator at magnify 3 on the RX flagship's int16 planes, 8192
+   x 16384, against its plain version; `scope.process` at magnify 3 and 0
+   against the CPU on channels 0-7) and the three decoders' helper
+   kernels, bit for bit with edge streams and channels 0-7 alone: CW
+   keying detection (cw.cu, 8192 x 2024 @ 12 kHz), BPSK demodulation
+   (psk.cu, PSK31 at 8192 x 1920; PSK63 and PSK125 at 1024 channels) and
+   RTTY demodulation (rtty.cu, 8192 x 2048, with and without the ATC),
+   each on decoder-tap audio of FSK, PSK and keyed-tone channels.  Each
+   streams 2-4
    blocks at its main path's shapes (8192 channels; K11 and K14 at the
    16384 stacked channels SAM gives them; the ALC's plain loop at 4096
    samples), the middle block ragged where the kernel has a tile or a
@@ -113,7 +122,12 @@ first phase that fails:
    decimation 1 and 96 kHz), `iq_wide` (10P0KHZ) and `ssbstereo_wide`
    (5P0KHZ, two K7 launches) on the default front at 1024 channels and
    4, and `chain/output.py`'s `output_block` on `ssb_scipy`'s last block
-   against the CPU.  Then the reference chain `RefRxChain` (f32 planes
+   against the CPU.  Then `decode`: the SSB flagship with the scope
+   (magnify 0) on its `spectrum_iq` tap and `modems.tap.DecoderTap` (CW,
+   PSK63, RTTY) on its 12 kHz `audio_dec` tap, 2 + 8 blocks, printed
+   beside SSB's ms/block; channels 0-2 carry an RTTY, a PSK63 and a CW
+   message (made by the port's text tiers), which must decode.  Then
+   the reference chain `RefRxChain` (f32 planes
    in the count domain @ 48 kHz): `refchain` (usb 2P3KHZ select 2: the
    torch mix, K5, K6, the lattice, K3, K4) at 8192 channels and 8 timed
    blocks, `refchain_sam` and `refchain_fm` at 1024 and 4.  Then
@@ -197,6 +211,7 @@ from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import alc as alc_k
 from uhsdr_tpu_torch.cuda import blanker as nb_k
 from uhsdr_tpu_torch.cuda import build
+from uhsdr_tpu_torch.cuda import cw as cw_k
 from uhsdr_tpu_torch.cuda import elemwise as ew_k
 from uhsdr_tpu_torch.cuda import fir as fir_k
 from uhsdr_tpu_torch.cuda import fm_mod as fm_k
@@ -206,9 +221,16 @@ from uhsdr_tpu_torch.cuda import lattice as lat_k
 from uhsdr_tpu_torch.cuda import lms as lms_k
 from uhsdr_tpu_torch.cuda import nr as nr_k
 from uhsdr_tpu_torch.cuda import pll as pll_k
+from uhsdr_tpu_torch.cuda import psk as psk_k
+from uhsdr_tpu_torch.cuda import rtty as rtty_k
 from uhsdr_tpu_torch.cuda import sam as sam_k
 from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.mod import modulators as mods
+from uhsdr_tpu_torch.modems import cw as cw_mod
+from uhsdr_tpu_torch.modems import cw_text, psk_text, rtty_text
+from uhsdr_tpu_torch.modems import psk as psk_mod
+from uhsdr_tpu_torch.modems import rtty as rtty_mod
+from uhsdr_tpu_torch.modems import tap as tap_mod
 from uhsdr_tpu_torch.nr import blanker as nb_mod
 from uhsdr_tpu_torch.nr import spectral as nr_mod
 from uhsdr_tpu_torch.ops import agc as agc_ops
@@ -218,6 +240,7 @@ from uhsdr_tpu_torch.ops import fir as fir_ops
 from uhsdr_tpu_torch.ops import lms as lms_ops
 from uhsdr_tpu_torch.ops import nco
 from uhsdr_tpu_torch.parallel import fleet as pfleet
+from uhsdr_tpu_torch.spectrum import scope as scope_mod
 
 CFG = rx.FLAGSHIP            # the SSB flagship
 SAM = rx.SAM_FLAGSHIP        # the AM/SAM flagship
@@ -2948,6 +2971,268 @@ def phase_fm_mod(P, dev, gen):
     return r
 
 
+# ---------------------------------------------------------------------------
+# the digital-mode decoders' helper kernels (cw.cu, psk.cu, rtty.cu) and the
+# scope's zoom on K5
+# ---------------------------------------------------------------------------
+
+# the decoder tap's block at the RX flagship (2048 samples @ 12 kHz)
+DEC_T = CFG.block_len // CFG.decim
+DEC_FS = 12000.0
+
+
+def digital_audio(gen, dev, C, T, t0):
+    """(C, T) f32 decoder-tap audio @ 12 kHz, stream samples t0.. on:
+    by channel c % 4 a 45.45 Bd FSK pair (915 / 1085 Hz), a 500 Hz
+    carrier reversed by PSK31 bits, a 700 Hz tone keyed on and off in
+    528-sample elements, noise alone; the bits a hash of the bit index
+    and the channel, so a stream continues across blocks; each channel at
+    its own level, plus noise."""
+    n = torch.arange(t0, t0 + T, device=dev, dtype=torch.float64)
+    c = torch.arange(C, device=dev, dtype=torch.float64)[:, None]
+
+    def bit(period):
+        k = (n // period).long()[None, :] * 2654435761 + c.long() * 40503
+        return ((k >> 7) & 1).double()
+
+    w = 2 * math.pi / DEC_FS
+    fsk = torch.cos(w * torch.where(bit(264) > 0, 915.0, 1085.0) * n)
+    psk31 = (2 * bit(384) - 1) * torch.sin(w * 500.0 * n)
+    keyed = bit(528) * torch.sin(w * 700.0 * n)
+    x = torch.where(c % 4 == 0, fsk, torch.where(
+        c % 4 == 1, psk31, torch.where(c % 4 == 2, keyed, 0.0)))
+    x = x * (0.2 + c % 5) + 0.02 * torch.randn(
+        (C, T), generator=gen, device=dev, dtype=torch.float64)
+    return x.float().contiguous()
+
+
+def modem_fns(kind: str, dev, **kw):
+    """(init_state(C), kernel(state, x), plain(state, x)) of a decoder's
+    wrapper; each returns (outputs tuple, state)."""
+    if kind == "cw":
+        p = cw_mod.make_params(atc=kw.get("atc", True),
+                               noisecancel=kw.get("nc", True))
+
+        def go(f):
+            return lambda s, x: (lambda o: ((o[0],), o[1]))(f(
+                p.cos_v, p.sin_v, p.thresh, p.atc, p.noisecancel, s, x))
+        return (lambda C: cw_k.CwLeaves(*cw_mod.init_state((C,), dev)),
+                go(cw_k.cw_detect), go(cw_k.cw_detect_plain))
+    if kind == "psk":
+        p = psk_mod.make_params(speed=kw.get("speed", 31))
+        d = int(nco.freq_to_delta(psk_mod.PSK_OFFSET, p.fs))
+
+        def init(C):
+            s = psk_mod.init_state((C,), p, dev)
+            return psk_k.PskLeaves(s.bpf_bq, s.nco_phase, s.prod_tail,
+                                   s.last_symbol, s.last_bit)
+
+        def go(f):
+            return lambda s, x: (lambda o: ((o[0],), o[1]))(f(
+                p.bpf, d, p.rate, s, x))
+        return init, go(psk_k.psk), go(psk_k.psk_plain)
+    p = rtty_mod.make_params(atc=kw.get("atc", True))
+
+    def go(f):
+        def run(s, x):
+            codes, nb, s = f(p.mark_bp, p.space_bp, p.lpf, p.one_bit, p.atc,
+                             rtty_mod.max_bytes(p, x.shape[-1]), s, x)
+            return (codes, nb), s
+        return run
+    return (lambda C: rtty_mod.init_state((C,), dev), go(rtty_k.rtty),
+            go(rtty_k.rtty_plain))
+
+
+def modem_stream(kind, C, lengths, dev, gen, label, edge=False, **kw):
+    """A decoder's kernel against its plain version over streamed blocks
+    of `digital_audio` from the zero state (with `edge`, a NaN in one
+    channel's first state leaf and the edge samples of `opt_edges`), bit
+    for bit on every output and state leaf.  Returns (max |err|, the
+    first block's input, the zero state)."""
+    init, kern, plain = modem_fns(kind, dev, **kw)
+    s0 = init(C)
+    if edge:
+        first = s0[0].clone()
+        first.view(C, -1)[C // 2, 0] = math.nan
+        s0 = type(s0)(first, *s0[1:])
+    sk = sp = s0
+    err, t0, x0 = 0.0, 0, None
+    for blk, T in enumerate(lengths):
+        x = digital_audio(gen, dev, C, T, t0)
+        if edge:
+            x = opt_edges(x, t0)
+        x0 = x if x0 is None else x0
+        t0 += T
+        yk, sk = kern(sk, x)
+        yp, sp = plain(sp, x)
+        torch.cuda.synchronize()
+        pairs = {f"out{i}": (a, b) for i, (a, b) in enumerate(zip(yp, yk))}
+        pairs.update({f: (a, b) for f, a, b in zip(sp._fields, sp, sk)})
+        err = max(err, same_bits(f"{label} block {blk} ({T} samples)",
+                                 pairs))
+    return err, x0, s0
+
+
+def modem_alone(kind, x, s0, dev, **kw) -> None:
+    """Channels 0-7 alone against the batch, every output and leaf."""
+    _, kern, _ = modem_fns(kind, dev, **kw)
+    yf, sf = kern(s0, x)
+    y8, s8 = kern(type(s0)(*(t[:8].contiguous() for t in s0)),
+                  x[:8].contiguous())
+    torch.cuda.synchronize()
+    check(all(torch.equal(a[:8], b) for a, b in zip(yf + tuple(sf),
+                                                    y8 + tuple(s8))),
+          f"{kind}: channels 0-7 alone differ from the batch")
+
+
+def modem_row(kind, source, replaces, x, s0, dev, err, *, nbytes, flops,
+              chain_ops, plain_steps, note, **kw) -> dict:
+    """Time the kernel at the flagship's shape and the plain version on
+    its first `plain_steps` samples; the row for the kernels line."""
+    _, kern, plain = modem_fns(kind, dev, **kw)
+    C, T = x.shape
+    ms = cuda_ms(lambda: kern(s0, x), 20)
+    xp = x[:, :plain_steps].contiguous()
+    plain_ms = cuda_ms(lambda: plain(s0, xp), 1)
+    rec_ms = recurrence_ms(T, chain_ops)
+    r = row(kind, source, replaces, err=err, snr=math.inf, ms=ms,
+            plain_ms=plain_ms, nbytes=nbytes, flops=flops,
+            recurrence_ms=rec_ms, tpu_kernel=False, plain_steps=plain_steps,
+            library_note=note)
+    print(f"  {kind} at {C} x {T}: {ms:.4f} ms (plain {plain_ms:.1f} ms at "
+          f"{plain_steps} samples; recurrence bound {rec_ms:.4f} ms; "
+          f"{r['bound_by']} bound {r['bound_ms']:.4f} ms; library null); "
+          f"bit for bit, edge streams too; channels 0-7 alone bit-equal")
+    return r
+
+
+def phase_cw(P, dev, gen):
+    """The CW keying detector (cw.cu) at the decoder tap's shape (8192 ch
+    x 2024 @ 12 kHz: the tap's whole 88-sample frames of a 2048 block)
+    over 2024 + 88 + 2112 samples with the tap's settings (ATC,
+    noisecancel), then the FIR smoother without the debounce (1024 x 880
+    + 2112), an edge stream (1024 x 880 + 2112: a NaN state channel, +-0,
+    +-inf, a NaN, subnormals, 1e30), bit for bit against its plain
+    version; channels 0-7 alone against the batch.  Timed at 8192 x
+    2024."""
+    C, T = CHANNELS, (DEC_T // 88) * 88
+    err, x0, s0 = modem_stream("cw", C, (T, 88, T + 88), dev, gen, "cw")
+    err = max(err, modem_stream("cw", 1024, (880, 2112), dev, gen,
+                                "cw smoother", atc=False, nc=False)[0])
+    err = max(err, modem_stream("cw", 1024, (880, 2112), dev, gen,
+                                "cw edge", edge=True)[0])
+    modem_alone("cw", x0, s0, dev)
+    nblk = T // 88
+    # audio in, keying out, five state leaves (three f32, two bool) in and
+    # out; two products and two sums a sample, ~20 operations a frame
+    nbytes = C * T * 4 + C * nblk + 2 * C * 14
+    return modem_row("cw", "cw.cu", "uhsdr_tpu/modems/cw.py:73", x0, s0,
+                     dev, err, nbytes=nbytes,
+                     flops=4.0 * C * T + 20.0 * C * nblk,
+                     chain_ops=cw_k.CW_SAMPLE_CHAIN, plain_steps=T,
+                     note="no PyTorch call computes the keying detector")
+
+
+def phase_psk(P, dev, gen):
+    """The BPSK demodulator (psk.cu) at the decoder tap's PSK31 shape
+    (8192 ch x 1920 @ 12 kHz: five 384-sample symbols) over 1920 + 384 +
+    2304 samples, PSK63 and PSK125 at 1024 channels (1920 + 192, 960 +
+    96), an edge stream (1024 x 1920 + 384), bit for bit against its plain
+    version (its sine torch.sin on the card); channels 0-7 alone against
+    the batch.  Timed at 8192 x 1920."""
+    C, T = CHANNELS, 1920
+    err, x0, s0 = modem_stream("psk", C, (T, 384, 2304), dev, gen, "psk31")
+    for speed, lengths in ((63, (1920, 192)), (125, (960, 96))):
+        err = max(err, modem_stream("psk", 1024, lengths, dev, gen,
+                                    f"psk{speed}", speed=speed)[0])
+    err = max(err, modem_stream("psk", 1024, (1920, 384), dev, gen,
+                                "psk edge", edge=True)[0])
+    modem_alone("psk", x0, s0, dev)
+    # audio in, bits out, the state (bq, phase, 23-sample tail, symbol,
+    # bit: 116 bytes) in and out; a sample: the biquad's 9 operations, the
+    # angle, sinf (counted as 20), the product, the window's sum
+    nbytes = C * T * 4 + C * (T // 384) * 4 + 2 * C * 116
+    return modem_row("psk", "psk.cu", "uhsdr_tpu/modems/psk.py:79", x0, s0,
+                     dev, err, nbytes=nbytes, flops=32.0 * C * T,
+                     chain_ops=psk_k.PSK_SAMPLE_CHAIN, plain_steps=T,
+                     note="no PyTorch call computes the demodulator")
+
+
+def phase_rtty(P, dev, gen):
+    """The RTTY demodulator (rtty.cu) at the decoder tap's shape (8192 ch
+    x 2048 @ 12 kHz) over 2048 + 77 + 2048 samples with the ATC, without
+    it at 1024 channels (1000 + 2048), an edge stream (1024 x 2048 + 500),
+    bit for bit against its plain version on the codes, nbytes and every
+    state leaf; channels 0-7 alone against the batch.  Timed at 8192 x
+    2048; the plain loop at 256 samples."""
+    C, T = CHANNELS, DEC_T
+    err, x0, s0 = modem_stream("rtty", C, (T, 77, T), dev, gen, "rtty")
+    err = max(err, modem_stream("rtty", 1024, (1000, T), dev, gen,
+                                "rtty no ATC", atc=False)[0])
+    err = max(err, modem_stream("rtty", 1024, (T, 500), dev, gen,
+                                "rtty edge", edge=True)[0])
+    modem_alone("rtty", x0, s0, dev)
+    n_slots = rtty_mod.max_bytes(rtty_mod.make_params(), T)
+    # audio in, codes and nbytes out, 18 f32 state registers in and out; a
+    # sample: three biquads (27), the squares, the ATC (~25), the DPLL and
+    # UART (~50)
+    nbytes = C * T * 4 + C * (n_slots + 1) * 4 + 2 * C * 18 * 4
+    return modem_row("rtty", "rtty.cu", "uhsdr_tpu/modems/rtty.py:135", x0,
+                     s0, dev, err, nbytes=nbytes, flops=104.0 * C * T,
+                     chain_ops=rtty_k.RTTY_SAMPLE_CHAIN, plain_steps=256,
+                     note="no PyTorch call computes the demodulator")
+
+
+def phase_scope(P, dev, gen):
+    """The scope's zoom at full width: K5's instance of the 127-tap
+    decimator at magnify 3 (decim 8) on the RX flagship's int16 planes
+    (8192 ch x 16384 @ 96 kHz, no NCO) over 16384 + 4096 + 16384 samples
+    against its plain version (output, raw carry and peaks >= 90 dB, as
+    phase_fir_rt), its shared memory held to `fir_rt_geometry`'s; then
+    `scope.process` at magnify 3 and 0 on the card against the CPU on
+    channels 0-7 (spectrum >= 90 dB, dBm within 1e-3 dB, SNAP within 0.01
+    Hz) and timed.  K5's row is phase_fir_rt's."""
+    sp3 = scope_mod.make_params(magnify=3, translate_hz=CFG.translate_hz)
+    h = torch.from_numpy(sp3.zoom_fir).to(dev)
+    taps, decim = h.shape[-1], 8
+    for size in (2, 4):
+        want = fir_k.fir_rt_geometry(taps, decim, size).smem
+        got = fir_k.FRONT.lib().uhsdr_front_smem(taps, 1, decim, 0, size)
+        check(got == want, f"zoom K5 shared memory {got} != {want}")
+    C, B = CHANNELS, CFG.block_len
+    ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
+    first = None
+    for blk, Bk in enumerate((B, 4096, B)):
+        xi, xq = iq_block(gen, dev, C, Bk)
+        first = first or (xi, xq)
+        yk, ck, pk_k = fir_k.fir_rt(h, ck, xi, xq, decim)
+        yp, cp, pk_p = fir_k.fir_rt_plain(h, cp, xi, xq, decim)
+        torch.cuda.synchronize()
+        held(f"zoom K5 block {blk} ({Bk} samples)", {
+            "iq": (yp, yk), "raw carry": (cp, ck), "peaks": (pk_p, pk_k)})
+    xi, xq = first
+    for mag in (3, 0):
+        sp = scope_mod.make_params(magnify=mag, translate_hz=CFG.translate_hz)
+        st = scope_mod.init_state((C,), sp, dev)
+        sc = scope_mod.init_state((8,), sp, "cpu")
+        for _ in range(2):
+            out, st = scope_mod.process(sp, st, (xi, xq))
+            oc, sc = scope_mod.process(sp, sc, (xi[:8].cpu(), xq[:8].cpu()))
+        s = snr_db(oc["spectrum"], out["spectrum"][:8].cpu())
+        e_dbm = float((oc["dbm"] - out["dbm"][:8].cpu()).abs().max())
+        e_snap = float((oc["snap_freq"] - out["snap_freq"][:8].cpu()).abs()
+                       .max())
+        print(f"  scope magnify {mag} vs CPU, ch 0-7: spectrum {s:.1f} dB, "
+              f"dBm {e_dbm:.2e} dB, SNAP {e_snap:.2e} Hz")
+        check(s >= KERNEL_TOL_DB and e_dbm <= 1e-3 and e_snap <= 0.01,
+              f"scope magnify {mag}: card vs CPU {s:.1f} dB, dBm "
+              f"{e_dbm:.2e}, SNAP {e_snap:.2e}")
+        ms = cuda_ms(lambda: scope_mod.process(sp, st, (xi, xq)), 10)
+        print(f"  scope.process magnify {mag} at {C} x {B} int16: "
+              f"{ms:.4f} ms")
+    return []
+
+
 # the spectral NR's per-bin state leaves
 NR_BIN_LEAVES = ("nr.xt", "nr.pslp", "nr.hk_old", "nr.nest_acc")
 
@@ -3137,6 +3422,169 @@ def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
         check(abs(f_pk - tone) < 20.0,
               f"{label} tone at {f_pk} Hz, not {tone}")
     return launches, ms_block, msps, worst, n_warm + n_timed
+
+
+# ---------------------------------------------------------------------------
+# the decode path: the digital-mode decoders and the scope on the RX
+# flagship's taps
+# ---------------------------------------------------------------------------
+
+DECODE_KERNELS = ("front", "blocked", "agc", "interp", "cw", "psk", "rtty")
+# the messages channels 0-2 carry: RTTY 45.45 Bd / 170 Hz, PSK63, CW
+DECODE_MSGS = {"rtty": "RYRY", "psk": "CQ", "cw": "TEST"}
+DECODE_LEVEL = 0.25 * 32767.0       # -12 dBFS, the capture's channel 0
+CW_WPM = 28
+
+
+def psk_alignment(dev) -> tuple[float, float]:
+    """The SSB flagship's delay (12 kHz samples) and phase at PSK's 500 Hz,
+    seen by the PSK demodulator: tones 490, 500 and 510 Hz above the
+    translate frequency (phase 0 at the stream's first sample) through
+    `RxChain(CFG)` on three channels for three blocks; each tone's phase
+    theta in the last block's decoder tap, fitted as R sin(w m + theta)
+    against the demodulator's NCO (m from the stream's first decoder
+    sample); the delay is -d theta / d w across 490-510 Hz (unambiguous
+    below 300 samples).  Returns (delay, theta at 500 Hz)."""
+    B, fs = CFG.block_len, CFG.iq_rate
+    f_aud = torch.tensor([490.0, 500.0, 510.0], device=dev,
+                         dtype=torch.float64)[:, None]
+    chain = rx.RxChain(CFG, device=dev)
+    st = chain.init_state((3,))
+    for k in range(3):
+        n = torch.arange(k * B, (k + 1) * B, device=dev, dtype=torch.float64)
+        ph = 2 * math.pi * (CFG.translate_hz + f_aud) * n / fs
+        i = (DECODE_LEVEL * torch.cos(ph)).round().to(torch.int16)
+        q = (DECODE_LEVEL * torch.sin(ph)).round().to(torch.int16)
+        _, st, taps = chain(st, i=i, q=q)
+    y = taps["audio_dec"].double().cpu().numpy()
+    m = np.arange(2 * DEC_T, 3 * DEC_T)
+    theta = []
+    for c, f in enumerate((490.0, 500.0, 510.0)):
+        w = 2 * np.pi * f / DEC_FS
+        a, b = np.linalg.lstsq(np.stack([np.sin(w * m), np.cos(w * m)], 1),
+                               y[c], rcond=None)[0]
+        theta.append(math.atan2(b, a))
+    dth = math.remainder(theta[2] - theta[0], 2 * math.pi)
+    delay = -dth / (2 * np.pi * 20.0 / DEC_FS)
+    return delay, theta[1]
+
+
+def decode_capture(n_blocks: int, C: int, dev, seed: int):
+    """int16 IQ blocks (C, 16384) @ 96 kHz: noise of 30 counts rms on
+    every channel; channel 0 carries RTTY 45.45 Bd / 170 Hz AFSK of
+    "RYRY" (mark 915 Hz, idle mark around it), channel 1 PSK63 of "CQ"
+    (`psk_text`'s preamble and postamble; its symbols placed on the
+    demodulator's symbol clock and its carrier on its NCO's phase by
+    `psk_alignment`), channel 2 CW of "TEST" at 28 wpm on 700 Hz from the
+    first sample, each
+    on the upper sideband of the translate frequency at -12 dBFS, from
+    the port's own text tiers.  Returns (blocks, the PSK alignment)."""
+    B, fs = CFG.block_len, CFG.iq_rate
+    up = int(fs // DEC_FS)
+    n_all = n_blocks * B
+    m_all = n_blocks * DEC_T
+    # RTTY: 0.1 s of idle mark, the message, idle mark
+    one_bit = int(round(DEC_FS / 45.45))
+    bits = rtty_text.codes_to_bits(rtty_text.encode(DECODE_MSGS["rtty"]),
+                                   one_bit)
+    key = np.ones(m_all, bool)
+    lead = int(0.1 * DEC_FS)
+    key[lead:lead + len(bits)] = bits[:m_all - lead]
+    f = np.repeat(np.where(key, rtty_mod.MARK_FREQ,
+                           rtty_mod.MARK_FREQ + 170.0), up)
+    rtty_ph = 2 * np.pi * np.cumsum(CFG.translate_hz + f) / fs
+    rtty_z = np.exp(1j * rtty_ph)
+    # PSK63, aligned to the demodulator
+    delay, theta = psk_alignment(dev)
+    p63 = psk_mod.make_params(speed=63)
+    signs, env = psk_text.bits_to_waveform_params(
+        psk_text.encode_bits(DECODE_MSGS["psk"]), p63.rate)
+    s0 = int(round(-delay)) % p63.rate
+    base = np.zeros(m_all)
+    seg = (signs * env)[:m_all - s0]
+    base[s0:s0 + len(seg)] = seg
+    t96 = np.arange(n_all)
+    base96 = np.interp(t96 / up, np.arange(m_all), base)
+    psk_z = base96 * np.exp(1j * (2 * np.pi * (CFG.translate_hz + 500.0)
+                                  * t96 / fs - theta))
+    # CW: the keyed text from the stream's first sample: from its zero
+    # state the ATC's noise floor rises over some 1536 frames (18 s), and
+    # until a tone sets its envelope noise alone keys it (ROADMAP queue C)
+    keying = cw_text.text_to_keying(DECODE_MSGS["cw"], CW_WPM, DEC_FS)
+    env_cw = np.zeros(m_all)
+    env_cw[:len(keying)] = keying[:m_all]
+    cw_z = np.repeat(env_cw, up) * np.exp(
+        1j * 2 * np.pi * (CFG.translate_hz + 700.0) * t96 / fs)
+    sig = torch.from_numpy(np.stack([rtty_z, psk_z, cw_z]) * DECODE_LEVEL
+                           ).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    blocks = []
+    for k in range(n_blocks):
+        planes = []
+        for part in (sig.real, sig.imag):
+            x = torch.randn((C, B), generator=gen, device=dev) * 30.0
+            x[:3] += part[:, k * B:(k + 1) * B].float()
+            planes.append(x.round().clamp(-32768, 32767).to(torch.int16))
+        blocks.append(tuple(planes))
+    return blocks, (delay, theta, s0)
+
+
+def decode_path(dev, seed, n_timed=8, n_warm=2):
+    """The decoders and the scope off `RxChain(CFG)` at the flagship's
+    width (8192 ch x 16384 int16 @ 96 kHz, state carried): on every block
+    `scope.process` (magnify 0) reads the ``spectrum_iq`` tap and
+    `modems.tap.DecoderTap` runs CW, PSK63 and RTTY on the ``audio_dec``
+    tap (8192 x 2048 @ 12 kHz, the remainders carried on the card), one
+    launch a mode.  Timed over `n_timed` blocks after `n_warm`.  Channels
+    0-2 of `decode_capture` must decode to their messages; the scope's
+    outputs must be finite.  Returns (launches, ms/block, Ms/s, blocks
+    timed, blocks run)."""
+    C, B = CHANNELS, CFG.block_len
+    blocks, (delay, theta, s0) = decode_capture(n_warm + n_timed, C, dev,
+                                                seed)
+    print(f"  decode PSK alignment: chain delay {delay:.1f} samples @ 12 "
+          f"kHz, phase {theta:.3f} rad at 500 Hz; symbols start at sample "
+          f"{s0}")
+    chain = rx.RxChain(CFG, device=dev)
+    state = chain.init_state((C,))
+    sp = scope_mod.make_params(translate_hz=CFG.translate_hz)
+    ss = scope_mod.init_state((C,), sp, dev)
+    dtap = tap_mod.DecoderTap(C, text_channels=(0, 1, 2), device=dev,
+                              psk_params=psk_mod.make_params(speed=63))
+
+    def step(blk):
+        nonlocal state, ss
+        audio, state, taps = chain(state, i=blk[0], q=blk[1])
+        so, ss = scope_mod.process(sp, ss, taps["spectrum_iq"])
+        return audio, so, dtap.push(taps["audio_dec"])
+
+    launches, ms_block, (audio, so, out) = timed_run(
+        step, blocks, "decode", DECODE_KERNELS, n_warm, n_timed)
+    check(tuple(audio.shape) == (C, B) and bool(torch.isfinite(audio).all()),
+          "decode audio")
+    check(tuple(so["spectrum"].shape) == (C, sp.fft_len)
+          and all(bool(torch.isfinite(v).all()) for v in so.values()),
+          "decode scope outputs not finite")
+    check(out["rtty"].codes.shape[0] == C and out["cw"].shape[0] == C
+          and out["psk"].shape[0] == C, "decode outputs' shapes")
+    texts = dtap.flush()
+    for mode in ("rtty", "psk", "cw"):
+        print(f"  decode {mode} text, channels 0-2: "
+              + "; ".join(repr(texts[mode][c]) for c in range(3)))
+    # each transcript, its spaces aside, is the message and nothing else.
+    # The spaces are the text decoders' word gaps: CW's decoder, seeded
+    # at 25 wpm, reads the gap after the first character (a dash) of a
+    # 28 wpm signal as a word gap by the reference's rule (eq. 4.14,
+    # `cw_text.py::CwTextDecoder._on_event`), and the JAX package's own
+    # loopbacks compare with the spaces removed (tests/test_cw.py)
+    ch = {"rtty": 0, "psk": 1, "cw": 2}
+    for mode, msg in DECODE_MSGS.items():
+        got = texts[mode][ch[mode]]
+        check(got.replace(" ", "") == msg, f"decode: channel {ch[mode]} "
+                                           f"{mode} gave {got!r}, not {msg!r}")
+    return launches, ms_block, C * B / (ms_block * 1e-3) / 1e6, n_timed, \
+        n_warm + n_timed
 
 
 def biquad_path(P, dev, seed, impl, n_timed=4, n_warm=2):
@@ -3943,7 +4391,8 @@ def main() -> int:
                   phase_blocked, phase_biquad_grouped, phase_front_mt,
                   phase_agc_rows, phase_agc_scan_rows, phase_agc_stereo,
                   phase_agc_stereo_rows, phase_iqcorr, phase_lms,
-                  phase_blanker, phase_nr, phase_lattice, phase_fm_mod):
+                  phase_blanker, phase_nr, phase_lattice, phase_fm_mod,
+                  phase_scope, phase_cw, phase_psk, phase_rtty):
         t1 = time.time()
         print(f"phase {phase.__name__}:")
         r = phase(P, dev, gen)
@@ -3972,6 +4421,8 @@ def main() -> int:
             output_stage(keep.pop("audio"))
         by_path[label] = launches
         per_block[label] = {k: n / n_blocks for k, n in launches.items()}
+        if label == "ssb":
+            ssb_ms = ms_block
         torch.cuda.empty_cache()
         print(f"main path {label}: mode {cfg.mode}, bw {cfg.bw_key}, "
               f"sam_sideband {cfg.sam_sideband}, translate "
@@ -3981,6 +4432,21 @@ def main() -> int:
               f"{ms_block:.3f} ms/block over {n_timed} blocks, {msps:.1f} "
               f"Ms/s, CPU-chain SNR {worst:.1f} dB "
               f"({time.time() - t1:.1f} s) on {card}")
+    t1 = time.time()
+    print("phase decode path:")
+    launches, ms_block, msps, n_timed, n_blocks = decode_path(dev, args.seed)
+    by_path["decode"] = launches
+    per_block["decode"] = {k: n / n_blocks for k, n in launches.items()}
+    torch.cuda.empty_cache()
+    dec_ms = {r["name"]: r["ms"] for r in rows
+              if r["name"] in ("cw", "psk", "rtty")}
+    print(f"decode path: {CHANNELS} ch x {CFG.block_len} int16 @ "
+          f"{CFG.iq_rate / 1e3:.0f} kHz, the scope (magnify 0) and CW, "
+          f"PSK63 and RTTY on the 12 kHz tap: {ms_block:.3f} ms/block over "
+          f"{n_timed} blocks, {msps:.1f} Ms/s, beside SSB's {ssb_ms:.3f} "
+          f"ms/block; the decoder kernels alone: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in dec_ms.items())
+          + f" ({time.time() - t1:.1f} s) on {card}")
     for label, cfg, expect, n_timed, C in REF_PATHS:
         t1 = time.time()
         print(f"phase refchain_path {label}:")

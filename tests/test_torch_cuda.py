@@ -42,10 +42,13 @@ import torch
 from uhsdr_tpu_torch.chain import rx
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import build
+from uhsdr_tpu_torch.cuda import cw as cw_k
 from uhsdr_tpu_torch.cuda import elemwise as ew_k
 from uhsdr_tpu_torch.cuda import fir as fir_k
 from uhsdr_tpu_torch.cuda import iir as iir_k
 from uhsdr_tpu_torch.cuda import pll as pll_k
+from uhsdr_tpu_torch.cuda import psk as psk_k
+from uhsdr_tpu_torch.cuda import rtty as rtty_k
 from uhsdr_tpu_torch.demod import sam as sam_mod
 from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.ops import agc as agc_ops
@@ -2483,7 +2486,7 @@ def test_lattice_kernel_bit_exact(dev, C, lengths, edge):
         sk = torch.zeros((C, len(pk)), device=dev)
         if edge:
             sk[C // 2, 0] = float("nan")
-        sp, t0 = sk, 0
+        sp, sc, t0 = sk, sk.cpu(), 0
         for T in lengths:
             x = torch.as_tensor(rng.standard_normal((C, T)) * 1000.0,
                                 dtype=torch.float32, device=dev)
@@ -2492,8 +2495,13 @@ def test_lattice_kernel_bit_exact(dev, C, lengths, edge):
             t0 += T
             yk, sk = lat_k.lattice(pk, pv, sk, x)
             yp, sp = lat_k.lattice_plain(pk, pv, sp, x)
+            # the plain version's CPU route (channel by channel on NumPy
+            # scalars, `ops/steps.py::scan`) too
+            yc, sc = lat_k.lattice_plain(pk, pv, sc, x.cpu())
             torch.cuda.synchronize()
             assert _bits_equal(yp, yk) and _bits_equal(sp, sk), (len(pk), T)
+            assert _bits_equal(yc, yk.cpu()) and _bits_equal(sc, sk.cpu()), \
+                (len(pk), T, "cpu")
 
 
 def test_lattice_kernel_refuses_and_counts(dev):
@@ -2518,7 +2526,9 @@ def test_lattice_kernel_refuses_and_counts(dev):
 def test_fm_mod_kernel_bit_exact(dev, count_domain, translate, subtone, edge):
     """The kernel at the modulator's parameters (the legacy mode's too,
     which the chain runs in torch), a subtone plane, ragged channels and
-    blocks, edge streams with a NaN state."""
+    blocks, edge streams with a NaN state.  The plain version's CPU route
+    (`ops/steps.py::scan`) holds the state bit for bit and i, q within
+    1e-6: its DDS table is made with the CPU's sine."""
     from uhsdr_tpu_torch.cuda import fm_mod as fm_k
     from uhsdr_tpu_torch.mod import modulators as mods
     p = mods.fm_mod_params(translate, False, subtone,
@@ -2531,6 +2541,7 @@ def test_fm_mod_kernel_bit_exact(dev, count_domain, translate, subtone, edge):
     if edge:
         st[0][3] = float("nan")
     sp, t0 = list(st), 0
+    sc = [t.cpu() for t in st]
     for T in (100, 31, 257):
         scale = 9000.0 if count_domain else 0.3
         x = torch.as_tensor(rng.standard_normal((C, T)) * scale,
@@ -2545,9 +2556,17 @@ def test_fm_mod_kernel_bit_exact(dev, count_domain, translate, subtone, edge):
                 mods.FM_MOD_AMPLITUDE_SCALING, p.swap_iq)
         got = fm_k.fm_mod(x, add, *st, *args)
         ref = fm_k.fm_mod_plain(x, add, *sp, *args)
+        cpu = fm_k.fm_mod_plain(x.cpu(), None if add is None else add.cpu(),
+                                *sc, *args)
         torch.cuda.synchronize()
         assert all(_bits_equal(a, b) for a, b in zip(ref, got)), T
-        st, sp = list(got[2:]), list(ref[2:])
+        for k, (a, b) in enumerate(zip(cpu, got)):
+            if k < 2:
+                assert torch.allclose(a, b.cpu(), rtol=0, atol=1e-6,
+                                      equal_nan=True), (T, k, "cpu")
+            else:
+                assert _bits_equal(a, b.cpu()), (T, k, "cpu")
+        st, sp, sc = list(got[2:]), list(ref[2:]), list(cpu[2:])
 
 
 def test_fm_mod_kernel_refuses_and_counts(dev):
@@ -2605,3 +2624,208 @@ def test_slice19_chains_on_card_match_cpu(dev, which):
         assert bool(torch.isfinite(torch.view_as_real(yg) if yg.is_complex()
                                    else yg).all())
         assert snr_db(yc, yg) >= CHAIN_DB, which
+
+
+# ---------------------------------------------------------------------------
+# The digital-mode decoders' helper kernels (cw.cu, psk.cu, rtty.cu), bit
+# for bit against their plain versions: streamed ragged blocks, edge
+# streams, channels 0-7 alone against the batch
+# ---------------------------------------------------------------------------
+
+def _digital_audio(C: int, T: int, seed: int) -> torch.Tensor:
+    """(C, T) f32 @ 12 kHz from the port's own modulators, by channel
+    c % 4: RTTY 45.45 Bd "RYRY CQ DE UHSDR", PSK63 "CQ CQ", CW 700 Hz
+    "PARIS" at 25 wpm, noise alone; each from its own start offset and at
+    its own level, plus noise."""
+    from uhsdr_tpu_torch.modems import cw_text, psk, psk_text, rtty
+    from uhsdr_tpu_torch.modems import rtty_text
+    rng = np.random.default_rng(seed)
+    rp, pp = rtty.make_params(), psk.make_params(speed=63)
+    bits = rtty_text.codes_to_bits(rtty_text.encode("RYRY CQ DE UHSDR") * 3,
+                                   rp.one_bit)
+    signs, env = psk_text.bits_to_waveform_params(
+        psk_text.encode_bits("CQ CQ " * 6), pp.rate)
+    key = cw_text.text_to_keying("PARIS " * 4, 25, 12000.0)
+    n = max(len(bits), len(signs), len(key)) + T
+    bits = np.concatenate([bits, np.ones(n - len(bits), bool)])
+    signs = np.concatenate([signs, np.ones(n - len(signs), np.float32)])
+    env = np.concatenate([env, np.ones(n - len(env), np.float32)])
+    key = np.concatenate([key, np.zeros(n - len(key), np.float32)])
+    z64 = torch.zeros(1, dtype=torch.int64)
+    srcs = [rtty.modulate(rp, z64, torch.from_numpy(bits[None]))[0][0],
+            psk.modulate(pp, z64, torch.from_numpy(signs[None]),
+                         torch.from_numpy(env[None]))[0][0],
+            torch.from_numpy(key * np.sin(2 * np.pi * 700.0 / 12000.0
+                                          * np.arange(n)).astype(np.float32)),
+            torch.zeros(n)]
+    x = np.empty((C, T), np.float32)
+    for c in range(C):
+        off = int(rng.integers(0, n - T))
+        x[c] = srcs[c % 4][off:off + T].numpy() * (0.2 + c % 5)
+    x += 0.02 * rng.standard_normal((C, T)).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+def _modem_run(kind: str, C: int, lengths, dev, edge: bool, **kw):
+    """Stream `kind`'s kernel and its plain version, on the card and on
+    the CPU, over the blocks from the zero state (with `edge`, edge
+    samples and a NaN in one channel's first state leaf); returns
+    [(kernel out, plain out, the CPU's plain out)] a block, each a tuple
+    of output tensors then state leaves."""
+    from uhsdr_tpu_torch.modems import cw, psk, rtty
+    x_all = _digital_audio(C, sum(lengths), seed=C + len(lengths)).to(dev)
+    if kind == "cw":
+        p = cw.make_params(atc=kw["atc"], noisecancel=kw["nc"],
+                           thresh=kw.get("thresh", 32000.0))
+        sk = cw.init_state((C,), dev)
+        run = lambda s, x: cw_k.cw_detect(  # noqa: E731
+            p.cos_v, p.sin_v, p.thresh, p.atc, p.noisecancel, s, x)
+        plain = lambda s, x: cw_k.cw_detect_plain(  # noqa: E731
+            p.cos_v, p.sin_v, p.thresh, p.atc, p.noisecancel, s, x)
+        sk = cw_k.CwLeaves(*sk)
+    elif kind == "psk":
+        p = psk.make_params(speed=kw["speed"])
+        s0 = psk.init_state((C,), p, dev)
+        sk = psk_k.PskLeaves(s0.bpf_bq, s0.nco_phase, s0.prod_tail,
+                             s0.last_symbol, s0.last_bit)
+        d = int(psk.nco.freq_to_delta(psk.PSK_OFFSET, p.fs))
+        run = lambda s, x: psk_k.psk(p.bpf, d, p.rate, s, x)  # noqa: E731
+        plain = lambda s, x: psk_k.psk_plain(  # noqa: E731
+            p.bpf, d, p.rate, s, x)
+    else:
+        p = rtty.make_params(atc=kw["atc"])
+        sk = rtty.init_state((C,), dev)
+
+        def run(s, x, f=rtty_k.rtty):
+            n_slots = rtty.max_bytes(p, x.shape[-1])
+            codes, nb, s = f(p.mark_bp, p.space_bp, p.lpf, p.one_bit, p.atc,
+                             n_slots, s, x)
+            return (codes, nb), s
+        plain = lambda s, x: run(s, x, rtty_k.rtty_plain)  # noqa: E731
+    if edge:
+        first = sk[0].clone()
+        first.view(first.shape[0], -1)[C // 2, 0] = float("nan")
+        sk = type(sk)(first, *sk[1:])
+    sp, sc, t0, out = sk, type(sk)(*(t.cpu() for t in sk)), 0, []
+    for T in lengths:
+        x = x_all[:, t0:t0 + T].contiguous()
+        if edge:
+            x = _recurrence_edges(x, t0)
+        t0 += T
+        yk, sk = run(sk, x)
+        yp, sp = plain(sp, x)
+        yc, sc = plain(sc, x.cpu())
+        torch.cuda.synchronize()
+        ys = [y if isinstance(y, tuple) else (y,) for y in (yk, yp, yc)]
+        out.append(tuple(y + tuple(s) for y, s in zip(ys, (sk, sp, sc))))
+    return out
+
+
+# PSK's leaves that carry its sine: the product tail and the last symbol
+PSK_SINE_LEAVES = (3, 4)
+
+
+def _modem_same(out, kind: str) -> None:
+    """The kernel against its plain version on the card, bit for bit,
+    and against the plain version's CPU route (NumPy views of the
+    tensors, `ops/steps.py::host_arrays`), bit for bit too, but for
+    PSK's sine leaves: the CPU's `torch.sin` is not the card's `sinf`
+    (each within 2 ulp of the sine), so those are held to 1e-5 of their
+    largest magnitude, with the filter state, the phase and the bits
+    equal."""
+    for blk, (ks, ps, cs) in enumerate(out):
+        for i, (a, b, c) in enumerate(zip(ks, ps, cs)):
+            if a.dtype.is_floating_point:
+                assert _bits_equal(b, a), (blk, i)
+                if kind == "psk" and i in PSK_SINE_LEAVES:
+                    fin = a[torch.isfinite(a)]
+                    tol = 1e-5 * float(fin.abs().max()) if fin.numel() else 0
+                    assert torch.allclose(c, a.cpu(), rtol=1e-5, atol=tol,
+                                          equal_nan=True), (blk, i, "cpu")
+                else:
+                    assert _bits_equal(c, a.cpu()), (blk, i, "cpu")
+            else:
+                assert torch.equal(a, b), (blk, i)
+                assert torch.equal(c, a.cpu()), (blk, i, "cpu")
+
+
+@pytest.mark.parametrize("atc,nc", [(False, False), (False, True),
+                                    (True, False), (True, True)])
+@pytest.mark.parametrize("edge", [False, True])
+def test_cw_kernel_bit_exact(dev, atc, nc, edge):
+    out = _modem_run("cw", 37, (88 * 10, 88, 88 * 23), dev, edge, atc=atc,
+                     nc=nc, thresh=3.0e3)
+    _modem_same(out, "cw")
+    if not edge:
+        assert any(bool(o[0][0].any()) for o in out)
+
+
+@pytest.mark.parametrize("speed", [31, 63, 125])
+@pytest.mark.parametrize("edge", [False, True])
+def test_psk_kernel_bit_exact(dev, speed, edge):
+    rate = {31: 384, 63: 192, 125: 96}[speed]
+    out = _modem_run("psk", 37, (rate * 3, rate, rate * 5), dev, edge,
+                     speed=speed)
+    _modem_same(out, "psk")
+
+
+@pytest.mark.parametrize("atc", [False, True])
+@pytest.mark.parametrize("edge", [False, True])
+def test_rtty_kernel_bit_exact(dev, atc, edge):
+    out = _modem_run("rtty", 37, (2048, 77, 1, 2500), dev, edge, atc=atc)
+    _modem_same(out, "rtty")
+    if not edge:
+        assert sum(int(o[0][1].sum()) for o in out) > 0   # codes framed
+
+
+@pytest.mark.parametrize("kind,kw", [("cw", dict(atc=True, nc=True)),
+                                     ("psk", dict(speed=31)),
+                                     ("rtty", dict(atc=True))])
+def test_modem_kernels_first_channels_alone_match_the_batch(dev, kind, kw):
+    T = {"cw": 88 * 23, "psk": 384 * 5, "rtty": 2048}[kind]
+    x = _digital_audio(40, T, seed=41).to(dev)[:8].contiguous()
+    x40 = _digital_audio(40, T, seed=41).to(dev)
+    from uhsdr_tpu_torch.modems import cw, psk, rtty
+    if kind == "cw":
+        p = cw.make_params(atc=True)
+        a = cw.keying_detect(p, cw.init_state((40,), dev), x40)
+        b = cw.keying_detect(p, cw.init_state((8,), dev), x)
+    elif kind == "psk":
+        p = psk.make_params(speed=31)
+        a = psk.demodulate(p, psk.init_state((40,), p, dev), x40)
+        b = psk.demodulate(p, psk.init_state((8,), p, dev), x)
+    else:
+        p = rtty.make_params()
+        a = rtty.demodulate(p, rtty.init_state((40,), dev), x40)
+        b = rtty.demodulate(p, rtty.init_state((8,), dev), x)
+    def flat(r):
+        return [t for v in r for t in (v if isinstance(v, tuple) else (v,))]
+    for u, v in zip(flat(a), flat(b)):
+        assert torch.equal(u[:8], v), kind
+
+
+def test_modem_wrappers_refuse_and_count(dev):
+    from uhsdr_tpu_torch.modems import cw, psk, rtty
+    assert cw_k.CW.lib().uhsdr_cw_max_blocksize() == cw_k.MAX_BLOCKSIZE
+    assert psk_k.PSK.lib().uhsdr_psk_window() == psk_k.WINDOW
+    pc = cw.make_params()
+    with pytest.raises(ValueError, match="cw"):
+        cw.keying_detect(pc, cw.init_state((4,), dev),
+                         torch.zeros((4, 100), device=dev))
+    pp = psk.make_params()
+    with pytest.raises(ValueError, match="psk"):
+        psk.demodulate(pp, psk.init_state((4,), pp, dev),
+                       torch.zeros((4, 384), device=dev, dtype=torch.float64))
+    pr = rtty.make_params()
+    with pytest.raises(ValueError, match="rtty"):
+        rtty.demodulate(pr, rtty.init_state((5,), dev),
+                        torch.zeros((4, 300), device=dev))
+    n0 = (cw_k.CW.launches, psk_k.PSK.launches, rtty_k.RTTY.launches)
+    cw.keying_detect(pc, cw.init_state((4,), dev),
+                     torch.zeros((4, 176), device=dev))
+    psk.demodulate(pp, psk.init_state((4,), pp, dev),
+                   torch.zeros((4, 384), device=dev))
+    rtty.demodulate(pr, rtty.init_state((4,), dev),
+                    torch.zeros((4, 300), device=dev))
+    assert (cw_k.CW.launches, psk_k.PSK.launches, rtty_k.RTTY.launches) == \
+        tuple(n + 1 for n in n0)

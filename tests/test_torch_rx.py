@@ -81,6 +81,25 @@ def _run_jax(step, state, blk):
     return np.asarray(y), state, taps
 
 
+def spectrum_iq(taps) -> np.ndarray:
+    """The port's ``spectrum_iq`` tap, (i, q) planes (int16 meaning
+    counts / 32768), as the JAX chain's complex tap."""
+    i, q = (p.to(torch.float32) * (1.0 / 32768.0 if p.dtype == torch.int16
+                                   else 1.0) for p in taps["spectrum_iq"])
+    return torch.complex(i, q).numpy()
+
+
+def assert_taps_match(tj, tt):
+    """The port's chain taps the JAX chain's names, and its
+    ``spectrum_iq`` (chain/rx.py:666 of the JAX package: the IQ after the
+    correction, before the translation, in every mode) holds the same
+    values (bit-equal but for the IQ auto-correction's, held to the
+    chain's bound)."""
+    assert set(tt) == set(tj), (sorted(tt), sorted(tj))
+    assert snr_db(np.asarray(tj["spectrum_iq"]), spectrum_iq(tt)) >= \
+        CHAIN_DB
+
+
 def _leaf(state, dotted: str):
     for part in dotted.split("."):
         state = getattr(state, part)
@@ -176,6 +195,9 @@ def test_chain_matches_jax_streamed(jax_chain):
                                       np.asarray(tj["adc_clip"]))
         assert snr_db(np.asarray(tj["audio_dec"]), tt["audio_dec"]) >= \
             CHAIN_DB
+        assert_taps_match(tj, tt)
+        np.testing.assert_array_equal(spectrum_iq(tt),
+                                      np.asarray(tj["spectrum_iq"]))
         _assert_state_close(js, ts, CHAIN_DB)
 
 
@@ -279,6 +301,7 @@ def run_streamed_both_ways(kw, zero_db, handover_db=CHAIN_DB, capture=None,
         yj, js, tj = _run_jax(step, js, blk)
         yt, ts, tt = _run_port(tcfg, tp, ts, blk)
         assert tuple(yt.shape) == out_shape
+        assert_taps_match(tj, tt)
         assert ("adc_peak" in tt) == ("adc_peak" in tj)
         if "adc_peak" in tt:
             np.testing.assert_array_equal(tt["adc_peak"].numpy(),
@@ -362,7 +385,19 @@ def test_imports_neither_jax_nor_the_jax_package():
         "       'uhsdr_tpu_torch.chain.output',\n"
         "       'uhsdr_tpu_torch.cuda.lattice',\n"
         "       'uhsdr_tpu_torch.cuda.fm_mod',\n"
-        "       'uhsdr_tpu_torch.ops.lattice'}\n"
+        "       'uhsdr_tpu_torch.ops.lattice',\n"
+        "       'uhsdr_tpu_torch.modems.cw', 'uhsdr_tpu_torch.modems.psk',\n"
+        "       'uhsdr_tpu_torch.modems.rtty', 'uhsdr_tpu_torch.modems.tap',\n"
+        "       'uhsdr_tpu_torch.modems.cw_text',\n"
+        "       'uhsdr_tpu_torch.modems.psk_text',\n"
+        "       'uhsdr_tpu_torch.modems.rtty_text',\n"
+        "       'uhsdr_tpu_torch.modems.keyer',\n"
+        "       'uhsdr_tpu_torch.modems._varicode_table',\n"
+        "       'uhsdr_tpu_torch.spectrum.scope',\n"
+        "       'uhsdr_tpu_torch.core.stream', 'uhsdr_tpu_torch.ops.goertzel',\n"
+        "       'uhsdr_tpu_torch.ops.softdds', 'uhsdr_tpu_torch.ops.steps',\n"
+        "       'uhsdr_tpu_torch.cuda.cw', 'uhsdr_tpu_torch.cuda.psk',\n"
+        "       'uhsdr_tpu_torch.cuda.rtty'}\n"
         "print(n, bad, sorted(new - set(sys.modules)))\n"
         "sys.exit(1 if bad or n < 30 or new - set(sys.modules) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -854,9 +854,10 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
     ssbstereo: two such launches, (C, 2, T) audio out.  AM/SAM/FM and
     the legacy iq: the one real-tap decimating stage in the K5 kernel,
     complex decimated IQ out (FM reports no ADC peaks, as the reference's
-    FM branch; the legacy FM front does not decimate).  `tune_offset_hz`
-    (the live retune, the reference's LO step) adds its delta to the
-    translation.
+    FM branch; the legacy FM front does not decimate).  Every mode taps
+    ``spectrum_iq``, the (i, q) planes after the IQ correction.
+    `tune_offset_hz` (the live retune, the reference's LO step) adds its
+    delta to the translation.
     Returns (zf, new_state, taps)."""
     xi, xq = _planes(iq)
     iqc_state = state.iqcorr
@@ -872,6 +873,10 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
         xi = a * params.iq_gain
         xq = b + xi * params.iq_phase
     xi, xq = xi.contiguous(), xq.contiguous()
+    # the scope's pre-translate tap (chain/rx.py:666 of the reference),
+    # in every mode: the planes as the front reads them, int16 meaning
+    # counts / 32768; no complex copy of the block is made for it
+    spectrum_iq = (xi, xq)
     delta = params.nco_delta
     if tune_offset_hz is not None:
         delta = (delta + _tune_offset_delta(tune_offset_hz, cfg.iq_rate)) \
@@ -915,9 +920,11 @@ def process_front(cfg: RxConfig, params: RxParams, state: RxState, iq,
     if translating:
         nco_phase = nco.advance(nco_phase, delta, xi.shape[-1])
     # ADC clip / signal-level detect (audio_driver.c:2660-2685)
-    taps_out = {} if cfg.mode == "fm" else {
-        "adc_peak": peak, "adc_clip": peak > 0.985,
-        "adc_half_clip": peak > 0.5, "adc_quarter_clip": peak > 0.25}
+    taps_out = {"spectrum_iq": spectrum_iq}
+    if cfg.mode != "fm":
+        taps_out.update(adc_peak=peak, adc_clip=peak > 0.985,
+                        adc_half_clip=peak > 0.5,
+                        adc_quarter_clip=peak > 0.25)
     state = state._replace(iqcorr=iqc_state, nco_phase=nco_phase,
                            front_carry=front_carry, front2_carry=front2_carry)
     return zf, state, taps_out

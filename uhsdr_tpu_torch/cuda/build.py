@@ -146,8 +146,9 @@ def build_all():
     """Build every registered kernel, one nvcc per source in parallel.
     Returns {name: nvcc log} (the -Xptxas -v register/smem report)."""
     # importing the wrapper modules registers their kernels
-    from . import (agc, alc, blanker, elemwise, fir, fm_mod,  # noqa: F401
-                   iir, iqcorr, lattice, lms, nr, pll, sam)
+    from . import (agc, alc, blanker, cw, elemwise, fir,  # noqa: F401
+                   fm_mod, iir, iqcorr, lattice, lms, nr, pll, psk, rtty,
+                   sam)
     procs = [(k, k.start_build()) for k in _ALL]
     errors = []
     for k, p in procs:
@@ -180,8 +181,9 @@ def resource_usage(lib: pathlib.Path) -> dict:
 
 
 def kernels() -> list[CudaKernel]:
-    from . import (agc, alc, blanker, elemwise, fir, fm_mod,  # noqa: F401
-                   iir, iqcorr, lattice, lms, nr, pll, sam)
+    from . import (agc, alc, blanker, cw, elemwise, fir,  # noqa: F401
+                   fm_mod, iir, iqcorr, lattice, lms, nr, pll, psk, rtty,
+                   sam)
     return list(_ALL)
 
 

@@ -23,8 +23,8 @@ import math
 import numpy as np
 import torch
 
+from ..ops import steps
 from .build import CudaKernel, stream_ptr
-from .lattice import host_arrays
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,36 +69,30 @@ def fm_mod_plain(x, add, a, b, acc, alpha: float, word: float, scale: float,
     T) f32 added to the pre-emphasized audio, or None; a, b: (C,) f32 the
     pre-emphasis state; acc: (C,) int32 the accumulator.  Returns (i, q,
     a, b, acc), i and q (C, T) f32."""
-    C, T = x.shape
     table = fm_table(x.device)
-    f32 = np.float32
-    (xa, aa, ba, acca), to_torch = host_arrays(
-        x, a, b, acc.to(torch.float32))
-    cpu = isinstance(xa, np.ndarray)
-    num = f32 if cpu else float
+    cpu = x.device.type == "cpu"
+    alpha, word, scale, inv, two16 = steps.consts(
+        (alpha, word, scale, 1.0 / 65536.0, 65536.0), cpu)
     floor = np.floor if cpu else torch.floor
-    alpha, word, scale = num(alpha), num(word), num(scale)
-    xt = xa.T
-    pre = []
-    bv, av = ba, aa
-    with np.errstate(all="ignore"):
-        for n in range(T):
-            bv = alpha * ((bv + xt[n]) - av)
-            av = xt[n]
-            pre.append(bv)
-        pre = to_torch(np.stack(pre, 1) if cpu else torch.stack(pre, 1))
-        if add is not None:
-            pre = pre + add
-        rt = (word + pre * scale)
-        rt = rt.numpy().T if cpu else rt.t()
-        inv, two16 = num(1.0 / 65536.0), num(65536.0)
-        accs = []
-        av_acc = acca
-        for n in range(T):
-            s = floor(av_acc + rt[n])
-            av_acc = s - two16 * floor(s * inv)
-            accs.append(av_acc)
-    accs = to_torch(np.stack(accs, 1) if cpu else torch.stack(accs, 1))
+
+    def pre_step(carry, xs):
+        bv, av = carry
+        (xn,) = xs
+        bv = alpha * ((bv + xn) - av)
+        return (bv, xn), (bv,)
+
+    def acc_step(carry, xs):
+        (av,) = carry
+        (rn,) = xs
+        s = floor(av + rn)
+        av = s - two16 * floor(s * inv)
+        return (av,), (av,)
+
+    (bv, _), (pre,) = steps.scan(pre_step, (b, a), (x,))
+    if add is not None:
+        pre = pre + add
+    _, (accs,) = steps.scan(acc_step, (acc.to(torch.float32),),
+                            (word + pre * scale,))
     nan = torch.isnan(accs)
     k = torch.floor(torch.where(nan, 0.0, accs) * (1.0 / 64.0)).long()
     i_s = torch.where(nan, math.nan, table[0][k])
@@ -107,7 +101,7 @@ def fm_mod_plain(x, add, a, b, acc, alpha: float, word: float, scale: float,
         i_s, q_s = q_s, i_s
     last = accs[:, -1]
     acc_out = torch.where(torch.isnan(last), 0.0, last).to(torch.int32)
-    return (i_s * amp, q_s * amp, x[:, -1].clone(), to_torch(bv), acc_out)
+    return (i_s * amp, q_s * amp, x[:, -1].clone(), bv, acc_out)
 
 
 def fm_mod(x, add, a, b, acc, alpha: float, word: float, scale: float,

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import steps
 from .build import CudaKernel, stream_ptr
 
 _P = ctypes.c_void_p
@@ -73,46 +74,31 @@ def coefs(pk, pv) -> tuple[np.ndarray, np.ndarray]:
     return pk, pv
 
 
-def host_arrays(*ts: torch.Tensor):
-    """Time loops step on (C,) vectors: on the CPU as NumPy views of the
-    tensors (the same f32 operations, each correctly rounded, so the same
-    bits, at a fifth of torch's cost a call), on the card as the tensors.
-    Returns (arrays, to_torch)."""
-    if ts[0].device.type != "cpu":
-        return ts, lambda a: a
-    return (tuple(t.detach().numpy() for t in ts),
-            lambda a: torch.from_numpy(np.ascontiguousarray(a)))
-
-
 def lattice_plain(pk, pv, state: torch.Tensor, x: torch.Tensor):
     """Plain torch version of the kernel: x (C, T) f32, state (C, N) f32
-    -> (y (C, T), new state (C, N)), stepping over time on (C,) vectors
-    with the stages unrolled in the reference's order."""
+    -> (y (C, T), new state (C, N)), stepping over time
+    (`ops/steps.py::scan`) with the stages unrolled in the reference's
+    order."""
     pk, pv = coefs(pk, pv)
     N = pk.shape[0]
-    (xa, sa), to_torch = host_arrays(x, state)
-    cpu = isinstance(xa, np.ndarray)
-    k = [np.float32(v) if cpu else float(v) for v in pk]
-    v = [np.float32(u) if cpu else float(u) for u in pv]
-    zero = np.float32(0.0) if cpu else 0.0
-    stack = np.stack if cpu else torch.stack
-    xt = xa.T
-    g = [sa[:, m] for m in range(N)]
-    ys = []
-    with np.errstate(all="ignore"):       # NaN and inf propagate
-        for n in range(xa.shape[1]):
-            xn = xt[n]
-            f = xn
-            acc = xn * v[N] * zero
-            new = []
-            for m in range(N):
-                f = f - k[m] * g[m]
-                gn = f * k[m] + g[m]
-                acc = acc + gn * v[m]
-                new.append(gn)
-            ys.append(acc + f * v[N])
-            g = new[1:] + [f]
-    return to_torch(stack(ys, 1)), to_torch(stack(g, 1))
+    cpu = x.device.type == "cpu"
+    k, v = steps.consts(pk, cpu), steps.consts(pv, cpu)
+    zero = steps.consts((0.0,), cpu)[0]
+
+    def step(g, xs):
+        (xn,) = xs
+        f = xn
+        acc = xn * v[N] * zero
+        new = []
+        for m in range(N):
+            f = f - k[m] * g[m]
+            gn = f * k[m] + g[m]
+            acc = acc + gn * v[m]
+            new.append(gn)
+        return (*new[1:], f), (acc + f * v[N],)
+
+    g, (y,) = steps.scan(step, tuple(state.unbind(-1)), (x,))
+    return y, torch.stack(g, 1)
 
 
 def lattice(pk, pv, state: torch.Tensor, x: torch.Tensor):

@@ -1,9 +1,10 @@
 """Reference firmware coefficient tables, imported as data.
 
-A copy of the loaders in `uhsdr_tpu.data` that the RX slice reads, over
-copies of its two data files (`ref_filters.npz`, `ref_paths.json`,
+A copy of the loaders in `uhsdr_tpu.data` that the port reads, over
+copies of its data files (`ref_filters.npz`, `ref_paths.json`,
 generated by ``tools/parse_ref_filters.py`` from the UHSDR reference's
-`drivers/audio/filters/*.c` and `audio_filter.c`).  The port keeps its
+`drivers/audio/filters/*.c` and `audio_filter.c`; `digimode_tables.npz`,
+by ``tools/parse_digimode_tables.py``).  The port keeps its
 own copy so that it imports nothing of the JAX package.  All arrays are
 float64 (the C sources are decimal literals); consumers cast to f32 at
 the chain boundary, as the firmware's float32_t arithmetic does.
@@ -27,6 +28,15 @@ def _npz():
 @functools.lru_cache(maxsize=1)
 def _meta() -> dict:
     return json.loads((_DIR / "ref_paths.json").read_text())
+
+
+@functools.lru_cache(maxsize=1)
+def digimode_tables():
+    """Digital-mode TX lookup tables: ``ascii2baudot`` (128,) uint8
+    (rtty.c Ascii2Baudot, charset flag in bit 5), ``psk_varicode``
+    (256,) uint16 (psk.c fldigi varicode, MSB-first), ``cw_sm_table``
+    (128,) f64 (cw_gen.c keying envelope smoothing table)."""
+    return np.load(_DIR / "digimode_tables.npz")
 
 
 def array(name: str) -> np.ndarray:

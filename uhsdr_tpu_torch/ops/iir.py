@@ -31,6 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import steps
+
 R_CHUNK = 128
 
 
@@ -159,6 +161,33 @@ def biquad_cascade_block(sos: torch.Tensor, state: torch.Tensor,
         ys = out
         new_states.append(torch.stack([s1, s2], dim=-1))
     return torch.stack(ys, dim=-1), torch.stack(new_states, dim=0)
+
+
+def biquad_block(coeffs, state: torch.Tensor, x: torch.Tensor):
+    """One DF2T biquad over a block, sample by sample: the plain version
+    of the digital modems' filters (`cuda/psk.py`, `cuda/rtty.py`), not
+    the JAX package's dilated scan (uhsdr_tpu/ops/iir.py:31-80), from
+    which it parts at f32 rounding.  coeffs (5,) [b0 b1 b2 a1 a2]
+    (NumPy, a sequence or a tensor); state (..., 2) [s1, s2]; x (..., T)
+    f32, T >= 1.  y = b0 x + s1; s1' = b1 x - a1 y + s2; s2' = b2 x - a2 y
+    (`ops/steps.py::scan`).  Returns (y (..., T), new_state (..., 2))."""
+    if isinstance(coeffs, torch.Tensor):
+        coeffs = coeffs.detach().cpu().numpy()
+    b0, b1, b2, a1, a2 = steps.consts(
+        np.asarray(coeffs, np.float32).reshape(5), x.device.type == "cpu")
+
+    def step(carry, xs):
+        s1, s2 = carry
+        (xn,) = xs
+        y = b0 * xn + s1
+        return (b1 * xn - a1 * y + s2, b2 * xn - a2 * y), (y,)
+
+    T = x.shape[-1]
+    st = state.reshape(-1, 2)
+    (s1, s2), (y,) = steps.scan(step, (st[:, 0].contiguous(),
+                                       st[:, 1].contiguous()),
+                                (x.reshape(-1, T),))
+    return y.reshape(x.shape), torch.stack([s1, s2], -1).reshape(state.shape)
 
 
 @functools.lru_cache(maxsize=64)

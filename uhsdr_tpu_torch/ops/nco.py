@@ -15,6 +15,8 @@ import torch
 
 TWO32 = 1 << 32
 MASK32 = TWO32 - 1
+# the JAX package's f32 angle scale (uhsdr_tpu/ops/nco.py:21)
+PHASE_SCALE_F32 = np.float32(2.0 * np.pi / TWO32)
 
 
 def freq_to_delta(freq_hz, fs) -> np.ndarray:
@@ -45,12 +47,22 @@ def phase_ramp(phase0: torch.Tensor, delta, n: int,
     start .. start+n-1 (start may be negative: the modular arithmetic
     makes history samples' phases exact too).  Shape (..., n)."""
     k = torch.arange(n, dtype=torch.int64, device=phase0.device)
-    d = delta if isinstance(delta, torch.Tensor) else torch.tensor(
-        int(delta), dtype=torch.int64, device=phase0.device)
+    # delta * k: k < 2^31 and delta < 2^32 stay below 2^63.  A scalar
+    # delta stays a Python integer, so no host-to-device copy is made;
+    # a per-channel delta is an int64 tensor.
+    d = delta if isinstance(delta, torch.Tensor) else int(delta)
     p0 = (phase0 + _mul_mod32(d, start % TWO32))[..., None]
-    d = d[..., None] if d.ndim else d
-    # delta * k: k < 2^31 and delta < 2^32 stay below 2^63
-    return (p0 + ((d * k) & MASK32)) & MASK32
+    if isinstance(d, torch.Tensor) and d.ndim:
+        d = d[..., None]
+    return (p0 + ((k * d) & MASK32)) & MASK32
+
+
+def angle_f32(phases: torch.Tensor) -> torch.Tensor:
+    """The JAX package's f32 angle of a uint32 phase
+    (uhsdr_tpu/ops/nco.py:36-43): the phase rounded to f32, times
+    f32(2 pi / 2^32).  The digital modems and the Goertzel projection
+    take their sines of it."""
+    return phases.to(torch.float32) * float(PHASE_SCALE_F32)
 
 
 def rotor(phases: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
     python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam|fm|wide|ssbstereo
                                                |ssb_opts|ssb_leaky|ssb_scipy
-                                               |refchain|fleet
+                                               |decode|refchain|fleet
                                                |fleet_separate|wideband]
                                        [--sideband both|usb|lsb|stereo]
                                        [--group-channels 1024] [--warm 2]
@@ -18,7 +18,10 @@ wide`` at the wide-SSB flagship (usb 5P0KHZ, one complex-tap front) and
 both sidebands, the linked stereo AGC), ``--mode ssb_opts`` at the SSB
 flagship with the RX options IQ correction, notch, blanker and NR on,
 ``--mode ssb_leaky`` with the leaky LMS, ``--mode ssb_scipy`` on the
-legacy redesigned front (`rx.SCIPY_FLAGSHIP`), ``--mode refchain`` the
+legacy redesigned front (`rx.SCIPY_FLAGSHIP`), ``--mode decode`` the SSB
+flagship with the scope (magnify 0) on its ``spectrum_iq`` tap and the
+decoder tap (`modems.tap.DecoderTap`: CW, PSK63, RTTY) on its
+``audio_dec`` tap, ``--mode refchain`` the
 reference chain `chain.refchain.RefRxChain` at `REF_FLAGSHIP` (usb 2P3KHZ
 select 2, the same channels and block of f32 planes @ 48 kHz); ``--mode
 fleet`` drives
@@ -283,7 +286,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--mode", choices=("usb", "am", "sam", "fm", "wide",
                                        "ssbstereo", "ssb_opts", "ssb_leaky",
-                                       "ssb_scipy", "refchain",
+                                       "ssb_scipy", "decode", "refchain",
                                        "fleet", "fleet_separate",
                                        "wideband"),
                     default="usb")
@@ -343,6 +346,30 @@ def main() -> int:
         return profile_blocks(
             lambda s, blk: chain(s, i=blk[0], q=blk[1])[1],
             chain.init_state((C,)), blocks, C * B, args.warm)
+    if args.mode == "decode":
+        from .modems import psk, tap
+        from .spectrum import scope
+        cfg = rx.FLAGSHIP
+        C, B = rx.FLAGSHIP_CHANNELS, cfg.block_len
+        print(f"config: decode, mode {cfg.mode}, bw {cfg.bw_key}, {C} ch x "
+              f"{B} @ {cfg.iq_rate:.0f} Hz, the scope and CW, PSK63, RTTY "
+              f"on the 12 kHz tap")
+        chain = rx.RxChain(cfg, device=dev)
+        sp = scope.make_params(translate_hz=cfg.translate_hz)
+        dtap = tap.DecoderTap(C, device=dev,
+                              psk_params=psk.make_params(speed=63))
+
+        def dec_step(state, blk):
+            cs, ss = state
+            _, cs, taps = chain(cs, i=blk[0], q=blk[1])
+            _, ss = scope.process(sp, ss, taps["spectrum_iq"])
+            dtap.push(taps["audio_dec"])
+            return cs, ss
+
+        return profile_blocks(dec_step, (chain.init_state((C,)),
+                                         scope.init_state((C,), sp, dev)),
+                              capture(n, C, dev, args.seed, cfg), C * B,
+                              args.warm)
     cfg = config(args.mode, args.sideband)
     C, B = rx.FLAGSHIP_CHANNELS, cfg.block_len
     print(f"config: mode {cfg.mode}, bw {cfg.bw_key}, sam_sideband "

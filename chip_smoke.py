@@ -17,12 +17,13 @@ first phase that fails:
    blocks and timed at 16384; its shared memory held to
    `agc_geometry`'s; an edge stream of +-0, +-inf, a NaN and subnormals
    at w 48 and 96, the NaNs where the plain version has them), K4
-   (the interpolator: x8, x4, ssbstereo's 2C rows and the 48 kHz x2,
-   channels 0-7 alone bit-equal to the batch), K5 (the real-tap AM/SAM
-   front; also 64
+   (the interpolator: x8, x4, ssbstereo's 2C rows, the 48 kHz x2 and
+   FreeDV's x6 of 72 taps at 512 x 5120, channels 0-7 alone bit-equal
+   to the batch), K5 (the real-tap AM/SAM front; also 64
    channels of int16 @ 192 kHz at decimation 16, the FM front at
-   decimation 2 and 64 channels of the fleet's f32 FM front @ 48 kHz at
-   decimation 1), K10 and K9 (the SAM PLL: first its fast forms
+   decimation 2, 64 channels of the fleet's f32 FM front @ 48 kHz at
+   decimation 1 and FreeDV's front, 512 x 30720 f32 @ 48 kHz, 72 taps
+   at decimation 6, with a delta a channel, at 100 dB), K10 and K9 (the SAM PLL: first its fast forms
    against the exact functions over their ranges, one launch; then
    also edge streams: carries outside [0, 2 pi], zeros, +-inf and a NaN
    in iq, timed too; the recurrence bound from the walker's critical
@@ -130,7 +131,23 @@ first phase that fails:
    the reference chain `RefRxChain` (f32 planes
    in the count domain @ 48 kHz): `refchain` (usb 2P3KHZ select 2: the
    torch mix, K5, K6, the lattice, K3, K4) at 8192 channels and 8 timed
-   blocks, `refchain_sam` and `refchain_fm` at 1024 and 4.  Then
+   blocks, `refchain_sam` and `refchain_fm` at 1024 and 4.  Before
+   them FreeDV (`modems/freedv.py`, `parallel/fleet.py::
+   FreeDvFleetGroup`): `freedv`, the group in mode 1600 at 512 channels
+   x 30720 f32 @ 48 kHz (bench_fleet.py's row) on the firmware's
+   recorded 1600 IQ, each channel at its own offset within +-3 kHz, 6
+   blocks: the front (one K5 launch a block, CUDA events), the front
+   with the baseband's copy to the host, the batched NumPy modem tier
+   (s a block), real-time channels of each tier; every channel must
+   decode 60 frames with parity at most 0.2 a frame, channels 0-7 must
+   match a CPU group of the port (baseband >= 100 dB, speech bit for
+   bit); `freedv_front`, the front alone at 8192 channels beside its
+   byte bound; `freedv700d`, 700D at 128 channels on the port's own
+   transmission (5 frames a channel, channels 0-7 as the CPU's);
+   `freedv_radio`, `FreeDvRadioMode` on one channel at translate 6000
+   Hz, retuned +300 Hz mid-stream (the speech bit-equal to the CPU's);
+   `freedv_glue`, `freedv_rx_block` (K5 without the NCO, K4 at x6).
+   Then
    `TxChain` at the TX flagship (usb, 8192 ch x 16384 f32 audio @ 48
    kHz, 8 timed blocks) and at 1024 channels lsb, am, cw and the
    legacy-front lsb; FM at the TX flagship (`tx_fm`: the lattice, the
@@ -228,6 +245,7 @@ from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.mod import modulators as mods
 from uhsdr_tpu_torch.modems import cw as cw_mod
 from uhsdr_tpu_torch.modems import cw_text, psk_text, rtty_text
+from uhsdr_tpu_torch.modems import freedv as freedv_mod
 from uhsdr_tpu_torch.modems import psk as psk_mod
 from uhsdr_tpu_torch.modems import rtty as rtty_mod
 from uhsdr_tpu_torch.modems import tap as tap_mod
@@ -235,6 +253,7 @@ from uhsdr_tpu_torch.nr import blanker as nb_mod
 from uhsdr_tpu_torch.nr import spectral as nr_mod
 from uhsdr_tpu_torch.ops import agc as agc_ops
 from uhsdr_tpu_torch.ops import channelizer as chz
+from uhsdr_tpu_torch.ops import design
 from uhsdr_tpu_torch.ops import fftutil
 from uhsdr_tpu_torch.ops import fir as fir_ops
 from uhsdr_tpu_torch.ops import lms as lms_ops
@@ -309,6 +328,33 @@ GROUPED_LONG_ROWS = 1024
 # K8 against its plain version (tests/test_torch_cuda.py's FIR_DB): both
 # sum the same f32 products, in another order
 FIR_TOL_DB = 100.0
+# FreeDV (bench_fleet.py's row, :157-159): FREEDV_CHANNELS channels of
+# FREEDV_BLOCK f32 samples @ 48 kHz a block through FreeDvFleetGroup, each
+# at its own offset within +-3 kHz; the front alone at
+# FREEDV_FRONT_CHANNELS; 700D at FREEDV_700D_CHANNELS; channels 0-7 held
+# to a CPU run of the port
+FREEDV_CHANNELS = 512
+FREEDV_BLOCK = 7680 * 4
+FREEDV_FRONT_CHANNELS = 8192
+FREEDV_700D_CHANNELS = 128
+FREEDV_REF_CH = 8
+FREEDV_SPAN_HZ = 3000.0
+# cycles the card spins ahead of a timed front (~1 ms at 1980 MHz)
+FREEDV_SPIN_CYCLES = 2_000_000
+# the offsets of phase_fir_rt's FreeDV case, repeated over the channels:
+# 0 Hz, the edges of the band, and others of either sign
+FREEDV_K5_OFFSETS = (0.0, 23999.0, -23999.0, 3000.0, -3000.0, 700.0,
+                     -1200.0, 12.5)
+# FreeDvRadioMode: blocks of 4800 (tests/test_freedv_mode.py), translate
+# 6000 Hz; from block FREEDV_RETUNE_BLOCK on the capture moves by
+# FREEDV_RETUNE_HZ and extra_offset_hz follows it
+FREEDV_RADIO_BLOCK = 4800
+FREEDV_RETUNE_BLOCK = 20
+FREEDV_RETUNE_HZ = 300.0
+# the bounds of tests/test_freedv_mode.py:66-70 (1600) and
+# bench_fleet.py:202 (700D): frames a channel, parity per frame
+FREEDV_MIN_FRAMES = {"freedv1600": 60, "freedv700d": 5}
+FREEDV_MAX_PARITY = 0.2
 # the JAX package's tests hold the TPU PLL kernels to 3e-4 against the XLA
 # scan; these kernels repeat their plain versions' arithmetic and have read
 # 0 on this card, so they are held to a few ulp of a unit-scale value
@@ -667,6 +713,8 @@ def phase_fir_rt(P, dev, gen):
     del planes, y_lib, y_pl
     decim2, s, e = fm_front_case(P, dev, gen)
     worst, err = min(worst, s), max(err, e)
+    freedv, s, e = freedv_k5_case(dev, gen)
+    worst, err = min(worst, s), max(err, e)
     T_out = B // decim
     fma = C * T_out * 2 * taps
     # bytes: int16 planes in, complex out, carry in and out, phase in,
@@ -677,7 +725,8 @@ def phase_fir_rt(P, dev, gen):
             snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
             flops=2.0 * fma, library_ms=lib_ms,
             library_note="conv1d with stride on planes mixed beforehand "
-                         "(the FIR alone)", decim2=decim2)
+                         "(the FIR alone)", decim2=decim2,
+            freedv=freedv)
     print(f"  K5 fir_rt: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
           f"{lib_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by "
           f"{r['bound_by']}: {fma / 1e9:.2f} G FMA, "
@@ -717,6 +766,78 @@ def fm_front_case(P, dev, gen) -> tuple:
           f"by {b_by}: {fma / 1e9:.2f} G FMA, {nbytes / 2**20:.0f} MiB)")
     return (dict(ms=ms, bound_ms=b_ms, bound_by=b_by, taps=taps,
                  decim=decim), worst, err)
+
+
+def freedv_deltas(offsets, dev) -> torch.Tensor:
+    """(C,) int64 NCO increments translating each offset (Hz) to 0 at
+    48 kHz, as FreeDvFleetGroup makes them."""
+    d = np.asarray([nco.freq_to_delta(-f, freedv_mod.IQ_RATE)
+                    for f in offsets], np.uint32)
+    return torch.as_tensor(d.astype(np.int64), device=dev)
+
+
+def freedv_k5_case(dev, gen) -> tuple:
+    """K5 at FreeDV's fleet shape (FREEDV_CHANNELS x FREEDV_BLOCK f32 @ 48
+    kHz, 72 taps, decimation 6, planes out) with a delta a channel (0 Hz,
+    +-23999 Hz and other positive and negative offsets): three streamed
+    blocks, the middle one ragged, against fir_rt_plain at FIR_TOL_DB;
+    timed beside the plain version and conv1d (stride 6, no NCO: the FIR
+    alone).  Returns (the timing dict, min SNR, max abs err)."""
+    C, B, decim = FREEDV_CHANNELS, FREEDV_BLOCK, freedv_mod.RATIO
+    h = torch.as_tensor(design.decimation_fir(72, decim, 48000.0).astype(
+        np.float32), device=dev)
+    taps = h.shape[-1]
+    deltas = freedv_deltas(np.resize(FREEDV_K5_OFFSETS, C), dev)
+    ck = cp = torch.zeros((C, taps - 1), dtype=torch.complex64, device=dev)
+    phase = torch.randint(0, 2**32, (C,), generator=gen, device=dev)
+    worst, err, first = math.inf, 0.0, None
+    for blk, Bk in enumerate((B, 4206, B)):
+        xi, xq = (v.to(torch.float32) / 32768.0
+                  for v in iq_block(gen, dev, C, Bk))
+        first = first or (ck, xi, xq, phase)
+        (ai, aq), ck, pk_k = fir_k.fir_rt(h, ck, xi, xq, decim,
+                                          nco=(phase, deltas),
+                                          planes_out=True)
+        y, cp, pk_p = fir_k.fir_rt_plain(h, cp, xi, xq, decim,
+                                         nco=(phase, deltas))
+        torch.cuda.synchronize()
+        s, e = held(f"K5 FreeDV, a delta a channel, block {blk} ({Bk} "
+                    f"samples)", {"i plane": (y.real, ai),
+                                  "q plane": (y.imag, aq),
+                                  "raw carry": (cp, ck),
+                                  "peaks": (pk_p, pk_k)})
+        check(s >= FIR_TOL_DB, f"K5 FreeDV block {blk}: SNR {s:.1f} dB < "
+                               f"{FIR_TOL_DB} dB")
+        worst, err = min(worst, s), max(err, e)
+        phase = nco.advance(phase, deltas, Bk)
+    c0, xi, xq, ph0 = first
+    ms = cuda_ms(lambda: fir_k.fir_rt(h, c0, xi, xq, decim,
+                                      nco=(ph0, deltas), planes_out=True),
+                 10)
+    plain_ms = cuda_ms(lambda: fir_k.fir_rt_plain(
+        h, c0, xi, xq, decim, nco=(ph0, deltas), planes_out=True), 2)
+    st = premixed_stack(c0, xi, xq, None)
+    planes = st.transpose(0, 1).reshape(-1, 1, st.shape[-1]).contiguous()
+    w = h.flip(0).reshape(1, 1, taps)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.conv1d(planes, w,
+                                                        stride=decim), 5)
+    del st, planes
+    T_out = B // decim
+    fma = C * T_out * 2 * taps
+    # bytes: f32 planes in and out, carry in and out, phases and deltas
+    # in, peaks out, taps in
+    nbytes = (2 * C * B * 4 + 2 * C * T_out * 4 + 2 * C * (taps - 1) * 8
+              + 2 * C * 8 + C * 4 + 4 * taps)
+    b_ms, b_by = bound(nbytes, 2.0 * fma)
+    print(f"  K5 FreeDV ({C} x {B} f32, {taps} taps, decim {decim}, a "
+          f"delta a channel): {ms:.4f} ms (plain {plain_ms:.3f} ms, conv1d "
+          f"stride {decim} without the NCO {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}: {fma / 1e6:.0f} M FMA, "
+          f"{nbytes / 1e6:.1f} MB)")
+    return (dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by, shape=[C, B], taps=taps, decim=decim,
+                 library_note="conv1d stride 6 on the unrotated planes"),
+            worst, err)
 
 
 def k67_shapes() -> set:
@@ -1208,7 +1329,12 @@ def phase_interp(P, dev, gen):
              SAM.decim),
             ("ssbstereo_x8", h, 2 * C, T, L),
             ("x2_48k", rx.make_params(x48, dev).interp_fir, C,
-             x48.block_len // x48.decim, x48.decim)):
+             x48.block_len // x48.decim, x48.decim),
+            # FreeDV's RateConverter.up: x6, 72 taps (12 a phase), the
+            # speech of a fleet block at 8 kHz
+            ("x6_freedv", torch.as_tensor(design.interpolation_fir(
+                72, 6, 48000.0).astype(np.float32), device=dev),
+             FREEDV_CHANNELS, FREEDV_BLOCK // 6, 6)):
         w, e, (ck, xk) = interp_case(hh, Ck, (Tk, Tk - 301, Tk), Lk, dev,
                                      gen, label)
         worst, err = min(worst, w), max(err, e)
@@ -3263,6 +3389,26 @@ def state_snrs(ref: dict, got: dict, nr_band=None) -> dict:
     return out
 
 
+def zero_launches():
+    for k in build.kernels():
+        k.launches = 0
+    torch.cuda.synchronize()
+
+
+def read_launches(label: str, expect) -> dict:
+    """Read every kernel's launch count after a path and check that each
+    kernel of `expect`, and no other, was launched."""
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in build.kernels()}
+    print(f"  {label} launches: {launches}")
+    for name in expect:
+        check(launches[name] > 0, f"{label} never launched kernel {name}")
+    for name, n in launches.items():
+        check(n == 0 or name in expect,
+              f"{label} launched {name}, which is not on its path")
+    return launches
+
+
 def timed_run(step, blocks, label, expect, n_warm, n_timed):
     """Set every kernel's launch count to 0, run `step(block)` over the
     warm-up blocks and then the timed ones between CUDA events, read the
@@ -3271,10 +3417,7 @@ def timed_run(step, blocks, label, expect, n_warm, n_timed):
     window, the last step's result); prints each timed block, their
     median and the caching allocator's device allocations (cudaMalloc
     calls, each of which waits for the card) inside the window."""
-    kernels = build.kernels()
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.synchronize()
+    zero_launches()
     gc.collect()    # keep earlier phases' garbage out of the timed window
     for blk in blocks[:n_warm]:
         step(blk)
@@ -3286,20 +3429,13 @@ def timed_run(step, blocks, label, expect, n_warm, n_timed):
         marks[k + 1].record()
     marks[-1].synchronize()
     allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs0
-    launches = {k.name: k.launches for k in kernels}
     each = [marks[k].elapsed_time(marks[k + 1]) for k in range(n_timed)]
     mean = marks[0].elapsed_time(marks[-1]) / n_timed
     print(f"  {label} ms of each timed block: "
           + " ".join(f"{t:.3f}" for t in each)
           + f" (mean {mean:.3f}, median {float(np.median(each)):.3f}); "
           f"device allocations in the window: {allocs}")
-    print(f"  {label} launches: {launches}")
-    for name in expect:
-        check(launches[name] > 0, f"{label} never launched kernel {name}")
-    for name, n in launches.items():
-        check(n == 0 or name in expect,
-              f"{label} launched {name}, which is not on its path")
-    return launches, mean, out
+    return read_launches(label, expect), mean, out
 
 
 def main_path(cfg, label, expect, dev, seed, n_timed, C, n_warm=2, n_ref=3,
@@ -4236,6 +4372,249 @@ def agc_machine_path(dev, seed, rows: bool, n_timed=4, n_warm=2,
 
 # "blocked" (K2): every path whose cascade stage is non-empty (the
 # PreFilter; FM's squelch HPF; the TX voice bandpass), all but wide SSB
+# ---------------------------------------------------------------------------
+# FreeDV
+# ---------------------------------------------------------------------------
+
+def freedv_recorded_48k(translate_hz: float = 0.0, shift_from=None,
+                        shift_hz: float = 0.0) -> np.ndarray:
+    """The firmware's recorded 1600 IQ (`data.freedv("test_iq")`, 32000
+    samples @ 8 kHz) raised to 48 kHz as tests/test_freedv_mode.py does
+    (x6 zero-stuffing, a 96-tap 3.5 kHz lowpass), at +translate_hz, moved
+    by shift_hz from sample shift_from on, phase-continuously; complex128
+    on the host."""
+    from scipy import signal
+    iq8 = refdata.freedv("test_iq")
+    iq8 = iq8 / (np.max(np.abs(iq8)) + 1e-9)
+    up = np.zeros(len(iq8) * 6, np.complex128)
+    up[::6] = iq8
+    z = signal.lfilter(signal.firwin(96, 3500.0, fs=48000.0) * 6, [1.0], up)
+    f = np.full(len(z), float(translate_hz))
+    if shift_from is not None:
+        f[shift_from:] += shift_hz
+    ph = 2 * np.pi * np.concatenate([[0.0], np.cumsum(f[:-1])]) / 48000.0
+    return z * np.exp(1j * ph)
+
+
+def freedv_700d_48k() -> np.ndarray:
+    """A 4 s 700D transmission made by the port's FreeDv700D.mod from
+    bench_fleet.py's speech, raised x6 by resample_poly (complex128)."""
+    from scipy import signal
+    t8 = np.arange(8000 * 4) / 8000.0
+    speech = (5000 * np.sin(np.cumsum(
+        2 * np.pi * (120 + 25 * np.sin(2 * np.pi * 1.1 * t8)) / 8000.0))
+    ).astype(np.float32)
+    return signal.resample_poly(freedv_mod.FreeDv700D().mod(speech), 6, 1)
+
+
+def freedv_planes(z48: np.ndarray, offsets: np.ndarray, k: int, B: int,
+                  dev) -> tuple:
+    """Block k of the capture z48 put at each channel's offset: (C, B) f32
+    planes on the card, the rotation taken in float64."""
+    C = len(offsets)
+    n = torch.arange(k * B, (k + 1) * B, dtype=torch.float64, device=dev)
+    z = torch.as_tensor(z48[k * B:(k + 1) * B], device=dev)
+    f = torch.as_tensor(offsets, dtype=torch.float64, device=dev)
+    xi = torch.empty((C, B), dtype=torch.float32, device=dev)
+    xq = torch.empty_like(xi)
+    for c0 in range(0, C, 1024):
+        ang = (2 * math.pi / 48000.0) * f[c0:c0 + 1024, None] * n[None, :]
+        zz = z[None, :] * torch.polar(torch.ones_like(ang), ang)
+        xi[c0:c0 + 1024] = zz.real
+        xq[c0:c0 + 1024] = zz.imag
+    return xi, xq
+
+
+def freedv_fleet_path(mode: str, C: int, dev, card: str) -> tuple:
+    """`FreeDvFleetGroup(C, mode)` over the capture of the mode (mode
+    1600: the firmware's recorded IQ; 700D: the port's own transmission),
+    each channel at its own offset within +-FREEDV_SPAN_HZ, blocks of
+    FREEDV_BLOCK f32 @ 48 kHz made on the card beforehand.  A block: the
+    front (one K5 launch, timed with CUDA events), the baseband's copy to
+    the host (the JAX group's NumPy expression), the batched modem tier
+    (host NumPy, wall clock); the front's wall time with the copy
+    includes the card's spin of FREEDV_SPIN_CYCLES ahead of the K5
+    events.  Channels 0-7 go through a CPU group of the
+    port too: the baseband >= FIR_TOL_DB and the speech bit for bit.
+    Every channel must decode FREEDV_MIN_FRAMES[mode] frames; mode 1600
+    with parity at most FREEDV_MAX_PARITY a frame.  Returns (launches,
+    blocks run)."""
+    z48 = freedv_recorded_48k() if mode == "freedv1600" else \
+        freedv_700d_48k()
+    B = FREEDV_BLOCK
+    offsets = np.linspace(-FREEDV_SPAN_HZ, FREEDV_SPAN_HZ, C)
+    blocks = [freedv_planes(z48, offsets, k, B, dev)
+              for k in range(len(z48) // B)]
+    grp = pfleet.FreeDvFleetGroup(C, mode, B, translate_hz=offsets,
+                                  device=dev)
+    ref = pfleet.FreeDvFleetGroup(FREEDV_REF_CH, mode, B,
+                                  translate_hz=offsets[:FREEDV_REF_CH],
+                                  device="cpu")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    k5_ms, front_ms, modem_s = [], [], []
+    base_db, n_diff = math.inf, 0
+    zero_launches()
+    for xi, xq in blocks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the card spins while the host enqueues the front, so the events
+        # read the launch's device time and not the host's enqueue
+        torch.cuda._sleep(FREEDV_SPIN_CYCLES)
+        ev[0].record()
+        i_d, q_d = grp.front_device(xi, xq)
+        ev[1].record()
+        iq8 = i_d.cpu().numpy() + 1j * q_d.cpu().numpy()
+        t1 = time.perf_counter()
+        speech = grp._fleet_modem.demod(iq8)
+        t2 = time.perf_counter()
+        k5_ms.append(ev[0].elapsed_time(ev[1]))
+        front_ms.append((t1 - t0) * 1e3)
+        modem_s.append(t2 - t1)
+        r8 = ref.front_block(xi[:FREEDV_REF_CH].cpu(),
+                             xq[:FREEDV_REF_CH].cpu())
+        base_db = min(base_db, snr_db(torch.from_numpy(r8), torch.from_numpy(
+            iq8[:FREEDV_REF_CH])))
+        for a, b in zip(ref._fleet_modem.demod(r8), speech):
+            n_diff += int(a.shape != b.shape or not np.array_equal(a, b))
+    launches = read_launches(mode, ("fir_rt",))
+    del blocks
+    st = grp.stats
+    per_ch = grp._fleet_modem.frames_per_channel
+    sec = B / 48000.0
+    k5, fr, md = (float(np.mean(v)) for v in (k5_ms, front_ms, modem_s))
+    print(f"  {mode}: K5 ms a block {' '.join(f'{v:.4f}' for v in k5_ms)} "
+          f"(mean {k5:.4f}); front with the host copy, ms a block "
+          f"{' '.join(f'{v:.2f}' for v in front_ms)} (mean {fr:.2f}); modem "
+          f"tier, s a block {' '.join(f'{v:.3f}' for v in modem_s)} (mean "
+          f"{md:.3f})")
+    print(f"  {mode}: real-time channels: K5 {C * sec / (k5 * 1e-3):.0f}, "
+          f"front with the copy {C * sec / (fr * 1e-3):.0f}, modem tier (one "
+          f"process) {C * sec / md:.1f}; frames decoded {st['frames_decoded']}"
+          f" (a channel: min {int(per_ch.min())}, max {int(per_ch.max())}), "
+          + ", ".join(f"{k} {v}" for k, v in st.items()
+                      if k not in ("frames_decoded", "channels"))
+          + f"; channels 0-{FREEDV_REF_CH - 1} vs the CPU: baseband "
+          f"{base_db:.1f} dB, {n_diff} speech blocks differ, frames "
+          f"{ref._fleet_modem.frames_per_channel.tolist()}, "
+          + ", ".join(f"{k} {v}" for k, v in ref.stats.items()
+                      if k not in ("frames_decoded", "channels"))
+          + f" on {card}")
+    check(base_db >= FIR_TOL_DB, f"{mode}: channels 0-7 baseband "
+                                 f"{base_db:.1f} dB < {FIR_TOL_DB} dB")
+    check(n_diff == 0, f"{mode}: {n_diff} speech blocks of channels 0-7 "
+                       f"differ from the CPU's")
+    check(np.array_equal(per_ch[:FREEDV_REF_CH],
+                         ref._fleet_modem.frames_per_channel),
+          f"{mode}: channels 0-7 frames differ from the CPU's")
+    check(int(per_ch.min()) >= FREEDV_MIN_FRAMES[mode],
+          f"{mode}: a channel decoded {int(per_ch.min())} frames < "
+          f"{FREEDV_MIN_FRAMES[mode]}")
+    if mode == "freedv1600":
+        check(st["parity_errors"] <= FREEDV_MAX_PARITY * st["frames_decoded"],
+              f"{mode}: parity {st['parity_errors']} > {FREEDV_MAX_PARITY} "
+              f"x {st['frames_decoded']} frames")
+    return launches, len(k5_ms)
+
+
+def freedv_front_path(dev, card: str) -> tuple:
+    """The front alone at FREEDV_FRONT_CHANNELS x FREEDV_BLOCK (the
+    recorded capture at offsets within +-FREEDV_SPAN_HZ): K5's ms a block
+    by CUDA events over 10 blocks beside its byte bound, and one block
+    with the host copy (front_block).  Returns (launches, blocks run)."""
+    C, B = FREEDV_FRONT_CHANNELS, FREEDV_BLOCK
+    offsets = np.linspace(-FREEDV_SPAN_HZ, FREEDV_SPAN_HZ, C)
+    xi, xq = freedv_planes(freedv_recorded_48k(), offsets, 0, B, dev)
+    grp = pfleet.FreeDvFleetGroup(C, block_len_48k=B, translate_hz=offsets,
+                                  device=dev)
+    zero_launches()
+    ms = cuda_ms(lambda: grp.front_device(xi, xq), 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iq8 = grp.front_block(xi, xq)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches("freedv_front", ("fir_rt",))
+    check(iq8.shape == (C, B // 6) and bool(np.isfinite(iq8).all()),
+          "freedv_front baseband")
+    T_out = B // 6
+    nbytes = (2 * C * B * 4 + 2 * C * T_out * 4 + 2 * C * 71 * 8
+              + 2 * C * 8 + C * 4 + 4 * 72)
+    b_ms, b_by = bound(nbytes, 2.0 * C * T_out * 2 * 72)
+    sec = B / 48000.0
+    print(f"freedv_front: {C} ch x {B} f32 @ 48 kHz, K5 with a delta a "
+          f"channel: {ms:.4f} ms a block (bound {b_ms:.4f} ms by {b_by}, "
+          f"{nbytes / 1e6:.1f} MB; {100 * b_ms / ms:.1f}%), "
+          f"{C * sec / (ms * 1e-3):.0f} real-time channels; with the host "
+          f"copy {host_ms:.2f} ms, {C * sec / (host_ms * 1e-3):.0f} "
+          f"real-time channels on {card}")
+    return launches, 12
+
+
+def freedv_radio_path(dev, card: str) -> tuple:
+    """`FreeDvRadioMode("freedv1600")` on one channel of the recorded
+    capture at translate 6000 Hz in blocks of FREEDV_RADIO_BLOCK; from
+    block FREEDV_RETUNE_BLOCK on the capture moves by FREEDV_RETUNE_HZ and
+    `extra_offset_hz` follows it (K5 with the NCO, its history re-rotated
+    at the retune).  Frames and parity held to FREEDV_MIN_FRAMES and
+    FREEDV_MAX_PARITY; the speech bit-equal to the port's radio on the
+    CPU.  Returns (launches, blocks run)."""
+    B = FREEDV_RADIO_BLOCK
+    cap = freedv_recorded_48k(6000.0, FREEDV_RETUNE_BLOCK * B,
+                              FREEDV_RETUNE_HZ).astype(np.complex64)
+    on_card = freedv_mod.FreeDvRadioMode("freedv1600", B, 6000.0, device=dev)
+    on_cpu = freedv_mod.FreeDvRadioMode("freedv1600", B, 6000.0,
+                                        device="cpu")
+    n_diff, n_blocks = 0, len(cap) // B
+    zero_launches()
+    t0 = time.perf_counter()
+    for k in range(n_blocks):
+        blk = cap[k * B:(k + 1) * B]
+        extra = FREEDV_RETUNE_HZ if k >= FREEDV_RETUNE_BLOCK else 0.0
+        a = on_card.rx_block(blk.real[None], blk.imag[None], extra)
+        b = on_cpu.rx_block(blk.real[None], blk.imag[None], extra)
+        n_diff += int(not np.array_equal(a, b))
+    launches = read_launches("freedv_radio", ("fir_rt",))
+    st = on_card.stats
+    print(f"freedv_radio: 1 ch, {n_blocks} blocks of {B} f32 @ 48 kHz, "
+          f"translate 6000 Hz, +{FREEDV_RETUNE_HZ:.0f} Hz from block "
+          f"{FREEDV_RETUNE_BLOCK}: {st}, CPU {on_cpu.stats}, {n_diff} speech "
+          f"blocks differ ({time.perf_counter() - t0:.1f} s) on {card}")
+    check(n_diff == 0 and st == on_cpu.stats,
+          "freedv_radio: the card's speech or stats differ from the CPU's")
+    check(st["frames_decoded"] >= FREEDV_MIN_FRAMES["freedv1600"]
+          and st["parity_errors"] <= FREEDV_MAX_PARITY * st["frames_decoded"],
+          f"freedv_radio: {st}")
+    return launches, n_blocks
+
+
+def freedv_glue_path(dev, card: str) -> tuple:
+    """`freedv_rx_block` (48k IQ -> K5 -> the 1600 modem -> K4 x6) over
+    8 blocks of the recorded capture at 0 Hz (K5 without the NCO), held
+    to the port's CPU route at FIR_TOL_DB.  Returns (launches, blocks
+    run)."""
+    B = FREEDV_RADIO_BLOCK
+    cap = freedv_recorded_48k().astype(np.complex64)
+    conv = freedv_mod.RateConverter(B, device=dev)
+    conv_cpu = freedv_mod.RateConverter(B, device="cpu")
+    modem, modem_cpu = freedv_mod.FreeDv1600(), freedv_mod.FreeDv1600()
+    worst, n_out = math.inf, 0
+    zero_launches()
+    for k in range(8):
+        blk = torch.from_numpy(cap[k * B:(k + 1) * B])
+        y = freedv_mod.freedv_rx_block(conv, modem, blk.to(dev))
+        yc = freedv_mod.freedv_rx_block(conv_cpu, modem_cpu, blk)
+        check(tuple(y.shape) == tuple(yc.shape), "freedv_glue shapes")
+        if y.shape[-1]:
+            worst = min(worst, snr_db(yc, y.cpu()))
+            n_out += y.shape[-1]
+    launches = read_launches("freedv_glue", ("fir_rt", "interp"))
+    print(f"freedv_glue: 8 blocks of {B} through freedv_rx_block, "
+          f"{modem.frames_decoded} frames, {n_out} samples out @ 48 kHz, "
+          f"CPU route {worst:.1f} dB on {card}")
+    check(worst >= FIR_TOL_DB, f"freedv_glue: {worst:.1f} dB < "
+                               f"{FIR_TOL_DB} dB")
+    return launches, 8
+
+
 SHARED = ("agc", "interp", "blocked")
 FM_KERNELS = ("fir_rt", "fm_disc", "agc", "blocked")
 TWO_CH = ("agc_stereo", "interp", "blocked")
@@ -4447,6 +4826,21 @@ def main() -> int:
           f"ms/block; the decoder kernels alone: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in dec_ms.items())
           + f" ({time.time() - t1:.1f} s) on {card}")
+    for label, run in (
+            ("freedv", lambda: freedv_fleet_path("freedv1600",
+                                                 FREEDV_CHANNELS, dev, card)),
+            ("freedv_front", lambda: freedv_front_path(dev, card)),
+            ("freedv700d", lambda: freedv_fleet_path(
+                "freedv700d", FREEDV_700D_CHANNELS, dev, card)),
+            ("freedv_radio", lambda: freedv_radio_path(dev, card)),
+            ("freedv_glue", lambda: freedv_glue_path(dev, card))):
+        t1 = time.time()
+        print(f"phase freedv path {label}:")
+        launches, n_blocks = run()
+        by_path[label] = launches
+        per_block[label] = {k: n / n_blocks for k, n in launches.items()}
+        torch.cuda.empty_cache()
+        print(f"freedv path {label}: {time.time() - t1:.1f} s")
     for label, cfg, expect, n_timed, C in REF_PATHS:
         t1 = time.time()
         print(f"phase refchain_path {label}:")

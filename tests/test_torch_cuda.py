@@ -246,11 +246,13 @@ def test_interp_kernel_matches_plain(dev, C, B, L):
 
 # (L, taps) the chains send K4: x2 and x4 at 48 kHz (the firmware's 4- and
 # 16-tap interpolators), x4 and x8 at 96 kHz (93 taps), x8 and x16 at
-# 192 kHz (187 taps); and four the generic instance takes, the last two
-# past its parameters' tap table (the taps read from the card)
+# 192 kHz (187 taps); and five the generic instance takes, two past its
+# parameters' tap table (the taps read from the card), the last FreeDV's
+# x6 of 72 taps (12 a phase)
 @pytest.mark.parametrize("L,taps", [(2, 4), (2, 16), (4, 4), (4, 16),
                                     (4, 93), (8, 93), (8, 187), (16, 187),
-                                    (3, 40), (5, 93), (3, 2000), (7, 1500)])
+                                    (3, 40), (5, 93), (3, 2000), (7, 1500),
+                                    (6, 72)])
 def test_interp_kernel_at_the_chains_factors(dev, L, taps):
     """K4 at every factor the chains reach, over three streamed blocks
     (the middle one ragged: no multiple of a tile, odd at x2), held to its
@@ -2829,3 +2831,138 @@ def test_modem_wrappers_refuse_and_count(dev):
                     torch.zeros((4, 300), device=dev))
     assert (cw_k.CW.launches, psk_k.PSK.launches, rtty_k.RTTY.launches) == \
         tuple(n + 1 for n in n0)
+
+
+# K5 with a delta a channel (FreeDV's fronts): 0 Hz, large, and negative
+# frequencies in one launch
+FREEDV_OFFSETS = (0.0, 700.0, -1200.0, 3000.0, -3000.0, 23999.0, -6000.0,
+                  12.5, -0.5)
+
+
+def _freedv_deltas(C, dev):
+    f = np.resize(np.asarray(FREEDV_OFFSETS), C)
+    d = np.asarray([nco.freq_to_delta(-v, 48000.0) for v in f], np.uint32)
+    return torch.from_numpy(d.astype(np.int64)).to(dev)
+
+
+@pytest.mark.parametrize("C,B,dtype", [(9, 7680, "float32"),
+                                       (5, 1206, "float32"),
+                                       (3, 30720, "int16"),
+                                       (1, 600, "float32")])
+def test_fir_rt_delta_rows_match_plain(dev, C, B, dtype):
+    """K5 with a (C,) tensor of increments (the DROW instance) against
+    fir_rt_plain over three streamed blocks at FreeDV's 72 taps and /6,
+    complex and planes out, counted once a launch as K5."""
+    from uhsdr_tpu_torch.ops import design
+    rng = np.random.default_rng(21)
+    h = torch.from_numpy(design.decimation_fir(72, 6, 48000.0)
+                         .astype(np.float32)).to(dev)
+    deltas = _freedv_deltas(C, dev)
+    ck = cp = torch.zeros((C, 71), dtype=torch.complex64, device=dev)
+    ph = torch.from_numpy(rng.integers(0, 2**32, C)).to(dev)
+    for blk in range(3):
+        x = [torch.from_numpy(_int16(rng, (C, B))).to(dev) for _ in "iq"]
+        if dtype == "float32":
+            x = [v.to(torch.float32) / 32768.0 for v in x]
+        n0 = fir_k.FIR_RT.launches
+        yk, ck_new, pk = fir_k.fir_rt(h, ck, *x, 6, nco=(ph, deltas))
+        (ar, ai), c2, _ = fir_k.fir_rt(h, ck, *x, 6, nco=(ph, deltas),
+                                       planes_out=True)
+        assert fir_k.FIR_RT.launches == n0 + 2
+        yp, cp, pp = fir_k.fir_rt_plain(h, cp, *x, 6, nco=(ph, deltas))
+        torch.cuda.synchronize()
+        for a, b in ((yp, yk), (cp, ck_new), (pp, pk), (yp.real, ar),
+                     (yp.imag, ai)):
+            assert snr_db(a, b) >= FIR_DB
+        assert torch.equal(c2, ck_new)
+        ck = ck_new
+        ph = nco.advance(ph, deltas, B)
+
+
+def test_fir_rt_delta_rows_channel_alone(dev):
+    """Each channel of a launch with a delta a channel gives the bits the
+    scalar-delta launch gives that channel alone, a 0 delta included; a
+    batch of 1 gives the bits of that channel in the batch."""
+    from uhsdr_tpu_torch.ops import design
+    rng = np.random.default_rng(22)
+    C, B = 9, 7680
+    h = torch.from_numpy(design.decimation_fir(72, 6, 48000.0)
+                         .astype(np.float32)).to(dev)
+    deltas = _freedv_deltas(C, dev)
+    carry = torch.from_numpy((0.1 * (rng.standard_normal((C, 71))
+                                     + 1j * rng.standard_normal((C, 71))))
+                             .astype(np.complex64)).to(dev)
+    ph = torch.from_numpy(rng.integers(0, 2**32, C)).to(dev)
+    x = [torch.from_numpy(rng.standard_normal((C, B)).astype(np.float32))
+         .to(dev) for _ in "iq"]
+    full = fir_k.fir_rt(h, carry, *x, 6, nco=(ph, deltas))
+    for c in range(C):
+        sl = slice(c, c + 1)
+        args = (h, carry[sl].contiguous(), *(v[sl].contiguous() for v in x),
+                6)
+        alone = fir_k.fir_rt(*args, nco=(ph[sl].contiguous(),
+                                         int(deltas[c])))
+        one = fir_k.fir_rt(*args, nco=(ph[sl].contiguous(),
+                                       deltas[sl].contiguous()))
+        torch.cuda.synchronize()
+        for a, b, d in zip(full, alone, one):
+            assert torch.equal(a[sl], b) and torch.equal(b, d), c
+
+
+def test_fir_rt_delta_rows_refused(dev):
+    """A delta a channel takes K5 alone, (C,) int64 on the planes'
+    device."""
+    h = torch.zeros(72, device=dev)
+    carry = torch.zeros((4, 71), dtype=torch.complex64, device=dev)
+    x = torch.zeros((4, 600), device=dev)
+    ph = torch.zeros(4, dtype=torch.int64, device=dev)
+    for bad in (torch.zeros(3, dtype=torch.int64, device=dev),
+                torch.zeros(4, dtype=torch.int32, device=dev),
+                torch.zeros(4, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="fir_rt"):
+            fir_k.fir_rt(h, carry, x, x, 6, nco=(ph, bad))
+    with pytest.raises(ValueError, match="fir_cx"):
+        fir_k.fir_cx(h.to(torch.complex64), carry, x, x, 6,
+                     nco=(ph, torch.zeros(4, dtype=torch.int64, device=dev)))
+
+
+def test_freedv_fronts_on_card_match_cpu(dev):
+    """FreeDvFleetGroup's front (one K5 launch a block) and
+    FreeDvRadioMode's (a retune mid-stream, then 0 Hz) and RateConverter's
+    up (K4) on the card against the same objects on the CPU."""
+    from uhsdr_tpu_torch.modems import freedv
+    rng = np.random.default_rng(23)
+    C, B = 6, 7680
+    off = np.asarray(FREEDV_OFFSETS[:C])
+    g_card = fleet_mod.FreeDvFleetGroup(C, block_len_48k=B,
+                                        translate_hz=off, device=dev)
+    g_cpu = fleet_mod.FreeDvFleetGroup(C, block_len_48k=B,
+                                       translate_hz=off, device="cpu")
+    r_card = freedv.FreeDvRadioMode("freedv1600", B, 6000.0, device=dev)
+    r_cpu = freedv.FreeDvRadioMode("freedv1600", B, 6000.0, device="cpu")
+    for blk, extra in enumerate((0.0, 300.0, 300.0, -6000.0)):
+        xi, xq = (rng.standard_normal((C, B)).astype(np.float32)
+                  for _ in "iq")
+        n0 = fir_k.FIR_RT.launches
+        a = g_card.front_block(xi, xq)
+        assert fir_k.FIR_RT.launches == n0 + 1
+        b = g_cpu.front_block(xi, xq)
+        assert a.dtype == b.dtype
+        assert snr_db(torch.from_numpy(b), torch.from_numpy(a)) >= FIR_DB
+        sa, sb = g_card.state_to_numpy(), g_cpu.state_to_numpy()
+        assert np.array_equal(sa["phases"], sb["phases"])
+        for k in ("ci", "cq"):
+            assert snr_db(torch.from_numpy(sb[k]),
+                          torch.from_numpy(sa[k])) >= FIR_DB, (blk, k)
+        d = r_card._delta(extra)
+        ya = r_card.conv.down_planes(torch.from_numpy(xi[:1]).to(dev),
+                                     torch.from_numpy(xq[:1]).to(dev), d)
+        yb = r_cpu.conv.down_planes(torch.from_numpy(xi[:1]),
+                                    torch.from_numpy(xq[:1]), d)
+        assert snr_db(yb, ya.cpu()) >= FIR_DB, blk
+        s8 = rng.standard_normal((2, 1280)).astype(np.float32)
+        n0 = fir_k.INTERP.launches
+        ua = r_card.conv.up(torch.from_numpy(s8).to(dev))
+        assert fir_k.INTERP.launches == n0 + 1
+        ub = r_cpu.conv.up(torch.from_numpy(s8))
+        assert snr_db(ub, ua.cpu()) >= FIR_DB

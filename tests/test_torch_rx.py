@@ -397,7 +397,16 @@ def test_imports_neither_jax_nor_the_jax_package():
         "       'uhsdr_tpu_torch.core.stream', 'uhsdr_tpu_torch.ops.goertzel',\n"
         "       'uhsdr_tpu_torch.ops.softdds', 'uhsdr_tpu_torch.ops.steps',\n"
         "       'uhsdr_tpu_torch.cuda.cw', 'uhsdr_tpu_torch.cuda.psk',\n"
-        "       'uhsdr_tpu_torch.cuda.rtty'}\n"
+        "       'uhsdr_tpu_torch.cuda.rtty',\n"
+        "       'uhsdr_tpu_torch.modems.freedv',\n"
+        "       'uhsdr_tpu_torch.modems.fdmdv_batch',\n"
+        "       'uhsdr_tpu_torch.modems.fdmdv', 'uhsdr_tpu_torch.modems.ofdm',\n"
+        "       'uhsdr_tpu_torch.modems.golay', 'uhsdr_tpu_torch.modems.ldpc',\n"
+        "       'uhsdr_tpu_torch.modems.vocoder',\n"
+        "       'uhsdr_tpu_torch.modems.codec2_1300',\n"
+        "       'uhsdr_tpu_torch.modems.codec2_700c',\n"
+        "       'uhsdr_tpu_torch.modems.codec2_1300_batch',\n"
+        "       'uhsdr_tpu_torch.modems.codec2_700c_batch'}\n"
         "print(n, bad, sorted(new - set(sys.modules)))\n"
         "sys.exit(1 if bad or n < 30 or new - set(sys.modules) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -55,6 +55,8 @@ FRONT = CudaKernel("front", "front.cu", {
     "uhsdr_fir_rt_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
                              ctypes.c_uint32, _P, _I, _I, _I, _P, _P, _P, _P,
                              _P], _I),
+    "uhsdr_fir_rt_rows_launch": ([_I, _P, _P, _F, _I, _I, _P, _P, _P, _P,
+                                  _I, _I, _I, _P, _P, _P, _P, _P], _I),
     "uhsdr_front_smem_aim": ([], _I),
     "uhsdr_fir_cx_launch": ([_I, _P, _P, _F, _I, _I, _P, _I, _P,
                              ctypes.c_uint32, _P, _I, _I, _I, _P, _P, _P, _P,
@@ -167,10 +169,16 @@ def _decimate(name: str, kernel: CudaKernel, geometry, h_dtype, h, carry,
           f"{name}: carry must be (C, taps-1) complex64")
     ts = [h, carry, xi, xq]
     phase, delta = (None, 0) if nco is None else nco
+    rows = isinstance(delta, torch.Tensor)
     if phase is not None:
         _need(phase.shape == (C,) and phase.dtype == torch.int64,
               f"{name}: phase must be (C,) int64")
         ts.append(phase)
+    if rows:
+        _need(name == "fir_rt", f"{name}: one delta for every channel")
+        _need(delta.shape == (C,) and delta.dtype == torch.int64,
+              f"{name}: a delta a channel must be (C,) int64")
+        ts.append(delta)
     _need(all(t.device == dev for t in ts), f"{name}: tensors on one device")
     _need(all(t.is_contiguous() for t in ts), f"{name}: contiguous tensors")
     geometry(taps, decim, xi.element_size())
@@ -189,14 +197,20 @@ def _decimate(name: str, kernel: CudaKernel, geometry, h_dtype, h, carry,
     new_carry = torch.empty_like(carry)
     peaks = torch.empty((C,), **f32)
     in_kind = 0 if xi.dtype == torch.int16 else 1
-    err = getattr(lib, f"uhsdr_{name}_launch")(
-        in_kind, xi.data_ptr(), xq.data_ptr(),
-        INT16_SCALE if in_kind == 0 else 1.0, C, B, carry.data_ptr(),
-        0 if phase is None else 1,
-        None if phase is None else phase.data_ptr(),
-        int(delta) & nco_ops.MASK32, h.data_ptr(), taps, decim, out_kind,
-        out_a.data_ptr(), None if out_b is None else out_b.data_ptr(),
-        new_carry.data_ptr(), peaks.data_ptr(), stream_ptr(dev))
+    head = (in_kind, xi.data_ptr(), xq.data_ptr(),
+            INT16_SCALE if in_kind == 0 else 1.0, C, B, carry.data_ptr())
+    tail = (out_kind, out_a.data_ptr(),
+            None if out_b is None else out_b.data_ptr(),
+            new_carry.data_ptr(), peaks.data_ptr(), stream_ptr(dev))
+    if rows:
+        err = lib.uhsdr_fir_rt_rows_launch(
+            *head, phase.data_ptr(), delta.data_ptr(), h.data_ptr(), taps,
+            decim, *tail)
+    else:
+        err = getattr(lib, f"uhsdr_{name}_launch")(
+            *head, 0 if phase is None else 1,
+            None if phase is None else phase.data_ptr(),
+            int(delta) & nco_ops.MASK32, h.data_ptr(), taps, decim, *tail)
     kernel.check(err)
     kernel.launches += 1
     return y, new_carry, peaks
@@ -207,7 +221,9 @@ def fir_rt(h, carry, xi, xq, decim: int, nco=None, real_out: bool = False,
     """The real-tap decimating front (K5).  h: (taps,) f32 real taps;
     carry: (C, taps-1) complex64 RAW pre-mix history; xi, xq: (C, B) int16
     or f32 planes; nco: None, or (phase (C,) int64 in [0, 2^32), the
-    uint32 phase increment) to rotate the input before the filter.
+    uint32 phase increment) to rotate the input before the filter; the
+    increment is one int, or a (C,) int64 tensor of one a channel on the
+    planes' device (the kernel's DROW instance, counted as K5).
     Returns (y, new_carry, peaks): y is the decimated complex64 (C,
     B//decim) signal, or its (real, imag) f32 planes with `planes_out`,
     or its real plane alone with `real_out`."""

@@ -4,7 +4,8 @@ A copy of the loaders in `uhsdr_tpu.data` that the port reads, over
 copies of its data files (`ref_filters.npz`, `ref_paths.json`,
 generated by ``tools/parse_ref_filters.py`` from the UHSDR reference's
 `drivers/audio/filters/*.c` and `audio_filter.c`; `digimode_tables.npz`,
-by ``tools/parse_digimode_tables.py``).  The port keeps its
+by ``tools/parse_digimode_tables.py``; FreeDV's `freedv_ref.npz`,
+`ldpc_ref.npz`, `codec2_cb.npz` and `newamp1_cb.npz`).  The port keeps its
 own copy so that it imports nothing of the JAX package.  All arrays are
 float64 (the C sources are decimal literals); consumers cast to f32 at
 the chain boundary, as the firmware's float32_t arithmetic does.
@@ -28,6 +29,43 @@ def _npz():
 @functools.lru_cache(maxsize=1)
 def _meta() -> dict:
     return json.loads((_DIR / "ref_paths.json").read_text())
+
+
+@functools.lru_cache(maxsize=1)
+def _freedv_npz():
+    return np.load(_DIR / "freedv_ref.npz")
+
+
+def freedv(name: str) -> np.ndarray:
+    """FreeDV reference data (tools/parse_freedv_vectors.py):
+    ``test_iq``, ``gt_alpha5_root``, ``pilot_coeff``, ``test_bits``."""
+    return np.asarray(_freedv_npz()[name])
+
+
+@functools.lru_cache(maxsize=1)
+def ldpc():
+    """HRA_112_112 LDPC code tables from the reference
+    (tools/parse_ldpc_ref.py): ``H_rows``, ``H_cols``, ``input``,
+    ``detected``."""
+    return np.load(_DIR / "ldpc_ref.npz")
+
+
+@functools.lru_cache(maxsize=1)
+def _codec2_cb():
+    """Codec2 scalar LSP quantiser codebooks (CODEC2_MODE_1300), imported
+    from the reference's generated `codebook.c` by
+    ``tools/parse_codec2_codebooks.py``."""
+    return np.load(_DIR / "codec2_cb.npz")
+
+
+@functools.lru_cache(maxsize=1)
+def newamp1_codebooks():
+    """newamp1 rate-K amplitude VQ (CODEC2_MODE_700C): ``vq1``/``vq2``
+    (512, 20) two-stage codebooks and ``energy`` (16,) scalar mean
+    quantiser, imported from the reference's generated
+    `codebooknewamp1.c` / `codebooknewamp1_energy.c` by
+    ``tools/parse_codec2_codebooks.py``."""
+    return np.load(_DIR / "newamp1_cb.npz")
 
 
 @functools.lru_cache(maxsize=1)

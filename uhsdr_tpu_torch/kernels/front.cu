@@ -75,7 +75,10 @@
 // phase is not read); y[m] = sum_k h[k] z[m*decim - k] on both planes;
 // y written as two f32 planes, one interleaved complex64 array or the
 // real plane alone; the new raw history (the last taps-1 scaled inputs)
-// and the peaks.  It has no stage-B buffers.  With one row group (P = 1)
+// and the peaks.  It has no stage-B buffers.  FreeDV's fronts (many
+// channels, each at its own offset) give it a delta a channel: the DROW
+// instance reads channel c's from a (C,) tensor once, at the block's start,
+// and builds its rotor table from it as the others do from their one.  With one row group (P = 1)
 // a thread writes its R outputs straight out; with more, one thread an
 // output adds the P partial sums in order and writes it (coalesced
 // float2 or f32 stores).  Its tile is K1's, halved until the block's
@@ -401,13 +404,16 @@ __device__ __forceinline__ void chunk_b(float (&y)[R][NB], float2 (&w)[R],
 // or stage B; the stage-A outputs go to out (and out_b) as out_kind asks
 // (A_CX_RE: OUT_REAL alone).  NCO = false (NB = 0 only) skips the
 // rotation and never reads phase.  NB = 1 with AK = A_CX is K15 (MT):
-// the input unrotated, the rotor on the stage-A outputs.
-template <typename Tin, int NB, bool NCO, int AK = A_REAL>
+// the input unrotated, the rotor on the stage-A outputs.  DROW (K5 with
+// the NCO only) reads the channel's delta from deltas[c], once, where
+// the others take the one delta_in of every channel.
+template <typename Tin, int NB, bool NCO, int AK = A_REAL, bool DROW = false>
 __global__ void __launch_bounds__(NT, 3) front_kernel(
     const Tin* __restrict__ xi, const Tin* __restrict__ xq, float in_scale,
     int B, int n_keep, const float2* __restrict__ carry_in,
     const float2* __restrict__ carry2_in, const int64_t* __restrict__ phase,
-    uint32_t delta, const float* __restrict__ h, int taps, int decim,
+    const int64_t* __restrict__ deltas, uint32_t delta_in,
+    const float* __restrict__ h, int taps, int decim,
     const float* __restrict__ g_re, const float* __restrict__ g_im,
     int taps2, Geom geo, float* __restrict__ out,
     float2* __restrict__ carry_out, float2* __restrict__ carry2_out,
@@ -417,6 +423,8 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
   constexpr bool MT = NB > 0 && AK == A_CX;
   static_assert(NB == 0 || AK == A_REAL || (MT && NB == 1 && NCO),
                 "complex stage-A taps: K6/K7, or K15 with one stage B");
+  static_assert(!DROW || (NB == 0 && AK == A_REAL && NCO),
+                "a delta a channel: K5 with the NCO");
   // the input rotated (K1, K5 and K7 with the NCO); K15 rotates stage A's
   // outputs instead
   constexpr bool ROT_IN = NCO && !MT;
@@ -447,6 +455,7 @@ __global__ void __launch_bounds__(NT, 3) front_kernel(
   const int n_hist = taps - 1;
   const int T_out = B / D;
   const uint32_t ph0 = NCO ? (uint32_t)phase[c] : 0u;
+  const uint32_t delta = DROW ? (uint32_t)deltas[c] : delta_in;
   const size_t row = (size_t)c * B;
   // 16-byte loads where this channel's rows are aligned
   const bool vec = ((reinterpret_cast<uintptr_t>(xi + row) |
@@ -745,17 +754,18 @@ struct Args {
   cudaStream_t stream;
   void* out_b;        // K5: the imaginary plane (out_kind OUT_PLANES)
   int out_kind;       // K5: OutKind
+  const void* deltas;  // K5 DROW: (C,) int64 deltas, else unused
 };
 
 // K1 (NB = 1, 2; NCO), K5 (NB = 0), K6/K7 (NB = 0, AK != A_REAL) and K15
-// (NB = 1, NCO, A_CX)
-template <typename Tin, int NB, bool NCO, int AK = A_REAL>
+// (NB = 1, NCO, A_CX); K5 with a delta a channel (DROW)
+template <typename Tin, int NB, bool NCO, int AK = A_REAL, bool DROW = false>
 int launch_front(const Args& a) {
   Geom geo;
   if (!geometry(a.taps, a.taps2, a.decim, NB, (int)sizeof(Tin), &geo,
                 AK != A_REAL))
     return (int)cudaErrorInvalidValue;
-  auto kern = front_kernel<Tin, NB, NCO, AK>;
+  auto kern = front_kernel<Tin, NB, NCO, AK, DROW>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
   if (e != cudaSuccess) return (int)e;
@@ -766,7 +776,8 @@ int launch_front(const Args& a) {
   kern<<<a.C, NT, geo.smem, a.stream>>>(
       (const Tin*)a.xi, (const Tin*)a.xq, a.in_scale, a.B, a.n_keep,
       (const float2*)a.carry_in, (const float2*)a.carry2_in,
-      (const int64_t*)a.phase, a.delta, (const float*)a.h, a.taps, a.decim,
+      (const int64_t*)a.phase, (const int64_t*)a.deltas, a.delta,
+      (const float*)a.h, a.taps, a.decim,
       (const float*)a.g_re, (const float*)a.g_im, a.taps2, geo,
       (float*)a.out, (float2*)a.carry_out, (float2*)a.carry2_out,
       (float*)a.peaks, (float*)a.out_b, a.out_kind);
@@ -866,6 +877,28 @@ int uhsdr_fir_rt_launch(int in_kind, const void* xi, const void* xq,
                delta, h, taps, decim, nullptr, nullptr, 0, out_a, carry_out,
                nullptr, peaks, (cudaStream_t)stream, out_b, out_kind};
   return table[in_kind != 0][use_nco != 0](a);
+}
+
+// K5 with the NCO and a delta a channel: uhsdr_fir_rt_launch's
+// interface with deltas, (C,) int64 in [0, 2^32), in place of use_nco and
+// the one delta.  Returns a cudaError_t.
+int uhsdr_fir_rt_rows_launch(int in_kind, const void* xi, const void* xq,
+                             float in_scale, int C, int B,
+                             const void* carry_in, const void* phase,
+                             const void* deltas, const void* h, int taps,
+                             int decim, int out_kind, void* out_a,
+                             void* out_b, void* carry_out, void* peaks,
+                             void* stream) {
+  if (out_kind < OUT_PLANES || out_kind > OUT_REAL ||
+      (out_kind == OUT_PLANES && out_b == nullptr) || phase == nullptr ||
+      deltas == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Args a{xi, xq, in_scale, C, B, taps - 1, carry_in, nullptr, phase,
+               0u, h, taps, decim, nullptr, nullptr, 0, out_a, carry_out,
+               nullptr, peaks, (cudaStream_t)stream, out_b, out_kind,
+               deltas};
+  return in_kind == 0 ? launch_front<int16_t, 0, true, A_REAL, true>(a)
+                      : launch_front<float, 0, true, A_REAL, true>(a);
 }
 
 // K6 (use_nco 0) and K7 (use_nco 1): K5's interface with h (taps,)

@@ -25,11 +25,14 @@ faster at 1024, 2048 and 4096 channels a group (PERF.md).
 `WidebandFleet` is the realistic deployment: one wideband IQ stream
 through the polyphase analysis bank (`ops.channelizer.AnalysisPfb`) into
 a fleet of contiguous channel ranges.  `WidebandTxFleet` is its TX
-mirror: per-group `TxChain`s into the synthesis bank.  The reference's
-`FreeDvFleetGroup` waits for the modems (ROADMAP queue A item 10).
+mirror: per-group `TxChain`s into the synthesis bank.
+`FreeDvFleetGroup` is N FreeDV channels: one K5 launch a block for their
+translations and /6 decimations, then the batched NumPy modem tier.
 """
 from __future__ import annotations
 
+import copy
+import types
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,9 +41,11 @@ import torch
 from ..chain import rx
 from ..chain import tx as tx_chain
 from ..chain.rx import resolve_device
+from ..cuda import fir as fir_k
+from ..modems import freedv as freedv_mod
 from ..ops import agc as agc_mod
 from ..ops import channelizer as chz
-from ..ops import iir
+from ..ops import design, iir, nco
 
 # The mixed-mode deployment (BASELINE config 5, the mix bench_fleet.py:50-66
 # times): six groups at 48 kHz, 6 kHz translate, 16384-sample blocks, an
@@ -504,3 +509,151 @@ class WidebandTxFleet:
         tensors on the device.  Returns (i_wide, q_wide), f32 of length
         T * M."""
         return self.synthesize(*self.chain_iq(audio_groups))
+
+
+def modem_state(obj):
+    """A modem tier's state as plain values: each object a dict of its
+    attributes under "__class__" (its class's name), modules left out,
+    arrays and lists copied.  The JAX package's modem tier is the same
+    NumPy code, so this reads its objects as well as the port's."""
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(modem_state(v) for v in obj)
+    if isinstance(obj, dict):
+        return {k: modem_state(v) for k, v in obj.items()}
+    if hasattr(obj, "__dict__"):
+        return {"__class__": type(obj).__name__,
+                **{k: modem_state(v) for k, v in vars(obj).items()
+                   if not isinstance(v, types.ModuleType)}}
+    return copy.deepcopy(obj)
+
+
+def _is_object(tree) -> bool:
+    return isinstance(tree, dict) and "__class__" in tree
+
+
+def load_modem_state(obj, tree: dict):
+    """Set a modem tier object's state from `modem_state`'s tree of an
+    object of the same class (of either package): its objects, and lists
+    of them, are loaded in place, every other attribute is copied."""
+    if tree["__class__"] != type(obj).__name__:
+        raise ValueError(f"state of a {tree['__class__']}, not of a "
+                         f"{type(obj).__name__}")
+    for k, v in tree.items():
+        if k == "__class__":
+            continue
+        cur = getattr(obj, k, None)
+        if _is_object(v):
+            load_modem_state(cur, v)
+        elif isinstance(v, list) and v and all(_is_object(e) for e in v):
+            if len(cur) != len(v):
+                raise ValueError(f"{k}: {len(v)} objects, not {len(cur)}")
+            for c, e in zip(cur, v):
+                load_modem_state(c, e)
+        else:
+            setattr(obj, k, modem_state(v))
+
+
+class FreeDvFleetGroup:
+    """N FreeDV channels as ONE fleet group (the north-star scaling of
+    the reference's single FreeDV path, `freedv_uhsdr.c:166-320`); the
+    counterpart of the JAX package's `parallel.fleet.FreeDvFleetGroup`.
+
+    Two tiers, mirroring the firmware's IRQ/PendSV split:
+      * radio-front tier: every channel's NCO translation (its own
+        increment) and the 48k->8k /6 decimation in ONE K5 launch a block
+        (`cuda/fir.py::fir_rt` with a (C,) tensor of increments, planes
+        out), the phases and the raw history carried on `device`;
+      * modem tier: the batched host NumPy of `modems/fdmdv_batch.py`
+        (`FreeDv1600Fleet` or `FreeDv700DFleet`), as the JAX package's.
+
+    `state_to_numpy` / `state_from_numpy` carry the state to and from the
+    JAX group's layout (`phases` uint32, the post-mix `ci` / `cq` (C, 71)
+    f32 and `modem`, `modem_state`'s tree of the modem tier).
+    """
+
+    def __init__(self, n_channels: int, mode: str = "freedv1600",
+                 block_len_48k: int = 7680,
+                 translate_hz: float | np.ndarray = 0.0, device=None):
+        from ..modems import fdmdv_batch
+
+        if block_len_48k % freedv_mod.RATIO:
+            raise ValueError(f"block {block_len_48k} is not a multiple of "
+                             f"{freedv_mod.RATIO}")
+        self.device = dev = resolve_device(device)
+        self.n_channels = n_channels
+        self.block_len = block_len_48k
+        self.mode = mode
+        self._fleet_modem = (fdmdv_batch.FreeDv1600Fleet(n_channels)
+                             if mode == "freedv1600"
+                             else fdmdv_batch.FreeDv700DFleet(n_channels))
+        self._h_dec = torch.as_tensor(design.decimation_fir(
+            72, freedv_mod.RATIO, freedv_mod.IQ_RATE).astype(np.float32),
+            device=dev)
+        deltas = np.asarray([nco.freq_to_delta(-f, freedv_mod.IQ_RATE)
+                             for f in np.broadcast_to(translate_hz,
+                                                      (n_channels,))],
+                            np.uint32)
+        self._deltas = torch.as_tensor(deltas.astype(np.int64), device=dev)
+        self._phases = torch.zeros((n_channels,), dtype=torch.int64,
+                                   device=dev)
+        # the raw pre-mix history of the decimator
+        self._carry = torch.zeros((n_channels, 71), dtype=torch.complex64,
+                                  device=dev)
+
+    def front_device(self, i_plane, q_plane):
+        """Device tier: (C, T) f32 48k planes -> the (C, T/6) f32 planes
+        (i, q) of the 8 kHz baseband on the device, one K5 launch."""
+        xi = torch.as_tensor(i_plane, dtype=torch.float32,
+                             device=self.device).contiguous()
+        xq = torch.as_tensor(q_plane, dtype=torch.float32,
+                             device=self.device).contiguous()
+        (i_d, q_d), self._carry, _ = fir_k.fir_rt(
+            self._h_dec, self._carry, xi, xq, freedv_mod.RATIO,
+            nco=(self._phases, self._deltas), planes_out=True)
+        self._phases = nco.advance(self._phases, self._deltas, xi.shape[-1])
+        return i_d, q_d
+
+    def front_block(self, i_plane, q_plane) -> np.ndarray:
+        """Device tier only: (C, T) 48k planes -> (C, T/6) complex 8 kHz
+        baseband on the host, built as the JAX group builds it."""
+        i_d, q_d = self.front_device(i_plane, q_plane)
+        return i_d.cpu().numpy() + 1j * q_d.cpu().numpy()
+
+    def process_block(self, i_plane, q_plane) -> list[np.ndarray]:
+        """Full step: device front + batched modem tier.  Returns the
+        per-channel decoded speech (int16-scale f32 @8k, possibly empty
+        while the modem buffers)."""
+        return self._fleet_modem.demod(self.front_block(i_plane, q_plane))
+
+    def _history_rotor(self) -> torch.Tensor:
+        """rotor of the NCO phases of the history's samples -71..-1."""
+        n = self._carry.shape[-1]
+        return nco.rotor(nco.phase_ramp(self._phases, self._deltas, n,
+                                        start=-n))
+
+    def state_to_numpy(self) -> dict:
+        """The state in the JAX group's layout: `phases` (C,) uint32,
+        `ci` / `cq` the post-mix history's planes (C, 71) f32, `modem`
+        (`modem_state` of the modem tier)."""
+        post = self._carry * self._history_rotor()
+        return {"phases": self._phases.cpu().numpy().astype(np.uint32),
+                "ci": post.real.cpu().numpy(), "cq": post.imag.cpu().numpy(),
+                "modem": modem_state(self._fleet_modem)}
+
+    def state_from_numpy(self, s: dict):
+        """Take a state in the JAX group's layout (`state_to_numpy`)."""
+        self._phases = torch.as_tensor(
+            np.asarray(s["phases"]).astype(np.int64), device=self.device)
+        post = torch.complex(
+            torch.as_tensor(np.array(s["ci"], np.float32),
+                            device=self.device),
+            torch.as_tensor(np.array(s["cq"], np.float32),
+                            device=self.device))
+        self._carry = (post * self._history_rotor().conj()).contiguous()
+        load_modem_state(self._fleet_modem, s["modem"])
+
+    @property
+    def stats(self) -> dict:
+        return self._fleet_modem.stats

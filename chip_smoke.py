@@ -19,7 +19,8 @@ first phase that fails:
    at w 48 and 96, the NaNs where the plain version has them), K4
    (the interpolator: x8, x4, ssbstereo's 2C rows, the 48 kHz x2 and
    FreeDV's x6 of 72 taps at 512 x 5120, channels 0-7 alone bit-equal
-   to the batch), K5 (the real-tap AM/SAM front; also 64
+   to the batch, `conv_transpose1d` timed at each shape), K5 (the
+   real-tap AM/SAM front; also 64
    channels of int16 @ 192 kHz at decimation 16, the FM front at
    decimation 2, 64 channels of the fleet's f32 FM front @ 48 kHz at
    decimation 1 and FreeDV's front, 512 x 30720 f32 @ 48 kHz, 72 taps
@@ -147,6 +148,22 @@ first phase that fails:
    `freedv_radio`, `FreeDvRadioMode` on one channel at translate 6000
    Hz, retuned +300 Hz mid-stream (the speech bit-equal to the CPU's);
    `freedv_glue`, `freedv_rx_block` (K5 without the NCO, K4 at x6).
+   Then the entry points, in process (`cli.main`) on the card, captures
+   written with numpy from `--seed` into a temporary directory:
+   `cli_rx` (`rx --mode usb --block 4096` over 30 s of a +6.7 kHz tone
+   in noise, f32 planes and `--raw-i16`: wall s, x real time, the first
+   3 blocks against `--device cpu` at 80 dB, the tone at 700 Hz),
+   `cli_text` (`tx --mode cw|rtty|psk --text`, then `rx --decode`: the
+   texts come back; `tx --mode usb`, `rx`: the peak at 700 +- 15 Hz),
+   `cli_freedv` (`rx --mode freedv1600 --block 4800` on the recorded
+   1600 IQ: >= 60 frames, the CPU's speech bit for bit), `cli_channelize`
+   (`channelize --channels 512 --block 4096`, 8 blocks of 24.6 MHz with
+   tones in channels 37, 200 and 411: the loudest and the active count
+   found) and `cli_serve` (`serve` with a `CatClient` over TCP: RX
+   blocks/s against real time, the device busy share of a window under
+   `utils/profiling.trace`, retunes, usb -> am -> usb, PTT with CW text,
+   64 RX blocks; the first blocks against the CPU chain at 80 dB,
+   `error` None).
    Then
    `TxChain` at the TX flagship (usb, 8192 ch x 16384 f32 audio @ 48
    kHz, 8 timed blocks) and at 1024 channels lsb, am, cw and the
@@ -208,22 +225,27 @@ that does not hold the `uhsdr_tpu_torch` package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from uhsdr_tpu_torch import (trace_agc, trace_blocked, trace_rx, trace_sam,
-                             trace_tx)
+from uhsdr_tpu_torch import (cli, trace_agc, trace_blocked, trace_rx,
+                             trace_sam, trace_tx)
 from uhsdr_tpu_torch import data as refdata
 from uhsdr_tpu_torch.chain import filterpaths, output, refchain, rx, tx
+from uhsdr_tpu_torch.control import cat as cat_mod
+from uhsdr_tpu_torch.control import server as server_mod
 from uhsdr_tpu_torch.cuda import agc as agc_k
 from uhsdr_tpu_torch.cuda import alc as alc_k
 from uhsdr_tpu_torch.cuda import blanker as nb_k
@@ -241,6 +263,7 @@ from uhsdr_tpu_torch.cuda import pll as pll_k
 from uhsdr_tpu_torch.cuda import psk as psk_k
 from uhsdr_tpu_torch.cuda import rtty as rtty_k
 from uhsdr_tpu_torch.cuda import sam as sam_k
+from uhsdr_tpu_torch.io import ingest as ingest_mod
 from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.mod import modulators as mods
 from uhsdr_tpu_torch.modems import cw as cw_mod
@@ -260,6 +283,7 @@ from uhsdr_tpu_torch.ops import lms as lms_ops
 from uhsdr_tpu_torch.ops import nco
 from uhsdr_tpu_torch.parallel import fleet as pfleet
 from uhsdr_tpu_torch.spectrum import scope as scope_mod
+from uhsdr_tpu_torch.utils import profiling
 
 CFG = rx.FLAGSHIP            # the SSB flagship
 SAM = rx.SAM_FLAGSHIP        # the AM/SAM flagship
@@ -1340,11 +1364,17 @@ def phase_interp(P, dev, gen):
         worst, err = min(worst, w), max(err, e)
         mk = cuda_ms(lambda: fir_k.interpolate(hh, ck, xk, Lk), 10)
         bk, byk = bound(interp_bytes(Ck, Tk, Lk, hh.shape[-1]), 0.0)
+        call_k, result_k = interp_library(hh, ck, xk, Lk)
+        lib_k = cuda_ms(call_k, 10)
+        s_k = snr_db(fir_k.interp_plain(hh, ck, xk, Lk)[0], result_k())
         others[label] = dict(ms=mk, bound_ms=bk, bound_by=byk,
-                             shape=[Ck, Tk], interp=Lk, taps=hh.shape[-1])
+                             library_ms=lib_k, shape=[Ck, Tk], interp=Lk,
+                             taps=hh.shape[-1])
         print(f"  K4 {label} ({Ck} x {Tk}, {hh.shape[-1]} taps): {mk:.4f} "
-              f"ms, bound {bk:.4f} ms by {byk} ({100 * bk / mk:.1f}%)")
-        del ck, xk
+              f"ms, bound {bk:.4f} ms by {byk} ({100 * bk / mk:.1f}%), "
+              f"library (conv_transpose1d) {lib_k:.4f} ms, its SNR against "
+              f"the plain version {s_k:.1f} dB")
+        del ck, xk, call_k, result_k
         torch.cuda.empty_cache()
     nbytes = interp_bytes(C, T, L, taps)
     r = row("interp", "interp.cu", "uhsdr_tpu/pallas/fir.py:1003",
@@ -4615,6 +4645,331 @@ def freedv_glue_path(dev, card: str) -> tuple:
     return launches, 8
 
 
+# ---------------------------------------------------------------------------
+# the entry points: the command line and the live server, in process
+# ---------------------------------------------------------------------------
+
+CLI_BLOCK = 4096
+CLI_FS = 48000
+CLI_SECONDS = 30                   # the rx capture: 30 s of 16-bit IQ
+CLI_TONE_HZ = 6700.0               # +6.7 kHz: 700 Hz in usb's audio
+CLI_CENTER = 14_001_000
+CLI_RX_KERNELS = ("front", "blocked", "agc", "interp")
+# channelize: 512 channels of 48 kHz, 24.6 MHz of HF (a direct-sampling
+# receiver's span), 8 blocks; tones in three channels, the first loudest
+CLI_CH_M = 512
+CLI_CH_BLOCKS = 8
+CLI_CH_TONES = ((37, 0.3), (200, 0.1), (411, 0.05))
+# tx --text / rx --decode; the CW decoder's word gaps put spaces between
+# a 28 wpm signal's letters, so CW's text is read with its spaces removed
+CLI_TEXTS = {"cw": "TEST", "rtty": "RYRY DE UHSDR", "psk": "psk31 de uhsdr"}
+CLI_TEXT_KERNELS = CLI_RX_KERNELS + ("fir_real", "alc", "cw", "psk", "rtty")
+CLI_SERVE_BLOCKS = 64
+CLI_SERVE_KERNELS = CLI_RX_KERNELS + ("fir_rt",)
+CLI_CPU_BLOCKS = 3                 # blocks held to the CPU route
+
+
+def run_cli(argv: list) -> tuple[dict, dict, float]:
+    """`cli.main(argv)` in process: (its last JSON line, {writer: the
+    array the command handed it}, wall s).  The arrays are taken where
+    the command calls `io.ingest`'s WAV writers, before 16-bit rounding."""
+    names = ("write_audio_wav", "write_iq_wav")
+    saved = {fn: getattr(ingest_mod, fn) for fn in names}
+    got = {}
+
+    def keeper(fn):
+        def keep(path, a, *args, **kw):
+            got[fn] = np.array(a)
+            saved[fn](path, a, *args, **kw)
+        return keep
+    for fn in names:
+        setattr(ingest_mod, fn, keeper(fn))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([str(a) for a in argv])
+    finally:
+        for fn in names:
+            setattr(ingest_mod, fn, saved[fn])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli {' '.join(map(str, argv))} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), got, wall
+
+
+def peak_hz(audio: np.ndarray, fs: float = CLI_FS) -> float:
+    spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio))))
+    spec[:8] = 0.0
+    return float(np.fft.rfftfreq(len(audio), 1 / fs)[spec.argmax()])
+
+
+def cli_capture(path: str, seed: int) -> str:
+    """CLI_SECONDS of a tone at +CLI_TONE_HZ (0.3 of full scale) in
+    complex noise (0.01 rms a plane), 16-bit IQ WAV @ 48 kHz."""
+    n = CLI_SECONDS * CLI_FS
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / CLI_FS
+    iq = 0.3 * np.exp(2j * np.pi * CLI_TONE_HZ * t) + 0.01 * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    ingest_mod.write_iq_wav(path, iq.astype(np.complex64))
+    return path
+
+
+def cli_rx_path(cap: str, tmp: str, card: str) -> tuple:
+    """`rx --mode usb --block 4096` on the card over the whole capture,
+    f32 planes and `--raw-i16`, after a 3-block warm-up run; the first
+    blocks of each held to `rx --device cpu --max-blocks 3` at
+    CHAIN_TOL_DB, the tone at 700 Hz.  Returns (launches, blocks run)."""
+    argv = ["rx", "--input", cap, "--mode", "usb", "--block", CLI_BLOCK,
+            "--out", f"{tmp}/rx.wav"]
+    run_cli(argv + ["--max-blocks", CLI_CPU_BLOCKS])      # warm-up
+    zero_launches()
+    runs = {"f32": run_cli(argv), "raw_i16": run_cli(argv + ["--raw-i16"])}
+    launches = read_launches("cli_rx", CLI_RX_KERNELS)
+    m_cpu, got_cpu, wall_cpu = run_cli(argv + ["--device", "cpu",
+                                               "--max-blocks",
+                                               CLI_CPU_BLOCKS])
+    ref = got_cpu["write_audio_wav"]
+    n_blocks = 0
+    for label, (m, got, wall) in runs.items():
+        audio = got["write_audio_wav"]
+        s = snr_db(ref, audio[:ref.size])
+        pk = peak_hz(audio[-CLI_FS:])
+        secs = m["blocks"] * CLI_BLOCK / CLI_FS
+        print(f"  cli_rx {label}: {m['blocks']} blocks of {CLI_BLOCK} in "
+              f"{wall:.2f} s wall, {secs / wall:.1f}x real time, "
+              f"{m['blocks'] / wall:.1f} blocks/s; dBm {m['dbm']:.2f}, SNAP "
+              f"{m['snap_freq_hz']:.1f} Hz, peak {pk:.1f} Hz; first "
+              f"{CLI_CPU_BLOCKS} blocks against --device cpu {s:.1f} dB "
+              f"on {card}")
+        check(m["blocks"] == -(-CLI_SECONDS * CLI_FS // CLI_BLOCK)
+              and np.isfinite(audio).all(), f"cli_rx {label}: {m}")
+        check(s >= CHAIN_TOL_DB, f"cli_rx {label}: {s:.1f} dB against the "
+                                 f"CPU < {CHAIN_TOL_DB} dB")
+        check(abs(pk - 700.0) <= 15.0, f"cli_rx {label}: peak {pk:.1f} Hz")
+        n_blocks += m["blocks"]
+    print(f"  cli_rx --device cpu: {m_cpu['blocks']} blocks in "
+          f"{wall_cpu:.2f} s")
+    return launches, n_blocks
+
+
+def cli_text_path(tmp: str, card: str) -> tuple:
+    """`tx --mode cw|rtty|psk --text`, then `rx --decode` on the card:
+    each decoded text holds the sent one; `tx --mode usb` (a 700 Hz tone),
+    then `rx`: the audio's peak at 700 +- 15 Hz.  Returns (launches, RX
+    blocks run)."""
+    zero_launches()
+    n_rx = 0
+    for mode, text in CLI_TEXTS.items():
+        iq = f"{tmp}/{mode}.wav"
+        extra = ["--wpm", CW_WPM] if mode == "cw" else []
+        m_tx, _, w_tx = run_cli(["tx", "--out", iq, "--mode", mode,
+                                 "--text", text] + extra)
+        m_rx, _, w_rx = run_cli(["rx", "--input", iq, "--mode", mode,
+                                 "--decode"])
+        got = m_rx["text"]
+        n_rx += m_rx["blocks"]
+        print(f"  cli_text {mode}: tx {m_tx['samples']} samples "
+              f"({w_tx:.2f} s), rx {m_rx['blocks']} blocks ({w_rx:.2f} s): "
+              f"{got!r} on {card}")
+        seen = got.replace(" ", "") if mode == "cw" else got
+        check(text in seen, f"cli_text {mode}: {got!r} lacks {text!r}")
+    iq = f"{tmp}/usb.wav"
+    m_tx, _, w_tx = run_cli(["tx", "--out", iq, "--mode", "usb"])
+    m_rx, got, w_rx = run_cli(["rx", "--input", iq, "--mode", "usb",
+                               "--out", f"{tmp}/usb_audio.wav"])
+    pk = peak_hz(got["write_audio_wav"][24000:])
+    print(f"  cli_text usb: tx {m_tx['samples']} samples ({w_tx:.2f} s), "
+          f"rx {m_rx['blocks']} blocks ({w_rx:.2f} s), peak {pk:.1f} Hz "
+          f"on {card}")
+    check(abs(pk - 700.0) <= 15.0, f"cli_text usb: peak {pk:.1f} Hz")
+    return read_launches("cli_text", CLI_TEXT_KERNELS), n_rx + m_rx["blocks"]
+
+
+def cli_freedv_path(tmp: str, card: str) -> tuple:
+    """`rx --mode freedv1600 --block 4800` on the firmware's recorded 1600
+    IQ raised to 48 kHz at +6 kHz (`freedv_recorded_48k`, at half scale
+    as tests/test_freedv_mode.py writes it): >= 60 frames, parity <= 0.2
+    a frame, the speech and stats equal to `--device cpu`'s.  Returns
+    (launches, blocks run)."""
+    cap = f"{tmp}/freedv.wav"
+    ingest_mod.write_iq_wav(cap, (0.5 * freedv_recorded_48k(6000.0)
+                                  ).astype(np.complex64))
+    argv = ["rx", "--input", cap, "--mode", "freedv1600", "--block",
+            FREEDV_RADIO_BLOCK, "--out", f"{tmp}/freedv_speech.wav"]
+    zero_launches()
+    m, got, wall = run_cli(argv)
+    launches = read_launches("cli_freedv", ("fir_rt",))
+    m_cpu, got_cpu, wall_cpu = run_cli(argv + ["--device", "cpu"])
+    same = np.array_equal(got["write_audio_wav"], got_cpu["write_audio_wav"])
+    print(f"  cli_freedv: {m} in {wall:.2f} s wall "
+          f"({m['blocks'] * FREEDV_RADIO_BLOCK / CLI_FS / wall:.1f}x real "
+          f"time); --device cpu {wall_cpu:.2f} s, speech "
+          f"{'bit-equal' if same else 'DIFFERS'} on {card}")
+    check(m["frames_decoded"] >= FREEDV_MIN_FRAMES["freedv1600"]
+          and m["parity_errors"] <= FREEDV_MAX_PARITY * m["frames_decoded"],
+          f"cli_freedv: {m}")
+    check(same and m == m_cpu, f"cli_freedv: card {m} against CPU {m_cpu}")
+    return launches, m["blocks"]
+
+
+def cli_channelize_path(tmp: str, seed: int, card: str) -> tuple:
+    """`channelize --channels 512 --block 4096` over 8 blocks of a
+    24.576 MHz capture with tones 6.7 kHz above the centres of channels
+    37, 200 and 411 (0.3, 0.1, 0.05 of full scale) in noise: `rms_argmax`
+    must be 37 and `active_channels` 3.  Returns (launches, blocks)."""
+    M, n_blocks = CLI_CH_M, CLI_CH_BLOCKS
+    fs = M * CLI_FS
+    n = M * CLI_BLOCK * n_blocks
+    rng = np.random.default_rng(seed)
+    iq = (1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+          ).astype(np.complex64)
+    t = np.arange(n) / fs
+    for k, a in CLI_CH_TONES:
+        iq += (a * np.exp(2j * np.pi * (k * CLI_FS + CLI_TONE_HZ) * t)
+               ).astype(np.complex64)
+    del t
+    cap = f"{tmp}/wide.wav"
+    ingest_mod.write_iq_wav(cap, iq, fs=fs)
+    del iq
+    zero_launches()
+    m, _, wall = run_cli(["channelize", "--input", cap, "--channels", M,
+                          "--block", CLI_BLOCK])
+    launches = read_launches("cli_channelize", CLI_RX_KERNELS)
+    secs = n_blocks * CLI_BLOCK / CLI_FS
+    print(f"  cli_channelize: {m} in {wall:.2f} s wall, "
+          f"{n / wall / 1e6:.1f} Ms/s wideband, {secs / wall:.2f}x real "
+          f"time ({M} channels) on {card}")
+    check(m["blocks"] == n_blocks and m["rms_argmax"] == CLI_CH_TONES[0][0]
+          and m["active_channels"] == len(CLI_CH_TONES),
+          f"cli_channelize: {m} against tones at {CLI_CH_TONES}")
+    return launches, n_blocks
+
+
+def serve_window(radio, n: int, trace_dir: str | None = None) -> tuple:
+    """Wait for n RX blocks of a running server: (blocks/s, device busy
+    share of the wall window under `profiling.trace`, None untraced)."""
+    ctx = (profiling.trace(trace_dir) if trace_dir is not None
+           else contextlib.nullcontext())
+    with ctx as prof:
+        b0, t0 = radio.blocks_processed, time.perf_counter()
+        check(radio.wait_blocks(n, timeout=120), f"serve: {radio.error}")
+        b1, wall = radio.blocks_processed, time.perf_counter() - t0
+    busy = None
+    if prof is not None:
+        kern = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kern:
+            busy = trace_rx.busy_share(kern)[0] / (wall * 1e6)
+    return (b1 - b0) / wall, busy
+
+
+def cli_serve_path(cap: str, tmp: str, card: str) -> tuple:
+    """`serve` on the card over the looping capture with a `CatClient`
+    over TCP (port 0): 16 blocks timed, 16 under the profiler (the device
+    busy share of the wall window; the rest is the host's), then a CAT
+    command every 8 blocks: retunes +-500 Hz, usb -> am -> usb, CW with
+    "TEST" queued and PTT for 4 TX blocks, past 64 RX blocks.  The audio
+    before the first command is held to the CPU chain at CHAIN_TOL_DB;
+    `error` must stay None.  Returns (launches, RX blocks)."""
+    rt = CLI_FS / CLI_BLOCK                       # blocks/s of real time
+    cfg = server_mod.ServeConfig(iq_path=cap, center_hz=CLI_CENTER,
+                                 block_len=CLI_BLOCK, mode="usb", loop=True,
+                                 audio_keep_blocks=4 * CLI_SERVE_BLOCKS,
+                                 device="cuda")
+    zero_launches()
+    radio, catsrv = server_mod.serve(cfg)
+    client = None
+    try:
+        client = cat_mod.CatClient(port=catsrv.port)
+        check(radio.wait_blocks(CLI_CPU_BLOCKS + 1, timeout=120),
+              f"serve: {radio.error}")
+        first = radio.audio()[:CLI_CPU_BLOCKS * CLI_BLOCK].copy()
+        bps, _ = serve_window(radio, 16)
+        bps_tr, busy = serve_window(radio, 16, f"{tmp}/serve_trace")
+        b0, t0 = radio.blocks_processed, time.perf_counter()
+        steps = [("tune", 500), ("tune", -500), ("mode", "am"),
+                 ("tune", 500), ("mode", "usb"), ("tune", 0), ("ptt", "TEST"),
+                 ("tune", -500)]
+        for kind, arg in steps:
+            check(radio.wait_blocks(8, timeout=120), f"serve: {radio.error}")
+            if kind == "tune":
+                client.set_frequency(CLI_CENTER + arg)
+            elif kind == "mode":
+                check(client.set_mode(arg), f"serve: set_mode {arg}")
+            else:
+                check(client.set_mode("cw"), "serve: set_mode cw")
+                radio.queue_tx_text(arg)
+                client.ptt(True)
+                check(radio.wait_blocks(4, timeout=120, tx=True),
+                      f"serve: {radio.error}")
+                client.ptt(False)
+                check(client.set_mode("usb"), "serve: set_mode usb")
+        left = CLI_SERVE_BLOCKS - (radio.blocks_processed - b0)
+        if left > 0:
+            check(radio.wait_blocks(left, timeout=120),
+                  f"serve: {radio.error}")
+        n_cmd, wall = radio.blocks_processed - b0, time.perf_counter() - t0
+        tele = dict(dial_hz=radio.dial_hz, mode=radio.mode,
+                    dbm=radio.dbm, s_meter=radio.s_meter,
+                    snap_hz=radio.snap_freq_hz, fwd_pwr_w=radio.fwd_pwr,
+                    tx_blocks=radio.tx_blocks_processed)
+    finally:
+        if client is not None:
+            client.close()
+        radio.stop()
+        catsrv.stop()
+    launches = read_launches("cli_serve", CLI_SERVE_KERNELS)
+    check(radio.error is None, f"serve: {radio.error}")
+    # the CPU chain on the capture's first blocks, as the pump runs them
+    c = rx.RxConfig(mode="usb", bw_key=cfg.bw_key,
+                    translate_hz=cfg.translate_hz, agc_mode=cfg.agc_mode,
+                    block_len=CLI_BLOCK)
+    chain = rx.RxChain(c, device="cpu")
+    st = chain.init_state((1,))
+    ref = []
+    with ingest_mod.IqIngest(cap, CLI_BLOCK) as src:
+        for _ in range(CLI_CPU_BLOCKS):
+            i, q = src.next_block()
+            y, st, _ = chain(st, i=i[None], q=q[None], tune_offset_hz=0.0)
+            ref.append(y[0].numpy())
+    s = snr_db(np.concatenate(ref), first)
+    share = ("not measured (no device events)" if busy is None else
+             f"device busy {100 * busy:.1f}%, host {100 * (1 - busy):.1f}%")
+    print(f"  cli_serve: usb at 1 channel, {bps:.1f} RX blocks/s "
+          f"({bps / rt:.1f}x real time, {rt:.2f} blocks/s); under the "
+          f"profiler {bps_tr:.1f} blocks/s, {share}; with the CAT commands "
+          f"{n_cmd} RX blocks in {wall:.2f} s ({n_cmd / wall / rt:.1f}x "
+          f"real time); telemetry {tele}; first {CLI_CPU_BLOCKS} blocks "
+          f"against the CPU chain {s:.1f} dB on {card}")
+    check(s >= CHAIN_TOL_DB, f"serve: {s:.1f} dB against the CPU chain")
+    check(tele["tx_blocks"] >= 4 and tele["fwd_pwr_w"] > 0.0
+          and tele["mode"] == "usb" and math.isfinite(tele["dbm"]),
+          f"serve: telemetry {tele}")
+    return launches, radio.blocks_processed
+
+
+def cli_paths(seed: int, card: str) -> list:
+    """The five entry-point paths: [(label, launches, blocks run)]."""
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = cli_capture(f"{tmp}/cap.wav", seed)
+        for label, run in (
+                ("cli_rx", lambda: cli_rx_path(cap, tmp, card)),
+                ("cli_text", lambda: cli_text_path(tmp, card)),
+                ("cli_freedv", lambda: cli_freedv_path(tmp, card)),
+                ("cli_channelize",
+                 lambda: cli_channelize_path(tmp, seed, card)),
+                ("cli_serve", lambda: cli_serve_path(cap, tmp, card))):
+            t1 = time.time()
+            print(f"phase entry path {label}:")
+            launches, n_blocks = run()
+            out.append((label, launches, n_blocks))
+            torch.cuda.empty_cache()
+            print(f"entry path {label}: {time.time() - t1:.1f} s")
+    return out
+
+
 SHARED = ("agc", "interp", "blocked")
 FM_KERNELS = ("fir_rt", "fm_disc", "agc", "blocked")
 TWO_CH = ("agc_stereo", "interp", "blocked")
@@ -4841,6 +5196,9 @@ def main() -> int:
         per_block[label] = {k: n / n_blocks for k, n in launches.items()}
         torch.cuda.empty_cache()
         print(f"freedv path {label}: {time.time() - t1:.1f} s")
+    for label, launches, n_blocks in cli_paths(args.seed, card):
+        by_path[label] = launches
+        per_block[label] = {k: n / n_blocks for k, n in launches.items()}
     for label, cfg, expect, n_timed, C in REF_PATHS:
         t1 = time.time()
         print(f"phase refchain_path {label}:")

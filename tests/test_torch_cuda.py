@@ -31,7 +31,10 @@ run as separate chains.  The linked stereo AGC stage (`agc_stereo`, with
 and without rows), K3 and K13 hold their plain versions bit for bit on
 edge streams too (+-0, +-inf, a NaN in one plane of a channel,
 subnormals), a NaN matching a NaN; every carried state the port hands
-from block to block holds storage of its own size.
+from block to block holds storage of its own size.  The command line
+and the live server run on the card: the text round trips, the usb
+tone, the first blocks against `--device cpu` and a CAT retune of
+`RadioServer` (the chain on the card against the CPU at 80 dB).
 """
 from __future__ import annotations
 
@@ -2966,3 +2969,123 @@ def test_freedv_fronts_on_card_match_cpu(dev):
         assert fir_k.INTERP.launches == n0 + 1
         ub = r_cpu.conv.up(torch.from_numpy(s8))
         assert snr_db(ub, ua.cpu()) >= FIR_DB
+
+
+# ---------------------------------------------------------------------------
+# the entry points: the command line and the live server on the card
+# ---------------------------------------------------------------------------
+
+def _cli(argv, monkeypatch):
+    """`cli.main(argv)` in process: (its last JSON line, {writer: the
+    array the command handed `io.ingest`'s WAV writer})."""
+    import contextlib
+    import io
+    import json
+
+    from uhsdr_tpu_torch import cli
+    from uhsdr_tpu_torch.io import ingest
+    got = {}
+    for fn in ("write_audio_wav", "write_iq_wav"):
+        orig = getattr(ingest, fn)
+
+        def keep(path, a, *args, _fn=fn, _orig=orig, **kw):
+            got[_fn] = np.array(a)
+            _orig(path, a, *args, **kw)
+        monkeypatch.setattr(ingest, fn, keep)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    monkeypatch.undo()
+    assert rc == 0
+    return json.loads(out.getvalue().strip().splitlines()[-1]), got
+
+
+def _peak_hz(x, fs=48000.0):
+    spec = np.abs(np.fft.rfft(x * np.hanning(len(x))))
+    spec[:8] = 0.0
+    return np.fft.rfftfreq(len(x), 1 / fs)[spec.argmax()]
+
+
+@pytest.mark.parametrize("mode,text", [("cw", "TEST"),
+                                       ("rtty", "RYRY DE UHSDR"),
+                                       ("psk", "psk31 de uhsdr")])
+def test_cli_text_round_trip_on_card(dev, mode, text, tmp_path,
+                                     monkeypatch):
+    """`tx --text` then `rx --decode` on the card: the sent text comes
+    back (CW's with the decoder's letter gaps removed, at 28 wpm)."""
+    iq = str(tmp_path / "iq.wav")
+    extra = ["--wpm", "28"] if mode == "cw" else []
+    _cli(["tx", "--out", iq, "--mode", mode, "--text", text] + extra,
+         monkeypatch)
+    m, _ = _cli(["rx", "--input", iq, "--mode", mode, "--decode"],
+                monkeypatch)
+    got = m["text"].replace(" ", "") if mode == "cw" else m["text"]
+    assert text in got, m["text"]
+
+
+def test_cli_usb_tone_and_first_blocks_on_card(dev, tmp_path, monkeypatch):
+    """`tx --mode usb` (a 700 Hz tone) and `rx` on the card: the audio's
+    peak at 700 +- 15 Hz, and its first 3 blocks against the same
+    command with `--device cpu` at 80 dB; the TX IQ against the CPU's at
+    80 dB too."""
+    iq = str(tmp_path / "iq.wav")
+    _, tx_card = _cli(["tx", "--out", iq, "--mode", "usb"], monkeypatch)
+    _, tx_cpu = _cli(["tx", "--out", str(tmp_path / "iq_cpu.wav"),
+                      "--mode", "usb", "--device", "cpu"], monkeypatch)
+    assert snr_db(tx_cpu["write_iq_wav"], tx_card["write_iq_wav"]) >= \
+        CHAIN_DB
+    argv = ["rx", "--input", iq, "--mode", "usb",
+            "--out", str(tmp_path / "a.wav")]
+    m, card = _cli(argv, monkeypatch)
+    m_cpu, cpu = _cli(argv + ["--device", "cpu", "--max-blocks", "3"],
+                      monkeypatch)
+    a, b = card["write_audio_wav"], cpu["write_audio_wav"]
+    assert abs(_peak_hz(a[24000:]) - 700.0) < 15.0
+    assert snr_db(b, a[:b.size]) >= CHAIN_DB
+    assert m_cpu["blocks"] == 3 and m["blocks"] > 3
+
+
+def test_radio_server_on_card_with_cat_retune(dev, tmp_path):
+    """`RadioServer` on the card over a looping capture: its first blocks
+    against the CPU chain at 80 dB; a CAT retune over TCP moves the audio
+    to the second station; `error` stays None."""
+    from uhsdr_tpu_torch.control import cat, server
+    from uhsdr_tpu_torch.io import ingest
+    fs, block, center = 48000.0, 4096, 14_001_000
+    t = np.arange(16 * block) / fs
+    iq = (0.4 * np.exp(2j * np.pi * 6700.0 * t)
+          + 0.3 * np.exp(2j * np.pi * (6000.0 + 1500.0 + 1000.0) * t)
+          ).astype(np.complex64)
+    path = str(tmp_path / "cap.wav")
+    ingest.write_iq_wav(path, iq)
+    radio, catsrv = server.serve(server.ServeConfig(
+        iq_path=path, center_hz=center, block_len=block, loop=True,
+        audio_keep_blocks=512))
+    client = None
+    try:
+        client = cat.CatClient(port=catsrv.port)
+        assert radio.wait_blocks(4, timeout=120), radio.error
+        first = radio.audio()[:3 * block].copy()
+        client.set_frequency(center + 1500)
+        assert radio.wait_blocks(2, timeout=120), radio.error
+        radio.audio_blocks.clear()
+        assert radio.wait_blocks(6, timeout=120), radio.error
+        after = radio.audio()[-3 * block:].copy()
+    finally:
+        if client is not None:
+            client.close()
+        radio.stop()
+        catsrv.stop()
+    assert radio.error is None, radio.error
+    chain = rx.RxChain(rx.RxConfig(mode="usb", block_len=block),
+                       device="cpu")
+    st = chain.init_state((1,))
+    z = ingest.read_iq_file(path)           # the capture as the pump reads it
+    ref = []
+    for k in range(3):
+        zk = z[None, k * block:(k + 1) * block]
+        y, st, _ = chain(st, i=zk.real.copy(), q=zk.imag.copy(),
+                         tune_offset_hz=0.0)
+        ref.append(y[0].numpy())
+    assert snr_db(np.concatenate(ref), first) >= CHAIN_DB
+    assert abs(_peak_hz(after) - 1000.0) < 30.0

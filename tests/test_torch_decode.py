@@ -144,6 +144,29 @@ def test_tap_keeps_remainders_on_the_device():
         assert torch.equal(torch.cat(blocks), codes[c, :int(nb[c])])
 
 
+@pytest.mark.parametrize("mode", ["cw", "psk", "rtty"])
+def test_tap_runs_the_modes_named(mode):
+    """`modes` (the command line's one decoder): the tap runs that mode
+    alone, its results and text as the three-mode tap's; a mode it does
+    not know is refused."""
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((2, 2048 * 2))
+                         .astype(np.float32) * 1000.0)
+    one = tap.DecoderTap(2, text_channels=(1,), device="cpu", modes=(mode,))
+    every = tap.DecoderTap(2, text_channels=(1,), device="cpu")
+    for k in range(2):
+        blk = x[:, k * 2048:(k + 1) * 2048]
+        a, b = one.push(blk), every.push(blk)
+        assert set(a) == {mode}
+        ra, rb = (r.codes if mode == "rtty" else r for r in (a[mode],
+                                                            b[mode]))
+        assert torch.equal(ra, rb)
+    ta, tb = one.flush(), every.flush()
+    assert set(ta) == {mode} and ta[mode] == tb[mode]
+    with pytest.raises(ValueError, match="modes"):
+        tap.DecoderTap(2, device="cpu", modes=(mode, "sstv"))
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert stream.StreamRunner(lambda s, i, q: (i, s)).device.type == "cuda"

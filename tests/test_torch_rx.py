@@ -406,7 +406,14 @@ def test_imports_neither_jax_nor_the_jax_package():
         "       'uhsdr_tpu_torch.modems.codec2_1300',\n"
         "       'uhsdr_tpu_torch.modems.codec2_700c',\n"
         "       'uhsdr_tpu_torch.modems.codec2_1300_batch',\n"
-        "       'uhsdr_tpu_torch.modems.codec2_700c_batch'}\n"
+        "       'uhsdr_tpu_torch.modems.codec2_700c_batch',\n"
+        "       'uhsdr_tpu_torch.cli', 'uhsdr_tpu_torch.control.server',\n"
+        "       'uhsdr_tpu_torch.control.cat', 'uhsdr_tpu_torch.control.radio',\n"
+        "       'uhsdr_tpu_torch.control.meter', 'uhsdr_tpu_torch.control.osc',\n"
+        "       'uhsdr_tpu_torch.control.calibration',\n"
+        "       'uhsdr_tpu_torch.control.selftest',\n"
+        "       'uhsdr_tpu_torch.core.config', 'uhsdr_tpu_torch.io.ingest',\n"
+        "       'uhsdr_tpu_torch.utils.profiling'}\n"
         "print(n, bad, sorted(new - set(sys.modules)))\n"
         "sys.exit(1 if bad or n < 30 or new - set(sys.modules) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -101,10 +101,16 @@ class CudaKernel:
         if self.lib_of is not None or out.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # a temporary name of this process and thread: `build_all` on one
+        # thread and a first launch on another (the radio server's pump)
+        # may build one source at once, each into its own file
+        tmp = out.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc_path(), *self.flags, "-o", str(tmp), str(self.source)]
-        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+        proc.out_tmp = tmp
+        return proc
 
     def finish_build(self, proc):
         if proc is None:
@@ -114,8 +120,7 @@ class CudaKernel:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.source.name} "
                                f"(exit {proc.returncode}):\n{log}")
-        tmp = self._lib_path().with_suffix(f".{os.getpid()}.tmp")
-        os.replace(tmp, self._lib_path())
+        os.replace(proc.out_tmp, self._lib_path())
 
     def lib(self):
         """The loaded library, building it first if needed."""

@@ -41,10 +41,15 @@ class DecoderTap:
     remainders carried on `device` (CUDA unless the caller names
     another).  `text_channels` names the channels whose results go to
     the host text decoders.  CW and RTTY run `CW_PARAMS` and
-    `RTTY_PARAMS`; PSK runs `psk_params`, PSK31 by default."""
+    `RTTY_PARAMS`; PSK runs `psk_params`, PSK31 by default.  `modes`
+    names the decoders that run (all three by default; the command line
+    runs one)."""
 
     def __init__(self, channels: int, text_channels=(), device=None,
-                 psk_params: psk.PskParams | None = None):
+                 psk_params: psk.PskParams | None = None, modes=MODES):
+        if not modes or set(modes) - set(MODES):
+            raise ValueError(f"modes {modes!r}: some of {MODES}")
+        self.modes = tuple(m for m in MODES if m in modes)
         self.device = resolve_device(device)
         self.channels = int(channels)
         self.text_channels = tuple(int(c) for c in text_channels)
@@ -58,13 +63,14 @@ class DecoderTap:
                       "rtty": rtty.init_state(C, dev)}
         self.tail = {m: torch.zeros((self.channels, 0), dtype=torch.float32,
                                     device=dev) for m in ("cw", "psk")}
-        self.pending = {m: [] for m in MODES}
+        self.pending = {m: [] for m in self.modes}
         n = len(self.text_channels)
-        self.decoders = {
-            "cw": [cw_text.CwTextDecoder(FS / CW_PARAMS.blocksize)
-                   for _ in range(n)],
-            "psk": [psk_text.VaricodeDecoder() for _ in range(n)],
-            "rtty": [rtty_text.BaudotDecoder() for _ in range(n)]}
+        make = {"cw": lambda: cw_text.CwTextDecoder(
+                    FS / CW_PARAMS.blocksize),
+                "psk": psk_text.VaricodeDecoder,
+                "rtty": rtty_text.BaudotDecoder}
+        self.decoders = {m: [make[m]() for _ in range(n)]
+                         for m in self.modes}
 
     def _framed(self, mode: str, audio: torch.Tensor, unit: int):
         """The whole frames of the remainder and this block; the rest
@@ -76,23 +82,28 @@ class DecoderTap:
 
     def push(self, audio_dec: torch.Tensor) -> dict:
         """One block of the tap, (C, T) f32 at 12 kHz.  Returns {mode:
-        result}: CW the keying (C, frames) bool, PSK the bits (C,
-        symbols) int32 (None where no frame or symbol was whole), RTTY an
-        `RttyOut`."""
+        result} of each mode that runs: CW the keying (C, frames) bool,
+        PSK the bits (C, symbols) int32 (None where no frame or symbol was
+        whole), RTTY an `RttyOut`."""
         audio = audio_dec.to(torch.float32).contiguous()
-        out = {"cw": None, "psk": None}
-        x = self._framed("cw", audio, CW_PARAMS.blocksize)
-        if x is not None:
-            out["cw"], self.state["cw"] = cw.keying_detect(
-                CW_PARAMS, self.state["cw"], x)
-        p = self.params["psk"]
-        x = self._framed("psk", audio, p.rate)
-        if x is not None:
-            out["psk"], self.state["psk"] = psk.demodulate(
-                p, self.state["psk"], x)
-        codes, nb, self.state["rtty"] = rtty.demodulate(
-            RTTY_PARAMS, self.state["rtty"], audio)
-        out["rtty"] = RttyOut(codes, nb)
+        out = {}
+        if "cw" in self.modes:
+            x = self._framed("cw", audio, CW_PARAMS.blocksize)
+            out["cw"] = None
+            if x is not None:
+                out["cw"], self.state["cw"] = cw.keying_detect(
+                    CW_PARAMS, self.state["cw"], x)
+        if "psk" in self.modes:
+            p = self.params["psk"]
+            x = self._framed("psk", audio, p.rate)
+            out["psk"] = None
+            if x is not None:
+                out["psk"], self.state["psk"] = psk.demodulate(
+                    p, self.state["psk"], x)
+        if "rtty" in self.modes:
+            codes, nb, self.state["rtty"] = rtty.demodulate(
+                RTTY_PARAMS, self.state["rtty"], audio)
+            out["rtty"] = RttyOut(codes, nb)
         if self.text_channels:
             for m, r in out.items():
                 if r is not None:
@@ -104,7 +115,7 @@ class DecoderTap:
         """Hand the kept results to the host text decoders (one copy a
         mode) and return {mode: {channel: transcript so far}}."""
         res = {}
-        for m in MODES:
+        for m in self.modes:
             if self.pending[m]:
                 got = torch.cat(self.pending[m], dim=-1).cpu().numpy()
                 self.pending[m] = []
@@ -131,6 +142,6 @@ class DecoderTap:
         """`texts`, after CW's decoders have seen a key-up long enough to
         end their last character (the CLI's flush, cli.py:72-74)."""
         self.texts()
-        for dec in self.decoders["cw"]:
+        for dec in self.decoders.get("cw", ()):
             dec.push_keying(np.zeros(2000, bool))
         return self.texts()

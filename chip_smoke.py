@@ -34,7 +34,10 @@ first phase that fails:
    channels 0-7 alone bit-equal to the batch), K7 and K6 (the
    complex-tap wide-SSB front with and without the NCO, its output at
    100 dB, its history and peaks bit-equal, its shared memory held to
-   `fir_cx_geometry`'s; K7 also at 192 kHz, 491 taps at decimation 8),
+   `fir_cx_geometry`'s; K7 also at 192 kHz, 491 taps at decimation 8;
+   K6 also at the sharded RX step's stage B, 8192 x 2048 f32 planes,
+   199 taps at decimation 1, real out, its row's `stage_b` entry with
+   its bound and `conv1d`'s time),
    K12 (the FM discriminator), K13 (the linked
    stereo AGC's machine on K3's warps, its last block an edge stream, its
    shared memory held to `agc_scan_geometry`'s), K1 with the two-channel
@@ -202,7 +205,24 @@ first phase that fails:
    channels 0-7 against the CPU at 90 dB) and the entry paths of K13,
    `agc_machine` and `agc_machine_rows` (`cuda.agc.agc_scan` on the
    linked detector's look-ahead max of such audio, scalar and with
-   rows; channels 0-7 against the CPU at 90 dB).  Every kernel's launch
+   rows; channels 0-7 against the CPU at 90 dB).  Then the sharded
+   paths (`parallel/`) in a process group of one rank (NCCL, a `file://`
+   store in a temporary directory) on a 1 x 1 mesh: `sharded_rx`
+   (`rx_sharded.make_sharded_rx(rx.FLAGSHIP)` at 8192 ch x 16384 f32
+   planes @ 96 kHz, the flagship's int16 planes / 32768, 2 + 8 blocks:
+   K5 stage A, K6 stage B, K2, K3, K4; every channel's
+   audio and the state against `RxChain(rx.FLAGSHIP)`, fused K1, on the
+   same planes at 80 dB over 3 blocks; its ms/block printed beside
+   `ssb`'s), `sharded_rx_sp4` (1024 channels, each block cut into 4 time
+   shards, each through `rx_sharded.front_end_local` with the previous
+   shard's raw tail as its halo, then stage B and the post; held to the
+   1 x 1 step on the same planes: the front's output and each shard's
+   seam outputs at 100 dB, the audio at 80 dB; the NCO near the uint32
+   wrap), `sharded_tx` (`tx_sharded.make_sharded_tx(tx.TX_FLAGSHIP)` at
+   1024 ch, one block untimed, bit for bit against `TxChain`) and
+   `sharded_wideband` (`wideband_sharded.make_sharded_channelizer` at
+   the `wideband` path's 4096-channel bank, 2 + 6 blocks, against
+   `WidebandFleet`'s bank at 100 dB; no hand kernel).  Every kernel's launch
    count is set to 0 just before each path and read just after, each
    kernel of that path must have been launched and no other, and every
    built kernel must have been launched by a chain path or the entry
@@ -282,6 +302,9 @@ from uhsdr_tpu_torch.ops import fir as fir_ops
 from uhsdr_tpu_torch.ops import lms as lms_ops
 from uhsdr_tpu_torch.ops import nco
 from uhsdr_tpu_torch.parallel import fleet as pfleet
+from uhsdr_tpu_torch.parallel import mesh as mesh_mod
+from uhsdr_tpu_torch.parallel import (multihost, rx_sharded, tx_sharded,
+                                      wideband_sharded)
 from uhsdr_tpu_torch.spectrum import scope as scope_mod
 from uhsdr_tpu_torch.utils import profiling
 
@@ -1006,10 +1029,11 @@ def phase_fir_cx(P, dev, gen):
         nbytes = (2 * C * B * 2 + C * T_out * 4 + 2 * C * (taps - 1) * 8
                   + (C * 8 if use_nco else 0) + C * 4 + 8 * taps)
         extra = {}
-        if use_nco:
-            extra["at_192k"] = k7_192k_case(dev, gen)
-            s, e = extra["at_192k"].pop("snr"), extra["at_192k"].pop("err")
-            worst, err = min(worst, s), max(err, e)
+        case = ("at_192k", k7_192k_case) if use_nco else ("stage_b",
+                                                           k6_stage_b_case)
+        extra[case[0]] = case[1](P, dev, gen)
+        s, e = extra[case[0]].pop("snr"), extra[case[0]].pop("err")
+        worst, err = min(worst, s), max(err, e)
         r = row(name, "front.cu", f"uhsdr_tpu/pallas/fir.py:{line}",
                 err=err, snr=worst, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
                 flops=2.0 * fma, library_ms=lib_ms,
@@ -1024,7 +1048,69 @@ def phase_fir_cx(P, dev, gen):
     return rows
 
 
-def k7_192k_case(dev, gen) -> dict:
+def k6_stage_b_case(P, dev, gen) -> dict:
+    """K6 at the sharded RX step's stage B (`chain/rx.py::stage_b`, the
+    unfused Hilbert combine): the SSB flagship's 199 complex taps at
+    decimation 1 on 8192 x 2048 f32 planes of decimated IQ, real out.
+    Three streamed blocks (the middle one shorter than the history)
+    against the plain version, the output at FIR_TOL_DB and the history
+    bit-equal; then timed beside the plain version and `conv1d` (the same
+    FIR as a two-channel convolution).  Returns its row's numbers and its
+    worst SNR and error."""
+    g = P["ssb"].front2
+    taps = g.shape[-1]
+    C, T = CHANNELS, CFG.block_len // CFG.decim
+    ck = cp = torch.complex(
+        torch.randn((C, taps - 1), generator=gen, device=dev),
+        torch.randn((C, taps - 1), generator=gen, device=dev)) * 0.1
+    worst, err, first = math.inf, 0.0, None
+    for blk, n in enumerate((T, (taps - 1) // 2, T)):
+        zr, zi = (torch.randn((C, n), generator=gen, device=dev) * 0.1
+                  for _ in "ri")
+        if first is None:
+            first = (ck, zr, zi)
+        yk, ck, _ = fir_k.fir_cx(g, ck, zr, zi, 1, real_out=True)
+        yp, cp, _ = fir_k.fir_cx_plain(g, cp, zr, zi, 1, real_out=True)
+        torch.cuda.synchronize()
+        s, e = held(f"K6 stage B block {blk} ({n} samples)", {
+            "audio": (yp, yk)})
+        check(s >= FIR_TOL_DB and torch.equal(cp, ck),
+              f"K6 stage B block {blk}: {s:.1f} dB < {FIR_TOL_DB}, or the "
+              f"history not bit-equal")
+        worst, err = min(worst, s), max(err, e)
+    c0, zr, zi = first
+    ms = cuda_ms(lambda: fir_k.fir_cx(g, c0, zr, zi, 1, real_out=True), 10)
+    plain_ms = cuda_ms(lambda: fir_k.fir_cx_plain(g, c0, zr, zi, 1,
+                                                  real_out=True), 2)
+    stack = torch.stack([torch.cat([c0.real, zr], -1),
+                         torch.cat([c0.imag, zi], -1)], dim=1).contiguous()
+    w = torch.stack([g.real.flip(0), -g.imag.flip(0)])[None].contiguous()
+
+    def library():
+        return torch.nn.functional.conv1d(stack, w)
+
+    lib_ms = cuda_ms(library, 5)
+    s_lib = snr_db(fir_k.fir_cx_plain(g, c0, zr, zi, 1, real_out=True)[0],
+                   library()[:, 0])
+    print(f"  K6 stage B library call (conv1d, 2 channels) vs plain: SNR "
+          f"{s_lib:.1f} dB")
+    del stack
+    fma = C * T * 2 * taps              # real output: 2 FMA a tap
+    # bytes: f32 planes in, real audio out, history in and out, peaks
+    # out, complex taps in
+    nbytes = (2 * C * T * 4 + C * T * 4 + 2 * C * (taps - 1) * 8 + C * 4
+              + 8 * taps)
+    b_ms, b_by = bound(nbytes, 2.0 * fma)
+    print(f"  K6 stage B, {C} x {T} f32 planes, {taps} taps, decim 1: "
+          f"{ms:.4f} ms (plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by}: {fma / 1e9:.2f} G FMA, "
+          f"{nbytes / 2**20:.0f} MiB)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, taps=taps, decim=1, shape=[C, T],
+                snr=worst, err=err)
+
+
+def k7_192k_case(P, dev, gen) -> dict:
     """K7 at the 192 kHz wide row (usb 5P0KHZ: 491 taps, decimation 8) at
     8192 channels: three streamed blocks, the middle one shorter than the
     history, against the plain version, then timed.  Returns its timing
@@ -5070,6 +5156,194 @@ TX_PATHS = (
 TX_TOL_DB = {"tx_fm_scipy": 60.0}
 
 
+# ---------------------------------------------------------------------------
+# the sharded paths (`parallel/`), at world size 1 on the card
+# ---------------------------------------------------------------------------
+
+# the sharded RX step's kernels: K5 (stage A), K6 (stage B at decimation
+# 1), K2, K3, K4
+SHARDED_RX_KERNELS = ("fir_rt", "fir_cx", "blocked", "agc", "interp")
+SHARDED_SP = 4            # time shards a block of `sharded_rx_sp4`
+
+
+def f32_planes(blocks) -> list:
+    """int16 (i, q) planes -> f32 at full scale 1 (counts / 32768), in
+    place of the int16 ones."""
+    for k, (i, q) in enumerate(blocks):
+        blocks[k] = (i.to(torch.float32) / 32768.0,
+                     q.to(torch.float32) / 32768.0)
+    return blocks
+
+
+def sharded_rx_path(mesh, dev, seed, n_timed=8, n_warm=2, n_ref=3):
+    """`rx_sharded.make_sharded_rx(rx.FLAGSHIP)` on a 1 x 1 mesh at 8192
+    ch x 16384 f32 planes @ 96 kHz (the flagship's int16 planes / 32768),
+    state carried, timed as the main paths; then `RxChain(rx.FLAGSHIP)`
+    (fused K1) on the same planes over the first n_ref blocks: every
+    channel's audio and every post-front state leaf at >= CHAIN_TOL_DB,
+    the NCO phase equal.  Returns (launches, ms/block, Ms/s, worst
+    SNR)."""
+    cfg, C = CFG, CHANNELS
+    blocks = f32_planes(trace_rx.capture(n_warm + n_timed, C, dev, seed,
+                                         cfg))
+    step_fn, init_state = rx_sharded.make_sharded_rx(cfg, mesh, dev)
+    state = init_state(C)
+    kept, kept_state = [], None
+
+    def step(blk):
+        nonlocal state, kept_state
+        audio, state = step_fn(state, *blk)
+        if len(kept) < n_ref:
+            kept.append(audio.clone())
+            if len(kept) == n_ref:
+                kept_state = state
+        return audio
+
+    launches, ms_block, audio = timed_run(step, blocks, "sharded_rx",
+                                          SHARDED_RX_KERNELS, n_warm,
+                                          n_timed)
+    msps = C * cfg.block_len / (ms_block * 1e-3) / 1e6
+    check(tuple(audio.shape) == (C, cfg.block_len),
+          f"sharded_rx audio shape {tuple(audio.shape)}")
+    check(bool(torch.isfinite(audio).all()), "sharded_rx audio not finite")
+    chain = rx.RxChain(cfg, device=dev)
+    s = chain.init_state((C,))
+    worst = math.inf
+    for k in range(n_ref):
+        y, s, _ = chain(s, i=blocks[k][0], q=blocks[k][1])
+        v = snr_db(y, kept[k])
+        worst = min(worst, v)
+        print(f"  sharded_rx vs RxChain (fused K1) on the same planes, "
+              f"block {k}, all {C} channels: SNR {v:.1f} dB")
+    del blocks, kept
+    ref = rx.state_to_numpy(s)
+    got = rx.state_to_numpy(kept_state.post)
+    check(np.array_equal(ref.pop("nco_phase"),
+                         kept_state.phase.cpu().numpy().astype(np.uint32)),
+          "sharded_rx NCO phase differs from RxChain's")
+    ref.pop("front_carry")
+    leaves = state_snrs(ref, got)
+    low = min(leaves, key=leaves.get)
+    print(f"  sharded_rx state after block {n_ref - 1} vs RxChain: worst "
+          f"leaf {low} {leaves[low]:.1f} dB of {len(leaves)}")
+    worst = min(worst, leaves[low])
+    check(worst >= CHAIN_TOL_DB,
+          f"sharded_rx vs RxChain: {worst:.1f} dB < {CHAIN_TOL_DB} dB")
+    return launches, ms_block, msps, worst
+
+
+def sharded_rx_sp4_path(mesh, dev, seed, n_blocks=3, C=DEPTH):
+    """The sharded front's seams on the card: `rx.FLAGSHIP` at C channels,
+    each block cut into SHARDED_SP time shards, each shard through
+    `rx_sharded.front_end_local` with the previous shard's raw tail as its
+    halo (the first shard's the previous block's), then stage B and the
+    post on the joined output; held to the 1 x 1 step on the same planes:
+    the front's output (the whole block through `front_end_local`) at
+    >= FIR_TOL_DB, every shard's E seam outputs on their own too, and the
+    audio at >= CHAIN_TOL_DB.  The NCO starts near the uint32 wrap.
+    Returns (launches, worst SNR of the front, of the seams, of the
+    audio)."""
+    cfg = CFG
+    p = rx.make_params(cfg, dev)
+    blocks = f32_planes(trace_rx.capture(n_blocks, C, dev, seed + 1, cfg))
+    T, L, decim = cfg.block_len, p.front_fir.shape[-1] - 1, cfg.front_decim
+    t, E = T // SHARDED_SP, -(-L // decim)
+    step_fn, init_state = rx_sharded.make_sharded_rx(cfg, mesh, dev)
+    st = init_state(C)
+    st = st._replace(phase=st.phase + (2**32 - 1000 * p.nco_delta) % 2**32)
+    phase, hist, post = st.phase, st.carry, st.post
+    worst_zf = worst_seam = worst_audio = math.inf
+    zero_launches()
+    for k, (i, q) in enumerate(blocks):
+        whole = rx_sharded.front_end_local(p, cfg, 0, phase, hist, i, q)
+        parts, h = [], hist
+        for s in range(SHARDED_SP):
+            ii = i[:, s * t:(s + 1) * t].contiguous()
+            qq = q[:, s * t:(s + 1) * t].contiguous()
+            parts.append(rx_sharded.front_end_local(p, cfg, s, phase, h, ii,
+                                                    qq))
+            h = torch.stack([ii[:, t - L:], qq[:, t - L:]], dim=1)
+        zf = tuple(torch.cat([z[n] for z in parts], dim=-1) for n in (0, 1))
+        a, b = torch.complex(*whole), torch.complex(*zf)
+        seams = torch.cat([torch.arange(s * t // decim, s * t // decim + E)
+                           for s in range(SHARDED_SP)]).to(dev)
+        s_zf, s_seam = snr_db(a, b), snr_db(a[:, seams], b[:, seams])
+        audio, post, _ = rx.demod_and_post(cfg, p, post, zf)
+        y1, st = step_fn(st, i, q)
+        s_a = snr_db(y1, audio)
+        print(f"  sharded_rx_sp4 block {k}: front {s_zf:.1f} dB, the "
+              f"{SHARDED_SP} x {E} seam outputs {s_seam:.1f} dB, audio "
+              f"{s_a:.1f} dB against the 1 x 1 step")
+        worst_zf, worst_seam = min(worst_zf, s_zf), min(worst_seam, s_seam)
+        worst_audio = min(worst_audio, s_a)
+        hist = torch.stack([i[:, T - L:], q[:, T - L:]], dim=1)
+        phase = nco.advance(phase, p.nco_delta, T)
+    launches = read_launches("sharded_rx_sp4", SHARDED_RX_KERNELS)
+    check(min(worst_zf, worst_seam) >= FIR_TOL_DB
+          and worst_audio >= CHAIN_TOL_DB,
+          f"sharded_rx_sp4: front {worst_zf:.1f}, seams {worst_seam:.1f} "
+          f"(< {FIR_TOL_DB}) or audio {worst_audio:.1f} dB (< "
+          f"{CHAIN_TOL_DB})")
+    return launches, worst_zf, worst_seam, worst_audio
+
+
+def sharded_tx_path(mesh, dev, seed, C=DEPTH):
+    """`tx_sharded.make_sharded_tx(tx.TX_FLAGSHIP)` on a 1 x 1 mesh at C
+    channels x 16384 f32 audio, one block, untimed: the step is the
+    port's `TxChain` on the rank's channels, which the `tx` paths time.
+    Held to a second `TxChain` on the same block bit for bit.  Returns
+    the launches."""
+    (audio,) = trace_tx.capture(1, C, dev, seed, TXF)
+    step_fn, init_state = tx_sharded.make_sharded_tx(TXF, mesh, dev)
+    zero_launches()
+    i, q, _ = step_fn(init_state(C), audio)
+    launches = read_launches("sharded_tx", TX_VOICE)
+    chain = tx.TxChain(TXF, device=dev)
+    ri, rq, _ = chain(chain.init_state((C,)), audio)
+    check(torch.equal(i, ri) and torch.equal(q, rq),
+          "sharded_tx differs from TxChain")
+    return launches
+
+
+def sharded_wideband_path(mesh, dev, seed, n_timed=WIDEBAND_TIMED,
+                          n_warm=2, n_ref=2):
+    """`wideband_sharded.make_sharded_channelizer` on a 1 x 1 mesh at the
+    `wideband` path's bank (4096 channels x 4096, 12 taps a branch),
+    timed (torch products and FFT: no hand kernel); then
+    `WidebandFleet`'s bank (`AnalysisPfb`) over the first n_ref blocks at
+    >= FIR_TOL_DB.  Returns (launches, ms/block, Ms/s of wideband
+    samples, worst SNR)."""
+    B = WB_M * WB_T
+    blocks = trace_rx.wideband_capture(n_warm + n_timed, B, dev, seed)
+    step_fn, init_carry, bank = wideband_sharded.make_sharded_channelizer(
+        WB_M, mesh, device=dev)
+    carry = init_carry()
+    kept = []
+
+    def step(blk):
+        nonlocal carry
+        i, q, carry = step_fn(carry, *blk)
+        if len(kept) < n_ref:
+            kept.append(torch.complex(i, q))
+        return i, q
+
+    launches, ms_block, (i, q) = timed_run(step, blocks, "sharded_wideband",
+                                           (), n_warm, n_timed)
+    check(tuple(i.shape) == (WB_M, WB_T) and bool(torch.isfinite(i).all()),
+          f"sharded_wideband output {tuple(i.shape)}")
+    ref = chz.AnalysisPfb(WB_M, device=dev)         # WidebandFleet's bank
+    state, worst = ref.init_state(), math.inf
+    for k in range(n_ref):
+        y, state = ref(state, torch.complex(*blocks[k]))
+        v = snr_db(y, kept[k])
+        worst = min(worst, v)
+        print(f"  sharded_wideband vs WidebandFleet's bank, block {k}: SNR "
+              f"{v:.1f} dB")
+    check(worst >= FIR_TOL_DB,
+          f"sharded_wideband vs the bank: {worst:.1f} dB < {FIR_TOL_DB}")
+    return launches, ms_block, B / (ms_block * 1e-3) / 1e6, worst
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1234)
@@ -5334,6 +5608,62 @@ def main() -> int:
               f"steps @ 12 kHz{', thresholds 40-80 dB' if rows_on else ''}: "
               f"{ms_block:.3f} ms/block over 4 blocks, {msps:.1f} Ms/s, CPU "
               f"SNR {worst:.1f} dB ({time.time() - t1:.1f} s) on {card}")
+    # the sharded paths: a process group of one rank (NCCL), a 1 x 1 mesh
+    with tempfile.TemporaryDirectory() as td:
+        multihost.initialize("file://" + os.path.join(td, "rendezvous"), 1,
+                             0, dev)
+        try:
+            mesh = mesh_mod.make_mesh(1, 1)
+            t1 = time.time()
+            print("phase sharded path sharded_rx:")
+            launches, ms_block, msps, worst = sharded_rx_path(mesh, dev,
+                                                              args.seed)
+            by_path["sharded_rx"] = launches
+            per_block["sharded_rx"] = {k: n / 10 for k, n in
+                                       launches.items()}
+            torch.cuda.empty_cache()
+            print(f"sharded path sharded_rx: rx.FLAGSHIP on a 1 x 1 mesh, "
+                  f"{CHANNELS} ch x {CFG.block_len} f32 @ "
+                  f"{CFG.iq_rate / 1e3:.0f} kHz: {ms_block:.3f} ms/block "
+                  f"over 8 blocks beside ssb's {ssb_ms:.3f} (fused K1), "
+                  f"{msps:.1f} Ms/s, RxChain SNR {worst:.1f} dB "
+                  f"({time.time() - t1:.1f} s) on {card}")
+            t1 = time.time()
+            print("phase sharded path sharded_rx_sp4:")
+            launches, s_zf, s_seam, s_a = sharded_rx_sp4_path(mesh, dev,
+                                                              args.seed)
+            by_path["sharded_rx_sp4"] = launches
+            per_block["sharded_rx_sp4"] = {k: n / 3 for k, n in
+                                           launches.items()}
+            torch.cuda.empty_cache()
+            print(f"sharded path sharded_rx_sp4: {DEPTH} ch, {SHARDED_SP} "
+                  f"time shards a block: front {s_zf:.1f} dB, seams "
+                  f"{s_seam:.1f} dB, audio {s_a:.1f} dB against the 1 x 1 "
+                  f"step ({time.time() - t1:.1f} s) on {card}")
+            t1 = time.time()
+            print("phase sharded path sharded_tx:")
+            launches = sharded_tx_path(mesh, dev, args.seed)
+            by_path["sharded_tx"] = launches
+            per_block["sharded_tx"] = launches
+            print(f"sharded path sharded_tx: tx.TX_FLAGSHIP on a 1 x 1 mesh, "
+                  f"{DEPTH} ch x {TXF.block_len} f32, one block untimed, "
+                  f"TxChain bit for bit ({time.time() - t1:.1f} s) on "
+                  f"{card}")
+            t1 = time.time()
+            print("phase sharded path sharded_wideband:")
+            launches, ms_block, msps, worst = sharded_wideband_path(
+                mesh, dev, args.seed)
+            by_path["sharded_wideband"] = launches
+            per_block["sharded_wideband"] = {
+                k: n / (2 + WIDEBAND_TIMED) for k, n in launches.items()}
+            torch.cuda.empty_cache()
+            print(f"sharded path sharded_wideband: {WB_M} ch x {WB_T} from "
+                  f"{WB_M * WB_T} wideband samples on a 1 x 1 mesh: "
+                  f"{ms_block:.3f} ms/block over {WIDEBAND_TIMED} blocks, "
+                  f"{msps:.1f} Ms/s (wideband), bank SNR {worst:.1f} dB "
+                  f"({time.time() - t1:.1f} s) on {card}")
+        finally:
+            torch.distributed.destroy_process_group()
     # a kernel counts as launched by a chain path or by an entry path
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()

@@ -690,6 +690,74 @@ def test_fir_cx_geometry_matches_library(dev):
                 taps, decim, size)
 
 
+@pytest.mark.parametrize("C,lengths", [
+    (13, (2048, 99, 2048)),          # the flagship's stage B, ragged C
+    (5, (4100, 1000, 37)),           # ragged tiles, shorter than history
+    (1, (16384,))])
+def test_fir_cx_stage_b_matches_plain(dev, C, lengths):
+    """K6 at decimation 1 on f32 planes of decimated IQ, real out: the
+    sharded RX step's unfused stage B (`chain/rx.py::stage_b`, the SSB
+    flagship's 199 taps), streamed, against `fir_cx_plain` and through
+    `stage_b` on the card against the CPU."""
+    cfg = rx.RxConfig(**{**FLAGSHIP, "block_len": 16384})
+    pg, pc = rx.make_params(cfg, dev), rx.make_params(cfg, "cpu")
+    g = pg.front2
+    assert g.shape == (199,) and fir_k.fir_cx_geometry(199, 1, 4)
+    rng = np.random.default_rng(21)
+    sg = sc = rx.init_state(cfg, pc, (C,))
+    sg = sg._replace(front2_carry=sg.front2_carry.to(dev))
+    ck = cp = torch.zeros((C, 198), dtype=torch.complex64, device=dev)
+    for n in lengths:
+        zr, zi = (torch.from_numpy((rng.standard_normal((C, n)) * 0.1)
+                                   .astype(np.float32)).to(dev)
+                  for _ in "ri")
+        n0 = fir_k.FIR_CX.launches
+        yk, ck, _ = fir_k.fir_cx(g, ck, zr, zi, 1, real_out=True)
+        assert fir_k.FIR_CX.launches == n0 + 1
+        yp, cp, _ = fir_k.fir_cx_plain(g, cp, zr, zi, 1, real_out=True)
+        assert snr_db(yp, yk) >= FIR_DB and torch.equal(cp, ck)
+        yg, sg = rx.stage_b(cfg, pg, sg, torch.complex(zr, zi))
+        yc, sc = rx.stage_b(cfg, pc, sc, torch.complex(zr, zi).cpu())
+        assert snr_db(yc, yg.cpu()) >= FIR_DB
+        assert torch.equal(sc.front2_carry, sg.front2_carry.cpu())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(FLAGSHIP),                                          # K5
+    dict(FLAGSHIP, bw_key="5P0KHZ"),                         # K7
+    dict(FLAGSHIP, bw_key="5P0KHZ", translate_hz=0.0),       # K6
+    dict(FLAGSHIP, mode="sam", bw_key="5P0KHZ", path_name="AM/SAM")])
+def test_sharded_front_on_card_matches_unsharded(dev, kw):
+    """`parallel/rx_sharded.front_end_local` on the card, a block cut into
+    four time shards with the previous shard's raw tail as the halo,
+    against the unsharded front kernel over the whole block, across the
+    uint32 phase wrap."""
+    from uhsdr_tpu_torch.parallel import rx_sharded
+    cfg = rx.RxConfig(**{**kw, "block_len": 4096})
+    p = rx.make_params(cfg, dev)
+    h, d = p.front_fir, cfg.front_decim
+    L, C, B, n_sp = h.shape[-1] - 1, 9, 4096, 4
+    rng = np.random.default_rng(22)
+    i, q = (torch.from_numpy((rng.standard_normal((C, B)) * 0.1).astype(
+        np.float32)).to(dev) for _ in "iq")
+    carry = torch.complex(*(torch.from_numpy((rng.standard_normal(
+        (C, L)) * 0.1).astype(np.float32)).to(dev) for _ in "ri"))
+    phase = torch.full((C,), 2**32 - 7 * B, dtype=torch.int64, device=dev)
+    nco_arg = (phase, p.nco_delta) if p.nco_delta else None
+    if h.is_complex():
+        ref = fir_k.fir_cx(h, carry, i, q, d, nco=nco_arg, real_out=True)[0]
+    else:
+        ref = fir_k.fir_rt(h, carry, i, q, d, nco=nco_arg)[0]
+    hist, parts, t = torch.stack([carry.real, carry.imag], 1), [], B // n_sp
+    for s in range(n_sp):
+        ii, qq = i[:, s * t:(s + 1) * t].contiguous(), \
+            q[:, s * t:(s + 1) * t].contiguous()
+        z = rx_sharded.front_end_local(p, cfg, s, phase, hist, ii, qq)
+        parts.append(torch.complex(*z) if isinstance(z, tuple) else z)
+        hist = torch.stack([ii[:, -L:], qq[:, -L:]], 1)
+    assert snr_db(ref, torch.cat(parts, -1)) >= FIR_DB
+
+
 def _wrapped_err(ref, got) -> float:
     """max |ref - got| of two angle tensors, modulo 2 pi."""
     d = torch.remainder(ref.double() - got.double() + np.pi, 2 * np.pi)

@@ -19,9 +19,9 @@ wrappers run the kernels' plain torch versions:
 * import hygiene: the port and chip_smoke.py import neither jax nor the
   JAX package;
 * entry points default to CUDA and raise where it is absent; an unfused
-  stage B raises NotImplementedError; the configurations that were
-  outside the port before the legacy front and FM TX were ported run
-  and match the JAX chain from its state;
+  stage B runs K6's plain version on complex IQ; the configurations
+  that were outside the port before the legacy front and FM TX were
+  ported run and match the JAX chain from its state;
 * `RxConfig` has the JAX package's fields with its defaults, and the
   backend selectors and ``cw_offset_hz`` change nothing.
 """
@@ -42,6 +42,7 @@ from tests import test_conformance_ref as conf
 from tests.golden import ref_chain as gold
 from uhsdr_tpu.chain import rx as jrx
 from uhsdr_tpu_torch.chain import rx as trx
+from uhsdr_tpu_torch.cuda import fir as fir_k
 from uhsdr_tpu_torch.metrics import snr_db
 
 CHAIN_DB = 80.0
@@ -413,7 +414,12 @@ def test_imports_neither_jax_nor_the_jax_package():
         "       'uhsdr_tpu_torch.control.calibration',\n"
         "       'uhsdr_tpu_torch.control.selftest',\n"
         "       'uhsdr_tpu_torch.core.config', 'uhsdr_tpu_torch.io.ingest',\n"
-        "       'uhsdr_tpu_torch.utils.profiling'}\n"
+        "       'uhsdr_tpu_torch.utils.profiling',\n"
+        "       'uhsdr_tpu_torch.parallel.mesh',\n"
+        "       'uhsdr_tpu_torch.parallel.rx_sharded',\n"
+        "       'uhsdr_tpu_torch.parallel.tx_sharded',\n"
+        "       'uhsdr_tpu_torch.parallel.wideband_sharded',\n"
+        "       'uhsdr_tpu_torch.parallel.multihost'}\n"
         "print(n, bad, sorted(new - set(sys.modules)))\n"
         "sys.exit(1 if bad or n < 30 or new - set(sys.modules) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -525,16 +531,26 @@ def test_former_roadmap_configs_run(kw):
 
 def test_unfused_stage_b_raises():
     """K1 fuses stage B at every NCO delta, so the chain's stage B passes
-    real audio through and refuses complex decimated IQ (the reference's
-    unfused route, which nothing in the port calls)."""
+    real audio through.  Complex decimated IQ (the sharded front's stage-A
+    output) runs the unfused stage B, K6's plain version at decimation 1
+    with real output (tests/test_torch_sharded.py holds it to the JAX
+    stage B); only the two-channel modes' filter pair, which K1 alone
+    runs, raises."""
     cfg = trx.RxConfig(**FLAGSHIP)
     p = trx.make_params(cfg, device="cpu")
     s = trx.init_state(cfg, p, (2,))
     audio = torch.ones((2, 16))
     out, s2 = trx.stage_b(cfg, p, s, audio)
     assert out is audio and s2 is s
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trx.stage_b(cfg, p, s, torch.ones((2, 16), dtype=torch.complex64))
+    z = torch.ones((2, 16), dtype=torch.complex64)
+    y, s2 = trx.stage_b(cfg, p, s, z)
+    want, carry, _ = fir_k.fir_cx_plain(p.front2, s.front2_carry, z.real,
+                                        z.imag, 1, real_out=True)
+    assert torch.equal(y, want) and torch.equal(s2.front2_carry, carry)
+    pcfg = trx.RxConfig(**dict(FLAGSHIP, mode="ssbstereo"))
+    pp = trx.make_params(pcfg, device="cpu")
+    with pytest.raises(ValueError, match="pair"):
+        trx.stage_b(pcfg, pp, trx.init_state(pcfg, pp, (2,)), z)
 
 
 def test_rx_config_fields_match_jax():

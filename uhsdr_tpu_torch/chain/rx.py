@@ -34,6 +34,10 @@ Stage order of the reference-table chains:
        kernel too, pallas/fir.py:513), complex IQ out, FM at decimation 1
        and the capture rate, iq split into its Re/Im channels
                                             [K5: cuda.fir.fir_rt]
+    -> the sharded front (parallel/rx_sharded.py) leaves stage B out and
+       hands complex stage-A output to `stage_b`, the unfused Hilbert
+       combine at fs_dec, real audio out  [K6 at decimation 1:
+                                           cuda.fir.fir_cx]
     -> demod: SSB (the real part, already taken by K1/K7); AM envelope
        and fade leveler; SAM PLL            [K9/K10: cuda.pll] with the
        sideband stage (products, allpass chains, combine, fade leveler;
@@ -934,13 +938,24 @@ def stage_b(cfg: RxConfig, params: RxParams, state: RxState, zf):
     """Stage B, the Hilbert-combine FIR at fs_dec with real output.  The
     K1 kernel fuses it at every NCO delta (and updates front2_carry), so
     real audio passes through; the other fronts have no second stage and
-    their output passes through too.  The reference's unfused stage B
-    (chain/rx.py:939-982) has no caller in the port."""
-    if params.front2 is not None and zf.is_complex():
-        raise NotImplementedError(
-            "an unfused stage B on complex decimated IQ: K1 fuses stage B "
-            "at every NCO delta (ROADMAP.md port status)")
-    return zf, state
+    their output passes through too.  Complex stage-A output, a complex
+    tensor or its (re, im) f32 planes, is what the sharded front gives
+    (`parallel/rx_sharded.py`): it runs the reference's unfused stage B
+    (chain/rx.py:939-984 there), the complex-tap front at decimation 1
+    without the NCO, real out (K6, once a stage-B filter), its history
+    front2_carry in K1's layout, so a state moves between the two
+    fronts.  The two-channel modes' filter pair is K1's alone."""
+    if params.front2 is None or not (isinstance(zf, tuple)
+                                     or zf.is_complex()):
+        return zf, state
+    if params.front2.ndim != 1:
+        raise ValueError("an unfused stage B takes one stage-B filter; "
+                         "the two-channel pair runs fused in K1")
+    zr, zi = zf if isinstance(zf, tuple) else (zf.real.contiguous(),
+                                               zf.imag.contiguous())
+    y, front2_carry, _ = fir_kernels.fir_cx(
+        params.front2, state.front2_carry, zr, zi, 1, real_out=True)
+    return y, state._replace(front2_carry=front2_carry)
 
 
 def _demod_sos_pre_agc(cfg: RxConfig, params: RxParams, state: RxState,

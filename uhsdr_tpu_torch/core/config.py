@@ -400,7 +400,7 @@ def _leaves(state, cfg=None) -> list[tuple[str, np.ndarray]]:
             if k == f or k.startswith(f + ".")]
 
 
-def _nest(like, flat: dict, fn=None, prefix: str = ""):
+def nest_leaves(like, flat: dict, fn=None, prefix: str = ""):
     """`like`'s NamedTuple structure with each leaf replaced by its array
     in `flat`, through `fn` where given (None where `flat` has no such
     leaf)."""
@@ -408,8 +408,8 @@ def _nest(like, flat: dict, fn=None, prefix: str = ""):
         v = flat.get(prefix)
         return v if v is None or fn is None else fn(v)
     return type(like)(**{
-        f: _nest(getattr(like, f), flat, fn,
-                 f"{prefix}.{f}" if prefix else f)
+        f: nest_leaves(getattr(like, f), flat, fn,
+                       f"{prefix}.{f}" if prefix else f)
         for f in like._fields})
 
 
@@ -452,9 +452,10 @@ def load_state(path: str, like, cfg=None):
     flat = {k: data[f"leaf_{i}"] for i, k in enumerate(names)}
     dev = _device(like)
     if isinstance(like, rx.RxState):
-        return rx.state_from_numpy(_nest(like, flat), device=dev, cfg=cfg)
+        return rx.state_from_numpy(nest_leaves(like, flat), device=dev,
+                                   cfg=cfg)
     if isinstance(like, tx.TxState):
-        return tx.state_from_numpy(_nest(like, flat), device=dev)
+        return tx.state_from_numpy(nest_leaves(like, flat), device=dev)
     if isinstance(like, scope.ScopeState):
         return scope.state_from_numpy(flat, device=dev)
     import torch
@@ -463,4 +464,4 @@ def load_state(path: str, like, cfg=None):
         a = np.array(a)
         return torch.as_tensor(a.astype(np.int64) if a.dtype == np.uint32
                                else a, device=dev)
-    return _nest(like, flat, t)
+    return nest_leaves(like, flat, t)

@@ -3,7 +3,8 @@
     python -m uhsdr_tpu_torch.trace_rx [--mode usb|am|sam|fm|wide|ssbstereo
                                                |ssb_opts|ssb_leaky|ssb_scipy
                                                |decode|refchain|fleet
-                                               |fleet_separate|wideband]
+                                               |fleet_separate|wideband
+                                               |sharded]
                                        [--sideband both|usb|lsb|stereo]
                                        [--group-channels 1024] [--warm 2]
                                        [--seed 7]
@@ -29,7 +30,10 @@ fleet`` drives
 six groups of 1024 channels of f32 planes @ 48 kHz) through its
 stage-batched step, ``--mode fleet_separate`` the same through each
 group's chain, ``--mode wideband`` `WidebandFleet` at WIDEBAND_MIX (16.8 M
-wideband samples a block, 4096 channels); ``--group-channels`` sets a
+wideband samples a block, 4096 channels), ``--mode sharded`` the sharded
+RX step (`parallel.rx_sharded.make_sharded_rx(rx.FLAGSHIP)`) on a 1 x 1
+mesh in a process group of one rank (NCCL), on the flagship's planes as
+f32 (counts / 32768); ``--group-channels`` sets a
 fleet group's width.  Each runs ``--warm`` (2) warm-up, 4 untraced and 4
 traced blocks and prints, per block:
 
@@ -281,6 +285,32 @@ def profile_blocks(step, state, blocks, samples: int, warm: int = 2) -> int:
     return 0
 
 
+def sharded(dev, n: int, seed: int, warm: int) -> int:
+    """`--mode sharded`: the sharded RX step at world size 1."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from .parallel import mesh, multihost, rx_sharded
+    cfg = rx.FLAGSHIP
+    C, B = rx.FLAGSHIP_CHANNELS, cfg.block_len
+    print(f"config: sharded, rx.FLAGSHIP on a 1 x 1 mesh, {C} ch x {B} f32 "
+          f"@ {cfg.iq_rate:.0f} Hz")
+    blocks = [(i.float() / 32768.0, q.float() / 32768.0)
+              for i, q in capture(n, C, dev, seed, cfg)]
+    with tempfile.TemporaryDirectory() as td:
+        multihost.initialize("file://" + os.path.join(td, "rendezvous"), 1,
+                             0, dev)
+        try:
+            step, init_state = rx_sharded.make_sharded_rx(
+                cfg, mesh.make_mesh(1, 1), dev)
+            return profile_blocks(lambda s, blk: step(s, *blk)[1],
+                                  init_state(C), blocks, C * B, warm)
+        finally:
+            dist.destroy_process_group()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -288,7 +318,7 @@ def main() -> int:
                                        "ssbstereo", "ssb_opts", "ssb_leaky",
                                        "ssb_scipy", "decode", "refchain",
                                        "fleet", "fleet_separate",
-                                       "wideband"),
+                                       "wideband", "sharded"),
                     default="usb")
     ap.add_argument("--sideband", choices=("both", "usb", "lsb", "stereo"),
                     default="both", help="sam_sideband for --mode sam")
@@ -331,6 +361,8 @@ def main() -> int:
             lambda s, blk: wf.process_block_device(*blk), None,
             wideband_capture(n, wf.wideband_block, dev, args.seed),
             wf.wideband_block, args.warm)
+    if args.mode == "sharded":
+        return sharded(dev, n, args.seed, args.warm)
     if args.mode == "refchain":
         cfg = refchain.REF_FLAGSHIP
         C, B = rx.FLAGSHIP_CHANNELS, cfg.block_len

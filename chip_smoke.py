@@ -80,8 +80,9 @@ first phase that fails:
    and past it); and the two helper kernels of slice 19, also bit for
    bit with edge streams and channels 0-7 alone: the CMSIS IIR lattice
    (lattice.cu, at the reference chain's PreFilter 8192 x 4096 with 10
-   stages, then at 6, 8, 10, 11 and 12 stages; timed there and at FM
-   TX's voice shape 8192 x 16384) and the table-mode FM modulator
+   stages, then at every stage count from 1 to 12; timed there and at FM
+   TX's voice shape 8192 x 16384; its FP32 instructions read from
+   `cuobjdump -sass` of this run's build) and the table-mode FM modulator
    (fm_mod.cu, at the TX flagship's 8192 x 16384, with a subtone plane
    and the negative translate's I/Q swap); then the scope's zoom (K5's
    127-tap decimator at magnify 3 on the RX flagship's int16 planes, 8192
@@ -260,8 +261,8 @@ import time
 import numpy as np
 import torch
 
-from uhsdr_tpu_torch import (cli, trace_agc, trace_blocked, trace_rx,
-                             trace_sam, trace_tx)
+from uhsdr_tpu_torch import (cli, trace_agc, trace_blocked,
+                             trace_lattice_fm, trace_rx, trace_sam, trace_tx)
 from uhsdr_tpu_torch import data as refdata
 from uhsdr_tpu_torch.chain import filterpaths, output, refchain, rx, tx
 from uhsdr_tpu_torch.control import cat as cat_mod
@@ -3073,11 +3074,14 @@ def phase_lattice(P, dev, gen):
     """The IIR lattice (lattice.cu) at the reference chain's PreFilter
     shape (8192 ch x 4096 @ 12 kHz, IIR_2k3_1k412's 10 stages) over 4096 +
     1000 + 4096 samples, then at each stage count the tables have (6, 8,
-    10) and a made-up 11 and 12 (1024 x 600 + 77), an edge stream (a NaN
-    state channel; +-0, +-inf, a NaN, subnormals, 1e30), bit for bit
-    against its plain version on y and the state; channels 0-7 alone
-    against the batch.  Timed at the PreFilter's shape and the FM TX
-    voice lattice's (8192 x 16384); the plain loop at 256 samples."""
+    10) and made-up stable lattices of every other count from 1 to 12
+    (1024 x 600 + 77), an edge stream (a NaN state channel; +-0, +-inf, a
+    NaN, subnormals, 1e30), bit for bit against its plain version on y and
+    the state; channels 0-7 alone against the batch.  Timed at the
+    PreFilter's shape and the FM TX voice lattice's (8192 x 16384); the
+    plain loop at 256 samples.  Its walker's FADD and FMUL at 10 stages
+    are read from `cuobjdump -sass` of this run's build, beside the
+    schedule's count (trace_lattice_fm.py's)."""
     C = CHANNELS
     T = REF.block_len // REF.decim
     pk, pv = refdata.lattice(REF.path["pre"])
@@ -3085,7 +3089,8 @@ def phase_lattice(P, dev, gen):
     err, x0 = lattice_stream(pk, pv, C, (T, 1000, T), dev, gen,
                              "lattice N=10")
     rng = np.random.default_rng(11)
-    for name in ("IIR_aa_10k", "IIR_8k_LPF", "IIR_TX_2k7_FM", 11, 12):
+    for name in ("IIR_aa_10k", "IIR_8k_LPF", "IIR_TX_2k7_FM", 1, 2, 3, 4, 5,
+                 7, 9, 11, 12):
         if isinstance(name, int):
             k = rng.uniform(-0.8, 0.8, name).astype(np.float32)
             v = rng.uniform(-1.0, 1.0, name + 1).astype(np.float32)
@@ -3115,18 +3120,25 @@ def phase_lattice(P, dev, gen):
     N = 10
     nbytes = 2 * C * T * 4 + 2 * C * N * 4
     rec_ms = recurrence_ms(T, lat_k.LATTICE_STEP_CHAIN)
+    sass_fp, sass_all, _ = trace_lattice_fm.sass_lattice(
+        lat_k.LATTICE._lib_path(), N)
+    sass_want = (trace_lattice_fm.LATTICE_WU["whole"] + 1) * (6 * N + 4)
     r = row("lattice", "lattice.cu", "uhsdr_tpu/ops/lattice.py:33",
             err=err, snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
             flops=(6.0 * N + 2.0) * C * T, recurrence_ms=rec_ms,
             tpu_kernel=False, plain_steps=TP, ms_tx_voice=ms_tx,
             bound_tx_voice_ms=bound(2 * C * TT * 4 + 2 * C * N * 4,
                                     (6.0 * N + 2.0) * C * TT)[0],
+            sass_fp32=sass_fp, sass_instructions=sass_all,
             library_note="no PyTorch call computes a lattice filter")
     print(f"  lattice at {C} x {T}, 10 stages: {ms:.4f} ms (plain "
           f"{plain_ms:.1f} ms at {TP} samples; recurrence bound "
           f"{rec_ms:.4f} ms; {r['bound_by']} bound {r['bound_ms']:.4f} ms); "
-          f"at {C} x {TT} (FM TX voice): {ms_tx:.4f} ms; bit for bit, edge "
-          f"streams too; channels 0-7 alone bit-equal")
+          f"at {C} x {TT} (FM TX voice): {ms_tx:.4f} ms (bound "
+          f"{r['bound_tx_voice_ms']:.4f} ms); bit for bit, every stage "
+          f"count 1-12, edge streams too; channels 0-7 alone bit-equal; "
+          f"SASS of lattice_kernel<10>: {sass_fp} FADD/FMUL (the "
+          f"schedule's {sass_want}), {sass_all} instructions")
     return r
 
 

@@ -2539,20 +2539,31 @@ def _recurrence_edges(x: torch.Tensor, t0: int) -> torch.Tensor:
 
 
 def _lattice_tables():
+    """The imported tables (6, 8, 10 and 10 stages) and made-up stable
+    lattices of every other stage count from 1 to 12."""
     from uhsdr_tpu_torch import data
     rng = np.random.default_rng(3)
     out = [data.lattice(n) for n in ("IIR_aa_10k", "IIR_8k_LPF",
                                      "IIR_2k3_1k412", "IIR_TX_2k7_FM")]
-    for n in (1, 11, 12):
+    for n in (1, 2, 3, 4, 5, 7, 9, 11, 12):
         out.append((rng.uniform(-0.8, 0.8, n).astype(np.float32),
                     rng.uniform(-1.0, 1.0, n + 1).astype(np.float32)))
     return out
 
 
-@pytest.mark.parametrize("C,lengths", [(40, (100, 33, 100)),
-                                       (33, (31, 1, 64)), (7, (500,))])
+# channel counts that fill no walker's rows (the launch rule's 4 x lanes a
+# block) and blocks that end inside a tile, streamed with the state carried
+_RAGGED = [(40, (100, 33, 100)), (33, (31, 1, 64)), (7, (500,)),
+           (1, (45, 32, 3)), (3, (64, 13, 29)), (17, (100, 33, 100)),
+           (8193, (40, 33))]
+
+
+@pytest.mark.parametrize("C,lengths", _RAGGED)
 @pytest.mark.parametrize("edge", [False, True])
 def test_lattice_kernel_bit_exact(dev, C, lengths, edge):
+    """Every stage count 1-12 against the plain version on the card, and
+    at up to 64 channels its CPU route too, bit for bit on y and the
+    state."""
     from uhsdr_tpu_torch.cuda import lattice as lat_k
     rng = np.random.default_rng(C)
     for pk, pv in _lattice_tables():
@@ -2568,20 +2579,29 @@ def test_lattice_kernel_bit_exact(dev, C, lengths, edge):
             t0 += T
             yk, sk = lat_k.lattice(pk, pv, sk, x)
             yp, sp = lat_k.lattice_plain(pk, pv, sp, x)
-            # the plain version's CPU route (channel by channel on NumPy
-            # scalars, `ops/steps.py::scan`) too
-            yc, sc = lat_k.lattice_plain(pk, pv, sc, x.cpu())
             torch.cuda.synchronize()
             assert _bits_equal(yp, yk) and _bits_equal(sp, sk), (len(pk), T)
-            assert _bits_equal(yc, yk.cpu()) and _bits_equal(sc, sk.cpu()), \
-                (len(pk), T, "cpu")
+            if C <= 64:
+                # the plain version's CPU route (channel by channel on
+                # NumPy scalars, `ops/steps.py::scan`) too
+                yc, sc = lat_k.lattice_plain(pk, pv, sc, x.cpu())
+                assert _bits_equal(yc, yk.cpu()) and _bits_equal(
+                    sc, sk.cpu()), (len(pk), T, "cpu")
 
 
 def test_lattice_kernel_refuses_and_counts(dev):
     from uhsdr_tpu_torch.cuda import lattice as lat_k
-    lib = lat_k.LATTICE.lib()
+    from uhsdr_tpu_torch.cuda import ring
+    lib = lat_k._lib()
     assert lib.uhsdr_lattice_max_stages() == lat_k.MAX_STAGES
-    assert lib.uhsdr_lattice_tile() == lat_k.TILE
+    assert lib.uhsdr_lattice_max_lanes() == lat_k.MAX_LANES
+    assert (lib.uhsdr_lattice_walkers(), lib.uhsdr_lattice_tile(),
+            lib.uhsdr_lattice_stages(), lib.uhsdr_lattice_threads()) == (
+        ring.WALKERS, ring.TILE, ring.STAGES, ring.THREADS)
+    for C in (1, 17, 8192, 8193, 20000):
+        g = lat_k.lattice_geometry(C, 100, 10)
+        assert lib.uhsdr_lattice_smem(g.lanes) == g.smem, C
+    assert lib.uhsdr_lattice_smem(0) == lib.uhsdr_lattice_smem(33) == -1
     pk, pv = np.zeros(13, np.float32), np.zeros(14, np.float32)
     x = torch.zeros((4, 10), device=dev)
     with pytest.raises(ValueError, match="lattice"):
@@ -2593,13 +2613,16 @@ def test_lattice_kernel_refuses_and_counts(dev):
     assert lat_k.LATTICE.launches == n0 + 1
 
 
+@pytest.mark.parametrize("C", [1, 3, 17, 37, 8193])
 @pytest.mark.parametrize("count_domain,translate,subtone", [
     (True, 6000.0, 0.0), (True, -9000.0, 88.5), (False, 12000.0, 0.0)])
 @pytest.mark.parametrize("edge", [False, True])
-def test_fm_mod_kernel_bit_exact(dev, count_domain, translate, subtone, edge):
+def test_fm_mod_kernel_bit_exact(dev, count_domain, translate, subtone, edge,
+                                 C):
     """The kernel at the modulator's parameters (the legacy mode's too,
     which the chain runs in torch), a subtone plane, ragged channels and
-    blocks, edge streams with a NaN state.  The plain version's CPU route
+    blocks streamed with the state carried, edge streams with a NaN
+    state.  At up to 64 channels the plain version's CPU route
     (`ops/steps.py::scan`) holds the state bit for bit and i, q within
     1e-6: its DDS table is made with the CPU's sine."""
     from uhsdr_tpu_torch.cuda import fm_mod as fm_k
@@ -2607,12 +2630,11 @@ def test_fm_mod_kernel_bit_exact(dev, count_domain, translate, subtone, edge):
     p = mods.fm_mod_params(translate, False, subtone,
                            count_domain=count_domain)
     rng = np.random.default_rng(9)
-    C = 37
     z = torch.zeros((C,), device=dev)
     st = [z.clone(), z.clone(),
           torch.full((C,), 65000, dtype=torch.int32, device=dev)]
     if edge:
-        st[0][3] = float("nan")
+        st[0][C // 2] = float("nan")
     sp, t0 = list(st), 0
     sc = [t.cpu() for t in st]
     for T in (100, 31, 257):
@@ -2629,24 +2651,35 @@ def test_fm_mod_kernel_bit_exact(dev, count_domain, translate, subtone, edge):
                 mods.FM_MOD_AMPLITUDE_SCALING, p.swap_iq)
         got = fm_k.fm_mod(x, add, *st, *args)
         ref = fm_k.fm_mod_plain(x, add, *sp, *args)
-        cpu = fm_k.fm_mod_plain(x.cpu(), None if add is None else add.cpu(),
-                                *sc, *args)
         torch.cuda.synchronize()
         assert all(_bits_equal(a, b) for a, b in zip(ref, got)), T
-        for k, (a, b) in enumerate(zip(cpu, got)):
-            if k < 2:
-                assert torch.allclose(a, b.cpu(), rtol=0, atol=1e-6,
-                                      equal_nan=True), (T, k, "cpu")
-            else:
-                assert _bits_equal(a, b.cpu()), (T, k, "cpu")
-        st, sp, sc = list(got[2:]), list(ref[2:]), list(cpu[2:])
+        if C <= 64:
+            cpu = fm_k.fm_mod_plain(
+                x.cpu(), None if add is None else add.cpu(), *sc, *args)
+            for k, (a, b) in enumerate(zip(cpu, got)):
+                if k < 2:
+                    assert torch.allclose(a, b.cpu(), rtol=0, atol=1e-6,
+                                          equal_nan=True), (T, k, "cpu")
+                else:
+                    assert _bits_equal(a, b.cpu()), (T, k, "cpu")
+            sc = list(cpu[2:])
+        st, sp = list(got[2:]), list(ref[2:])
 
 
 def test_fm_mod_kernel_refuses_and_counts(dev):
     from uhsdr_tpu_torch.cuda import fm_mod as fm_k
-    lib = fm_k.FM_MOD.lib()
-    assert lib.uhsdr_fm_mod_tile() == fm_k.TILE
+    from uhsdr_tpu_torch.cuda import ring
+    lib = fm_k._lib()
     assert lib.uhsdr_fm_mod_table() == fm_k.TABLE
+    assert lib.uhsdr_fm_mod_max_lanes() == fm_k.MAX_LANES
+    assert (lib.uhsdr_fm_mod_walkers(), lib.uhsdr_fm_mod_tile(),
+            lib.uhsdr_fm_mod_stages(), lib.uhsdr_fm_mod_threads()) == (
+        ring.WALKERS, ring.TILE, ring.STAGES, ring.THREADS)
+    for C in (1, 17, 8192, 8193, 20000):
+        for add in (False, True):
+            g = fm_k.fm_mod_geometry(C, 100, add)
+            assert lib.uhsdr_fm_mod_smem(g.lanes, int(add)) == g.smem, C
+    assert lib.uhsdr_fm_mod_smem(0, 0) == lib.uhsdr_fm_mod_smem(33, 1) == -1
     z = torch.zeros((4,), device=dev)
     acc = torch.zeros((4,), dtype=torch.int32, device=dev)
     x = torch.zeros((4, 10), device=dev)

@@ -30,6 +30,7 @@ import torch
 from uhsdr_tpu.ops import lattice as jlat
 from uhsdr_tpu_torch import data
 from uhsdr_tpu_torch.cuda import lattice as lat_k
+from uhsdr_tpu_torch.cuda import ring
 from uhsdr_tpu_torch.metrics import snr_db
 from uhsdr_tpu_torch.ops import lattice as tlat
 
@@ -113,13 +114,14 @@ def test_zero_stages_and_leading_axes():
                                     (8192, 4096, 10), (8192, 16384, 10),
                                     (5, 1000, 12)])
 def test_lattice_geometry(C_, T, N):
-    """A warp a block, a row a lane: the blocks cover every row once and
-    the tiles every sample once."""
+    """Four walker warps a block on the tile ring, a row a lane: the
+    blocks cover every row once and the tiles every sample once
+    (tests/test_torch_lattice_geometry.py checks the rule itself)."""
     g = lat_k.lattice_geometry(C_, T, N)
-    assert g.rows == lat_k.TILE == 32
+    assert g.rows == ring.WALKERS * g.lanes
     assert (g.blocks - 1) * g.rows < C_ <= g.blocks * g.rows
-    assert (g.tiles - 1) * lat_k.TILE < T <= g.tiles * lat_k.TILE
-    assert g.smem == 4 * 32 * 33 <= 48 * 1024
+    assert (g.tiles - 1) * ring.TILE < T <= g.tiles * ring.TILE
+    assert g.smem == ring.STAGES * g.rows * (ring.TILE + 4) * 4 <= 227 * 1024
 
 
 @pytest.mark.parametrize("C_,T,N", [(4, 10, 0), (4, 10, 13), (0, 10, 6),

@@ -6,7 +6,10 @@ firmware's sequential pre-emphasis and its truncating 16-bit phase
 accumulator as two `lax.scan`s (uhsdr_tpu/mod/modulators.py:244-340),
 then indexes the 10-bit DDS grid.  On the card a torch loop over a
 block's samples would cost some ten launches a sample, so the whole of
-the table-mode modulator is one kernel, a lane a channel.  The wrapper
+the table-mode modulator is one kernel on the tile ring of
+`kernels/ring.cuh`: walker warps run the two recurrences a lane a
+channel and write the table index, output warps look it up and store i
+and q; its launch rule is `fm_mod_geometry`.  The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 checks its arguments, launches the kernel on the current stream (building
 it on first use), raises if the launch failed and adds one to
@@ -19,32 +22,80 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import steps
-from .build import CudaKernel, stream_ptr
+from . import ring
+from .build import CudaKernel, sm_count, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 FM_MOD = CudaKernel("fm_mod", "fm_mod.cu", {
-    "uhsdr_fm_mod_launch": ([_P] * 6 + [_I, _I] + [_F] * 4 + [_I]
+    "uhsdr_fm_mod_launch": ([_P] * 6 + [_I] * 4 + [_F] * 4 + [_I]
                             + [_P] * 6, _I),
+    "uhsdr_fm_mod_smem": ([_I, _I], _I),
+    "uhsdr_fm_mod_walkers": ([], _I),
     "uhsdr_fm_mod_tile": ([], _I),
+    "uhsdr_fm_mod_stages": ([], _I),
+    "uhsdr_fm_mod_threads": ([], _I),
     "uhsdr_fm_mod_table": ([], _I),
+    "uhsdr_fm_mod_max_lanes": ([], _I),
 }, extra_flags=("-fmad=false",))
 
-# as `kernels/fm_mod.cu` defines them: channels a block (one a lane) and
-# samples a staged tile; the DDS table's entries (acc >> 6 of a 16-bit
-# accumulator)
-TILE = 32
+# as `kernels/fm_mod.cu` defines them: the DDS table's entries (acc >> 6
+# of a 16-bit accumulator) and the most channel lanes of a walker warp;
+# the ring's layout is `cuda/ring.py`'s
 TABLE = 1024
+MAX_LANES = 32
 # the accumulator's loop-carried chain a sample, in dependent FP32
 # operations: acc + r, floor, s / 65536, floor, 65536 x, s - 65536 x
 FM_MOD_STEP_CHAIN = 6
+
+
+class FmModGeometry(NamedTuple):
+    """The kernel's launch (`kernels/fm_mod.cu`)."""
+    lanes: int       # channel lanes of each walker warp
+    channels: int    # channels a block: ring.WALKERS * lanes
+    blocks: int      # the grid
+    tiles: int       # tiles of ring.TILE samples a block walks
+    smem: int        # dynamic shared memory, bytes
+
+
+def fm_mod_geometry(C: int, T: int, add: bool = False,
+                    sms: int = ring.SMS) -> FmModGeometry:
+    """The launch for C channels of T samples (`add`: with the subtone
+    plane): the fewest channel lanes a walker warp that puts the channels
+    in at most `sms` blocks, so that every SM runs a block and each of its
+    four schedulers one walker; past MAX_LANES (C > 128 sms) the blocks
+    run several an SM.  A stage of the ring holds a (TILE + 4)-float row
+    of x a channel (and one of the subtone plane); the (sin, -cos) table,
+    TABLE float2, follows the ring.  Raises ValueError for an empty
+    launch."""
+    if C < 1 or T < 1 or sms < 1:
+        raise ValueError(f"fm_mod: {C} channels of {T} samples on {sms} "
+                         "SMs")
+    lanes = min(MAX_LANES, -(-C // (ring.WALKERS * sms)))
+    cb = ring.WALKERS * lanes
+    stage = (2 if add else 1) * cb * (ring.TILE + 4)
+    smem = (ring.STAGES * stage + 2 * TABLE) * 4
+    return FmModGeometry(lanes, cb, -(-C // cb), -(-T // ring.TILE), smem)
+
+
+def _lib():
+    """The kernel's library, its layout checked against `cuda/ring.py`'s
+    and its table and lanes against this module's."""
+    lib = ring.checked_lib(FM_MOD, "fm_mod")
+    got = (lib.uhsdr_fm_mod_table(), lib.uhsdr_fm_mod_max_lanes())
+    if got != (TABLE, MAX_LANES):
+        raise RuntimeError(f"fm_mod.cu's table and lanes {got} differ "
+                           f"from {(TABLE, MAX_LANES)}")
+    return lib
+
 
 _PH_STEP = np.float32(2.0 * np.pi / 65536.0)
 
@@ -127,16 +178,18 @@ def fm_mod(x, add, a, b, acc, alpha: float, word: float, scale: float,
     ts = [x, a, b, acc] + ([] if add is None else [add])
     if any(t.device != dev or not t.is_contiguous() for t in ts):
         raise ValueError("fm_mod: contiguous tensors on one device")
+    geo = fm_mod_geometry(C, T, add is not None, sm_count(dev.index))
     table = fm_table(dev)
     i = torch.empty_like(x)
     q = torch.empty_like(x)
     a_out, b_out = torch.empty_like(a), torch.empty_like(b)
     acc_out = torch.empty_like(acc)
-    err = FM_MOD.lib().uhsdr_fm_mod_launch(
+    vec = int(T % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
+    err = _lib().uhsdr_fm_mod_launch(
         x.data_ptr(), None if add is None else add.data_ptr(), a.data_ptr(),
-        b.data_ptr(), acc.data_ptr(), table.data_ptr(), C, T, alpha, word,
-        scale, amp, 1 if swap else 0, i.data_ptr(), q.data_ptr(),
-        a_out.data_ptr(), b_out.data_ptr(), acc_out.data_ptr(),
+        b.data_ptr(), acc.data_ptr(), table.data_ptr(), C, T, geo.lanes, vec,
+        alpha, word, scale, amp, 1 if swap else 0, i.data_ptr(),
+        q.data_ptr(), a_out.data_ptr(), b_out.data_ptr(), acc_out.data_ptr(),
         stream_ptr(dev))
     FM_MOD.check(err)
     FM_MOD.launches += 1

@@ -72,10 +72,13 @@ first phase that fails:
    bit with edge streams (+-0, +-inf, a NaN, subnormals, 1e30, a NaN
    state) and channels 0-7 alone against the batch: the IQ correction
    (iqcorr.cu, 8192 x 16384 int16 imbalanced planes, then f32 edge
-   planes), both instances of lms.cu (the 96-tap NLMS notch and the
-   64-tap NLMS NR; the leaky NR and the leaky notch; both output modes;
-   8192 x 2048 @ 12 kHz), the noise blanker (blanker.cu, impulsive audio,
-   repairs across frames and blocks) and the spectral NR's gain machine
+   planes), both kernels of lms.cu (the 96-tap NLMS notch and the
+   64-tap NLMS NR; the leaky NR, the leaky notch and the 96-tap leaky NR,
+   two lanes a channel, its branch-free reciprocal held to div.rn over
+   every f32 of its range; both output modes; 8192 x 2048 @ 12 kHz), the
+   noise blanker (blanker.cu, two lanes a channel; impulsive audio,
+   repairs across frames and blocks, and audio without impulses, timed
+   with the candidates found a frame) and the spectral NR's gain machine
    (nr.cu, 8192 x 16 frames of 129 bins, through the 20-frame bootstrap
    and past it); and the two helper kernels of slice 19, also bit for
    bit with edge streams and channels 0-7 alone: the CMSIS IIR lattice
@@ -2868,21 +2871,30 @@ def lms_stream(kind, params, C, lengths, dev, gen, edge=False):
 
 
 def phase_lms(P, dev, gen):
-    """Both instances of lms.cu at the SSB flagship's decimated rate (8192
+    """Both kernels of lms.cu at the SSB flagship's decimated rate (8192
     ch x 2048 @ 12 kHz), bit for bit against their plain versions: the
     96-tap notch (error out) over 2048 + 777 + 2048 samples, the 64-tap
     NLMS NR (prediction out) over 1024 + 1024, the leaky NR (prediction)
-    over 2048 + 777 + 2048 and the leaky notch (error) over 1024 + 1024;
-    edge streams (a NaN weight, 512 + 512) for the notch and the leaky NR;
-    channels 0-7 alone bit-equal to the batch.  Timed at 8192 x 2048."""
+    over 2048 + 777 + 2048, the leaky notch (error) over 1024 + 1024 and
+    the 96-tap leaky NR over 1024 + 777; edge streams (a NaN weight, 512 +
+    512) for the notch and the leaky NR; channels 0-7 alone bit-equal to
+    the batch; the leaky kernel's reciprocal against div.rn over every f32
+    of its range.  Timed at 8192 x 2048."""
     C, T = CHANNELS, CFG.block_len // CFG.decim
     kinds = {"notch": lms_ops.notch_params(), "nlms_nr": lms_ops.nr_params(),
              "leaky": lms_ops.leaky_lms_params(),
-             "leaky_notch": lms_ops.leaky_lms_params(notch=True)}
+             "leaky_notch": lms_ops.leaky_lms_params(notch=True),
+             "leaky96": lms_ops.leaky_lms_params(num_taps=96)}
+    bad, n_rcp = lms_k.rcp_check(dev)
+    print(f"  lms_leaky's reciprocal: {bad} of {n_rcp} f32 differ from "
+          f"div.rn")
+    check(bad == 0 and n_rcp == 2 * 252 * 2 ** 23,
+          f"lms_leaky: the reciprocal differs from div.rn on {bad} inputs")
     err = {"lms": 0.0, "lms_leaky": 0.0}
     for kind, lengths in (("notch", (T, 777, T)), ("nlms_nr", (1024, 1024)),
                           ("leaky", (T, 777, T)),
-                          ("leaky_notch", (1024, 1024))):
+                          ("leaky_notch", (1024, 1024)),
+                          ("leaky96", (1024, 777))):
         name = "lms_leaky" if kind.startswith("leaky") else "lms"
         err[name] = max(err[name], lms_stream(kind, kinds[kind], C, lengths,
                                               dev, gen))
@@ -2922,20 +2934,39 @@ def phase_lms(P, dev, gen):
                 snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
                 flops=flops, tpu_kernel=False, taps=L, delay=D,
                 library_note="no PyTorch call computes an adaptive filter")
+        # under -fmad=false an FP32 operation is an instruction: the issue
+        # floor is twice the FLOP bound
         print(f"  {name} ({kind}, {L} taps, delay {D}) at {C} x {T}: "
               f"{ms:.4f} ms (plain {plain_ms:.1f} ms; bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}); bit for bit, "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, issue floor "
+              f"{2 * flops / PEAK_FP32_S * 1e3:.4f} ms); bit for bit, "
               f"edge streams too; channels 0-7 alone bit-equal")
         rows_out.append(r)
     return rows_out
+
+
+def blanker_flops(frames: int, slots: float) -> float:
+    """FP32 operations of the blanker's kernel, counted from
+    kernels/blanker.cu, for `frames` frames running `slots` repair slots
+    each on average.  A frame: R 2750 ((128 - i) products and 127 sums a
+    lag), Levinson 241, the two filters 5632 (11 products and sums an
+    output), the mean, the variance, the LPC power and the threshold 535,
+    the candidates 830 (|d|, the window max from pairs and quads, two
+    tests a sample), the outputs' and the context's x * 1 + 0 308; a slot
+    370 (its 20 contexts' x * 1 + 0, the two 7-step predictions of 10
+    products and 9 sums, the cross-fade and the window's blend)."""
+    return frames * (2750 + 241 + 5632 + 535 + 830 + 308 + 370 * slots)
 
 
 def phase_blanker(P, dev, gen):
     """The noise blanker at the SSB flagship's decimated rate (8192 ch x
     2048 @ 12 kHz), impulsive audio over 2048 + 256 + 2048 samples (repairs
     across frames and blocks), then an edge stream (a NaN in a carried
-    context, 1024 + 1024), bit for bit against its plain version on the
-    output and the context; channels 0-7 alone bit-equal to the batch."""
+    context, 1024 + 1024), then a block without impulses, bit for bit
+    against its plain version on the output and the context; channels 0-7
+    alone bit-equal to the batch.  Timed on the impulsive block (the row's
+    time) and on the block without impulses, each with the mean candidates
+    found a frame and the slots the kernel runs."""
     C, T = CHANNELS, CFG.block_len // CFG.decim
     mult = nb_mod.make_params(8).threshold_mult
     err = 0.0
@@ -2956,7 +2987,13 @@ def phase_blanker(P, dev, gen):
                 f"blanker{' edge' if edge else ''} block {blk} ({B})",
                 {"y": (yp, yk), "context": (cp, ck)}))
     x = opt_audio(gen, dev, C, T, 0, impulses=True)
+    xq = opt_audio(gen, dev, C, T, 0)
     c0 = torch.zeros((C, nb_k.CONTEXT), device=dev)
+    yq, cq = nb_k.blanker(mult, c0, xq)
+    yqp, cqp = nb_k.blanker_plain(mult, c0, xq)
+    torch.cuda.synchronize()
+    err = max(err, same_bits("blanker no impulse", {"y": (yqp, yq),
+                                                    "context": (cqp, cq)}))
     y, c = nb_k.blanker(mult, c0, x)
     y8, c8 = nb_k.blanker(mult, c0[:8], x[:8].contiguous())
     torch.cuda.synchronize()
@@ -2966,19 +3003,34 @@ def phase_blanker(P, dev, gen):
     check(n_rep > 0, "blanker: nothing repaired")
     check(torch.equal(y[:8], y8) and torch.equal(c[:8], c8),
           "blanker: channels 0-7 alone differ from the batch")
-    ms = cuda_ms(lambda: nb_k.blanker(mult, c0, x), 10)
+    frames = C * T // nb_k.FRAME
+    found, times = {}, {}
+    for label, xin in (("impulsive", x), ("no impulse", xq)):
+        n = nb_k.candidates(mult, c0, xin)
+        fnd = float(n.clamp(max=nb_k.MAX_IMPULSES).float().mean())
+        slots = float((n + 2).clamp(max=nb_k.MAX_IMPULSES).float().mean())
+        ms = cuda_ms(lambda: nb_k.blanker(mult, c0, xin), 10)
+        fl = blanker_flops(frames, slots)
+        found[label], times[label] = (fnd, slots, fl), ms
+        print(f"  blanker {label} at {C} x {T}: {ms:.4f} ms; candidates "
+              f"found a frame {fnd:.3f} (of at most 5), slots run "
+              f"{slots:.3f}; {fl / (C * T):.1f} FP32 operations a sample")
     plain_ms = cuda_ms(lambda: nb_k.blanker_plain(mult, c0, x), 1)
-    # x in, y out, the context in and out; ~100 f32 operations a sample
-    # (R, the two filters, the variance, the repairs' predictions and
-    # blends, Levinson spread over the frame)
+    # x in, y out, the context in and out
     nbytes = 2 * C * T * 4 + 2 * C * nb_k.CONTEXT * 4
+    fnd, slots, fl = found["impulsive"]
     r = row("blanker", "blanker.cu", "uhsdr_tpu/nr/blanker.py:236", err=err,
-            snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
-            flops=100.0 * C * T, tpu_kernel=False, repaired=n_rep,
+            snr=math.inf, ms=times["impulsive"], plain_ms=plain_ms,
+            nbytes=nbytes, flops=fl, tpu_kernel=False, repaired=n_rep,
+            found_per_frame=fnd, slots_per_frame=slots,
+            ms_no_impulse=times["no impulse"],
+            found_per_frame_no_impulse=found["no impulse"][0],
             library_note="no PyTorch call computes the LPC blanker")
-    print(f"  blanker at {C} x {T}: {ms:.4f} ms (plain {plain_ms:.1f} ms; "
-          f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}); bit for bit, "
-          f"edge streams too; channels 0-7 alone bit-equal")
+    print(f"  blanker at {C} x {T}: {r['ms']:.4f} ms (no impulse "
+          f"{times['no impulse']:.4f}; plain {plain_ms:.1f} ms; bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']}, operations "
+          f"{fl / PEAK_FP32_S * 1e3:.4f} ms); bit for bit, edge streams "
+          f"too; channels 0-7 alone bit-equal")
     return r
 
 

@@ -2248,18 +2248,19 @@ def _lms_params(kind):
     from uhsdr_tpu_torch.ops import lms as lms_ops
     return {"notch": lms_ops.notch_params(), "nr": lms_ops.nr_params(),
             "leaky": lms_ops.leaky_lms_params(),
-            "leaky_notch": lms_ops.leaky_lms_params(notch=True)}[kind]
+            "leaky_notch": lms_ops.leaky_lms_params(notch=True),
+            "leaky96": lms_ops.leaky_lms_params(num_taps=96)}[kind]
 
 
-@pytest.mark.parametrize("kind", ["notch", "nr", "leaky", "leaky_notch"])
-@pytest.mark.parametrize("C,lengths,edge", [(37, (300, 129, 300), False),
-                                            (13, (257, 400), True)])
-def test_lms_kernels_match_plain(dev, kind, C, lengths, edge):
+def _lms_stream(dev, kind, C, lengths, edge, seed=72):
+    """One LMS instance against its plain version over streamed blocks
+    from a fresh state (with `edge`, a NaN weight and the edge samples),
+    bit for bit on the output and every state leaf, one launch a block."""
     from uhsdr_tpu_torch.cuda import lms as lms_k
     p = _lms_params(kind)
     leaky = kind.startswith("leaky")
     L, D = p.num_taps, p.delay
-    rng = np.random.default_rng(72)
+    rng = np.random.default_rng(seed)
     st = [torch.zeros((C, L), device=dev), torch.zeros((C, L + D),
                                                        device=dev)]
     if leaky:
@@ -2291,6 +2292,25 @@ def test_lms_kernels_match_plain(dev, kind, C, lengths, edge):
         n0 += T
 
 
+@pytest.mark.parametrize("kind", ["notch", "nr", "leaky", "leaky_notch"])
+@pytest.mark.parametrize("C,lengths,edge", [(37, (300, 129, 300), False),
+                                            (13, (257, 400), True)])
+def test_lms_kernels_match_plain(dev, kind, C, lengths, edge):
+    _lms_stream(dev, kind, C, lengths, edge)
+
+
+@pytest.mark.parametrize("kind", ["leaky", "leaky_notch", "leaky96"])
+@pytest.mark.parametrize("C,lengths,edge", [
+    (1, (130, 7, 257), False), (15, (1, 131, 6), True),
+    (17, (130, 7, 257), True), (8193, (130, 7), False)])
+def test_leaky_kernel_at_its_layout_edges(dev, kind, C, lengths, edge):
+    """The leaky kernel (two lanes a channel, groups of four steps, tiles
+    of 128) where a warp's channels run out (C not a multiple of 16; 8193
+    past a block an SM) and the blocks are no multiple of the group or the
+    tile, split across calls with the state carried."""
+    _lms_stream(dev, kind, C, lengths, edge, seed=76)
+
+
 def _impulsive(rng, C, n0, T, fs=12000.0):
     """Two tones and noise with impulses every ~97 samples, some within 7
     samples of a frame's or a block's edge."""
@@ -2304,32 +2324,77 @@ def _impulsive(rng, C, n0, T, fs=12000.0):
     return x.astype(np.float32)
 
 
-@pytest.mark.parametrize("C,lengths,edge,setting", [
-    (37, (1024, 256, 1024), False, 8), (13, (512, 512), True, 8),
-    (9, (384,), False, 15)])
-def test_blanker_kernel_matches_plain(dev, C, lengths, edge, setting):
+def _blanker_stream(dev, C, lengths, edge, setting, make, seed=73):
+    """The blanker against its plain version over streamed blocks of
+    make(rng, C, n0, T) (with `edge`, a NaN in one carried context and
+    the edge samples), bit for bit on the output and the context.
+    Returns the number of samples the kernel changed."""
     from uhsdr_tpu_torch.cuda import blanker as nb_k
     from uhsdr_tpu_torch.nr import blanker as nb_mod
     mult = nb_mod.make_params(setting).threshold_mult
-    rng = np.random.default_rng(73)
+    rng = np.random.default_rng(seed)
     ctx = torch.zeros((C, nb_k.CONTEXT), device=dev)
     if edge:
         ctx[C // 2, 20] = float("nan")
     cp = ctx.clone()
-    n0 = 0
+    n0, changed = 0, 0
     for T in lengths:
-        x = _impulsive(rng, C, n0, T)
+        x = make(rng, C, n0, T)
         if edge:
             x = _edges(rng, x, n0)
         x = torch.from_numpy(x).to(dev)
         c0 = nb_k.BLANKER.launches
+        y_in = torch.cat([ctx[:, nb_k.DELAY:], x], dim=-1)[:, :T]
         y, ctx = nb_k.blanker(mult, ctx, x)
         assert nb_k.BLANKER.launches == c0 + 1
         yp, cp = nb_k.blanker_plain(mult, cp, x)
         _all_same({"y": (yp, y), "context": (cp, ctx)})
-        if not edge:
-            assert bool((y != x).any())       # something was repaired
+        changed += int((y != y_in).sum())
         n0 += T
+    return changed
+
+
+@pytest.mark.parametrize("C,lengths,edge,setting", [
+    (37, (1024, 256, 1024), False, 8), (13, (512, 512), True, 8),
+    (9, (384,), False, 15)])
+def test_blanker_kernel_matches_plain(dev, C, lengths, edge, setting):
+    changed = _blanker_stream(dev, C, lengths, edge, setting, _impulsive)
+    if not edge:
+        assert changed > 0                    # something was repaired
+
+
+def _quiet(rng, C, n0, T, fs=12000.0):
+    """Two tones and a little noise: no impulse."""
+    n = np.arange(n0, n0 + T)
+    return (800.0 * np.sin(2 * np.pi * 550 / fs * n)
+            + 300.0 * np.sin(2 * np.pi * 1230 / fs * n + 0.7)
+            + 10.0 * rng.standard_normal((C, T))).astype(np.float32)
+
+
+def _dense(rng, C, n0, T, fs=12000.0):
+    """Impulses of 32000-72000 every 14 samples: seven or more a frame."""
+    x = _quiet(rng, C, n0, T, fs)
+    n = np.arange(n0, n0 + T)
+    hit = n % 14 == 3
+    x[:, hit] += (rng.choice([-1.0, 1.0], (C, hit.sum()))
+                  * rng.uniform(32000, 72000, (C, hit.sum())))
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("make", ["quiet", "dense"])
+@pytest.mark.parametrize("C,lengths,edge", [
+    (1, (256, 128), False), (15, (128, 384), True), (17, (256, 128), False),
+    (8193, (256,), False)])
+def test_blanker_kernel_at_its_layout_edges(dev, make, C, lengths, edge):
+    """The blanker kernel (two lanes a channel, up to 16 a warp) where a
+    warp's channels run out, past a block an SM, on frames with no
+    impulse (found 0: the two empty slots only) and with more than five
+    (the cap), split across calls with the context carried."""
+    fn = {"quiet": _quiet, "dense": _dense}[make]
+    changed = _blanker_stream(dev, C, lengths, edge, 15 if make == "dense"
+                              else 8, fn, seed=77)
+    if make == "dense" and not edge:
+        assert changed > 0
 
 
 def _nr_spectra(rng, C, nF, f0):
@@ -2451,6 +2516,32 @@ def test_option_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):                 # f64 input
         lms_k.nlms(p, torch.zeros((C, 96), device=dev),
                    torch.zeros((C, 104), device=dev), x.double())
+    with pytest.raises(ValueError):                 # leaky: 80 taps
+        lms_k.leaky(_lms_params("leaky")._replace(num_taps=80),
+                    torch.zeros((C, 80), device=dev),
+                    torch.zeros((C, 96), device=dev), z, z, x)
+    with pytest.raises(ValueError):                 # leaky: delay 0
+        lms_k.leaky(_lms_params("leaky")._replace(delay=0),
+                    torch.zeros((C, 64), device=dev),
+                    torch.zeros((C, 64), device=dev), z, z, x)
+    # the libraries' layouts are the Python mirrors'
+    lib = lms_k._leaky_lib(64, 16, 16)
+    assert (lib.uhsdr_lms_leaky_lanes(), lib.uhsdr_lms_leaky_warps(),
+            lib.uhsdr_lms_leaky_max_cpw(), lib.uhsdr_lms_leaky_group()) == (
+        lms_k.LEAKY_LANES, lms_k.LEAKY_WARPS, lms_k.LEAKY_MAX_CPW,
+        lms_k.LEAKY_GROUP)
+    for L, D in ((64, 16), (96, 16), (64, 1), (96, 200)):
+        for cpw in (1, 7, 16):
+            assert lib.uhsdr_lms_leaky_smem(L, D, cpw) == lms_k.leaky_smem(
+                L, D, cpw)
+        assert lib.uhsdr_lms_leaky_tile(L, D) == lms_k.leaky_tile(L, D)
+    nb_lib = nb_k._lib(16)
+    assert (nb_lib.uhsdr_blanker_lanes(), nb_lib.uhsdr_blanker_warps(),
+            nb_lib.uhsdr_blanker_max_cpw()) == (
+        nb_k.KERNEL_LANES, nb_k.WARPS, nb_k.MAX_CPW)
+    for cpw in (1, 2, 16):
+        assert nb_lib.uhsdr_blanker_smem(cpw) == nb_k.blanker_geometry(
+            nb_k.WARPS * cpw * nb_k.SMS, 128, nb_k.SMS).smem
     with pytest.raises(ValueError):                 # T % 128 != 0
         nb_k.blanker(4.0, torch.zeros((C, 26), device=dev),
                      torch.zeros((C, 200), device=dev))

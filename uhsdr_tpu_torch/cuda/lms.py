@@ -1,5 +1,6 @@
 """The NLMS and leaky-LMS adaptive filters: wrappers around the
-hand-written kernel `kernels/lms.cu`, beside their plain torch versions.
+hand-written kernels of `kernels/lms.cu`, beside their plain torch
+versions.
 
 Helper kernels with no TPU counterpart: the JAX package runs both as a
 `lax.scan` over time (uhsdr_tpu/ops/lms.py:103-151).  On the card a torch
@@ -12,19 +13,24 @@ arguments, launch the kernel on the current stream (building it on first
 use), raise if the launch failed and add one to ``LMS.launches`` or
 ``LMS_LEAKY.launches``.  There is no fallback.
 
-The kernel gives a channel LANES lanes, tap j to lane j % LANES; the two
-dot products of a step (w . ref and ref . ref) are each lane's left fold
-of its taps and then a pairwise tree over the lanes (`trees.lane_sum`),
-which the plain versions spell out, so kernel and plain version agree bit
-for bit; the kernel is built with -fmad=false.
+The two dot products of a step (w . ref and ref . ref) are the plain
+versions' `trees.lane_sum` over LANES virtual lanes: tap j in virtual
+lane j % LANES, each virtual lane's left fold of its taps, then a
+pairwise tree.  The NLMS kernel gives each virtual lane a lane of its
+own; the leaky kernel gives a channel LEAKY_LANES lanes of four virtual
+lanes each, folds them in the lane and takes the tree's last level by a
+shuffle, with its launch rule `leaky_geometry`.  Either way the order is
+the plain versions', and the kernels are built with -fmad=false: bit for
+bit.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from .build import CudaKernel, stream_ptr
+from .build import SMEM_OPT_IN, CudaKernel, sm_count, stream_ptr
 from .trees import lane_sum
 
 _P = ctypes.c_void_p
@@ -32,18 +38,122 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 LMS = CudaKernel("lms", "lms.cu", {
-    "uhsdr_lms_launch": ([_I] * 6 + [_P] * 5 + [_F] * 8 + [_P] * 6, _I),
+    "uhsdr_nlms_launch": ([_I] * 5 + [_P] * 3 + [_F] * 2 + [_P] * 4, _I),
+    "uhsdr_lms_leaky_launch": ([_I] * 7 + [_P] * 5 + [_F] * 7 + [_P] * 6,
+                               _I),
+    "uhsdr_lms_leaky_lanes": ([], _I),
+    "uhsdr_lms_leaky_warps": ([], _I),
+    "uhsdr_lms_leaky_max_cpw": ([], _I),
+    "uhsdr_lms_leaky_group": ([], _I),
+    "uhsdr_lms_leaky_tile": ([_I, _I], _I),
+    "uhsdr_lms_leaky_smem": ([_I, _I, _I], _I),
+    "uhsdr_lms_rcp_check": ([_P, _P], _I),
 }, extra_flags=("-fmad=false",))
-# the leaky instance's launches, counted apart (one library)
+# the leaky kernel's launches, counted apart (one library)
 LMS_LEAKY = CudaKernel("lms_leaky", "lms.cu", lib_of=LMS)
 
-# lanes a channel (`kernels/lms.cu`'s G) and the taps a lane it is built
-# for
+# the plain versions' lanes (`trees.lane_sum`), which the NLMS kernel
+# gives a lane each (`kernels/lms.cu`'s G), and the taps a lane it is
+# built for
 LANES = 8
 TAPS_PER_LANE = (8, 12)
 
+# the leaky kernel's layout (`kernels/lms.cu`'s LK_*): lanes a channel,
+# warps a block (one a scheduler), channels a warp at most, steps a group
+# (one float4 of the window), the tile's unit; and the taps a lane it is
+# built for (64 and 96 taps)
+LEAKY_LANES = 2
+LEAKY_WARPS = 4
+LEAKY_MAX_CPW = 32 // LEAKY_LANES
+LEAKY_GROUP = 4
+LEAKY_TILE = 128
+LEAKY_TAPS_PER_LANE = (32, 48)
+# the SMs of an H100 SXM, the rule's default
+SMS = 132
+
+
+class LeakyGeometry(NamedTuple):
+    """The leaky kernel's launch (`kernels/lms.cu::leaky_kernel`)."""
+    cpw: int         # channels a warp (two lanes each)
+    channels: int    # channels a block: LEAKY_WARPS * cpw
+    blocks: int      # the grid
+    tile: int        # samples a stage holds
+    stride: int      # a window row's stride, floats
+    smem: int        # dynamic shared memory, bytes
+
+
+def leaky_tile(L: int, D: int) -> int:
+    """The time tile: a multiple of 128 that holds the L + D - 1 samples
+    a window carries."""
+    H = L + D - 1
+    return LEAKY_TILE * max(1, -(-H // LEAKY_TILE))
+
+
+def leaky_smem(L: int, D: int, cpw: int) -> int:
+    """A block's dynamic shared memory: for each of its 4 cpw channels the
+    windows of x and of x^2 (a row of H + tile and 8 more floats, rounded
+    to 8 mod 32), the stage (tile) and the outputs (tile + 1)."""
+    H, tile = L + D - 1, leaky_tile(L, D)
+    stride = -(-(H + tile) // 32) * 32 + 8
+    return LEAKY_WARPS * cpw * (2 * stride + 2 * tile + 1) * 4
+
+
+def leaky_geometry(C: int, T: int, L: int, D: int,
+                   sms: int = SMS) -> LeakyGeometry:
+    """The leaky kernel's launch for C channels of T samples, L taps and
+    delay D: the fewest channels a warp that puts the C channels in at
+    most `sms` blocks of LEAKY_WARPS warps, so that every scheduler walks
+    a warp before any walks two (a warp's time a step is its issue,
+    whatever its channels); past LEAKY_MAX_CPW (C > 64 sms) the blocks
+    run in waves.  Raises ValueError for what the kernel does not take."""
+    if L % LEAKY_LANES or L // LEAKY_LANES not in LEAKY_TAPS_PER_LANE:
+        raise ValueError(f"lms_leaky: {L} taps; the kernel takes "
+                         f"{[LEAKY_LANES * p for p in LEAKY_TAPS_PER_LANE]}")
+    if D < 1:
+        raise ValueError(f"lms_leaky: delay {D}, the kernel takes >= 1")
+    if C < 1 or T < 1 or sms < 1:
+        raise ValueError(f"lms_leaky: {C} channels of {T} samples on "
+                         f"{sms} SMs")
+    cpw = min(LEAKY_MAX_CPW, -(-C // (LEAKY_WARPS * sms)))
+    while cpw > 1 and leaky_smem(L, D, cpw) > SMEM_OPT_IN:
+        cpw -= 1
+    smem = leaky_smem(L, D, cpw)
+    if smem > SMEM_OPT_IN:
+        raise ValueError(f"lms_leaky: delay {D} needs {smem} bytes of "
+                         f"shared memory a warp")
+    tile = leaky_tile(L, D)
+    H = L + D - 1
+    ch = LEAKY_WARPS * cpw
+    return LeakyGeometry(cpw, ch, -(-C // ch), tile,
+                         -(-(H + tile) // 32) * 32 + 8, smem)
+
+
+def _leaky_lib(L: int, D: int, cpw: int):
+    """The library, the leaky kernel's layout checked against this
+    module's once, and its shared memory for (L, D, cpw) once each."""
+    lib = LMS.lib()
+    if not getattr(lib, "leaky_checked", False):
+        got = (lib.uhsdr_lms_leaky_lanes(), lib.uhsdr_lms_leaky_warps(),
+               lib.uhsdr_lms_leaky_max_cpw(), lib.uhsdr_lms_leaky_group())
+        want = (LEAKY_LANES, LEAKY_WARPS, LEAKY_MAX_CPW, LEAKY_GROUP)
+        if got != want:
+            raise RuntimeError(f"lms.cu's leaky layout {got} differs from "
+                               f"cuda/lms.py's {want}")
+        lib.leaky_checked = set()
+    key = (L, D, cpw)
+    if key not in lib.leaky_checked:
+        got = (lib.uhsdr_lms_leaky_tile(L, D),
+               lib.uhsdr_lms_leaky_smem(L, D, cpw))
+        want = (leaky_tile(L, D), leaky_smem(L, D, cpw))
+        if got != want:
+            raise RuntimeError(f"lms.cu's leaky tile and shared memory "
+                               f"{got} differ from cuda/lms.py's {want}")
+        lib.leaky_checked.add(key)
+    return lib
+
 
 def _check_taps(L: int):
+    """The NLMS kernel's tap counts."""
     if L % LANES or L // LANES not in TAPS_PER_LANE:
         raise ValueError(f"lms: {L} taps; the kernel takes "
                          f"{[LANES * p for p in TAPS_PER_LANE]}")
@@ -103,14 +213,29 @@ def leaky_plain(params, w, hist, lidx, ngamma, x):
             win[:, win.shape[-1] - (L + D):].clone(), lidx, ngamma)
 
 
+def rcp_check(device) -> tuple[int, int]:
+    """The leaky kernel's branch-free reciprocal (`kernels/lms.cu::
+    rcp_fast`) against div.rn, both on the card, over every f32 of biased
+    exponent 1..252 and either sign (one launch, not counted as a leaky
+    launch).  Returns (inputs that differ, inputs checked); the first must
+    be 0."""
+    bad = torch.zeros(2, dtype=torch.int64, device=device)
+    LMS.check(LMS.lib().uhsdr_lms_rcp_check(bad.data_ptr(),
+                                            stream_ptr(bad.device)))
+    return tuple(int(v) for v in bad.cpu())
+
+
 def _launch(kernel, leaky: bool, params, w, hist, x, lidx=None,
             ngamma=None):
     dev = x.device
     L, D = params.num_taps, params.delay
-    _check_taps(L)
     if x.ndim != 2 or x.shape[-1] < 1:
         raise ValueError("lms: x must be (C, T), T >= 1")
     C, T = x.shape
+    if leaky:
+        geo = leaky_geometry(C, T, L, D, sm_count(dev.index))
+    else:
+        _check_taps(L)
     ts = [w, hist, x] + ([lidx, ngamma] if leaky else [])
     if (w.shape != (C, L) or hist.shape != (C, L + D)
             or (leaky and (lidx.shape != (C,) or ngamma.shape != (C,)))):
@@ -122,23 +247,28 @@ def _launch(kernel, leaky: bool, params, w, hist, x, lidx=None,
     y = torch.empty_like(x)
     w_out = torch.empty_like(w)
     h_out = torch.empty_like(hist)
-    l_out = torch.empty((C,), dtype=torch.float32, device=dev)
-    g_out = torch.empty_like(l_out)
+    oe = int(bool(params.output_error))
     if leaky:
-        f = (params.two_mu, params.gamma, params.lidx_min, params.lidx_max,
-             params.den_mult, params.lincr, params.ldecr, 0.0)
-        sl = (lidx.data_ptr(), ngamma.data_ptr())
+        l_out = torch.empty_like(lidx)
+        g_out = torch.empty_like(ngamma)
+        vec = int(T % 4 == 0 and x.data_ptr() % 16 == 0)
+        err = _leaky_lib(L, D, geo.cpw).uhsdr_lms_leaky_launch(
+            oe, L, D, C, T, geo.cpw, vec, w.data_ptr(), hist.data_ptr(),
+            x.data_ptr(), lidx.data_ptr(), ngamma.data_ptr(), params.two_mu,
+            params.gamma, params.lidx_min, params.lidx_max, params.den_mult,
+            params.lincr, params.ldecr, y.data_ptr(), w_out.data_ptr(),
+            h_out.data_ptr(), l_out.data_ptr(), g_out.data_ptr(),
+            stream_ptr(dev))
+        out = (y, w_out, h_out, l_out, g_out)
     else:
-        f = (params.mu, params.leak) + (0.0,) * 6
-        sl = (None, None)
-    err = LMS.lib().uhsdr_lms_launch(
-        int(leaky), int(bool(params.output_error)), L, D, C, T,
-        w.data_ptr(), hist.data_ptr(), x.data_ptr(), *sl, *f,
-        y.data_ptr(), w_out.data_ptr(), h_out.data_ptr(), l_out.data_ptr(),
-        g_out.data_ptr(), stream_ptr(dev))
+        err = LMS.lib().uhsdr_nlms_launch(
+            oe, L, D, C, T, w.data_ptr(), hist.data_ptr(), x.data_ptr(),
+            params.mu, params.leak, y.data_ptr(), w_out.data_ptr(),
+            h_out.data_ptr(), stream_ptr(dev))
+        out = (y, w_out, h_out)
     LMS.check(err)
     kernel.launches += 1
-    return y, w_out, h_out, l_out, g_out
+    return out
 
 
 def nlms(params, w, hist, x):
@@ -147,7 +277,7 @@ def nlms(params, w, hist, x):
     `nlms_plain`'s."""
     if x.device.type == "cpu":
         return nlms_plain(params, w, hist, x)
-    return _launch(LMS, False, params, w, hist, x)[:3]
+    return _launch(LMS, False, params, w, hist, x)
 
 
 def leaky(params, w, hist, lidx, ngamma, x):

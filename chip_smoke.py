@@ -72,10 +72,13 @@ first phase that fails:
    bit with edge streams (+-0, +-inf, a NaN, subnormals, 1e30, a NaN
    state) and channels 0-7 alone against the batch: the IQ correction
    (iqcorr.cu, 8192 x 16384 int16 imbalanced planes, then f32 edge
-   planes), both kernels of lms.cu (the 96-tap NLMS notch and the
-   64-tap NLMS NR; the leaky NR, the leaky notch and the 96-tap leaky NR,
-   two lanes a channel, its branch-free reciprocal held to div.rn over
-   every f32 of its range; both output modes; 8192 x 2048 @ 12 kHz), the
+   planes; its launch rule and the runtime's blocks an SM printed),
+   both filters of lms.cu's one body (the 96-tap NLMS notch and the
+   64-tap NLMS NR, four lanes a channel; the leaky NR, the leaky notch
+   and the 96-tap leaky NR, two lanes a channel, its branch-free
+   reciprocal held to div.rn over every f32 of its range; both output
+   modes; 8192 x 2048 @ 12 kHz; each timed beside its bound and the issue
+   floors of what the function needs and of what the kernel issues), the
    noise blanker (blanker.cu, two lanes a channel; impulsive audio,
    repairs across frames and blocks, and audio without impulses, timed
    with the candidates found a frame) and the spectral NR's gain machine
@@ -2826,13 +2829,23 @@ def phase_iqcorr(P, dev, gen):
     # int16 planes in, f32 planes out, the state; about 10 f32 operations
     # a sample (sign q, |i|, |q|, three tree adds, q + c1 i, i c2)
     nbytes = 2 * C * T * 2 + 2 * C * T * 4 + 5 * C * 4 * 2
+    geo = iq_k.iqcorr_geometry(C, T)
     r = row("iqcorr", "iqcorr.cu", "uhsdr_tpu/ops/iqcorr.py:56", err=err,
             snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
             flops=10.0 * C * T, tpu_kernel=False,
             library_note="no PyTorch call computes the IQ correction")
-    print(f"  iqcorr at {C} x {T} int16: {ms:.4f} ms (plain {plain_ms:.1f} "
-          f"ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']}); bit for "
-          f"bit, edge streams too; channels 0-7 alone bit-equal")
+    # under -fmad=false an FP32 operation is an instruction: the issue
+    # floor is twice the FLOP bound
+    print(f"  iqcorr at {C} x {T} int16: {ms:.4f} ms (plain "
+          f"{plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}, {r['bound_ms'] / ms:.1%} of it; issue floor "
+          f"{2 * 10.0 * C * T / PEAK_FP32_S * 1e3:.4f} ms); bit for bit, "
+          f"edge streams too; channels 0-7 alone bit-equal; rule: "
+          f"{geo.chunks} chunks of {geo.chunk} sub-blocks, {geo.blocks} "
+          f"blocks of {iq_k.iqcorr_smem()} B shared, {iq_k.STAGES} stages; "
+          f"the runtime's blocks an SM "
+          f"{iq_k._lib().uhsdr_iqcorr_occupancy(1)} (the rule's "
+          f"{iq_k.MIN_BLOCKS})")
     return r
 
 
@@ -2924,23 +2937,34 @@ def phase_lms(P, dev, gen):
               f"{name}: channels 0-7 alone differ from the batch")
         ms = cuda_ms(lambda: run(p, *st, x), 10)
         plain_ms = cuda_ms(lambda: plain(p, *st, x), 1)
-        # a tap and sample: the dot's and the norm's product and sum, the
-        # update's two products and sum; ~10 (NLMS) or ~30 (leaky) more a
-        # sample; x in, y out, the weights and history in and out
-        flops = C * T * (7.0 * L + (30.0 if name == "lms_leaky" else 10.0))
+        # the FP32 operations a sample that the function needs (a new
+        # square a sample for the norm or sigma; the notch's leak of 1
+        # without products) and, for the NLMS, that the kernel issues
+        # (`cuda/lms.py`); x in, y out, the weights and history in and out
+        if name == "lms_leaky":
+            geo = lms_k.leaky_geometry(C, T, L, D)
+            ops = issued = lms_k.leaky_ops(L)
+        else:
+            geo = lms_k.nlms_geometry(C, T, L, D)
+            ops = lms_k.nlms_ops(L, p.leak)
+            issued = lms_k.nlms_issued_ops(L, p.leak)
         nbytes = 2 * C * T * 4 + 2 * C * (2 * L + D) * 4
         r = row(name, "lms.cu", "uhsdr_tpu/ops/lms.py:"
                 + ("96" if name == "lms_leaky" else "133"), err=err[name],
                 snr=math.inf, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
-                flops=flops, tpu_kernel=False, taps=L, delay=D,
+                flops=C * T * ops, tpu_kernel=False, taps=L, delay=D,
                 library_note="no PyTorch call computes an adaptive filter")
         # under -fmad=false an FP32 operation is an instruction: the issue
         # floor is twice the FLOP bound
         print(f"  {name} ({kind}, {L} taps, delay {D}) at {C} x {T}: "
               f"{ms:.4f} ms (plain {plain_ms:.1f} ms; bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, issue floor "
-              f"{2 * flops / PEAK_FP32_S * 1e3:.4f} ms); bit for bit, "
-              f"edge streams too; channels 0-7 alone bit-equal")
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({ops:.0f} a "
+              f"sample), {r['bound_ms'] / ms:.1%} of it; issue floor "
+              f"{2 * r['bound_ms']:.4f} ms, of what the kernel issues "
+              f"({issued:.0f} a sample) "
+              f"{2 * C * T * issued / PEAK_FP32_S * 1e3:.4f} ms); bit for "
+              f"bit, edge streams too; channels 0-7 alone bit-equal; rule: "
+              f"{geo}")
         rows_out.append(r)
     return rows_out
 
@@ -5187,6 +5211,10 @@ REF_PATHS = (
      ("fir_rt", "fm_disc", "blocked", "agc"), 4, DEPTH),
 )
 PATH_ENV = {"ssb_mt": {"UHSDR_FRONT_MT": "1"}}
+# an earlier ms/block of a path, printed beside this run's (PERF.md
+# section 5: chip_smoke.py on an H100 80GB HBM3 at 700 W)
+EARLIER_MS = {"ssb_opts": "5.088 ms/block before the IQ correction's and "
+                          "the NLMS notch's redesign"}
 TX_VOICE = ("fir_real", "alc", "blocked")
 # the fleet: K1 (usb, lsb, cw), K5 (am, sam, fm), K9 (sam both), K12 (fm),
 # K2, K3 with rows (the five 12 kHz groups' merged AGC), K3 (FM's), K4
@@ -5503,7 +5531,9 @@ def main() -> int:
               f"{cfg.block_len} int16 @ {cfg.iq_rate / 1e3:.0f} kHz: "
               f"{ms_block:.3f} ms/block over {n_timed} blocks, {msps:.1f} "
               f"Ms/s, CPU-chain SNR {worst:.1f} dB "
-              f"({time.time() - t1:.1f} s) on {card}")
+              f"({time.time() - t1:.1f} s) on {card}"
+              + (f"; earlier: {EARLIER_MS[label]}" if label in EARLIER_MS
+                 else ""))
     t1 = time.time()
     print("phase decode path:")
     launches, ms_block, msps, n_timed, n_blocks = decode_path(dev, args.seed)

@@ -2208,12 +2208,27 @@ def _all_same(pairs) -> None:
             assert _same(a, b), what
 
 
-@pytest.mark.parametrize("C,T,dtype,edge", [(37, 4096, "int16", False),
-                                            (5, 1024, "f32", False),
-                                            (31, 2048, "f32", True)])
-def test_iqcorr_kernel_matches_plain(dev, C, T, dtype, edge):
+@pytest.mark.parametrize("C,T,dtype,edge,offset", [
+    (37, 4096, "int16", False, 0), (5, 1024, "f32", False, 0),
+    (31, 2048, "f32", True, 0),
+    # ragged channels and blocks: no multiple of the chunk (64 int16 or
+    # 32 f32 sub-blocks) or of 32 sub-blocks
+    (1, 32, "int16", False, 0), (3, 96, "f32", True, 0),
+    (15, 8224, "int16", False, 0), (16, 96, "int16", False, 0),
+    (17, 8224, "f32", True, 0), (511, 32, "f32", False, 0),
+    (513, 96, "int16", False, 0), (8193, 96, "int16", False, 0),
+    # planes that are not 16-byte aligned: plain loads into the stage
+    (17, 8224, "int16", False, 1), (13, 2080, "f32", True, 1)])
+def test_iqcorr_kernel_matches_plain(dev, C, T, dtype, edge, offset):
     from uhsdr_tpu_torch.cuda import iqcorr as iq_k
     rng = np.random.default_rng(71)
+
+    def placed(v: torch.Tensor) -> torch.Tensor:
+        """v on the card, `offset` elements into its storage."""
+        buf = torch.empty(v.numel() + offset, dtype=v.dtype, device=dev)
+        out = buf[offset:].view(v.shape)
+        out.copy_(v)
+        return out
     ts = [torch.zeros(C, device=dev) for _ in range(3)]
     if edge:
         ts[1][C // 2] = float("nan")
@@ -2234,7 +2249,8 @@ def test_iqcorr_kernel_matches_plain(dev, C, T, dtype, edge):
             if edge:
                 i = torch.from_numpy(_edges(rng, i.numpy(), b * T))
                 q = torch.from_numpy(_edges(rng, q.numpy(), b * T + 5))
-        i, q = i.to(dev), q.to(dev)
+        i, q = placed(i), placed(q)
+        assert (i.data_ptr() % 16 == 0) == (offset == 0)
         n0 = iq_k.IQCORR.launches
         got = iq_k.iqcorr(*ts, i, q)
         assert iq_k.IQCORR.launches == n0 + 1
@@ -2293,8 +2309,15 @@ def _lms_stream(dev, kind, C, lengths, edge, seed=72):
 
 
 @pytest.mark.parametrize("kind", ["notch", "nr", "leaky", "leaky_notch"])
-@pytest.mark.parametrize("C,lengths,edge", [(37, (300, 129, 300), False),
-                                            (13, (257, 400), True)])
+@pytest.mark.parametrize("C,lengths,edge", [
+    (37, (300, 129, 300), False), (13, (257, 400), True),
+    # ragged channels (no multiple of a warp's 8 or 16) and blocks (no
+    # multiple of the group of 4 or the tile of 128), the state carried
+    (1, (130, 7, 129), False), (3, (1, 262), True),
+    (15, (130, 7, 129, 1, 262), True), (16, (129, 1), False),
+    (17, (130, 7, 129, 1, 262), False), (511, (7, 130), True),
+    (512, (262,), False), (513, (130, 7), False),
+    (8193, (130, 7), False)])
 def test_lms_kernels_match_plain(dev, kind, C, lengths, edge):
     _lms_stream(dev, kind, C, lengths, edge)
 
@@ -2525,16 +2548,40 @@ def test_option_wrappers_refuse_what_the_kernels_do_not_take(dev):
                     torch.zeros((C, 64), device=dev),
                     torch.zeros((C, 64), device=dev), z, z, x)
     # the libraries' layouts are the Python mirrors'
-    lib = lms_k._leaky_lib(64, 16, 16)
+    lib = lms_k._lib(64, 16, 16, True)
     assert (lib.uhsdr_lms_leaky_lanes(), lib.uhsdr_lms_leaky_warps(),
             lib.uhsdr_lms_leaky_max_cpw(), lib.uhsdr_lms_leaky_group()) == (
         lms_k.LEAKY_LANES, lms_k.LEAKY_WARPS, lms_k.LEAKY_MAX_CPW,
         lms_k.LEAKY_GROUP)
-    for L, D in ((64, 16), (96, 16), (64, 1), (96, 200)):
-        for cpw in (1, 7, 16):
-            assert lib.uhsdr_lms_leaky_smem(L, D, cpw) == lms_k.leaky_smem(
+    assert (lib.uhsdr_lms_nlms_lanes(), lib.uhsdr_lms_nlms_warps(),
+            lib.uhsdr_lms_nlms_group()) == (
+        lms_k.NLMS_LANES, lms_k.NLMS_WARPS, lms_k.NLMS_GROUP)
+    for L, D in ((64, 16), (96, 16), (64, 1), (96, 200), (96, 8), (64, 4),
+                 (64, 0)):
+        for cpw in (1, 7, 8, 16):
+            assert lib.uhsdr_lms_smem(L, D, cpw, 1) == lms_k.leaky_smem(
+                L, D, cpw)
+            assert lib.uhsdr_lms_smem(L, D, cpw, 0) == lms_k.nlms_smem(
                 L, D, cpw)
         assert lib.uhsdr_lms_leaky_tile(L, D) == lms_k.leaky_tile(L, D)
+    # the rules' blocks fit an SM: the notch, the NR, the leaky filter
+    for p_ in (_lms_params("notch"), _lms_params("nr")):
+        g = lms_k.nlms_geometry(8192, 2048, p_.num_taps, p_.delay)
+        assert lib.uhsdr_lms_occupancy(
+            p_.num_taps, int(p_.leak == 1.0), p_.delay, g.cpw) >= 1
+    g = lms_k.leaky_geometry(8192, 2048, 64, 16)
+    assert lib.uhsdr_lms_occupancy(64, 2, 16, g.cpw) >= 1
+    iq_lib = iq_k._lib()
+    for i16 in (True, False):
+        g = iq_k.iqcorr_geometry(8192, 16384, i16)
+        assert iq_lib.uhsdr_iqcorr_chunk(int(i16)) == g.chunk
+        assert iq_lib.uhsdr_iqcorr_smem() == iq_k.iqcorr_smem()
+        assert iq_lib.uhsdr_iqcorr_min_blocks() == iq_k.MIN_BLOCKS
+        # the blocks an SM the rule counts on are resident at once
+        assert iq_lib.uhsdr_iqcorr_occupancy(int(i16)) >= iq_k.MIN_BLOCKS
+    assert (iq_lib.uhsdr_iqcorr_threads(), iq_lib.uhsdr_iqcorr_stages(),
+            iq_lib.uhsdr_iqcorr_ahead(), iq_lib.uhsdr_iqcorr_stage_bytes()) \
+        == (iq_k.THREADS, iq_k.STAGES, iq_k.AHEAD, iq_k.STAGE_BYTES)
     nb_lib = nb_k._lib(16)
     assert (nb_lib.uhsdr_blanker_lanes(), nb_lib.uhsdr_blanker_warps(),
             nb_lib.uhsdr_blanker_max_cpw()) == (

@@ -507,9 +507,11 @@ def test_sources_hold_the_mirrored_layouts():
     assert int(c["LK_WARPS"]) == lms_k.LEAKY_WARPS
     assert int(c["LK_GROUP"]) == lms_k.LEAKY_GROUP
     assert int(c["LK_TILE"]) == lms_k.LEAKY_TILE
-    assert int(c["G"]) == lms_k.LANES
+    assert int(c["NL_LANES"]) == lms_k.NLMS_LANES
     assert "-fmad=false" in lms_k.LMS.flags
-    assert "leaky_launch<8>" in text and "leaky_launch<12>" in text
+    assert "lms_launch<8, LANES, MODE>" in text
+    assert "lms_launch<12, LANES, MODE>" in text
+    assert "lms_launch_taps<LK_LANES, LEAKY>" in text
     text = nb_k.BLANKER.source_text()
     c = dict(re.findall(r"constexpr int (\w+) = (\d+);", text))
     assert int(c["LANES"]) == nb_k.KERNEL_LANES

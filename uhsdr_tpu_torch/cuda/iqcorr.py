@@ -14,12 +14,18 @@ raises if the launch failed and adds one to ``IQCORR.launches``.  There
 is no fallback.
 
 The sums are pairwise trees over a sub-block's 32 samples, the order of
-the kernel's warp butterfly (`trees.pair_tree`), so the two agree bit for
-bit; the kernel is built with -fmad=false.
+the kernel's lanes and shuffles (`trees.pair_tree`: 8 samples a lane,
+three levels in the lane, two across a sub-block's 4 lanes), so the two
+agree bit for bit; the kernel is built with -fmad=false.  The kernel's
+layout (a block a channel, a ring of 8 KB stages that each input byte
+passes through once, worker warps and a walker warp) is mirrored here by
+`iqcorr_geometry`, and the built library's exports are checked against
+it on first use.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -30,14 +36,81 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 IQCORR = CudaKernel("iqcorr", "iqcorr.cu", {
-    "uhsdr_iqcorr_launch": ([_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-                             _P, _P, _P, _P, _P, _P], _I),
+    "uhsdr_iqcorr_launch": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P], _I),
+    "uhsdr_iqcorr_threads": ([], _I),
+    "uhsdr_iqcorr_chunk": ([_I], _I),
+    "uhsdr_iqcorr_stages": ([], _I),
+    "uhsdr_iqcorr_ahead": ([], _I),
+    "uhsdr_iqcorr_stage_bytes": ([], _I),
+    "uhsdr_iqcorr_smem": ([], _I),
+    "uhsdr_iqcorr_min_blocks": ([], _I),
+    "uhsdr_iqcorr_occupancy": ([_I], _I),
 }, extra_flags=("-fmad=false",))
 
 SUBBLOCK = 32           # the reference's IQ_BLOCK_SIZE
 LP_A = 0.997            # the block-cadence one-pole (audio_driver.c:2254-2316)
 LP_B = 0.003
 INT16_SCALE = 1.0 / 32768.0
+
+# the kernel's layout (`kernels/iqcorr.cu`): worker warps and the walker
+# warp, a stage's bytes (a chunk of both planes as they come), the stages
+# of the ring and the chunks in flight past the one being summed, and the
+# blocks an SM the kernel is built for (its launch bounds): AHEAD stages
+# of copies in flight a block, 64 KB an SM
+WORKERS = 4
+THREADS = 32 * (WORKERS + 1)
+STAGE_BYTES = 8192
+STAGES = 4
+AHEAD = 2
+MIN_BLOCKS = 4
+
+
+class IqcorrGeometry(NamedTuple):
+    """The IQ correction's launch (`kernels/iqcorr.cu::iqcorr_kernel`)."""
+    chunk: int          # sub-blocks a stage holds (64 int16, 32 f32)
+    chunks: int         # chunks a channel
+    blocks: int         # the grid: a block a channel
+
+
+def iqcorr_smem() -> int:
+    """A block's shared memory: the stages and two chunks' sums (three
+    float arrays of an int16 chunk's sub-blocks each)."""
+    chunk16 = STAGE_BYTES // (2 * SUBBLOCK * 2)
+    return STAGES * STAGE_BYTES + 2 * 3 * chunk16 * 4
+
+
+def iqcorr_geometry(C: int, T: int, int16: bool = True) -> IqcorrGeometry:
+    """The kernel's launch for C channels of T samples (int16 or f32
+    planes): a block a channel, in chunks of a stage's 8 KB of both
+    planes, so an int16 chunk is twice an f32 one.  Its blocks an SM are
+    MIN_BLOCKS, of `iqcorr_smem()` bytes each (the card tests hold the
+    runtime's occupancy to at least as many).  Raises ValueError for what
+    the kernel does not take."""
+    if C < 1 or T < SUBBLOCK or T % SUBBLOCK:
+        raise ValueError(f"iqcorr: {C} channels of {T} samples; T must be "
+                         f"a positive multiple of {SUBBLOCK}")
+    chunk = STAGE_BYTES // (2 * SUBBLOCK * (2 if int16 else 4))
+    return IqcorrGeometry(chunk, -(-(T // SUBBLOCK) // chunk), C)
+
+
+def _lib():
+    """The library, its layout checked against this module's once."""
+    lib = IQCORR.lib()
+    if not getattr(lib, "layout_checked", False):
+        got = (lib.uhsdr_iqcorr_threads(), lib.uhsdr_iqcorr_chunk(1),
+               lib.uhsdr_iqcorr_chunk(0), lib.uhsdr_iqcorr_stages(),
+               lib.uhsdr_iqcorr_ahead(), lib.uhsdr_iqcorr_stage_bytes(),
+               lib.uhsdr_iqcorr_smem(), lib.uhsdr_iqcorr_min_blocks())
+        g16, g32 = iqcorr_geometry(1, SUBBLOCK), iqcorr_geometry(
+            1, SUBBLOCK, False)
+        want = (THREADS, g16.chunk, g32.chunk, STAGES, AHEAD, STAGE_BYTES,
+                iqcorr_smem(), MIN_BLOCKS)
+        if got != want:
+            raise RuntimeError(f"iqcorr.cu's layout {got} differs from "
+                               f"cuda/iqcorr.py's {want}")
+        lib.layout_checked = True
+    return lib
 
 
 def _f32_planes(i: torch.Tensor, q: torch.Tensor):
@@ -93,11 +166,9 @@ def iqcorr(t1, t2, t3, i, q):
     if i.ndim != 2 or q.shape != i.shape:
         raise ValueError("iqcorr: i and q must be (C, T) planes")
     C, T = i.shape
-    if T < SUBBLOCK or T % SUBBLOCK:
-        raise ValueError(f"iqcorr: T = {T} must be a positive multiple of "
-                         f"{SUBBLOCK}")
     if i.dtype not in (torch.int16, torch.float32) or q.dtype != i.dtype:
         raise ValueError("iqcorr: two int16 or two f32 planes")
+    iqcorr_geometry(C, T, i.dtype == torch.int16)
     ts = (t1, t2, t3)
     if any(t.dtype != torch.float32 or t.shape != (C,) for t in ts):
         raise ValueError("iqcorr: state leaves (C,) f32")
@@ -108,11 +179,12 @@ def iqcorr(t1, t2, t3, i, q):
     out = [torch.empty((C,), dtype=torch.float32, device=dev)
            for _ in range(5)]
     twin = torch.empty((C,), dtype=torch.bool, device=dev)
-    err = IQCORR.lib().uhsdr_iqcorr_launch(
+    vec = int(i.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+    err = _lib().uhsdr_iqcorr_launch(
         1 if i.dtype == torch.int16 else 0, i.data_ptr(), q.data_ptr(),
-        t1.data_ptr(), t2.data_ptr(), t3.data_ptr(), C, T, i_c.data_ptr(),
-        q_c.data_ptr(), *(o.data_ptr() for o in out), twin.data_ptr(),
-        stream_ptr(dev))
+        t1.data_ptr(), t2.data_ptr(), t3.data_ptr(), C, T, vec,
+        i_c.data_ptr(), q_c.data_ptr(), *(o.data_ptr() for o in out),
+        twin.data_ptr(), stream_ptr(dev))
     IQCORR.check(err)
     IQCORR.launches += 1
     return (i_c, q_c, *out, twin)

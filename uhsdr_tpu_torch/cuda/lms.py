@@ -16,11 +16,14 @@ use), raise if the launch failed and add one to ``LMS.launches`` or
 The two dot products of a step (w . ref and ref . ref) are the plain
 versions' `trees.lane_sum` over LANES virtual lanes: tap j in virtual
 lane j % LANES, each virtual lane's left fold of its taps, then a
-pairwise tree.  The NLMS kernel gives each virtual lane a lane of its
-own; the leaky kernel gives a channel LEAKY_LANES lanes of four virtual
-lanes each, folds them in the lane and takes the tree's last level by a
-shuffle, with its launch rule `leaky_geometry`.  Either way the order is
-the plain versions', and the kernels are built with -fmad=false: bit for
+pairwise tree.  Both filters run on one body (`kernels/lms.cu::
+lms_kernel`), which gives a channel 2 or 4 lanes of 8 / lanes virtual
+lanes each, folds them in the lane and takes the tree's last levels by
+shuffles, and forms ref . ref ahead of the walk: the leaky filter at
+LEAKY_LANES lanes from squares staged once a sample (launch rule
+`leaky_geometry`), the NLMS filter at NLMS_LANES from the squares of its
+window in registers (rule `nlms_geometry`).  Either way the order is the
+plain versions', and the kernels are built with -fmad=false: bit for
 bit.
 """
 from __future__ import annotations
@@ -38,23 +41,27 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 LMS = CudaKernel("lms", "lms.cu", {
-    "uhsdr_nlms_launch": ([_I] * 5 + [_P] * 3 + [_F] * 2 + [_P] * 4, _I),
+    "uhsdr_lms_nlms_launch": ([_I] * 7 + [_P] * 3 + [_F] * 2 + [_P] * 4,
+                              _I),
     "uhsdr_lms_leaky_launch": ([_I] * 7 + [_P] * 5 + [_F] * 7 + [_P] * 6,
                                _I),
     "uhsdr_lms_leaky_lanes": ([], _I),
     "uhsdr_lms_leaky_warps": ([], _I),
     "uhsdr_lms_leaky_max_cpw": ([], _I),
     "uhsdr_lms_leaky_group": ([], _I),
+    "uhsdr_lms_nlms_lanes": ([], _I),
+    "uhsdr_lms_nlms_warps": ([], _I),
+    "uhsdr_lms_nlms_group": ([], _I),
     "uhsdr_lms_leaky_tile": ([_I, _I], _I),
-    "uhsdr_lms_leaky_smem": ([_I, _I, _I], _I),
+    "uhsdr_lms_smem": ([_I] * 4, _I),
+    "uhsdr_lms_occupancy": ([_I] * 4, _I),
     "uhsdr_lms_rcp_check": ([_P, _P], _I),
 }, extra_flags=("-fmad=false",))
 # the leaky kernel's launches, counted apart (one library)
 LMS_LEAKY = CudaKernel("lms_leaky", "lms.cu", lib_of=LMS)
 
-# the plain versions' lanes (`trees.lane_sum`), which the NLMS kernel
-# gives a lane each (`kernels/lms.cu`'s G), and the taps a lane it is
-# built for
+# the plain versions' lanes (`trees.lane_sum`; `kernels/lms.cu`'s
+# LK_VL) and the taps a virtual lane the kernels are built for
 LANES = 8
 TAPS_PER_LANE = (8, 12)
 
@@ -68,12 +75,20 @@ LEAKY_MAX_CPW = 32 // LEAKY_LANES
 LEAKY_GROUP = 4
 LEAKY_TILE = 128
 LEAKY_TAPS_PER_LANE = (32, 48)
+# the NLMS filter's (`kernels/lms.cu`'s NL_*): lanes a channel, warps a
+# block (two a scheduler), channels a warp at most, steps a group (its
+# float2 windows are read once a group)
+NLMS_LANES = 4
+NLMS_WARPS = 8
+NLMS_MAX_CPW = 32 // NLMS_LANES
+NLMS_GROUP = 8
 # the SMs of an H100 SXM, the rule's default
 SMS = 132
 
 
 class LeakyGeometry(NamedTuple):
-    """The leaky kernel's launch (`kernels/lms.cu::leaky_kernel`)."""
+    """The leaky kernel's launch (`kernels/lms.cu::lms_kernel<P, 2,
+    LEAKY>`)."""
     cpw: int         # channels a warp (two lanes each)
     channels: int    # channels a block: LEAKY_WARPS * cpw
     blocks: int      # the grid
@@ -83,19 +98,29 @@ class LeakyGeometry(NamedTuple):
 
 
 def leaky_tile(L: int, D: int) -> int:
-    """The time tile: a multiple of 128 that holds the L + D - 1 samples
-    a window carries."""
+    """The time tile (both filters'): a multiple of 128 that holds the L
+    + D - 1 samples a window carries."""
     H = L + D - 1
     return LEAKY_TILE * max(1, -(-H // LEAKY_TILE))
 
 
-def leaky_smem(L: int, D: int, cpw: int) -> int:
-    """A block's dynamic shared memory: for each of its 4 cpw channels the
-    windows of x and of x^2 (a row of H + tile and 8 more floats, rounded
-    to 8 mod 32), the stage (tile) and the outputs (tile + 1)."""
+def _smem(L: int, D: int, cpw: int, warps: int, windows: int) -> int:
+    """A block's dynamic shared memory: for each of its warps * cpw
+    channels `windows` windows (a row of H + tile and 8 more floats,
+    rounded to 8 mod 32), the stage (tile) and the outputs (tile + 1)."""
     H, tile = L + D - 1, leaky_tile(L, D)
     stride = -(-(H + tile) // 32) * 32 + 8
-    return LEAKY_WARPS * cpw * (2 * stride + 2 * tile + 1) * 4
+    return warps * cpw * (windows * stride + 2 * tile + 1) * 4
+
+
+def leaky_smem(L: int, D: int, cpw: int) -> int:
+    """The leaky kernel's block: the windows of x and of x^2."""
+    return _smem(L, D, cpw, LEAKY_WARPS, 2)
+
+
+def nlms_smem(L: int, D: int, cpw: int) -> int:
+    """The NLMS kernel's block: the window of x alone."""
+    return _smem(L, D, cpw, NLMS_WARPS, 1)
 
 
 def leaky_geometry(C: int, T: int, L: int, D: int,
@@ -128,32 +153,102 @@ def leaky_geometry(C: int, T: int, L: int, D: int,
                          -(-(H + tile) // 32) * 32 + 8, smem)
 
 
-def _leaky_lib(L: int, D: int, cpw: int):
-    """The library, the leaky kernel's layout checked against this
-    module's once, and its shared memory for (L, D, cpw) once each."""
+class NlmsGeometry(NamedTuple):
+    """The NLMS kernel's launch (`kernels/lms.cu::lms_kernel<P, 4, NLMS
+    or NLMS_UNIT>`)."""
+    cpw: int            # channels a warp (four lanes each)
+    channels: int       # channels a block: NLMS_WARPS * cpw
+    blocks: int         # the grid, one block an SM at a time
+    tile: int           # samples a stage holds
+    stride: int         # a window row's stride, floats
+    smem: int           # dynamic shared memory, bytes
+
+
+def nlms_geometry(C: int, T: int, L: int, D: int,
+                  sms: int = SMS) -> NlmsGeometry:
+    """The NLMS kernel's launch for C channels of T samples, L taps and
+    delay D: the fewest channels a warp (at most NLMS_MAX_CPW) that puts
+    the C channels in at most `sms` blocks of NLMS_WARPS warps, so that
+    every scheduler walks its two warps before any walks more; past that
+    the blocks run in waves.  Raises ValueError for what the kernel does
+    not take."""
+    _check_taps(L)
+    if D < 0 or C < 1 or T < 1 or sms < 1:
+        raise ValueError(f"lms: {C} channels of {T} samples, delay {D}, "
+                         f"on {sms} SMs")
+    cpw = min(NLMS_MAX_CPW, -(-C // (NLMS_WARPS * sms)))
+    while cpw > 1 and nlms_smem(L, D, cpw) > SMEM_OPT_IN:
+        cpw -= 1
+    smem = nlms_smem(L, D, cpw)
+    if smem > SMEM_OPT_IN:
+        raise ValueError(f"lms: delay {D} needs {smem} bytes of shared "
+                         f"memory a warp")
+    tile = leaky_tile(L, D)
+    ch = NLMS_WARPS * cpw
+    return NlmsGeometry(cpw, ch, -(-C // ch), tile,
+                        -(-(L + D - 1 + tile) // 32) * 32 + 8, smem)
+
+
+def nlms_ops(L: int, leak: float) -> float:
+    """FP32 operations a channel-sample that the NLMS function needs (its
+    bound): the dot product's L products and L - 1 sums, err, mu err and
+    the division, the norm's one new square a sample, its L - 1 sums and +
+    1e-9, the update's L products and L sums, and for a leak other than 1
+    its L products: 5L + 3 (6L + 3)."""
+    return 5.0 * L + 3.0 + (0.0 if leak == 1.0 else L)
+
+
+def nlms_issued_ops(L: int, leak: float) -> float:
+    """FP32 operations a channel-sample that the NLMS kernel issues: as
+    `nlms_ops`, with the norm's new square replaced by the squares of the
+    distinct samples of each lane's window a group (NLMS_LANES lanes of
+    NLMS_GROUP + 8 / NLMS_LANES - 1 samples a tap row)."""
+    hv = LANES // NLMS_LANES
+    squares = NLMS_LANES * (NLMS_GROUP + hv - 1) * (L // LANES) / NLMS_GROUP
+    return nlms_ops(L, leak) - 1.0 + squares
+
+
+def leaky_ops(L: int) -> float:
+    """FP32 operations a channel-sample that the leaky function needs
+    (its bound): the dot product's 2L - 1, sigma's one new square and L -
+    1 sums, the update's 3L (two products and a sum a tap) and about 30
+    for the step's scalars (the reciprocal, nel, nev, the lidx walk and
+    ngamma): 6L + 29."""
+    return 6.0 * L + 29.0
+
+
+def _lib(L: int, D: int, cpw: int, leaky: bool):
+    """The library, the kernels' layout checked against this module's
+    once, and a filter's tile and shared memory for (L, D, cpw) once
+    each."""
     lib = LMS.lib()
-    if not getattr(lib, "leaky_checked", False):
+    checked = lib.__dict__.setdefault("checked", set())
+    if "layout" not in checked:
         got = (lib.uhsdr_lms_leaky_lanes(), lib.uhsdr_lms_leaky_warps(),
-               lib.uhsdr_lms_leaky_max_cpw(), lib.uhsdr_lms_leaky_group())
-        want = (LEAKY_LANES, LEAKY_WARPS, LEAKY_MAX_CPW, LEAKY_GROUP)
+               lib.uhsdr_lms_leaky_max_cpw(), lib.uhsdr_lms_leaky_group(),
+               lib.uhsdr_lms_nlms_lanes(), lib.uhsdr_lms_nlms_warps(),
+               lib.uhsdr_lms_nlms_group())
+        want = (LEAKY_LANES, LEAKY_WARPS, LEAKY_MAX_CPW, LEAKY_GROUP,
+                NLMS_LANES, NLMS_WARPS, NLMS_GROUP)
         if got != want:
-            raise RuntimeError(f"lms.cu's leaky layout {got} differs from "
+            raise RuntimeError(f"lms.cu's layout {got} differs from "
                                f"cuda/lms.py's {want}")
-        lib.leaky_checked = set()
-    key = (L, D, cpw)
-    if key not in lib.leaky_checked:
+        checked.add("layout")
+    key = (L, D, cpw, leaky)
+    if key not in checked:
         got = (lib.uhsdr_lms_leaky_tile(L, D),
-               lib.uhsdr_lms_leaky_smem(L, D, cpw))
-        want = (leaky_tile(L, D), leaky_smem(L, D, cpw))
+               lib.uhsdr_lms_smem(L, D, cpw, int(leaky)))
+        want = (leaky_tile(L, D),
+                (leaky_smem if leaky else nlms_smem)(L, D, cpw))
         if got != want:
-            raise RuntimeError(f"lms.cu's leaky tile and shared memory "
-                               f"{got} differ from cuda/lms.py's {want}")
-        lib.leaky_checked.add(key)
+            raise RuntimeError(f"lms.cu's tile and shared memory {got} "
+                               f"differ from cuda/lms.py's {want}")
+        checked.add(key)
     return lib
 
 
 def _check_taps(L: int):
-    """The NLMS kernel's tap counts."""
+    """The NLMS kernel's tap counts (8 virtual lanes of 8 or 12)."""
     if L % LANES or L // LANES not in TAPS_PER_LANE:
         raise ValueError(f"lms: {L} taps; the kernel takes "
                          f"{[LANES * p for p in TAPS_PER_LANE]}")
@@ -235,7 +330,7 @@ def _launch(kernel, leaky: bool, params, w, hist, x, lidx=None,
     if leaky:
         geo = leaky_geometry(C, T, L, D, sm_count(dev.index))
     else:
-        _check_taps(L)
+        geo = nlms_geometry(C, T, L, D, sm_count(dev.index))
     ts = [w, hist, x] + ([lidx, ngamma] if leaky else [])
     if (w.shape != (C, L) or hist.shape != (C, L + D)
             or (leaky and (lidx.shape != (C,) or ngamma.shape != (C,)))):
@@ -248,11 +343,11 @@ def _launch(kernel, leaky: bool, params, w, hist, x, lidx=None,
     w_out = torch.empty_like(w)
     h_out = torch.empty_like(hist)
     oe = int(bool(params.output_error))
+    vec = int(T % 4 == 0 and x.data_ptr() % 16 == 0)
     if leaky:
         l_out = torch.empty_like(lidx)
         g_out = torch.empty_like(ngamma)
-        vec = int(T % 4 == 0 and x.data_ptr() % 16 == 0)
-        err = _leaky_lib(L, D, geo.cpw).uhsdr_lms_leaky_launch(
+        err = _lib(L, D, geo.cpw, True).uhsdr_lms_leaky_launch(
             oe, L, D, C, T, geo.cpw, vec, w.data_ptr(), hist.data_ptr(),
             x.data_ptr(), lidx.data_ptr(), ngamma.data_ptr(), params.two_mu,
             params.gamma, params.lidx_min, params.lidx_max, params.den_mult,
@@ -261,10 +356,11 @@ def _launch(kernel, leaky: bool, params, w, hist, x, lidx=None,
             stream_ptr(dev))
         out = (y, w_out, h_out, l_out, g_out)
     else:
-        err = LMS.lib().uhsdr_nlms_launch(
-            oe, L, D, C, T, w.data_ptr(), hist.data_ptr(), x.data_ptr(),
-            params.mu, params.leak, y.data_ptr(), w_out.data_ptr(),
-            h_out.data_ptr(), stream_ptr(dev))
+        err = _lib(L, D, geo.cpw, False).uhsdr_lms_nlms_launch(
+            oe, L, D, C, T, geo.cpw, vec, w.data_ptr(), hist.data_ptr(),
+            x.data_ptr(), params.mu, params.leak,
+            y.data_ptr(), w_out.data_ptr(), h_out.data_ptr(),
+            stream_ptr(dev))
         out = (y, w_out, h_out)
     LMS.check(err)
     kernel.launches += 1

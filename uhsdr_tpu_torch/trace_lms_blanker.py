@@ -302,9 +302,10 @@ def main(argv=None) -> int:
     nb_lib = nb_k.BLANKER._lib_path()
     sass = {}
     for name, lib, pat in (
-            ("leaky<8>", lms_lib, r"\S*leaky_kernelILi8E"),
-            ("leaky<12>", lms_lib, r"\S*leaky_kernelILi12E"),
-            ("nlms<12>", lms_lib, r"\S*nlms_kernelILi12E"),
+            ("leaky<8>", lms_lib, r"\S*lms_kernelILi8ELi2ELi2E"),
+            ("leaky<12>", lms_lib, r"\S*lms_kernelILi12ELi2ELi2E"),
+            ("notch<12>", lms_lib, r"\S*lms_kernelILi12ELi%dELi1E"
+             % lms_k.NLMS_LANES),
             ("blanker", nb_lib, r"\S*blanker_kernel")):
         sass[name] = sass_counts(lib, pat)
         top = list(sass[name]["opcodes"].items())[:12]
@@ -342,9 +343,6 @@ def main(argv=None) -> int:
             if not check:
                 raise SystemExit(f"{kind}: the earlier body differs")
             extra["baseline"] = base
-        for lib in lms_libs.values():
-            lib.leaky_checked = getattr(lms_k.LMS.lib(), "leaky_checked",
-                                        set()) | {(L, D, 16), (L, D, 8)}
         ms = turns(lms_libs, lms_k.LMS, run, extra)
         flops = C * T * (7.0 * L + (30.0 if leaky else 10.0))
         result[kind] = report(f"{kind} ({L} taps) at {C} x {T}", ms,
